@@ -1,0 +1,55 @@
+"""repro_torch.core — Split Annotations (Mozart) in PyTorch.
+
+Public API:
+    mozart.session / configure / evaluate      — runtime scope
+    splittable / annotate                      — attach SAs to functions
+    split types & specs                        — Along, Broadcast(_), Generic,
+                                                 Unknown, Reduce, Pytree, Custom
+"""
+
+from repro_torch.core import runtime as mozart
+from repro_torch.core.annotation import SA, AnnotatedFn, annotate, splittable
+from repro_torch.core.future import Future
+from repro_torch.core.split_types import (
+    BROADCAST,
+    Along,
+    ArraySplit,
+    Broadcast,
+    Concat,
+    ConcatSplit,
+    Custom,
+    Generic,
+    GenericVar,
+    Pytree,
+    PytreeSplit,
+    Reduce,
+    ReduceSplit,
+    RuntimeInfo,
+    ScalarSplit,
+    SplitSpec,
+    SplitType,
+    TypeEnv,
+    UnificationError,
+    Unknown,
+    UnknownSplit,
+    default_split_type,
+    _,
+)
+from repro_torch.core.stage_exec import (
+    StageExecutor,
+    available_executors,
+    bytes_interior,
+    get_executor,
+    register_executor,
+)
+
+__all__ = [
+    "mozart", "SA", "AnnotatedFn", "annotate", "splittable", "Future",
+    "BROADCAST", "Along", "ArraySplit", "Broadcast", "Concat", "ConcatSplit",
+    "Custom", "Generic", "GenericVar", "Pytree", "PytreeSplit", "Reduce",
+    "ReduceSplit", "RuntimeInfo", "ScalarSplit", "SplitSpec", "SplitType",
+    "TypeEnv", "UnificationError", "Unknown", "UnknownSplit",
+    "default_split_type", "_",
+    "StageExecutor", "available_executors", "bytes_interior",
+    "get_executor", "register_executor",
+]

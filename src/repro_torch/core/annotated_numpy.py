@@ -1,0 +1,227 @@
+"""The "NumPy / Intel MKL" integration (paper §7, Listing 2) over torch ops.
+
+SAs over torch vector math.  Mirrors the paper's MKL integration: the
+*library* functions are torch ops (hand-optimized black boxes from Mozart's
+point of view), and the annotator supplies only split types.  Like the paper
+we generate most SAs from a table because functions with matching
+signatures share an annotation shape.
+
+Each op keeps the JAX package's semantics where torch differs: Python
+scalars beside a tensor take the tensor's (weak-typed) dtype, ``sign(nan)``
+is nan, and integer sums accumulate in int32.
+
+Usage:
+    from repro_torch.core import annotated_numpy as anp
+    with mozart.session(executor="cuda") as ctx:
+        d1 = anp.log1p(x); d2 = anp.add(d1, y); ...
+        result = d2.value
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core import split_types as st
+from repro_torch.core.annotation import AnnotatedFn, annotate
+from repro_torch.core.future import register_operator
+
+__all_ops__: dict[str, AnnotatedFn] = {}
+
+_SCALARS = (bool, int, float)
+
+
+def _reg(name: str, fn: AnnotatedFn) -> AnnotatedFn:
+    __all_ops__[name] = fn
+    globals()[name] = fn
+    return fn
+
+
+def _tensor_operands(x, y):
+    """A Python scalar beside a tensor becomes a 0-d tensor of the weak-typed
+    result dtype, for the torch ops that take tensors only (``maximum``,
+    ``atan2``, ``logical_and``, a scalar left of a comparison, ...)."""
+    if isinstance(y, _SCALARS) and isinstance(x, torch.Tensor):
+        y = torch.full((), y, dtype=torch.result_type(x, y), device=x.device)
+    elif isinstance(x, _SCALARS) and isinstance(y, torch.Tensor):
+        x = torch.full((), x, dtype=torch.result_type(y, x), device=y.device)
+    return x, y
+
+
+def _tensors_only(f: Callable) -> Callable:
+    def op(x, y):
+        return f(*_tensor_operands(x, y))
+    return op
+
+
+def _sign(x):
+    # torch.sign(nan) is 0; the library contract (jnp.sign) keeps nan.
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+# -- unary elementwise:  (S) -> S  ------------------------------------------
+_UNARY = {
+    "exp": torch.exp, "log": torch.log, "log1p": torch.log1p, "sqrt": torch.sqrt,
+    "erf": torch.special.erf, "negative": torch.negative, "abs": torch.abs,
+    "sin": torch.sin, "cos": torch.cos, "tanh": torch.tanh, "sign": _sign,
+    "arcsin": torch.arcsin, "arccos": torch.arccos, "expm1": torch.expm1,
+    "square": torch.square, "reciprocal": torch.reciprocal, "floor": torch.floor,
+    "isnan": torch.isnan, "logical_not": torch.logical_not,
+}
+
+for _name, _fn in _UNARY.items():
+    def _mk(f):
+        def op(x):
+            return f(x)
+        return op
+    _reg(_name, annotate(_mk(_fn), name=_name, elementwise=True,
+                         x=st.Generic("S"), ret=st.Generic("S")))
+
+
+# -- binary elementwise:  (S, S) -> S  (scalar operands broadcast) ----------
+_BINARY = {
+    "add": torch.add, "subtract": torch.subtract, "multiply": torch.multiply,
+    "divide": torch.divide, "power": torch.pow,
+    "maximum": _tensors_only(torch.maximum),
+    "minimum": _tensors_only(torch.minimum),
+    "greater": _tensors_only(torch.greater), "less": _tensors_only(torch.less),
+    "equal": _tensors_only(torch.eq),
+    "logical_and": _tensors_only(torch.logical_and),
+    "logical_or": _tensors_only(torch.logical_or),
+    "atan2": _tensors_only(torch.atan2), "mod": torch.remainder,
+}
+
+
+class _BinarySpec(st.SplitSpec):
+    """Generic S for array operands, broadcast for scalar operands."""
+
+    def construct(self, value, bound, generics):
+        # ``value is None`` = upstream dynamic-shape output: still an array.
+        if value is not None and not getattr(value, "shape", ()):
+            return st.BROADCAST
+        if "S" not in generics:
+            generics["S"] = st.GenericVar("S")
+        return generics["S"]
+
+
+for _name, _fn in _BINARY.items():
+    def _mkb(f):
+        def op(x, y):
+            return f(x, y)
+        return op
+    _reg(_name, annotate(_mkb(_fn), name=_name, elementwise=True,
+                         x=_BinarySpec(), y=_BinarySpec(), ret=st.Generic("S")))
+
+
+# -- ternary ------------------------------------------------------------------
+def _where(c, x, y):
+    cond = c != 0                       # any dtype: nonzero selects x
+    if isinstance(cond, bool):          # Python scalar condition
+        cond = torch.tensor(cond)
+    return torch.where(cond, x, y)
+
+
+_reg("where", annotate(_where, name="where", elementwise=True,
+                       c=_BinarySpec(), x=_BinarySpec(), y=_BinarySpec(),
+                       ret=st.Generic("S")))
+
+
+# -- reductions: (ArraySplit over axis) -> ReduceSplit --------------------------
+# One split type per reduction merge op, exactly like the paper's NumPy
+# integration ("we implemented split types for each reduction operator ...
+# these only required merge functions").
+_SMALL_INTS = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32)
+
+
+def _acc_dtype(x) -> torch.dtype | None:
+    """int32 accumulation for bool/small ints (jnp's default), else x's."""
+    return torch.int32 if x.dtype in _SMALL_INTS else None
+
+
+def _make_reduction(name: str, red: Callable, merge_op: str):
+    def op(x):
+        return red(x)
+    return _reg(name, annotate(op, name=name, x=st.Generic("S"),
+                               ret=st.Reduce(merge_op)))
+
+
+_make_reduction("sum", lambda x: torch.sum(x, dtype=_acc_dtype(x)), "add")
+_make_reduction("max", torch.amax, "max")
+_make_reduction("min", torch.amin, "min")
+_make_reduction("prod", lambda x: torch.prod(x, dtype=_acc_dtype(x)), "mul")
+
+
+def _sum_axis(x, axis):
+    return torch.sum(x, dim=axis, dtype=_acc_dtype(x))
+
+
+class _AxisReduceRet(st.SplitSpec):
+    """sum(m, axis): reducing the split axis yields partials (ReduceSplit);
+    reducing another axis keeps the row split (ArraySplit over axis 0)."""
+
+    def construct(self, value, bound, generics):
+        axis = bound["axis"]
+        if axis == 0:
+            return st.ReduceSplit("add")
+        return st.ArraySplit(tuple(value.shape), 0)
+
+
+_reg("sum_axis", annotate(_sum_axis, name="sum_axis", static=("axis",),
+                          x=st.Along(0), ret=_AxisReduceRet()))
+
+
+# -- shape-changing ops: unknown split types (paper Ex. 4) --------------------
+def _compress(mask, x):
+    # Dynamic output shape: Mozart runs it call by call per chunk.
+    return x[mask.to(torch.bool)]
+
+
+_compress_ann = annotate(_compress, name="compress",
+                         mask=st.Generic("S"), x=st.Generic("S"), ret=st.Unknown())
+_compress_ann.sa.dynamic = True
+_reg("compress", _compress_ann)
+
+
+# -- matrix ops (MKL L2 BLAS analogue) ----------------------------------------
+def _matvec(m, v):
+    return m @ v
+
+
+_reg("matvec", annotate(_matvec, name="matvec",
+                        m=st.Along(0), v=st._, ret=st.Along(0)))
+
+
+def _matmul(a, b):
+    return a @ b
+
+
+# A @ B splits by rows of A; B is broadcast (the paper's matrix-panel split).
+_reg("matmul", annotate(_matmul, name="matmul",
+                        a=st.Along(0), b=st._, ret=st.Along(0)))
+
+
+# -- axis-parameterized normalize (paper §3.1 example) -------------------------
+def _normalize_axis(m, axis):
+    mean = torch.mean(m, dim=axis, keepdim=True)
+    sd = torch.std(m, dim=axis, keepdim=True, correction=0) + 1e-9
+    return (m - mean) / sd
+
+
+class _MatrixSplitCtor(st.SplitSpec):
+    """MatrixSplit(m, axis): split along the axis NOT being normalized."""
+
+    def construct(self, value, bound, generics):
+        axis = int(bound["axis"])
+        split_axis = 1 - axis           # normalizing rows => split rows apart
+        return st.ArraySplit(tuple(value.shape), split_axis)
+
+
+_reg("normalize_axis", annotate(
+    _normalize_axis, name="normalize_axis", static=("axis",),
+    m=_MatrixSplitCtor(), ret=_MatrixSplitCtor()))
+
+
+# -- operator table for Future dunders ---------------------------------------
+for _op in ("add", "subtract", "multiply", "divide", "power", "negative"):
+    register_operator(_op, __all_ops__[_op])

@@ -1,0 +1,191 @@
+"""Split annotations over unmodified functions (paper §3, Listing 3).
+
+``@splittable`` attaches an SA to a function *without changing its body*:
+
+    @splittable(x=Along(0), y=Along(0), ret=Along(0))
+    def vadd(x, y): return x + y                     # the "library" fn
+
+The decorated function behaves as follows:
+
+* called with ``torch.fx.Proxy`` arguments (someone is symbolically tracing
+  the caller, e.g. the ``cuda`` executor's lowering) or with ``meta``
+  tensors (someone is abstractly evaluating the caller) — the original
+  function runs directly; Mozart stays out of the way;
+* called under a lazy Mozart context — the call is *registered* in the
+  dataflow graph and a ``Future`` is returned (libmozart ``register()``);
+* called with no lazy context — the original runs immediately, which is
+  exactly "the library without Mozart" (the baseline).
+"""
+
+from __future__ import annotations
+
+import functools
+import inspect
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.fx
+from torch.utils import _pytree as pytree
+
+from repro_torch.core import split_types as st
+from repro_torch.core.future import Future
+
+
+class SA:
+    """A split annotation: split specs per argument + return + metadata."""
+
+    def __init__(
+        self,
+        arg_specs: dict[str, st.SplitSpec],
+        ret_spec: st.SplitSpec,
+        static: Sequence[str] = (),
+        elementwise: bool = False,
+        mut: Sequence[str] = (),
+    ):
+        self.arg_specs = arg_specs
+        self.ret_spec = ret_spec
+        self.static = tuple(static)
+        self.elementwise = elementwise      # hint: stage may lower to the kernel
+        self.mut = tuple(mut)               # donation hint
+
+
+def _meta(v: Any) -> Any:
+    """Every tensor leaf of ``v`` as a tensor on the ``meta`` device."""
+    return pytree.tree_map(
+        lambda l: st.aval_of(l) if isinstance(l, torch.Tensor) else l, v)
+
+
+class AnnotatedFn:
+    """A library function wrapped (not modified) by its SA."""
+
+    def __init__(self, fn: Callable, sa: SA, name: str | None = None):
+        functools.update_wrapper(self, fn)
+        self.fn = fn
+        self.sa = sa
+        self.name = name or getattr(fn, "__name__", "fn")
+        self.signature = inspect.signature(fn)
+        self._aval_cache: dict[tuple, Any] = {}
+
+    # -- plain execution ----------------------------------------------------
+    def call_eager(self, bound: dict[str, Any]) -> Any:
+        """One black-box library call (PyTorch runs eagerly: no jit)."""
+        return self.fn(**bound)
+
+    # -- laziness -----------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        from repro_torch.core.runtime import current_context
+
+        b = self.signature.bind(*args, **kwargs)
+        b.apply_defaults()
+        bound = dict(b.arguments)
+
+        # Inside someone else's trace or abstract evaluation: step aside.
+        if any(isinstance(v, torch.fx.Proxy)
+               or (isinstance(v, torch.Tensor) and v.device.type == "meta")
+               for v in bound.values()):
+            return self.fn(**bound)
+
+        ctx = current_context()
+        if ctx is None or not ctx.lazy:
+            return self.call_eager(self._force_all(bound))
+        return ctx.register_call(self, bound)
+
+    @staticmethod
+    def _force_all(bound: dict[str, Any]) -> dict[str, Any]:
+        return {
+            k: (v.value if isinstance(v, Future) else v) for k, v in bound.items()
+        }
+
+    def __repr__(self) -> str:
+        return f"AnnotatedFn({self.name})"
+
+    # -- SA machinery ---------------------------------------------------------
+    def _aval_key(self, bound_avals: dict[str, Any]) -> tuple | None:
+        """Hashable identity of one abstract call, or None (uncacheable).
+
+        Statics are keyed by value; everything else by pytree structure +
+        leaf shapes/dtypes only (Python scalars by type), so two calls with
+        equal keys have equal output avals."""
+        parts = []
+        for name, v in bound_avals.items():
+            if name in self.sa.static:
+                try:
+                    hash(v)
+                except TypeError:
+                    return None
+                parts.append((name, "static", v))
+                continue
+            leaves, treedef = pytree.tree_flatten(v)
+            leaf_ids = []
+            for l in leaves:
+                shape = getattr(l, "shape", None)
+                dtype = getattr(l, "dtype", None)
+                if shape is None or dtype is None:
+                    leaf_ids.append(("py", type(l).__name__))
+                else:
+                    leaf_ids.append((tuple(shape), str(dtype)))
+            parts.append((name, str(treedef), tuple(leaf_ids)))
+        return tuple(parts)
+
+    def abstract_eval(self, bound_avals: dict[str, Any]) -> Any:
+        """Output aval: the function run on ``meta`` tensors, statics as-is.
+
+        Cached per aval structure: re-registering the same call shape must
+        not re-pay a whole-function abstract run."""
+        key = self._aval_key(bound_avals)
+        if key is not None:
+            hit = self._aval_cache.get(key)
+            if hit is not None:
+                return hit
+
+        kw = {k: (v if k in self.sa.static else _meta(v))
+              for k, v in bound_avals.items()}
+        with torch.no_grad():
+            out = _meta(self.fn(**kw))
+        if key is not None:
+            if len(self._aval_cache) > 128:      # runaway-shape backstop
+                self._aval_cache.clear()
+            self._aval_cache[key] = out
+        return out
+
+    def construct_types(self, bound: dict[str, Any], avals: dict[str, Any], out_aval):
+        """Run every split-type constructor for one call (paper §3.2)."""
+        generics: dict[str, st.GenericVar] = {}
+        ctor_args = dict(bound)          # constructors may read runtime args
+        arg_types: dict[str, Any] = {}
+        for name in bound:
+            spec = self.sa.arg_specs.get(name, st._)
+            arg_types[name] = spec.construct(avals[name], ctor_args, generics)
+        out_type = self.sa.ret_spec.construct(out_aval, ctor_args, generics)
+        return arg_types, out_type
+
+
+def splittable(
+    ret: st.SplitSpec | None = None,
+    static: Sequence[str] = (),
+    elementwise: bool = False,
+    mut: Sequence[str] = (),
+    name: str | None = None,
+    **arg_specs: st.SplitSpec,
+) -> Callable[[Callable], AnnotatedFn]:
+    """Attach a split annotation to an unmodified function.
+
+    ``ret`` defaults to ``Unknown()``, which is always safe (it merely
+    prevents pipelining downstream).
+    """
+    if ret is None:
+        ret = st.Unknown()
+
+    def deco(fn: Callable) -> AnnotatedFn:
+        sa = SA(dict(arg_specs), ret, static=static, elementwise=elementwise, mut=mut)
+        return AnnotatedFn(fn, sa, name=name)
+
+    return deco
+
+
+def annotate(fn: Callable, *, ret: st.SplitSpec | None = None,
+             static: Sequence[str] = (), elementwise: bool = False,
+             name: str | None = None, **arg_specs: st.SplitSpec) -> AnnotatedFn:
+    """Annotate a function you do not own (third-party annotator workflow)."""
+    return splittable(ret=ret, static=static, elementwise=elementwise,
+                      name=name or getattr(fn, "__name__", "fn"), **arg_specs)(fn)

@@ -1,0 +1,408 @@
+"""Lower a planned Mozart stage onto the split-pipeline CUDA kernel.
+
+The counterpart of ``src/repro/core/pallas_exec.py``.  Eligibility (checked,
+with a counted fallback to the fused executor):
+  * every node is annotated ``elementwise=True``, or is a whole-array
+    reduction whose output type is ``ReduceSplit`` (sum/max/min/prod);
+  * every splittable stage input is a 1-D ``ArraySplit`` along axis 0;
+  * broadcast inputs are scalars ();
+  * reductions are only consumed outside the stage (they produce partials);
+  * the lowering below succeeds: every value is float32 or bool and every
+    traced operation has an opcode.
+
+The Pallas kernel called each library function on a VMEM tile.  A CUDA
+kernel cannot call Python, so each elementwise node's raw library function
+(``node.fn.fn``, unmodified) is traced once with ``torch.fx`` and the
+stage's chain becomes a straight-line ``Program``: opcode, destination
+slot, source operands.  A source is a split input, a broadcast scalar
+(passed at run time, never baked in), an immediate constant of the function
+body, or an earlier slot; slots are allocated by liveness.  A reduction node
+reduces its *pre-reduction* operand with its ``ReduceSplit`` op, which comes
+from the split type, not from the function body.
+"""
+
+from __future__ import annotations
+
+import heapq
+import numbers
+import operator
+import weakref
+from typing import Any
+
+import torch
+import torch.fx
+
+from repro_torch.core import split_types as st
+from repro_torch.core.graph import NodeRef
+from repro_torch.core.planner import Stage, _value_key
+from repro_torch.core.stage_exec import (
+    StageExecutor,
+    effective_elements,
+    get_executor,
+    register_executor,
+    stage_num_elements,
+)
+from repro_torch.kernels.program import (
+    ARITY,
+    BOOL_RESULT,
+    KIND_INPUT,
+    KIND_SCALAR,
+    KIND_SLOT,
+    OP,
+    Program,
+    operand,
+)
+from repro_torch.kernels.split_pipeline import fits_kernel, split_pipeline
+
+#: traced call targets -> opcode.  fx records the callables themselves:
+#: ``torch.special.erf`` traces as ``torch._C._special.special_erf`` and
+#: ``2.0 * x`` as ``operator.mul``.
+_FUNCTION_OPS: dict[Any, str] = {
+    torch.exp: "EXP", torch.log: "LOG", torch.log1p: "LOG1P",
+    torch.sqrt: "SQRT", torch.erf: "ERF", torch.special.erf: "ERF",
+    torch._C._special.special_erf: "ERF", torch.negative: "NEG",
+    torch.neg: "NEG", torch.abs: "ABS", torch.sin: "SIN", torch.cos: "COS",
+    torch.tanh: "TANH", torch.sign: "SIGN", torch.arcsin: "ASIN",
+    torch.asin: "ASIN", torch.arccos: "ACOS", torch.acos: "ACOS",
+    torch.expm1: "EXPM1", torch.square: "SQUARE", torch.reciprocal: "RECIP",
+    torch.floor: "FLOOR", torch.isnan: "ISNAN", torch.logical_not: "NOT",
+    torch.add: "ADD", torch.subtract: "SUB", torch.sub: "SUB",
+    torch.multiply: "MUL", torch.mul: "MUL", torch.divide: "DIV",
+    torch.div: "DIV", torch.true_divide: "DIV", torch.pow: "POW",
+    torch.maximum: "MAX", torch.minimum: "MIN", torch.greater: "GT",
+    torch.gt: "GT", torch.less: "LT", torch.lt: "LT",
+    torch.greater_equal: "GE", torch.ge: "GE", torch.less_equal: "LE",
+    torch.le: "LE", torch.eq: "EQ", torch.ne: "NE", torch.not_equal: "NE",
+    torch.logical_and: "AND", torch.logical_or: "OR", torch.atan2: "ATAN2",
+    torch.arctan2: "ATAN2", torch.remainder: "MOD", torch.where: "WHERE",
+    operator.add: "ADD", operator.sub: "SUB", operator.mul: "MUL",
+    operator.truediv: "DIV", operator.pow: "POW", operator.neg: "NEG",
+    operator.abs: "ABS", operator.gt: "GT", operator.lt: "LT",
+    operator.ge: "GE", operator.le: "LE", operator.eq: "EQ", operator.ne: "NE",
+    operator.mod: "MOD",
+}
+
+#: traced tensor-method names -> opcode (``x.exp()``, ``x.add(y)``, ...).
+_METHOD_OPS: dict[str, str] = {
+    "exp": "EXP", "log": "LOG", "log1p": "LOG1P", "sqrt": "SQRT", "erf": "ERF",
+    "neg": "NEG", "abs": "ABS", "sin": "SIN", "cos": "COS", "tanh": "TANH",
+    "sign": "SIGN", "asin": "ASIN", "acos": "ACOS", "expm1": "EXPM1",
+    "square": "SQUARE", "reciprocal": "RECIP", "floor": "FLOOR",
+    "isnan": "ISNAN", "logical_not": "NOT", "bool": "BOOL", "add": "ADD",
+    "sub": "SUB", "mul": "MUL", "div": "DIV", "pow": "POW",
+    "maximum": "MAX", "minimum": "MIN", "gt": "GT", "lt": "LT", "ge": "GE",
+    "le": "LE", "eq": "EQ", "ne": "NE", "logical_and": "AND",
+    "logical_or": "OR", "atan2": "ATAN2", "remainder": "MOD",
+}
+
+_KERNEL_DTYPES = (torch.float32, torch.bool)
+
+
+class LoweringError(Exception):
+    """The stage cannot become a kernel program (the reason says why)."""
+
+
+# Traced graph per raw library function, as ``AnnotatedFn._aval_cache``
+# caches avals: a failed trace is cached as its LoweringError.
+_traced: "weakref.WeakKeyDictionary[Any, Any]" = weakref.WeakKeyDictionary()
+
+
+def traced_graph(fn) -> torch.fx.Graph:
+    hit = _traced.get(fn)
+    if hit is None:
+        try:
+            hit = torch.fx.symbolic_trace(fn).graph
+        except Exception as e:  # noqa: BLE001 — any untraceable body is ineligible
+            hit = LoweringError(f"{getattr(fn, '__name__', fn)} does not "
+                                f"trace: {type(e).__name__}: {e}")
+        _traced[fn] = hit
+    if isinstance(hit, LoweringError):
+        raise hit
+    return hit
+
+
+def _opcode_of(fx_node: torch.fx.Node) -> str:
+    if fx_node.op == "call_function":
+        name = _FUNCTION_OPS.get(fx_node.target)
+    elif fx_node.op == "call_method":
+        name = _METHOD_OPS.get(fx_node.target)
+    else:
+        name = None
+    if name is None:
+        raise LoweringError(f"no opcode for {fx_node.op} {fx_node.target!r}")
+    if fx_node.kwargs:
+        raise LoweringError(f"{fx_node.target!r} called with keyword "
+                            f"arguments {dict(fx_node.kwargs)}")
+    if len(fx_node.args) != ARITY[name]:
+        raise LoweringError(f"{fx_node.target!r} with {len(fx_node.args)} "
+                            f"arguments (opcode {name} takes {ARITY[name]})")
+    return name
+
+
+class _Builder:
+    """SSA instructions over virtual registers; sources are ``("in", i)``,
+    ``("sc", i)`` (broadcast i, or immediate ``n_bcast + j``) or
+    ``("v", reg)``.  Tracks for every source whether it is a bool and
+    whether it varies along the split axis."""
+
+    def __init__(self, n_bcast: int):
+        self.n_bcast = n_bcast
+        self.instrs: list[tuple[str, int, tuple]] = []
+        self.imms: list[float] = []
+        self.is_bool: dict[tuple, bool] = {}
+        self.is_vec: dict[tuple, bool] = {}
+
+    def imm(self, value: Any) -> tuple:
+        if not isinstance(value, numbers.Real):
+            raise LoweringError(f"constant {value!r} is not a number")
+        src = ("sc", self.n_bcast + len(self.imms))
+        self.imms.append(float(value))
+        self.is_bool[src] = isinstance(value, bool)
+        self.is_vec[src] = False
+        return src
+
+    def emit(self, name: str, srcs: tuple) -> tuple:
+        if name == "ADD" and all(self.is_bool[s] for s in srcs):
+            name = "OR"                 # torch: bool + bool is logical or
+        dst = ("v", len(self.instrs))
+        self.instrs.append((name, dst[1], srcs))
+        self.is_vec[dst] = any(self.is_vec[s] for s in srcs)
+        keeps_bool = name in ("COPY", "ABS", "SQUARE", "MUL", "MAX", "MIN", "POW")
+        self.is_bool[dst] = name in BOOL_RESULT or (
+            name == "WHERE" and self.is_bool[srcs[1]] and self.is_bool[srcs[2]]
+        ) or (keeps_bool and all(self.is_bool[s] for s in srcs))
+        return dst
+
+
+def _lower_node(b: _Builder, node, env: dict[tuple, tuple], stage: Stage) -> tuple:
+    """Append one elementwise node's traced body; returns its result source."""
+    graph = traced_graph(node.fn.fn)
+    vals: dict[torch.fx.Node, tuple] = {}
+    for fx_node in graph.nodes:
+        if fx_node.op == "placeholder":
+            name = fx_node.target
+            if name not in node.bound:
+                raise LoweringError(f"{node.fn.name}: parameter {name!r}")
+            v = node.bound[name]
+            vals[fx_node] = (b.imm(v) if name in node.fn.sa.static
+                             else env[stage.ckey(_value_key(v))])
+        elif fx_node.op == "output":
+            res = fx_node.args[0]
+            if not isinstance(res, torch.fx.Node):
+                raise LoweringError(f"{node.fn.name} returns {res!r}")
+            return vals[res]
+        else:
+            name = _opcode_of(fx_node)
+            srcs = tuple(vals[a] if isinstance(a, torch.fx.Node) else b.imm(a)
+                         for a in fx_node.args)
+            vals[fx_node] = b.emit(name, srcs)
+    raise LoweringError(f"{node.fn.name}: traced graph has no output")
+
+
+def _allocate(b: _Builder, out_srcs: list[tuple]) -> tuple[tuple, int, dict]:
+    """Dead-code-eliminate, then map virtual registers to slots by
+    liveness.  An instruction may write the slot its last-read operand
+    frees: every thread reads an element's operands before writing it."""
+    live = {s for s in out_srcs if s[0] == "v"}
+    keep = []
+    for name, reg, srcs in reversed(b.instrs):
+        if ("v", reg) in live:
+            keep.append((name, reg, srcs))
+            live.update(s for s in srcs if s[0] == "v")
+    keep.reverse()
+    end = len(keep)
+    last: dict[int, int] = {}
+    for i, (_name, _reg, srcs) in enumerate(keep):
+        for s in srcs:
+            if s[0] == "v":
+                last[s[1]] = i
+    for s in out_srcs:
+        if s[0] == "v":
+            last[s[1]] = end
+    free: list[int] = []
+    slot_of: dict[int, int] = {}
+    n_slots = 0
+    code = []
+    for i, (name, reg, srcs) in enumerate(keep):
+        for r in {s[1] for s in srcs if s[0] == "v"}:
+            if last[r] == i:
+                heapq.heappush(free, slot_of[r])
+        if free:
+            slot = heapq.heappop(free)
+        else:
+            slot, n_slots = n_slots, n_slots + 1
+        slot_of[reg] = slot
+        ops = [_encode(s, slot_of) for s in srcs] + [0] * (3 - len(srcs))
+        code.append((OP[name], slot, *ops))
+    return tuple(code), n_slots, slot_of
+
+
+def _encode(src: tuple, slot_of: dict[int, int]) -> int:
+    kind, i = src
+    if kind == "in":
+        return operand(KIND_INPUT, i)
+    if kind == "sc":
+        return operand(KIND_SCALAR, i)
+    return operand(KIND_SLOT, slot_of[i])
+
+
+def lower_stage(stage: Stage, concrete: dict[tuple, Any]) -> tuple[Program, list]:
+    """The stage as a kernel ``Program`` plus its ``out_kinds``; raises
+    ``LoweringError``.  Cached on the stage, as ``chain_plan`` is."""
+    cached = getattr(stage, "_cuda_program", None)
+    if cached is not None:
+        if isinstance(cached, LoweringError):
+            raise cached
+        return cached
+    try:
+        result = _lower(stage, concrete)
+    except LoweringError as e:
+        stage._cuda_program = e
+        raise
+    stage._cuda_program = result
+    return result
+
+
+def _lower(stage: Stage, concrete: dict[tuple, Any]) -> tuple[Program, list]:
+    split_keys = [k for k, si in stage.inputs.items() if si.split_type.splittable]
+    bcast_keys = [k for k, si in stage.inputs.items() if not si.split_type.splittable]
+    b = _Builder(len(bcast_keys))
+    env: dict[tuple, tuple] = {}
+    for i, k in enumerate(split_keys):
+        dtype = concrete[k].dtype
+        if dtype not in _KERNEL_DTYPES:
+            raise LoweringError(f"split input {i} has dtype {dtype}")
+        env[stage.ckey(k)] = src = ("in", i)
+        b.is_bool[src], b.is_vec[src] = dtype == torch.bool, True
+    for i, k in enumerate(bcast_keys):
+        v = concrete[k]
+        env[stage.ckey(k)] = src = ("sc", i)
+        b.is_bool[src] = (isinstance(v, bool) or
+                          getattr(v, "dtype", None) == torch.bool)
+        b.is_vec[src] = False
+
+    reduce_src: dict[int, tuple] = {}
+    for node in stage.nodes:
+        aval = node.out_aval
+        if isinstance(stage.out_types[node.id], st.ReduceSplit):
+            if aval.dtype != torch.float32:
+                raise LoweringError(f"{node.fn.name} reduces to {aval.dtype}")
+            # The kernel applies the masked reduction itself: it needs the
+            # PRE-reduction operand (the first non-static argument).
+            first = next(v for name, v in node.bound.items()
+                         if name not in node.fn.sa.static)
+            reduce_src[node.id] = env[stage.ckey(_value_key(first))]
+            continue
+        if aval.dtype not in _KERNEL_DTYPES:
+            raise LoweringError(f"{node.fn.name} yields {aval.dtype}")
+        env[stage.out_key(node)] = _lower_node(b, node, env, stage)
+
+    out_kinds, out_srcs, out_bool = [], [], []
+    for nid in sorted(stage.escaping):
+        node = next(nd for nd in stage.nodes if nd.id == nid)
+        if nid in reduce_src:
+            t = stage.out_types[nid]
+            out_kinds.append(("reduce", t.op_name))
+            src = reduce_src[nid]
+        else:
+            out_kinds.append(("concat", ""))
+            src = env[stage.out_key(node)]
+            if len(node.out_aval.shape) != 1:
+                raise LoweringError(f"{node.fn.name} output of shape "
+                                    f"{tuple(node.out_aval.shape)}")
+        if not b.is_vec[src]:
+            raise LoweringError(f"{node.fn.name}: output does not vary along "
+                                "the split axis")
+        out_srcs.append(src)
+        out_bool.append(node.out_aval.dtype == torch.bool
+                        and out_kinds[-1][0] == "concat")
+
+    code, n_slots, slot_of = _allocate(b, out_srcs)
+    program = Program(
+        code=code, n_split=len(split_keys), n_bcast=len(bcast_keys),
+        n_slots=n_slots, imms=tuple(b.imms),
+        outputs=tuple((_encode(s, slot_of), is_bool)
+                      for s, is_bool in zip(out_srcs, out_bool)))
+    why = fits_kernel(program)
+    if why is not None:
+        raise LoweringError(why)
+    return program, out_kinds
+
+
+def _eligible(stage: Stage, concrete: dict[tuple, Any]) -> bool:
+    for node in stage.nodes:
+        t = stage.out_types[node.id]
+        if node.fn.sa.elementwise:
+            continue
+        if isinstance(t, st.ReduceSplit):
+            continue
+        return False
+    for key, si in stage.inputs.items():
+        v = concrete[key]
+        if si.split_type.splittable:
+            if not isinstance(si.split_type, st.ArraySplit):
+                return False
+            if si.split_type.axis != 0 or len(si.split_type.shape) != 1:
+                return False
+        else:
+            if tuple(getattr(v, "shape", ())) not in ((), (1,)):
+                return False
+    # reductions must not feed later nodes inside this stage
+    for node in stage.nodes:
+        if isinstance(stage.out_types[node.id], st.ReduceSplit):
+            for other in stage.nodes:
+                for v in other.bound.values():
+                    if isinstance(v, NodeRef) and v.node_id == node.id:
+                        return False
+    return True
+
+
+def prepare_launch(stage: Stage, concrete: dict[tuple, Any], ctx):
+    """``(program, split_inputs, bcast_inputs, out_kinds)`` for one stage,
+    or None when the stage does not go to the kernel."""
+    if not _eligible(stage, concrete):
+        return None
+    split_keys = [k for k, si in stage.inputs.items() if si.split_type.splittable]
+    bcast_keys = [k for k, si in stage.inputs.items() if not si.split_type.splittable]
+    if not split_keys:
+        return None
+    n = effective_elements(ctx, stage_num_elements(stage, concrete, ctx.pedantic))
+    if n == 0:
+        return None                    # empty split: no grid to launch
+    try:
+        program, out_kinds = lower_stage(stage, concrete)
+    except LoweringError as e:
+        if ctx.log:
+            print(f"[mozart] stage {stage.id} stays off the kernel: {e}")
+        return None
+    split_inputs = [concrete[k].narrow(0, 0, n).contiguous() for k in split_keys]
+    bcasts = [concrete[k] for k in bcast_keys]
+    return program, split_inputs, bcasts, out_kinds
+
+
+def try_execute_stage_cuda(stage: Stage, concrete: dict[tuple, Any], ctx) -> bool:
+    launch = prepare_launch(stage, concrete, ctx)
+    if launch is None:
+        return False
+    program, split_inputs, bcasts, out_kinds = launch
+    results = split_pipeline(program, split_inputs, bcasts, out_kinds)
+    for nid, res in zip(sorted(stage.escaping), results):
+        node = next(nd for nd in stage.nodes if nd.id == nid)
+        node.result = res
+    for node in stage.nodes:
+        node.done = True
+    ctx.stats["cuda_stages"] += 1
+    return True
+
+
+@register_executor("cuda")
+class CudaExecutor(StageExecutor):
+    """Lower eligible elementwise stages onto the split-pipeline CUDA kernel;
+    a stage that ``_eligible`` or the lowering rejects runs on the fused
+    driver and is counted in ``ctx.stats["cuda_fallback_stages"]``.  A build
+    or launch failure raises."""
+
+    def execute(self, stage: Stage, concrete: dict[tuple, Any], ctx) -> None:
+        if not try_execute_stage_cuda(stage, concrete, ctx):
+            ctx.stats["cuda_fallback_stages"] += 1
+            get_executor("fused").execute(stage, concrete, ctx)

@@ -1,0 +1,189 @@
+"""The Mozart runtime facade: contexts, configuration, evaluation.
+
+A ``MozartContext`` owns a dataflow graph (libmozart), a planner, and an
+executor configuration.  ``evaluate()`` converts pending annotated calls into
+stages and runs them (paper Figure 2).  Contexts nest; ``mozart.session``
+is the user-facing way to scope configuration:
+
+    with mozart.session(executor="cuda") as ctx:     # device="cuda" default
+        call, put = black_scholes(price, strike, ...)  # lazy
+        print(call.value)                              # forces evaluation
+
+A context runs on the card unless it is given ``device="cpu"``; on a machine
+without CUDA the default raises instead of quietly running on the CPU.
+Outside every session annotated functions run eagerly (the plain library).
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import weakref
+from typing import Any
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch import hardware
+from repro_torch.core.future import Future
+from repro_torch.core.graph import DataflowGraph, NodeRef
+from repro_torch.core.planner import plan
+from repro_torch.core.stage_exec import BoundaryCounters, counter_scope, get_executor
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The concrete device a context runs on; raises where CUDA is asked for
+    but absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "Mozart session asks for device 'cuda' but torch.cuda is not "
+                "available; pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and (
+        dev.index is None or t.device.index in (None, dev.index))
+
+
+class MozartContext:
+    def __init__(
+        self,
+        executor: str = "pipelined",
+        device: torch.device | str = "cuda",
+        chip: hardware.Chip | None = None,
+        lazy: bool = True,
+        pedantic: bool = False,
+        batch_elements: int | None = None,
+        log: bool = False,
+        pipeline: bool = True,
+    ):
+        self.executor = executor
+        self.device = resolve_device(device)
+        self.chip = chip if chip is not None else hardware.chip_for(self.device)
+        self.lazy = lazy
+        self.pedantic = pedantic
+        self.batch_elements = batch_elements
+        self.log = log
+        self.pipeline = pipeline                 # False: Table-4 "-pipe" ablation
+        self.graph = DataflowGraph()
+        self.stats: collections.Counter = collections.Counter()
+        #: this context's scoped boundary-traffic view (stage_exec).
+        self.counters = BoundaryCounters()
+
+    # -- libmozart register() -------------------------------------------------
+    def register_call(self, fn, bound: dict[str, Any]) -> Future:
+        avals: dict[str, Any] = {}
+        ctor_bound: dict[str, Any] = {}
+        stored: dict[str, Any] = {}
+        for name, v in bound.items():
+            if isinstance(v, Future):
+                node = v._node
+                avals[name] = node.out_aval
+                ctor_bound[name] = node.out_aval     # ctors may read .shape
+                stored[name] = NodeRef(node.id)
+            else:
+                for leaf in pytree.tree_leaves(v):
+                    if (isinstance(leaf, torch.Tensor)
+                            and not _on_device(leaf, self.device)):
+                        raise ValueError(
+                            f"{fn.name}: argument {name!r} lies on "
+                            f"{leaf.device}, the session runs on {self.device}")
+                avals[name] = v
+                ctor_bound[name] = v
+                stored[name] = v
+
+        # Dynamic-shape functions (and consumers of their outputs) cannot be
+        # abstractly evaluated; they run call by call per chunk (paper: filters).
+        if getattr(fn.sa, "dynamic", False) or any(a is None for a in avals.values()):
+            out_aval = None
+        else:
+            out_aval = fn.abstract_eval(avals)
+        arg_types, out_type = fn.construct_types(ctor_bound, avals, out_aval)
+        node = self.graph.register(fn, stored, arg_types, out_type, out_aval)
+        fut = Future(self, node)
+        node.future_ref = weakref.ref(fut)
+        self.stats["registered"] += 1
+        return fut
+
+    # -- libmozart evaluate() ---------------------------------------------------
+    def evaluate(self) -> None:
+        pending = self.graph.pending()
+        if not pending:
+            return
+        stages = plan(pending, self.graph,
+                      max_stage_nodes=None if self.pipeline else 1)
+        self.stats["planner_calls"] += 1
+        self.stats["evaluations"] += 1
+        if self.log:
+            for s in stages:
+                names = ",".join(n.fn.name for n in s.nodes)
+                print(f"[mozart] stage {s.id}: [{names}] inputs="
+                      f"{[str(si.split_type) for si in s.inputs.values()]}")
+        executor = get_executor(self.executor)
+        # Boundary events attribute to THIS context's counters (plus the
+        # process-global aggregate) for the duration.
+        with counter_scope(self.counters):
+            for s in stages:
+                executor.run(s, self.graph, self)
+        self.graph.prune()
+
+    def last_plan(self):
+        """Plan (without executing) — used by tests and EXPLAIN tooling."""
+        return plan(self.graph.pending(), self.graph,
+                    max_stage_nodes=None if self.pipeline else 1)
+
+
+_tls = threading.local()
+
+
+def _stack() -> list[MozartContext]:
+    if not hasattr(_tls, "stack"):
+        _tls.stack = []
+    return _tls.stack
+
+
+def current_context() -> MozartContext | None:
+    s = _stack()
+    return s[-1] if s else None
+
+
+def configure(**kwargs) -> MozartContext:
+    """Reconfigure the innermost context (flushes pending work first)."""
+    ctx = current_context()
+    if ctx is None:
+        if kwargs:
+            raise AttributeError("no active Mozart context to configure")
+        return ctx
+    ctx.evaluate()
+    for k, v in kwargs.items():
+        if not hasattr(ctx, k):
+            raise AttributeError(f"unknown Mozart option {k!r}")
+        if k == "device":
+            v = resolve_device(v)
+        setattr(ctx, k, v)
+    return ctx
+
+
+@contextlib.contextmanager
+def session(**kwargs):
+    """Scope a Mozart configuration (paper-style usage): annotated calls made
+    inside register against a fresh context, evaluated at scope exit."""
+    ctx = MozartContext(**kwargs)
+    _stack().append(ctx)
+    try:
+        yield ctx
+        ctx.evaluate()                       # flush at scope exit
+    finally:
+        _stack().pop()
+
+
+def evaluate() -> None:
+    ctx = current_context()
+    if ctx is not None:
+        ctx.evaluate()

@@ -1,0 +1,108 @@
+"""Plain PyTorch versions of the port's kernels (the correctness references).
+
+``split_pipeline_ref`` evaluates the SAME program the split-pipeline kernel
+runs, opcode by opcode, with torch ops on whole 1-D tensors — so the stage
+lowering is exercised on the CPU, and on the card the kernel is held
+against it on the same inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import torch
+
+from repro_torch.kernels.program import (
+    KIND_INPUT,
+    KIND_SCALAR,
+    OPCODES,
+    Program,
+    decode,
+)
+
+
+def _f(b: torch.Tensor) -> torch.Tensor:
+    return b.to(torch.float32)
+
+
+#: float32 semantics of every opcode; a bool is 1.0/0.0.
+_IMPL: dict[str, Callable[..., torch.Tensor]] = {
+    "COPY": lambda x: x,
+    "NEG": torch.neg,
+    "ABS": torch.abs,
+    "EXP": torch.exp,
+    "LOG": torch.log,
+    "LOG1P": torch.log1p,
+    "SQRT": torch.sqrt,
+    "ERF": torch.special.erf,
+    "SIN": torch.sin,
+    "COS": torch.cos,
+    "TANH": torch.tanh,
+    "SIGN": torch.sign,
+    "ASIN": torch.asin,
+    "ACOS": torch.acos,
+    "EXPM1": torch.expm1,
+    "SQUARE": lambda x: x * x,
+    "RECIP": torch.reciprocal,
+    "FLOOR": torch.floor,
+    "ISNAN": lambda x: _f(torch.isnan(x)),
+    "NOT": lambda x: _f(x == 0),
+    "BOOL": lambda x: _f(x != 0),
+    "ADD": torch.add,
+    "SUB": torch.sub,
+    "MUL": torch.mul,
+    "DIV": torch.div,
+    "POW": torch.pow,
+    "MAX": torch.maximum,
+    "MIN": torch.minimum,
+    "GT": lambda a, b: _f(a > b),
+    "LT": lambda a, b: _f(a < b),
+    "GE": lambda a, b: _f(a >= b),
+    "LE": lambda a, b: _f(a <= b),
+    "EQ": lambda a, b: _f(a == b),
+    "NE": lambda a, b: _f(a != b),
+    "AND": lambda a, b: _f((a != 0) & (b != 0)),
+    "OR": lambda a, b: _f((a != 0) | (b != 0)),
+    "ATAN2": torch.atan2,
+    "MOD": torch.remainder,
+    "WHERE": lambda c, x, y: torch.where(c != 0, x, y),
+}
+_BY_CODE = [(_IMPL[name], arity) for name, arity in OPCODES]
+
+_REDUCE = {"add": torch.sum, "mul": torch.prod, "max": torch.amax,
+           "min": torch.amin}
+
+
+def split_pipeline_ref(program: Program, split_inputs: Sequence[torch.Tensor],
+                       bcast_inputs: Sequence[Any],
+                       out_kinds: Sequence[tuple[str, str]]) -> list[torch.Tensor]:
+    """Evaluate ``program`` on whole 1-D tensors; same contract as the
+    kernel wrapper (concat outputs of length n, reductions as 0-d f32)."""
+    dev = split_inputs[0].device
+    ins = [_f(x) for x in split_inputs]
+    scalars = [torch.as_tensor(v, dtype=torch.float32, device=dev)
+               for v in list(bcast_inputs) + list(program.imms)]
+    slots: list[torch.Tensor | None] = [None] * program.n_slots
+
+    def read(code: int) -> torch.Tensor:
+        kind, i = decode(code)
+        if kind == KIND_INPUT:
+            return ins[i]
+        if kind == KIND_SCALAR:
+            return scalars[i]
+        return slots[i]
+
+    for op, dst, a, b, c in program.code:
+        fn, arity = _BY_CODE[op]
+        slots[dst] = fn(*(read(x) for x in (a, b, c)[:arity]))
+
+    results = []
+    for (kind, rop), (src, is_bool) in zip(out_kinds, program.outputs):
+        v = read(src)
+        if kind == "reduce":
+            results.append(_REDUCE[rop](v))
+        elif is_bool:
+            results.append(v != 0)
+        else:
+            results.append(v.clone() if any(v is x for x in ins) else v)
+    return results

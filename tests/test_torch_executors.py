@@ -1,0 +1,231 @@
+"""Every port executor against the JAX package on the paper's workloads.
+
+Quickstart, Black-Scholes (n = 50 000) and Haversine run on the port's
+``eager``/``pipelined``/``fused``/``cuda`` executors (on the CPU; ``cuda``
+takes the kernel's plain version there) and on the JAX ``eager`` and
+``pallas`` executors (Pallas in interpret mode), with the same
+``batch_elements``; chunk, call and stage counts and boundary bytes must be
+equal.  The JAX side runs without rewrite, handoff, plan cache and tuner,
+which the port does not have yet.
+
+Tolerances: float32 rtol 2e-5, atol 2e-5 * max|ref| (same op order, libm
+ulps apart); sums rtol 1e-4.  Haversine's ``arcsin(sqrt(a))`` is
+ill-conditioned as a -> 1 (near-antipodal points), so its parity also
+allows the JAX benchmark's own absolute tolerance in miles (atol 1e-2).
+Against the float64 oracles: the JAX benchmark's tolerances (Black-Scholes
+rtol 2e-3/atol 1e-3, Haversine rtol 2e-3/atol 1e-2).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from benchmarks import workloads as jw
+from repro.core import Along as JAlong, Generic as JGeneric, Reduce as JReduce
+from repro.core import annotated_numpy as janp
+from repro.core import mozart as jmozart
+from repro.core import splittable as jsplittable
+from repro_torch import workloads as tw
+from repro_torch.core import annotated_numpy as tanp
+from repro_torch.core import mozart as tmozart
+
+JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+PORT_EXECUTORS = ["eager", "pipelined", "fused", "cuda"]
+
+
+@jsplittable(x=JAlong(0), y=JAlong(0), ret=JAlong(0), elementwise=True,
+             name="saxpy")
+def jsaxpy(x, y):
+    return 2.0 * x + y
+
+
+@jsplittable(x=JGeneric("S"), ret=JReduce("add"), name="total")
+def jtotal(x):
+    return jnp.sum(x)
+
+
+def jquickstart(x, y):
+    return jtotal(janp.multiply(janp.exp(jsaxpy(x, y)), 0.5))
+
+
+def two_stage(anp):
+    def run(x):
+        a = anp.exp(x)
+        s = anp.sum(a)
+        return anp.multiply(a, s), s
+    return run
+
+
+def _data(name):
+    if name == "black_scholes":
+        return {k: np.asarray(v) for k, v in jw.black_scholes_data(50_000).items()}
+    if name == "haversine":
+        r = np.random.RandomState(0)
+        return dict(lat2=r.uniform(-1.5, 1.5, 20_000).astype(np.float32),
+                    lon2=r.uniform(-3.1, 3.1, 20_000).astype(np.float32))
+    if name == "quickstart":
+        return dict(x=np.arange(30_000, dtype=np.float32) / 1e6,
+                    y=np.ones(30_000, np.float32))
+    return dict(x=np.linspace(0.0, 1e-3, 10_000, dtype=np.float32))
+
+
+CASES = {
+    "black_scholes": (jw.black_scholes, tw.black_scholes, 8192),
+    "haversine": (jw.haversine, tw.haversine, 4096),
+    "quickstart": (jquickstart, tw.quickstart, 8192),
+    "two_stage": (two_stage(janp), two_stage(tanp), 3000),
+}
+
+STAT_KEYS = ("chunks", "calls", "stages")
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def run_jax(name, executor):
+    jfn, _tfn, batch = CASES[name]
+    data = _data(name)
+    with jmozart.session(executor=executor, batch_elements=batch, **JAX_CFG) as ctx:
+        outs = _as_tuple(jfn(**{k: jnp.asarray(v) for k, v in data.items()}))
+        vals = [np.asarray(o) for o in outs]
+    return vals, ctx
+
+
+def run_port(name, executor):
+    _jfn, tfn, batch = CASES[name]
+    data = _data(name)
+    with tmozart.session(executor=executor, device="cpu", batch_elements=batch) as ctx:
+        outs = _as_tuple(tfn(**{k: torch.from_numpy(v.copy()) for k, v in data.items()}))
+        vals = [o.value.numpy() for o in outs]
+    return vals, ctx
+
+
+def close(got, want, rtol=2e-5, atol=0.0):
+    want = np.asarray(want)
+    atol = max(atol, 2e-5 * float(np.max(np.abs(want))))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, equal_nan=True)
+
+
+def _tol(name, out_index):
+    if name == "haversine":
+        return dict(atol=1e-2)
+    if name in ("quickstart",) or (name == "two_stage" and out_index == 1):
+        return dict(rtol=1e-4)            # a sum over n elements
+    if name == "two_stage":
+        return dict(rtol=1e-4)            # scaled by that sum
+    return {}
+
+
+_JAX_CACHE: dict = {}
+
+
+def _jax(name, executor):
+    key = (name, executor)
+    if key not in _JAX_CACHE:
+        vals, ctx = run_jax(name, executor)
+        _JAX_CACHE[key] = (vals, dict(ctx.stats), ctx.counters.bytes_interior())
+    return _JAX_CACHE[key]
+
+
+@pytest.mark.parametrize("executor", PORT_EXECUTORS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_port_matches_jax_eager_and_pallas(name, executor):
+    got, ctx = run_port(name, executor)
+    for jex in ("eager", "pallas"):
+        want, _stats, _b = _jax(name, jex)
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            close(g, w, **_tol(name, i))
+
+
+@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_chunk_call_stage_counts_equal_jax(name, executor):
+    _got, ctx = run_port(name, executor)
+    _want, jstats, jbytes = _jax(name, executor)
+    assert {k: ctx.stats[k] for k in STAT_KEYS} == {k: jstats.get(k, 0) for k in STAT_KEYS}
+    assert ctx.counters.bytes_interior() == jbytes
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_cuda_stages_equal_pallas_stages(name):
+    _got, ctx = run_port(name, "cuda")
+    _want, jstats, _b = _jax(name, "pallas")
+    assert ctx.stats["cuda_stages"] == jstats["pallas_stages"] == ctx.stats["stages"]
+    assert ctx.stats["cuda_fallback_stages"] == 0
+
+
+def test_black_scholes_against_float64_oracle():
+    got, _ = run_port("black_scholes", "cuda")
+    d = _data("black_scholes")
+    ref_call, ref_put = tw.black_scholes_np(d)
+    np.testing.assert_allclose(got[0], ref_call, rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(got[1], ref_put, rtol=2e-3, atol=1e-3)
+
+
+def test_haversine_against_float64_oracle():
+    got, _ = run_port("haversine", "cuda")
+    d = _data("haversine")
+    np.testing.assert_allclose(got[0], tw.haversine_np(**d), rtol=2e-3, atol=1e-2)
+
+
+def test_oracles_equal_jax_oracles():
+    d = {k: v[:2000] for k, v in _data("black_scholes").items()}
+    for mine, theirs in zip(tw.black_scholes_np(d), jw.black_scholes_np(d)):
+        np.testing.assert_array_equal(mine, theirs)
+    h = _data("haversine")
+    np.testing.assert_array_equal(tw.haversine_np(**h), jw.haversine_np(**h))
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_data_generators_equal_jax_bit_for_bit(seed):
+    mine = tw.black_scholes_data(3001, seed=seed, device="cpu")
+    theirs = jw.black_scholes_data(3001, seed=seed)
+    assert list(mine) == list(theirs)
+    for k in mine:
+        assert mine[k].dtype == torch.float32
+        np.testing.assert_array_equal(mine[k].numpy(), np.asarray(theirs[k]))
+    # the Haversine generator of benchmarks/fig4_pipelines.py
+    r = np.random.RandomState(seed)
+    lat = np.asarray(jnp.asarray(r.uniform(-1.5, 1.5, 3001), jnp.float32))
+    lon = np.asarray(jnp.asarray(r.uniform(-3.1, 3.1, 3001), jnp.float32))
+    h = tw.haversine_data(3001, seed=seed, device="cpu")
+    np.testing.assert_array_equal(h["lat2"].numpy(), lat)
+    np.testing.assert_array_equal(h["lon2"].numpy(), lon)
+    q = tw.quickstart_data(3001, device="cpu")
+    np.testing.assert_array_equal(
+        q["x"].numpy(), np.asarray(jnp.arange(3001, dtype=jnp.float32) / 1e6))
+
+
+def test_input_on_another_device_raises_at_registration():
+    # (the sandbox has one real device; a session on "meta" stands in for a
+    # second one)
+    with tmozart.session(device="meta") as ctx:
+        with pytest.raises(ValueError, match="lies on cpu"):
+            tanp.exp(torch.ones(4))
+        assert ctx.stats["registered"] == 0
+
+
+def test_no_session_runs_the_plain_library():
+    x = torch.linspace(0.1, 0.9, 5)
+    out = tanp.add(tanp.exp(x), 1.0)
+    assert isinstance(out, torch.Tensor)
+    torch.testing.assert_close(out, torch.exp(x) + 1.0)
+
+
+def test_future_dunders_extend_the_graph():
+    x = torch.linspace(0.1, 0.9, 64)
+    with tmozart.session(executor="cuda", device="cpu") as ctx:
+        a = tanp.exp(x)
+        b = (a * 2.0 + 1.0) / a - a ** 2.0
+        c = -b
+        assert not c.done and ctx.stats["registered"] == 7
+        got = c.value
+    e = torch.exp(x)
+    torch.testing.assert_close(got, -((e * 2.0 + 1.0) / e - e ** 2.0))
+    assert ctx.stats["cuda_stages"] == 1
+    assert float(tanp.sum(x)) == pytest.approx(float(x.sum()))
+    assert np.asarray(c).shape == (64,)
