@@ -4,10 +4,11 @@
 
 Phases (any failure exits nonzero; nothing runs on the CPU instead):
 
-1. build   — build the split-pipeline kernel from the checkout's sources
-             (``nvcc`` for sm_90a) and print the build seconds, the
-             compiler's register report and the card's name and power limit;
-2. kernel  — hold the kernel against its plain PyTorch version on the card:
+1. build   — build the split-pipeline and fused AdamW kernels from the
+             checkout's sources (one ``nvcc`` each for sm_90a, started
+             together) and print their paths, build seconds, the compiler's
+             register reports and the card's name and power limit;
+2. kernel  — hold the split-pipeline kernel against its plain version:
              the lowered Black-Scholes, Haversine and quickstart programs at
              their main-path sizes, every opcode, and add/max/min reductions
              at n in {1, 1500, 1000003, 2**27} (mul at n <= 4096, values
@@ -19,9 +20,23 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              on a 2**20 prefix;
 4. times   — CUDA-event medians of the kernel, its plain version, and host
              clock medians of the ``eager``, ``fused`` and ``cuda``
-             executors on the same inputs, beside the kernel's bound.
+             executors on the same inputs, beside the kernel's bound;
+5. adamw   — hold the fused AdamW kernel against its plain version on the
+             card: n in {1, 1000, 70001, 2**27+3}, float32 and bfloat16,
+             steps 1 and 7, gscale 1 and 0.5, a misaligned view, and every
+             leaf of the train phase at its real size, where the kernel, its
+             plain version and ``torch._fused_adamw_`` are also timed;
+6. train   — gemma-7b at its published widths with n_layers cut to 8 (the
+             only reduction), batch 2, seq 2048, random weights from a seed:
+             five steps of ``lm.loss_fn`` -> backward ->
+             ``adamw.update(path="kernel")`` on one batch; on step 1 the
+             kernel path is held against the ``jnp`` path and the plain
+             version, and ``mozart_adamw_update(executor="cuda")`` against
+             the kernel path; loss, launches, step and optimizer ms per
+             step and the peak device memory are printed.
 
-The last two lines are a JSON ``kernels`` record and the device record.
+The last lines are the card's name and power limit, a JSON ``kernels``
+record and the device record.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +61,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 REPLACES = "src/repro/kernels/split_pipeline.py:48"
 SOURCE = "src/repro_torch/csrc/split_pipeline.cu"
+ADAMW_REPLACES = "src/repro/kernels/fused_adamw.py:24"
+ADAMW_SOURCE = "src/repro_torch/csrc/fused_adamw.cu"
+ADAMW_SIZES = (1, 1000, 70001, (1 << 27) + 3)
+ADAMW_OPS = 17                   # float32 operations per element
+ADAMW_EPS, ADAMW_WD = 1e-8, 0.1
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
+CHUNK = 1 << 25                  # elements per comparison slice
 
 
 def log(*parts) -> None:
@@ -119,14 +142,16 @@ def host_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_build(sp) -> float:
-    path, secs, compiler_log = sp.build()
-    log(f"[build] {path.name} built in {secs:.2f} s")
-    for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+def phase_build(sources) -> None:
+    from repro_torch.kernels import build
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = list(pool.map(build.build, sources))
+    for path, secs, compiler_log in builds:
+        log(f"[build] {path} built in {secs:.2f} s")
+        for line in compiler_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] ptxas: {line.strip()}")
     log(card_line())
-    return secs
 
 
 def lowered(fn, data):
@@ -314,6 +339,317 @@ def phase_times(sp, ref, workloads_data, errs, launches) -> list:
             f"executor {e2e['cuda']:.3f} ms")
     return rows
 
+# ---------------------------------------------------------------------------
+# fused AdamW
+# ---------------------------------------------------------------------------
+
+
+def compare_big(what: str, got: torch.Tensor, want: torch.Tensor,
+                rtol: float) -> float:
+    """``compare`` slice by slice (bounded memory at a leaf's full size)."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    return max(compare(f"{what}[{i}:]", g[i:i + CHUNK], w[i:i + CHUNK], rtol)
+               for i in range(0, w.numel(), CHUNK))
+
+
+def bf16_within_one_ulp(what: str, got: torch.Tensor, want: torch.Tensor,
+                        scale: torch.Tensor) -> float:
+    """Assert every bfloat16 ``got`` lies within one bfloat16 ulp of
+    ``want``, the ulp taken at the larger of |want| and |scale| (the
+    parameter before the step: where ``p - lr * u`` cancels, float32
+    results an ulp of p apart round to bfloat16 values many ulps of the
+    tiny result apart).  Returns the largest absolute difference."""
+    g, w, s = got.reshape(-1), want.reshape(-1), scale.reshape(-1)
+    worst = 0.0
+    for i in range(0, w.numel(), CHUNK):
+        gf, wf = g[i:i + CHUNK].float(), w[i:i + CHUNK].float()
+        mag = torch.maximum(wf.abs(), s[i:i + CHUNK].float().abs())
+        _m, e = torch.frexp(mag)
+        ulp = torch.where(mag == 0, torch.finfo(torch.bfloat16).smallest_normal,
+                          torch.ldexp(torch.ones_like(mag), e - 8))
+        diff = (gf - wf).abs()
+        if bool((diff > ulp).any()):
+            j = int(torch.argmax(diff - ulp))
+            raise AssertionError(f"{what}: {float(gf[j])} vs {float(wf[j])} is "
+                                 "more than one bfloat16 ulp apart")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def check_adamw_outputs(what: str, got, want, p_in: torch.Tensor, rtol: float) -> float:
+    """New (p, m, v) against a reference: float32 within ``rtol`` (atol
+    2e-5 * max|ref|), bfloat16 p within one bfloat16 ulp at the scale of
+    the result and of ``p_in``, the parameter before the step."""
+    (gp, gm, gv), (wp, wm, wv) = got, want
+    if gp.dtype == torch.bfloat16:
+        err = bf16_within_one_ulp(f"{what} p", gp, wp, p_in)
+    else:
+        err = compare_big(f"{what} p", gp, wp, rtol)
+    return max(err, compare_big(f"{what} m", gm, wm, rtol),
+               compare_big(f"{what} v", gv, wv, rtol))
+
+
+def adamw_inputs(n: int, dtype: torch.dtype, gen: torch.Generator):
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    m = torch.randn(n, generator=gen, device="cuda") * 0.01
+    v = (torch.randn(n, generator=gen, device="cuda") * 0.01).abs()
+    return p, g, m, v
+
+
+def train_config():
+    from repro_torch.configs.registry import get_config
+    return get_config("gemma-7b").with_runtime(n_layers=TRAIN_LAYERS)
+
+
+def library_adamw_ms(p, g, m, v, lr: float, step: int, gscale: float) -> float:
+    """``torch._fused_adamw_`` (in place, on copies) for the same step:
+    the op folds the weight decay into p and divides g by ``grad_scale``."""
+    ps, gs, ms, vs = p.clone(), g.clone(), m.clone(), v.clone()
+    steps = torch.full((), float(step), dtype=torch.float32, device=p.device)
+    inv = torch.full((), 1.0 / gscale, dtype=torch.float32, device=p.device)
+
+    def run():
+        torch._fused_adamw_([ps], [gs], [ms], [vs], [], [steps], lr=lr,
+                            beta1=0.9, beta2=0.95, weight_decay=ADAMW_WD,
+                            eps=ADAMW_EPS, amsgrad=False, maximize=False,
+                            grad_scale=inv, found_inf=None)
+
+    return cuda_ms(run, 10)
+
+
+def phase_adamw_kernel(fa, ref) -> dict:
+    """The kernel against its plain version, then every train-phase leaf at
+    its real size, timed beside its plain version and the library call."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import weights
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for n in ADAMW_SIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            p, g, m, v = adamw_inputs(n, dtype, gen)
+            for step in (1, 7):
+                for gscale in (1.0, 0.5):
+                    sc = fa.scalar_row(1e-3, 0.9, 0.95,
+                                       torch.tensor(step, dtype=torch.int32, device="cuda"),
+                                       gscale)
+                    got = fa.fused_adamw(p, g, m, v, sc, eps=ADAMW_EPS, wd=ADAMW_WD)
+                    want = ref.adamw_ref(p, g, m, v, sc, eps=ADAMW_EPS, wd=ADAMW_WD)
+                    torch.cuda.synchronize()
+                    worst = max(worst, check_adamw_outputs(
+                        f"fused_adamw n={n} {dtype} step={step} gscale={gscale}",
+                        got, want, p, 2e-5))
+                    del got, want
+            del p, g, m, v
+    log(f"[adamw] n in {ADAMW_SIZES}, float32 and bfloat16, steps 1 and 7, "
+        f"gscale 1 and 0.5: max |kernel - plain| = {worst:.3e}")
+    # a view off the 16-byte grid takes the scalar loop
+    p, g, m, v = adamw_inputs(70002, torch.float32, gen)
+    sc = fa.scalar_row(1e-3, 0.9, 0.95, torch.tensor(3, dtype=torch.int32, device="cuda"), 0.5)
+    views = [x[1:] for x in (p, g, m, v)]
+    check_adamw_outputs("fused_adamw misaligned",
+                        fa.fused_adamw(*views, sc, eps=ADAMW_EPS, wd=ADAMW_WD),
+                        ref.adamw_ref(*views, sc, eps=ADAMW_EPS, wd=ADAMW_WD),
+                        views[0], 2e-5)
+    del p, g, m, v, views
+
+    leaves = weights.flatten(tfm.init_model(train_config(), None, "meta").tree())
+    lr, step, gscale = 3e-4, 1, 0.5
+    sc = fa.scalar_row(lr, 0.9, 0.95, torch.tensor(step, dtype=torch.int32, device="cuda"),
+                       gscale)
+    rows, real_worst = {}, 0.0
+    for name, meta in leaves.items():
+        n = meta.numel()
+        p, g, m, v = adamw_inputs(n, meta.dtype, gen)
+        run = lambda: fa.fused_adamw(p, g, m, v, sc, eps=ADAMW_EPS, wd=ADAMW_WD)
+        plain = lambda: ref.adamw_ref(p, g, m, v, sc, eps=ADAMW_EPS, wd=ADAMW_WD)
+        err = check_adamw_outputs(f"fused_adamw leaf {name}", run(), plain(), p, 2e-5)
+        real_worst = max(real_worst, err)
+        row = {"n": n, "dtype": str(meta.dtype).split(".")[-1],
+               # p, g read and p written in p's dtype; m, v read and written
+               # in float32; the scalar row read once
+               "bytes": n * (3 * p.element_size() + 16) + 32,
+               "ms": cuda_ms(run, 10), "plain_ms": cuda_ms(plain, 3),
+               "library_ms": None, "max_abs_err": err}
+        try:
+            row["library_ms"] = library_adamw_ms(p, g, m, v, lr, step, gscale)
+        except RuntimeError as e:          # the library op refuses this dtype mix
+            row["library_refused"] = str(e).splitlines()[0][:120]
+        rows[name] = row
+        log(f"[adamw] leaf {name} n={n} {row['dtype']}: kernel {row['ms']:.3f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, torch._fused_adamw_ "
+            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 3)} ms, "
+            f"max |kernel - plain| {err:.3e}")
+        del p, g, m, v, run, plain
+        torch.cuda.empty_cache()
+    return {"leaves": rows, "max_abs_err": max(worst, real_worst)}
+
+
+MOZART_GROUPS = (  # leaves per Mozart session; equal-size leaves share a stage
+    ("embed", "final_norm", "layers.ln1", "layers.ln2"),
+    ("layers.attn.wk", "layers.attn.wo", "layers.attn.wq", "layers.attn.wv"),
+    ("layers.mlp.w_gate",), ("layers.mlp.w_in",), ("layers.mlp.w_out",))
+
+
+@torch.no_grad()
+def step1_paths(fa, ref, params, grads, state, opt_cfg) -> None:
+    """On step 1's gradients: the kernel path against the ``jnp`` path and
+    the plain version, leaf by leaf under the step's one scalar row, then
+    ``mozart_adamw_update(executor="cuda")`` against the kernel path.  One
+    leaf (or one Mozart group) at a time: three full copies of the new
+    state would not fit beside the training state.  Launches made here
+    compare paths and are not counted as the main path's."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim.mozart_adamw import mozart_adamw_update
+    counted = fa.fused_adamw.launches
+    sc, _lr, _gn = adamw.step_scalars(opt_cfg, state.step + 1, grads)
+    vs_jnp = vs_plain = 0.0
+    for name, p in params.items():
+        g, m, v = grads[name], state.m[name], state.v[name]
+        kernel = adamw.update_leaf(p, g, m, v, sc, opt_cfg, "kernel")
+        jnp_path = adamw.update_leaf(p, g, m, v, sc, opt_cfg, "jnp")
+        vs_jnp = max(vs_jnp, check_adamw_outputs(f"step 1 {name} kernel vs jnp path",
+                                                 kernel, jnp_path, p, 3e-5))
+        del jnp_path
+        plain = ref.adamw_ref(p.reshape(-1), g.reshape(-1), m.reshape(-1),
+                              v.reshape(-1), sc, eps=opt_cfg.eps, wd=opt_cfg.weight_decay)
+        vs_plain = max(vs_plain, check_adamw_outputs(
+            f"step 1 {name} kernel vs plain", [t.reshape(-1) for t in kernel], plain, p,
+            2e-5))
+        del kernel, plain
+    torch.cuda.synchronize()
+    log(f"[train] step 1, 11 leaves: max |kernel path - jnp path| = {vs_jnp:.3e} "
+        f"(rtol 3e-5; bfloat16 p within one ulp), max |kernel - plain| = {vs_plain:.3e}")
+
+    assert sorted(n for grp in MOZART_GROUPS for n in grp) == sorted(params)
+    totals: dict = {}
+    for grp in MOZART_GROUPS:
+        sub = lambda d, grp=grp: {n: d[n] for n in grp}
+        sstate = adamw.AdamWState(state.step, sub(state.m), sub(state.v))
+        mp, ms, metrics = mozart_adamw_update(sub(params), sub(grads), sstate, opt_cfg,
+                                              executor="cuda")
+        kp, ks, _ = adamw.update(sub(params), sub(grads), sstate, opt_cfg, path="kernel")
+        torch.cuda.synchronize()
+        st = metrics["stats"]
+        if st.get("cuda_fallback_stages", 0) or st.get("cuda_stages", 0) != st["stages"]:
+            raise AssertionError(f"mozart {grp}: not every stage on the kernel: {st}")
+        err = max(check_adamw_outputs(f"mozart vs kernel path {n}",
+                                      (mp[n], ms.m[n], ms.v[n]),
+                                      (kp[n], ks.m[n], ks.v[n]), params[n], 3e-5)
+                  for n in grp)
+        for k in ("stages", "cuda_stages", "cuda_fallback_stages"):
+            totals[k] = totals.get(k, 0) + st.get(k, 0)
+        log(f"[train] mozart_adamw_update(executor=\"cuda\") on {', '.join(grp)}: "
+            f"stages {st['stages']}, cuda_stages {st.get('cuda_stages', 0)}, "
+            f"cuda_fallback_stages {st.get('cuda_fallback_stages', 0)}; "
+            f"max |mozart - kernel path| = {err:.3e}")
+        del mp, ms, kp, ks
+    log(f"[train] mozart totals: {totals}")
+    fa.fused_adamw.launches = counted
+
+
+def phase_train(fa, sp, ref) -> dict:
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.models import lm, weights
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import param_count
+    from repro_torch.optim import adamw
+
+    cfg = train_config()
+    a = cfg.attn
+    log(f"[train] {cfg.name} at its published widths: d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, {a.n_heads}x{a.head_dim} heads (kv {a.n_kv_heads}), "
+        f"vocab {cfg.vocab_size}, {cfg.activation} gated MLP, {cfg.dtype}; "
+        f"n_layers {cfg.n_layers} (cut from 28: the only reduction), "
+        f"{param_count(cfg) / 1e9:.3f} B parameters; batch {TRAIN_BATCH}, "
+        f"seq {TRAIN_SEQ}, random weights (seed 0)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    log(f"[train] {opt_cfg}")
+    state = adamw.init(weights.leaves(model))
+    batch = DataPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda").batch_for_step(0)
+    n_leaves = len(state.m)
+
+    fa.fused_adamw.launches = 0
+    sp.split_pipeline.launches = 0
+    losses, step_ms, opt_ms = [], [], []
+    for step in range(TRAIN_STEPS):       # overfit one batch (tests/test_system.py)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        loss = lm.loss_fn(model, batch, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        fwd_bwd = time.perf_counter() - t0
+        params = weights.leaves(model)
+        grads = {n: p.grad for n, p in params.items()}
+        if step == 0:
+            step1_paths(fa, ref, params, grads, state, opt_cfg)
+        before = fa.fused_adamw.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new_p, state, metrics = adamw.update(params, grads, state, opt_cfg, path="kernel")
+        del grads, params
+        model.zero_grad(set_to_none=True)
+        weights.assign(model, new_p)
+        del new_p
+        torch.cuda.synchronize()
+        opt = time.perf_counter() - t1
+        launched = fa.fused_adamw.launches - before
+        losses.append(loss.item())
+        step_ms.append((fwd_bwd + opt) * 1e3)
+        opt_ms.append(opt * 1e3)
+        log(f"[train] step {step + 1}: loss {losses[-1]:.4f}, fused_adamw launches "
+            f"{launched}, step {step_ms[-1]:.1f} ms (forward+backward "
+            f"{fwd_bwd * 1e3:.1f} ms, optimizer {opt_ms[-1]:.2f} ms), "
+            f"lr {float(metrics['lr']):.3e}, grad_norm {float(metrics['grad_norm']):.4f}")
+        if launched != n_leaves:
+            raise AssertionError(f"step {step + 1}: {launched} launches for {n_leaves} leaves")
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"step {step + 1}: loss {losses[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] launches over {TRAIN_STEPS} steps: fused_adamw "
+        f"{fa.fused_adamw.launches}, split_pipeline {sp.split_pipeline.launches} "
+        f"(the Mozart AdamW stages); peak device memory {peak / 1e9:.2f} GB")
+    if losses[-1] >= losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if peak >= 80e9:
+        raise AssertionError(f"peak memory {peak / 1e9:.1f} GB")
+    out = {"launches": fa.fused_adamw.launches, "losses": losses,
+           "step_ms": step_ms, "opt_ms": opt_ms, "peak_bytes": peak,
+           "split_pipeline_launches": sp.split_pipeline.launches}
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def adamw_row(kern: dict, train: dict) -> dict:
+    leaves = kern["leaves"].values()
+    total_bytes = sum(r["bytes"] for r in leaves)
+    n_total = sum(r["n"] for r in leaves)
+    bytes_ms = total_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ADAMW_OPS * n_total / F32_OPS_PER_S * 1e3
+    lib = [r for r in leaves if r["library_ms"] is not None]
+    return {
+        "name": "fused_adamw", "route": "cuda", "source": ADAMW_SOURCE,
+        "replaces": ADAMW_REPLACES, "launches": train["launches"],
+        "launches_per_step": train["launches"] // TRAIN_STEPS,
+        "max_abs_err": kern["max_abs_err"],
+        "ms": sum(r["ms"] for r in leaves),
+        "plain_ms": sum(r["plain_ms"] for r in leaves),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": sum(r["library_ms"] for r in lib) if lib else None,
+        "library_leaves": [n for n, r in kern["leaves"].items() if r["library_ms"] is not None],
+        "ms_on_library_leaves": sum(r["ms"] for r in lib),
+        "per_step": f"{len(kern['leaves'])} leaves of gemma-7b at {TRAIN_LAYERS} layers",
+        "bytes_per_step": total_bytes, "elements_per_step": n_total,
+        "train_step_ms": train["step_ms"], "train_opt_ms": train["opt_ms"],
+        "train_losses": train["losses"], "train_peak_bytes": train["peak_bytes"],
+    }
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -323,12 +659,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from scipy.special import erf
     from repro_torch import workloads as w
+    from repro_torch.kernels import fused_adamw as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import split_pipeline as sp
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
-    phase_build(sp)
+    phase_build([sp.SOURCE, fa.SOURCE])
 
     t0 = time.perf_counter()
     bs = w.black_scholes_data(N_MAIN, seed=0, device="cuda")
@@ -351,6 +688,19 @@ def main() -> int:
     errs = phase_kernel(sp, ref, workloads_data)
     launches = phase_main(sp, workloads_data, oracles)
     rows = phase_times(sp, ref, workloads_data, errs, launches)
+    del workloads_data, errs, bs, hv, qs, bs_pre, hv_pre
+    torch.cuda.empty_cache()
+
+    adamw_kernel = phase_adamw_kernel(fa, ref)
+    train = phase_train(fa, sp, ref)
+    rows.append(adamw_row(adamw_kernel, train))
+    log(f"[times] fused_adamw per step ({rows[-1]['per_step']}): kernel "
+        f"{rows[-1]['ms']:.3f} ms over {rows[-1]['launches_per_step']} launches, "
+        f"bound {rows[-1]['bound_ms']:.3f} ms by {rows[-1]['bound_by']} "
+        f"({rows[-1]['bound_ms'] / rows[-1]['ms']:.1%} of it), plain "
+        f"{rows[-1]['plain_ms']:.3f} ms, torch._fused_adamw_ {rows[-1]['library_ms']} ms "
+        f"on {rows[-1]['library_leaves']} (kernel {rows[-1]['ms_on_library_leaves']:.3f} ms "
+        f"there)")
 
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (the correctness references).
 
+``adamw_ref`` is the fused AdamW kernel's arithmetic on whole tensors.
 ``split_pipeline_ref`` evaluates the SAME program the split-pipeline kernel
 runs, opcode by opcode, with torch ops on whole 1-D tensors — so the stage
 lowering is exercised on the CPU, and on the card the kernel is held
@@ -106,3 +107,18 @@ def split_pipeline_ref(program: Program, split_inputs: Sequence[torch.Tensor],
         else:
             results.append(v.clone() if any(v is x for x in ins) else v)
     return results
+
+
+def adamw_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor, sc: torch.Tensor, *, eps: float,
+              wd: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the fused AdamW kernel: the same float32 arithmetic
+    in the same order on whole tensors, scalars from the (8,) row ``sc``
+    (``lr, b1, b2, c1, c2, gscale``)."""
+    lr, b1, b2, c1, c2, gscale = sc[:6].unbind()
+    pf = p.to(torch.float32)
+    gf = g.to(torch.float32) * gscale
+    m = b1 * m + (1.0 - b1) * gf
+    v = b2 * v + (1.0 - b2) * gf * gf
+    update = (m * c1) / (torch.sqrt(v * c2) + eps) + wd * pf
+    return (pf - lr * update).to(p.dtype), m, v

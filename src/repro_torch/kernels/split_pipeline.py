@@ -7,29 +7,22 @@ that intermediates never reach device memory, writes the concat outputs,
 and writes one partial per block for each reduction, which this wrapper
 combines after the launch.
 
-The kernel is built with ``nvcc`` for ``sm_90a`` at first use, into
-``build/kernels/`` of the checkout, keyed by a hash of its source; it is
-bound with ``ctypes`` (plain C entry points) and launched on PyTorch's
-current stream.  A tensor on the CPU takes the plain version
-(``kernels/ref.py``); a CUDA tensor launches the kernel or raises.
+The kernel is built with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/build.py``), bound with ``ctypes`` (plain C entry points) and
+launched on PyTorch's current stream.  A tensor on the CPU takes the plain
+version (``kernels/ref.py``); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from pathlib import Path
 from typing import Any, Sequence
 
 import torch
 
+from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels.program import OPCODES, Program
 from repro_torch.kernels.ref import split_pipeline_ref
 
@@ -42,9 +35,6 @@ MAX_INSTR = 256
 MAX_ROWS = 56
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "split_pipeline.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _OUT_KIND = {("concat", False): 0, ("concat", True): 1, ("reduce", "add"): 2,
              ("reduce", "mul"): 3, ("reduce", "max"): 4, ("reduce", "min"): 5}
@@ -93,76 +83,30 @@ def fits_kernel(program: Program) -> str | None:
 
 
 # ---------------------------------------------------------------------------
-# Build and load
+# Load
 # ---------------------------------------------------------------------------
 
-_lib: ctypes.CDLL | None = None
-_lib_lock = threading.Lock()
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).is_file():
-            return str(cand)
-    raise RuntimeError("nvcc not found: the split-pipeline kernel is built "
-                       "on a machine with the CUDA toolkit")
-
-
-def library_path() -> Path:
-    """Where the built kernel for the current source lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"split_pipeline_{digest}.so"
-
-
-def build() -> tuple[Path, float, str]:
-    """Compile the kernel unless this source is already built.  Returns
-    ``(path, seconds, compiler log)``; seconds is 0.0 for a cached build."""
-    path = library_path()
-    if path.is_file():
-        return path, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.split_pipeline_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.split_pipeline_launch.restype = ctypes.c_int
+    lib.split_pipeline_error_string.argtypes = [ctypes.c_int]
+    lib.split_pipeline_error_string.restype = ctypes.c_char_p
+    for name in ("split_pipeline_params_size",
+                 "split_pipeline_num_opcodes", "split_pipeline_tile"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    abi = (lib.split_pipeline_params_size(),
+           lib.split_pipeline_num_opcodes(), lib.split_pipeline_tile())
+    want = (ctypes.sizeof(_Params), len(OPCODES), TILE)
+    if abi != want:
+        raise RuntimeError(f"split_pipeline ABI mismatch: kernel "
+                           f"{abi} vs wrapper {want}")
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _secs, _log = build()
-            lib = ctypes.CDLL(str(path))
-            lib.split_pipeline_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-            lib.split_pipeline_launch.restype = ctypes.c_int
-            lib.split_pipeline_error_string.argtypes = [ctypes.c_int]
-            lib.split_pipeline_error_string.restype = ctypes.c_char_p
-            for name in ("split_pipeline_params_size",
-                         "split_pipeline_num_opcodes", "split_pipeline_tile"):
-                getattr(lib, name).argtypes = []
-                getattr(lib, name).restype = ctypes.c_int
-            abi = (lib.split_pipeline_params_size(),
-                   lib.split_pipeline_num_opcodes(), lib.split_pipeline_tile())
-            want = (ctypes.sizeof(_Params), len(OPCODES), TILE)
-            if abi != want:
-                raise RuntimeError(f"split_pipeline ABI mismatch: kernel "
-                                   f"{abi} vs wrapper {want}")
-            _lib = lib
-        return _lib
+    return kernel_build.load(SOURCE, _configure)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,58 @@
+"""Shared building blocks: norms, embeddings, rotary position encodings.
+
+The counterpart of ``src/repro/models/layers.py`` (standard RoPE only;
+M-RoPE waits for the slice that ports qwen2-vl).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+def normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
+           generator: torch.Generator | None, device: torch.device | str) -> torch.Tensor:
+    """``N(0, 1) * scale`` drawn in float32, then cast (as the JAX init does).
+    On the ``meta`` device only shape and dtype are made."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(ms + eps)) * w.to(torch.float32)).to(x.dtype)
+
+
+def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    x = embedding[tokens].to(cfg.dtype)
+    if cfg.embed_scale:
+        # the scale is rounded to the model dtype first, as jnp.asarray does
+        scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
+        x = x * scale
+    return x
+
+
+def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    return x @ head.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | str = "cpu") -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (B, S) integer."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                        # (d/2,)
+    ang = positions[:, None, :, None].to(torch.float32) * freqs   # (B,1,S,d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

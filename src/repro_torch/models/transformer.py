@@ -1,0 +1,137 @@
+"""The dense transformer stack: the counterpart of
+``src/repro/models/transformer.py`` for the dense family in train mode.
+
+The reference scans a homogeneous per-layer block over parameters stacked
+along a leading ``L`` axis, with ``jax.checkpoint`` remat per layer (and a
+nested scan at 8+ layers, which changes memory, not values).  The port
+keeps the stacked layout and runs the stack as a Python loop over layers,
+each layer under ``torch.utils.checkpoint`` when ``cfg.remat``.  Other
+families, the KV cache and serving wait for later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import embed_tokens, normal, rms_norm, unembed
+from repro_torch.models.weights import ParamTree
+
+BIG_WINDOW = 1 << 30      # "global attention" encoded as a huge window
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for what the port's model code does not run yet."""
+    a = cfg.attn
+    missing = [what for what, cond in (
+        (f"family {cfg.family!r}", cfg.family != "dense"),
+        ("MoE", cfg.moe is not None), ("encoder-decoder", cfg.encdec),
+        ("attention", a is None),
+        ("M-RoPE", a is not None and a.mrope),
+        ("qk-norm", a is not None and a.qk_norm),
+        ("logit softcap", a is not None and a.logit_softcap is not None),
+        ("banded attention", cfg.banded_attention)) if cond]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
+                                  "ported yet (the port runs dense models)")
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator | None,
+               device: torch.device | str = "cuda") -> ParamTree:
+    """Random parameters in the reference's layout and dtypes (float32
+    embedding and norms, ``cfg.dtype`` matrices).  The values follow the
+    reference's distributions, not its numbers: JAX keys and torch
+    generators draw differently (``weights.from_numpy`` carries exact
+    values across)."""
+    check_ported(cfg)
+    D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
+    tree = {"embed": normal((V, D), 0.02, torch.float32, generator, device),
+            "final_norm": ones(D)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = normal((D, V), D ** -0.5, cfg.dtype, generator, device)
+    tree["layers"] = {
+        "attn": attn_mod.init_attn(cfg, generator, device, L),
+        "ln1": ones(L, D), "ln2": ones(L, D),
+        "mlp": mlp_mod.init_mlp(cfg, generator, device, L),
+    }
+    return ParamTree(tree)
+
+
+def layer_windows(cfg: ModelConfig) -> list[int]:
+    """Per-layer effective attention window."""
+    L, a = cfg.n_layers, cfg.attn
+    if a is None:
+        return [BIG_WINDOW] * L
+    if a.pattern_period and a.window:
+        return [BIG_WINDOW if i % a.pattern_period == a.pattern_period - 1
+                else a.window for i in range(L)]
+    if a.window:
+        return [a.window] * L
+    return [BIG_WINDOW] * L
+
+
+def _unstack(tree, n: int) -> list[dict]:
+    """Layer ``i``'s parameters for every ``i``: one ``unbind`` per stacked
+    leaf, so backward stacks each leaf's layer gradients once."""
+    per: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if hasattr(v, "items") else torch.unbind(v, 0)
+        for i in range(n):
+            per[i][k] = parts[i]
+    return per
+
+
+def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
+                 positions: torch.Tensor | None) -> torch.Tensor:
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + attn_mod.attention_block(p["attn"], h, cfg, positions=positions,
+                                     causal=True, window=window)
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp_mod.mlp_block(p["mlp"], h2, cfg)
+
+
+def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor | None = None) -> torch.Tensor:
+    """The layer stack, teacher-forced (train mode)."""
+    layers = _unstack(params["layers"], cfg.n_layers)
+    for p, window in zip(layers, layer_windows(cfg)):
+        if cfg.remat:
+            x = checkpoint(_apply_block, p, x, cfg, window, positions,
+                           use_reentrant=False)
+        else:
+            x = _apply_block(p, x, cfg, window, positions)
+    return x
+
+
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(x, _head(params, cfg))
+    if cfg.padded_vocab != cfg.vocab_size:      # mask the TP padding columns
+        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        logits = torch.where(col < cfg.vocab_size, logits, -1e30)
+    return logits
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor | None = None):
+    """Teacher-forced forward up to the final norm: (hidden, aux_loss);
+    the dense family has no auxiliary loss (0)."""
+    x = embed_tokens(params["embed"], tokens, cfg)
+    x = run_stack(params, x, cfg, positions=positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor | None = None):
+    """Teacher-forced forward: (logits, aux_loss)."""
+    hidden, aux = forward_hidden(params, cfg, tokens, positions)
+    return unembed(hidden, _head(params, cfg)), aux

@@ -1,0 +1,136 @@
+"""Parameters of the port and their carry-across from the JAX package.
+
+The port keeps the JAX package's parameter layout: the same nested tree
+(``embed``, ``final_norm``, ``layers/{attn/{wq,wk,wv,wo}, ln1, ln2,
+mlp/{w_in,w_gate,w_out}}``), layers stacked along a leading ``L`` axis and
+matrices stored ``(in, out)`` and used as ``x @ W``.  A JAX parameter tree
+therefore copies across exactly, and the optimizer sees the same leaves in
+the same (sorted-path) order as the reference's ``tree_flatten``.
+
+``ParamTree`` holds that tree as ``nn.Parameter``s of nested modules and
+can be indexed like the reference's dict (``params["layers"]["attn"]``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: sub-dicts become child
+    modules, tensors become parameters, registered in sorted key order."""
+
+    def __init__(self, tree: Mapping[str, Any]):
+        super().__init__()
+        self._keys = tuple(sorted(tree))
+        for k in self._keys:
+            v = tree[k]
+            if hasattr(v, "items"):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, v if isinstance(v, nn.Parameter) else nn.Parameter(v))
+
+    def __getitem__(self, key: str):
+        if key not in self._keys:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def items(self):
+        return [(k, getattr(self, k)) for k in self._keys]
+
+    def tree(self) -> dict:
+        """The parameters as a plain nested dict (the reference's layout)."""
+        return {k: v.tree() if isinstance(v, ParamTree) else v
+                for k, v in self.items()}
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    """``{"a.b.c": leaf}`` in sorted-path order (the reference's leaf order)."""
+    out: dict[str, Any] = {}
+    for k, v in sorted(tree.items()):
+        name = f"{prefix}.{k}" if prefix else k
+        if hasattr(v, "items"):
+            out.update(flatten(v, name))
+        else:
+            out[name] = v
+    return out
+
+
+def unflatten(flat: Mapping[str, Any]) -> dict:
+    tree: dict = {}
+    for name, v in flat.items():
+        node = tree
+        *parents, last = name.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return tree
+
+
+def leaves(model: nn.Module) -> dict[str, nn.Parameter]:
+    """The optimizer's leaves, in the reference's ``tree_flatten`` order."""
+    return dict(sorted(model.named_parameters()))
+
+
+@torch.no_grad()
+def assign(model: nn.Module, new: Mapping[str, torch.Tensor]) -> None:
+    """Point each parameter at its new tensor (no copy; the old storage is
+    freed once nothing else holds it)."""
+    params = leaves(model)
+    if set(new) != set(params):
+        raise KeyError(f"leaves differ: {sorted(set(new) ^ set(params))}")
+    for name, p in params.items():
+        t = new[name]
+        if t.shape != p.shape or t.dtype != p.dtype or t.device != p.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} {t.device} "
+                             f"for {tuple(p.shape)} {p.dtype} {p.device}")
+        p.data = t
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.array(a)                        # a writable copy
+    if a.dtype.name == "bfloat16":         # ml_dtypes' bfloat16, bit for bit
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+               device: torch.device | str = "cuda") -> ParamTree:
+    """The JAX parameter tree (leaves as numpy arrays) as the port's
+    parameters.  Paths and shapes must be those ``init_model(cfg)`` makes;
+    each leaf takes the dtype the port's init gives it (bfloat16 stays bit
+    for bit, float32 arrays of a bfloat16 leaf are rounded to nearest)."""
+    from repro_torch.models.transformer import init_model
+    want = flatten(init_model(cfg, None, "meta").tree())
+    got = flatten(tree)
+    if set(got) != set(want):
+        raise KeyError(f"parameter paths differ from {cfg.name}'s: "
+                       f"{sorted(set(got) ^ set(want))}")
+    out = {}
+    for name, ref in want.items():
+        t = _tensor(got[name])
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                             f"{cfg.name} has {tuple(ref.shape)}")
+        out[name] = t.to(device=device, dtype=ref.dtype)
+    return ParamTree(unflatten(out))
+
+
+def to_numpy(params: ParamTree | Mapping[str, Any]) -> dict:
+    """The parameters as a nested dict of numpy arrays in the reference's
+    layout; bfloat16 leaves come out as float32 (exact; numpy has no
+    bfloat16 of its own)."""
+    tree = params.tree() if isinstance(params, ParamTree) else params
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return unflatten({k: host(v) for k, v in flatten(tree).items()})

@@ -1,0 +1,224 @@
+"""The port's dense model (config, layers, attention, MLP, transformer, LM
+loss) and its parameter carry-across, against the JAX package.
+
+JAX ``init_model`` makes the parameters; ``weights.from_numpy`` carries
+them across exactly; both packages then compute the loss and its gradient
+on the same numpy tokens, at the gemma-7b smoke config (2 layers, d 64,
+vocab 256).
+
+Tolerances: float32 loss rtol 1e-5 (same math, sums in another order);
+every float32 gradient rtol 1e-4 with atol 1e-6 * max|g| (gradients sum
+over more terms, and tiny entries carry only absolute error); bfloat16
+loss rtol 2e-2 (bf16 rounds at other places in the two frameworks);
+blocked against dense attention rtol/atol 2e-4, as ``tests/test_models.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import gemma_7b as jgemma
+from repro.configs.registry import get_config as jget_config
+from repro.models import lm as jlm
+from repro.models import transformer as jtfm
+from repro.models.config import AttnConfig as JAttn, ModelConfig as JModel
+from repro.models.config import param_count as jparam_count
+from repro_torch.configs import gemma_7b as tgemma
+from repro_torch.configs import registry
+from repro_torch.models import lm as tlm
+from repro_torch.models import transformer as ttfm
+from repro_torch.models import weights
+from repro_torch.models.config import AttnConfig as TAttn, ModelConfig as TModel
+from repro_torch.models.config import MoEConfig, param_count
+
+
+def _tokens(shape=(2, 17), vocab=256, seed=0):
+    return np.random.RandomState(seed).randint(0, vocab, shape).astype(np.int32)
+
+
+def _pair(dtype_j, dtype_t, **kw):
+    return (jgemma.smoke_config().with_runtime(dtype=dtype_j, **kw),
+            tgemma.smoke_config().with_runtime(dtype=dtype_t, **kw))
+
+
+@pytest.fixture(scope="module")
+def f32_setup():
+    jcfg, tcfg = _pair(jnp.float32, torch.float32)
+    params = jtfm.init_model(jax.random.PRNGKey(0), jcfg)
+    return jcfg, tcfg, params, jax.tree_util.tree_map(np.asarray, params)
+
+
+def test_f32_loss_and_every_grad_match_jax(f32_setup):
+    """16 positions in CE chunks of 5: three chunks and a ragged tail."""
+    jcfg, tcfg, params, npp = f32_setup
+    tokens = _tokens()
+    ce_chunk = 5
+    jl, jg = jax.value_and_grad(jlm.loss_fn)(params, {"tokens": jnp.asarray(tokens)},
+                                            jcfg, ce_chunk)
+    model = weights.from_numpy(npp, tcfg, "cpu")
+    tl = tlm.loss_fn(model, {"tokens": torch.from_numpy(tokens)}, tcfg, ce_chunk)
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    jflat = weights.flatten(jax.tree_util.tree_map(np.asarray, jg))
+    tflat = weights.leaves(model)
+    assert list(tflat) == list(jflat)               # same 11 leaves, same order
+    for name, p in tflat.items():
+        want = jflat[name]
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-4,
+                                   atol=1e-6 * float(np.abs(want).max()),
+                                   err_msg=name)
+
+
+def test_bf16_loss_matches_jax():
+    jcfg, tcfg = _pair(jnp.bfloat16, torch.bfloat16)
+    params = jtfm.init_model(jax.random.PRNGKey(1), jcfg)
+    tokens = _tokens(seed=1)
+    jl = jlm.loss_fn(params, {"tokens": jnp.asarray(tokens)}, jcfg)
+    model = weights.from_numpy(jax.tree_util.tree_map(np.asarray, params), tcfg, "cpu")
+    assert model["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    assert model["embed"].dtype == torch.float32
+    with torch.no_grad():
+        tl = tlm.loss_fn(model, {"tokens": torch.from_numpy(tokens)}, tcfg)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-2)
+
+
+def _tiny(mod, attn, dtype, **kw):
+    base = dict(name="t", family="dense", n_layers=2, d_model=64, d_ff=128,
+                vocab_size=97, dtype=dtype,
+                attn=attn(n_heads=4, n_kv_heads=2, head_dim=16))
+    base.update(kw)
+    return mod(**base)
+
+
+def test_blocked_attention_matches_dense_and_jax():
+    """GQA (kv 2 of 4 heads), silu MLP, 12 keys in blocks of 5 (a ragged
+    last block), as ``tests/test_models.py::test_blocked_attention_matches_dense``;
+    the blocked path's loss and gradients also against the reference's."""
+    jblk = _tiny(JModel, JAttn, jnp.float32, dense_attn_threshold=4, attn_block_k=5)
+    tblk = _tiny(TModel, TAttn, torch.float32, dense_attn_threshold=4, attn_block_k=5)
+    tdense = _tiny(TModel, TAttn, torch.float32)
+    params = jtfm.init_model(jax.random.PRNGKey(2), jblk)
+    tokens = _tokens((2, 13), vocab=97, seed=2)
+    model = weights.from_numpy(jax.tree_util.tree_map(np.asarray, params), tblk, "cpu")
+    with torch.no_grad():
+        lb, _ = ttfm.forward_train(model, tblk, torch.from_numpy(tokens))
+        ld, _ = ttfm.forward_train(model, tdense, torch.from_numpy(tokens))
+    np.testing.assert_allclose(lb.numpy(), ld.numpy(), rtol=2e-4, atol=2e-4)
+
+    jl, jg = jax.value_and_grad(jlm.loss_fn)(params, {"tokens": jnp.asarray(tokens)},
+                                            jblk)
+    tl = tlm.loss_fn(model, {"tokens": torch.from_numpy(tokens)}, tblk)
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    jflat = weights.flatten(jax.tree_util.tree_map(np.asarray, jg))
+    for name, p in weights.leaves(model).items():
+        want = jflat[name]
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-4,
+                                   atol=1e-6 * float(np.abs(want).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("n_layers", [2, 8])
+def test_init_layout_matches_jax_at_gemma_7b_width(n_layers):
+    """Paths, shapes and dtypes of ``init_model`` equal the reference's, at
+    the published widths (made on the meta device: no memory)."""
+    jcfg = jget_config("gemma-7b").with_runtime(n_layers=n_layers)
+    tcfg = registry.get_config("gemma-7b").with_runtime(n_layers=n_layers)
+    want = weights.flatten(jax.eval_shape(
+        lambda k: jtfm.init_model(k, jcfg), jax.random.PRNGKey(0)))
+    got = weights.flatten(ttfm.init_model(tcfg, None, "meta").tree())
+    assert list(got) == list(want)
+    for name, t in got.items():
+        assert tuple(t.shape) == want[name].shape, name
+        assert str(t.dtype).split(".")[-1] == str(want[name].dtype), name
+
+
+def test_init_model_draws_from_the_generator():
+    cfg = tgemma.smoke_config()
+    a = ttfm.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
+    b = ttfm.init_model(cfg, torch.Generator().manual_seed(3), "cpu")
+    c = ttfm.init_model(cfg, torch.Generator().manual_seed(4), "cpu")
+    for (n, x), y, z in zip(weights.leaves(a).items(), weights.leaves(b).values(),
+                            weights.leaves(c).values()):
+        assert torch.equal(x, y), n
+        if n not in ("final_norm", "layers.ln1", "layers.ln2"):
+            assert not torch.equal(x, z), n
+
+
+def test_carry_across_round_trip_is_exact():
+    jcfg, tcfg = _pair(jnp.bfloat16, torch.bfloat16)
+    params = jax.tree_util.tree_map(np.asarray,
+                                    jtfm.init_model(jax.random.PRNGKey(5), jcfg))
+    model = weights.from_numpy(params, tcfg, "cpu")
+    back = weights.flatten(weights.to_numpy(model))
+    for name, want in weights.flatten(params).items():
+        np.testing.assert_array_equal(back[name], np.asarray(want, np.float32), name)
+    again = weights.from_numpy(weights.to_numpy(model), tcfg, "cpu")
+    for (n, x), y in zip(weights.leaves(model).items(), weights.leaves(again).values()):
+        assert x.dtype == y.dtype and torch.equal(x, y), n
+
+
+@pytest.mark.parametrize("bad", ["missing", "shape"])
+def test_from_numpy_rejects_other_layouts(bad):
+    _, tcfg = _pair(jnp.float32, torch.float32)
+    tree = weights.to_numpy(ttfm.init_model(tcfg, torch.Generator().manual_seed(0), "cpu"))
+    if bad == "missing":
+        del tree["layers"]["mlp"]["w_gate"]
+        err = KeyError
+    else:
+        tree["embed"] = tree["embed"][:, :32]
+        err = ValueError
+    with pytest.raises(err):
+        weights.from_numpy(tree, tcfg, "cpu")
+
+
+def test_registry_has_gemma_7b_only():
+    full = registry.get_config("gemma-7b")
+    assert (full.d_model, full.d_ff, full.vocab_size, full.n_layers) == (3072, 24576, 256000, 28)
+    assert full.dtype == torch.bfloat16 and full.activation == "gelu"
+    assert registry.ARCH_IDS == ("gemma-7b",)
+    with pytest.raises(KeyError, match="not ported yet"):
+        registry.get_config("granite-34b")
+    with pytest.raises(KeyError, match="unknown"):
+        registry.get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("which", ["config", "smoke_config"])
+def test_param_count_matches_jax(which):
+    jc, tc = getattr(jgemma, which)(), getattr(tgemma, which)()
+    assert param_count(tc) == jparam_count(jc)
+    moe = tc.with_runtime(family="moe", moe=MoEConfig(n_experts=4, top_k=2, d_expert=32))
+    from repro.models.config import MoEConfig as JMoE
+    jmoe = jc.with_runtime(family="moe", moe=JMoE(n_experts=4, top_k=2, d_expert=32))
+    assert param_count(moe) == jparam_count(jmoe)
+
+
+def test_unported_families_raise():
+    cfg = tgemma.smoke_config().with_runtime(
+        family="moe", moe=MoEConfig(n_experts=4, top_k=2, d_expert=32))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ttfm.init_model(cfg, None, "meta")
+
+
+def test_logits_and_plain_cross_entropy_match_jax():
+    """``logits_from_hidden`` (final norm, tied head, padded vocab columns
+    masked) and the unchunked ``cross_entropy`` with a mask, float32."""
+    jcfg, tcfg = _pair(jnp.float32, torch.float32, vocab_pad=100)
+    params = jtfm.init_model(jax.random.PRNGKey(6), jcfg)
+    model = weights.from_numpy(jax.tree_util.tree_map(np.asarray, params), tcfg, "cpu")
+    r = np.random.RandomState(6)
+    x = r.randn(2, 5, 64).astype(np.float32)
+    labels = r.randint(0, 256, (2, 5)).astype(np.int32)
+    mask = (r.rand(2, 5) > 0.3).astype(np.float32)
+    want = np.asarray(jtfm.logits_from_hidden(params, jnp.asarray(x), jcfg))
+    with torch.no_grad():
+        got = ttfm.logits_from_hidden(model, torch.from_numpy(x), tcfg)
+        assert got.shape == (2, 5, 300)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+        ce = tlm.cross_entropy(got[..., :256], torch.from_numpy(labels),
+                               torch.from_numpy(mask))
+    jce = jlm.cross_entropy(jnp.asarray(want[..., :256]), jnp.asarray(labels),
+                            jnp.asarray(mask))
+    np.testing.assert_allclose(float(ce), float(jce), rtol=1e-5)
