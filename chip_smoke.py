@@ -4,10 +4,11 @@
 
 Phases (any failure exits nonzero; nothing runs on the CPU instead):
 
-1. build   — build the split-pipeline and fused AdamW kernels from the
-             checkout's sources (one ``nvcc`` each for sm_90a, started
-             together) and print their paths, build seconds, the compiler's
-             register reports and the card's name and power limit;
+1. build   — build the split-pipeline, fused AdamW, flash-attention and
+             RMSNorm kernels from the checkout's sources (one ``nvcc`` each
+             for sm_90a, started together) and print their paths, build
+             seconds, the compiler's register reports and the card's name
+             and power limit;
 2. kernel  — hold the split-pipeline kernel against its plain version:
              the lowered Black-Scholes, Haversine and quickstart programs at
              their main-path sizes, every opcode, and add/max/min reductions
@@ -33,7 +34,26 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              kernel path is held against the ``jnp`` path and the plain
              version, and ``mozart_adamw_update(executor="cuda")`` against
              the kernel path; loss, launches, step and optimizer ms per
-             step and the peak device memory are printed.
+             step and the peak device memory are printed;
+7. attn    — hold the flash-attention kernel against its plain version
+             (``tests/test_kernels.py``'s TestFlashAttention cases, non-causal,
+             windows 32 and 128, Sk > Sq, ragged Sq/Sk and gemma's prefill
+             shape (4, 16, 2048, 256) causal bfloat16) and the RMSNorm kernel
+             (TestRMSNorm shapes, (8192, 3072) and (65536, 3072)), float32
+             and bfloat16; time both at gemma's shapes beside their bounds,
+             their plain versions and ``F.scaled_dot_product_attention`` /
+             ``F.rms_norm``;
+8. ops     — the RMSNorm kernel's path, ``kernels.ops.rmsnorm`` (its only
+             caller, as in the reference), at gemma's hidden-state shapes;
+9. serve   — gemma-7b at its published widths and full depth (28 layers),
+             random weights from a seed, under ``inference_mode``:
+             ``lm.greedy_generate`` (batch 4, prompt 2048, 32 new tokens; 28
+             flash-attention launches per prefill), its prefill held against
+             the plain attention path (``use_kernel=False``), prefill and
+             decode times; then ``launch.serve.Server(mode="continuous")``
+             on 12 requests (prompts 256-2048, 8-48 new tokens) with decode
+             and request percentiles, and 3 of them against sequential
+             batch-1 ``prefill``/``decode_step``.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -66,6 +86,17 @@ ADAMW_SOURCE = "src/repro_torch/csrc/fused_adamw.cu"
 ADAMW_SIZES = (1, 1000, 70001, (1 << 27) + 3)
 ADAMW_OPS = 17                   # float32 operations per element
 ADAMW_EPS, ADAMW_WD = 1e-8, 0.1
+ATTN_REPLACES = "src/repro/kernels/flash_attention.py:31"
+ATTN_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+RMS_REPLACES = "src/repro/kernels/rmsnorm.py:19"
+RMS_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
+BF16_OPS_PER_S = 989e12          # dense bfloat16 on the tensor cores
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+GEMMA_ATTN = (4, 16, 2048, 256)  # gemma-7b prefill: batch 4, 16 heads, 2048, 256
+RMS_SHAPES = ((8, 128), (3, 512), (2, 5, 256), (300, 1024), (8192, 3072), (65536, 3072))
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+SERVE_REQUESTS, SERVE_MAX_LEN, PARITY_REQUESTS = 12, 2112, 3
+DEVICE = "cuda"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
 CHUNK = 1 << 25                  # elements per comparison slice
 
@@ -651,6 +682,330 @@ def adamw_row(kern: dict, train: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# flash attention and RMSNorm
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = (  # (B, Hq, Hkv, Sq, Sk, D, causal, window)
+    (1, 2, 2, 128, 128, 64, True, None),        # MHA
+    (2, 4, 2, 256, 256, 64, True, None),        # GQA group 2
+    (1, 8, 1, 128, 128, 128, True, None),       # MQA
+    (1, 2, 2, 256, 256, 256, True, None),       # gemma's head dim
+    (1, 2, 2, 128, 128, 64, False, None),       # non-causal
+    (1, 2, 2, 256, 256, 64, True, 32),          # sliding windows
+    (1, 2, 2, 256, 256, 64, True, 128),
+    (1, 2, 2, 64, 256, 64, False, None),        # Sk > Sq
+    (2, 4, 2, 100, 77, 64, True, None),         # ragged Sq and Sk
+    (1, 2, 2, 77, 200, 128, False, 50),
+    (1, 2, 2, 128, 128, 64, True, 1 << 30),     # the transformer's global window
+)
+
+
+def attn_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen):
+    q = torch.randn(B, Hq, Sq, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, Hkv, Sk, D, generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def attn_bound(B, Hq, Hkv, Sq, Sk, D, causal, elem) -> dict:
+    """Bytes: q, k, v read once and the output written once.  Operations:
+    2 * D for q.k and 2 * D for p.v per (query, visible key) pair (causal:
+    the pairs this run's mask leaves), over the dense bfloat16 rate."""
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    flops = 4 * B * Hq * pairs * D
+    nbytes = elem * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
+def phase_attn_kernels(fl, rn, ref) -> dict:
+    """Both kernels against their plain versions, then timed at gemma's
+    shapes beside the library calls."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for case in ATTN_CASES:
+        B, Hq, Hkv, Sq, Sk, D, causal, window = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen)
+            got = fl.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            worst = max(worst, compare(f"flash_attention {case} {dtype}", got, want,
+                                       TOL[dtype], atol_scale=0.0, atol=TOL[dtype]))
+    log(f"[attn] flash_attention: {len(ATTN_CASES)} cases (MHA, GQA, MQA, D 64/128/256, "
+        f"non-causal, windows, Sk > Sq, ragged), float32 and bfloat16: max |kernel - "
+        f"plain| = {worst:.3e} (rtol/atol 2e-5 float32, 2e-2 bfloat16)")
+    B, H, S, D = GEMMA_ATTN
+    q, k, v = attn_inputs(B, H, H, S, S, D, torch.bfloat16, gen)
+    gemma_err = compare("flash_attention gemma prefill", fl.flash_attention(q, k, v),
+                        ref.attention_ref(q, k, v), 2e-2, atol_scale=0.0, atol=2e-2)
+    attn = {"max_abs_err": max(worst, gemma_err), "shape": list(GEMMA_ATTN),
+            "ms": cuda_ms(lambda: fl.flash_attention(q, k, v, causal=True), 10),
+            "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 20),
+            **attn_bound(B, H, H, S, S, D, True, 2)}
+    log(f"[attn] flash_attention {GEMMA_ATTN} causal bfloat16: kernel {attn['ms']:.3f} ms "
+        f"(bound {attn['bound_ms']:.3f} ms by {attn['bound_by']}, "
+        f"{attn['bound_ms'] / attn['ms']:.1%} of it), plain {attn['plain_ms']:.3f} ms, "
+        f"F.scaled_dot_product_attention {attn['library_ms']:.3f} ms; max |kernel - plain| "
+        f"{gemma_err:.3e}")
+    del q, k, v
+
+    worst = 0.0
+    for shape in RMS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.rand(shape[-1], generator=gen, device="cuda") + 0.5
+            worst = max(worst, compare(f"rmsnorm {shape} {dtype}", rn.rmsnorm(x, w),
+                                       ref.rmsnorm_ref(x, w), TOL[dtype], atol_scale=0.0,
+                                       atol=TOL[dtype]))
+    log(f"[attn] rmsnorm at {RMS_SHAPES}, float32 and bfloat16: max |kernel - plain| = "
+        f"{worst:.3e}")
+    x = torch.randn(8192, 3072, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.rand(3072, generator=gen, device="cuda") + 0.5
+    wl = w.to(torch.bfloat16)
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * x.numel() / F32_OPS_PER_S * 1e3     # square-add, scale, weight
+    rms = {"max_abs_err": worst, "shape": [8192, 3072],
+           "ms": cuda_ms(lambda: rn.rmsnorm(x, w), 20),
+           "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, w), 10),
+           "library_ms": cuda_ms(lambda: F.rms_norm(x, (3072,), wl, 1e-6), 20),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
+    log(f"[attn] rmsnorm (8192, 3072) bfloat16: kernel {rms['ms']:.4f} ms (bound "
+        f"{rms['bound_ms']:.4f} ms by {rms['bound_by']}, {rms['bound_ms'] / rms['ms']:.1%} "
+        f"of it), plain {rms['plain_ms']:.4f} ms, F.rms_norm {rms['library_ms']:.4f} ms")
+    del x, w, wl
+    torch.cuda.empty_cache()
+    return {"attn": attn, "rms": rms}
+
+
+def phase_ops(rn, ref) -> int:
+    """The RMSNorm kernel's path: ``kernels.ops.rmsnorm`` at gemma's
+    hidden-state shapes (prefill: 4 x 2048 rows; 32 x 2048 rows)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    inputs = [(torch.randn(n, 3072, generator=gen, device="cuda").to(torch.bfloat16),
+               torch.rand(3072, generator=gen, device="cuda") + 0.5) for n in (8192, 65536)]
+    rn.rmsnorm.launches = 0
+    outs = [ops.rmsnorm(x, w, row_block=256) for x, w in inputs]
+    torch.cuda.synchronize()
+    launched = rn.rmsnorm.launches
+    if launched != len(inputs):
+        raise AssertionError(f"ops.rmsnorm: {launched} kernel launches for {len(inputs)} calls")
+    for (x, w), out in zip(inputs, outs):
+        if out.shape != x.shape or out.dtype != x.dtype or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"ops.rmsnorm {tuple(x.shape)}: bad output")
+        compare(f"ops.rmsnorm {tuple(x.shape)}", out, ref.rmsnorm_ref(x, w), 2e-2,
+                atol_scale=0.0, atol=2e-2)
+    log(f"[ops] kernels.ops.rmsnorm at (8192, 3072) and (65536, 3072) bfloat16: "
+        f"{launched} rmsnorm launches; agrees with the plain version")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def serve_config():
+    from repro_torch.configs.registry import get_config
+    return get_config("gemma-7b")
+
+
+def serve_requests(vocab: int):
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(0)
+    plens = rng.integers(256, SERVE_PROMPT + 1, SERVE_REQUESTS)
+    news = rng.integers(8, 49, SERVE_REQUESTS)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new=int(m)) for i, (n, m) in enumerate(zip(plens, news))]
+
+
+def parity(model, cfg, req) -> str:
+    """``req``'s served tokens against sequential batch-1 ``prefill`` and
+    ``decode_step``.  Where they differ, the top-2 logit margin of the
+    sequential run at the first differing step decides: above 0.5 fails,
+    below is a bfloat16 near-tie."""
+    from repro_torch.models import transformer as tfm
+    caches = tfm.init_caches(cfg, 1, SERVE_MAX_LEN, device=DEVICE)
+    logits, caches = tfm.prefill(model, cfg, torch.as_tensor(req.prompt[None], device=DEVICE),
+                                 caches=caches)
+    seq, margins = [], []
+    for step in range(req.max_new):
+        if step:
+            tok = torch.tensor([[seq[-1]]], dtype=torch.int32, device=DEVICE)
+            logits, caches = tfm.decode_step(model, cfg, tok, caches)
+        top = torch.topk(logits[0, -1].float(), 2)
+        seq.append(int(top.indices[0]))
+        margins.append(float(top.values[0] - top.values[1]))
+    if seq == req.out:
+        return "equal"
+    i = next(j for j, (a, b) in enumerate(zip(seq, req.out)) if a != b)
+    if margins[i] > 0.5:
+        raise AssertionError(f"request {req.rid}: served token {req.out[i]} != sequential "
+                             f"{seq[i]} at step {i}, top-2 margin {margins[i]:.3f} > 0.5")
+    return f"bfloat16 near-tie at step {i} (top-2 margin {margins[i]:.4f})"
+
+
+def profiled(fn, top: int = 6) -> dict:
+    """``fn`` under ``torch.profiler``: device time summed over kernels,
+    the host-clock window, the device's busy share of it and the kernels
+    with the most device time.  The profiler's own overhead lengthens the
+    window, so the busy share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = lambda e: getattr(e, "self_device_time_total", 0.0)
+    # kernels only: the CPU ops that launched them carry the same device time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    busy_us = sum(dev(e) for e in events)
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
+            "busy_share": busy_us / wall_us if busy_us else None,
+            "launches": sum(e.count for e in events),
+            "top": [(e.key[:60], round(dev(e) / 1e3, 3), e.count)
+                    for e in sorted(events, key=dev, reverse=True)[:top]]}
+
+
+def log_profile(what: str, prof: dict) -> None:
+    if prof["busy_share"] is None:
+        log(f"[serve] profile {what}: device time not measured (no device events)")
+        return
+    log(f"[serve] profile {what}: window {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_ms']:.1f} ms ({prof['busy_share']:.1%}), {prof['launches']} kernels; "
+        f"top (kernel, ms, count): {prof['top']}")
+
+
+@torch.inference_mode()
+def phase_serve(counters) -> dict:
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import param_count
+
+    cfg = serve_config()
+    a = cfg.attn
+    log(f"[serve] {cfg.name} at its published widths and full depth: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, {a.n_heads}x{a.head_dim} heads (kv "
+        f"{a.n_kv_heads}), vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{param_count(cfg) / 1e9:.3f} B parameters, random weights (seed 0)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = tfm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    rng = np.random.default_rng(0)
+    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), dtype=torch.int32,
+                             device=DEVICE)
+    lm.greedy_generate(model, cfg, prompt, 2)            # library and allocator warm-up
+
+    # the main path: counts set to 0 just before, read just after
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = lm.greedy_generate(model, cfg, prompt, new)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"[serve] lm.greedy_generate batch {B}, prompt {S}, {new} new tokens: "
+        f"{gen_s * 1e3:.1f} ms, {B * new / gen_s:.1f} tokens/s; launches {launches}")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"{launches['flash_attention']} flash_attention launches for "
+                             f"one prefill of {cfg.n_layers} layers")
+    if tuple(tokens.shape) != (B, new) or not bool(((tokens >= 0) &
+                                                   (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"greedy tokens: shape {tuple(tokens.shape)} or out of range")
+
+    def prefill(use_kernel):
+        caches = tfm.init_caches(cfg, B, S + new, device=DEVICE)
+        return tfm.prefill(model, cfg, prompt, caches=caches, use_kernel=use_kernel)
+
+    prefill_ms = host_ms(lambda: prefill(None), 3)
+    plain_prefill_ms = host_ms(lambda: prefill(False), 3)
+    lk, caches = prefill(None)
+    lp, _ = prefill(False)
+    diff = float((lk.float() - lp.float()).abs().max())
+    scale = float(lp.float().abs().max())
+    first_k, first_p = torch.argmax(lk[:, -1], -1), torch.argmax(lp[:, -1], -1)
+    log(f"[serve] prefill: kernel path {prefill_ms:.1f} ms, plain attention path "
+        f"{plain_prefill_ms:.1f} ms; last-position logits max |kernel - plain| {diff:.4f} "
+        f"(max |logit| {scale:.2f}); first tokens {first_k.tolist()} / {first_p.tolist()}")
+    if diff > 2e-2 * scale:
+        raise AssertionError(f"prefill logits: {diff} > 2e-2 * {scale}")
+    if not torch.equal(first_k, first_p) or not torch.equal(first_k.to(tokens.dtype),
+                                                            tokens[:, 0]):
+        raise AssertionError("first tokens differ between the kernel and plain prefills")
+    del lp
+    tok = first_k[:, None].to(torch.int32)
+    step_ms, decoded = [], [first_k.cpu()]
+    for _ in range(new - 1):
+        t1 = time.perf_counter()
+        logits, caches = tfm.decode_step(model, cfg, tok, caches)
+        host = torch.argmax(logits[:, -1], -1).cpu()           # through the host read
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        decoded.append(host)
+        tok = host[:, None].to(device=DEVICE, dtype=torch.int32)
+    same = torch.equal(torch.stack(decoded, 1).to(tokens.dtype), tokens.cpu())
+
+    def decode3():
+        t, c = tok, caches
+        for _ in range(3):
+            out, c = tfm.decode_step(model, cfg, t, c)
+            t = torch.argmax(out[:, -1], -1).cpu()[:, None].to(device=DEVICE, dtype=torch.int32)
+
+    prof_decode = profiled(decode3)
+    del caches, logits, lk
+    prof_prefill = profiled(lambda: prefill(None))
+    log_profile("3 decode steps", prof_decode)
+    log_profile("1 prefill (kernel path)", prof_prefill)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] decode step (batch {B}, through the host read): median "
+        f"{statistics.median(step_ms):.2f} ms, min {min(step_ms):.2f}, max {max(step_ms):.2f}; "
+        f"tokens equal to greedy_generate's: {same}; peak device memory {peak / 1e9:.2f} GB")
+
+    reqs = serve_requests(cfg.vocab_size)
+    srv = Server(cfg, model, SERVE_BATCH, SERVE_MAX_LEN, driver="jit", mode="continuous",
+                 device=DEVICE)
+    t0 = time.perf_counter()
+    srv.warmup(SERVE_PROMPT)
+    warm_s = time.perf_counter() - t0
+    stats = srv.run(reqs)
+    bad = [r.rid for r in reqs if not r.done or len(r.out) != r.max_new]
+    log(f"[serve] Server(continuous) {SERVE_BATCH} slots, {len(reqs)} requests (prompts "
+        f"{sorted(len(r.prompt) for r in reqs)}, max_new {[r.max_new for r in reqs]}), warmup "
+        f"{warm_s:.1f} s: {stats['tokens']} tokens in {stats['wall_s']:.2f} s "
+        f"({stats['tokens_per_s']:.1f} tokens/s), decode p50 {stats['decode_p50_us'] / 1e3:.2f} "
+        f"ms p99 {stats['decode_p99_us'] / 1e3:.2f} ms, request p50 "
+        f"{stats['request_p50_ms']:.0f} ms p99 {stats['request_p99_ms']:.0f} ms, occupancy "
+        f"{stats['mean_occupancy']:.2f}, prefill calls {stats['prefill_calls']}")
+    if bad or stats["completed"] != len(reqs):
+        raise AssertionError(f"requests {bad} did not finish with their max_new tokens")
+    checks = [parity(model, cfg, r) for r in reqs[:PARITY_REQUESTS]]
+    log(f"[serve] requests {[r.rid for r in reqs[:PARITY_REQUESTS]]} against sequential "
+        f"batch-1 prefill/decode_step: {checks}")
+    peak = torch.cuda.max_memory_allocated()
+    del model, srv
+    torch.cuda.empty_cache()
+    return {"launches": launches, "greedy_s": gen_s, "greedy_tokens_per_s": B * new / gen_s,
+            "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
+            "decode_ms": statistics.median(step_ms), "peak_bytes": peak,
+            "prefill_logit_diff": diff, "server": stats, "parity": checks,
+            "profile_decode": prof_decode, "profile_prefill": prof_prefill}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
@@ -659,13 +1014,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from scipy.special import erf
     from repro_torch import workloads as w
+    from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import fused_adamw as fa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import split_pipeline as sp
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
-    phase_build([sp.SOURCE, fa.SOURCE])
+    phase_build([sp.SOURCE, fa.SOURCE, fl.SOURCE, rn.SOURCE])
 
     t0 = time.perf_counter()
     bs = w.black_scholes_data(N_MAIN, seed=0, device="cuda")
@@ -692,7 +1049,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     adamw_kernel = phase_adamw_kernel(fa, ref)
+    fl.flash_attention.launches = 0
     train = phase_train(fa, sp, ref)
+    if fl.flash_attention.launches:                  # autograd records: no kernel
+        raise AssertionError(f"training launched flash_attention "
+                             f"{fl.flash_attention.launches} times")
     rows.append(adamw_row(adamw_kernel, train))
     log(f"[times] fused_adamw per step ({rows[-1]['per_step']}): kernel "
         f"{rows[-1]['ms']:.3f} ms over {rows[-1]['launches_per_step']} launches, "
@@ -701,6 +1062,21 @@ def main() -> int:
         f"{rows[-1]['plain_ms']:.3f} ms, torch._fused_adamw_ {rows[-1]['library_ms']} ms "
         f"on {rows[-1]['library_leaves']} (kernel {rows[-1]['ms_on_library_leaves']:.3f} ms "
         f"there)")
+
+    kern = phase_attn_kernels(fl, rn, ref)
+    rms_launches = phase_ops(rn, ref)
+    serve = phase_serve((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm))
+    rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
+                 "replaces": ATTN_REPLACES,
+                 "launches": serve["launches"]["flash_attention"],
+                 **{k: kern["attn"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "shape")},
+                 "serve": {k: v for k, v in serve.items() if k != "launches"}})
+    rows.append({"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
+                 "replaces": RMS_REPLACES, "launches": rms_launches,
+                 "path": "kernels.ops.rmsnorm",
+                 **{k: kern["rms"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms", "shape")}})
 
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

@@ -1,6 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the correctness references).
 
-``adamw_ref`` is the fused AdamW kernel's arithmetic on whole tensors.
+``attention_ref`` and ``rmsnorm_ref`` are copies of the JAX package's
+oracles (``src/repro/kernels/ref.py``) for the flash-attention and RMSNorm
+kernels; ``adamw_ref`` is the fused AdamW kernel's arithmetic on whole
+tensors.
 ``split_pipeline_ref`` evaluates the SAME program the split-pipeline kernel
 runs, opcode by opcode, with torch ops on whole 1-D tensors — so the stage
 lowering is exercised on the CPU, and on the card the kernel is held
@@ -122,3 +125,37 @@ def adamw_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     v = b2 * v + (1.0 - b2) * gf * gf
     update = (m * c1) / (torch.sqrt(v * c2) + eps) + wd * pf
     return (pf - lr * update).to(p.dtype), m, v
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  sm_scale: float | None = None) -> torch.Tensor:
+    """Dense softmax attention with GQA / causal / sliding-window masks:
+    q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), kv head = q head // group.
+    Masked scores are -1e30; rows with no visible key give 0."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    kq = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    vq = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kq) * sm_scale
+    q_ids = torch.arange(Sq, device=q.device)[:, None]
+    k_ids = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (q_ids >= k_ids)
+    if window is not None:
+        mask = mask & (k_ids > q_ids - window)
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    # rows with no visible key: softmax of all -1e30 is uniform; zero them
+    p = torch.where(mask.any(-1, keepdim=True), p, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vq).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * w.to(torch.float32)).to(x.dtype)

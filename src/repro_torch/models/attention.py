@@ -1,14 +1,26 @@
-"""Attention, train mode: the counterpart of ``src/repro/models/attention.py``.
+"""Attention: the counterpart of ``src/repro/models/attention.py``.
 
-Two paths, chosen by the key length as in the reference: dense softmax up
-to ``cfg.dense_attn_threshold`` keys, else blocked attention with an online
-softmax over key blocks whose scores are recomputed in backward.  Scores,
-softmax and the probability-value product accumulate in float32
-(``preferred_element_type=f32`` in the reference).  The KV cache, prefill
-and decode wait for the serving slice.
+Three execution paths for train and prefill, chosen as in the reference:
+the flash-attention kernel (``kernels/flash_attention.py``, the counterpart
+of the reference's Pallas switch) when ``use_kernel`` holds, else dense
+softmax up to ``cfg.dense_attn_threshold`` keys, else blocked attention with
+an online softmax over key blocks whose scores are recomputed in backward.
+Scores, softmax and the probability-value product accumulate in float32
+(``preferred_element_type=f32`` in the reference).
+
+Decode uses the reference's block-partitioned KV cache ``(n_blk, blk, B,
+Hkv, D)``: each block computes a local partial softmax (log-sum-exp form)
+and the partials combine exactly.  Unlike the reference, whose arrays are
+immutable, the port writes K/V into the cache's storage IN PLACE
+(``cache_fill_prefill``, ``cache_update_decode``): the returned cache shares
+``k``/``v`` with the one passed in and carries new ``length``/``start``, so
+a caller keeps only the returned cache.  This saves a copy of the whole
+cache per layer and step.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -17,6 +29,19 @@ from repro_torch.models.config import AttnConfig, ModelConfig
 from repro_torch.models.layers import apply_rope, normal
 
 NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (n_blk, blk, B, Hkv, D)
+    v: torch.Tensor
+    #: tokens stored: () int32, one timeline for every row (train and
+    #: fixed-group serving), or (B,) int32, one position per row
+    #: (continuous batching).  Decode inserts at ``length`` and attends
+    #: ``[start, length)``.
+    length: torch.Tensor
+    #: (B,) int32 first valid position per row (the left-pad width after a
+    #: left-padded prefill, else zeros).
+    start: torch.Tensor
 
 
 def init_attn(cfg: ModelConfig, generator: torch.Generator | None,
@@ -62,7 +87,8 @@ def _visible(q_ids: torch.Tensor, k_ids: torch.Tensor, causal: bool,
     return m
 
 
-def _dense_attention(q, k, v, *, causal: bool, window: int | None, offset: int = 0):
+def _dense_attention(q, k, v, *, causal: bool, window: int | None, offset: int = 0,
+                     kv_len: int | None = None, kv_mask: torch.Tensor | None = None):
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -71,8 +97,12 @@ def _dense_attention(q, k, v, *, causal: bool, window: int | None, offset: int =
                      qs.reshape(B, group, Hkv, Sq, D).to(torch.float32),
                      k.to(torch.float32))
     dev = q.device
-    m = _visible(torch.arange(Sq, device=dev)[:, None] + offset,
-                 torch.arange(Sk, device=dev)[None, :], causal, window)
+    k_ids = torch.arange(Sk, device=dev)[None, :]
+    m = _visible(torch.arange(Sq, device=dev)[:, None] + offset, k_ids, causal, window)
+    if kv_len is not None:
+        m = m & (k_ids < kv_len)
+    if kv_mask is not None:              # (B, Sk): pad keys drop per row
+        m = (m[None] & kv_mask.to(torch.bool)[:, None, :])[:, None, None]
     s = torch.where(m, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bghqk,bhkd->bghqd", p.to(v.dtype).to(torch.float32),
@@ -80,9 +110,11 @@ def _dense_attention(q, k, v, *, causal: bool, window: int | None, offset: int =
     return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
-def _blocked_attention(q, k, v, *, causal: bool, window: int | None, block_k: int):
-    """Online softmax over key blocks, O(block) scores; each block's step
-    is checkpointed so backward recomputes its scores (flash-style)."""
+def _blocked_attention(q, k, v, *, causal: bool, window: int | None, block_k: int,
+                       kv_mask: torch.Tensor | None = None):
+    """Online softmax over key blocks, O(block) scores; while autograd
+    records, each block's step is checkpointed so backward recomputes its
+    scores (flash-style)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -92,11 +124,17 @@ def _blocked_attention(q, k, v, *, causal: bool, window: int | None, block_k: in
     vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
     qs = (q * D ** -0.5).to(q.dtype).reshape(B, group, Hkv, Sq, D).to(torch.float32)
     q_ids = torch.arange(Sq, device=q.device)[:, None]
+    # per-row pad keys, padded to whole blocks: (B, nk * block_k)
+    kmp = (None if kv_mask is None
+           else torch.nn.functional.pad(kv_mask.to(torch.bool), (0, pad)))
 
     def step(m_prev, l_prev, acc, kblk, vblk, idx: int):
         s = torch.einsum("bghqd,bhkd->bghqk", qs, kblk.to(torch.float32))
         k_ids = idx * block_k + torch.arange(block_k, device=q.device)[None, :]
         msk = _visible(q_ids, k_ids, causal, window) & (k_ids < Sk)
+        if kmp is not None:              # (B, Sq, blk)
+            blk = kmp[:, idx * block_k:(idx + 1) * block_k]
+            msk = (msk[None] & blk[:, None, :])[:, None, None]
         s = torch.where(msk, s, NEG_INF)
         m_new = torch.maximum(m_prev, torch.amax(s, dim=-1, keepdim=True))
         pexp = torch.where(msk, torch.exp(s - m_new), 0.0)
@@ -111,32 +149,199 @@ def _blocked_attention(q, k, v, *, causal: bool, window: int | None, block_k: in
     m = torch.full(shape, NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros(shape, dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, group, Hkv, Sq, D), dtype=torch.float32, device=q.device)
+    recording = torch.is_grad_enabled()
     for i in range(nk):
         blk = slice(i * block_k, (i + 1) * block_k)
-        m, l, acc = checkpoint(step, m, l, acc, kp[:, :, blk], vp[:, :, blk], i,
-                               use_reentrant=False)
+        args = (m, l, acc, kp[:, :, blk], vp[:, :, blk], i)
+        m, l, acc = (checkpoint(step, *args, use_reentrant=False) if recording
+                     else step(*args))
     safe = torch.where(l == 0, 1.0, l)
     return (acc / safe).reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def _decode_attention_blocked(q: torch.Tensor, cache: KVCache, *,
+                              window: int | None = None) -> torch.Tensor:
+    """One-token decode over the block-partitioned cache with exact LSE
+    combination across blocks."""
+    B, Hq, _, D = q.shape             # Sq == 1
+    n_blk, blk = cache.k.shape[0], cache.k.shape[1]
+    Hkv = cache.k.shape[3]
+    group = Hq // Hkv
+    qs = (q * D ** -0.5).to(cache.k.dtype).reshape(B, group, Hkv, D)
+    # scores per block: (n_blk, B, group, Hkv, blk)
+    s = torch.einsum("bghd,nkbhd->nbghk", qs.to(torch.float32),
+                     cache.k.to(torch.float32))
+    # validity per (block, row, offset): rows may sit at different positions
+    # (per-slot ``length``) and may start past 0 (left-pad ``start``)
+    pos = torch.arange(n_blk * blk, device=q.device).reshape(n_blk, 1, blk)
+    length = cache.length
+    lb = length[None, :, None] if length.dim() else length
+    valid = pos < lb
+    if window is not None:
+        valid = valid & (pos > lb - 1 - window)
+    valid = valid & (pos >= cache.start[None, :, None])
+    valid = valid.expand(n_blk, B, blk)[:, :, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+
+    m_blk = torch.amax(s, dim=-1, keepdim=True)                   # (n,B,g,h,1)
+    p = torch.where(valid, torch.exp(s - m_blk), 0.0)
+    l_blk = torch.sum(p, dim=-1, keepdim=True)
+    o_blk = torch.einsum("nbghk,nkbhd->nbghd", p.to(cache.v.dtype).to(torch.float32),
+                         cache.v.to(torch.float32))
+
+    m = torch.amax(m_blk, dim=0, keepdim=True)                    # global max
+    w = torch.exp(m_blk - m)                                      # (n,B,g,h,1)
+    l = torch.sum(l_blk * w, dim=0)                               # (B,g,h,1)
+    o = torch.sum(o_blk * w, dim=0)                               # (B,g,h,D)
+    safe = torch.where(l == 0, 1.0, l)
+    return (o / safe).reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = False,
+                  device: torch.device | str = "cuda") -> KVCache:
+    a = cfg.attn
+    n_blk = max(cfg.kv_cache_blocks, 1)
+    blk = -(-max_len // n_blk)
+    shape = (n_blk, blk, batch, a.n_kv_heads, a.head_dim)
+    i32 = dict(dtype=torch.int32, device=device)
+    return KVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        # per_slot: every row tracks its own position (continuous batching)
+        length=torch.zeros((batch,) if per_slot else (), **i32),
+        start=torch.zeros((batch,), **i32))
+
+
+def cache_update_decode(cache: KVCache, k_new: torch.Tensor,
+                        v_new: torch.Tensor) -> KVCache:
+    """Write one token (S == 1) at position ``length`` (per row if (B,)),
+    in place; returns the cache with ``length + 1``."""
+    n_blk, blk = cache.k.shape[0], cache.k.shape[1]
+    pos = cache.length
+    rows_k = k_new[:, :, 0].to(cache.k.dtype)                     # (B, Hkv, D)
+    rows_v = v_new[:, :, 0].to(cache.v.dtype)
+    if pos.dim():
+        # Per-slot positions: each row writes its own (block, offset).  A row
+        # past capacity (an idle slot of a rolling batch) writes nothing, as
+        # the reference's ``mode="drop"`` scatter: it is aimed at the last
+        # position and writes back what is there.  No host read of ``pos``.
+        cap = n_blk * blk
+        live = pos < cap
+        at = torch.where(live, pos, cap - 1).long()
+        bi, off = at // blk, at % blk
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        keep = live[:, None, None]
+        for buf, new in ((cache.k, rows_k), (cache.v, rows_v)):
+            buf[bi, off, rows] = torch.where(keep, new, buf[bi, off, rows])
+        return cache._replace(length=pos + 1)
+    # one timeline: the (B, Hkv, D) slab at (block, offset); a block index
+    # past the end is clamped (``dynamic_update_slice``)
+    bi = torch.clamp(pos // blk, max=n_blk - 1).long().reshape(1)
+    off = (pos % blk).long().reshape(1)
+    cache.k[bi, off] = rows_k[None]
+    cache.v[bi, off] = rows_v[None]
+    return cache._replace(length=pos + 1)
+
+
+def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tensor,
+                       pad_mask: torch.Tensor | None = None) -> KVCache:
+    """Write a full prefill (B, Hkv, S, D) into the blocked cache, in place
+    (positions past S are zeroed, as the reference's padded copy).
+
+    ``pad_mask`` (B, S) bool, True = real token: rows record where their
+    valid span begins (``start``, the left-pad width) and, for a cache with
+    per-slot lengths, where it ends (right-padded rows stop at their true
+    prompt length).  A scalar-length cache keeps ``length = S`` and can
+    therefore only mask LEFT pads."""
+    n_blk, blk = cache.k.shape[0], cache.k.shape[1]
+    B, Hkv, S, D = k_full.shape
+    if S > n_blk * blk:
+        raise ValueError(f"prefill of {S} positions into a cache of {n_blk * blk}")
+    for buf, new in ((cache.k, k_full), (cache.v, v_full)):
+        flat = buf.view(n_blk * blk, B, Hkv, D)
+        flat[:S] = new.permute(2, 0, 1, 3)
+        flat[S:] = 0
+    i32 = dict(dtype=torch.int32, device=k_full.device)
+    if pad_mask is None:
+        start = torch.zeros((B,), **i32)
+        end = torch.full((B,), S, **i32)
+    else:
+        real = pad_mask.to(torch.bool)
+        idx = torch.arange(S, **i32)[None, :]
+        start = torch.amin(torch.where(real, idx, S), dim=1).to(torch.int32)
+        end = (torch.amax(torch.where(real, idx, -1), dim=1) + 1).to(torch.int32)
+    length = end if cache.length.dim() else torch.tensor(S, **i32)
+    return KVCache(cache.k, cache.v, length, start)
+
+
+def _takes_kernel(use_kernel: bool | None, cfg: ModelConfig, q: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, pad_mask) -> bool:
+    """The reference's switch (``use_pallas``, attention.py:406), taken only
+    where the kernel computes the same function: no kv pad mask, no softcap,
+    no banded path; and never while autograd records (the kernel has no
+    backward).  ``use_kernel=None`` means "the inputs lie on a CUDA device";
+    on CPU tensors the kernel's wrapper runs its plain version."""
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    recording = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return (use_kernel and pad_mask is None and cfg.attn.logit_softcap is None
+            and not cfg.banded_attention and not recording)
+
+
+def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int | None) -> torch.Tensor:
+    """The flash-attention kernel on the model's heads.  The kernel maps q
+    head h to kv head h // group (the reference kernel's convention); the
+    model's dense, blocked and decode paths map it to h % Hkv (their
+    ``(group, Hkv)`` reshape).  q's heads go into the kernel's order and the
+    output's come back: views for MHA and MQA, one copy each way for GQA."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    qk = q.reshape(B, group, Hkv, S, D).transpose(1, 2).reshape(B, Hq, S, D)
+    o = flash_attention(qk, k, v, causal=causal, window=window)
+    return o.reshape(B, Hkv, group, S, D).transpose(1, 2).reshape(B, Hq, S, D)
+
+
 def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
-                    window: int | None = None, mode: str = "train") -> torch.Tensor:
-    """Full attention sub-layer for teacher-forced training: (B, S, d) -> (B, S, d)."""
-    if mode != "train":
-        raise NotImplementedError(f"attention mode {mode!r}: the KV cache, "
-                                  "prefill and decode wait for the serving slice")
+                    window: int | None = None, cache: KVCache | None = None,
+                    mode: str = "train", use_kernel: bool | None = None,
+                    pad_mask: torch.Tensor | None = None):
+    """Full attention sub-layer (B, S, d) -> (B, S, d).  Returns (out,
+    new_cache | None).
+
+    ``pad_mask`` (prefill/train, (B, S) bool, True = real token): pad keys
+    are masked out of every query's softmax, and the prefill cache records
+    each row's valid span so later decode steps skip the pad K/V too."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"attention mode {mode!r}")
     a = cfg.attn
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        if mode == "decode" and cache is not None:
+            length = cache.length
+            positions = (length[:, None] if length.dim()
+                         else length.reshape(1, 1).expand(B, 1))
+        else:
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(p, x, a, positions)
-    # The reference switches here (attention.py:406, ``use_pallas`` on a
-    # TPU) to its flash-attention Pallas kernel; the port's Hopper kernel
-    # for it comes with the serving slice (prefill).
-    if k.shape[2] <= cfg.dense_attn_threshold:
-        o = _dense_attention(q, k, v, causal=causal, window=window)
+
+    new_cache = None
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a KV cache")
+        new_cache = cache_update_decode(cache, k, v)
+        o = _decode_attention_blocked(q, new_cache, window=window)
     else:
-        o = _blocked_attention(q, k, v, causal=causal, window=window,
-                               block_k=cfg.attn_block_k)
-    return _merge_heads(o) @ p["wo"].to(x.dtype)
+        if mode == "prefill" and cache is not None:
+            new_cache = cache_fill_prefill(cache, k, v, pad_mask=pad_mask)
+        if _takes_kernel(use_kernel, cfg, q, k, v, pad_mask):
+            o = _kernel_attention(q, k, v, causal=causal, window=window)
+        elif k.shape[2] <= cfg.dense_attn_threshold:
+            o = _dense_attention(q, k, v, causal=causal, window=window, kv_mask=pad_mask)
+        else:
+            o = _blocked_attention(q, k, v, causal=causal, window=window,
+                                   block_k=cfg.attn_block_k, kv_mask=pad_mask)
+    return _merge_heads(o) @ p["wo"].to(x.dtype), new_cache

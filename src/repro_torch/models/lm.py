@@ -1,4 +1,5 @@
-"""Language-model training loss: the counterpart of ``src/repro/models/lm.py``."""
+"""Language-model training loss and greedy serving loop: the counterpart of
+``src/repro/models/lm.py``."""
 
 from __future__ import annotations
 
@@ -77,3 +78,21 @@ def loss_fn(params, batch: dict[str, Any], cfg: ModelConfig,
     return chunked_cross_entropy(hidden, tfm._head(params, cfg), labels, mask,
                                  chunk=ce_chunk or cfg.ce_chunk,
                                  valid_vocab=cfg.vocab_size) + aux
+
+
+@torch.no_grad()
+def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor, max_new: int,
+                    max_len: int | None = None) -> torch.Tensor:
+    """Prefill + greedy decode of ``max_new`` tokens for the (B, S) integer
+    ``prompt``, on the prompt's device; returns (B, max_new) tokens."""
+    B, S = prompt.shape
+    max_len = max_len or (S + max_new)
+    caches = tfm.init_caches(cfg, B, max_len, device=prompt.device)
+    logits, caches = tfm.prefill(params, cfg, tokens=prompt, caches=caches)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
+    outs = [tok]
+    for _ in range(max_new - 1):
+        logits, caches = tfm.decode_step(params, cfg, tok, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
+        outs.append(tok)
+    return torch.cat(outs, dim=1)

@@ -1,12 +1,15 @@
 """The dense transformer stack: the counterpart of
-``src/repro/models/transformer.py`` for the dense family in train mode.
+``src/repro/models/transformer.py`` for the dense family.
 
 The reference scans a homogeneous per-layer block over parameters stacked
 along a leading ``L`` axis, with ``jax.checkpoint`` remat per layer (and a
 nested scan at 8+ layers, which changes memory, not values).  The port
 keeps the stacked layout and runs the stack as a Python loop over layers,
-each layer under ``torch.utils.checkpoint`` when ``cfg.remat``.  Other
-families, the KV cache and serving wait for later slices.
+each layer under ``torch.utils.checkpoint`` in train mode when
+``cfg.remat``.  Decode state is the reference's stacked KV cache (a
+``KVCache`` whose leaves carry a leading ``L`` axis); prefill and decode
+write each layer's K/V into it in place and return it with new lengths.
+Other families wait for later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_tokens, normal, rms_norm, unembed
 from repro_torch.models.weights import ParamTree
@@ -86,25 +90,40 @@ def _unstack(tree, n: int) -> list[dict]:
 
 
 def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
-                 positions: torch.Tensor | None) -> torch.Tensor:
+                 positions: torch.Tensor | None, cache: KVCache | None = None,
+                 mode: str = "train", pad_mask: torch.Tensor | None = None,
+                 use_kernel: bool | None = None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_mod.attention_block(p["attn"], h, cfg, positions=positions,
-                                     causal=True, window=window)
+    a_out, new_cache = attn_mod.attention_block(
+        p["attn"], h, cfg, positions=positions, causal=True, window=window,
+        cache=cache, mode=mode, use_kernel=use_kernel, pad_mask=pad_mask)
+    x = x + a_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_mod.mlp_block(p["mlp"], h2, cfg)
+    return x + mlp_mod.mlp_block(p["mlp"], h2, cfg), new_cache
 
 
 def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor | None = None) -> torch.Tensor:
-    """The layer stack, teacher-forced (train mode)."""
+              caches: KVCache | None = None, mode: str = "train",
+              positions: torch.Tensor | None = None,
+              pad_mask: torch.Tensor | None = None, use_kernel: bool | None = None):
+    """The layer stack.  Returns (x, new_caches, aux): ``caches`` is the
+    stacked KV cache (None in train mode); ``pad_mask`` (B, S) marks real
+    tokens; ``use_kernel`` picks the flash-attention kernel where it applies
+    (``attention._takes_kernel``).  The dense family has no auxiliary loss."""
     layers = _unstack(params["layers"], cfg.n_layers)
-    for p, window in zip(layers, layer_windows(cfg)):
-        if cfg.remat:
-            x = checkpoint(_apply_block, p, x, cfg, window, positions,
-                           use_reentrant=False)
-        else:
-            x = _apply_block(p, x, cfg, window, positions)
-    return x
+    remat = cfg.remat and mode == "train"
+    lengths, starts = [], []
+    for i, (p, window) in enumerate(zip(layers, layer_windows(cfg))):
+        cache = None if caches is None else KVCache(*(leaf[i] for leaf in caches))
+        args = (p, x, cfg, window, positions, cache, mode, pad_mask, use_kernel)
+        x, new = (checkpoint(_apply_block, *args, use_reentrant=False) if remat
+                  else _apply_block(*args))
+        if caches is not None:          # K/V went into caches.k/v in place
+            lengths.append(new.length)
+            starts.append(new.start)
+    if caches is not None:
+        caches = KVCache(caches.k, caches.v, torch.stack(lengths), torch.stack(starts))
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -125,8 +144,7 @@ def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
     """Teacher-forced forward up to the final norm: (hidden, aux_loss);
     the dense family has no auxiliary loss (0)."""
     x = embed_tokens(params["embed"], tokens, cfg)
-    x = run_stack(params, x, cfg, positions=positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = run_stack(params, x, cfg, positions=positions)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -135,3 +153,52 @@ def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
     """Teacher-forced forward: (logits, aux_loss)."""
     hidden, aux = forward_hidden(params, cfg, tokens, positions)
     return unembed(hidden, _head(params, cfg)), aux
+
+
+# -- serving ------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = False,
+                device: torch.device | str = "cuda") -> KVCache:
+    """Decode state: the KV cache of every layer stacked along a leading
+    ``L`` axis.  ``per_slot=True`` gives every batch row its own position
+    counter (continuous batching: rows join and leave mid-flight)."""
+    check_ported(cfg)
+    one = attn_mod.init_kv_cache(cfg, batch, max_len, per_slot=per_slot, device=device)
+    return KVCache(*(leaf.unsqueeze(0).repeat(cfg.n_layers, *([1] * leaf.dim()))
+                     for leaf in one))
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: KVCache | None = None,
+            positions: torch.Tensor | None = None, pad_mask: torch.Tensor | None = None,
+            last_pos: torch.Tensor | None = None, use_kernel: bool | None = None):
+    """Process the prompt, fill caches, return logits of the LAST position.
+
+    ``pad_mask`` (B, S) bool, True = real token: pad key positions are
+    masked out of every attention softmax and the cache records each row's
+    valid span.  ``last_pos`` (B,) selects each row's own last REAL position
+    for the returned logits (right-padded rows); default is the final array
+    position (correct for unpadded and left-padded prompts).  Without a pad
+    mask every layer's attention takes the flash-attention kernel on a CUDA
+    device (``use_kernel``, default: there)."""
+    x = embed_tokens(params["embed"], tokens, cfg)
+    x, caches, _ = run_stack(params, x, cfg, caches=caches, mode="prefill",
+                             positions=positions, pad_mask=pad_mask,
+                             use_kernel=use_kernel)
+    if last_pos is not None:
+        idx = last_pos.long()[:, None, None].expand(-1, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx)
+    else:
+        x = x[:, -1:]
+    return logits_from_hidden(params, x, cfg), caches
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: KVCache,
+                positions: torch.Tensor | None = None):
+    """One decode step.  token: (B, 1) integer.  Returns (logits, caches)."""
+    x = embed_tokens(params["embed"], token, cfg)
+    x, caches, _ = run_stack(params, x, cfg, caches=caches, mode="decode",
+                             positions=positions)
+    return logits_from_hidden(params, x, cfg), caches

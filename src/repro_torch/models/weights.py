@@ -9,6 +9,8 @@ the same (sorted-path) order as the reference's ``tree_flatten``.
 
 ``ParamTree`` holds that tree as ``nn.Parameter``s of nested modules and
 can be indexed like the reference's dict (``params["layers"]["attn"]``).
+KV caches carry across the same way: the reference's stacked ``KVCache``
+and the port's have the same leaves in the same layout.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 
 
@@ -134,3 +137,25 @@ def to_numpy(params: ParamTree | Mapping[str, Any]) -> dict:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return unflatten({k: host(v) for k, v in flatten(tree).items()})
+
+
+def cache_from_numpy(cache: Any, cfg: ModelConfig,
+                     device: torch.device | str = "cuda") -> KVCache:
+    """The reference's stacked ``KVCache`` (leaves as numpy arrays: k, v
+    (L, n_blk, blk, B, Hkv, D), length (L,) or (L, B), start (L, B)) as the
+    port's; k and v take ``cfg.dtype`` (bfloat16 bit for bit), the counters
+    int32."""
+    k, v, length, start = cache
+    kv = [_tensor(x).to(device=device, dtype=cfg.dtype) for x in (k, v)]
+    ints = [torch.from_numpy(np.array(x, dtype=np.int32)).to(device) for x in (length, start)]
+    return KVCache(*kv, *ints)
+
+
+def cache_to_numpy(cache: KVCache) -> KVCache:
+    """The port's KV cache as a ``KVCache`` of numpy arrays in the
+    reference's layout; bfloat16 leaves come out as float32 (exact)."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return KVCache(*(host(t) for t in cache))

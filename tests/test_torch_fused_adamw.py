@@ -123,3 +123,29 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((TypeError, ValueError)):
         fa.fused_adamw(p, g, m, v, sc, eps=1e-8, wd=0.1)
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ops_wrapper_matches_jax_ops(dtype):
+    """``repro_torch.kernels.ops.fused_adamw`` takes the reference ops'
+    keyword arguments (scalars and the step, not a scalar row)."""
+    from repro_torch.kernels import ops as tops
+    p, g, m, v = _inputs(4099)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1, grad_scale=0.5)
+    want = ops.fused_adamw(jnp.asarray(p, JDT[dtype]), jnp.asarray(g, JDT[dtype]),
+                           jnp.asarray(m), jnp.asarray(v), lr=jnp.float32(1e-3),
+                           step=jnp.int32(7), block=4096, **kw)
+    got = tops.fused_adamw(torch.from_numpy(p).to(TDT[dtype]), torch.from_numpy(g).to(TDT[dtype]),
+                           torch.from_numpy(m), torch.from_numpy(v), lr=1e-3, step=7,
+                           block=4096, **kw)
+    np.testing.assert_allclose(got[0].float().numpy(), np.asarray(want[0], np.float32),
+                               **TOL[dtype])
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
+
+
+def test_ops_exposes_the_reference_names():
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+    names = ("flash_attention", "fused_adamw", "rmsnorm", "split_pipeline")
+    assert all(callable(getattr(jops, n)) and callable(getattr(tops, n)) for n in names)
