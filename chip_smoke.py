@@ -1,6 +1,8 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --rmsnorm-compare OLD.cu   # also time another
+                                   # version of csrc/rmsnorm.cu beside it
 
 Phases (any failure exits nonzero; nothing runs on the CPU instead):
 
@@ -37,18 +39,28 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              step and the peak device memory are printed;
 7. attn    — hold the flash-attention kernel against its plain version
              (``tests/test_kernels.py``'s TestFlashAttention cases, non-causal,
-             windows 32 and 128, Sk > Sq, ragged Sq/Sk and gemma's prefill
-             shape (4, 16, 2048, 256) causal bfloat16) and the RMSNorm kernel
-             (TestRMSNorm shapes, (8192, 3072) and (65536, 3072)), float32
-             and bfloat16; time both at gemma's shapes beside their bounds,
-             their plain versions and ``F.scaled_dot_product_attention`` /
+             windows 32 and 128, Sk > Sq, ragged Sq/Sk, in float32 on the
+             simt variant and bfloat16 on the tc variant; bfloat16 edges of
+             the tc variant: the model's head-split views, ragged Sq/Sk at D
+             64/128/256, windows of 5 and 40 keys, and D 40, which the rule
+             sends to simt; gemma's prefill shape (4, 16, 2048, 256) causal
+             bfloat16), each line with the variant that ran, the launches
+             per variant and, in bfloat16, ||kernel - plain|| / ||plain||
+             (at most 1e-2), and the RMSNorm kernel (TestRMSNorm shapes,
+             (8192, 3072), (65536, 3072), (2, 20000) and an offset view),
+             float32 and bfloat16; time both at gemma's shapes (device times
+             from ``torch.profiler``; RMSNorm on cold L2, each call on the
+             next of 4 x buffers, medians of 5 interleaved rounds) beside
+             their bounds, their plain versions, the simt variant on the
+             tc variant's inputs, and ``F.scaled_dot_product_attention`` /
              ``F.rms_norm``;
 8. ops     — the RMSNorm kernel's path, ``kernels.ops.rmsnorm`` (its only
              caller, as in the reference), at gemma's hidden-state shapes;
 9. serve   — gemma-7b at its published widths and full depth (28 layers),
              random weights from a seed, under ``inference_mode``:
              ``lm.greedy_generate`` (batch 4, prompt 2048, 32 new tokens; 28
-             flash-attention launches per prefill), its prefill held against
+             flash-attention launches per prefill, all of the tc variant),
+             its prefill held against
              the plain attention path (``use_kernel=False``), prefill and
              decode times; then ``launch.serve.Server(mode="continuous")``
              on 12 requests (prompts 256-2048, 8-48 new tokens) with decode
@@ -61,6 +73,8 @@ record and the device record.
 
 from __future__ import annotations
 
+import argparse
+import itertools
 import json
 import math
 import statistics
@@ -92,8 +106,13 @@ RMS_REPLACES = "src/repro/kernels/rmsnorm.py:19"
 RMS_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
 BF16_OPS_PER_S = 989e12          # dense bfloat16 on the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+ATTN_REL_TOL = 1e-2              # ||kernel - plain|| / ||plain||, bfloat16 attention
+RMS_ROTATE = 4                   # timed RMSNorm calls cycle 4 x 50 MB of x, past the 50 MB L2
+RMS_BURST = 48                   # RMSNorm calls per timing
+RMS_ROUNDS = 5                   # interleaved rounds of the RMSNorm timings (medians)
 GEMMA_ATTN = (4, 16, 2048, 256)  # gemma-7b prefill: batch 4, 16 heads, 2048, 256
-RMS_SHAPES = ((8, 128), (3, 512), (2, 5, 256), (300, 1024), (8192, 3072), (65536, 3072))
+RMS_SHAPES = ((8, 128), (3, 512), (2, 5, 256), (300, 1024), (8192, 3072), (65536, 3072),
+              (2, 20000))   # the last: w wider than the kernel's shared-memory copy
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_REQUESTS, SERVE_MAX_LEN, PARITY_REQUESTS = 12, 2112, 3
 DEVICE = "cuda"
@@ -722,39 +741,150 @@ def attn_bound(B, Hq, Hkv, Sq, Sk, D, causal, elem) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-def phase_attn_kernels(fl, rn, ref) -> dict:
+ATTN_EDGES = (  # bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, head-split views)
+    (2, 4, 4, 300, 300, 256, True, None, True),     # the model's head-split views, ragged
+    (1, 4, 2, 190, 190, 128, True, None, True),     # GQA head-split views
+    (2, 4, 2, 100, 77, 64, True, None, False),      # D 64, ragged Sq and Sk
+    (1, 2, 2, 200, 333, 128, False, None, False),   # D 128, ragged, Sk > Sq
+    (1, 2, 2, 333, 333, 256, True, None, False),    # D 256, ragged
+    (1, 2, 2, 333, 333, 256, True, 40, False),      # a window shorter than one tile
+    (1, 2, 2, 70, 70, 64, True, 5, True),
+    (1, 2, 2, 100, 100, 40, True, None, False),     # D 40: the rule sends it to simt
+)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: the ``torch.profiler`` kernel
+    time of ``reps`` calls (after one warm-up) over ``reps``.  Unlike
+    ``cuda_ms`` it leaves out the host's launch time, which is longer than a
+    short kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise AssertionError("torch.profiler saw no device time")
+    return us / 1e3 / reps
+
+
+def attn_case(fl, ref, what, q, k, v, causal, window, variant) -> float:
+    """One kernel launch against the plain version; it must take ``variant``."""
+    before = dict(fl.flash_attention.variant_launches)
+    got = fl.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    counts = fl.flash_attention.variant_launches
+    ran = [name for name in counts if counts[name] != before[name]]
+    if ran != [variant]:
+        raise AssertionError(f"flash_attention {what}: ran {ran}, expected [{variant!r}]")
+    err = compare(f"flash_attention {what}", got, want, TOL[q.dtype], atol_scale=0.0,
+                  atol=TOL[q.dtype])
+    # The elementwise bound is about half a typical |out| at long Sk; a lost
+    # key tile or a mis-scaled p moves the whole output by more than this.
+    rel = float((got.double() - want.double()).norm() / want.double().norm())
+    if q.dtype == torch.bfloat16 and not rel <= ATTN_REL_TOL:
+        raise AssertionError(f"flash_attention {what}: ||kernel - plain|| / ||plain|| = "
+                             f"{rel:.3e} > {ATTN_REL_TOL}")
+    log(f"[attn] {what}: variant {variant}, max |kernel - plain| {err:.3e}, "
+        f"||kernel - plain|| / ||plain|| {rel:.3e}; launches {counts}")
+    return err
+
+
+def rms_raw(lib, xs, w, ys, nxt):
+    """A launch of ``lib``'s RMSNorm kernel (any build of ``rmsnorm.cu``'s C
+    interface) on the next of ``xs`` into the same of ``ys``: no wrapper,
+    no launch count."""
+    n, d = xs[0].shape
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        i = nxt()
+        rc = lib.rmsnorm_launch(1, 0, xs[i].data_ptr(), w.data_ptr(), ys[i].data_ptr(), n, d,
+                                1e-6, 0, stream)
+        if rc:
+            raise RuntimeError(f"rmsnorm launch failed ({rc})")
+    return run
+
+
+def rms_times(fns: dict) -> dict:
+    """name -> (device ms per call, CUDA-event ms per call around
+    ``RMS_BURST`` back-to-back calls, (least, most) device ms of a round) of
+    each of ``fns``: medians of ``RMS_ROUNDS`` rounds, each round timing
+    every function in turn, so that a drift of the card's clock falls on all
+    alike."""
+    rounds = {name: ([], []) for name in fns}
+    for _ in range(RMS_ROUNDS):
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(RMS_BURST):
+                fn()
+            end.record()
+            end.synchronize()
+            rounds[name][0].append(device_ms(fn, RMS_BURST))
+            rounds[name][1].append(start.elapsed_time(end) / RMS_BURST)
+    return {name: (statistics.median(dev), statistics.median(burst), (min(dev), max(dev)))
+            for name, (dev, burst) in rounds.items()}
+
+
+def phase_attn_kernels(fl, rn, ref, rms_compare=()) -> dict:
     """Both kernels against their plain versions, then timed at gemma's
-    shapes beside the library calls."""
+    shapes beside the library calls (and the RMSNorm kernel beside the
+    builds of ``rms_compare``, other versions of its source)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build as kernel_build
     gen = torch.Generator(device="cuda").manual_seed(2)
+    fl.reset_counts()
     worst = 0.0
     for case in ATTN_CASES:
         B, Hq, Hkv, Sq, Sk, D, causal, window = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = attn_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen)
-            got = fl.flash_attention(q, k, v, causal=causal, window=window)
-            want = ref.attention_ref(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            worst = max(worst, compare(f"flash_attention {case} {dtype}", got, want,
-                                       TOL[dtype], atol_scale=0.0, atol=TOL[dtype]))
+            worst = max(worst, attn_case(fl, ref, f"{case} {dtype}", q, k, v, causal, window,
+                                         "tc" if dtype == torch.bfloat16 else "simt"))
+    for case in ATTN_EDGES:
+        B, Hq, Hkv, Sq, Sk, D, causal, window, split = case
+        if split:   # (B, S, H, D) storage seen as (B, H, S, D), as attention.py splits heads
+            q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                       .to(torch.bfloat16).transpose(1, 2)
+                       for H, S in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk)))
+        else:
+            q, k, v = attn_inputs(B, Hq, Hkv, Sq, Sk, D, torch.bfloat16, gen)
+        worst = max(worst, attn_case(fl, ref, f"{case} torch.bfloat16", q, k, v, causal,
+                                     window, "tc" if D % 16 == 0 else "simt"))
     log(f"[attn] flash_attention: {len(ATTN_CASES)} cases (MHA, GQA, MQA, D 64/128/256, "
-        f"non-causal, windows, Sk > Sq, ragged), float32 and bfloat16: max |kernel - "
-        f"plain| = {worst:.3e} (rtol/atol 2e-5 float32, 2e-2 bfloat16)")
+        f"non-causal, windows, Sk > Sq, ragged) in float32 (simt) and bfloat16 (tc), "
+        f"{len(ATTN_EDGES)} bfloat16 edges (head-split views, ragged D 64/128/256, a "
+        f"5- and a 40-key window, D 40 on simt): max |kernel - plain| = {worst:.3e} "
+        f"(rtol/atol 2e-5 float32, 2e-2 bfloat16); launches {fl.flash_attention.variant_launches}")
     B, H, S, D = GEMMA_ATTN
     q, k, v = attn_inputs(B, H, H, S, S, D, torch.bfloat16, gen)
-    gemma_err = compare("flash_attention gemma prefill", fl.flash_attention(q, k, v),
-                        ref.attention_ref(q, k, v), 2e-2, atol_scale=0.0, atol=2e-2)
+    gemma_err = attn_case(fl, ref, f"gemma prefill {GEMMA_ATTN} causal", q, k, v, True, None,
+                          "tc")
+    kernel = lambda: fl.flash_attention(q, k, v, causal=True)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
     attn = {"max_abs_err": max(worst, gemma_err), "shape": list(GEMMA_ATTN),
-            "ms": cuda_ms(lambda: fl.flash_attention(q, k, v, causal=True), 10),
+            "ms": device_ms(kernel, 20), "event_ms": cuda_ms(kernel, 10),
+            "simt_ms": device_ms(lambda: fl._attention(q, k, v, causal=True, variant="simt"),
+                                 3),
             "plain_ms": cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), 3),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 20),
+            "library_ms": device_ms(sdpa, 20), "library_event_ms": cuda_ms(sdpa, 20),
             **attn_bound(B, H, H, S, S, D, True, 2)}
-    log(f"[attn] flash_attention {GEMMA_ATTN} causal bfloat16: kernel {attn['ms']:.3f} ms "
-        f"(bound {attn['bound_ms']:.3f} ms by {attn['bound_by']}, "
-        f"{attn['bound_ms'] / attn['ms']:.1%} of it), plain {attn['plain_ms']:.3f} ms, "
-        f"F.scaled_dot_product_attention {attn['library_ms']:.3f} ms; max |kernel - plain| "
-        f"{gemma_err:.3e}")
+    log(f"[attn] flash_attention {GEMMA_ATTN} causal bfloat16, device times: tc kernel "
+        f"{attn['ms']:.4f} ms (bound {attn['bound_ms']:.4f} ms by {attn['bound_by']}, "
+        f"{attn['bound_ms'] / attn['ms']:.1%} of it), simt variant on the same inputs "
+        f"{attn['simt_ms']:.3f} ms, F.scaled_dot_product_attention {attn['library_ms']:.4f} "
+        f"ms; CUDA-event times of one call: kernel {attn['event_ms']:.4f} ms, SDPA "
+        f"{attn['library_event_ms']:.4f} ms, plain {attn['plain_ms']:.3f} ms; max |kernel - "
+        f"plain| {gemma_err:.3e}")
     del q, k, v
 
     worst = 0.0
@@ -765,24 +895,59 @@ def phase_attn_kernels(fl, rn, ref) -> dict:
             worst = max(worst, compare(f"rmsnorm {shape} {dtype}", rn.rmsnorm(x, w),
                                        ref.rmsnorm_ref(x, w), TOL[dtype], atol_scale=0.0,
                                        atol=TOL[dtype]))
-    log(f"[attn] rmsnorm at {RMS_SHAPES}, float32 and bfloat16: max |kernel - plain| = "
-        f"{worst:.3e}")
-    x = torch.randn(8192, 3072, generator=gen, device="cuda").to(torch.bfloat16)
+    # one element into its storage: no row is 16-byte aligned (the scalar loop)
+    x = torch.randn(8192 * 3072 + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    x = x[1:].view(8192, 3072)
     w = torch.rand(3072, generator=gen, device="cuda") + 0.5
+    worst = max(worst, compare("rmsnorm offset view (8192, 3072)", rn.rmsnorm(x, w),
+                               ref.rmsnorm_ref(x, w), 2e-2, atol_scale=0.0, atol=2e-2))
+    log(f"[attn] rmsnorm at {RMS_SHAPES}, float32 and bfloat16, and an offset (8192, 3072) "
+        f"bfloat16 view: max |kernel - plain| = {worst:.3e}")
+    n, d = 8192, 3072
+    xs = [torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(RMS_ROTATE)]
+    ys = [torch.empty_like(x) for x in xs]
+    w = torch.rand(d, generator=gen, device="cuda") + 0.5
     wl = w.to(torch.bfloat16)
-    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    nbytes = 2 * xs[0].numel() * xs[0].element_size() + w.numel() * w.element_size()
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * x.numel() / F32_OPS_PER_S * 1e3     # square-add, scale, weight
-    rms = {"max_abs_err": worst, "shape": [8192, 3072],
-           "ms": cuda_ms(lambda: rn.rmsnorm(x, w), 20),
-           "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(x, w), 10),
-           "library_ms": cuda_ms(lambda: F.rms_norm(x, (3072,), wl, 1e-6), 20),
+    ops_ms = 4 * xs[0].numel() / F32_OPS_PER_S * 1e3     # square-add, scale, weight
+    nxt = itertools.cycle(range(RMS_ROTATE)).__next__
+    library = lambda: F.rms_norm(xs[nxt()], (d,), wl, 1e-6)
+    fns = {"F.rms_norm": library}   # each call on the next x (and y)
+    for source in (rn.SOURCE, *rms_compare):
+        if source != rn.SOURCE:
+            _path, _secs, compiler_log = kernel_build.build(Path(source).resolve())
+            for line in compiler_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[attn] {source} ptxas: {line.strip()}")
+        lib = kernel_build.load(Path(source).resolve(), rn._configure)
+        fns[str(source)] = rms_raw(lib, xs, w, ys, nxt)
+    times = rms_times(fns)
+    lib_ms, lib_burst, lib_span = times["F.rms_norm"]
+    ms, burst, span = times[str(rn.SOURCE)]
+    rms = {"max_abs_err": worst, "shape": [n, d], "ms": ms, "burst_ms": burst,
+           "event_ms": cuda_ms(lambda: rn.rmsnorm(xs[0], w), 20),
+           "plain_ms": cuda_ms(lambda: ref.rmsnorm_ref(xs[0], w), 10),
+           "library_ms": lib_ms, "library_burst_ms": lib_burst,
+           "library_event_ms": cuda_ms(lambda: F.rms_norm(xs[0], (d,), wl, 1e-6), 20),
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
-    log(f"[attn] rmsnorm (8192, 3072) bfloat16: kernel {rms['ms']:.4f} ms (bound "
-        f"{rms['bound_ms']:.4f} ms by {rms['bound_by']}, {rms['bound_ms'] / rms['ms']:.1%} "
-        f"of it), plain {rms['plain_ms']:.4f} ms, F.rms_norm {rms['library_ms']:.4f} ms")
-    del x, w, wl
+    log(f"[attn] rmsnorm ({n}, {d}) bfloat16, each timed call on the next of {RMS_ROTATE} "
+        f"x and y buffers (cold L2), medians of {RMS_ROUNDS} interleaved rounds: device time "
+        f"kernel {ms:.5f} ms (rounds {span[0]:.5f}-{span[1]:.5f}; bound "
+        f"{rms['bound_ms']:.5f} ms by {rms['bound_by']}, {rms['bound_ms'] / ms:.1%} of it), "
+        f"F.rms_norm {lib_ms:.5f} ms ({lib_span[0]:.5f}-{lib_span[1]:.5f}); CUDA events around {RMS_BURST} back-to-back calls, "
+        f"per call: kernel {burst:.5f} ms, F.rms_norm {lib_burst:.5f} ms; CUDA-event time of "
+        f"one call (host launch included): kernel {rms['event_ms']:.4f} ms, F.rms_norm "
+        f"{rms['library_event_ms']:.4f} ms, plain {rms['plain_ms']:.4f} ms")
+    for source in rms_compare:
+        c_ms, c_burst, c_span = times[str(source)]
+        log(f"[attn] rmsnorm ({n}, {d}) bfloat16, {source} timed the same way: device time "
+            f"{c_ms:.5f} ms ({c_span[0]:.5f}-{c_span[1]:.5f}; {rms['bound_ms'] / c_ms:.1%} "
+            f"of the bound), {RMS_BURST} "
+            f"back-to-back calls {c_burst:.5f} ms per call")
+    del xs, ys, w, wl
     torch.cuda.empty_cache()
     return {"attn": attn, "rms": rms}
 
@@ -890,7 +1055,7 @@ def log_profile(what: str, prof: dict) -> None:
 
 
 @torch.inference_mode()
-def phase_serve(counters) -> dict:
+def phase_serve(counters, flash) -> dict:
     from repro_torch.launch.serve import Server
     from repro_torch.models import lm
     from repro_torch.models import transformer as tfm
@@ -914,17 +1079,21 @@ def phase_serve(counters) -> dict:
     # the main path: counts set to 0 just before, read just after
     for c in counters:
         c.launches = 0
+    flash.variant_launches = {name: 0 for name in flash.variant_launches}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tokens = lm.greedy_generate(model, cfg, prompt, new)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    variants = dict(flash.variant_launches)
     log(f"[serve] lm.greedy_generate batch {B}, prompt {S}, {new} new tokens: "
-        f"{gen_s * 1e3:.1f} ms, {B * new / gen_s:.1f} tokens/s; launches {launches}")
-    if launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"{launches['flash_attention']} flash_attention launches for "
-                             f"one prefill of {cfg.n_layers} layers")
+        f"{gen_s * 1e3:.1f} ms, {B * new / gen_s:.1f} tokens/s; launches {launches}, "
+        f"flash_attention by variant {variants}")
+    if launches["flash_attention"] != cfg.n_layers or variants["tc"] != cfg.n_layers:
+        raise AssertionError(f"{launches['flash_attention']} flash_attention launches "
+                             f"({variants}) for one prefill of {cfg.n_layers} layers; "
+                             f"expected {cfg.n_layers} of the tc variant")
     if tuple(tokens.shape) != (B, new) or not bool(((tokens >= 0) &
                                                    (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"greedy tokens: shape {tuple(tokens.shape)} or out of range")
@@ -999,7 +1168,7 @@ def phase_serve(counters) -> dict:
     peak = torch.cuda.max_memory_allocated()
     del model, srv
     torch.cuda.empty_cache()
-    return {"launches": launches, "greedy_s": gen_s, "greedy_tokens_per_s": B * new / gen_s,
+    return {"launches": launches, "flash_variant_launches": variants, "greedy_s": gen_s, "greedy_tokens_per_s": B * new / gen_s,
             "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
             "decode_ms": statistics.median(step_ms), "peak_bytes": peak,
             "prefill_logit_diff": diff, "server": stats, "parity": checks,
@@ -1007,6 +1176,11 @@ def phase_serve(counters) -> dict:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
+                        help="another version of csrc/rmsnorm.cu (same C interface) to "
+                             "build and time beside the kernel at (8192, 3072); repeatable")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
             "this check runs on the card only")
@@ -1063,20 +1237,26 @@ def main() -> int:
         f"on {rows[-1]['library_leaves']} (kernel {rows[-1]['ms_on_library_leaves']:.3f} ms "
         f"there)")
 
-    kern = phase_attn_kernels(fl, rn, ref)
+    kern = phase_attn_kernels(fl, rn, ref, args.rmsnorm_compare)
     rms_launches = phase_ops(rn, ref)
-    serve = phase_serve((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm))
+    serve = phase_serve((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm),
+                        fl.flash_attention)
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
                  "replaces": ATTN_REPLACES,
                  "launches": serve["launches"]["flash_attention"],
+                 "variant_launches": serve["flash_variant_launches"],
                  **{k: kern["attn"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "library_ms", "shape")},
-                 "serve": {k: v for k, v in serve.items() if k != "launches"}})
+                                                 "bound_by", "library_ms", "shape", "event_ms",
+                                                 "simt_ms", "library_event_ms")},
+                 "serve": {k: v for k, v in serve.items()
+                           if k not in ("launches", "flash_variant_launches")}})
     rows.append({"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
                  "replaces": RMS_REPLACES, "launches": rms_launches,
                  "path": "kernels.ops.rmsnorm",
                  **{k: kern["rms"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms", "shape")}})
+                                                "bound_by", "library_ms", "shape", "event_ms",
+                                                "burst_ms", "library_event_ms",
+                                                "library_burst_ms")}})
 
     for row in rows:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):

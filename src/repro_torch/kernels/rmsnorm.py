@@ -4,8 +4,10 @@ ONE CUDA kernel launch.
 The counterpart of ``src/repro/kernels/rmsnorm.py``.  The kernel
 (``csrc/rmsnorm.cu``) reads each row of x (float32 or bfloat16) once, takes
 its mean square in float32, and writes ``(x * rsqrt(ms + eps)) * w`` in x's
-dtype; w is float32 or bfloat16.  One CTA per row, so rows need no padding
-(the reference pads them to whole row blocks).
+dtype; w is float32 or bfloat16.  One warp per row, eight rows per CTA,
+16-byte loads and stores, so rows need no padding (the reference pads them
+to whole row blocks); a row that is not 16-byte aligned (an offset view, an
+odd width) takes the kernel's scalar loop.
 
 Built with ``nvcc`` for ``sm_90a`` at first use (``kernels/build.py``),
 bound with ``ctypes`` and launched on PyTorch's current stream.  A tensor on

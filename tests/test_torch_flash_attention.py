@@ -140,3 +140,49 @@ def test_wrapper_rejects_mixed_devices():
     kv = torch.zeros(1, 2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="lies on"):
         fl.flash_attention(q, kv, kv)
+
+
+def _head_split(B, H, S, D, dtype=torch.bfloat16, device="meta"):
+    """The model's (B, H, S, D) view of a (B, S, H * D) projection."""
+    return torch.empty(B, S, H * D, dtype=dtype, device=device).view(B, S, H, D).transpose(1, 2)
+
+
+def _offset_view(B, H, S, D):
+    """A contiguous (B, H, S, D) view one element into its storage: its base
+    is 2 bytes off 16-byte alignment."""
+    return torch.zeros(B * H * S * D + 1, dtype=torch.bfloat16)[1:].view(B, H, S, D)
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: [_head_split(4, 16, 2048, 256)] * 3, "tc"),                 # gemma's prefill
+    (lambda: [torch.empty(4, 16, 2048, 256, dtype=torch.bfloat16, device="meta")] * 3, "tc"),
+    (lambda: [torch.empty(1, 2, 77, 64, dtype=torch.bfloat16)] * 3, "tc"),  # ragged S
+    (lambda: [_head_split(4, 16, 2048, 256, torch.float32)] * 3, "simt"),  # float32
+    (lambda: [torch.empty(1, 2, 64, 40, dtype=torch.bfloat16)] * 3, "simt"),  # D = 40
+    (lambda: [torch.empty(1, 2, 64, 264, dtype=torch.bfloat16, device="meta")] * 3, "simt"),
+    (lambda: [_offset_view(1, 2, 64, 64)] * 3, "simt"),                  # unaligned base
+    (lambda: [torch.empty(1, 2, 64, 64, dtype=torch.bfloat16),
+              torch.empty(1, 2, 0, 64, dtype=torch.bfloat16),
+              torch.empty(1, 2, 0, 64, dtype=torch.bfloat16)], "simt"),  # no keys
+    (lambda: [torch.empty(1, 2, 64, 68, dtype=torch.bfloat16)[..., :64]] * 3,
+     "simt"),                                                            # row stride 68
+    (lambda: [torch.empty(1, 1, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 1, 1, 64), (3, 5, 7, 1))] * 3, "tc"),                         # size-1 dims
+])
+def test_variant_rule(make, want):
+    """The one dispatch rule between the tensor-core and CUDA-core variants:
+    bfloat16, D a multiple of 16 up to 256, Sk >= 1, 16-byte aligned bases
+    and strides (of dimensions longer than 1) that are multiples of 8."""
+    q, k, v = make()
+    assert fl._variant(q, k, v) == want
+
+
+def test_variant_argument_is_checked_and_cpu_counts_nothing():
+    (_j, (tq, tk, tv)) = _inputs([(1, 2, 64, 32)] * 3, "bfloat16")
+    with pytest.raises(ValueError, match="variant"):
+        fl._attention(tq, tk, tv, variant="mma")
+    fl.reset_counts()
+    got = fl._attention(tq, tk, tv, variant="simt")     # CPU: the plain version
+    assert torch.equal(got, tref.attention_ref(tq, tk, tv))
+    assert fl.flash_attention.launches == 0
+    assert fl.flash_attention.variant_launches == {"tc": 0, "simt": 0}

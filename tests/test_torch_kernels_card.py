@@ -63,17 +63,28 @@ def _rand(shape, dtype, seed):
     return torch.from_numpy(r.randn(*shape).astype(np.float32)).to(dtype).cuda()
 
 
-def _attn_case(B, Hq, Hkv, Sq, Sk, D, dtype, causal, window):
+def _head_split(B, H, S, D, dtype, seed):
+    """The model's (B, H, S, D) view of a (B, S, H * D) projection."""
+    return _rand((B, S, H * D), dtype, seed).view(B, S, H, D).transpose(1, 2)
+
+
+def _attn_case(B, Hq, Hkv, Sq, Sk, D, dtype, causal, window, *, split=False, variant=None):
+    """One launch against the plain version; ``variant`` is the variant the
+    launch must take (default: tc for bfloat16, simt for float32)."""
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.ref import attention_ref
-    q = _rand((B, Hq, Sq, D), dtype, 1)
-    k = _rand((B, Hkv, Sk, D), dtype, 2)
-    v = _rand((B, Hkv, Sk, D), dtype, 3)
+    make = _head_split if split else (lambda B, H, S, D, dt, seed: _rand((B, H, S, D), dt, seed))
+    q = make(B, Hq, Sq, D, dtype, 1)
+    k = make(B, Hkv, Sk, D, dtype, 2)
+    v = make(B, Hkv, Sk, D, dtype, 3)
+    variant = variant or ("tc" if dtype == torch.bfloat16 else "simt")
     before = fl.flash_attention.launches
+    by_variant = dict(fl.flash_attention.variant_launches)
     got = fl.flash_attention(q, k, v, causal=causal, window=window)
     want = attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fl.flash_attention.launches == before + 1
+    assert fl.flash_attention.variant_launches[variant] == by_variant[variant] + 1
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                **TOL[dtype])
 
@@ -93,6 +104,7 @@ def test_flash_attention_causal_matches_plain_version(B, Hq, Hkv, S, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Sk,causal,window", [
     (128, 128, False, None),       # non-causal
     (256, 256, True, 32),          # sliding windows
@@ -102,9 +114,55 @@ def test_flash_attention_causal_matches_plain_version(B, Hq, Hkv, S, D, dtype):
     (77, 200, False, 50),          # ragged, non-causal window
     (128, 128, True, 1 << 30),     # the transformer's "global" window
 ])
-def test_flash_attention_masks_match_plain_version(Sq, Sk, causal, window):
+def test_flash_attention_masks_match_plain_version(Sq, Sk, causal, window, dtype):
     _card()
-    _attn_case(1, 2, 2, Sq, Sk, 64, torch.float32, causal, window)
+    _attn_case(1, 2, 2, Sq, Sk, 64, dtype, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal,window,split", [
+    (2, 4, 4, 300, 300, 256, True, None, True),    # head-split views, ragged, gemma's D
+    (1, 4, 2, 190, 190, 128, True, None, True),    # GQA head-split views
+    (1, 2, 2, 200, 333, 256, False, None, False),  # ragged D-256, Sk > Sq
+    (1, 2, 2, 333, 333, 256, True, 40, False),     # window shorter than a tile
+    (1, 2, 2, 70, 70, 64, True, 5, True),
+    (2, 2, 1, 129, 129, 256, True, None, False),   # one row past a 128-row CTA
+])
+def test_flash_attention_tensor_core_edges_match_plain_version(B, Hq, Hkv, Sq, Sk, D, causal,
+                                                              window, split):
+    """The tensor-core variant's edges: strided q/k/v, ragged Sq/Sk at D 256,
+    short windows; each case must take the tc variant."""
+    _card()
+    _attn_case(B, Hq, Hkv, Sq, Sk, D, torch.bfloat16, causal, window, split=split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [40, 24])
+def test_flash_attention_bfloat16_outside_the_rule_takes_simt(D):
+    """A bfloat16 head dim that is not a multiple of 16 goes to the CUDA-core
+    variant, by the rule and counted."""
+    _card()
+    _attn_case(1, 2, 2, 100, 100, D, torch.bfloat16, True, None, variant="simt")
+
+
+@pytest.mark.cuda
+def test_flash_attention_forced_simt_matches_tc():
+    """The CUDA-core variant forced (``_attention(..., variant="simt")``) on
+    inputs the rule sends to tc: both within the bfloat16 tolerance of the
+    plain version and of each other."""
+    _card()
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels.ref import attention_ref
+    q, k, v = (_head_split(1, 4, 256, 128, torch.bfloat16, s) for s in (1, 2, 3))
+    fl.reset_counts()
+    tc_out = fl.flash_attention(q, k, v)
+    simt_out = fl._attention(q, k, v, variant="simt")
+    want = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert fl.flash_attention.variant_launches == {"tc": 1, "simt": 1}
+    for got in (tc_out, simt_out):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **TOL[torch.bfloat16])
 
 
 # -- RMSNorm --------------------------------------------------------------------
@@ -113,10 +171,11 @@ def test_flash_attention_masks_match_plain_version(Sq, Sk, causal, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 128), (3, 512), (2, 5, 256), (300, 1024),
-                                   (4, 3072), (2, 5000)])
+                                   (4, 3072), (2, 5000), (2, 20000)])
 def test_rmsnorm_matches_plain_version(shape, dtype):
-    """``tests/test_kernels.py::TestRMSNorm`` shapes, gemma's width, and a row
-    wider than the kernel's registers hold."""
+    """``tests/test_kernels.py::TestRMSNorm`` shapes, gemma's width, a row
+    wider than the kernel's registers hold, and one wider than its
+    shared-memory copy of w (12288 columns)."""
     _card()
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.ref import rmsnorm_ref
@@ -130,3 +189,61 @@ def test_rmsnorm_matches_plain_version(shape, dtype):
     assert got.shape == x.shape and got.dtype == x.dtype
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 3072), (5, 1000)])
+def test_rmsnorm_misaligned_view_matches_plain_version(shape, dtype):
+    """x one element into its storage: no row is 16-byte aligned, so every
+    row takes the kernel's scalar loop."""
+    _card()
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import rmsnorm_ref
+    n, d = shape
+    x = _rand((n * d + 1,), dtype, 0)[1:].view(n, d)
+    assert x.data_ptr() % 16
+    w = _rand((d,), torch.float32, 1) + 1.0
+    got = rn.rmsnorm(x, w)
+    want = rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(10001, 8), (4099, 64), (777, 3)])
+def test_rmsnorm_many_short_rows_match_plain_version(shape, dtype):
+    """Many rows shorter than a warp's vectors, with a ragged last CTA."""
+    _card()
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import rmsnorm_ref
+    x = _rand(shape, dtype, 0)
+    w = _rand(shape[-1:], torch.float32, 1) + 1.0
+    got = rn.rmsnorm(x, w)
+    want = rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_offset", [0, 1])
+def test_rmsnorm_weight_dtypes_and_views_match_plain_version(x_dtype, w_dtype, w_offset):
+    """w in either dtype, and w one element into its storage: the kernel's
+    vector loads of w (16 or 8 bytes) and its column-at-a-time reads."""
+    _card()
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.ref import rmsnorm_ref
+    d = 3072
+    x = _rand((6, d), x_dtype, 0)
+    w = (_rand((d + w_offset,), torch.float32, 1) + 1.0).to(w_dtype)[w_offset:]
+    assert (w.data_ptr() % 16 != 0) == bool(w_offset)
+    got = rn.rmsnorm(x, w)
+    want = rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **TOL[x_dtype])
