@@ -3,6 +3,9 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --rmsnorm-compare OLD.cu   # also time another
                                    # version of csrc/rmsnorm.cu beside it
+    python3 chip_smoke.py --split-pipeline-compare OLD.cu   # and an older
+                                   # csrc/split_pipeline.cu (its parameter
+                                   # block before persistent CTAs)
 
 Phases (any failure exits nonzero; nothing runs on the CPU instead):
 
@@ -13,17 +16,25 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              and power limit;
 2. kernel  — hold the split-pipeline kernel against its plain version:
              the lowered Black-Scholes, Haversine and quickstart programs at
-             their main-path sizes, every opcode, and add/max/min reductions
-             at n in {1, 1500, 1000003, 2**27} (mul at n <= 4096, values
-             near 1);
+             their main-path sizes, every opcode (result stored and
+             forwarded), the Haversine program at n in {1, 15, 16, 1023,
+             1024, 1025, 100003, 2**27 + 3} and on views one element off the
+             16-byte grid, bool inputs and outputs on ragged n, a program at
+             the 56-row limit and one of 16 inputs and 12 outputs (each case
+             with its geometry and the tiles per load path), and
+             add/max/min reductions at n in {1, 1500, 1000003, 2**27} (mul
+             at n <= 4096, values near 1);
 3. main    — ``mozart.session(executor="cuda")`` on Black-Scholes and
              Haversine at n = 2**27 and on the quickstart chain: every stage
              on the kernel, the launch count moved, outputs equal to the
              ``eager`` executor on the card and to the float64 numpy oracle
              on a 2**20 prefix;
-4. times   — CUDA-event medians of the kernel, its plain version, and host
-             clock medians of the ``eager``, ``fused`` and ``cuda``
-             executors on the same inputs, beside the kernel's bound;
+4. times   — device times (``torch.profiler``) of the kernel, of the
+             other geometries of its rule and of ``--split-pipeline-compare``
+             builds, in turns, CUDA-event medians of the kernel and its plain
+             version, and host-clock medians of the ``eager``, ``fused`` and
+             ``cuda`` executors on the same inputs, beside the kernel's
+             bound;
 5. adamw   — hold the fused AdamW kernel against its plain version on the
              card: n in {1, 1000, 70001, 2**27+3}, float32 and bfloat16,
              steps 1 and 7, gscale 1 and 0.5, a misaligned view, and every
@@ -35,8 +46,10 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              ``adamw.update(path="kernel")`` on one batch; on step 1 the
              kernel path is held against the ``jnp`` path and the plain
              version, and ``mozart_adamw_update(executor="cuda")`` against
-             the kernel path; loss, launches, step and optimizer ms per
-             step and the peak device memory are printed;
+             the kernel path, per leaf group, with the group's
+             split-pipeline and fused AdamW device times (``torch.profiler``)
+             beside the split pipeline's bound; loss, launches, step and
+             optimizer ms per step and the peak device memory are printed;
 7. attn    — hold the flash-attention kernel against its plain version
              (``tests/test_kernels.py``'s TestFlashAttention cases, non-causal,
              windows 32 and 128, Sk > Sq, ragged Sq/Sk, in float32 on the
@@ -74,6 +87,7 @@ record and the device record.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import itertools
 import json
 import math
@@ -199,7 +213,7 @@ def phase_build(sources) -> None:
     for path, secs, compiler_log in builds:
         log(f"[build] {path} built in {secs:.2f} s")
         for line in compiler_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] ptxas: {line.strip()}")
     log(card_line())
 
@@ -222,6 +236,87 @@ def lowered(fn, data):
     return launch
 
 
+def kernel_case(sp, ref, what: str, program, ins, bcast, kinds) -> float:
+    """One launch against the plain version on the same inputs; logs the
+    geometry and the tiles each load path took."""
+    before = dict(sp.split_pipeline.tile_paths)
+    got = sp.split_pipeline(program, ins, bcast, kinds)
+    want = ref.split_pipeline_ref(program, ins, bcast, kinds)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, ((kind, _op), gv, wv) in enumerate(zip(kinds, got, want)):
+        err = max(err, compare(f"{what} output {i}", gv, wv,
+                               1e-4 if kind == "reduce" else 2e-5))
+    paths = {k: v - before[k] for k, v in sp.split_pipeline.tile_paths.items()}
+    geo = sp.program_geometry(program, kinds, torch.cuda.current_device())
+    log(f"[kernel] {what}: n={ins[0].numel()}, tile {geo.tile}, {geo.stages} stages, "
+        f"{program.stored_slots} stored slots, {program.forwarded} of {len(program.code)} "
+        f"results forwarded; tiles by load path {paths}; max |kernel - plain| = {err:.3e}")
+    return err
+
+
+def edge_programs():
+    """Programs at the kernel's limits, built with ``program.assemble``."""
+    from repro_torch.kernels import program as P
+    # 16 inputs + 40 stored slots = the 56-row limit: 40 products all live
+    # until a chain of adds (forwarded) consumes them
+    code = [(P.OP["MUL"], [("in", i % 16), ("sc", i % 4)]) for i in range(40)]
+    acc = ("v", 0)
+    for i in range(1, 40):
+        code.append((P.OP["ADD"], [acc, ("v", i)]))
+        acc = ("v", len(code) - 1)
+    rows = P.assemble(code, [(acc, False)], n_split=16, n_bcast=4, imms=())
+    # 16 inputs, 12 outputs (the first a sum), as the Mozart AdamW stage
+    code, outs = [], []
+    for j in range(12):
+        code.append((P.OP["MUL"], [("in", j), ("sc", 0)]))
+        code.append((P.OP["ADD"], [("v", len(code) - 1), ("in", j + 4)]))
+        outs.append((("v", len(code) - 1), False))
+    wide = P.assemble(code, outs, n_split=16, n_bcast=1, imms=())
+    # bool inputs and outputs
+    code = [(P.OP["GT"], [("in", 0), ("sc", 0)]),
+            (P.OP["AND"], [("v", 0), ("in", 1)]),
+            (P.OP["WHERE"], [("in", 2), ("in", 0), ("sc", 1)]),
+            (P.OP["OR"], [("in", 1), ("in", 2)])]
+    bools = P.assemble(code, [(("v", 1), True), (("v", 2), False), (("v", 3), True)],
+                       n_split=3, n_bcast=2, imms=())
+    return rows, wide, bools
+
+
+def phase_kernel_edges(sp, ref, hv_program) -> float:
+    """Lengths around the tile and the kernel's limits, views off the
+    16-byte grid, bool inputs and outputs, the row limit and 16 inputs."""
+    rows, wide, bools = edge_programs()
+    assert rows.n_split + rows.stored_slots == sp.MAX_ROWS, rows.stored_slots
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bc = [0.70984286, 1.23892197, 0.5, math.cos(0.70984286), 2.0, 3959.0]
+    worst = 0.0
+    for n in (1, 15, 16, 1023, 1024, 1025, 100_003, N_MAIN + 3):
+        x = [torch.rand(n, generator=gen, device="cuda") * 3.0 - 1.5 for _ in range(2)]
+        worst = max(worst, kernel_case(sp, ref, f"haversine program n={n}", hv_program,
+                                       x, bc, [("concat", "")]))
+        del x
+    x = [torch.rand(100_004, generator=gen, device="cuda")[1:] * 3.0 - 1.5 for _ in range(2)]
+    worst = max(worst, kernel_case(sp, ref, "haversine program, views one element off",
+                                   hv_program, x, bc, [("concat", "")]))
+    for n in (1025, 100_003):
+        base = torch.rand(n, generator=gen, device="cuda")
+        for off in (0, 1):
+            ins = [base * 2.0 - 1.0,
+                   torch.rand(n + off, generator=gen, device="cuda")[off:] > 0.5,
+                   torch.rand(n, generator=gen, device="cuda") > 0.3]
+            worst = max(worst, kernel_case(sp, ref, f"bool inputs and outputs, bool view "
+                                           f"offset {off}", bools, ins, [0.1, -2.0],
+                                           [("concat", "")] * 3))
+    for n in (511, 513, 100_003):
+        ins = [torch.randn(n, generator=gen, device="cuda") for _ in range(16)]
+        worst = max(worst, kernel_case(sp, ref, "56-row program (16 inputs, 40 slots)", rows,
+                                       ins, [0.5, -1.5, 0.25, 2.0], [("concat", "")]))
+        worst = max(worst, kernel_case(sp, ref, "16 inputs, 12 outputs (one summed)", wide,
+                                       ins, [0.5], [("reduce", "add")] + [("concat", "")] * 11))
+    return worst
+
+
 def phase_kernel(sp, ref, workloads_data) -> dict:
     from repro_torch.kernels import program as P
     errs = {}
@@ -236,8 +331,8 @@ def phase_kernel(sp, ref, workloads_data) -> dict:
             err = max(err, compare(f"{name} output {i}", g, w, rtol))
         errs[name] = (err, launch)
         log(f"[kernel] {name}: program of {len(launch[0].code)} ops, "
-            f"{launch[0].n_slots} slots, n={launch[1][0].numel()}: "
-            f"max |kernel - plain| = {err:.3e}")
+            f"{launch[0].stored_slots} stored slots, {launch[0].forwarded} results "
+            f"forwarded, n={launch[1][0].numel()}: max |kernel - plain| = {err:.3e}")
 
     # every opcode, with split and broadcast operands, on a ragged length
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -260,10 +355,11 @@ def phase_kernel(sp, ref, workloads_data) -> dict:
                 n_bcast=len(bcast), n_slots=1, imms=(),
                 outputs=((P.operand(P.KIND_SLOT, 0), name in P.BOOL_RESULT),))
             kinds = [("concat", "")]
-            got = sp.split_pipeline(prog, ins, bcast, kinds)[0]
-            want = ref.split_pipeline_ref(prog, ins, bcast, kinds)[0]
-            worst = max(worst, compare(f"opcode {name} scalar={scalar}",
-                                       got, want, 2e-5))
+            for marked in (prog, P.forward(prog)):     # stored and forwarded result
+                got = sp.split_pipeline(marked, ins, bcast, kinds)[0]
+                want = ref.split_pipeline_ref(marked, ins, bcast, kinds)[0]
+                worst = max(worst, compare(f"opcode {name} scalar={scalar}",
+                                           got, want, 2e-5))
     # bool inputs load as 1.0/0.0
     bool_in = [x.cuda() for x in (a > 0, b > 0)]
     prog = P.Program(code=((P.OP["AND"], 0, P.operand(P.KIND_INPUT, 0),
@@ -272,8 +368,9 @@ def phase_kernel(sp, ref, workloads_data) -> dict:
                      outputs=((P.operand(P.KIND_SLOT, 0), True),))
     compare("bool inputs", sp.split_pipeline(prog, bool_in, [], [("concat", "")])[0],
             (bool_in[0] & bool_in[1]), 0.0)
-    log(f"[kernel] {len(P.OPCODES)} opcodes (split and broadcast operands): "
-        f"max |kernel - plain| = {worst:.3e}")
+    log(f"[kernel] {len(P.OPCODES)} opcodes (split and broadcast operands, result "
+        f"stored and forwarded): max |kernel - plain| = {worst:.3e}")
+    phase_kernel_edges(sp, ref, errs["haversine"][1][0])
 
     # reductions over ragged lengths
     red = P.Program(code=(), n_split=1, n_bcast=0, n_slots=0, imms=(),
@@ -344,8 +441,90 @@ def phase_main(sp, workloads_data, oracles) -> dict:
     return launches
 
 
-def phase_times(sp, ref, workloads_data, errs, launches) -> list:
+class _OldInstr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_uint8), ("dst", ctypes.c_uint8),
+                ("a", ctypes.c_uint16), ("b", ctypes.c_uint16), ("c", ctypes.c_uint16)]
+
+
+class _OldParams(ctypes.Structure):
+    """The parameter block of the split-pipeline kernel before persistent
+    CTAs (one 1024-element tile per CTA, every result in a slot)."""
+    _fields_ = [("n", ctypes.c_int64), ("inp", ctypes.c_void_p * 16),
+                ("out", ctypes.c_void_p * 16), ("n_in", ctypes.c_int),
+                ("n_slots", ctypes.c_int), ("n_scalars", ctypes.c_int),
+                ("n_instr", ctypes.c_int), ("n_out", ctypes.c_int), ("pad_", ctypes.c_int),
+                ("in_bool", ctypes.c_uint8 * 16), ("out_kind", ctypes.c_uint8 * 16),
+                ("out_src", ctypes.c_uint16 * 16), ("scalars", ctypes.c_float * 64),
+                ("code", _OldInstr * 256)]
+
+
+def load_old_split_pipeline(source: str):
+    """Build and load another version of ``csrc/split_pipeline.cu`` with the
+    older parameter block (``_OldParams``)."""
+    from repro_torch.kernels import build as kernel_build
+    path = Path(source).resolve()
+    _lib_path, secs, compiler_log = kernel_build.build(path)
+    for line in compiler_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[times] {source} ptxas: {line.strip()}")
+
+    def configure(lib):
+        lib.split_pipeline_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.split_pipeline_launch.restype = ctypes.c_int
+        lib.split_pipeline_params_size.argtypes = []
+        lib.split_pipeline_params_size.restype = ctypes.c_int
+        if lib.split_pipeline_params_size() != ctypes.sizeof(_OldParams):
+            raise RuntimeError(f"{source}: not the older parameter block")
+    return kernel_build.load(path, configure)
+
+
+def old_split_pipeline(lib, launch):
+    """A launch of the older kernel on ``launch``'s inputs with the program
+    before forwarding (``program.unmarked``): returns (run, result), where
+    ``result()`` gives the outputs as the wrapper would.  No launch count."""
+    from repro_torch.kernels import program as P
+    from repro_torch.kernels import split_pipeline as sp
+    program, split_inputs, bcasts, kinds = launch
+    prog = P.unmarked(program)
+    n = split_inputs[0].numel()
+    grid = -(-n // 1024)
+    p = _OldParams(n=n, n_in=prog.n_split, n_slots=prog.n_slots, n_scalars=prog.n_scalars,
+                   n_instr=len(prog.code), n_out=len(kinds))
+    for i, (op, dst, a, b, c) in enumerate(prog.code):
+        p.code[i] = _OldInstr(op, dst, a, b, c)
+    for i, v in enumerate([*(float(x) for x in bcasts), *prog.imms]):
+        p.scalars[i] = v
+    for i, x in enumerate(split_inputs):
+        p.inp[i], p.in_bool[i] = x.data_ptr(), x.dtype == torch.bool
+    bufs = []
+    for j, ((kind, op), (src, is_bool)) in enumerate(zip(kinds, prog.outputs)):
+        if kind == "reduce":
+            bufs.append(torch.empty(grid, dtype=torch.float32, device="cuda"))
+        else:
+            bufs.append(torch.empty(n, dtype=torch.bool if is_bool else torch.float32,
+                                    device="cuda"))
+        p.out_kind[j] = sp._OUT_KIND[(kind, op) if kind == "reduce" else (kind, bool(is_bool))]
+        p.out[j], p.out_src[j] = bufs[-1].data_ptr(), src
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        rc = lib.split_pipeline_launch(ctypes.addressof(p), torch.cuda.current_device(), stream)
+        if rc:
+            raise RuntimeError(f"older split_pipeline launch failed ({rc})")
+
+    def result():
+        return [sp._COMBINE[op](b) if kind == "reduce" else b
+                for (kind, op), b in zip(kinds, bufs)]
+    return run, result
+
+
+def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> list:
+    """Per workload: the kernel's device time (``torch.profiler``) and
+    CUDA-event time beside its bound, each geometry of the rule's list, the
+    builds of ``compare_sources`` (older versions of the kernel), the plain
+    version, and the ``eager``, ``fused`` and ``cuda`` executors."""
     from repro_torch.core import mozart
+    olds = {src: load_old_split_pipeline(src) for src in compare_sources}
     rows = []
     for name, (fn, data) in workloads_data.items():
         err, launch = errs[name]
@@ -357,7 +536,28 @@ def phase_times(sp, ref, workloads_data, errs, launches) -> list:
                         for (kind, _o), (_s, is_bool) in zip(kinds, program.outputs))
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         ops_ms = len(program.code) * n / F32_OPS_PER_S * 1e3
-        kernel_ms = cuda_ms(lambda launch=launch: sp.split_pipeline(*launch), 20)
+        kernel = lambda launch=launch: sp.split_pipeline(*launch)
+        fns = {"kernel": kernel}
+        for src, lib in olds.items():
+            run, result = old_split_pipeline(lib, launch)
+            run()
+            for i, (gv, wv) in enumerate(zip(result(), kernel())):
+                compare(f"{name} output {i}: {src} vs kernel", gv, wv,
+                        1e-4 if kinds[i][0] == "reduce" else 2e-5)
+            fns[src] = run
+        geo = sp.program_geometry(program, kinds, torch.cuda.current_device())
+        for tile, stages in itertools.product(sp.TILES, sp.STAGES):
+            if (tile, stages) != (geo.tile, geo.stages) and \
+                    sp.sized(program, kinds, tile, stages).smem <= sp.SMEM_PER_BLOCK:
+                g = sp.sized(program, kinds, tile, stages)
+                fns[f"{tile}x{stages}"] = lambda launch=launch, g=g: sp._launch(*launch, geom=g)
+        dev = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):      # in turns: a, b, b, a
+            for k in order:
+                dev[k].append(kernel_device_ms(fns[k], 10))
+        dev = {k: statistics.median(v) for k, v in dev.items()}
+        kernel_ms = dev["kernel"]
+        event_ms = cuda_ms(kernel, 20)
         plain_ms = cuda_ms(lambda launch=launch: ref.split_pipeline_ref(*launch), 5)
 
         def executor_run(ex, fn=fn, data=data):
@@ -377,16 +577,22 @@ def phase_times(sp, ref, workloads_data, errs, launches) -> list:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "n": n, "program_ops": len(program.code),
+            "forwarded": program.forwarded, "stored_slots": program.stored_slots,
+            "tile": geo.tile, "stages": geo.stages, "smem": geo.smem, "event_ms": event_ms,
+            "compare_ms": {k: v for k, v in dev.items() if k != "kernel"},
             "eager_ms": e2e["eager"], "fused_ms": e2e["fused"],
             "cuda_executor_ms": e2e["cuda"], "fused_chunks": fctx.stats["chunks"],
         }
         rows.append(row)
-        log(f"[times] {name} n={n}: kernel {kernel_ms:.3f} ms (bound "
-            f"{row['bound_ms']:.3f} ms by {row['bound_by']}, "
-            f"{row['bound_ms'] / kernel_ms:.1%} of it), plain {plain_ms:.3f} ms, "
+        log(f"[times] {name} n={n}: kernel {kernel_ms:.4f} ms device, {event_ms:.4f} ms "
+            f"CUDA events (bound {row['bound_ms']:.3f} ms by {row['bound_by']}, "
+            f"{row['bound_ms'] / kernel_ms:.1%} of it; tile {geo.tile}, {geo.stages} stages, "
+            f"{geo.smem} B shared memory), plain {plain_ms:.3f} ms, "
             f"eager executor {e2e['eager']:.3f} ms, fused executor "
             f"{e2e['fused']:.3f} ms ({fctx.stats['chunks']} chunks), cuda "
             f"executor {e2e['cuda']:.3f} ms")
+        log(f"[times] {name} device ms, medians of two rounds in turns: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in dev.items()))
     return rows
 
 # ---------------------------------------------------------------------------
@@ -542,13 +748,15 @@ MOZART_GROUPS = (  # leaves per Mozart session; equal-size leaves share a stage
 
 
 @torch.no_grad()
-def step1_paths(fa, ref, params, grads, state, opt_cfg) -> None:
+def step1_paths(fa, ref, params, grads, state, opt_cfg) -> dict:
     """On step 1's gradients: the kernel path against the ``jnp`` path and
     the plain version, leaf by leaf under the step's one scalar row, then
-    ``mozart_adamw_update(executor="cuda")`` against the kernel path.  One
-    leaf (or one Mozart group) at a time: three full copies of the new
-    state would not fit beside the training state.  Launches made here
-    compare paths and are not counted as the main path's."""
+    ``mozart_adamw_update(executor="cuda")`` against the kernel path, each
+    group's split-pipeline kernels and fused AdamW kernels timed by
+    ``torch.profiler`` (returned per group).  One leaf (or one Mozart group)
+    at a time: three full copies of the new state would not fit beside the
+    training state.  Launches made here compare paths and are not counted
+    as the main path's."""
     from repro_torch.optim import adamw
     from repro_torch.optim.mozart_adamw import mozart_adamw_update
     counted = fa.fused_adamw.launches
@@ -573,13 +781,23 @@ def step1_paths(fa, ref, params, grads, state, opt_cfg) -> None:
 
     assert sorted(n for grp in MOZART_GROUPS for n in grp) == sorted(params)
     totals: dict = {}
+    groups: dict = {}
     for grp in MOZART_GROUPS:
         sub = lambda d, grp=grp: {n: d[n] for n in grp}
         sstate = adamw.AdamWState(state.step, sub(state.m), sub(state.v))
-        mp, ms, metrics = mozart_adamw_update(sub(params), sub(grads), sstate, opt_cfg,
-                                              executor="cuda")
-        kp, ks, _ = adamw.update(sub(params), sub(grads), sstate, opt_cfg, path="kernel")
+        # one split-pipeline launch per Mozart stage: leaves of one size share one
+        stages = len({params[n].numel() for n in grp})
+        sp_ms, sp_launches, (mp, ms, metrics) = profiled_kernels(
+            lambda: mozart_adamw_update(sub(params), sub(grads), sstate, opt_cfg,
+                                        executor="cuda"), "split_pipeline", expect=stages)
+        fa_ms, fa_launches, (kp, ks, _) = profiled_kernels(
+            lambda: adamw.update(sub(params), sub(grads), sstate, opt_cfg, path="kernel"),
+            "fused_adamw", expect=len(grp))
         torch.cuda.synchronize()
+        # the split-pipeline kernel reads p, g (as float32), m and v and
+        # writes p, m and v: 28 bytes per element
+        n_group = sum(params[n].numel() for n in grp)
+        bound_ms = 28 * n_group / HBM_BYTES_PER_S * 1e3
         st = metrics["stats"]
         if st.get("cuda_fallback_stages", 0) or st.get("cuda_stages", 0) != st["stages"]:
             raise AssertionError(f"mozart {grp}: not every stage on the kernel: {st}")
@@ -592,10 +810,18 @@ def step1_paths(fa, ref, params, grads, state, opt_cfg) -> None:
         log(f"[train] mozart_adamw_update(executor=\"cuda\") on {', '.join(grp)}: "
             f"stages {st['stages']}, cuda_stages {st.get('cuda_stages', 0)}, "
             f"cuda_fallback_stages {st.get('cuda_fallback_stages', 0)}; "
-            f"max |mozart - kernel path| = {err:.3e}")
+            f"max |mozart - kernel path| = {err:.3e}; device time: split_pipeline "
+            f"{sp_ms:.3f} ms over {sp_launches:.0f} launches (bound {bound_ms:.3f} ms by "
+            f"bytes, {bound_ms / sp_ms:.1%} of it, {n_group} elements), fused_adamw path "
+            f"{fa_ms:.3f} ms over {fa_launches:.0f} launches")
+        groups[", ".join(grp)] = {"elements": n_group, "split_pipeline_ms": sp_ms,
+                                  "split_pipeline_launches": sp_launches,
+                                  "bound_ms": bound_ms, "fused_adamw_ms": fa_ms,
+                                  "max_abs_diff": err}
         del mp, ms, kp, ks
     log(f"[train] mozart totals: {totals}")
     fa.fused_adamw.launches = counted
+    return groups
 
 
 def phase_train(fa, sp, ref) -> dict:
@@ -636,7 +862,7 @@ def phase_train(fa, sp, ref) -> dict:
         params = weights.leaves(model)
         grads = {n: p.grad for n, p in params.items()}
         if step == 0:
-            step1_paths(fa, ref, params, grads, state, opt_cfg)
+            groups = step1_paths(fa, ref, params, grads, state, opt_cfg)
         before = fa.fused_adamw.launches
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -669,7 +895,7 @@ def phase_train(fa, sp, ref) -> dict:
         raise AssertionError(f"peak memory {peak / 1e9:.1f} GB")
     out = {"launches": fa.fused_adamw.launches, "losses": losses,
            "step_ms": step_ms, "opt_ms": opt_ms, "peak_bytes": peak,
-           "split_pipeline_launches": sp.split_pipeline.launches}
+           "split_pipeline_launches": sp.split_pipeline.launches, "mozart_groups": groups}
     del model, state, batch
     torch.cuda.empty_cache()
     return out
@@ -698,6 +924,7 @@ def adamw_row(kern: dict, train: dict) -> dict:
         "bytes_per_step": total_bytes, "elements_per_step": n_total,
         "train_step_ms": train["step_ms"], "train_opt_ms": train["opt_ms"],
         "train_losses": train["losses"], "train_peak_bytes": train["peak_bytes"],
+        "mozart_adamw_groups": train["mozart_groups"],
     }
 
 
@@ -753,24 +980,61 @@ ATTN_EDGES = (  # bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, head-split v
 )
 
 
+def _profile_window(fn, reps: int, match: str = ""):
+    """(kernel launches recorded, their device microseconds, the last
+    result) of ``reps`` calls of ``fn`` under ``torch.profiler``, counting
+    kernels whose name contains ``match``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and match in e.key]
+    return (sum(e.count for e in events),
+            sum(getattr(e, "self_device_time_total", 0.0) for e in events), out)
+
+
 def device_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn``: the ``torch.profiler`` kernel
     time of ``reps`` calls (after one warm-up) over ``reps``.  Unlike
     ``cuda_ms`` it leaves out the host's launch time, which is longer than a
-    short kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    short kernel.  The profiler on the card sometimes drops kernel records,
+    which only lowers a window's count, so windows are measured until two
+    record the most launches seen."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if not us:
-        raise AssertionError("torch.profiler saw no device time")
-    return us / 1e3 / reps
+    most = 0
+    for _attempt in range(6):
+        launches, us, _out = _profile_window(fn, reps)
+        if launches and launches == most:
+            return us / 1e3 / reps
+        most = max(most, launches)
+    raise AssertionError("torch.profiler kept dropping kernel records")
+
+
+def kernel_device_ms(fn, reps: int, match: str = "split_pipeline") -> float:
+    """Device milliseconds of one launch of the kernel named ``*match*``
+    that ``fn`` makes once per call (``torch.profiler``, after one warm-up
+    call)."""
+    ms, _launches, _out = profiled_kernels(fn, match, expect=1, reps=reps, warm=True)
+    return ms
+
+
+def profiled_kernels(fn, match: str, expect: int, reps: int = 1, warm: bool = False):
+    """(device ms per call in kernels named ``*match*``, their launches per
+    call, the last call's result) of ``reps`` calls of ``fn`` under
+    ``torch.profiler``, each call making ``expect`` such launches; a window
+    that recorded fewer (the profiler dropped records) is measured again."""
+    if warm:
+        fn()
+    for _attempt in range(4):
+        launches, us, out = _profile_window(fn, reps, match)
+        if launches == expect * reps:
+            return us / 1e3 / reps, expect, out
+        log(f"[profile] {match!r}: recorded {launches} of {expect * reps} launches; again")
+    raise AssertionError(f"torch.profiler kept dropping {match!r} kernel records")
 
 
 def attn_case(fl, ref, what, q, k, v, causal, window, variant) -> float:
@@ -1180,6 +1444,11 @@ def main() -> int:
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
                         help="another version of csrc/rmsnorm.cu (same C interface) to "
                              "build and time beside the kernel at (8192, 3072); repeatable")
+    parser.add_argument("--split-pipeline-compare", action="append", default=[],
+                        metavar="CU",
+                        help="an older version of csrc/split_pipeline.cu (the parameter "
+                             "block before persistent CTAs) to build, check and time "
+                             "beside the kernel on the main path's programs; repeatable")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
@@ -1218,7 +1487,8 @@ def main() -> int:
 
     errs = phase_kernel(sp, ref, workloads_data)
     launches = phase_main(sp, workloads_data, oracles)
-    rows = phase_times(sp, ref, workloads_data, errs, launches)
+    rows = phase_times(sp, ref, workloads_data, errs, launches,
+                       args.split_pipeline_compare)
     del workloads_data, errs, bs, hv, qs, bs_pre, hv_pre
     torch.cuda.empty_cache()
 

@@ -16,14 +16,15 @@ kernel cannot call Python, so each elementwise node's raw library function
 stage's chain becomes a straight-line ``Program``: opcode, destination
 slot, source operands.  A source is a split input, a broadcast scalar
 (passed at run time, never baked in), an immediate constant of the function
-body, or an earlier slot; slots are allocated by liveness.  A reduction node
+body, or an earlier result: the previous instruction's result, kept in
+registers, when nothing else reads it, else a slot allocated by liveness
+(``program.assemble``).  A reduction node
 reduces its *pre-reduction* operand with its ``ReduceSplit`` op, which comes
 from the split type, not from the function body.
 """
 
 from __future__ import annotations
 
-import heapq
 import numbers
 import operator
 import weakref
@@ -42,16 +43,7 @@ from repro_torch.core.stage_exec import (
     register_executor,
     stage_num_elements,
 )
-from repro_torch.kernels.program import (
-    ARITY,
-    BOOL_RESULT,
-    KIND_INPUT,
-    KIND_SCALAR,
-    KIND_SLOT,
-    OP,
-    Program,
-    operand,
-)
+from repro_torch.kernels.program import ARITY, BOOL_RESULT, OP, Program, assemble
 from repro_torch.kernels.split_pipeline import fits_kernel, split_pipeline
 
 #: traced call targets -> opcode.  fx records the callables themselves:
@@ -199,10 +191,10 @@ def _lower_node(b: _Builder, node, env: dict[tuple, tuple], stage: Stage) -> tup
     raise LoweringError(f"{node.fn.name}: traced graph has no output")
 
 
-def _allocate(b: _Builder, out_srcs: list[tuple]) -> tuple[tuple, int, dict]:
-    """Dead-code-eliminate, then map virtual registers to slots by
-    liveness.  An instruction may write the slot its last-read operand
-    frees: every thread reads an element's operands before writing it."""
+def _live_code(b: _Builder, out_srcs: list[tuple]) -> tuple[list, list]:
+    """Dead-code-eliminate; returns the kept instructions and the outputs
+    over SSA sources (``("v", j)`` is kept instruction j), for
+    ``program.assemble``."""
     live = {s for s in out_srcs if s[0] == "v"}
     keep = []
     for name, reg, srcs in reversed(b.instrs):
@@ -210,40 +202,13 @@ def _allocate(b: _Builder, out_srcs: list[tuple]) -> tuple[tuple, int, dict]:
             keep.append((name, reg, srcs))
             live.update(s for s in srcs if s[0] == "v")
     keep.reverse()
-    end = len(keep)
-    last: dict[int, int] = {}
-    for i, (_name, _reg, srcs) in enumerate(keep):
-        for s in srcs:
-            if s[0] == "v":
-                last[s[1]] = i
-    for s in out_srcs:
-        if s[0] == "v":
-            last[s[1]] = end
-    free: list[int] = []
-    slot_of: dict[int, int] = {}
-    n_slots = 0
-    code = []
-    for i, (name, reg, srcs) in enumerate(keep):
-        for r in {s[1] for s in srcs if s[0] == "v"}:
-            if last[r] == i:
-                heapq.heappush(free, slot_of[r])
-        if free:
-            slot = heapq.heappop(free)
-        else:
-            slot, n_slots = n_slots, n_slots + 1
-        slot_of[reg] = slot
-        ops = [_encode(s, slot_of) for s in srcs] + [0] * (3 - len(srcs))
-        code.append((OP[name], slot, *ops))
-    return tuple(code), n_slots, slot_of
+    pos = {reg: j for j, (_name, reg, _srcs) in enumerate(keep)}
 
+    def src(s: tuple) -> tuple:
+        return ("v", pos[s[1]]) if s[0] == "v" else s
 
-def _encode(src: tuple, slot_of: dict[int, int]) -> int:
-    kind, i = src
-    if kind == "in":
-        return operand(KIND_INPUT, i)
-    if kind == "sc":
-        return operand(KIND_SCALAR, i)
-    return operand(KIND_SLOT, slot_of[i])
+    code = [(OP[name], [src(s) for s in srcs]) for name, _reg, srcs in keep]
+    return code, [src(s) for s in out_srcs]
 
 
 def lower_stage(stage: Stage, concrete: dict[tuple, Any]) -> tuple[Program, list]:
@@ -317,12 +282,9 @@ def _lower(stage: Stage, concrete: dict[tuple, Any]) -> tuple[Program, list]:
         out_bool.append(node.out_aval.dtype == torch.bool
                         and out_kinds[-1][0] == "concat")
 
-    code, n_slots, slot_of = _allocate(b, out_srcs)
-    program = Program(
-        code=code, n_split=len(split_keys), n_bcast=len(bcast_keys),
-        n_slots=n_slots, imms=tuple(b.imms),
-        outputs=tuple((_encode(s, slot_of), is_bool)
-                      for s, is_bool in zip(out_srcs, out_bool)))
+    code, outs = _live_code(b, out_srcs)
+    program = assemble(code, list(zip(outs, out_bool)), n_split=len(split_keys),
+                       n_bcast=len(bcast_keys), imms=b.imms)
     why = fits_kernel(program)
     if why is not None:
         raise LoweringError(why)

@@ -9,21 +9,57 @@
 // Bound: HBM bytes.  A stage reads each split input once and writes each
 // escaping output once (Black-Scholes: 5 f32 inputs + 2 f32 outputs = 28 B
 // per element) and does a few dozen flops per element, far below the card's
-// ~20 flop/B balance.  What the design does about it: every intermediate of
-// the chain lives in shared-memory slots of the block's tile and never
-// reaches HBM, so traffic is the stage's inputs and escaping outputs only —
-// an un-fused library chain instead writes and re-reads every intermediate.
+// ~20 flop/B balance.  Every intermediate of the chain stays on chip, so
+// traffic is the stage's inputs and escaping outputs only.  What stands
+// between an interpreter and that bound is its own cost per instruction
+// (decode, dispatch, operand traffic through shared memory) and exposed
+// load latency; the design attacks both:
 //
-// Layout: each block owns one TILE of elements.  It loads a tile of every
-// split input into shared memory (bool inputs as 1.0/0.0), then walks the
-// program once; every instruction is applied across the tile by all
-// threads, so opcode dispatch is uniform across the block.  Thread t only
-// ever touches elements t, t + THREADS, ..., so no barrier is needed between
-// instructions.  Concat outputs are stored per tile; each reduction writes
-// one partial per block, masking the ragged tail with the op's identity
-// (no padded copy of the inputs is ever made).  The wrapper combines the
-// partials after the launch.  All arithmetic is IEEE float32 (never built
-// with --use_fast_math).
+// * Persistent CTAs.  The grid is min(tiles, SMs x CTAs per SM); CTA b
+//   walks tiles b, b + grid, ...  The program is decoded once per CTA into
+//   shared memory: 16 bytes per instruction, the opcode with the slot row it
+//   writes, and per operand one word, its shared-memory offset and flags
+//   (input, slot, scalar, bool, forwarded).  The scalars are stored four
+//   times over, so a scalar operand is read like a row quad (a broadcast),
+//   with no stride multiply.
+// * A TMA ring.  Each split input's tile is copied into a ring of stages in
+//   shared memory with 1-D bulk copies (cp.async.bulk ...
+//   mbarrier::complete_tx): thread 0 issues the copies of tile k + stages - 1
+//   once every warp has released tile k - 1's stage (an empty mbarrier per
+//   stage), and the warps wait on the stage's full mbarrier.  A ring row is
+//   the input's tile itself: instructions read inputs there, nothing is
+//   copied twice.  Bool inputs arrive as bytes and are widened to 1.0/0.0
+//   when read.  A tile that bulk copies cannot take (a base that is not
+//   16-byte aligned, the ragged last tile) is loaded by each thread, its
+//   own elements only, with plain loads into the same ring; the wrapper's
+//   rule (kernels/split_pipeline.py::load_paths) says which.  There is no
+//   producer warp: its registers would cost a fifth of a 1024-element CTA's
+//   allocation, and registers cap the CTAs per SM.  The tile size (512, 1024
+//   or 2048) and the ring's depth (1-3) come from the wrapper's ``geometry``
+//   rule, which maximises the warps resident per SM: the interpreter is
+//   bound by issue and latency, and with one stage the other CTAs on the SM
+//   hide a CTA's loads (PERF.md has the measured alternatives).
+// * Wide dispatch.  Each thread owns VEC = 8 elements of a tile,
+//   as two float4 quads TILE/2 elements apart (so a warp's 16-byte
+//   shared-memory accesses are contiguous and conflict-free).  One decode
+//   (read one instruction ahead) and one dispatch serve all 8 elements,
+//   which are computed in registers; MUL, ADD and SUB, the commonest
+//   opcodes, and unary opcodes take paths that read a forwarded operand in
+//   place, without a register copy.
+// * Register forwarding.  The lowering marks results read only by the next
+//   instruction (kernels/program.py::assemble): their readers take them
+//   from registers and the instruction writes no slot.  Other results go
+//   to their slot row with 16-byte stores.  A thread only ever touches its
+//   own elements of a row, so no barrier separates instructions.
+// * Outputs.  Concat outputs leave from registers with 16-byte streaming
+//   stores (bools as bytes); reductions combine each thread's elements in
+//   order into a per-thread accumulator in shared memory, and the CTA
+//   writes one partial per reduction at its end, which the wrapper
+//   combines.  Out-of-range elements of the last tile are masked; no
+//   padded copy is made.
+//
+// All arithmetic is IEEE float32 (never built with --use_fast_math), with
+// the plain version's semantics (NaN-aware max/min, floor-mod, sign(0) = 0).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,14 +67,16 @@
 
 namespace {
 
-constexpr int TILE = 1024;          // elements per block (power of two)
-constexpr int THREADS = 256;
+constexpr int VEC = 8;              // elements per thread
+constexpr int QUADS = VEC / 4;      // ... as float4 quads, TILE / QUADS apart
 constexpr int MAX_IN = 16;
 constexpr int MAX_OUT = 16;
 constexpr int MAX_SCALARS = 64;
 constexpr int MAX_INSTR = 256;
-constexpr int MAX_ROWS = 56;        // split inputs + slots: 56 x 4 KB tiles
-constexpr int WARPS = THREADS / 32;
+constexpr int MAX_ROWS = 56;        // split inputs + stored slots
+constexpr int MAX_STAGES = 3;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a CTA may use
+constexpr uint8_t NO_STORE = 0x80;  // kernels/program.py
 
 // Same order as OPCODES in kernels/program.py.
 enum Op : uint8_t {
@@ -53,8 +91,22 @@ enum Op : uint8_t {
 
 enum OutKind : uint8_t { OUT_F32, OUT_BOOL, OUT_ADD, OUT_MUL, OUT_MAX, OUT_MIN };
 
+// Operand kinds as the program encodes them (top two bits of an operand).
+enum Kind : uint32_t { K_IN, K_SCALAR, K_SLOT, K_FWD };
+
+// A decoded operand is one word: the byte offset of its row (of its scalar
+// quad) in shared memory below bit 20, and flags.  F_ROW: a row, each
+// thread reads its own quads; else every thread reads the same quad.
+// F_IN: an input row, offset from the current ring stage.  F_BOOL: a row
+// of bytes.  F_FWD: the previous instruction's result, in registers.
+constexpr uint32_t F_FWD = 1u << 31, F_ROW = 1u << 30, F_IN = 1u << 29, F_BOOL = 1u << 28;
+constexpr uint32_t ADDR = (1u << 20) - 1;
+// Decoded instruction: x = opcode | STORE | slot row offset << 12, then the
+// three operand words.
+constexpr uint32_t STORE = 1u << 8;
+
 struct Instr {
-  uint8_t op, dst;
+  uint8_t op, dst;                  // dst: slot, or NO_STORE | register slot
   uint16_t a, b, c;                 // operands: kind << 14 | index
 };
 
@@ -62,13 +114,43 @@ struct Params {
   long long n;
   const void* in[MAX_IN];
   void* out[MAX_OUT];               // concat output, or partials[grid]
-  int n_in, n_slots, n_scalars, n_instr, n_out, pad_;
+  int n_in, n_slots, n_scalars, n_instr, n_out;   // n_slots: stored slots
+  int tile, stages, grid, aligned, smem;
   uint8_t in_bool[MAX_IN];
   uint8_t out_kind[MAX_OUT];
   uint16_t out_src[MAX_OUT];
   float scalars[MAX_SCALARS];
   Instr code[MAX_INSTR];
 };
+
+// Shared memory: the ring's mbarriers (full[MAX_STAGES], empty[MAX_STAGES]),
+// the scalars (each four times, so that a scalar operand is read like a
+// row quad), the decoded program (one spare entry: the loop reads one
+// instruction ahead), the decoded outputs, the reduction accumulators and
+// scratch, then the ring (stages x n_in rows) and the stored slot rows.
+// kernels/split_pipeline.py::smem_bytes mirrors this.
+struct Layout {
+  uint32_t scal, dec, outs, red, ring, slots, total;
+  bool any_red;                     // some output is a reduction
+};
+
+__host__ __device__ inline uint32_t align128(uint32_t x) { return (x + 127u) & ~127u; }
+
+__host__ __device__ inline Layout layout(const Params& p) {
+  bool any_red = false;
+  for (int j = 0; j < p.n_out; ++j) any_red |= p.out_kind[j] >= OUT_ADD;
+  const uint32_t cons = static_cast<uint32_t>(p.tile) / VEC;
+  Layout L;
+  L.any_red = any_red;
+  L.scal = 16u * MAX_STAGES;
+  L.dec = L.scal + 16u * p.n_scalars;
+  L.outs = L.dec + 16u * (p.n_instr + 1);
+  L.red = align128(L.outs + 8u * MAX_OUT);
+  L.ring = align128(L.red + (any_red ? 4u * (p.n_out * cons + 32u) : 0u));
+  L.slots = L.ring + 4u * p.tile * p.stages * p.n_in;
+  L.total = L.slots + 4u * p.tile * p.n_slots;
+  return L;
+}
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
@@ -78,7 +160,7 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fminf(a, b));
 }
 
-__device__ __forceinline__ float identity(uint8_t kind) {
+__device__ __forceinline__ float identity(uint32_t kind) {
   switch (kind) {
     case OUT_MUL: return 1.f;
     case OUT_MAX: return -INFINITY;
@@ -87,7 +169,7 @@ __device__ __forceinline__ float identity(uint8_t kind) {
   }
 }
 
-__device__ __forceinline__ float combine(uint8_t kind, float a, float b) {
+__device__ __forceinline__ float combine(uint32_t kind, float a, float b) {
   switch (kind) {
     case OUT_MUL: return a * b;
     case OUT_MAX: return max_nan(a, b);
@@ -96,152 +178,438 @@ __device__ __forceinline__ float combine(uint8_t kind, float a, float b) {
   }
 }
 
-// Block-wide reduction; the result is valid in thread 0.
-__device__ float block_reduce(uint8_t kind, float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = combine(kind, v, __shfl_down_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();                  // scratch free from any earlier reduction
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < WARPS ? scratch[lane] : identity(kind);
-    for (int off = 16; off > 0; off >>= 1)
-      v = combine(kind, v, __shfl_down_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
-
-// Shared-memory address and stride (0 for a broadcast scalar) of an operand.
-__device__ __forceinline__ const float* operand(const float* sc, const float* rows,
-                                                int n_in, uint16_t code, int& stride) {
-  const int kind = code >> 14, idx = code & 0x3fff;
-  if (kind == 1) { stride = 0; return sc + idx; }
-  stride = 1;
-  return rows + (kind == 0 ? idx : n_in + idx) * TILE;
-}
-
-#define UNARY(OPC, EXPR)                                          \
-  case OPC:                                                       \
-    for (int e = threadIdx.x; e < TILE; e += THREADS) {           \
-      const float x = A[e * sa];                                  \
-      D[e] = (EXPR);                                              \
-    }                                                             \
-    break;
-
-#define BINARY(OPC, EXPR)                                         \
-  case OPC:                                                       \
-    for (int e = threadIdx.x; e < TILE; e += THREADS) {           \
-      const float a = A[e * sa], b = B[e * sb];                   \
-      D[e] = (EXPR);                                              \
-    }                                                             \
-    break;
-
 __device__ __forceinline__ float mod_floor(float a, float b) {
   float r = fmodf(a, b);            // torch.remainder / jnp.mod: divisor's sign
   if (r != 0.f && ((r < 0.f) != (b < 0.f))) r += b;
   return r;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// -- mbarriers and bulk copies ------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// ``bytes`` (a multiple of 16) from global ``src`` (16-byte aligned) to
+// shared ``dst``; completion is counted on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+
+// -- one instruction across a thread's VEC elements ----------------------------
+
+// Element v of a thread sits at (v / 4) * TILE / QUADS + 4 ct + v % 4;
+// ``toff`` is 16 ct, the byte offset of its first quad in a row.  Loads a
+// decoded operand that is not forwarded.
+template <int TILE>
+__device__ __forceinline__ void load(uint32_t w, const unsigned char* smem, uint32_t stage,
+                                     uint32_t toff, float (&X)[VEC]) {
+  const uint32_t a = (w & ADDR) + ((w & F_IN) ? stage : 0u);
+  if (w & F_BOOL) {
+#pragma unroll
+    for (int q = 0; q < QUADS; ++q) {
+      const uint32_t b =
+          *reinterpret_cast<const uint32_t*>(smem + a + toff / 4 + q * (TILE / QUADS));
+#pragma unroll
+      for (int v = 0; v < 4; ++v) X[4 * q + v] = ((b >> (8 * v)) & 0xffu) ? 1.f : 0.f;
+    }
+    return;
+  }
+  const bool row = w & F_ROW;
+  const uint32_t at = a + (row ? toff : 0u);
+#pragma unroll
+  for (int q = 0; q < QUADS; ++q) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        smem + at + (row ? q * (4u * TILE / QUADS) : 0u));
+    X[4 * q] = x.x; X[4 * q + 1] = x.y; X[4 * q + 2] = x.z; X[4 * q + 3] = x.w;
+  }
+}
+
+// Any decoded operand, forwarded ones copied from the result registers.
+template <int TILE>
+__device__ __forceinline__ void fetch(uint32_t w, const unsigned char* smem, uint32_t stage,
+                                      uint32_t toff, const float (&R)[VEC], float (&X)[VEC]) {
+  if (w & F_FWD) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) X[v] = R[v];
+  } else {
+    load<TILE>(w, smem, stage, toff, X);
+  }
+}
+
+// R = f(a, b) with each forwarded operand read from R in place (no copy):
+// the commonest opcodes take this path.
+template <int TILE, class F>
+__device__ __forceinline__ void binary(F f, uint32_t wa, uint32_t wb, const unsigned char* smem,
+                                       uint32_t stage, uint32_t toff, float (&R)[VEC]) {
+  float A[VEC], B[VEC];
+  if (wa & F_FWD) {
+    if (wb & F_FWD) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) R[v] = f(R[v], R[v]);
+    } else {
+      load<TILE>(wb, smem, stage, toff, B);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) R[v] = f(R[v], B[v]);
+    }
+  } else {
+    load<TILE>(wa, smem, stage, toff, A);
+    if (wb & F_FWD) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) R[v] = f(A[v], R[v]);
+    } else {
+      load<TILE>(wb, smem, stage, toff, B);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) R[v] = f(A[v], B[v]);
+    }
+  }
+}
+
+struct Mul { __device__ float operator()(float a, float b) const { return a * b; } };
+struct Add { __device__ float operator()(float a, float b) const { return a + b; } };
+struct Sub { __device__ float operator()(float a, float b) const { return a - b; } };
+
+#define UNARY(OPC, EXPR)                                 \
+  case OPC:                                              \
+    _Pragma("unroll") for (int v = 0; v < VEC; ++v) {    \
+      const float x = A[v];                              \
+      R[v] = (EXPR);                                     \
+    }                                                    \
+    break;
+
+#define BINARY(OPC, EXPR)                                \
+  case OPC:                                              \
+    _Pragma("unroll") for (int v = 0; v < VEC; ++v) {    \
+      const float a = A[v], b = B[v];                    \
+      R[v] = (EXPR);                                     \
+    }                                                    \
+    break;
+
+__device__ __forceinline__ void apply(uint32_t op, const float (&A)[VEC], const float (&B)[VEC],
+                                      const float (&C)[VEC], float (&R)[VEC]) {
+  switch (op) {
+    UNARY(OP_COPY, x)
+    UNARY(OP_NEG, -x)
+    UNARY(OP_ABS, fabsf(x))
+    UNARY(OP_EXP, expf(x))
+    UNARY(OP_LOG, logf(x))
+    UNARY(OP_LOG1P, log1pf(x))
+    UNARY(OP_SQRT, sqrtf(x))
+    UNARY(OP_ERF, erff(x))
+    UNARY(OP_SIN, sinf(x))
+    UNARY(OP_COS, cosf(x))
+    UNARY(OP_TANH, tanhf(x))
+    UNARY(OP_SIGN, x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f))
+    UNARY(OP_ASIN, asinf(x))
+    UNARY(OP_ACOS, acosf(x))
+    UNARY(OP_EXPM1, expm1f(x))
+    UNARY(OP_SQUARE, x * x)
+    UNARY(OP_RECIP, 1.f / x)
+    UNARY(OP_FLOOR, floorf(x))
+    UNARY(OP_ISNAN, x != x ? 1.f : 0.f)
+    UNARY(OP_NOT, x == 0.f ? 1.f : 0.f)
+    UNARY(OP_BOOL, x != 0.f ? 1.f : 0.f)
+    // OP_ADD, OP_SUB and OP_MUL take ``binary``
+    BINARY(OP_DIV, a / b)
+    BINARY(OP_POW, powf(a, b))
+    BINARY(OP_MAX, max_nan(a, b))
+    BINARY(OP_MIN, min_nan(a, b))
+    BINARY(OP_GT, a > b ? 1.f : 0.f)
+    BINARY(OP_LT, a < b ? 1.f : 0.f)
+    BINARY(OP_GE, a >= b ? 1.f : 0.f)
+    BINARY(OP_LE, a <= b ? 1.f : 0.f)
+    BINARY(OP_EQ, a == b ? 1.f : 0.f)
+    BINARY(OP_NE, a != b ? 1.f : 0.f)
+    BINARY(OP_AND, (a != 0.f && b != 0.f) ? 1.f : 0.f)
+    BINARY(OP_OR, (a != 0.f || b != 0.f) ? 1.f : 0.f)
+    BINARY(OP_ATAN2, atan2f(a, b))
+    BINARY(OP_MOD, mod_floor(a, b))
+    case OP_WHERE:
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) R[v] = A[v] != 0.f ? B[v] : C[v];
+      break;
+    default:
+      break;
+  }
+}
+
+template <int TILE>
+__device__ __forceinline__ uint32_t decode_operand(const Params& p, const Layout& L,
+                                                   uint32_t code) {
+  const uint32_t kind = code >> 14, idx = code & 0x3fffu;
+  switch (kind) {
+    case K_IN:
+      return F_ROW | F_IN | (p.in_bool[idx] ? F_BOOL : 0u) | idx * 4u * TILE;
+    case K_SCALAR:
+      return L.scal + 16u * idx;
+    case K_SLOT:
+      return F_ROW | (L.slots + idx * 4u * TILE);
+    default:
+      return F_FWD;
+  }
+}
+
+// CTAs per SM the register allocation must allow: a cap of REGS registers
+// for each of a CTA's TILE / VEC threads (64 is the least that spills
+// nothing).
+constexpr int REGS = 64;
+template <int TILE>
+constexpr int min_ctas() { return 65536 / (REGS * (TILE / VEC)); }
+
+template <int TILE>
+__global__ void __launch_bounds__(TILE / VEC, min_ctas<TILE>())
 split_pipeline_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  float* sc = smem;                               // scalars
-  float* rows = smem + MAX_SCALARS;               // inputs, then slots
-  float* scratch = rows + (p.n_in + p.n_slots) * TILE;
-  const long long base = (long long)blockIdx.x * TILE;
+  constexpr int CONS = TILE / VEC;  // threads of the CTA
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = layout(p);
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t full0 = sbase, empty0 = sbase + 8u * MAX_STAGES;
+  uint4* dec = reinterpret_cast<uint4*>(smem + L.dec);
+  uint2* odec = reinterpret_cast<uint2*>(smem + L.outs);
+  float* red = reinterpret_cast<float*>(smem + L.red);
   const long long n = p.n;
+  const long long n_tiles = (n + TILE - 1) / TILE;
+  const int stages = p.stages;
+  const uint32_t stage_bytes = 4u * TILE * p.n_in;
 
-  for (int i = threadIdx.x; i < p.n_scalars; i += THREADS) sc[i] = p.scalars[i];
-  for (int j = 0; j < p.n_in; ++j) {
-    float* dst = rows + j * TILE;
-    if (p.in_bool[j]) {
-      const uint8_t* src = static_cast<const uint8_t*>(p.in[j]);
-      for (int e = threadIdx.x; e < TILE; e += THREADS)
-        dst[e] = (base + e < n && src[base + e]) ? 1.f : 0.f;
+  // Decode the program once per CTA (the spare last entry is never executed).
+  for (int i = threadIdx.x; i < p.n_scalars; i += blockDim.x)
+    reinterpret_cast<float4*>(smem + L.scal)[i] = make_float4(p.scalars[i], p.scalars[i],
+                                                              p.scalars[i], p.scalars[i]);
+  for (int i = threadIdx.x; i <= p.n_instr; i += blockDim.x) {
+    const Instr ins = i < p.n_instr ? p.code[i] : Instr{0, NO_STORE, 0, 0, 0};
+    const uint32_t store = (ins.dst & NO_STORE) ? 0u : STORE | (L.slots + (ins.dst & 0x3fu) *
+                                                                 4u * TILE) << 12;
+    dec[i] = make_uint4(ins.op | store, decode_operand<TILE>(p, L, ins.a),
+                        decode_operand<TILE>(p, L, ins.b), decode_operand<TILE>(p, L, ins.c));
+  }
+  for (int j = threadIdx.x; j < p.n_out; j += blockDim.x)
+    odec[j] = make_uint2(decode_operand<TILE>(p, L, p.out_src[j]), p.out_kind[j]);
+  if (L.any_red)                    // each thread's reduction accumulators
+    for (int j = 0; j < p.n_out; ++j) red[j * CONS + threadIdx.x] = identity(p.out_kind[j]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8u * s, 1);             // the issuing thread arrives
+      mbar_init(empty0 + 8u * s, CONS / 32);    // one arrival per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread ct owns elements q * TILE / QUADS + 4 ct .. + 3 of every row, for
+  // each quad q.  Thread 0 also issues the bulk copies: tile k + stages - 1
+  // of this CTA goes into the stage of tile k - 1 once every warp is done
+  // with tile k - 1.
+  const int ct = threadIdx.x, warp = ct / 32, lane = ct % 32;
+  const uint32_t toff = 16u * ct;
+  const long long step = gridDim.x;
+  auto bulk = [&](long long t) {      // tile t takes bulk copies
+    return p.aligned && t < n_tiles && (t + 1) * TILE <= n;
+  };
+  auto issue = [&](long long t, int s) {
+    uint32_t bytes = 0;
+    for (int j = 0; j < p.n_in; ++j) bytes += p.in_bool[j] ? TILE : 4u * TILE;
+    mbar_expect_tx(full0 + 8u * s, bytes);
+    for (int j = 0; j < p.n_in; ++j) {
+      const uint32_t esize = p.in_bool[j] ? 1u : 4u;
+      bulk_load(sbase + L.ring + s * stage_bytes + j * 4u * TILE,
+                static_cast<const unsigned char*>(p.in[j]) + t * TILE * esize, esize * TILE,
+                full0 + 8u * s);
+    }
+  };
+  if (ct == 0)
+    for (int k = 0; k < stages - 1; ++k)
+      if (bulk(blockIdx.x + k * step)) issue(blockIdx.x + k * step, k);
+
+  float R[VEC];                     // the previous instruction's result
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) R[v] = 0.f;
+  int s = 0, ahead = stages - 1;    // stages of tiles k and k + stages - 1
+  uint32_t phase = 0, prev_phase = 1;   // parity of tile k's, k - 1's round
+  for (long long t = blockIdx.x, k = 0; t < n_tiles; t += step, ++k) {
+    const long long t_ahead = t + (stages - 1) * step;
+    if (ct == 0 && bulk(t_ahead)) {
+      if (k > 0) mbar_wait(empty0 + 8u * ahead, prev_phase);   // tile k - 1 released
+      issue(t_ahead, ahead);
+    }
+    const uint32_t stage = L.ring + s * stage_bytes;
+    if (bulk(t)) {
+      mbar_wait(full0 + 8u * s, phase);
     } else {
-      const float* src = static_cast<const float*>(p.in[j]);
-      for (int e = threadIdx.x; e < TILE; e += THREADS)
-        dst[e] = base + e < n ? src[base + e] : 0.f;
+      // Plain loads of this thread's own elements: any alignment, the
+      // ragged tail zero-filled.
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const long long first = t * TILE + 4 * ct;
+      for (int j = 0; j < p.n_in; ++j) {
+        unsigned char* row = smem + stage + j * 4u * TILE;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const int e = (v / 4) * (TILE / QUADS) + 4 * ct + v % 4;
+          const long long i = first - 4 * ct + e;
+          if (p.in_bool[j])
+            row[e] = i < n ? static_cast<const unsigned char*>(p.in[j])[i] : 0;
+          else
+            reinterpret_cast<float*>(row)[e] = i < n ? static_cast<const float*>(p.in[j])[i] : 0.f;
+        }
+      }
     }
-  }
-  __syncthreads();                                // scalars visible to all
 
-  for (int pc = 0; pc < p.n_instr; ++pc) {
-    const Instr ins = p.code[pc];
-    int sa, sb, sc3;
-    const float* A = operand(sc, rows, p.n_in, ins.a, sa);
-    const float* B = operand(sc, rows, p.n_in, ins.b, sb);
-    const float* C = operand(sc, rows, p.n_in, ins.c, sc3);
-    float* D = rows + (p.n_in + ins.dst) * TILE;
-    switch (ins.op) {
-      UNARY(OP_COPY, x)
-      UNARY(OP_NEG, -x)
-      UNARY(OP_ABS, fabsf(x))
-      UNARY(OP_EXP, expf(x))
-      UNARY(OP_LOG, logf(x))
-      UNARY(OP_LOG1P, log1pf(x))
-      UNARY(OP_SQRT, sqrtf(x))
-      UNARY(OP_ERF, erff(x))
-      UNARY(OP_SIN, sinf(x))
-      UNARY(OP_COS, cosf(x))
-      UNARY(OP_TANH, tanhf(x))
-      UNARY(OP_SIGN, x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f))
-      UNARY(OP_ASIN, asinf(x))
-      UNARY(OP_ACOS, acosf(x))
-      UNARY(OP_EXPM1, expm1f(x))
-      UNARY(OP_SQUARE, x * x)
-      UNARY(OP_RECIP, 1.f / x)
-      UNARY(OP_FLOOR, floorf(x))
-      UNARY(OP_ISNAN, x != x ? 1.f : 0.f)
-      UNARY(OP_NOT, x == 0.f ? 1.f : 0.f)
-      UNARY(OP_BOOL, x != 0.f ? 1.f : 0.f)
-      BINARY(OP_ADD, a + b)
-      BINARY(OP_SUB, a - b)
-      BINARY(OP_MUL, a * b)
-      BINARY(OP_DIV, a / b)
-      BINARY(OP_POW, powf(a, b))
-      BINARY(OP_MAX, max_nan(a, b))
-      BINARY(OP_MIN, min_nan(a, b))
-      BINARY(OP_GT, a > b ? 1.f : 0.f)
-      BINARY(OP_LT, a < b ? 1.f : 0.f)
-      BINARY(OP_GE, a >= b ? 1.f : 0.f)
-      BINARY(OP_LE, a <= b ? 1.f : 0.f)
-      BINARY(OP_EQ, a == b ? 1.f : 0.f)
-      BINARY(OP_NE, a != b ? 1.f : 0.f)
-      BINARY(OP_AND, (a != 0.f && b != 0.f) ? 1.f : 0.f)
-      BINARY(OP_OR, (a != 0.f || b != 0.f) ? 1.f : 0.f)
-      BINARY(OP_ATAN2, atan2f(a, b))
-      BINARY(OP_MOD, mod_floor(a, b))
-      case OP_WHERE:
-        for (int e = threadIdx.x; e < TILE; e += THREADS)
-          D[e] = A[e * sa] != 0.f ? B[e * sb] : C[e * sc3];
-        break;
-      default:
-        break;
+#pragma unroll 1
+    for (int pc = 0; pc < p.n_instr; ++pc) {
+      const uint4 d = dec[pc];
+      const uint32_t op = d.x & 0xffu;
+      // the commonest opcodes first, then the rest by a switch
+      if (op == OP_MUL) {
+        binary<TILE>(Mul{}, d.y, d.z, smem, stage, toff, R);
+      } else if (op == OP_ADD) {
+        binary<TILE>(Add{}, d.y, d.z, smem, stage, toff, R);
+      } else if (op == OP_SUB) {
+        binary<TILE>(Sub{}, d.y, d.z, smem, stage, toff, R);
+      } else if (op < OP_ADD && (d.y & F_FWD)) {
+        apply(op, R, R, R, R);                     // unary on the forwarded value
+      } else {
+        float A[VEC], B[VEC], C[VEC];
+        fetch<TILE>(d.y, smem, stage, toff, R, A);
+        if (op >= OP_ADD) fetch<TILE>(d.z, smem, stage, toff, R, B);
+        if (op == OP_WHERE) fetch<TILE>(d.w, smem, stage, toff, R, C);
+        apply(op, A, B, C, R);
+      }
+      if (d.x & STORE) {
+        unsigned char* row = smem + (d.x >> 12) + toff;
+#pragma unroll
+        for (int q = 0; q < QUADS; ++q)
+          *reinterpret_cast<float4*>(row + q * (4 * TILE / QUADS)) =
+              make_float4(R[4 * q], R[4 * q + 1], R[4 * q + 2], R[4 * q + 3]);
+      }
     }
+
+    const long long first = t * TILE + 4 * ct;     // element 0 of this thread
+    const bool whole = first + (QUADS - 1) * (TILE / QUADS) + 4 <= n;
+    for (int j = 0; j < p.n_out; ++j) {
+      const uint2 od = odec[j];
+      float V[VEC];
+      fetch<TILE>(od.x, smem, stage, toff, R, V);
+      const uint32_t kind = od.y;
+      if (kind == OUT_F32) {
+        float* o = static_cast<float*>(p.out[j]) + first;
+#pragma unroll
+        for (int q = 0; q < QUADS; ++q) {
+          float* oq = o + q * (TILE / QUADS);
+          if (whole) {
+            __stcs(reinterpret_cast<float4*>(oq),
+                   make_float4(V[4 * q], V[4 * q + 1], V[4 * q + 2], V[4 * q + 3]));
+          } else {
+#pragma unroll
+            for (int v = 0; v < 4; ++v)
+              if (first + q * (TILE / QUADS) + v < n) oq[v] = V[4 * q + v];
+          }
+        }
+      } else if (kind == OUT_BOOL) {
+        unsigned char* o = static_cast<unsigned char*>(p.out[j]) + first;
+#pragma unroll
+        for (int q = 0; q < QUADS; ++q) {
+          unsigned char* oq = o + q * (TILE / QUADS);
+          if (whole) {
+            uint32_t b = 0u;
+#pragma unroll
+            for (int v = 0; v < 4; ++v) b |= (V[4 * q + v] != 0.f ? 1u : 0u) << (8 * v);
+            *reinterpret_cast<uint32_t*>(oq) = b;
+          } else {
+#pragma unroll
+            for (int v = 0; v < 4; ++v)
+              if (first + q * (TILE / QUADS) + v < n) oq[v] = V[4 * q + v] != 0.f;
+          }
+        }
+      } else {
+        float acc = red[j * CONS + ct];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          if (first + (v / 4) * (TILE / QUADS) + v % 4 < n) acc = combine(kind, acc, V[v]);
+        red[j * CONS + ct] = acc;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8u * s);   // this warp is done with the stage
+    ahead = s;
+    prev_phase = phase;
+    if (++s == stages) s = 0, phase ^= 1u;
   }
 
+  // One partial per reduction: the threads' accumulators, combined in a
+  // fixed order.
+  float* scratch = red + p.n_out * CONS;
   for (int j = 0; j < p.n_out; ++j) {
-    int s;
-    const float* V = operand(sc, rows, p.n_in, p.out_src[j], s);
-    const uint8_t kind = p.out_kind[j];
-    if (kind == OUT_F32) {
-      float* o = static_cast<float*>(p.out[j]);
-      for (int e = threadIdx.x; e < TILE; e += THREADS)
-        if (base + e < n) o[base + e] = V[e * s];
-    } else if (kind == OUT_BOOL) {
-      uint8_t* o = static_cast<uint8_t*>(p.out[j]);
-      for (int e = threadIdx.x; e < TILE; e += THREADS)
-        if (base + e < n) o[base + e] = V[e * s] != 0.f;
-    } else {
-      float acc = identity(kind);
-      for (int e = threadIdx.x; e < TILE; e += THREADS)
-        if (base + e < n) acc = combine(kind, acc, V[e * s]);
-      acc = block_reduce(kind, acc, scratch);
-      if (threadIdx.x == 0) static_cast<float*>(p.out[j])[blockIdx.x] = acc;
+    const uint32_t kind = p.out_kind[j];
+    if (kind < OUT_ADD) continue;
+    float v = red[j * CONS + ct];
+    for (int off = 16; off > 0; off >>= 1)
+      v = combine(kind, v, __shfl_down_sync(0xffffffffu, v, off));
+    __syncthreads();                // scratch free from the previous reduction
+    if (lane == 0) scratch[warp] = v;
+    __syncthreads();
+    if (ct == 0) {
+      for (int w = 1; w < CONS / 32; ++w) v = combine(kind, v, scratch[w]);
+      static_cast<float*>(p.out[j])[blockIdx.x] = v;
     }
   }
+}
+
+template <int TILE>
+cudaError_t allow_smem(int device) {
+  static bool done[64] = {};        // per device: the attribute is set once
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(split_pipeline_kernel<TILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_LIMIT);
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
+}
+
+template <int TILE>
+cudaError_t occupancy(int smem, int device, int* blocks) {
+  cudaError_t err = allow_smem<TILE>(device);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, split_pipeline_kernel<TILE>,
+                                                       TILE / VEC, smem);
+}
+
+template <int TILE>
+cudaError_t launch(const Params& p, int device, cudaStream_t stream) {
+  cudaError_t err = allow_smem<TILE>(device);
+  if (err != cudaSuccess) return err;
+  split_pipeline_kernel<TILE><<<p.grid, TILE / VEC, p.smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess || current == device) return err;
+  return cudaSetDevice(device);
 }
 
 }  // namespace
@@ -250,9 +618,25 @@ extern "C" {
 
 int split_pipeline_params_size() { return (int)sizeof(Params); }
 int split_pipeline_num_opcodes() { return OP_COUNT; }
-int split_pipeline_tile() { return TILE; }
+int split_pipeline_vec() { return VEC; }
 const char* split_pipeline_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// CTAs of ``tile`` elements that fit on one SM with ``smem`` bytes of
+// dynamic shared memory each (>= 0), or minus a CUDA error code.
+int split_pipeline_occupancy(int tile, int smem, int device) {
+  cudaError_t err = use_device(device);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    switch (tile) {
+      case 2048: err = occupancy<2048>(smem, device, &blocks); break;
+      case 1024: err = occupancy<1024>(smem, device, &blocks); break;
+      case 512: err = occupancy<512>(smem, device, &blocks); break;
+      default: err = cudaErrorInvalidValue;
+    }
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // Launches one stage on ``stream`` (no synchronisation); returns the CUDA
@@ -263,21 +647,18 @@ int split_pipeline_launch(const void* params, int device, void* stream) {
   const Params& p = *static_cast<const Params*>(params);
   if (p.n <= 0 || p.n_in < 1 || p.n_in > MAX_IN || p.n_out > MAX_OUT ||
       p.n_scalars > MAX_SCALARS || p.n_instr > MAX_INSTR ||
-      p.n_in + p.n_slots > MAX_ROWS)
+      p.n_in + p.n_slots > MAX_ROWS || p.stages < 1 || p.stages > MAX_STAGES ||
+      p.grid < 1 || p.smem > SMEM_LIMIT || static_cast<uint32_t>(p.smem) < layout(p).total)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid = (p.n + TILE - 1) / TILE;
-  const size_t smem =
-      (MAX_SCALARS + static_cast<size_t>(p.n_in + p.n_slots) * TILE + WARPS) *
-      sizeof(float);
-  err = cudaFuncSetAttribute(split_pipeline_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  split_pipeline_kernel<<<static_cast<unsigned>(grid), THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (p.tile) {
+    case 2048: return static_cast<int>(launch<2048>(p, device, st));
+    case 1024: return static_cast<int>(launch<1024>(p, device, st));
+    case 512: return static_cast<int>(launch<512>(p, device, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

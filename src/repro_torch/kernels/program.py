@@ -1,11 +1,21 @@
 """The straight-line program the split-pipeline kernel interprets.
 
 ``core/cuda_exec.py`` lowers one Mozart stage into a ``Program``: a list of
-instructions ``(opcode, dst_slot, a, b, c)`` over four kinds of values —
+instructions ``(opcode, dst_slot, a, b, c)`` over five kinds of values —
 split inputs (one tile of each is resident), scalars (the stage's broadcast
-inputs, passed at run time, followed by the program's immediates), and
-slots (tile-wide intermediates, allocated by liveness).  Every value is
-float32; a bool is 1.0/0.0 and is stored as one byte.
+inputs, passed at run time, followed by the program's immediates), slots
+(tile-wide intermediates in shared memory, allocated by liveness), and the
+previous instruction's result, which the kernel keeps in registers
+(*forwarded*).  Every value is float32; a bool is 1.0/0.0 and is stored as
+one byte.
+
+``assemble`` builds a program from SSA form and ``forward`` re-assembles
+any program: a value read only by the next instruction, or the last
+instruction's result read only by outputs, is never written to a slot.  Its
+readers name it as ``KIND_FWD`` and its instruction carries ``NO_STORE``.
+Both marks keep the index of a slot that no stored value uses (the
+*register slot*), so ``unmarked`` turns a marked program back into an
+equivalent one that stores every result.
 
 The opcode order is the kernel's ABI: ``csrc/split_pipeline.cu`` declares
 the same enum, and the wrapper checks the count when it loads the kernel.
@@ -14,6 +24,8 @@ the same enum, and the wrapper checks the count when it loads the kernel.
 from __future__ import annotations
 
 import dataclasses
+import heapq
+from typing import Sequence
 
 #: opcode names in ABI order, with their arity.
 OPCODES: tuple[tuple[str, int], ...] = (
@@ -28,15 +40,21 @@ OPCODES: tuple[tuple[str, int], ...] = (
 )
 OP = {name: i for i, (name, _arity) in enumerate(OPCODES)}
 ARITY = {name: arity for name, arity in OPCODES}
+_ARITY_OF = [arity for _name, arity in OPCODES]
 
 #: opcodes whose result is a bool (1.0/0.0).
 BOOL_RESULT = frozenset(
     {"ISNAN", "NOT", "BOOL", "GT", "LT", "GE", "LE", "EQ", "NE", "AND", "OR"})
 
 # Operand encoding: kind in the top two bits of a uint16, index below.
-KIND_INPUT, KIND_SCALAR, KIND_SLOT = 0, 1, 2
+KIND_INPUT, KIND_SCALAR, KIND_SLOT, KIND_FWD = 0, 1, 2, 3
 _INDEX_BITS = 14
 MAX_INDEX = (1 << _INDEX_BITS) - 1
+#: bit of ``dst`` (a uint8): the result is not written to its slot.
+NO_STORE = 0x80
+
+#: an SSA source: ("in", i), ("sc", i) or ("v", j), j an earlier instruction.
+Src = tuple[str, int]
 
 
 def operand(kind: int, index: int) -> int:
@@ -58,7 +76,8 @@ class Program:
     ``i``; scalar ``n_bcast + j`` is ``imms[j]``.  ``outputs`` lists, per
     escaping value, its operand and whether it is stored as bool; the
     caller's ``out_kinds`` say whether each is a concat output or a
-    reduction of that operand."""
+    reduction of that operand.  ``n_slots`` counts every slot the code
+    names, the register slot included."""
 
     code: tuple[tuple[int, int, int, int, int], ...]
     n_split: int
@@ -70,3 +89,124 @@ class Program:
     @property
     def n_scalars(self) -> int:
         return self.n_bcast + len(self.imms)
+
+    @property
+    def stored_slots(self) -> int:
+        """Slots the kernel keeps in shared memory: one more than the
+        highest slot a result is written to."""
+        return max((dst + 1 for _op, dst, *_ in self.code if not dst & NO_STORE),
+                   default=0)
+
+    @property
+    def forwarded(self) -> int:
+        """Instructions whose result stays in registers."""
+        return sum(1 for _op, dst, *_ in self.code if dst & NO_STORE)
+
+
+def assemble(code: Sequence[tuple[int, Sequence[Src]]],
+             outputs: Sequence[tuple[Src, bool]], *, n_split: int, n_bcast: int,
+             imms: Sequence[float]) -> Program:
+    """The program of SSA instructions ``(opcode, sources)`` with forwarding
+    marks and slots allocated by liveness.
+
+    Instruction j's result is *forwarded* (``NO_STORE``; its readers name
+    it ``KIND_FWD``) when instruction j + 1 is its only reader and no
+    output reads it, or when j is the last instruction and only outputs
+    read it; a result nothing reads is not stored either.  Every other
+    result gets a slot, freed after its last reader: an instruction may
+    write the slot its last-read operand frees, since the kernel reads an
+    element's operands before it writes the element."""
+    n = len(code)
+    readers: list[set[int]] = [set() for _ in range(n)]
+    last = [-1] * n
+    for i, (_op, srcs) in enumerate(code):
+        for kind, j in srcs:
+            if kind == "v":
+                if not 0 <= j < i:
+                    raise ValueError(f"instruction {i} reads value {j}")
+                readers[j].add(i)
+                last[j] = i
+    out_read = [False] * n
+    for (kind, j), _is_bool in outputs:
+        if kind == "v":
+            out_read[j] = True
+            last[j] = n
+    fwd = [(readers[j] == {j + 1} and not out_read[j])
+           or (j == n - 1 and out_read[j] and not readers[j]) for j in range(n)]
+    stored = [last[j] >= 0 and not fwd[j] for j in range(n)]
+
+    free: list[int] = []
+    slot_of: dict[int, int] = {}
+    n_stored = 0
+    for i, (_op, srcs) in enumerate(code):
+        for j in {j for kind, j in srcs if kind == "v" and stored[j] and last[j] == i}:
+            heapq.heappush(free, slot_of[j])
+        if stored[i]:
+            if free:
+                slot_of[i] = heapq.heappop(free)
+            else:
+                slot_of[i], n_stored = n_stored, n_stored + 1
+    reg = n_stored                      # the register slot
+
+    def enc(src: Src) -> int:
+        kind, i = src
+        if kind == "in":
+            return operand(KIND_INPUT, i)
+        if kind == "sc":
+            return operand(KIND_SCALAR, i)
+        return operand(KIND_FWD, reg) if fwd[i] else operand(KIND_SLOT, slot_of[i])
+
+    out_code = []
+    for i, (op, srcs) in enumerate(code):
+        ops = [enc(s) for s in srcs] + [0] * (3 - len(srcs))
+        out_code.append((op, slot_of[i] if stored[i] else NO_STORE | reg, *ops))
+    return Program(code=tuple(out_code), n_split=n_split, n_bcast=n_bcast,
+                   n_slots=n_stored + (0 if all(stored) else 1), imms=tuple(imms),
+                   outputs=tuple((enc(s), is_bool) for s, is_bool in outputs))
+
+
+def _ssa(program: Program) -> tuple[list, list]:
+    """``program``'s instructions and outputs over SSA sources."""
+    kinds = {KIND_INPUT: "in", KIND_SCALAR: "sc"}
+    holder: dict[int, int] = {}           # slot -> instruction last written there
+
+    def src(x: int, i: int) -> Src:
+        kind, idx = decode(x)
+        if kind in kinds:
+            return kinds[kind], idx
+        if kind == KIND_FWD:
+            if i == 0:
+                raise ValueError("a forwarded operand with no instruction before it")
+            return "v", i - 1
+        if idx not in holder:
+            raise ValueError(f"slot {idx} read before it is written")
+        return "v", holder[idx]
+
+    code = []
+    for i, (op, dst, a, b, c) in enumerate(program.code):
+        code.append((op, [src(x, i) for x in (a, b, c)[:_ARITY_OF[op]]]))
+        if not dst & NO_STORE:
+            holder[dst] = i
+    n = len(program.code)
+    return code, [(src(x, n), is_bool) for x, is_bool in program.outputs]
+
+
+def forward(program: Program) -> Program:
+    """``program`` with forwarding marks and its stored values re-allocated
+    (``assemble``); an already marked program comes back unchanged."""
+    code, outputs = _ssa(program)
+    return assemble(code, outputs, n_split=program.n_split, n_bcast=program.n_bcast,
+                    imms=program.imms)
+
+
+def unmarked(program: Program) -> Program:
+    """The same program with every result stored: forwarded operands read
+    the register slot and ``NO_STORE`` instructions write it."""
+    def plain(x: int) -> int:
+        kind, idx = decode(x)
+        return operand(KIND_SLOT, idx) if kind == KIND_FWD else x
+
+    code = tuple((op, dst & ~NO_STORE, plain(a), plain(b), plain(c))
+                 for op, dst, a, b, c in program.code)
+    return dataclasses.replace(program, code=code, outputs=tuple(
+        (plain(x), is_bool) for x, is_bool in program.outputs))

@@ -17,8 +17,10 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch.kernels.program import (
+    KIND_FWD,
     KIND_INPUT,
     KIND_SCALAR,
+    NO_STORE,
     OPCODES,
     Program,
     decode,
@@ -81,12 +83,16 @@ def split_pipeline_ref(program: Program, split_inputs: Sequence[torch.Tensor],
                        bcast_inputs: Sequence[Any],
                        out_kinds: Sequence[tuple[str, str]]) -> list[torch.Tensor]:
     """Evaluate ``program`` on whole 1-D tensors; same contract as the
-    kernel wrapper (concat outputs of length n, reductions as 0-d f32)."""
+    kernel wrapper (concat outputs of length n, reductions as 0-d f32).
+    Honours the forwarding marks as the kernel does: a ``KIND_FWD`` operand
+    reads the previous instruction's result and a ``NO_STORE`` result is
+    written to no slot."""
     dev = split_inputs[0].device
     ins = [_f(x) for x in split_inputs]
     scalars = [torch.as_tensor(v, dtype=torch.float32, device=dev)
                for v in list(bcast_inputs) + list(program.imms)]
     slots: list[torch.Tensor | None] = [None] * program.n_slots
+    prev: torch.Tensor | None = None
 
     def read(code: int) -> torch.Tensor:
         kind, i = decode(code)
@@ -94,11 +100,16 @@ def split_pipeline_ref(program: Program, split_inputs: Sequence[torch.Tensor],
             return ins[i]
         if kind == KIND_SCALAR:
             return scalars[i]
-        return slots[i]
+        v = prev if kind == KIND_FWD else slots[i]
+        if v is None:
+            raise ValueError(f"operand {code:#06x} reads no value")
+        return v
 
     for op, dst, a, b, c in program.code:
         fn, arity = _BY_CODE[op]
-        slots[dst] = fn(*(read(x) for x in (a, b, c)[:arity]))
+        prev = fn(*(read(x) for x in (a, b, c)[:arity]))
+        if not dst & NO_STORE:
+            slots[dst] = prev
 
     results = []
     for (kind, rop), (src, is_bool) in zip(out_kinds, program.outputs):

@@ -129,6 +129,23 @@ def _jax(name, executor):
     return _JAX_CACHE[key]
 
 
+def _which_side_moved(name, executor, jex, i, got, want, tol):
+    """After a parity failure: run both packages again, alone, and name the
+    side whose output changed, with the first mismatching elements."""
+    again = run_port(name, executor)[0][i]
+    jagain = run_jax(name, jex)[0][i]
+    w = np.asarray(want)
+    atol = max(tol.get("atol", 0.0), 2e-5 * float(np.max(np.abs(w))))
+    bad = np.flatnonzero(~np.isclose(got, w, rtol=tol.get("rtol", 2e-5), atol=atol,
+                                     equal_nan=True))
+    moved = [side for side, first, second in (("port", got, again), ("jax", w, jagain))
+             if not np.array_equal(first, second, equal_nan=True)]
+    rows = "; ".join(f"[{k}] port {got.flat[k]!r} (again {again.flat[k]!r}), jax "
+                     f"{w.flat[k]!r} (again {jagain.flat[k]!r})" for k in bad[:5])
+    return (f"{name}/{executor} output {i} vs jax {jex}: {bad.size} elements off; "
+            f"recomputed alone, the side that moved: {moved or 'neither'}; first: {rows}")
+
+
 @pytest.mark.parametrize("executor", PORT_EXECUTORS)
 @pytest.mark.parametrize("name", list(CASES))
 def test_port_matches_jax_eager_and_pallas(name, executor):
@@ -138,7 +155,11 @@ def test_port_matches_jax_eager_and_pallas(name, executor):
         assert len(got) == len(want)
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.dtype == w.dtype and g.shape == w.shape
-            close(g, w, **_tol(name, i))
+            try:
+                close(g, w, **_tol(name, i))
+            except AssertionError as e:
+                raise AssertionError(_which_side_moved(name, executor, jex, i, g, w,
+                                                       _tol(name, i))) from e
 
 
 @pytest.mark.parametrize("executor", ["eager", "pipelined", "fused"])

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_adamw as fa
+from repro_torch.kernels.program import OPCODES
 from repro_torch.kernels.ref import adamw_ref
 
 
@@ -247,3 +248,146 @@ def test_rmsnorm_weight_dtypes_and_views_match_plain_version(x_dtype, w_dtype, w
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                **TOL[x_dtype])
+
+
+# -- split pipeline -----------------------------------------------------------
+
+def _sp_check(program, ins, bcast, kinds):
+    """One launch against the plain version on the same inputs.  Concat
+    outputs: the same float32 operations, rtol 2e-5 (atol 2e-5 * max|ref|);
+    reductions sum in another order, rtol 1e-4; bools exactly."""
+    from repro_torch.kernels import split_pipeline as sp
+    from repro_torch.kernels.ref import split_pipeline_ref
+    before = sp.split_pipeline.launches
+    got = sp.split_pipeline(program, ins, bcast, kinds)
+    want = split_pipeline_ref(program, ins, bcast, kinds)
+    torch.cuda.synchronize()
+    assert sp.split_pipeline.launches == before + 1
+    for (kind, _op), g, w in zip(kinds, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if g.dtype == torch.bool:
+            assert torch.equal(g, w)
+            continue
+        g, w = g.cpu().double().numpy(), w.cpu().double().numpy()
+        finite = np.abs(w[np.isfinite(w)]) if w.ndim else np.abs(w[None][np.isfinite(w[None])])
+        atol = 2e-5 * float(finite.max()) if finite.size else 0.0
+        np.testing.assert_allclose(g, w, rtol=1e-4 if kind == "reduce" else 2e-5, atol=atol,
+                                   equal_nan=True)
+
+
+def _sp_inputs(n, k, seed, offset=0):
+    r = np.random.RandomState(seed)
+    return [torch.from_numpy((r.randn(n + offset) * 2.0).astype(np.float32)).cuda()[offset:]
+            for _ in range(k)]
+
+
+def _sp_chain():
+    """A Haversine-like program: results forwarded and stored, scalars."""
+    from repro_torch.kernels import program as P
+    v = lambda j: ("v", j)
+    code = [(P.OP["SUB"], [("in", 0), ("sc", 0)]), (P.OP["MUL"], [("in", 1), ("sc", 1)]),
+            (P.OP["SIN"], [v(1)]), (P.OP["MUL"], [v(2), v(2)]), (P.OP["COS"], [("in", 0)]),
+            (P.OP["MUL"], [v(4), v(0)]), (P.OP["ADD"], [v(3), v(5)]), (P.OP["ABS"], [v(6)]),
+            (P.OP["SQRT"], [v(7)])]
+    return P.assemble(code, [(v(8), False), (v(0), False)], n_split=2, n_bcast=2, imms=())
+
+
+_OPS = [(name, scalar) for name, arity in OPCODES
+        for scalar in ((False, True) if arity >= 2 else (False,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,scalar", _OPS)
+def test_split_pipeline_every_opcode_matches_plain_version(op, scalar):
+    """Each opcode on split operands (and a broadcast second operand), its
+    result stored in a slot and forwarded from registers."""
+    _card()
+    from repro_torch.kernels import program as P
+    n = 5003
+    a, b = _sp_inputs(n, 2, 11)
+    a[:6] = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 1.0])
+    c = (b > 0).to(torch.float32)
+    arity = P.ARITY[op]
+    srcs = [P.operand(P.KIND_INPUT, i) for i in range(3)][:arity]
+    bcast = []
+    if scalar:
+        srcs[1], bcast = P.operand(P.KIND_SCALAR, 0), [0.75]
+    stored = P.Program(code=((P.OP[op], 0, *srcs, *([0] * (3 - arity))),), n_split=3,
+                       n_bcast=len(bcast), n_slots=1, imms=(),
+                       outputs=((P.operand(P.KIND_SLOT, 0), op in P.BOOL_RESULT),))
+    for program in (stored, P.forward(stored)):
+        _sp_check(program, [a, b, c], bcast, [("concat", "")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 15, 16, 511, 513, 1023, 1024, 1025, 2047, 2049, 100_003])
+def test_split_pipeline_ragged_lengths_match_plain_version(n):
+    _card()
+    _sp_check(_sp_chain(), _sp_inputs(n, 2, n), [0.7, 0.5], [("concat", "")] * 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_split_pipeline_misaligned_views_match_plain_version(offset):
+    """Bases off the 16-byte grid take the plain-load path for every tile."""
+    _card()
+    from repro_torch.kernels import split_pipeline as sp
+    ins = _sp_inputs(100_003, 2, offset, offset)
+    assert ins[0].data_ptr() % 16 and sp.load_paths(ins, 1024)["bulk"] == 0
+    before = dict(sp.split_pipeline.tile_paths)
+    _sp_check(_sp_chain(), ins, [0.7, 0.5], [("concat", "")] * 2)
+    assert sp.split_pipeline.tile_paths["bulk"] == before["bulk"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1025, 100_003])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_split_pipeline_bool_inputs_and_outputs_match_plain_version(n, offset):
+    _card()
+    from repro_torch.kernels import program as P
+    v = lambda j: ("v", j)
+    program = P.assemble([(P.OP["GT"], [("in", 0), ("sc", 0)]), (P.OP["AND"], [v(0), ("in", 1)]),
+                          (P.OP["WHERE"], [("in", 2), ("in", 0), ("sc", 1)]),
+                          (P.OP["OR"], [("in", 1), ("in", 2)])],
+                         [(v(1), True), (v(2), False), (v(3), True)], n_split=3, n_bcast=2,
+                         imms=())
+    x, y, z = _sp_inputs(n, 3, n, offset)
+    _sp_check(program, [x, y > 0.5, z > -0.5], [0.1, -2.0], [("concat", "")] * 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "max", "min", "mul"])
+@pytest.mark.parametrize("n", [1, 1500, 1_000_003])
+def test_split_pipeline_reductions_match_plain_version(op, n):
+    _card()
+    from repro_torch.kernels import program as P
+    r = np.random.RandomState(n)
+    x = (1.0 + 1e-4 * r.randn(n) if op == "mul" else r.rand(n) - 0.25).astype(np.float32)
+    program = P.Program(code=(), n_split=1, n_bcast=0, n_slots=0, imms=(),
+                        outputs=((P.operand(P.KIND_INPUT, 0), False),))
+    _sp_check(program, [torch.from_numpy(x).cuda()], [], [("reduce", op)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [511, 513, 100_003])
+def test_split_pipeline_sixteen_inputs_and_the_row_limit_match_plain_version(n):
+    """16 inputs and 12 outputs (one summed), as the Mozart AdamW stage, and
+    a program of 16 inputs and 40 stored slots, the 56-row limit."""
+    _card()
+    from repro_torch.kernels import program as P
+    code, outs = [], []
+    for j in range(12):
+        code.append((P.OP["MUL"], [("in", j), ("sc", 0)]))
+        code.append((P.OP["ADD"], [("v", len(code) - 1), ("in", j + 4)]))
+        outs.append((("v", len(code) - 1), False))
+    wide = P.assemble(code, outs, n_split=16, n_bcast=1, imms=())
+    code = [(P.OP["MUL"], [("in", i % 16), ("sc", i % 4)]) for i in range(40)]
+    acc = ("v", 0)
+    for i in range(1, 40):
+        code.append((P.OP["ADD"], [acc, ("v", i)]))
+        acc = ("v", len(code) - 1)
+    rows = P.assemble(code, [(acc, False)], n_split=16, n_bcast=4, imms=())
+    assert rows.n_split + rows.stored_slots == 56
+    ins = _sp_inputs(n, 16, n)
+    _sp_check(wide, ins, [0.5], [("reduce", "add")] + [("concat", "")] * 11)
+    _sp_check(rows, ins, [0.5, -1.5, 0.25, 2.0], [("concat", "")])

@@ -273,3 +273,192 @@ def test_user_function_with_tensor_methods_and_annotated_calls_lowers():
     got, ctx = run_port(blend, dict(x=x, y=y))
     assert ctx.stats["cuda_stages"] == 1 and ctx.stats["cuda_fallback_stages"] == 0
     close(got[0], np.exp(x) * 0.25 + np.abs(y) - 1.0)
+
+
+# -- forwarding marks, and the kernel's geometry and load-path rules ----------
+
+
+def _workload_program(name):
+    from repro_torch import workloads as tw
+    fn, data = {"black_scholes": (tw.black_scholes, tw.black_scholes_data(64, device="cpu")),
+                "haversine": (tw.haversine, tw.haversine_data(64, device="cpu")),
+                "quickstart": (tw.quickstart, tw.quickstart_data(100, device="cpu"))}[name]
+    return _lowered(fn, data)
+
+
+@pytest.mark.parametrize("name,marked,total", [("black_scholes", 20, 32),
+                                                ("haversine", 12, 16),
+                                                ("quickstart", 4, 4)])
+def test_forwarding_marks_the_workloads(name, marked, total):
+    """Results read only by the next instruction (and the last result, read
+    only by outputs) stay in registers; the rest keep a slot."""
+    program = _workload_program(name)[0]
+    assert len(program.code) == total and program.forwarded == marked
+    assert prog.forward(program) == program                 # idempotent
+    assert prog.forward(prog.unmarked(program)) == program
+    assert program.stored_slots == {"black_scholes": 4, "haversine": 3,
+                                    "quickstart": 0}[name]
+
+
+def _ssa_program(code, outputs, n_split=2):
+    return prog.assemble([(prog.OP[op], srcs) for op, srcs in code],
+                         [(s, False) for s in outputs], n_split=n_split, n_bcast=1, imms=())
+
+
+def _kinds_read(program, pc):
+    op, _dst, *ops = program.code[pc]
+    return [prog.decode(x)[0] for x in ops[:prog.OPCODES[op][1]]]
+
+
+def test_value_read_twice_or_later_is_never_forwarded():
+    v = lambda j: ("v", j)
+    # v0 is read by the next instruction and again later: stored
+    p = _ssa_program([("EXP", [("in", 0)]), ("ADD", [v(0), ("in", 1)]),
+                      ("MUL", [v(0), v(1)])], [v(2)])
+    assert not p.code[0][1] & prog.NO_STORE
+    assert _kinds_read(p, 1)[0] == prog.KIND_SLOT
+    assert _kinds_read(p, 2) == [prog.KIND_SLOT, prog.KIND_FWD]
+    # v0 is read only after a later instruction: stored
+    p = _ssa_program([("EXP", [("in", 0)]), ("NEG", [("in", 1)]),
+                      ("ADD", [v(0), v(1)])], [v(2)])
+    assert not p.code[0][1] & prog.NO_STORE and p.code[1][1] & prog.NO_STORE
+    assert _kinds_read(p, 2) == [prog.KIND_SLOT, prog.KIND_FWD]
+    # read twice by the next instruction alone (x * x): forwarded to both
+    p = _ssa_program([("EXP", [("in", 0)]), ("MUL", [v(0), v(0)])], [v(1)])
+    assert p.code[0][1] & prog.NO_STORE
+    assert _kinds_read(p, 1) == [prog.KIND_FWD, prog.KIND_FWD]
+
+
+def test_an_outputs_slot_is_always_stored():
+    v = lambda j: ("v", j)
+    # v0 is an output and the next instruction's only operand; v1 an output
+    # and the last result; v2 (dead) is stored nowhere
+    p = prog.assemble([(prog.OP["EXP"], [("in", 0)]), (prog.OP["NEG"], [v(0)])],
+                      [(v(0), False), (v(1), True)], n_split=1, n_bcast=0, imms=())
+    assert not p.code[0][1] & prog.NO_STORE
+    assert _kinds_read(p, 1) == [prog.KIND_SLOT]
+    assert prog.decode(p.outputs[0][0]) == (prog.KIND_SLOT, p.code[0][1])
+    assert prog.decode(p.outputs[1][0])[0] == prog.KIND_FWD
+    for name in ("black_scholes", "haversine", "quickstart"):
+        program = _workload_program(name)[0]
+        stored = {dst for _op, dst, *_ in program.code if not dst & prog.NO_STORE}
+        for src, _is_bool in program.outputs:
+            kind, idx = prog.decode(src)
+            assert kind in (prog.KIND_FWD, prog.KIND_INPUT) or idx in stored
+            if kind == prog.KIND_FWD:
+                assert program.code[-1][1] & prog.NO_STORE
+
+
+def _exact(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", ["black_scholes", "haversine", "quickstart"])
+def test_plain_version_is_bit_identical_with_and_without_marks(name):
+    program, split_inputs, bcasts, kinds = _workload_program(name)
+    plain = prog.unmarked(program)
+    assert plain.forwarded == 0 and plain.n_slots == program.n_slots
+    _exact(split_pipeline_ref(program, split_inputs, bcasts, kinds),
+           split_pipeline_ref(plain, split_inputs, bcasts, kinds))
+
+
+@pytest.mark.parametrize("op", [name for name, _arity in prog.OPCODES])
+def test_one_instruction_program_is_bit_identical_forwarded(op):
+    arity = prog.ARITY[op]
+    x = torch.from_numpy(np.concatenate([SPECIAL, np.linspace(-3, 3, 23, dtype=np.float32)]))
+    ins = [x, torch.roll(x, 5), (x > 0).to(torch.float32)]
+    srcs = [prog.operand(prog.KIND_INPUT, i) for i in range(arity)] + [0] * (3 - arity)
+    stored = prog.Program(code=((prog.OP[op], 0, *srcs),), n_split=3, n_bcast=0, n_slots=1,
+                          imms=(), outputs=((prog.operand(prog.KIND_SLOT, 0), False),))
+    marked = prog.forward(stored)
+    assert marked.forwarded == 1 and marked.stored_slots == 0
+    _exact(split_pipeline_ref(marked, ins, [], [("concat", "")]),
+           split_pipeline_ref(stored, ins, [], [("concat", "")]))
+
+
+def test_forwarding_needs_no_more_rows_than_liveness():
+    """``fits_kernel`` refuses nothing it accepted when every result had a
+    slot: the stored slots never exceed the most values live at once."""
+    for name in ("black_scholes", "haversine", "quickstart"):
+        program = prog.unmarked(_workload_program(name)[0])
+        code, outs = prog._ssa(program)
+        last = {}
+        for i, (_op, srcs) in enumerate(code):
+            for kind, j in srcs:
+                if kind == "v":
+                    last[j] = i
+        for (kind, j), _b in outs:
+            if kind == "v":
+                last[j] = len(code)
+        most = max(sum(1 for j, end in last.items() if j < i <= end) + 1
+                   for i in range(len(code)))
+        assert prog.forward(program).stored_slots <= most
+
+
+def test_kernel_wrapper_rejects_operands_it_cannot_hold():
+    from repro_torch.kernels import split_pipeline as sp
+    fwd_first = prog.Program(code=((prog.OP["EXP"], prog.NO_STORE, prog.operand(
+        prog.KIND_FWD, 0), 0, 0),), n_split=1, n_bcast=0, n_slots=1, imms=(),
+        outputs=((prog.operand(prog.KIND_FWD, 0), False),))
+    unstored = prog.Program(code=((prog.OP["EXP"], prog.NO_STORE | 1, prog.operand(
+        prog.KIND_INPUT, 0), 0, 0),), n_split=1, n_bcast=0, n_slots=2, imms=(),
+        outputs=((prog.operand(prog.KIND_SLOT, 1), False),))
+    for bad in (fwd_first, unstored):
+        with pytest.raises(ValueError):
+            sp._check_program(bad)
+    sp._check_program(_workload_program("black_scholes")[0])
+
+
+def test_geometry_rule_fits_every_program_the_kernel_accepts():
+    from repro_torch.kernels import split_pipeline as sp
+    for n_in in range(1, sp.MAX_IN + 1):
+        for stored in range(0, sp.MAX_ROWS - n_in + 1):
+            g = sp.geometry(n_in, stored, sp.MAX_SCALARS, sp.MAX_INSTR, sp.MAX_OUT, True)
+            assert g.tile in sp.TILES and g.stages in sp.STAGES
+            assert g.smem == sp.smem_bytes(g.tile, g.stages, n_in, stored, sp.MAX_SCALARS,
+                                           sp.MAX_INSTR, sp.MAX_OUT, True) <= sp.SMEM_PER_BLOCK
+    # the 56-row extreme: 1024-element tiles and one stage just fit, unless
+    # 256 decoded instructions and 16 reductions take the room
+    assert sp.geometry(16, 40, 4, 79, 1, False)[:2] == (1024, 1)
+    assert sp.geometry(16, 40, sp.MAX_SCALARS, sp.MAX_INSTR, sp.MAX_OUT, True).tile == 512
+
+
+def test_geometry_rule_takes_the_most_resident_warps_then_three_ctas_then_larger_tiles():
+    from repro_torch.kernels import split_pipeline as sp
+    # Black-Scholes: with one stage, 3 CTAs of 2048 (24 warps) fit an SM, as
+    # do 6 of 1024; the larger tile wins the tie
+    bs, _s, _b, kinds = _workload_program("black_scholes")
+    g = sp.program_geometry(bs, kinds)
+    assert g[:2] == (2048, 1)
+    # 48 B of barriers, 4 scalars and 33 decoded instructions of 16 B, 16
+    # decoded outputs, then 5 ring rows and 4 slot rows of 8 KB
+    assert g.smem == 768 + 8192 * 9
+    assert sp.estimated_ctas_per_sm(2048, g.smem) == 3
+    # occupancy alone decides: the same warps and >= 3 CTAs everywhere ->
+    # the largest tile and the deepest ring; more warps of 2048 -> 2048
+    same = {2048: 3, 1024: 6, 512: 12}
+    assert sp.geometry(5, 4, 4, 32, 2, False, lambda t, smem: same[t])[:2] == (2048, 3)
+    more = {2048: 4, 1024: 6, 512: 10}
+    assert sp.geometry(2, 3, 6, 16, 1, False, lambda t, smem: more[t])[:2] == (2048, 3)
+    # the same warps, but only 512-element tiles keep three CTAs on an SM
+    few = {2048: 1, 1024: 2, 512: 4}
+    assert sp.geometry(16, 11, 1, 24, 12, False, lambda t, smem: few[t])[:2] == (512, 3)
+    with pytest.raises(ValueError):
+        sp.geometry(2, 3, 6, 16, 1, False, lambda t, smem: 0)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 1023, 1024, 1025, 100_003])
+def test_load_path_rule_on_edge_sizes(n):
+    from repro_torch.kernels import split_pipeline as sp
+    x = torch.zeros(n + 4)
+    aligned = [x[:n], torch.zeros(n, dtype=torch.bool)]
+    assert all(t.data_ptr() % 16 == 0 for t in aligned)
+    assert sp.load_paths(aligned, 1024) == {"bulk": n // 1024,
+                                             "plain": -(-n // 1024) - n // 1024}
+    # one input one element off the 16-byte grid: every tile takes plain loads
+    assert sp.load_paths([x[1:n + 1], aligned[1]], 1024) == {"bulk": 0,
+                                                              "plain": -(-n // 1024)}
+    assert sp.load_paths([x[4:n + 4]], 512)["bulk"] == n // 512   # 16 bytes in: aligned
+    meta = [torch.empty(n, device="meta")]
+    assert sum(sp.load_paths(meta, 512).values()) == -(-n // 512)
