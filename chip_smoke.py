@@ -28,13 +28,28 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              Haversine at n = 2**27 and on the quickstart chain: every stage
              on the kernel, the launch count moved, outputs equal to the
              ``eager`` executor on the card and to the float64 numpy oracle
-             on a 2**20 prefix;
+             on a 2**20 prefix; then the ``scan`` executor on Black-Scholes
+             and Haversine, held to the same;
+   handoff — the reference's ``smoke/handoff`` chain on the card: three
+             evaluations of ``multiply(add(x, 1.0), 0.5)`` at n = 2**27
+             float32 with ``mozart.evaluate()`` between them, on ``fused``,
+             ``scan`` and ``cuda`` (whose first evaluation runs on ``fused``
+             and is then reconfigured, as the reference's ``pallas`` row:
+             a kernel stage merges its own outputs), each with handoff on and
+             off: on equals off (rtol 2e-5), zero interior bytes with
+             handoff on, streamed outputs and stream ingests, less boundary
+             traffic than with handoff off, and on ``cuda`` both stages on
+             the kernel (2 launches); prints the ingest path counts, the
+             host-clock medians of on and off, the chip constants from the
+             card's properties and the batch they chose, and times the
+             kernel on the chain's stage.  (The reference's warm
+             ``planner_calls == 0`` leg waits for the port's plan cache.)
 4. times   — device times (``torch.profiler``) of the kernel, of the
              other geometries of its rule and of ``--split-pipeline-compare``
              builds, in turns, CUDA-event medians of the kernel and its plain
-             version, and host-clock medians of the ``eager``, ``fused`` and
-             ``cuda`` executors on the same inputs, beside the kernel's
-             bound;
+             version, and host-clock medians of the ``eager``, ``fused``,
+             ``scan`` and ``cuda`` executors on the same inputs, beside the
+             kernel's bound;
 5. adamw   — hold the fused AdamW kernel against its plain version on the
              card: n in {1, 1000, 70001, 2**27+3}, float32 and bfloat16,
              steps 1 and 7, gscale 1 and 0.5, a misaligned view, and every
@@ -131,6 +146,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_REQUESTS, SERVE_MAX_LEN, PARITY_REQUESTS = 12, 2112, 3
 DEVICE = "cuda"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
+HANDOFF_EVALS = 3                # evaluations of the smoke/handoff chain
+HANDOFF_ROUNDS = 10              # timed rounds of each, on and off in turns
+PROFILE_SENTINELS = 8            # spin kernels opening each profiled window
 CHUNK = 1 << 25                  # elements per comparison slice
 
 
@@ -435,10 +453,140 @@ def phase_main(sp, workloads_data, oracles) -> dict:
             ok = np.allclose(part.double().cpu().numpy(), ref64, rtol=rtol, atol=atol)
             if not ok:
                 raise AssertionError(f"{name} output {i}: float64 oracle mismatch")
+        if name != "quickstart":
+            with mozart.session(executor="scan") as sctx:
+                souts = fn(**data)
+                souts = souts if isinstance(souts, tuple) else (souts,)
+                sgot = [o.value for o in souts]
+            torch.cuda.synchronize()
+            for i, (gv, wv) in enumerate(zip(sgot, want)):
+                if gv.shape != wv.shape or gv.dtype != wv.dtype \
+                        or not bool(torch.isfinite(gv).all()):
+                    raise AssertionError(f"{name} output {i} on scan: {gv.shape}/{gv.dtype}")
+                compare(f"{name} output {i} on scan vs eager", gv, wv, 2e-5,
+                        atol=1e-2 if name == "haversine" else 0.0)
+            for i, (gv, (ref64, rtol, atol)) in enumerate(zip(sgot, oracles[name])):
+                if not np.allclose(gv[:ref64.shape[0]].double().cpu().numpy(), ref64,
+                                   rtol=rtol, atol=atol):
+                    raise AssertionError(f"{name} output {i} on scan: float64 oracle mismatch")
+            log(f"[main] {name} on scan: {dict(sctx.stats)}; matches eager and the "
+                f"float64 oracle")
+            del sgot, souts
         del got, want, outs, eouts
         log(f"[main] {name}: {stats} launches={launched}; "
             f"eager stats {dict(ectx.stats)}; matches eager and the float64 oracle")
     return launches
+
+
+def handoff_chain(x, executor: str, handoff: bool):
+    """The reference's ``smoke/handoff`` chain: three evaluations of
+    ``multiply(add(x, 1.0), 0.5)``; a ``cuda`` row's first evaluation runs
+    on ``fused`` (a kernel stage merges its own outputs)."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    first = "fused" if executor == "cuda" else executor
+    with mozart.session(executor=first, handoff=handoff, device=x.device) as ctx:
+        cur = x
+        for i in range(HANDOFF_EVALS):
+            cur = anp.multiply(anp.add(cur, 1.0), 0.5)
+            mozart.evaluate()
+            if i == 0 and first != executor:
+                mozart.configure(executor=executor)
+        out = cur.value
+    torch.cuda.synchronize()
+    return out, ctx
+
+
+def handoff_times(x, executor: str) -> dict:
+    """Host-clock times (ms) of the chain with handoff on and off, in turns
+    (on, off, off, on, ...) after one warm-up of each: per setting the
+    median and the quartiles."""
+    times = {True: [], False: []}
+    for ho in (True, False):
+        handoff_chain(x, executor, ho)
+    for r in range(HANDOFF_ROUNDS):
+        for ho in ((True, False) if r % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            handoff_chain(x, executor, ho)
+            times[ho].append((time.perf_counter() - t0) * 1e3)
+    return {ho: (statistics.median(v), *statistics.quantiles(v, n=4)[::2])
+            for ho, v in times.items()}
+
+
+def phase_handoff(sp, ref) -> dict:
+    """Handoff on and off on the ``fused``, ``scan`` and ``cuda`` rows at
+    n = 2**27; any failed check raises.  Returns the ``kernels`` row of the
+    split pipeline on the chain's stage."""
+    from repro_torch import hardware
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    x = torch.linspace(0.0, 1.0, N_MAIN, device=DEVICE)
+    chip = hardware.chip_for(x.device)
+    log(f"[handoff] chip from the card's properties: {chip.name}, L2 {chip.l2_bytes} B, "
+        f"{chip.num_sms} SMs, {chip.hbm_bytes} B memory, {chip.vmem_bytes} B shared "
+        f"memory per block; batch for the chain's 12 B/element stage "
+        f"{hardware.mozart_batch_elements(12, chip)} elements")
+    launches = 0
+    for ex in ("fused", "scan", "cuda"):
+        runs = {}
+        for ho in (True, False):
+            sp.reset_counts()
+            out, ctx = handoff_chain(x, ex, ho)
+            runs[ho] = (out, ctx, sp.split_pipeline.launches)
+        (on, on_ctx, on_launches), (off, off_ctx, _l) = runs[True], runs[False]
+        compare(f"handoff/{ex} on vs off", on, off, 2e-5)
+        st = on_ctx.stats
+        interior = on_ctx.counters.bytes_interior()
+        on_bytes = interior + on_ctx.counters.bytes_terminal()
+        off_bytes = off_ctx.counters.bytes_materialized()
+        if interior != 0:
+            events = [e for e in on_ctx.counters.materialize_events()
+                      if e[0].startswith("interior:")]
+            raise AssertionError(f"handoff/{ex}: {interior} interior bytes: {events}")
+        if st.get("streamed_outputs", 0) == 0 or st.get("stream_ingests", 0) == 0:
+            raise AssertionError(f"handoff/{ex}: no streaming: {dict(st)}")
+        if not on_bytes < off_bytes:
+            raise AssertionError(f"handoff/{ex}: {on_bytes} boundary bytes on, "
+                                 f"{off_bytes} off")
+        if ex == "cuda":
+            if st.get("cuda_fallback_stages", 0) or st.get("cuda_stages", 0) != 2 \
+                    or on_launches != st["cuda_stages"]:
+                raise AssertionError(f"handoff/cuda: {dict(st)}, launches {on_launches}")
+            launches = on_launches
+        ms = handoff_times(x, ex)
+        paths = {k: v for k, v in st.items() if k.startswith("cuda_ingest_")}
+        log(f"[handoff] {ex}: on {ms[True][0]:.3f} ms (quartiles {ms[True][1]:.3f}-"
+            f"{ms[True][2]:.3f}), off {ms[False][0]:.3f} ms ({ms[False][1]:.3f}-"
+            f"{ms[False][2]:.3f}) (host clock, medians of {HANDOFF_ROUNDS} rounds in "
+            f"turns); boundary bytes on {on_bytes} (interior 0), off {off_bytes}; "
+            f"streamed {st['streamed_outputs']}, ingests {st['stream_ingests']}, "
+            f"donated {st.get('donated_chunks', 0)}, chunks {st.get('chunks', 0)}, "
+            f"ingest paths {paths}, launches {on_launches}; stats {dict(st)}")
+        del on, off, runs
+    # The kernel on the chain's stage, against its plain version.
+    with mozart.session(executor="cuda", device=x.device) as ctx:
+        y = anp.multiply(anp.add(x, 1.0), 0.5)
+        stage = ctx.last_plan()[0]
+        concrete = {k: ctx.graph.resolve(si.value) for k, si in stage.inputs.items()}
+        from repro_torch.core import cuda_exec
+        launch = cuda_exec.prepare_launch(stage, concrete, ctx)
+        del y
+    err = compare("handoff stage kernel vs plain", sp.split_pipeline(*launch)[0],
+                  ref.split_pipeline_ref(*launch)[0], 2e-5)
+    kernel = lambda: sp.split_pipeline(*launch)
+    kernel_ms = kernel_device_ms(kernel, 10)
+    plain_ms = cuda_ms(lambda: ref.split_pipeline_ref(*launch), 5)
+    bytes_ms = 2 * 4 * N_MAIN / HBM_BYTES_PER_S * 1e3
+    ops_ms = len(launch[0].code) * N_MAIN / F32_OPS_PER_S * 1e3
+    row = {"name": "split_pipeline[handoff]", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES, "launches": launches, "max_abs_err": err,
+           "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None, "n": N_MAIN, "program_ops": len(launch[0].code)}
+    log(f"[handoff] kernel on the chain's stage: {kernel_ms:.4f} ms device (bound "
+        f"{row['bound_ms']:.4f} ms, {row['bound_ms'] / kernel_ms:.1%} of it), plain "
+        f"{plain_ms:.3f} ms")
+    return row
 
 
 class _OldInstr(ctypes.Structure):
@@ -568,7 +716,7 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
             return vals, ctx
 
         e2e = {ex: host_ms(lambda ex=ex: executor_run(ex), 3)
-               for ex in ("eager", "fused", "cuda")}
+               for ex in ("eager", "fused", "scan", "cuda")}
         _v, fctx = executor_run("fused")
         row = {
             "name": f"split_pipeline[{name}]", "route": "cuda", "source": SOURCE,
@@ -580,7 +728,7 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
             "forwarded": program.forwarded, "stored_slots": program.stored_slots,
             "tile": geo.tile, "stages": geo.stages, "smem": geo.smem, "event_ms": event_ms,
             "compare_ms": {k: v for k, v in dev.items() if k != "kernel"},
-            "eager_ms": e2e["eager"], "fused_ms": e2e["fused"],
+            "eager_ms": e2e["eager"], "fused_ms": e2e["fused"], "scan_ms": e2e["scan"],
             "cuda_executor_ms": e2e["cuda"], "fused_chunks": fctx.stats["chunks"],
         }
         rows.append(row)
@@ -589,8 +737,8 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
             f"{row['bound_ms'] / kernel_ms:.1%} of it; tile {geo.tile}, {geo.stages} stages, "
             f"{geo.smem} B shared memory), plain {plain_ms:.3f} ms, "
             f"eager executor {e2e['eager']:.3f} ms, fused executor "
-            f"{e2e['fused']:.3f} ms ({fctx.stats['chunks']} chunks), cuda "
-            f"executor {e2e['cuda']:.3f} ms")
+            f"{e2e['fused']:.3f} ms ({fctx.stats['chunks']} chunks), scan executor "
+            f"{e2e['scan']:.3f} ms, cuda executor {e2e['cuda']:.3f} ms")
         log(f"[times] {name} device ms, medians of two rounds in turns: "
             + ", ".join(f"{k} {v:.4f}" for k, v in dev.items()))
     return rows
@@ -983,16 +1131,23 @@ ATTN_EDGES = (  # bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, head-split v
 def _profile_window(fn, reps: int, match: str = ""):
     """(kernel launches recorded, their device microseconds, the last
     result) of ``reps`` calls of ``fn`` under ``torch.profiler``, counting
-    kernels whose name contains ``match``."""
+    kernels whose name contains ``match``.  After many launches in the
+    process the profiler on the card drops the first kernel records of a
+    window (seen on H100s: one to two after the ``fused`` executor's
+    ~50,000 launches); ``PROFILE_SENTINELS`` short spin kernels open the
+    window and are left out of the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_SENTINELS):
+            torch.cuda._sleep(1)
         for _ in range(reps):
             out = fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and match in e.key]
+              if e.device_type == DeviceType.CUDA and match in e.key
+              and "spin_kernel" not in e.key]
     return (sum(e.count for e in events),
             sum(getattr(e, "self_device_time_total", 0.0) for e in events), out)
 
@@ -1487,8 +1642,11 @@ def main() -> int:
 
     errs = phase_kernel(sp, ref, workloads_data)
     launches = phase_main(sp, workloads_data, oracles)
+    handoff_row = phase_handoff(sp, ref)
+    torch.cuda.empty_cache()
     rows = phase_times(sp, ref, workloads_data, errs, launches,
                        args.split_pipeline_compare)
+    rows.append(handoff_row)
     del workloads_data, errs, bs, hv, qs, bs_pre, hv_pre
     torch.cuda.empty_cache()
 

@@ -8,7 +8,16 @@ signatures share an annotation shape.
 
 Each op keeps the JAX package's semantics where torch differs: Python
 scalars beside a tensor take the tensor's (weak-typed) dtype, ``sign(nan)``
-is nan, and integer sums accumulate in int32.
+is nan, integer sums accumulate in int32 (unsigned ones in uint32), bool
+arithmetic (``square``, ``power``, ``mod``) promotes to int32, ``abs`` and
+``floor`` of bool stay bool, ``sign`` of bool raises ``TypeError``, and an
+integer ``mod`` by zero gives 0.
+
+Dtype tests use ``is`` (never ``==``): under ``torch.fx`` tracing (the
+``cuda`` executor's lowering, ``core/cuda_exec.py``) a traced operand's
+dtype is a proxy that is never identical to a dtype, so the trace records
+the float path, the only one the kernel takes (it accepts float32 and bool
+operands, and refuses ``MOD`` on bool).
 
 Usage:
     from repro_torch.core import annotated_numpy as anp
@@ -55,18 +64,63 @@ def _tensors_only(f: Callable) -> Callable:
     return op
 
 
+def _is_bool(v) -> bool:
+    return v.dtype is torch.bool if isinstance(v, torch.Tensor) else isinstance(v, bool)
+
+
+def _bools_to_int32(x, y):
+    """jnp promotes bool with bool (or with a weak-typed Python int) to
+    int32 in arithmetic; torch refuses or picks int64."""
+    if (_is_bool(x) and (_is_bool(y) or isinstance(y, int))) or \
+            (_is_bool(y) and isinstance(x, int)):
+        x, y = (v.to(torch.int32) if isinstance(v, torch.Tensor) and v.dtype is torch.bool
+                else v for v in (x, y))
+    return x, y
+
+
+_INTS = (torch.uint8, torch.uint16, torch.uint32, torch.int8, torch.int16,
+         torch.int32, torch.int64)
+
+
 def _sign(x):
+    if x.dtype is torch.bool:
+        raise TypeError("sign is not defined for bool operands (as jnp.sign)")
     # torch.sign(nan) is 0; the library contract (jnp.sign) keeps nan.
     return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+def _abs(x):
+    return x if x.dtype is torch.bool else torch.abs(x)
+
+
+def _floor(x):
+    return x if x.dtype is torch.bool else torch.floor(x)
+
+
+def _square(x):
+    return torch.square(x.to(torch.int32) if x.dtype is torch.bool else x)
+
+
+def _power(x, y):
+    return torch.pow(*_bools_to_int32(x, y))
+
+
+def _mod(x, y):
+    x, y = _tensor_operands(*_bools_to_int32(x, y))
+    if not any(x.dtype is d for d in _INTS):
+        return torch.remainder(x, y)            # a float zero divisor gives nan
+    # Integers: jnp.mod gives 0 for a zero divisor; never divide by zero.
+    zero = y == 0
+    return torch.where(zero, 0, torch.remainder(x, torch.where(zero, 1, y)))
 
 
 # -- unary elementwise:  (S) -> S  ------------------------------------------
 _UNARY = {
     "exp": torch.exp, "log": torch.log, "log1p": torch.log1p, "sqrt": torch.sqrt,
-    "erf": torch.special.erf, "negative": torch.negative, "abs": torch.abs,
+    "erf": torch.special.erf, "negative": torch.negative, "abs": _abs,
     "sin": torch.sin, "cos": torch.cos, "tanh": torch.tanh, "sign": _sign,
     "arcsin": torch.arcsin, "arccos": torch.arccos, "expm1": torch.expm1,
-    "square": torch.square, "reciprocal": torch.reciprocal, "floor": torch.floor,
+    "square": _square, "reciprocal": torch.reciprocal, "floor": _floor,
     "isnan": torch.isnan, "logical_not": torch.logical_not,
 }
 
@@ -82,14 +136,14 @@ for _name, _fn in _UNARY.items():
 # -- binary elementwise:  (S, S) -> S  (scalar operands broadcast) ----------
 _BINARY = {
     "add": torch.add, "subtract": torch.subtract, "multiply": torch.multiply,
-    "divide": torch.divide, "power": torch.pow,
+    "divide": torch.divide, "power": _power,
     "maximum": _tensors_only(torch.maximum),
     "minimum": _tensors_only(torch.minimum),
     "greater": _tensors_only(torch.greater), "less": _tensors_only(torch.less),
     "equal": _tensors_only(torch.eq),
     "logical_and": _tensors_only(torch.logical_and),
     "logical_or": _tensors_only(torch.logical_or),
-    "atan2": _tensors_only(torch.atan2), "mod": torch.remainder,
+    "atan2": _tensors_only(torch.atan2), "mod": _mod,
 }
 
 
@@ -131,12 +185,22 @@ _reg("where", annotate(_where, name="where", elementwise=True,
 # One split type per reduction merge op, exactly like the paper's NumPy
 # integration ("we implemented split types for each reduction operator ...
 # these only required merge functions").
-_SMALL_INTS = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32)
+_SMALL_INTS = (torch.bool, torch.int8, torch.int16, torch.int32)
+_SMALL_UINTS = (torch.uint8, torch.uint16)
 
 
-def _acc_dtype(x) -> torch.dtype | None:
-    """int32 accumulation for bool/small ints (jnp's default), else x's."""
-    return torch.int32 if x.dtype in _SMALL_INTS else None
+def _int_reduction(red: Callable) -> Callable:
+    """jnp's accumulators: int32 for bool and small signed ints, uint32 for
+    small unsigned ones.  Torch has no uint32 sum or product, so those
+    accumulate in int64 and wrap modulo 2**32 on the cast, as JAX's do."""
+    def op(x, **kw):
+        if x.dtype in _SMALL_UINTS:
+            return red(x, dtype=torch.int64, **kw).to(torch.uint32)
+        return red(x, dtype=torch.int32 if x.dtype in _SMALL_INTS else None, **kw)
+    return op
+
+
+_sum, _prod = _int_reduction(torch.sum), _int_reduction(torch.prod)
 
 
 def _make_reduction(name: str, red: Callable, merge_op: str):
@@ -146,14 +210,14 @@ def _make_reduction(name: str, red: Callable, merge_op: str):
                                ret=st.Reduce(merge_op)))
 
 
-_make_reduction("sum", lambda x: torch.sum(x, dtype=_acc_dtype(x)), "add")
+_make_reduction("sum", _sum, "add")
 _make_reduction("max", torch.amax, "max")
 _make_reduction("min", torch.amin, "min")
-_make_reduction("prod", lambda x: torch.prod(x, dtype=_acc_dtype(x)), "mul")
+_make_reduction("prod", _prod, "mul")
 
 
 def _sum_axis(x, axis):
-    return torch.sum(x, dim=axis, dtype=_acc_dtype(x))
+    return _sum(x, dim=axis)
 
 
 class _AxisReduceRet(st.SplitSpec):

@@ -37,11 +37,18 @@ from repro_torch.core import split_types as st
 from repro_torch.core.graph import NodeRef
 from repro_torch.core.planner import Stage, _value_key
 from repro_torch.core.stage_exec import (
+    ChunkStream,
     StageExecutor,
+    batch_ranges,
+    donatable_input_keys,
     effective_elements,
     get_executor,
+    mark_stream_consumed,
+    note_trace,
+    regrid_stream,
     register_executor,
     stage_num_elements,
+    undonatable_stream_keys,
 )
 from repro_torch.kernels.program import ARITY, BOOL_RESULT, OP, Program, assemble
 from repro_torch.kernels.split_pipeline import fits_kernel, split_pipeline
@@ -102,6 +109,7 @@ _traced: "weakref.WeakKeyDictionary[Any, Any]" = weakref.WeakKeyDictionary()
 def traced_graph(fn) -> torch.fx.Graph:
     hit = _traced.get(fn)
     if hit is None:
+        note_trace()
         try:
             hit = torch.fx.symbolic_trace(fn).graph
         except Exception as e:  # noqa: BLE001 — any untraceable body is ineligible
@@ -156,10 +164,15 @@ class _Builder:
     def emit(self, name: str, srcs: tuple) -> tuple:
         if name == "ADD" and all(self.is_bool[s] for s in srcs):
             name = "OR"                 # torch: bool + bool is logical or
+        if name == "MOD" and any(self.is_bool[s] for s in srcs):
+            # jnp.mod promotes bool to int32; in the kernel's float encoding
+            # x mod False is NaN, which would be stored as True.
+            raise LoweringError("MOD of a bool operand")
         dst = ("v", len(self.instrs))
         self.instrs.append((name, dst[1], srcs))
         self.is_vec[dst] = any(self.is_vec[s] for s in srcs)
-        keeps_bool = name in ("COPY", "ABS", "SQUARE", "MUL", "MAX", "MIN", "POW")
+        keeps_bool = name in ("COPY", "ABS", "FLOOR", "SQUARE", "MUL", "MAX", "MIN",
+                              "POW")
         self.is_bool[dst] = name in BOOL_RESULT or (
             name == "WHERE" and self.is_bool[srcs[1]] and self.is_bool[srcs[2]]
         ) or (keeps_bool and all(self.is_bool[s] for s in srcs))
@@ -219,6 +232,7 @@ def lower_stage(stage: Stage, concrete: dict[tuple, Any]) -> tuple[Program, list
         if isinstance(cached, LoweringError):
             raise cached
         return cached
+    note_trace()
     try:
         result = _lower(stage, concrete)
     except LoweringError as e:
@@ -319,9 +333,66 @@ def _eligible(stage: Stage, concrete: dict[tuple, Any]) -> bool:
     return True
 
 
-def prepare_launch(stage: Stage, concrete: dict[tuple, Any], ctx):
-    """``(program, split_inputs, bcast_inputs, out_kinds)`` for one stage,
-    or None when the stage does not go to the kernel."""
+def _adjacent_views(chunks: list, n: int) -> torch.Tensor | None:
+    """The chunks as ONE length-``n`` view when they are 1-D contiguous
+    views of one storage laid end to end (the first chunk's base pointer
+    spans them all), else None."""
+    c0 = chunks[0]
+    if not all(isinstance(c, torch.Tensor) and c.dim() == 1 and c.is_contiguous()
+               and c.dtype == c0.dtype and c.device == c0.device for c in chunks):
+        return None
+    storage, ptr, item = c0.untyped_storage().data_ptr(), c0.data_ptr(), c0.element_size()
+    for c in chunks:
+        if c.untyped_storage().data_ptr() != storage or c.data_ptr() != ptr:
+            return None
+        ptr += c.numel() * item
+    if sum(c.numel() for c in chunks) != n:
+        return None
+    return c0.as_strided((n,), (1,), c0.storage_offset())
+
+
+def _launch_buffer(stage: Stage, concrete: dict[tuple, Any], key: tuple, n: int,
+                   ctx) -> tuple[torch.Tensor, bool]:
+    """Split input ``key`` as a contiguous length-``n`` launch buffer; returns
+    ``(buffer, fresh)``, ``fresh`` when the buffer was assembled here.
+
+    A ``ChunkStream`` is never merged (the counterpart of the reference's
+    ``pallas_exec._to_launch_layout``); its path is counted in ``ctx.stats``:
+    ``cuda_ingest_views`` (adjacent views of one storage: the first chunk's
+    base pointer, zero copies), ``cuda_ingest_carry`` (a scan carry with no
+    tail, as it is), ``cuda_ingest_carry_tail`` (a carry with a tail,
+    concatenated once) and ``cuda_ingest_concat`` (any other chunk list,
+    concatenated once; a grid other than this stage's batch grid goes
+    through ``SplitType.rechunk`` first, counted in ``handoff_rechunks``)."""
+    v = concrete[key]
+    if not isinstance(v, ChunkStream):
+        buf = v.narrow(0, 0, n)
+        return (buf, False) if buf.is_contiguous() else (buf.contiguous(), True)
+    if (v.stacked is not None and v._chunks is None
+            and isinstance(v.stacked, torch.Tensor) and v.stacked.dim() == 2
+            and v.stacked.is_contiguous()):
+        main = v.stacked.reshape(-1)
+        if v.tail is None:
+            ctx.stats["cuda_ingest_carry"] += 1
+            return main, False
+        ctx.stats["cuda_ingest_carry_tail"] += 1
+        return torch.cat([main, v.tail]), True
+    chunks = v.chunks
+    view = _adjacent_views(chunks, n)
+    if view is not None:
+        ctx.stats["cuda_ingest_views"] += 1
+        return view, False
+    grid = batch_ranges(n, get_executor("cuda").choose_batch(stage, concrete, ctx, n))
+    if v.ranges != grid:
+        chunks = regrid_stream(stage, ctx, key, v, grid).chunks
+    ctx.stats["cuda_ingest_concat"] += 1
+    return torch.cat(chunks), True
+
+
+def _prepare(stage: Stage, concrete: dict[tuple, Any], ctx):
+    """``((program, split_inputs, bcast_inputs, out_kinds), fresh)`` for one
+    stage, or None when the stage does not go to the kernel; ``fresh[i]``
+    says split input i was assembled here."""
     if not _eligible(stage, concrete):
         return None
     split_keys = [k for k, si in stage.inputs.items() if si.split_type.splittable]
@@ -337,17 +408,36 @@ def prepare_launch(stage: Stage, concrete: dict[tuple, Any], ctx):
         if ctx.log:
             print(f"[mozart] stage {stage.id} stays off the kernel: {e}")
         return None
-    split_inputs = [concrete[k].narrow(0, 0, n).contiguous() for k in split_keys]
+    bufs = [_launch_buffer(stage, concrete, k, n, ctx) for k in split_keys]
     bcasts = [concrete[k] for k in bcast_keys]
-    return program, split_inputs, bcasts, out_kinds
+    return (program, [b for b, _f in bufs], bcasts, out_kinds), [f for _b, f in bufs]
+
+
+def prepare_launch(stage: Stage, concrete: dict[tuple, Any], ctx):
+    """``(program, split_inputs, bcast_inputs, out_kinds)`` for one stage,
+    or None when the stage does not go to the kernel."""
+    prepared = _prepare(stage, concrete, ctx)
+    return None if prepared is None else prepared[0]
 
 
 def try_execute_stage_cuda(stage: Stage, concrete: dict[tuple, Any], ctx) -> bool:
-    launch = prepare_launch(stage, concrete, ctx)
-    if launch is None:
+    prepared = _prepare(stage, concrete, ctx)
+    if prepared is None:
         return False
-    program, split_inputs, bcasts, out_kinds = launch
+    (program, split_inputs, bcasts, out_kinds), fresh = prepared
+    # Donation decisions as the reference's pallas driver takes them: every
+    # donation point counts; a dead stream passed through as it is (views,
+    # a carry) gives up its buffers after the launch.
+    split_keys = [k for k, si in stage.inputs.items() if si.split_type.splittable]
+    donate = set(donatable_input_keys(stage, ctx))
+    positions = [i for i, k in enumerate(split_keys) if stage.ckey(k) in donate]
+    unsafe = undonatable_stream_keys(stage, concrete, ctx, tuple(donate)) if positions else set()
+    consumed = {stage.ckey(split_keys[i]) for i in positions
+                if not fresh[i] and stage.ckey(split_keys[i]) not in unsafe
+                and isinstance(concrete[split_keys[i]], ChunkStream)}
+    ctx.stats["donated_chunks"] += len(positions)
     results = split_pipeline(program, split_inputs, bcasts, out_kinds)
+    mark_stream_consumed(stage, concrete, ctx, consumed)
     for nid, res in zip(sorted(stage.escaping), results):
         node = next(nd for nd in stage.nodes if nd.id == nid)
         node.result = res
@@ -362,7 +452,11 @@ class CudaExecutor(StageExecutor):
     """Lower eligible elementwise stages onto the split-pipeline CUDA kernel;
     a stage that ``_eligible`` or the lowering rejects runs on the fused
     driver and is counted in ``ctx.stats["cuda_fallback_stages"]``.  A build
-    or launch failure raises."""
+    or launch failure raises.  Stream inputs are ingested without a merge
+    (``_launch_buffer``); outputs are whole tensors, as the reference's
+    ``pallas`` stage merges its own."""
+
+    stream_capable = True
 
     def execute(self, stage: Stage, concrete: dict[tuple, Any], ctx) -> None:
         if not try_execute_stage_cuda(stage, concrete, ctx):

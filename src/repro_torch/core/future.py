@@ -72,10 +72,22 @@ class Future:
     # -- forcing ------------------------------------------------------------
     @property
     def value(self) -> Any:
-        """Evaluate the pending graph (if needed) and return the result."""
+        """Evaluate the pending graph (if needed) and return the result.
+
+        A result left unmerged by cross-stage chunk handoff (a
+        ``ChunkStream``) merges here, lazily, exactly once: observation is
+        the only point a handed-off output materializes."""
         if not self._node.done:
             self._ctx.evaluate()
-        return self._node.result
+        res = self._node.result
+        from repro_torch.core.stage_exec import ChunkStream, counter_scope
+        if isinstance(res, ChunkStream):
+            # Observation of a pipeline output: TERMINAL bytes, attributed
+            # to the owning context's counters.
+            with counter_scope(getattr(self._ctx, "counters", None)):
+                res = res.materialize(terminal=True)
+            self._node.result = res
+        return res
 
     def block(self) -> Any:
         return self.value

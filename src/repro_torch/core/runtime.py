@@ -28,6 +28,7 @@ from torch.utils import _pytree as pytree
 from repro_torch import hardware
 from repro_torch.core.future import Future
 from repro_torch.core.graph import DataflowGraph, NodeRef
+from repro_torch.core.handoff import resolve_decisions
 from repro_torch.core.planner import plan
 from repro_torch.core.stage_exec import BoundaryCounters, counter_scope, get_executor
 
@@ -62,6 +63,7 @@ class MozartContext:
         batch_elements: int | None = None,
         log: bool = False,
         pipeline: bool = True,
+        handoff: bool = True,
     ):
         self.executor = executor
         self.device = resolve_device(device)
@@ -71,10 +73,12 @@ class MozartContext:
         self.batch_elements = batch_elements
         self.log = log
         self.pipeline = pipeline                 # False: Table-4 "-pipe" ablation
+        self.handoff = handoff                   # cross-stage chunk handoff (core/handoff.py)
         self.graph = DataflowGraph()
         self.stats: collections.Counter = collections.Counter()
-        #: this context's scoped boundary-traffic view (stage_exec).
+        #: this context's scoped trace/boundary-traffic view (stage_exec).
         self.counters = BoundaryCounters()
+        self._handoff = None                     # active handoff decisions
 
     # -- libmozart register() -------------------------------------------------
     def register_call(self, fn, bound: dict[str, Any]) -> Future:
@@ -126,11 +130,20 @@ class MozartContext:
                 print(f"[mozart] stage {s.id}: [{names}] inputs="
                       f"{[str(si.split_type) for si in s.inputs.values()]}")
         executor = get_executor(self.executor)
-        # Boundary events attribute to THIS context's counters (plus the
-        # process-global aggregate) for the duration.
-        with counter_scope(self.counters):
-            for s in stages:
-                executor.run(s, self.graph, self)
+        # Handoff decisions, analyzed fresh per evaluation (no plan cache
+        # yet).  Save/restore, not clear: a dynamic node forcing a Future of
+        # this same session re-enters evaluate(), and the outer decisions
+        # must survive the nested call.
+        ho = resolve_decisions(self, None, stages)
+        prev_ho, self._handoff = self._handoff, ho
+        try:
+            # Trace and boundary events attribute to THIS context's counters
+            # (plus the process-global aggregate) for the duration.
+            with counter_scope(self.counters):
+                for s in stages:
+                    executor.run(s, self.graph, self)
+        finally:
+            self._handoff = prev_ho
         self.graph.prune()
 
     def last_plan(self):

@@ -15,7 +15,9 @@ associative) and ``info`` (element count / element byte width).
 * ``UnknownSplit``  — the unique ``unknown`` type (filters etc.).
 * ``GenericVar``    — an SA-local generic (``S``), resolved by unification.
 
-Cross-stage chunk handoff (``can_handoff``/``rechunk``) is not ported yet.
+``can_handoff``/``rechunk`` carry cross-stage chunk handoff
+(``core/handoff.py``): which producer grids a consumer may ingest without a
+merge, and how a chunk list moves onto another grid.
 """
 
 from __future__ import annotations
@@ -84,14 +86,63 @@ class SplitType:
     def merge(self, pieces: Sequence[Any]) -> Any:
         raise NotImplementedError
 
-    # -- cross-stage chunk handoff ----------------------------------------
+    # -- cross-stage chunk handoff (core/handoff.py) -----------------------
     def can_handoff(self, consumer: "SplitType") -> bool:
-        raise NotImplementedError("chunk handoff is not ported yet")
+        """True when pieces of a value split by ``self`` may be ingested
+        directly by a consumer whose input split type is ``consumer``:
+        corresponding chunks of the producer's grid ARE what the consumer's
+        ``split`` would have produced, so the merge -> re-split round trip
+        at the stage boundary can be skipped."""
+        return False
 
     def rechunk(self, chunks: Sequence[Any],
                 src_ranges: Sequence[tuple[int, int]],
                 dst_ranges: Sequence[tuple[int, int]]) -> tuple[list[Any], int]:
-        raise NotImplementedError("chunk handoff is not ported yet")
+        """Regroup a chunk list from one grid onto another.
+
+        Converts pieces laid out on ``src_ranges`` to pieces on
+        ``dst_ranges`` (both sorted, covering the same [0, n) extent) with
+        ``split``/``merge`` in chunk-local coordinates: a destination chunk
+        aligned with one source chunk passes through by reference, one
+        inside a source chunk is a view of it (``split``), and one spanning
+        several pays a copy.  Returns ``(new_chunks, bytes_copied)``: at
+        most one copy of the data, where a merge + re-split pays two.
+        """
+        out: list[Any] = []
+        copied = 0
+        si = 0
+        for ds, de in dst_ranges:
+            parts: list[Any] = []
+            while si < len(src_ranges) and src_ranges[si][1] <= ds:
+                si += 1
+            j = si
+            aligned = j < len(src_ranges) and tuple(src_ranges[j]) == (ds, de)
+            while j < len(src_ranges) and src_ranges[j][0] < de:
+                ss, se = src_ranges[j]
+                lo, hi = max(ds, ss), min(de, se)
+                c = chunks[j]
+                if lo == ss and hi == se:
+                    parts.append(c)
+                else:                      # partial overlap: chunk-local slice
+                    parts.append(self.split(c, lo - ss, hi - ss))
+                j += 1
+            if aligned:
+                piece = parts[0]           # exact alignment: pass through
+            elif not parts:
+                # Zero-element destination range (empty grids, zero-size
+                # fresh pieces): an empty slice of any source chunk.
+                if not chunks:
+                    raise ValueError(
+                        "rechunk: no source chunks to carve an empty piece "
+                        "from (zero-chunk stream reached rechunk)")
+                piece = self.split(chunks[0], 0, 0)
+            else:
+                piece = parts[0]           # inside one chunk: a view
+                if len(parts) > 1:
+                    piece = self.merge(parts)
+                    copied += sum(nbytes_of(l) for l in pytree.tree_leaves(piece))
+            out.append(piece)
+        return out, copied
 
 
 class ScalarSplit(SplitType):
@@ -163,6 +214,19 @@ class ArraySplit(SplitType):
             return pieces[0]
         return torch.cat(list(pieces), dim=self.axis)
 
+    def can_handoff(self, consumer: "SplitType") -> bool:
+        # Identical geometry AND iteration axis: chunk i of the producer's
+        # grid is exactly what the consumer's split(v, s, e) would yield.
+        return isinstance(consumer, ArraySplit) and consumer.key() == self.key()
+
+
+def _wrapping(op: Callable, a: Any, b: Any) -> Any:
+    """``op`` on partials; uint32 ones (unsigned sums and products) go
+    through int64, as torch has few uint32 kernels, and wrap on the cast."""
+    if getattr(a, "dtype", None) is torch.uint32:
+        return op(a.to(torch.int64), b.to(torch.int64)).to(torch.uint32)
+    return op(a, b)
+
 
 class ReduceSplit(SplitType):
     """Output-only split type for reductions (paper Ex. 5).
@@ -175,8 +239,8 @@ class ReduceSplit(SplitType):
     name = "ReduceSplit"
 
     _OPS: dict[str, Callable[[Any, Any], Any]] = {
-        "add": lambda a, b: a + b,
-        "mul": lambda a, b: a * b,
+        "add": lambda a, b: _wrapping(torch.add, a, b),
+        "mul": lambda a, b: _wrapping(torch.mul, a, b),
         "max": torch.maximum,
         "min": torch.minimum,
     }
@@ -239,6 +303,18 @@ class ConcatSplit(SplitType):
         return pytree.tree_map(
             lambda *ls: torch.cat(ls, dim=self.axis), pieces[0], *pieces[1:])
 
+    def can_handoff(self, consumer: "SplitType") -> bool:
+        # Fresh pieces merge by concatenation along ``axis``: a consumer
+        # iterating the SAME axis of a concrete array grid (or, per leaf, of
+        # a pytree grid) can ingest them directly.  Piece sizes are unknown
+        # before execution, so this is only permission: the runtime derives
+        # the grid from the buffers (``stage_exec.adapt_stream``) and merges
+        # when they do not tile the consumer's geometry.
+        return ((isinstance(consumer, ArraySplit) and bool(consumer.shape)
+                 and consumer.axis == self.axis)
+                or (isinstance(consumer, PytreeSplit)
+                    and consumer.axis == self.axis))
+
 
 _unknown_uid = itertools.count()
 
@@ -300,6 +376,9 @@ class PytreeSplit(SplitType):
             return pieces[0]
         return pytree.tree_map(
             lambda *ls: torch.cat(ls, dim=self.axis), pieces[0], *pieces[1:])
+
+    def can_handoff(self, consumer: "SplitType") -> bool:
+        return isinstance(consumer, PytreeSplit) and consumer.key() == self.key()
 
 
 # ---------------------------------------------------------------------------

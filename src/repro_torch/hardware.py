@@ -71,8 +71,24 @@ CPU_HOST = Chip(
 
 
 def chip_for(device: torch.device | str) -> Chip:
-    """The chip model of a device: H100 for CUDA devices, else the host."""
-    return H100 if torch.device(device).type == "cuda" else CPU_HOST
+    """The chip model of a device.  A CUDA device takes its L2 size, SM
+    count, memory and opt-in shared memory per block from
+    ``torch.cuda.get_device_properties``; the H100 data sheet supplies what
+    the properties lack (bandwidths and peak flops).  Anything else is the
+    host."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return CPU_HOST
+    props = torch.cuda.get_device_properties(
+        dev.index if dev.index is not None else torch.cuda.current_device())
+    return dataclasses.replace(
+        H100,
+        name=props.name,
+        l2_bytes=int(props.L2_cache_size),
+        num_sms=int(props.multi_processor_count),
+        hbm_bytes=int(props.total_memory),
+        vmem_bytes=int(props.shared_memory_per_block_optin),
+    )
 
 
 # ---------------------------------------------------------------------------

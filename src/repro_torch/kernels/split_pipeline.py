@@ -29,6 +29,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
+from repro_torch import hardware
 from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels.program import (
     KIND_FWD,
@@ -258,7 +259,7 @@ def _ctas_per_sm(tile: int, smem: int, device: int) -> int:
 
 @functools.lru_cache(maxsize=16)
 def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return hardware.chip_for(torch.device("cuda", device)).num_sms
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ plain library calls, every op round-trips the whole tensor through device
 memory.  Here each op is an *annotated* black-box function; Mozart plans
 the chains into stages (leaves of equal size share one) and, with the
 ``cuda`` executor, runs each stage as one launch of the split-pipeline
-kernel, so only the stage's inputs and outputs touch device memory.
+kernel, so only the stage's inputs and outputs touch device memory.  The
+default ``scan`` executor drives cache-sized chunks through each stage.
 """
 
 from __future__ import annotations
@@ -43,16 +44,15 @@ def _chain(p1, g1, m1, v1, cfg: AdamWConfig, *, gscale: float, lr: float,
 @torch.no_grad()
 def mozart_adamw_update(params: Mapping[str, torch.Tensor],
                         grads: Mapping[str, torch.Tensor], state: AdamWState,
-                        cfg: AdamWConfig, executor: str = "cuda",
+                        cfg: AdamWConfig, executor: str = "scan",
                         batch_elements: int | None = None):
     """Same math as ``adamw.update(path="jnp")``, via Mozart pipelines, in a
     session on the parameters' device.
 
-    The default executor is ``cuda`` (the split-pipeline kernel), where the
-    reference defaults to ``scan``: the port has no ``scan`` executor yet
-    (ROADMAP A0.3).  Returns (new_params, new_state, metrics); metrics also
-    carry the session's ``stats`` (stages, ``cuda_stages``,
-    ``cuda_fallback_stages``, ...)."""
+    The default executor is ``scan``, as the reference's; ``cuda`` runs each
+    stage on the split-pipeline kernel.  Returns (new_params, new_state,
+    metrics); metrics also carry the session's ``stats`` (stages,
+    ``cuda_stages``, ``cuda_fallback_stages``, ...)."""
     step = state.step + 1
     lr = float(schedule(cfg, step))
     gnorm = float(global_norm(grads))

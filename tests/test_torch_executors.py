@@ -1,12 +1,13 @@
 """Every port executor against the JAX package on the paper's workloads.
 
 Quickstart, Black-Scholes (n = 50 000) and Haversine run on the port's
-``eager``/``pipelined``/``fused``/``cuda`` executors (on the CPU; ``cuda``
-takes the kernel's plain version there) and on the JAX ``eager`` and
-``pallas`` executors (Pallas in interpret mode), with the same
+``eager``/``pipelined``/``fused``/``scan``/``cuda`` executors (on the CPU;
+``cuda`` takes the kernel's plain version there) and on the JAX ``eager``
+and ``pallas`` executors (Pallas in interpret mode), with the same
 ``batch_elements``; chunk, call and stage counts and boundary bytes must be
-equal.  The JAX side runs without rewrite, handoff, plan cache and tuner,
-which the port does not have yet.
+equal.  The JAX side runs without rewrite, plan cache and tuner, which the
+port does not have yet, and with the same ``handoff`` setting as the port
+(off in the original cases, on in the ``handoff_on`` ones).
 
 Tolerances: float32 rtol 2e-5, atol 2e-5 * max|ref| (same op order, libm
 ulps apart); sums rtol 1e-4.  Haversine's ``arcsin(sqrt(a))`` is
@@ -30,8 +31,8 @@ from repro_torch import workloads as tw
 from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
-JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
-PORT_EXECUTORS = ["eager", "pipelined", "fused", "cuda"]
+JAX_CFG = dict(rewrite=False, plan_cache=False, autotune=False)
+PORT_EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda"]
 
 
 @jsplittable(x=JAlong(0), y=JAlong(0), ret=JAlong(0), elementwise=True,
@@ -84,19 +85,21 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def run_jax(name, executor):
+def run_jax(name, executor, handoff=False):
     jfn, _tfn, batch = CASES[name]
     data = _data(name)
-    with jmozart.session(executor=executor, batch_elements=batch, **JAX_CFG) as ctx:
+    with jmozart.session(executor=executor, batch_elements=batch, handoff=handoff,
+                         **JAX_CFG) as ctx:
         outs = _as_tuple(jfn(**{k: jnp.asarray(v) for k, v in data.items()}))
         vals = [np.asarray(o) for o in outs]
     return vals, ctx
 
 
-def run_port(name, executor):
+def run_port(name, executor, handoff=False):
     _jfn, tfn, batch = CASES[name]
     data = _data(name)
-    with tmozart.session(executor=executor, device="cpu", batch_elements=batch) as ctx:
+    with tmozart.session(executor=executor, device="cpu", batch_elements=batch,
+                         handoff=handoff) as ctx:
         outs = _as_tuple(tfn(**{k: torch.from_numpy(v.copy()) for k, v in data.items()}))
         vals = [o.value.numpy() for o in outs]
     return vals, ctx
@@ -121,19 +124,20 @@ def _tol(name, out_index):
 _JAX_CACHE: dict = {}
 
 
-def _jax(name, executor):
-    key = (name, executor)
+def _jax(name, executor, handoff=False):
+    key = (name, executor, handoff)
     if key not in _JAX_CACHE:
-        vals, ctx = run_jax(name, executor)
-        _JAX_CACHE[key] = (vals, dict(ctx.stats), ctx.counters.bytes_interior())
+        vals, ctx = run_jax(name, executor, handoff)
+        _JAX_CACHE[key] = (vals, dict(ctx.stats), ctx.counters.bytes_interior(),
+                           ctx.counters.bytes_terminal())
     return _JAX_CACHE[key]
 
 
-def _which_side_moved(name, executor, jex, i, got, want, tol):
+def _which_side_moved(name, executor, jex, i, got, want, tol, handoff=False):
     """After a parity failure: run both packages again, alone, and name the
     side whose output changed, with the first mismatching elements."""
-    again = run_port(name, executor)[0][i]
-    jagain = run_jax(name, jex)[0][i]
+    again = run_port(name, executor, handoff)[0][i]
+    jagain = run_jax(name, jex, handoff)[0][i]
     w = np.asarray(want)
     atol = max(tol.get("atol", 0.0), 2e-5 * float(np.max(np.abs(w))))
     bad = np.flatnonzero(~np.isclose(got, w, rtol=tol.get("rtol", 2e-5), atol=atol,
@@ -146,12 +150,10 @@ def _which_side_moved(name, executor, jex, i, got, want, tol):
             f"recomputed alone, the side that moved: {moved or 'neither'}; first: {rows}")
 
 
-@pytest.mark.parametrize("executor", PORT_EXECUTORS)
-@pytest.mark.parametrize("name", list(CASES))
-def test_port_matches_jax_eager_and_pallas(name, executor):
-    got, ctx = run_port(name, executor)
+def _matches_jax(name, executor, handoff):
+    got, ctx = run_port(name, executor, handoff)
     for jex in ("eager", "pallas"):
-        want, _stats, _b = _jax(name, jex)
+        want = _jax(name, jex, handoff)[0]
         assert len(got) == len(want)
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.dtype == w.dtype and g.shape == w.shape
@@ -159,22 +161,46 @@ def test_port_matches_jax_eager_and_pallas(name, executor):
                 close(g, w, **_tol(name, i))
             except AssertionError as e:
                 raise AssertionError(_which_side_moved(name, executor, jex, i, g, w,
-                                                       _tol(name, i))) from e
+                                                       _tol(name, i), handoff)) from e
 
 
-@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused"])
+@pytest.mark.parametrize("executor", PORT_EXECUTORS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_port_matches_jax_eager_and_pallas(name, executor):
+    _matches_jax(name, executor, handoff=False)
+
+
+@pytest.mark.parametrize("executor", PORT_EXECUTORS)
+@pytest.mark.parametrize("name", list(CASES))
+def test_port_matches_jax_eager_and_pallas_handoff_on(name, executor):
+    _matches_jax(name, executor, handoff=True)
+
+
+def _counts_equal_jax(name, executor, handoff):
+    _got, ctx = run_port(name, executor, handoff)
+    _want, jstats, jbytes, jterminal = _jax(name, executor, handoff)
+    keys = STAT_KEYS + (("streamed_outputs", "stream_ingests") if handoff else ())
+    assert {k: ctx.stats[k] for k in keys} == {k: jstats.get(k, 0) for k in keys}
+    assert ctx.counters.bytes_interior() == jbytes
+    assert ctx.counters.bytes_terminal() == jterminal
+
+
+@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused", "scan"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_chunk_call_stage_counts_equal_jax(name, executor):
-    _got, ctx = run_port(name, executor)
-    _want, jstats, jbytes = _jax(name, executor)
-    assert {k: ctx.stats[k] for k in STAT_KEYS} == {k: jstats.get(k, 0) for k in STAT_KEYS}
-    assert ctx.counters.bytes_interior() == jbytes
+    _counts_equal_jax(name, executor, handoff=False)
+
+
+@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused", "scan"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_chunk_call_stage_counts_equal_jax_handoff_on(name, executor):
+    _counts_equal_jax(name, executor, handoff=True)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_cuda_stages_equal_pallas_stages(name):
     _got, ctx = run_port(name, "cuda")
-    _want, jstats, _b = _jax(name, "pallas")
+    _want, jstats, _b, _t = _jax(name, "pallas")
     assert ctx.stats["cuda_stages"] == jstats["pallas_stages"] == ctx.stats["stages"]
     assert ctx.stats["cuda_fallback_stages"] == 0
 

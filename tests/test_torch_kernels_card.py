@@ -391,3 +391,75 @@ def test_split_pipeline_sixteen_inputs_and_the_row_limit_match_plain_version(n):
     ins = _sp_inputs(n, 16, n)
     _sp_check(wide, ins, [0.5], [("reduce", "add")] + [("concat", "")] * 11)
     _sp_check(rows, ins, [0.5, -1.5, 0.25, 2.0], [("concat", "")])
+
+
+# -- stream ingest: the split-pipeline kernel taking handed-off chunk lists --
+
+#: stream form -> (producer executor, producer batch, consumer batch, n,
+#: the ``ctx.stats`` key of the ingest path the ``cuda`` consumer takes).
+STREAM_FORMS = {
+    "views": ("fused", 4096, 4096, 1 << 16, "cuda_ingest_views"),
+    "views_off_grid": ("fused", 4096, 4096, 1 << 16, "cuda_ingest_views"),
+    "carry": ("scan", 4096, 4096, 1 << 16, "cuda_ingest_carry"),
+    "carry_tail": ("scan", 4096, 4096, (1 << 16) + 3, "cuda_ingest_carry_tail"),
+    "concat": ("fused", 4096, 4096, (1 << 16) + 3, "cuda_ingest_concat"),
+    "rechunk": ("fused", 6000, 1024, (1 << 16) + 3, "cuda_ingest_concat"),
+}
+
+
+def stream_ingest_case(form: str, device: str):
+    """A producer stage on ``fused``/``scan`` leaves its output as a stream
+    of the given form; a ``cuda`` stage (``exp``) then ingests it.  Returns
+    (consumer output, the plain result, the session).  ``views*``: an
+    identity function's chunks are adjacent views of the input (one
+    element off the 16-byte grid for ``views_off_grid``)."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart, splittable
+    from repro_torch.core.split_types import Along
+
+    first, b1, b2, n, _key = STREAM_FORMS[form]
+    base = torch.linspace(0.0, 1.0, n + 1, device=device)
+    x = base[1:] if form == "views_off_grid" else base[:n]
+    ident = splittable(x=Along(0), ret=Along(0), elementwise=True,
+                       name="ident")(lambda x: x)
+    with mozart.session(executor=first, device=device, batch_elements=b1) as ctx:
+        a = ident(x) if form.startswith("views") else anp.multiply(anp.add(x, 1.0), 0.5)
+        mozart.evaluate()
+        mozart.configure(executor="cuda", batch_elements=b2)
+        got = anp.exp(a).value
+    want = torch.exp(x if form.startswith("views") else (x + 1.0) * 0.5)
+    return got, want, ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(STREAM_FORMS))
+def test_split_pipeline_ingests_stream_form(form):
+    _card()
+    from repro_torch.kernels import split_pipeline as sp
+    sp.reset_counts()
+    got, want, ctx = stream_ingest_case(form, "cuda")
+    torch.cuda.synchronize()
+    assert sp.split_pipeline.launches == 1
+    assert ctx.stats[STREAM_FORMS[form][4]] == 1
+    assert ctx.stats["stream_ingests"] == 1 and ctx.stats.get("stream_materialized", 0) == 0
+    assert ctx.stats["cuda_stages"] == 1 and ctx.stats.get("cuda_fallback_stages", 0) == 0
+    assert ctx.stats.get("handoff_rechunks", 0) == (1 if form == "rechunk" else 0)
+    if form == "views_off_grid":
+        assert sp.split_pipeline.tile_paths["bulk"] == 0 < sp.split_pipeline.tile_paths["plain"]
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_uint32_reductions_on_the_card():
+    """uint8 sums and products accumulate in int64 and cast to uint32 (torch
+    has no uint32 sum); the cast and the partials' merge exist on the card."""
+    _card()
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    x = torch.full((40,), 251, dtype=torch.uint8, device="cuda")
+    with mozart.session(executor="fused", batch_elements=7) as ctx:
+        s, p = anp.sum(x), anp.prod(x)
+        got = (int(s.value), int(p.value))
+    assert s.value.dtype == p.value.dtype == torch.uint32
+    assert got == (40 * 251, pow(251, 40, 2**32))
+    assert ctx.stats["chunks"] == 6          # one stage of both reductions, 40 / 7

@@ -149,8 +149,3 @@ def test_specs_and_defaults_parity(value):
     assert aval.device.type == "meta"
     assert tuple(aval.shape) == tuple(jst.aval_of(jv).shape)
     assert str(aval.dtype).replace("torch.", "") == str(jst.aval_of(jv).dtype)
-
-
-def test_handoff_waits_for_its_port():
-    with pytest.raises(NotImplementedError):
-        tst.ArraySplit((4,), 0).can_handoff(tst.ArraySplit((4,), 0))
