@@ -36,20 +36,42 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              ``scan`` and ``cuda`` (whose first evaluation runs on ``fused``
              and is then reconfigured, as the reference's ``pallas`` row:
              a kernel stage merges its own outputs), each with handoff on and
-             off: on equals off (rtol 2e-5), zero interior bytes with
-             handoff on, streamed outputs and stream ingests, less boundary
-             traffic than with handoff off, and on ``cuda`` both stages on
-             the kernel (2 launches); prints the ingest path counts, the
-             host-clock medians of on and off, the chip constants from the
-             card's properties and the batch they chose, and times the
-             kernel on the chain's stage.  (The reference's warm
-             ``planner_calls == 0`` leg waits for the port's plan cache.)
+             off, after two warm-up runs of each (the plan cache is on: the
+             first hit tunes, so the checked run replays pinned plans with
+             zero planner calls): on equals off (rtol 2e-5), zero interior
+             bytes with handoff on, streamed outputs and stream ingests, less
+             boundary traffic than with handoff off, and on ``cuda`` both
+             stages on the kernel (2 launches); prints the ingest path
+             counts, the host-clock medians of on and off (warm), the chip
+             constants from the card's properties, the batch they chose and
+             the batches and tiles the tuner pinned, and times the kernel on
+             the chain's stage;
+   plans   — the plan cache, the cost model and ``mozart.pipeline``: the
+             handoff chain once more on ``fused``, ``scan`` and ``cuda``
+             (every evaluation with zero planner calls and zero interior
+             bytes); ``mozart.pipeline(fn, executor="cuda")`` on
+             Black-Scholes and Haversine at n = 2**27, ``lower()``,
+             ``compile()`` and 10 calls, each with zero planner calls,
+             traces, lowerings and builds, one launch per stage, no fallback
+             stage and outputs equal to ``eager`` and the float64 oracle;
+             host-clock medians and quartiles of a cold session evaluation
+             (plan cache cleared), a warm one and a pipeline call beside the
+             kernel's device time (the host share is the difference), and of
+             an ``arg_transparent`` pipeline's call (the retained replay: no
+             capture and no cache lookup, held to the same checks), with a
+             ``cProfile`` of a warm session evaluation and of a pipeline call;
+             ``executor="auto"`` (every candidate timed on one sample size): the first hit measures and pins ``cuda``
+             on every eligible stage (the picks and measured seconds are
+             printed), warm calls measure and plan nothing; and a warm start
+             from a saved plan file (save, clear, load, one ``auto``
+             session with zero planner calls, tuning and measurement runs);
 4. times   — device times (``torch.profiler``) of the kernel, of the
              other geometries of its rule and of ``--split-pipeline-compare``
              builds, in turns, CUDA-event medians of the kernel and its plain
-             version, and host-clock medians of the ``eager``, ``fused``,
-             ``scan`` and ``cuda`` executors on the same inputs, beside the
-             kernel's bound;
+             version, and host-clock medians of warm (plan-cache hit)
+             evaluations on the ``eager``, ``fused``, ``scan`` and ``cuda``
+             executors on the same inputs, with the batches and tiles the
+             tuner pinned, beside the kernel's bound;
 5. adamw   — hold the fused AdamW kernel against its plain version on the
              card: n in {1, 1000, 70001, 2**27+3}, float32 and bfloat16,
              steps 1 and 7, gscale 1 and 0.5, a misaligned view, and every
@@ -148,6 +170,8 @@ DEVICE = "cuda"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
 HANDOFF_EVALS = 3                # evaluations of the smoke/handoff chain
 HANDOFF_ROUNDS = 10              # timed rounds of each, on and off in turns
+PLAN_CALLS = 10                  # warm pipeline calls per workload in the plans phase
+PLAN_ROUNDS = 10                 # timed rounds of cold, warm and pipeline evaluations
 PROFILE_SENTINELS = 8            # spin kernels opening each profiled window
 CHUNK = 1 << 25                  # elements per comparison slice
 
@@ -236,10 +260,16 @@ def phase_build(sources) -> None:
     log(card_line())
 
 
+#: workload function name -> the §5.2 batch the card's L2 gives its stage
+#: (filled by ``lowered``; the times phase prints it beside the pinned ones).
+L2_ESTIMATE: dict[str, int] = {}
+
+
 def lowered(fn, data):
     """The kernel launch (program, split inputs, broadcasts, out kinds) of
     the single stage ``fn`` plans to on ``data``."""
     from repro_torch.core import cuda_exec, mozart
+    from repro_torch.core.stage_exec import get_executor, stage_num_elements
     with mozart.session(executor="cuda") as ctx:
         outs = fn(**data)
         stages = ctx.last_plan()
@@ -247,6 +277,8 @@ def lowered(fn, data):
             raise AssertionError(f"{fn.__name__}: {len(stages)} stages, expected 1")
         stage = stages[0]
         concrete = {k: ctx.graph.resolve(si.value) for k, si in stage.inputs.items()}
+        L2_ESTIMATE[fn.__name__] = get_executor("fused").estimate_batch(
+            stage, concrete, ctx, stage_num_elements(stage, concrete, False))
         launch = cuda_exec.prepare_launch(stage, concrete, ctx)
         if launch is None:
             raise AssertionError(f"{fn.__name__}: stage does not lower to the kernel")
@@ -497,6 +529,13 @@ def handoff_chain(x, executor: str, handoff: bool):
     return out, ctx
 
 
+def pinned(ctx) -> list:
+    """(executor, tuned batches, tiles) of every plan entry ``ctx`` used."""
+    from repro_torch.core import plan_cache
+    return [(e.key[0], dict(e.tuned_batch), dict(e.block_shape))
+            for e in plan_cache.entries() if e.key in ctx._entry_keys]
+
+
 def handoff_times(x, executor: str) -> dict:
     """Host-clock times (ms) of the chain with handoff on and off, in turns
     (on, off, off, on, ...) after one warm-up of each: per setting the
@@ -530,6 +569,8 @@ def phase_handoff(sp, ref) -> dict:
     for ex in ("fused", "scan", "cuda"):
         runs = {}
         for ho in (True, False):
+            for _warm in range(2):      # plan (miss), then the first hit tunes
+                handoff_chain(x, ex, ho)
             sp.reset_counts()
             out, ctx = handoff_chain(x, ex, ho)
             runs[ho] = (out, ctx, sp.split_pipeline.launches)
@@ -545,6 +586,8 @@ def phase_handoff(sp, ref) -> dict:
             raise AssertionError(f"handoff/{ex}: {interior} interior bytes: {events}")
         if st.get("streamed_outputs", 0) == 0 or st.get("stream_ingests", 0) == 0:
             raise AssertionError(f"handoff/{ex}: no streaming: {dict(st)}")
+        if st.get("planner_calls", 0) != 0:
+            raise AssertionError(f"handoff/{ex}: a warm chain planned: {dict(st)}")
         if not on_bytes < off_bytes:
             raise AssertionError(f"handoff/{ex}: {on_bytes} boundary bytes on, "
                                  f"{off_bytes} off")
@@ -561,7 +604,8 @@ def phase_handoff(sp, ref) -> dict:
             f"turns); boundary bytes on {on_bytes} (interior 0), off {off_bytes}; "
             f"streamed {st['streamed_outputs']}, ingests {st['stream_ingests']}, "
             f"donated {st.get('donated_chunks', 0)}, chunks {st.get('chunks', 0)}, "
-            f"ingest paths {paths}, launches {on_launches}; stats {dict(st)}")
+            f"ingest paths {paths}, launches {on_launches}; pinned (executor, batches, "
+            f"tiles) {pinned(on_ctx)}; stats {dict(st)}")
         del on, off, runs
     # The kernel on the chain's stage, against its plain version.
     with mozart.session(executor="cuda", device=x.device) as ctx:
@@ -587,6 +631,223 @@ def phase_handoff(sp, ref) -> dict:
         f"{row['bound_ms']:.4f} ms, {row['bound_ms'] / kernel_ms:.1%} of it), plain "
         f"{plain_ms:.3f} ms")
     return row
+
+
+def check_outputs(what: str, got, want, oracle, atol: float) -> None:
+    """Outputs equal to ``eager``'s (rtol 2e-5) and the float64 oracle on the
+    2**20 prefix (the JAX benchmark's tolerances)."""
+    for i, (gv, wv) in enumerate(zip(got, want)):
+        if gv.shape != wv.shape or gv.dtype != wv.dtype or not bool(torch.isfinite(gv).all()):
+            raise AssertionError(f"{what} output {i}: {gv.shape}/{gv.dtype}")
+        compare(f"{what} output {i} vs eager", gv, wv, 2e-5, atol=atol)
+    for i, (gv, (ref64, rtol, oatol)) in enumerate(zip(got, oracle)):
+        if not np.allclose(gv[:ref64.shape[0]].double().cpu().numpy(), ref64,
+                           rtol=rtol, atol=oatol):
+            raise AssertionError(f"{what} output {i}: float64 oracle mismatch")
+
+
+def quartiles(times: list) -> tuple:
+    """(median, first quartile, third quartile) of ``times``."""
+    q = statistics.quantiles(times, n=4)
+    return statistics.median(times), q[0], q[2]
+
+
+def timed_ms(fn) -> float:
+    """Host-clock milliseconds of one call of ``fn`` ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_plans(sp, workloads_data, oracles) -> dict:
+    """The plan cache, the cost model and ``mozart.pipeline`` on the card;
+    any failed check raises.  Returns, per workload, what the kernels rows
+    carry: the pipeline's launches, the cold/warm/pipeline host times, the
+    kernel's device time and the ``auto`` picks."""
+    import tempfile
+
+    from repro_torch.core import mozart, plan_cache
+
+    # 1. The smoke/handoff chain a second time: every evaluation replays.
+    x = torch.linspace(0.0, 1.0, N_MAIN, device=DEVICE)
+    for ex in ("fused", "scan", "cuda"):
+        out, ctx = handoff_chain(x, ex, True)
+        st = ctx.stats
+        interior = ctx.counters.bytes_interior()
+        if st.get("planner_calls", 0) != 0 or interior != 0 \
+                or st.get("plan_cache_hits", 0) != HANDOFF_EVALS:
+            raise AssertionError(f"plans/handoff/{ex}: planner calls "
+                                 f"{st.get('planner_calls', 0)}, interior bytes {interior}: "
+                                 f"{dict(st)}")
+        log(f"[plans] handoff chain on {ex}, warm: {HANDOFF_EVALS} evaluations, "
+            f"{st['plan_cache_hits']} plan-cache hits, 0 planner calls, 0 interior bytes, "
+            f"terminal {ctx.counters.bytes_terminal()} B; pinned {pinned(ctx)}")
+        del out
+    del x
+
+    result = {}
+    for name in ("black_scholes", "haversine"):
+        fn, data = workloads_data[name]
+        atol = 1e-2 if name == "haversine" else 0.0
+
+        def as_list(out):
+            return list(out) if isinstance(out, tuple) else [out]
+
+        with mozart.session(executor="eager"):
+            want = [o.value for o in as_list(fn(**data))]
+
+        # 2. mozart.pipeline(fn, executor="cuda"): lower, compile, 10 warm calls.
+        p = mozart.pipeline(fn, executor="cuda")
+        p.lower(**data)
+        p.compile()
+        stages = len(p.plan_entry.stage_templates)
+        log(f"[plans] {name}: {p.describe()}; compile's last pass {p.last_call_stats}")
+        sp.reset_counts()
+        for call in range(PLAN_CALLS):
+            before = sp.split_pipeline.launches
+            got = as_list(p(**data))
+            torch.cuda.synchronize()
+            st = p.last_call_stats
+            moved = sp.split_pipeline.launches - before
+            if (st.get("planner_calls", 0) or st["jit_traces"] or st.get("exec_builds", 0)
+                    or st.get("cuda_fallback_stages", 0) or moved != stages
+                    or st.get("cuda_stages", 0) != stages or not p.warm()):
+                raise AssertionError(f"plans/{name} call {call}: {st}, launches {moved} "
+                                     f"for {stages} stages")
+            check_outputs(f"plans/{name} call {call}", got, want, oracles[name], atol)
+            del got
+        launches = sp.split_pipeline.launches
+        log(f"[plans] {name}: {PLAN_CALLS} warm pipeline calls, each with 0 planner calls, "
+            f"0 traces or lowerings, 0 builds, {stages} launch(es) and no fallback stage "
+            f"({launches} launches in all); outputs equal eager's and the float64 oracle")
+
+        # 3. Host clock: cold session, warm session, pipeline call.
+        def session_eval():
+            with mozart.session(executor="cuda"):
+                vals = [o.value for o in as_list(fn(**data))]
+            return vals
+
+        cold = []
+        for _r in range(PLAN_ROUNDS):
+            plan_cache.clear()
+            cold.append(timed_ms(session_eval))
+        p.compile()                              # the cache was cleared: pin again
+        session_eval()                           # the session's first hit (the tuner)
+        # The bound-arguments replay (arg_transparent): no capture, no lookup.
+        fast = mozart.pipeline(fn, executor="cuda", arg_transparent=True)
+        fast.lower(**data).compile()
+        for call in range(3):                    # call 0 builds the retained replay
+            before = sp.split_pipeline.launches
+            got = as_list(fast(**data))
+            torch.cuda.synchronize()
+            st = fast.last_call_stats
+            if (st.get("fast_path_calls", 0) != (call > 0) or st.get("planner_calls", 0)
+                    or st["jit_traces"] or st.get("exec_builds", 0)
+                    or sp.split_pipeline.launches - before != stages):
+                raise AssertionError(f"plans/{name} arg_transparent call {call}: {st}")
+            check_outputs(f"plans/{name} arg_transparent call {call}", got, want,
+                          oracles[name], atol)
+            del got
+        warm, call, replay = [], [], []
+        for r in range(PLAN_ROUNDS):
+            legs = ((warm, session_eval), (call, lambda: p(**data)),
+                    (replay, lambda: fast(**data)))
+            for times, f in legs[r % 3:] + legs[:r % 3]:
+                times.append(timed_ms(f))
+        # device ms per call, summed over the call's kernel launches
+        kernel_ms, _l, _o = profiled_kernels(lambda: p(**data), "split_pipeline",
+                                             expect=stages, reps=5, warm=True)
+        times = {"cold_ms": quartiles(cold), "warm_ms": quartiles(warm),
+                 "pipeline_ms": quartiles(call), "fast_ms": quartiles(replay)}
+        log(f"[plans] {name} host clock, medians of {PLAN_ROUNDS} rounds [quartiles] (cold: "
+            f"plan cache cleared, so planning and lowering; the fx traces of the library "
+            f"functions stay cached in the process; fast: arg_transparent, the retained "
+            f"replay): "
+            + "; ".join(f"{k[:-3]} {m:.3f} ms [{lo:.3f}-{hi:.3f}], host share "
+                        f"{m - kernel_ms:.3f} ms" for k, (m, lo, hi) in times.items())
+            + f"; kernel {kernel_ms:.4f} ms device (torch.profiler)")
+        for what, f in (("warm session", session_eval), ("pipeline call", lambda: p(**data))):
+            log(f"[plans] {name} host profile of a {what}: " + host_profile(f, PLAN_ROUNDS))
+
+        # 4. executor="auto": the first hit measures and pins cuda.
+        def auto_eval():
+            with mozart.session(executor="auto") as actx:
+                vals = [o.value for o in as_list(fn(**data))]
+            return vals, actx
+
+        plan_cache.clear()
+        _v, a_miss = auto_eval()
+        vals, a_hit = auto_eval()
+        torch.cuda.synchronize()
+        (entry,) = [e for e in plan_cache.entries() if e.key in a_hit._entry_keys]
+        picks, timings = dict(entry.chosen_exec), dict(entry.exec_timings)
+        if a_hit.stats.get("auto_measured_stages", 0) != len(entry.stage_templates) \
+                or set(picks.values()) != {"cuda"}:
+            raise AssertionError(f"plans/{name} auto: picks {picks}, timings {timings}, "
+                                 f"{dict(a_hit.stats)}")
+        check_outputs(f"plans/{name} auto", vals, want, oracles[name], atol)
+        for _r in range(3):
+            vals, a_warm = auto_eval()
+            st = a_warm.stats
+            if st.get("auto_measured_stages", 0) or st.get("planner_calls", 0) \
+                    or st.get("auto_pick_cuda", 0) != len(entry.stage_templates) \
+                    or st.get("cuda_fallback_stages", 0):
+                raise AssertionError(f"plans/{name} auto warm: {dict(st)}")
+        miss_picks = {k: v for k, v in a_miss.stats.items() if k.startswith("auto_pick")}
+        log(f"[plans] {name} auto: the miss picked {miss_picks} (analytic); the first "
+            f"hit measured {a_hit.stats['auto_measured_stages']} stage(s) "
+            f"and pinned {picks}; measured seconds {timings}; warm calls: 0 measurements, "
+            f"0 planner calls, every stage on cuda")
+
+        # 5. Persistence: save, clear, load, one auto session.
+        with tempfile.TemporaryDirectory() as td:
+            path = f"{td}/plans.json"
+            saved = plan_cache.save(path)
+            plan_cache.clear()
+            loaded = plan_cache.load(path)
+            vals, w_ctx = auto_eval()
+            st = w_ctx.stats
+            if not (loaded > 0 and st.get("planner_calls", 0) == 0
+                    and st.get("autotuned_stages", 0) == 0
+                    and st.get("auto_measured_stages", 0) == 0
+                    and st.get("auto_pick_cuda", 0) == len(entry.stage_templates)):
+                raise AssertionError(f"plans/{name} warm start: saved {saved}, loaded "
+                                     f"{loaded}, {dict(st)}")
+        check_outputs(f"plans/{name} warm start", vals, want, oracles[name], atol)
+        log(f"[plans] {name} warm start: saved {saved}, loaded {loaded}; one auto session "
+            f"with 0 planner calls, 0 tuning runs, 0 measurements: {dict(st)}")
+        result[name] = {"plans_launches": launches, "pipeline_calls": PLAN_CALLS,
+                        **times, "kernel_device_ms": kernel_ms,
+                        "auto_picks": {str(k): v for k, v in picks.items()},
+                        "auto_timings_s": {str(k): v for k, v in timings.items()}}
+        del p, fast, vals, want
+        torch.cuda.empty_cache()
+    return result
+
+
+def host_profile(fn, reps: int, top: int = 8) -> str:
+    """Where a warm call's host time goes: ``cProfile`` over ``reps`` calls,
+    the ``top`` functions by own time, in ms per call (cProfile's hooks
+    inflate every figure; the shares are what it is for), and the total."""
+    import cProfile
+    import pstats
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: kv[1][2], reverse=True)[:top]
+    total = st.total_tt / reps * 1e3
+    return (f"{total:.3f} ms per call under cProfile; by own time: " + "; ".join(
+        f"{Path(f).name}:{line} {func} {tt / reps * 1e3:.3f} ms "
+        f"(cumulative {ct / reps * 1e3:.3f})"
+        for (f, line, func), (_cc, _nc, tt, ct, _callers) in rows))
 
 
 class _OldInstr(ctypes.Structure):
@@ -715,8 +976,11 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
                 vals = [o.value for o in outs]
             return vals, ctx
 
-        e2e = {ex: host_ms(lambda ex=ex: executor_run(ex), 3)
-               for ex in ("eager", "fused", "scan", "cuda")}
+        e2e, pins = {}, {}
+        for ex in ("eager", "fused", "scan", "cuda"):
+            _v, ectx = executor_run(ex)     # a miss or the first hit (the tuner)
+            e2e[ex] = host_ms(lambda ex=ex: executor_run(ex), 3)   # warm hits
+            pins[ex] = pinned(ectx)         # the entry as the tuner left it
         _v, fctx = executor_run("fused")
         row = {
             "name": f"split_pipeline[{name}]", "route": "cuda", "source": SOURCE,
@@ -730,6 +994,7 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
             "compare_ms": {k: v for k, v in dev.items() if k != "kernel"},
             "eager_ms": e2e["eager"], "fused_ms": e2e["fused"], "scan_ms": e2e["scan"],
             "cuda_executor_ms": e2e["cuda"], "fused_chunks": fctx.stats["chunks"],
+            "pinned": {ex: p[0][1:] if p else None for ex, p in pins.items()},
         }
         rows.append(row)
         log(f"[times] {name} n={n}: kernel {kernel_ms:.4f} ms device, {event_ms:.4f} ms "
@@ -738,7 +1003,9 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
             f"{geo.smem} B shared memory), plain {plain_ms:.3f} ms, "
             f"eager executor {e2e['eager']:.3f} ms, fused executor "
             f"{e2e['fused']:.3f} ms ({fctx.stats['chunks']} chunks), scan executor "
-            f"{e2e['scan']:.3f} ms, cuda executor {e2e['cuda']:.3f} ms")
+            f"{e2e['scan']:.3f} ms, cuda executor {e2e['cuda']:.3f} ms (warm evaluations, "
+            f"host clock); pinned (batches, tiles) {row['pinned']} against the L2 "
+            f"estimate of {L2_ESTIMATE[fn.__name__]} elements per chunk")
         log(f"[times] {name} device ms, medians of two rounds in turns: "
             + ", ".join(f"{k} {v:.4f}" for k, v in dev.items()))
     return rows
@@ -1644,8 +1911,11 @@ def main() -> int:
     launches = phase_main(sp, workloads_data, oracles)
     handoff_row = phase_handoff(sp, ref)
     torch.cuda.empty_cache()
+    plans = phase_plans(sp, workloads_data, oracles)
     rows = phase_times(sp, ref, workloads_data, errs, launches,
                        args.split_pipeline_compare)
+    for row in rows:
+        row.update(plans.get(row["name"][len("split_pipeline["):-1], {}))
     rows.append(handoff_row)
     del workloads_data, errs, bs, hv, qs, bs_pre, hv_pre
     torch.cuda.empty_cache()

@@ -41,12 +41,16 @@ class SA:
         static: Sequence[str] = (),
         elementwise: bool = False,
         mut: Sequence[str] = (),
+        cost_hint: float = 1.0,
     ):
         self.arg_specs = arg_specs
         self.ret_spec = ret_spec
         self.static = tuple(static)
         self.elementwise = elementwise      # hint: stage may lower to the kernel
         self.mut = tuple(mut)               # donation hint
+        #: per-call cost relative to one elementwise op (``Stage.flops_hint``
+        #: feeds it to the cost model behind ``executor="auto"``).
+        self.cost_hint = cost_hint
 
 
 def _meta(v: Any) -> Any:

@@ -37,21 +37,25 @@ from repro_torch.core import split_types as st
 from repro_torch.core.graph import NodeRef
 from repro_torch.core.planner import Stage, _value_key
 from repro_torch.core.stage_exec import (
+    SAMPLE_CHUNKS,
     ChunkStream,
     StageExecutor,
     batch_ranges,
+    candidate_batches,
     donatable_input_keys,
     effective_elements,
     get_executor,
     mark_stream_consumed,
     note_trace,
+    pinned_exec,
     regrid_stream,
     register_executor,
     stage_num_elements,
     undonatable_stream_keys,
 )
+from repro_torch.kernels import split_pipeline as sp
 from repro_torch.kernels.program import ARITY, BOOL_RESULT, OP, Program, assemble
-from repro_torch.kernels.split_pipeline import fits_kernel, split_pipeline
+from repro_torch.kernels.split_pipeline import fits_kernel
 
 #: traced call targets -> opcode.  fx records the callables themselves:
 #: ``torch.special.erf`` traces as ``torch._C._special.special_erf`` and
@@ -224,21 +228,24 @@ def _live_code(b: _Builder, out_srcs: list[tuple]) -> tuple[list, list]:
     return code, [src(s) for s in out_srcs]
 
 
-def lower_stage(stage: Stage, concrete: dict[tuple, Any]) -> tuple[Program, list]:
+def lower_stage(stage: Stage, concrete: dict[tuple, Any], ctx) -> tuple[Program, list]:
     """The stage as a kernel ``Program`` plus its ``out_kinds``; raises
-    ``LoweringError``.  Cached on the stage, as ``chain_plan`` is."""
-    cached = getattr(stage, "_cuda_program", None)
-    if cached is not None:
-        if isinstance(cached, LoweringError):
-            raise cached
-        return cached
-    note_trace()
-    try:
-        result = _lower(stage, concrete)
-    except LoweringError as e:
-        stage._cuda_program = e
-        raise
-    stage._cuda_program = result
+    ``LoweringError``.  The result (or the error) is pinned into the plan
+    entry by stage position and the positions of the outputs that escape
+    this call (``pinned_exec``), so a warm call of a cached plan runs no
+    ``torch.fx`` trace and no lowering; an uncacheable plan keeps it on the
+    Stage."""
+
+    def build():
+        note_trace()
+        try:
+            return _lower(stage, concrete)
+        except LoweringError as e:
+            return e
+
+    result = pinned_exec(stage, ctx, "cuda", (tuple(stage.escape_positions()),), build)
+    if isinstance(result, LoweringError):
+        raise result
     return result
 
 
@@ -382,7 +389,7 @@ def _launch_buffer(stage: Stage, concrete: dict[tuple, Any], key: tuple, n: int,
     if view is not None:
         ctx.stats["cuda_ingest_views"] += 1
         return view, False
-    grid = batch_ranges(n, get_executor("cuda").choose_batch(stage, concrete, ctx, n))
+    grid = batch_ranges(n, get_executor("cuda").chunk_batch(stage, concrete, ctx, n))
     if v.ranges != grid:
         chunks = regrid_stream(stage, ctx, key, v, grid).chunks
     ctx.stats["cuda_ingest_concat"] += 1
@@ -403,7 +410,7 @@ def _prepare(stage: Stage, concrete: dict[tuple, Any], ctx):
     if n == 0:
         return None                    # empty split: no grid to launch
     try:
-        program, out_kinds = lower_stage(stage, concrete)
+        program, out_kinds = lower_stage(stage, concrete, ctx)
     except LoweringError as e:
         if ctx.log:
             print(f"[mozart] stage {stage.id} stays off the kernel: {e}")
@@ -420,11 +427,26 @@ def prepare_launch(stage: Stage, concrete: dict[tuple, Any], ctx):
     return None if prepared is None else prepared[0]
 
 
-def try_execute_stage_cuda(stage: Stage, concrete: dict[tuple, Any], ctx) -> bool:
+def tiles_up_to(batch: int) -> tuple[int, ...]:
+    """The kernel's tiles a chunk of ``batch`` elements may launch with:
+    every tile not above it (the smallest tile when every tile is)."""
+    return tuple(t for t in sp.TILES if t <= batch) or (min(sp.TILES),)
+
+
+def _device_index(dev: torch.device) -> int | None:
+    """The card's index for its occupancy calculator; None (the estimate)
+    for a CPU tensor."""
+    return dev.index if dev.type == "cuda" else None
+
+
+def try_execute_stage_cuda(stage: Stage, concrete: dict[tuple, Any], ctx,
+                           executor: "CudaExecutor | None" = None) -> bool:
     prepared = _prepare(stage, concrete, ctx)
     if prepared is None:
         return False
     (program, split_inputs, bcasts, out_kinds), fresh = prepared
+    executor = executor or get_executor("cuda")
+    geom = executor.launch_geometry(stage, ctx, program, out_kinds, split_inputs[0].device)
     # Donation decisions as the reference's pallas driver takes them: every
     # donation point counts; a dead stream passed through as it is (views,
     # a carry) gives up its buffers after the launch.
@@ -436,7 +458,7 @@ def try_execute_stage_cuda(stage: Stage, concrete: dict[tuple, Any], ctx) -> boo
                 if not fresh[i] and stage.ckey(split_keys[i]) not in unsafe
                 and isinstance(concrete[split_keys[i]], ChunkStream)}
     ctx.stats["donated_chunks"] += len(positions)
-    results = split_pipeline(program, split_inputs, bcasts, out_kinds)
+    results = sp._launch(program, split_inputs, bcasts, out_kinds, geom=geom)
     mark_stream_consumed(stage, concrete, ctx, consumed)
     for nid, res in zip(sorted(stage.escaping), results):
         node = next(nd for nd in stage.nodes if nd.id == nid)
@@ -447,6 +469,12 @@ def try_execute_stage_cuda(stage: Stage, concrete: dict[tuple, Any], ctx) -> boo
     return True
 
 
+#: least elements one timed sample of a kernel stage covers: a launch
+#: covers the whole stage, so its host cost is fixed, and a sample must be
+#: large enough for the device time to show through it.
+SAMPLE_MIN_ELEMS = 1 << 24
+
+
 @register_executor("cuda")
 class CudaExecutor(StageExecutor):
     """Lower eligible elementwise stages onto the split-pipeline CUDA kernel;
@@ -454,11 +482,67 @@ class CudaExecutor(StageExecutor):
     driver and is counted in ``ctx.stats["cuda_fallback_stages"]``.  A build
     or launch failure raises.  Stream inputs are ingested without a merge
     (``_launch_buffer``); outputs are whole tensors, as the reference's
-    ``pallas`` stage merges its own."""
+    ``pallas`` stage merges its own.
 
+    Tuning (the counterpart of ``pallas``'s block-shape tuning): the
+    candidates are the §5.2 bracket rounded to the tiles the kernel
+    launches, deduplicated; the winner is pinned as the stage's batch, and
+    every launch of a cached plan records the tile it used in
+    ``PlanEntry.block_shape[stage.id] = (1, tile)``."""
+
+    tunable = True
     stream_capable = True
 
     def execute(self, stage: Stage, concrete: dict[tuple, Any], ctx) -> None:
-        if not try_execute_stage_cuda(stage, concrete, ctx):
+        if not try_execute_stage_cuda(stage, concrete, ctx, self):
             ctx.stats["cuda_fallback_stages"] += 1
             get_executor("fused").execute(stage, concrete, ctx)
+
+    def chunk_batch(self, stage: Stage, concrete: dict[tuple, Any], ctx, n: int) -> int:
+        """The chunk grid a stream is regridded onto before it is
+        concatenated into a launch buffer: the context's ``batch_elements``
+        or the §5.2 estimate, never the pinned tile."""
+        return max(1, min(ctx.batch_elements or self.estimate_batch(stage, concrete, ctx, n), n))
+
+    def launch_geometry(self, stage: Stage, ctx, program: Program, out_kinds: list,
+                        device: torch.device) -> "sp.Geometry":
+        """The tile and ring depth of this launch: the kernel's rule over the
+        tiles a chunk of the tuner's candidate (or of the size it pinned) may
+        hold, else over every tile.  A launch of a cached plan records its
+        tile in ``entry.block_shape``."""
+        entry = getattr(ctx, "_plan_entry", None)
+        override = getattr(ctx, "_batch_override", None)
+        cap = override
+        if cap is None and entry is not None:
+            cap = entry.tuned_batch.get(stage.id)
+        tiles = sp.TILES if cap is None else tiles_up_to(cap)
+        geom = sp.program_geometry(program, out_kinds, _device_index(device), tiles)
+        if entry is not None and override is None:
+            entry.pin_block_shape(stage.id, (1, geom.tile))
+        return geom
+
+    def tuning_candidates(self, stage: Stage, concrete: dict[tuple, Any], ctx,
+                          est: int, n: int) -> list[int]:
+        """The §5.2 bracket rounded to the tile each candidate launches with
+        (the rule over the tiles a chunk of that size may hold) and
+        deduplicated: two candidates on one tile would time the same launch
+        twice.  A stage that stays off the kernel tunes the fused driver's
+        bracket."""
+        split = [concrete[k] for k, si in stage.inputs.items() if si.split_type.splittable]
+        if n <= 0 or not split or not _eligible(stage, concrete):
+            return candidate_batches(est, n)
+        try:
+            program, out_kinds = lower_stage(stage, concrete, ctx)
+        except LoweringError:
+            return candidate_batches(est, n)
+        device = _device_index(ctx.device)         # split inputs may be streams
+        return sorted({sp.program_geometry(program, out_kinds, device, tiles_up_to(c)).tile
+                       for c in candidate_batches(est, n)})
+
+    def sample_elems(self, stage: Stage, concrete: dict[tuple, Any], ctx,
+                     batch: int, n: int) -> int:
+        """One launch covers the whole sample, so the sample is at least
+        ``SAMPLE_MIN_ELEMS`` elements and ``SAMPLE_CHUNKS`` of the stage's
+        §5.2 chunks, however small the tile being timed."""
+        chunk = max(batch, self.chunk_batch(stage, concrete, ctx, max(n, 1)))
+        return min(n, max(SAMPLE_CHUNKS * chunk, SAMPLE_MIN_ELEMS)) if n > 0 else 0

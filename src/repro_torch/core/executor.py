@@ -21,8 +21,10 @@ whole function chain; (3) merge partial results associatively.
                      boundary bytes, not its mechanism.
 
 Every chunking executor ingests handed-off ``ChunkStream`` inputs without a
-merge (``core/handoff.py``).  The ``"cuda"`` executor (the split-pipeline
-kernel) lives in ``core/cuda_exec.py``.
+merge (``core/handoff.py``).  The fused and scan drivers are pinned into the
+plan-cache entry (``stage_exec.pinned_exec``), so a warm call builds none;
+each build counts as a trace (``note_trace``).  The ``"cuda"`` executor (the
+split-pipeline kernel) lives in ``core/cuda_exec.py``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ from repro_torch.core.stage_exec import (
     get_executor,
     has_dynamic,
     mark_stream_consumed,
+    note_trace,
+    pinned_exec,
     regrid_stream,
     register_executor,
     run_chain,
@@ -77,6 +81,7 @@ class EagerExecutor(StageExecutor):
 
 
 def _build_fused_driver(stage: Stage, esc: tuple[int, ...]) -> Callable:
+    note_trace()
     plan = chain_plan(stage)
 
     def fused_driver(env):
@@ -92,6 +97,7 @@ class ChunkedExecutor(StageExecutor):
     Stream inputs (producer chunk lists) are iterated without re-slicing;
     a dead stream's buffers are released after the stage consumed them."""
 
+    tunable = True
     stream_capable = True
     mode = "pipelined"
 
@@ -134,9 +140,13 @@ class ChunkedExecutor(StageExecutor):
         ctx.stats["chunks"] += len(ranges)
 
         esc = tuple(stage.escape_positions())
-        fused_fn = _build_fused_driver(stage, esc) if mode == "fused" else None
-        # Donation decisions as the reference's fused driver takes them.
-        donate = donatable_input_keys(stage, ctx) if fused_fn is not None else ()
+        fused_fn = None
+        donate: tuple = ()
+        if mode == "fused":
+            fused_fn = pinned_exec(stage, ctx, "fused", (esc,),
+                                   lambda: _build_fused_driver(stage, esc))
+            # Donation decisions as the reference's fused driver takes them.
+            donate = donatable_input_keys(stage, ctx)
         unsafe = undonatable_stream_keys(stage, concrete, ctx, donate) if donate else set()
         partials: dict[int, list[Any]] = {p: [] for p in esc}
         for i, (s, e) in enumerate(ranges):
@@ -177,6 +187,7 @@ def _build_scan_driver(stage: Stage, esc: tuple[int, ...],
     """The scan driver: ONE call that runs the stage's chain over every row
     of the input carries and writes each output row into a preallocated
     output carry (allocated from the first row's shapes and dtypes)."""
+    note_trace()
     plan = chain_plan(stage)
 
     def row(rows, i: int, ax: int):
@@ -227,6 +238,7 @@ class ScanExecutor(StageExecutor):
     dynamic stages to ``pipelined``; empty stages and stages with a split
     axis it cannot stack along to ``fused``."""
 
+    tunable = True
     stream_capable = True
 
     #: same grid-adoption slack as the chunk-loop drivers.
@@ -304,7 +316,9 @@ class ScanExecutor(StageExecutor):
                        if k in split_rows) if n_chunks else ()
         unsafe = undonatable_stream_keys(stage, concrete, ctx, donate) \
             if donate else set()
-        driver = _build_scan_driver(stage, esc, split_axes, out_axes)
+        driver = pinned_exec(
+            stage, ctx, "scan", (esc,),
+            lambda: _build_scan_driver(stage, esc, split_axes, out_axes))
         carry = driver(split_rows, bcast_env, n_chunks) if n_chunks else {}
         ctx.stats["donated_chunks"] += len(donate)
         ctx.stats["chunks"] += n_chunks + (1 if n_main < n else 0)

@@ -25,7 +25,7 @@ class NodeRef:
 class Node:
     __slots__ = (
         "id", "fn", "bound", "arg_types", "out_type", "out_aval",
-        "result", "done", "future_ref", "stage_id",
+        "result", "done", "future_ref", "stage_id", "pinned",
     )
 
     def __init__(self, node_id: int, fn, bound: dict[str, Any],
@@ -40,6 +40,9 @@ class Node:
         self.done = False
         self.future_ref: weakref.ref | None = None
         self.stage_id: int | None = None
+        # Pinned nodes survive prune(): the Pipeline bound-arguments fast
+        # path re-executes a retained node set per call (core/pipeline.py).
+        self.pinned = False
 
     def future_alive(self) -> bool:
         return self.future_ref is not None and self.future_ref() is not None
@@ -88,7 +91,7 @@ class DataflowGraph:
         cons = self.consumers()
         dead = [
             nid for nid, n in self.nodes.items()
-            if n.done and not n.future_alive()
+            if n.done and not n.pinned and not n.future_alive()
             and all(self.nodes[c].done for c in cons[nid])
         ]
         for nid in dead:

@@ -31,11 +31,11 @@ Cross-*evaluation* edges (a stage consuming a ``done`` node from an earlier
 and ``stage_exec.resolve_stage_inputs`` re-checks the concrete stream's
 grid at run time.
 
-The port has no plan cache yet, so the analysis runs fresh on every
-evaluation (``resolve_decisions(ctx, None, stages)``), as the reference
-does with ``plan_cache=False``.  Recording decisions on a plan entry, the
-aging of stale donation vetoes (``STALE_THRESHOLD``,
-``handoff_reanalyzed``) and the warm-call gate arrive with the plan cache.
+The analysis is pure and structural (a function of the stage templates
+only), so ``plan_cache.lookup_or_plan`` runs it once at plan time and
+records the result on the entry (``PlanEntry.handoff``); warm calls replay
+it with zero analysis, and ``plan_cache.save/load`` persist it.
+Uncacheable pipelines analyze fresh per evaluation.
 """
 
 from __future__ import annotations
@@ -120,19 +120,43 @@ def decisions_fresh(ho_map: dict[int, StageHandoff], stages: list[Stage]) -> boo
     return not _liveness_stale(ho_map, stages)
 
 
+#: consecutive stale observations before a recorded handoff re-analyzes:
+#: one flap is noise (liveness legitimately varies call to call), a
+#: persistent disagreement means the plan-time donation vetoes no longer
+#: describe this workload.
+STALE_THRESHOLD = 2
+
+
 def resolve_decisions(ctx, entry, stages: list[Stage]):
     """Handoff decisions for one evaluation of ``stages``; None when the
     context has handoff disabled.
 
-    ``entry`` is the evaluation's plan entry, which would carry recorded
-    decisions; the port has no plan cache yet, so it is None and the
-    analysis runs fresh on every evaluation."""
-    if entry is not None:
-        raise ValueError("the port has no plan cache: plan entries carry no "
-                         "handoff decisions yet")
+    Replays the entry's recorded analysis when present; otherwise analyzes
+    fresh and records the result on the entry (rekeyed entries, or entries
+    whose decisions the ``MOZART_REANALYZE_EVERY`` tick dropped).  Recorded
+    donation decisions AGE: when current Future liveness disagrees with the
+    recorded ``vetoed``/``last_use`` sets for ``STALE_THRESHOLD``
+    consecutive calls, the plan re-analyzes against this call's liveness
+    (counted in ``handoff_reanalyzed``)."""
     if not getattr(ctx, "handoff", True):
         return None
-    return analyze(stages, getattr(ctx, "executor", None))
+    if entry is not None and entry.handoff is not None:
+        if _liveness_stale(entry.handoff, stages):
+            entry.ho_age += 1
+            if entry.ho_age >= STALE_THRESHOLD:
+                with entry._lock:
+                    entry.handoff = analyze(stages, getattr(ctx, "executor", None))
+                    entry.ho_age = 0
+                ctx.stats["handoff_reanalyzed"] += 1
+                from repro_torch.core import plan_cache as _pc
+                _pc._mark_dirty()
+        else:
+            entry.ho_age = 0
+        return entry.handoff
+    ho = analyze(stages, getattr(ctx, "executor", None))
+    if entry is not None:
+        entry.handoff = ho
+    return ho
 
 
 def _streamable_out(t: st.SplitType, stage_count: int | None) -> bool:

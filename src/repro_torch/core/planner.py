@@ -64,6 +64,15 @@ class Stage:
         """Stage-local positions of escaping nodes, in deterministic order."""
         return sorted(self.pos[nid] for nid in self.escaping)
 
+    def internal(self, node: Node, argname: str) -> bool:
+        v = node.bound.get(argname)
+        return isinstance(v, NodeRef) and any(n.id == v.node_id for n in self.nodes)
+
+    def flops_hint(self) -> float:
+        """Arithmetic-intensity proxy: summed SA ``cost_hint`` over the chain
+        (relative to one elementwise op), read by ``core/cost_model.py``."""
+        return sum(float(getattr(n.fn.sa, "cost_hint", 1.0)) for n in self.nodes)
+
 
 def _count_of_type(t: Any) -> int | None:
     if isinstance(t, st.ArraySplit):
@@ -173,6 +182,39 @@ def _resolve(env: st.TypeEnv, t: Any, aval_like: Any) -> st.SplitType:
     return r
 
 
+#: process-global count of actual planner invocations; the plan cache's
+#: "a warm call makes zero planner calls" guarantee is asserted against it.
+N_CALLS = 0
+
+
+def _group(nodes: list[Node], graph: DataflowGraph,
+           max_stage_nodes: int | None) -> list[_OpenStage]:
+    """The greedy grouping loop shared by ``plan`` and
+    ``simulate_stage_breaks``."""
+    groups: list[_OpenStage] = []
+    cur: _OpenStage | None = None
+    for node in nodes:
+        full = (cur is not None and
+                (cur.closed or (max_stage_nodes is not None
+                                and len(cur.nodes) >= max_stage_nodes)))
+        if cur is None or full or not cur.try_place(node, graph):
+            cur = _OpenStage(len(groups))
+            groups.append(cur)
+            if not cur.try_place(node, graph):
+                raise AssertionError(f"cannot place {node} in empty stage")
+    return groups
+
+
+def simulate_stage_breaks(nodes: list[Node], graph: DataflowGraph,
+                          max_stage_nodes: int | None = None
+                          ) -> list[list[Node]]:
+    """The stage partition ``plan`` would produce for this node order,
+    without building ``Stage`` objects and without counting as a planner
+    call (``N_CALLS`` untouched).  ``try_place`` tags ``node.stage_id`` as a
+    side effect; callers re-plan afterwards, so the tags are transient."""
+    return [g.nodes for g in _group(nodes, graph, max_stage_nodes)]
+
+
 def plan(nodes: list[Node], graph: DataflowGraph,
          max_stage_nodes: int | None = None) -> list[Stage]:
     """Greedy consecutive grouping in topological (= program) order.
@@ -180,17 +222,9 @@ def plan(nodes: list[Node], graph: DataflowGraph,
     ``max_stage_nodes=1`` disables cross-function pipelining (each function
     still splits alone) — the paper's Table 4 "-pipe" ablation.
     """
-    open_stages: list[_OpenStage] = []
-    cur: _OpenStage | None = None
-    for node in nodes:
-        full = (cur is not None and
-                (cur.closed or (max_stage_nodes is not None
-                                and len(cur.nodes) >= max_stage_nodes)))
-        if cur is None or full or not cur.try_place(node, graph):
-            cur = _OpenStage(len(open_stages))
-            open_stages.append(cur)
-            if not cur.try_place(node, graph):
-                raise AssertionError(f"cannot place {node} in empty stage")
+    global N_CALLS
+    N_CALLS += 1
+    open_stages = _group(nodes, graph, max_stage_nodes)
 
     consumers = graph.consumers()
     stages: list[Stage] = []

@@ -12,12 +12,19 @@ is the user-facing way to scope configuration:
 A context runs on the card unless it is given ``device="cpu"``; on a machine
 without CUDA the default raises instead of quietly running on the CPU.
 Outside every session annotated functions run eagerly (the plain library).
+
+Plans are cached across evaluations (``core/plan_cache.py``): a repeated
+pipeline skips the planner, replays its handoff decisions and its pinned
+drivers and kernel programs.  ``mozart.pipeline(fn)`` is the ahead-of-time
+entry point over the same machinery (``core/pipeline.py``); a session is an
+anonymous pipeline's scope.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import threading
 import weakref
 from typing import Any
@@ -29,6 +36,7 @@ from repro_torch import hardware
 from repro_torch.core.future import Future
 from repro_torch.core.graph import DataflowGraph, NodeRef
 from repro_torch.core.handoff import resolve_decisions
+from repro_torch.core.plan_cache import lookup_or_plan
 from repro_torch.core.planner import plan
 from repro_torch.core.stage_exec import BoundaryCounters, counter_scope, get_executor
 
@@ -63,6 +71,9 @@ class MozartContext:
         batch_elements: int | None = None,
         log: bool = False,
         pipeline: bool = True,
+        plan_cache: bool = True,
+        autotune: bool = True,
+        plan_cache_path: str | None = None,
         handoff: bool = True,
     ):
         self.executor = executor
@@ -73,12 +84,26 @@ class MozartContext:
         self.batch_elements = batch_elements
         self.log = log
         self.pipeline = pipeline                 # False: Table-4 "-pipe" ablation
+        self.plan_cache = plan_cache             # reuse plans across evaluations
+        self.autotune = autotune                 # measure+pin chunk sizes on cached plans
         self.handoff = handoff                   # cross-stage chunk handoff (core/handoff.py)
+        # Persist plans, tuned batches and executor choices across processes;
+        # the MOZART_PLAN_CACHE variable pre-warms every context.
+        if plan_cache_path is None:
+            plan_cache_path = os.environ.get("MOZART_PLAN_CACHE") or None
+        self.plan_cache_path = plan_cache_path
         self.graph = DataflowGraph()
         self.stats: collections.Counter = collections.Counter()
         #: this context's scoped trace/boundary-traffic view (stage_exec).
         self.counters = BoundaryCounters()
+        self._plan_entry = None                  # active plan_cache.PlanEntry
         self._handoff = None                     # active handoff decisions
+        self._batch_override: int | None = None  # set by the auto-tuner only
+        self._n_cap: int | None = None           # set during sampled tuning only
+        self._entry_keys: set = set()            # cache keys this context used
+        if self.plan_cache_path:
+            from repro_torch.core.plan_cache import load_once
+            load_once(self.plan_cache_path)
 
     # -- libmozart register() -------------------------------------------------
     def register_call(self, fn, bound: dict[str, Any]) -> Future:
@@ -120,9 +145,7 @@ class MozartContext:
         pending = self.graph.pending()
         if not pending:
             return
-        stages = plan(pending, self.graph,
-                      max_stage_nodes=None if self.pipeline else 1)
-        self.stats["planner_calls"] += 1
+        stages, entry = lookup_or_plan(pending, self.graph, self)
         self.stats["evaluations"] += 1
         if self.log:
             for s in stages:
@@ -130,20 +153,25 @@ class MozartContext:
                 print(f"[mozart] stage {s.id}: [{names}] inputs="
                       f"{[str(si.split_type) for si in s.inputs.values()]}")
         executor = get_executor(self.executor)
-        # Handoff decisions, analyzed fresh per evaluation (no plan cache
-        # yet).  Save/restore, not clear: a dynamic node forcing a Future of
-        # this same session re-enters evaluate(), and the outer decisions
-        # must survive the nested call.
-        ho = resolve_decisions(self, None, stages)
-        prev_ho, self._handoff = self._handoff, ho
+        # Handoff decisions: replayed from the cache entry (zero analysis on
+        # warm calls); uncacheable pipelines analyze fresh per evaluation.
+        ho = resolve_decisions(self, entry, stages)
+        # Save/restore, not clear: a dynamic node forcing a Future of this
+        # same session re-enters evaluate(), and the outer plan's entry and
+        # decisions must survive the nested call.
+        prev_entry, prev_ho = self._plan_entry, self._handoff
+        self._plan_entry, self._handoff = entry, ho
         try:
-            # Trace and boundary events attribute to THIS context's counters
-            # (plus the process-global aggregate) for the duration.
+            # Dispatch PER STAGE (``executor="auto"`` routes each stage on its
+            # own, core/cost_model.py).  Trace and boundary events attribute
+            # to THIS context's counters (plus the process-global aggregate).
+            # ROADMAP A5: the degradation ladder (resilience.run_stage) wraps
+            # this call.
             with counter_scope(self.counters):
                 for s in stages:
                     executor.run(s, self.graph, self)
         finally:
-            self._handoff = prev_ho
+            self._plan_entry, self._handoff = prev_entry, prev_ho
         self.graph.prune()
 
     def last_plan(self):
@@ -167,33 +195,50 @@ def current_context() -> MozartContext | None:
 
 
 def configure(**kwargs) -> MozartContext:
-    """Reconfigure the innermost context (flushes pending work first)."""
+    """Reconfigure the innermost context (flushes pending work first).
+
+    When a knob that is part of the plan-cache key changes (executor, chip,
+    device, pipeline, handoff), the entries THIS context used are re-keyed
+    (copied) to the new configuration, so the next evaluation hits instead
+    of replanning (``plan_cache.rekey_config``, counted in
+    ``configure_rekeyed``)."""
     ctx = current_context()
     if ctx is None:
         if kwargs:
             raise AttributeError("no active Mozart context to configure")
         return ctx
     ctx.evaluate()
+    from repro_torch.core import plan_cache as _pc
+    old_prefix = _pc.context_key_prefix(ctx)
     for k, v in kwargs.items():
         if not hasattr(ctx, k):
             raise AttributeError(f"unknown Mozart option {k!r}")
         if k == "device":
             v = resolve_device(v)
         setattr(ctx, k, v)
+    new_prefix = _pc.context_key_prefix(ctx)
+    if old_prefix != new_prefix and getattr(ctx, "plan_cache", True):
+        ctx.stats["configure_rekeyed"] += _pc.rekey_config(
+            old_prefix, new_prefix, only_keys=ctx._entry_keys)
     return ctx
 
 
 @contextlib.contextmanager
 def session(**kwargs):
     """Scope a Mozart configuration (paper-style usage): annotated calls made
-    inside register against a fresh context, evaluated at scope exit."""
-    ctx = MozartContext(**kwargs)
-    _stack().append(ctx)
-    try:
+    inside register against a fresh context, evaluated at scope exit.  A
+    session is an anonymous :class:`repro_torch.core.pipeline.Pipeline`'s
+    ``scope()``: both entry points share one lifecycle and one cache."""
+    from repro_torch.core.pipeline import Pipeline
+    with Pipeline(None, **kwargs).scope() as ctx:
         yield ctx
-        ctx.evaluate()                       # flush at scope exit
-    finally:
-        _stack().pop()
+
+
+def pipeline(fn=None, **config):
+    """AOT entry point: ``mozart.pipeline(fn, ...)`` with an explicit
+    ``lower -> compile -> call`` lifecycle (``core/pipeline.py``)."""
+    from repro_torch.core.pipeline import pipeline as _pipeline
+    return _pipeline(fn, **config)
 
 
 def evaluate() -> None:

@@ -13,8 +13,8 @@ and a registry so that strategies are *pluggable*:
 
 ``runtime.MozartContext.evaluate`` dispatches through ``get_executor``.  The
 built-in strategies live in ``core/executor.py`` ("eager", "pipelined",
-"fused", "scan") and ``core/cuda_exec.py`` ("cuda"), registered as a side
-effect of importing those modules.
+"fused", "scan"), ``core/cuda_exec.py`` ("cuda") and ``core/cost_model.py``
+("auto"), registered as a side effect of importing those modules.
 
 Cross-stage chunk handoff lives here too: ``ChunkStream`` (a stage output
 left unmerged), ``finish_stage`` (which keeps the outputs the decisions of
@@ -22,9 +22,14 @@ left unmerged), ``finish_stage`` (which keeps the outputs the decisions of
 a stream to a stream-capable executor, or merges it with a counted reason)
 and the boundary counters that show what a boundary cost.
 
-Batch sizing goes through ``StageExecutor.choose_batch``: an explicit
-per-context ``batch_elements``, else the paper's §5.2 fast-memory estimate
-(``hardware.mozart_batch_elements``).
+Batch sizing goes through ``StageExecutor.choose_batch``: the tuner's
+sample override, an explicit per-context ``batch_elements``, the size the
+auto-tuner pinned into the plan-cache entry, else the paper's §5.2
+fast-memory estimate (``hardware.mozart_batch_elements``).  The tuner runs
+on the first execution of a *cached* plan (``StageExecutor._tune``).
+
+Built drivers and lowered kernel programs are pinned per plan entry
+(``pinned_exec``), so a warm call builds nothing.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+import time
 from typing import Any, Callable
 
 import torch
@@ -69,6 +75,7 @@ def register_executor(name: str) -> Callable[[type], type]:
 
 def _ensure_builtin_executors() -> None:
     # Importing these modules registers their executor classes.
+    import repro_torch.core.cost_model  # noqa: F401  (auto)
     import repro_torch.core.cuda_exec  # noqa: F401  (cuda)
     import repro_torch.core.executor   # noqa: F401  (eager/pipelined/fused/scan)
 
@@ -626,6 +633,37 @@ def finish_stage(stage: Stage, partials: dict[int, list[Any]],
         node.done = True
 
 
+# ---------------------------------------------------------------------------
+# Pinned executables
+# ---------------------------------------------------------------------------
+
+
+def pinned_exec(stage: Stage, ctx, kind: str, extra_key: tuple,
+                build: Callable[[], Any]) -> Any:
+    """One built driver (or lowered program) per (plan entry, stage
+    position, kind, extra_key).
+
+    When the stage belongs to a cached plan, what ``build()`` returns is
+    pinned into the entry's executable table (``PlanEntry.exec_table``):
+    every later instantiation of the same template, in this session or any
+    other, reuses it, so a warm call builds nothing.  What ``build`` returns
+    must not hold the Stage or concrete values (drivers close over
+    ``chain_plan``; a lowered program is plain data).
+    Without an entry (uncacheable plan) the table lives on the Stage, which
+    keeps same-call reuse (tuner candidates, warm-up-then-time runs)."""
+    key = (stage.id, kind) + tuple(extra_key)
+    entry = getattr(ctx, "_plan_entry", None)
+    table = entry.exec_table() if entry is not None else None
+    if table is None:
+        table = getattr(stage, "_exec_cache", None)
+        if table is None:
+            table = stage._exec_cache = {}
+    if key not in table:
+        table[key] = build()
+        ctx.stats["exec_builds"] += 1
+    return table[key]
+
+
 def has_dynamic(stage: Stage) -> bool:
     return any(
         getattr(n.fn.sa, "dynamic", False) or n.out_aval is None
@@ -860,6 +898,39 @@ def split_axis_of(t: st.SplitType) -> int | None:
     return None
 
 
+def _block_stage_outputs(stage: Stage) -> None:
+    """Wait for the card, so tuner timings measure real work (a no-op for
+    stages on the CPU)."""
+    for node in stage.nodes:
+        if node.id in stage.escaping and node.result is not None:
+            r = node.result
+            if isinstance(r, ChunkStream):
+                # Raw storage, never the derived chunk list: blocking must
+                # not charge an unstack pass to the boundary counters.
+                r = [x for x in (r._chunks, r.stacked, r.tail) if x is not None]
+            for leaf in pytree.tree_leaves(r):
+                if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                    torch.cuda.synchronize(leaf.device)
+                    return
+
+
+def candidate_batches(est: int, n: int) -> list[int]:
+    """2-3 chunk sizes around the §5.2 fast-memory estimate."""
+    if n <= 0:
+        return [1]                    # empty split: nothing to tune
+    est = max(1, min(est, n))
+    if est >= n:
+        return [n]                    # one chunk: nothing to tune
+    cands = {max(1, est // 2), est, min(est * 2, n)}
+    return sorted(cands)
+
+
+#: chunks per timed sample when the tuner measures a candidate: a couple of
+#: chunks, extrapolated, bound the first cached run's overhead to well under
+#: one extra full execution (``StageExecutor.sampled_time``).
+SAMPLE_CHUNKS = 2
+
+
 # ---------------------------------------------------------------------------
 # Base class
 # ---------------------------------------------------------------------------
@@ -869,11 +940,15 @@ class StageExecutor:
     """One execution strategy: split inputs → drive chunks → merge partials.
 
     Subclasses implement ``execute``; ``run`` is the template method the
-    runtime calls per stage.  It resolves concrete inputs and does the
-    done/stats bookkeeping shared by every strategy.
+    runtime calls per stage.  It resolves concrete inputs, runs the
+    chunk-size auto-tuner on the first execution of a *cached* plan, and
+    does the done/stats bookkeeping shared by every strategy.
     """
 
     name: str = "abstract"
+    #: whether ``choose_batch`` output affects this strategy: only tunable
+    #: executors take part in chunk-size auto-tuning.
+    tunable: bool = False
     #: whether ``execute`` can iterate a ChunkStream input directly (the
     #: chunk-loop drivers can; whole-value strategies materialize instead).
     stream_capable: bool = False
@@ -881,7 +956,11 @@ class StageExecutor:
     # -- template method ----------------------------------------------------
     def run(self, stage: Stage, graph: DataflowGraph, ctx) -> None:
         concrete = resolve_stage_inputs(stage, graph, ctx, self.stream_capable)
-        self.execute(stage, concrete, ctx)
+        entry = getattr(ctx, "_plan_entry", None)
+        if self._should_tune(stage, ctx, entry):
+            self._tune(stage, concrete, ctx, entry)
+        else:
+            self.execute(stage, concrete, ctx)
         ctx.stats["stages"] += 1
         for node in stage.nodes:
             node.done = True
@@ -889,7 +968,7 @@ class StageExecutor:
     def execute(self, stage: Stage, concrete: dict[tuple, Any], ctx) -> None:
         raise NotImplementedError
 
-    # -- batch sizing (paper §5.2) ------------------------------------------
+    # -- batch sizing (paper §5.2 + auto-tuner) -----------------------------
     def estimate_batch(self, stage: Stage, concrete: dict[tuple, Any], ctx,
                        n: int) -> int:
         elem_bytes = stage_elem_bytes(stage, concrete, n)
@@ -897,6 +976,110 @@ class StageExecutor:
 
     def choose_batch(self, stage: Stage, concrete: dict[tuple, Any], ctx,
                      n: int) -> int:
+        override = getattr(ctx, "_batch_override", None)
+        if override is not None:
+            return max(1, min(override, n))
         if ctx.batch_elements:
             return max(1, min(ctx.batch_elements, n))
+        entry = getattr(ctx, "_plan_entry", None)
+        if entry is not None:
+            pinned = entry.tuned_batch.get(stage.id)
+            if pinned:
+                return max(1, min(pinned, n))
         return max(1, min(self.estimate_batch(stage, concrete, ctx, n), n))
+
+    # -- auto-tuner ---------------------------------------------------------
+    def _should_tune(self, stage: Stage, ctx, entry) -> bool:
+        return (
+            self.tunable
+            and entry is not None
+            and entry.hits > 0                      # first execution of a CACHED plan
+            and getattr(ctx, "autotune", True)
+            and not ctx.batch_elements
+            and getattr(ctx, "_batch_override", None) is None
+            and stage.id not in entry.tuned_batch
+            # dynamic functions may have side effects and value-dependent
+            # run times: never re-execute them to time them
+            and not has_dynamic(stage)
+            # claim atomically so concurrent sessions never tune in duplicate
+            and entry.try_claim_tuning(stage.id)
+        )
+
+    def _tune(self, stage: Stage, concrete: dict[tuple, Any], ctx, entry) -> None:
+        pinned = False
+        try:
+            n = stage_num_elements(stage, concrete, ctx.pedantic)
+            est = self.estimate_batch(stage, concrete, ctx, n)
+            cands = self.tuning_candidates(stage, concrete, ctx, est, n)
+            if len(cands) == 1:
+                entry.pin(stage.id, cands[0])
+                pinned = True
+                self.execute(stage, concrete, ctx)
+                return
+            # Sampled tuning re-slices inputs at arbitrary offsets: a one-time
+            # event, so streams are merged rather than complicating sampling
+            # (and only when there is something to measure).
+            concrete = materialize_inputs(stage, concrete, ctx)
+            best, best_dt = None, None
+            for b in cands:
+                dt = self.sampled_time(stage, concrete, ctx, b, n)
+                entry.record_trial(stage.id, b, dt)
+                if best_dt is None or dt < best_dt:
+                    best, best_dt = b, dt
+            entry.pin(stage.id, best)
+            pinned = True
+            ctx.stats["autotuned_stages"] += 1
+        finally:
+            if not pinned:
+                entry.release_tuning(stage.id)
+        # One real execution with the pinned size produces the stage results
+        # (the sampled runs above computed throwaway partial outputs only).
+        self.execute(stage, concrete, ctx)
+
+    # -- sampled measurement ------------------------------------------------
+    def tuning_candidates(self, stage: Stage, concrete: dict[tuple, Any], ctx,
+                          est: int, n: int) -> list[int]:
+        """Chunk-size candidates the tuner measures (the §5.2 bracket by
+        default; ``cuda`` rounds them to the kernel's tiles)."""
+        return candidate_batches(est, n)
+
+    def sample_elems(self, stage: Stage, concrete: dict[tuple, Any], ctx,
+                     batch: int, n: int) -> int:
+        """Elements one timed sample re-executes: ``SAMPLE_CHUNKS`` chunks."""
+        return min(n, SAMPLE_CHUNKS * batch) if n > 0 else 0
+
+    def sampled_time(self, stage: Stage, concrete: dict[tuple, Any], ctx,
+                     batch: int, n: int, elems: int | None = None) -> float:
+        """Estimated seconds for a full stage execution at ``batch``,
+        measured on a bounded sample.
+
+        Splits every splittable input down to ``elems`` elements (by default
+        ``sample_elems``; ``cost_model`` passes one size for every candidate
+        of a stage, so none is extrapolated from a smaller sample),
+        runs the stage twice (the first run absorbs one-time builds; the
+        second is timed, ending in a wait for the card) and extrapolates
+        linearly to ``n`` elements.  ``ctx.stats["tuning_sample_elems"]``
+        accrues the elements re-executed."""
+        batch = max(1, min(batch, n)) if n > 0 else 1
+        s = self.sample_elems(stage, concrete, ctx, batch, n) if elems is None else elems
+        sample: dict[tuple, Any] = {}
+        for key, si in stage.inputs.items():
+            v = concrete[key]
+            sample[key] = (si.split_type.split(v, 0, s)
+                           if si.split_type.splittable else v)
+        prev_cap = getattr(ctx, "_n_cap", None)
+        prev_override = ctx._batch_override
+        ctx._n_cap = s
+        ctx._batch_override = batch
+        try:
+            self.execute(stage, sample, ctx)
+            _block_stage_outputs(stage)
+            t0 = time.perf_counter()
+            self.execute(stage, sample, ctx)
+            _block_stage_outputs(stage)
+            dt = time.perf_counter() - t0
+        finally:
+            ctx._n_cap = prev_cap
+            ctx._batch_override = prev_override
+        ctx.stats["tuning_sample_elems"] += 2 * s
+        return dt * (n / s) if s else dt

@@ -10,6 +10,7 @@ follows from its device (``chip_for``), never from a hard-wired target.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import torch
@@ -121,6 +122,14 @@ def measured_dispatch_overhead_s(device: torch.device | str = "cuda") -> float:
             samples.append(time.perf_counter() - t0)
         _measured_dispatch_s[key] = max(sorted(samples)[len(samples) // 2], 1e-9)
     return _measured_dispatch_s[key]
+
+
+def effective_dispatch_overhead_s(chip: Chip, device: torch.device | str) -> float:
+    """Per-dispatch overhead the cost model charges: the chip constant
+    blended (geometric mean) with the measured no-op dispatch on
+    ``device``, so a constant that is wrong by 10x is corrected while a
+    noisy measurement keeps the constant's scale."""
+    return math.sqrt(chip.dispatch_overhead_s * measured_dispatch_overhead_s(device))
 
 
 def fast_memory_bytes(chip: Chip) -> int:

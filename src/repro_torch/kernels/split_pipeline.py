@@ -145,7 +145,8 @@ def estimated_ctas_per_sm(tile: int, smem: int) -> int:
 
 def geometry(n_in: int, stored: int, n_scalars: int, n_instr: int, n_out: int,
              any_reduce: bool,
-             ctas_per_sm: Callable[[int, int], int] = estimated_ctas_per_sm) -> Geometry:
+             ctas_per_sm: Callable[[int, int], int] = estimated_ctas_per_sm,
+             tiles: Sequence[int] = TILES) -> Geometry:
     """Tile size and ring depth for a program with ``n_in`` split inputs and
     ``stored`` stored slots.  Of every (tile, stages) in ``TILES`` x
     ``STAGES`` whose shared memory fits a CTA, take the one with the most
@@ -156,9 +157,10 @@ def geometry(n_in: int, stored: int, n_scalars: int, n_instr: int, n_out: int,
     latency, so resident warps come first (``chip_smoke.py`` times every
     alternative; PERF.md has the numbers).  Every program ``fits_kernel``
     accepts fits: 16 inputs and 40 slots take 1024 x 1 (or 512-element tiles
-    when the decoded program and reductions leave no room)."""
+    when the decoded program and reductions leave no room).  ``tiles``
+    narrows the tile sizes weighed (the plan cache's tuner pins one)."""
     best = None
-    for tile in TILES:
+    for tile in tiles:
         for stages in STAGES:
             smem = smem_bytes(tile, stages, n_in, stored, n_scalars, n_instr, n_out, any_reduce)
             if smem > SMEM_PER_BLOCK:
@@ -178,17 +180,19 @@ def _geometry_args(program: Program, out_kinds: Sequence[tuple[str, str]]) -> tu
 
 
 def program_geometry(program: Program, out_kinds: Sequence[tuple[str, str]],
-                     device: int | None = None) -> Geometry:
-    """``geometry`` of ``program``: with the card's occupancy calculator for
-    a device index, with ``estimated_ctas_per_sm`` for None."""
-    return _device_geometry(_geometry_args(program, out_kinds), device)
+                     device: int | None = None,
+                     tiles: Sequence[int] = TILES) -> Geometry:
+    """``geometry`` of ``program`` over ``tiles``: with the card's occupancy
+    calculator for a device index, with ``estimated_ctas_per_sm`` for None."""
+    return _device_geometry(_geometry_args(program, out_kinds), device, tuple(tiles))
 
 
 @functools.lru_cache(maxsize=256)
-def _device_geometry(args: tuple, device: int | None) -> Geometry:
+def _device_geometry(args: tuple, device: int | None, tiles: tuple) -> Geometry:
     if device is None:
-        return geometry(*args)
-    return geometry(*args, ctas_per_sm=lambda tile, smem: _ctas_per_sm(tile, smem, device))
+        return geometry(*args, tiles=tiles)
+    return geometry(*args, ctas_per_sm=lambda tile, smem: _ctas_per_sm(tile, smem, device),
+                    tiles=tiles)
 
 
 def sized(program: Program, out_kinds: Sequence[tuple[str, str]], tile: int,

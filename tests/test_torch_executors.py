@@ -32,6 +32,18 @@ from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
 JAX_CFG = dict(rewrite=False, plan_cache=False, autotune=False)
+#: the port side of a comparison runs as the JAX side does: no plan cache
+#: and no tuner, so the counters compare like with like.
+PORT_CFG = dict(plan_cache=False, autotune=False)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    """Each test starts with an empty port plan cache, as tests/conftest.py
+    empties the JAX package's: no test replays a plan another left."""
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
 PORT_EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda"]
 
 
@@ -98,7 +110,7 @@ def run_jax(name, executor, handoff=False):
 def run_port(name, executor, handoff=False):
     _jfn, tfn, batch = CASES[name]
     data = _data(name)
-    with tmozart.session(executor=executor, device="cpu", batch_elements=batch,
+    with tmozart.session(executor=executor, device="cpu", **PORT_CFG, batch_elements=batch,
                          handoff=handoff) as ctx:
         outs = _as_tuple(tfn(**{k: torch.from_numpy(v.copy()) for k, v in data.items()}))
         vals = [o.value.numpy() for o in outs]

@@ -40,6 +40,18 @@ from repro_torch.core import stage_exec as tse
 from repro_torch.core.stage_exec import ChunkStream
 
 JAX_CFG = dict(rewrite=False, plan_cache=False, autotune=False)
+#: the port side of a comparison runs as the JAX side does: no plan cache
+#: and no tuner, so the counters compare like with like.
+PORT_CFG = dict(plan_cache=False, autotune=False)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    """Each test starts with an empty port plan cache, as tests/conftest.py
+    empties the JAX package's: no test replays a plan another left."""
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
 EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda"]
 JAX_OF = {"cuda": "pallas"}
 
@@ -50,7 +62,7 @@ JAXNS = types.SimpleNamespace(
 PORTNS = types.SimpleNamespace(
     anp=tanp, mozart=tmozart, arr=lambda a: torch.from_numpy(np.array(a)),
     np=lambda v: (v.value if hasattr(v, "_node") else v).numpy(),
-    session=lambda **kw: tmozart.session(device="cpu", **kw), st=tst,
+    session=lambda **kw: tmozart.session(device="cpu", **PORT_CFG, **kw), st=tst,
     splittable=tsplittable)
 
 
@@ -263,7 +275,7 @@ def test_pytree_split_streams_end_to_end():
     state = {"p": np.arange(n, dtype=np.float32), "m": np.ones((n, 2), np.float32)}
     outs = {}
     for handoff in (True, False):
-        with tmozart.session(executor="fused", device="cpu", batch_elements=512,
+        with tmozart.session(executor="fused", device="cpu", **PORT_CFG, batch_elements=512,
                              handoff=handoff) as ctx:
             cur = {k: torch.from_numpy(v.copy()) for k, v in state.items()}
             for _ in range(3):
@@ -710,25 +722,37 @@ class TestDonationVeto:
 
 
 def test_trace_counter_counts_fx_traces_and_lowerings():
-    """``trace_count`` counts each ``torch.fx`` trace of a library function
-    and each stage lowering not served from a cache: the counter a warm-call
-    gate reads (the port has no plan cache yet, so every evaluation lowers
-    its stages again)."""
+    """``trace_count`` counts each ``torch.fx`` trace of a library function,
+    each stage lowering and each driver build not served from a cache: the
+    counter a warm-call gate reads.  Without the plan cache every evaluation
+    lowers its stages again; with it (the default) the lowering is pinned
+    into the plan entry, so a warm evaluation traces and lowers nothing."""
+    from repro_torch.core import plan_cache
     double_exp = tsplittable(x=tst.Along(0), ret=tst.Along(0), elementwise=True,
                              name="double_exp")(lambda x: torch.exp(x) * 2.0)
     x = torch.linspace(0.1, 0.9, 64)
     before = tse.trace_count()
-    with tmozart.session(executor="cuda", device="cpu") as ctx:
+    with tmozart.session(executor="cuda", device="cpu", **PORT_CFG) as ctx:
         first = double_exp(x).value
     assert ctx.counters.trace_count() == 2        # one fx trace + one lowering
-    with tmozart.session(executor="cuda", device="cpu") as ctx2:
+    with tmozart.session(executor="cuda", device="cpu", **PORT_CFG) as ctx2:
         again = double_exp(x).value
     assert ctx2.counters.trace_count() == 1       # the fx trace is cached
     assert tse.trace_count() - before == 3
     torch.testing.assert_close(first, again)
-    with tmozart.session(executor="fused", device="cpu") as ctx3:
+    plan_cache.clear()
+    with tmozart.session(executor="cuda", device="cpu") as ctx4:
         double_exp(x).value
-    assert ctx3.counters.trace_count() == 0       # chunk loops build nothing
+    assert ctx4.counters.trace_count() == 1       # the lowering, pinned
+    with tmozart.session(executor="cuda", device="cpu") as ctx5:
+        warm = double_exp(x).value
+    assert ctx5.stats["plan_cache_hits"] == 1
+    assert ctx5.counters.trace_count() == 0       # a warm call lowers nothing
+    torch.testing.assert_close(first, warm)
+    with tmozart.session(executor="fused", device="cpu", **PORT_CFG) as ctx3:
+        double_exp(x).value
+    assert ctx3.counters.trace_count() == 1       # the fused driver's build
+    plan_cache.clear()
 
 
 def test_stream_helpers():

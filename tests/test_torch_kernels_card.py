@@ -24,6 +24,15 @@ def _card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
+@pytest.fixture(autouse=True)
+def _fresh_plan_cache():
+    """Each test starts with an empty plan cache, so no test replays (or
+    tunes) a plan another test left behind."""
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -463,3 +472,36 @@ def test_uint32_reductions_on_the_card():
     assert s.value.dtype == p.value.dtype == torch.uint32
     assert got == (40 * 251, pow(251, 40, 2**32))
     assert ctx.stats["chunks"] == 6          # one stage of both reductions, 40 / 7
+
+
+@pytest.mark.cuda
+def test_warm_pinned_cuda_call_launches_and_lowers_nothing():
+    """``mozart.pipeline(fn, executor="cuda")`` compiled once: every warm
+    call launches the kernel once per stage with zero planner calls, traces,
+    lowerings and builds, and equals the kernel's plain version (the same
+    pipeline on CPU copies of the inputs)."""
+    _card()
+    from repro_torch import workloads as w
+    from repro_torch.core import mozart
+    from repro_torch.kernels import split_pipeline as sp
+    data = w.black_scholes_data(1 << 20, seed=0, device="cuda")
+    p = mozart.pipeline(w.black_scholes, executor="cuda")
+    p.lower(**data).compile()
+    assert p.warm()
+    for _ in range(3):
+        sp.reset_counts()
+        got = p(**data)
+        torch.cuda.synchronize()
+        st = p.last_call_stats
+        assert st.get("planner_calls", 0) == 0 and st["jit_traces"] == 0
+        assert st.get("exec_builds", 0) == 0
+        assert st["cuda_stages"] == sp.split_pipeline.launches == 1
+        assert st.get("cuda_fallback_stages", 0) == 0
+    assert p.plan_entry.block_shape[0][1] in sp.TILES
+    with mozart.session(executor="cuda", device="cpu") as ctx:
+        outs = w.black_scholes(**{k: v.cpu() for k, v in data.items()})
+        want = [o.value for o in outs]
+    assert ctx.stats["cuda_stages"] == 1
+    for g, v in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), v.numpy(), rtol=2e-5,
+                                   atol=2e-5 * float(v.abs().max()))

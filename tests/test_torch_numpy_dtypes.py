@@ -28,6 +28,18 @@ from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
 JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+#: the port side of a comparison runs as the JAX side does: no plan cache
+#: and no tuner, so the counters compare like with like.
+PORT_CFG = dict(plan_cache=False, autotune=False)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    """Each test starts with an empty port plan cache, as tests/conftest.py
+    empties the JAX package's: no test replays a plan another left."""
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
 EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda"]
 OPS = ["mod", "square", "sum", "prod", "abs", "floor", "power", "sign"]
 DTYPES = {"bool": np.bool_, "uint8": np.uint8, "int16": np.int16,
@@ -80,7 +92,7 @@ def _jax(op, dname):
 
 def _port(op, dname, executor):
     x, y = _inputs(op, dname)
-    with tmozart.session(executor=executor, device="cpu", batch_elements=BATCH) as ctx:
+    with tmozart.session(executor=executor, device="cpu", **PORT_CFG, batch_elements=BATCH) as ctx:
         out = getattr(tanp, op)(*[torch.from_numpy(np.array(a)) for a in _args(op, x, y)])
         got = out.value
     return got, ctx

@@ -20,6 +20,18 @@ from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
 JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+#: the port side of a comparison runs as the JAX side does: no plan cache
+#: and no tuner, so the counters compare like with like.
+PORT_CFG = dict(plan_cache=False, autotune=False)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    """Each test starts with an empty port plan cache, as tests/conftest.py
+    empties the JAX package's: no test replays a plan another left."""
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
 N = 1000
 
 
@@ -99,7 +111,7 @@ def _plans(name, pipeline):
     with jmozart.session(pipeline=pipeline, **JAX_CFG) as jctx:
         jout = jfn(**{k: jnp.asarray(v) for k, v in data.items()})
         jplan = describe(jctx.last_plan())
-    with tmozart.session(device="cpu", pipeline=pipeline) as tctx:
+    with tmozart.session(device="cpu", **PORT_CFG, pipeline=pipeline) as tctx:
         tout = tfn(**{k: torch.from_numpy(v) for k, v in data.items()})
         tplan = describe(tctx.last_plan())
     del jout, tout

@@ -27,6 +27,18 @@ from repro_torch.optim import mozart_adamw as tmozart_adamw
 from test_torch_kernels_card import STREAM_FORMS, stream_ingest_case
 
 JAX_CFG = dict(rewrite=False, plan_cache=False, autotune=False)
+#: the port side of a comparison runs as the JAX side does: no plan cache
+#: and no tuner, so the counters compare like with like.
+PORT_CFG = dict(plan_cache=False, autotune=False)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    """Each test starts with an empty port plan cache, as tests/conftest.py
+    empties the JAX package's: no test replays a plan another left."""
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
 KEYS = ("chunks", "calls", "stages", "streamed_outputs", "stream_ingests",
         "stream_materialized", "handoff_rechunks", "donated_chunks")
 
@@ -78,7 +90,7 @@ class TestScanPallasIngest:
     def _chain(self, executor, handoff=True, port=True):
         x = np.linspace(0., 1., self.N, dtype=np.float32)
         if port:
-            with tmozart.session(executor=executor, device="cpu",
+            with tmozart.session(executor=executor, device="cpu", **PORT_CFG,
                                  batch_elements=self.BATCH, handoff=handoff) as ctx:
                 out = _eval_chain(tanp, tmozart, torch.from_numpy(x)).value.numpy()
         else:
@@ -115,7 +127,7 @@ class TestScanPallasIngest:
         consumer reads its rows without deriving the chunk list (no unstack
         event) and gives up the carry after its last use."""
         x = torch.linspace(0., 1., self.N)
-        with tmozart.session(executor="scan", device="cpu", batch_elements=self.BATCH) as ctx:
+        with tmozart.session(executor="scan", device="cpu", **PORT_CFG, batch_elements=self.BATCH) as ctx:
             a = tanp.multiply(tanp.add(x, 1.0), 0.5)
             tmozart.evaluate()
             res = ctx.graph.nodes[a._node.id].result
@@ -135,7 +147,7 @@ class TestScanPallasIngest:
 
         def once(port):
             if port:
-                with tmozart.session(executor="fused", device="cpu",
+                with tmozart.session(executor="fused", device="cpu", **PORT_CFG,
                                      batch_elements=self.BATCH) as ctx:
                     a = tanp.multiply(tanp.add(torch.from_numpy(x), 1.0), 0.5)
                     tmozart.evaluate()
@@ -170,7 +182,7 @@ class TestScanPallasIngest:
                 out = to_np(anp.exp(a))
             return out, ctx
         out, ctx = once(tanp, tmozart, lambda v: torch.from_numpy(v.copy()),
-                        lambda **kw: tmozart.session(device="cpu", **kw),
+                        lambda **kw: tmozart.session(device="cpu", **PORT_CFG, **kw),
                         lambda f: f.value.numpy())
         jout, jctx = once(janp, jmozart, jnp.asarray,
                           lambda **kw: jmozart.session(**JAX_CFG, **kw), np.asarray)
@@ -243,7 +255,7 @@ DELEGATION = {
 def test_scan_delegation_counts_equal_jax(case):
     fn, n, batch = DELEGATION[case]
     x = np.linspace(0., 1., n, dtype=np.float32)
-    with tmozart.session(executor="scan", device="cpu", batch_elements=batch) as ctx:
+    with tmozart.session(executor="scan", device="cpu", **PORT_CFG, batch_elements=batch) as ctx:
         got = fn(tanp, torch.from_numpy(x.copy())).value.numpy()
     with jmozart.session(executor="scan", batch_elements=batch, handoff=True,
                          **JAX_CFG) as jctx:

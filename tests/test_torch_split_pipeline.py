@@ -29,6 +29,18 @@ from repro_torch.kernels.ref import split_pipeline_ref
 from repro_torch.kernels.split_pipeline import split_pipeline
 
 JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+#: the port side of a comparison runs as the JAX side does: no plan cache
+#: and no tuner, so the counters compare like with like.
+PORT_CFG = dict(plan_cache=False, autotune=False)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    """Each test starts with an empty port plan cache, as tests/conftest.py
+    empties the JAX package's: no test replays a plan another left."""
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
 UNARY = sorted(tanp._UNARY)
 BINARY = sorted(tanp._BINARY)
 
@@ -50,7 +62,7 @@ def run_port(fn, args, executor="cuda", batch=None):
     """One op (or chain) through a CPU session; returns values and stats."""
     targs = {k: torch.from_numpy(np.array(v)) if isinstance(v, np.ndarray) else v
              for k, v in args.items()}
-    with tmozart.session(executor=executor, device="cpu",
+    with tmozart.session(executor=executor, device="cpu", **PORT_CFG,
                          batch_elements=batch) as ctx:
         out = fn(**targs)
         outs = out if isinstance(out, tuple) else (out,)
