@@ -30,6 +30,18 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              ``eager`` executor on the card and to the float64 numpy oracle
              on a 2**20 prefix; then the ``scan`` executor on Black-Scholes
              and Haversine, held to the same;
+   rewrite — the static rewrite pass (on by default) against
+             ``rewrite=False``: Black-Scholes and Haversine at n = 2**27 on
+             ``cuda`` (outputs bit-equal, equal to ``eager`` and the float64
+             oracle, the MZ5xx records the CPU tests find, 31 against 32
+             lowered instructions on Black-Scholes, the kernel's device time
+             on both programs, the off program against its plain version),
+             and the reference's ``smoke/rewrite`` chain at n = 2**26 (a dead
+             8 x 2**26 ``matvec``, a repeated ``exp``, a ``compress`` to push
+             down) on ``cuda`` and ``fused``: MZ501/502/503, fewer calls
+             (and, on ``fused``, fewer interior bytes) with the pass on,
+             bit-equal outputs, a warm third call with no planning, trace,
+             lowering or build;
    handoff — the reference's ``smoke/handoff`` chain on the card: three
              evaluations of ``multiply(add(x, 1.0), 0.5)`` at n = 2**27
              float32 with ``mozart.evaluate()`` between them, on ``fused``,
@@ -65,6 +77,18 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              printed), warm calls measure and plan nothing; and a warm start
              from a saved plan file (save, clear, load, one ``auto``
              session with zero planner calls, tuning and measurement runs);
+             warm sessions and pipeline calls with ``rewrite=False`` timed in
+             the same rounds (the pass's host cost);
+   chaos   — the reference's ``smoke/chaos``: ``compile:fail:1`` on a
+             Black-Scholes ``mozart.pipeline(executor="cuda")`` at 2**27
+             (one demotion to ``scan``, ``cuda`` quarantined, the warm calls
+             within ``QUARANTINE_TTL`` = 3 on ``scan`` with no launch, then
+             the kernel again, equal to its plain version) and
+             ``chunk:oom:1`` on the handoff chain on ``fused`` (bounded
+             halvings, the fault-free answer); the serving scenario runs at
+             the end of the serve phase.  Every other phase must show no
+             fault fired, no demotion, quarantine skip, halving or
+             swallowed error (a ``[resilience]`` line per phase);
 4. times   — device times (``torch.profiler``) of the kernel, of the
              other geometries of its rule and of ``--split-pipeline-compare``
              builds, in turns, CUDA-event medians of the kernel and its plain
@@ -115,7 +139,10 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              decode times; then ``launch.serve.Server(mode="continuous")``
              on 12 requests (prompts 256-2048, 8-48 new tokens) with decode
              and request percentiles, and 3 of them against sequential
-             batch-1 ``prefill``/``decode_step``.
+             batch-1 ``prefill``/``decode_step``; then ``serve_step:fail:1``
+             in a 2-slot ``ContinuousBatcher`` driven by ``AsyncServer`` (2
+             requests fail with the ``InjectedFault``, MZ405, the driver
+             thread survives, 2 more requests equal the fault-free run).
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -128,6 +155,7 @@ import ctypes
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -166,13 +194,18 @@ RMS_SHAPES = ((8, 128), (3, 512), (2, 5, 256), (300, 1024), (8192, 3072), (65536
               (2, 20000))   # the last: w wider than the kernel's shared-memory copy
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_REQUESTS, SERVE_MAX_LEN, PARITY_REQUESTS = 12, 2112, 3
+REWRITE_N, REWRITE_DEAD_ROWS = 1 << 26, 8   # smoke/rewrite: 8 x 2**26 dead matrix (2 GiB)
+CHAOS_TTL = 3                    # QUARANTINE_TTL in the chaos phase
+CHAOS_PROMPTS, CHAOS_NEW, CHAOS_MAX_LEN = (256, 200, 240, 256), 8, 512
+#: process-wide resilience counters no phase but chaos may move
+RESILIENCE_KEYS = ("MZ401", "MZ402", "MZ403", "MZ404", "MZ405", "MZ406", "swallowed_errors")
 DEVICE = "cuda"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 2048, 5
 HANDOFF_EVALS = 3                # evaluations of the smoke/handoff chain
 HANDOFF_ROUNDS = 10              # timed rounds of each, on and off in turns
 PLAN_CALLS = 10                  # warm pipeline calls per workload in the plans phase
 PLAN_ROUNDS = 10                 # timed rounds of cold, warm and pipeline evaluations
-PROFILE_SENTINELS = 8            # spin kernels opening each profiled window
+PROFILE_SENTINELS = 64           # spin kernels opening each profiled window
 CHUNK = 1 << 25                  # elements per comparison slice
 
 
@@ -214,6 +247,21 @@ def compare(what: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
         raise AssertionError(f"{what}: |{float(gf[i])} - {float(wf[i])}| "
                              f"exceeds rtol {rtol} / atol")
     return float(diff.max())
+
+
+def resilience_clean(phase: str) -> dict:
+    """Every phase but chaos: no fault fired and no demotion, quarantine
+    skip, halving or swallowed error since the last check (the process-wide
+    ``resilience.stats``); prints the phase's MZ4xx counts and starts the
+    next phase's count from 0."""
+    from repro_torch.core import resilience
+    counts = {k: int(resilience.stats.get(k, 0)) for k in RESILIENCE_KEYS}
+    log(f"[resilience] {phase}: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: resilience events outside the chaos phase: "
+                             f"{counts}; last events {resilience.events()[-5:]}")
+    resilience.clear_events()
+    return counts
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -264,26 +312,53 @@ def phase_build(sources) -> None:
 #: (filled by ``lowered``; the times phase prints it beside the pinned ones).
 L2_ESTIMATE: dict[str, int] = {}
 
+#: workload function name -> for each of its outputs, the index of that
+#: output among the kernel launch's outputs (filled by ``lowered``).  After
+#: the rewrite pass's MZ502 the launch has one more: the reference's planner
+#: counts the retired duplicate as a consumer, so the shared operand escapes.
+LAUNCH_OUTPUTS: dict[str, list] = {}
 
-def lowered(fn, data):
-    """The kernel launch (program, split inputs, broadcasts, out kinds) of
-    the single stage ``fn`` plans to on ``data``."""
+
+def lowered(fn, data, rewrite: bool = True):
+    """The kernel launch (program, split inputs, broadcasts, out kinds) that
+    a ``mozart.session(executor="cuda")`` evaluation of ``fn`` on ``data``
+    makes, recorded at the wrapper as the session launches it: the program
+    the runtime planned and pinned (the rewrite pass included, or not with
+    ``rewrite=False``), not a copy re-planned here.  The tuner is off so the
+    one launch is the stage's own."""
     from repro_torch.core import cuda_exec, mozart
     from repro_torch.core.stage_exec import get_executor, stage_num_elements
-    with mozart.session(executor="cuda") as ctx:
-        outs = fn(**data)
-        stages = ctx.last_plan()
-        if len(stages) != 1:
-            raise AssertionError(f"{fn.__name__}: {len(stages)} stages, expected 1")
-        stage = stages[0]
-        concrete = {k: ctx.graph.resolve(si.value) for k, si in stage.inputs.items()}
+    from repro_torch.kernels import split_pipeline as spm
+    seen = []
+    real_try, real_launch = cuda_exec.try_execute_stage_cuda, spm._launch
+
+    def try_stage(stage, concrete, ctx, executor=None):
+        seen.append({"stage": stage, "concrete": dict(concrete), "ctx": ctx})
+        return real_try(stage, concrete, ctx, executor)
+
+    def launch(program, split_inputs, bcasts, kinds, geom=None):
+        seen[-1]["launch"] = (program, list(split_inputs), list(bcasts), list(kinds))
+        return real_launch(program, split_inputs, bcasts, kinds, geom=geom)
+
+    cuda_exec.try_execute_stage_cuda, spm._launch = try_stage, launch
+    try:
+        with mozart.session(executor="cuda", rewrite=rewrite, autotune=False):
+            outs = as_list(fn(**data))
+            for o in outs:
+                o.value
+    finally:
+        cuda_exec.try_execute_stage_cuda, spm._launch = real_try, real_launch
+    torch.cuda.synchronize()
+    if len(seen) != 1 or "launch" not in seen[0]:
+        raise AssertionError(f"{fn.__name__}: {len(seen)} stage(s) went to the kernel, "
+                             f"expected 1 launch")
+    stage, concrete, ctx = seen[0]["stage"], seen[0]["concrete"], seen[0]["ctx"]
+    if rewrite:
         L2_ESTIMATE[fn.__name__] = get_executor("fused").estimate_batch(
             stage, concrete, ctx, stage_num_elements(stage, concrete, False))
-        launch = cuda_exec.prepare_launch(stage, concrete, ctx)
-        if launch is None:
-            raise AssertionError(f"{fn.__name__}: stage does not lower to the kernel")
-        del outs
-    return launch
+        escaping = sorted(stage.escaping)
+        LAUNCH_OUTPUTS[fn.__name__] = [escaping.index(o._node.id) for o in outs]
+    return seen[0]["launch"]
 
 
 def kernel_case(sp, ref, what: str, program, ins, bcast, kinds) -> float:
@@ -510,6 +585,168 @@ def phase_main(sp, workloads_data, oracles) -> dict:
     return launches
 
 
+def as_list(out) -> list:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+#: the rewrite records the CPU tests hold both packages to (rewrite on)
+REWRITE_RECORDS = {
+    "black_scholes": [("MZ502", "cse", "multiply#26"), ("MZ505", "declined", "31-node graph")],
+    "haversine": [("MZ505", "declined", "16-node graph")],
+}
+#: the rewrite pass's own counters: analyses, replays of a script, and the
+#: planner simulations MZ504 runs
+REWRITE_COUNTERS = ("rewrite_passes", "rewrite_replays", "rewrite_simulations")
+#: lowered instruction counts with the pass on and off
+REWRITE_OPS = {"black_scholes": (31, 32), "haversine": (16, 16)}
+
+
+def rewrite_chain(executor: str, on: bool, x, dead_mat, mask):
+    """The reference's ``smoke/rewrite`` chain (``benchmarks/run.py``): one
+    dead branch with its own stage, one repeated call and one pushdown
+    opportunity; handoff off, fixed chunking (n / 4), no tuner."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    def chain():                         # its intermediates die on return
+        a = anp.exp(x)
+        anp.matvec(dead_mat, a)
+        b1 = anp.exp(x)
+        b2 = anp.exp(x)
+        s = anp.add(b1, b2)
+        m = anp.multiply(x, 3.0)
+        return s, anp.compress(mask, m)
+
+    with mozart.session(executor=executor, rewrite=on, handoff=False, autotune=False,
+                        batch_elements=x.numel() // 4) as ctx:
+        s, f = chain()
+        out = (s.value, f.value)
+    torch.cuda.synchronize()
+    return out, ctx
+
+
+def phase_rewrite(sp, ref, workloads_data, oracles) -> dict:
+    """The static rewrite pass on the card (any failed check raises):
+    (a) Black-Scholes and Haversine at n = 2**27 on ``cuda``, the pass on
+    (the default) against off: outputs bit-equal, equal to ``eager`` and the
+    float64 oracle, the records the CPU tests find, the lowered programs'
+    sizes, and the kernel's device time on both programs; (b) the
+    ``smoke/rewrite`` chain at n = 2**26 on ``cuda`` and ``fused``."""
+    from repro_torch.core import mozart, plan_cache, stage_exec
+    result = {}
+    for name in ("black_scholes", "haversine"):
+        fn, data = workloads_data[name]
+        atol = 1e-2 if name == "haversine" else 0.0
+        with mozart.session(executor="eager"):
+            want = [o.value for o in as_list(fn(**data))]
+        got, recs = {}, {}
+        for on in (True, False):
+            sp.reset_counts()
+            with mozart.session(executor="cuda", rewrite=on) as ctx:
+                got[on] = [o.value for o in as_list(fn(**data))]
+            torch.cuda.synchronize()
+            recs[on] = [(r.code, r.kind, r.subject) for r in ctx._last_rewrites]
+            st = ctx.stats
+            if (st.get("cuda_stages", 0) != 1 or st.get("cuda_fallback_stages", 0)
+                    or sp.split_pipeline.launches != 1):
+                raise AssertionError(f"rewrite/{name} on={on}: {dict(st)}, launches "
+                                     f"{sp.split_pipeline.launches}")
+        if recs[True] != REWRITE_RECORDS[name] or recs[False] != []:
+            raise AssertionError(f"rewrite/{name}: records {recs}")
+        if not all(torch.equal(a, b) for a, b in zip(got[True], got[False])):
+            raise AssertionError(f"rewrite/{name}: outputs differ with the pass on and off")
+        check_outputs(f"rewrite/{name} on", got[True], want, oracles[name], atol)
+        launches = {on: lowered(fn, data, on) for on in (True, False)}
+        ops = tuple(len(launches[on][0].code) for on in (True, False))
+        if ops != REWRITE_OPS[name]:
+            raise AssertionError(f"rewrite/{name}: lowered {ops} instructions, expected "
+                                 f"{REWRITE_OPS[name]}")
+        kinds = launches[False][3]
+        err_off = 0.0
+        for i, (kind, g, w) in enumerate(zip(kinds, sp.split_pipeline(*launches[False]),
+                                             ref.split_pipeline_ref(*launches[False]))):
+            err_off = max(err_off, compare(f"rewrite/{name} off-program output {i}", g, w,
+                                           1e-4 if kind[0] == "reduce" else 2e-5))
+        dev = {True: [], False: []}
+        for order in ((True, False), (False, True)):          # in turns: a, b, b, a
+            for on in order:
+                dev[on].append(kernel_device_ms(
+                    lambda on=on: sp.split_pipeline(*launches[on]), 10))
+        dev = {on: statistics.median(v) for on, v in dev.items()}
+        geo = {on: sp.program_geometry(launches[on][0], launches[on][3],
+                                       torch.cuda.current_device()) for on in (True, False)}
+        result[name] = {
+            "rewrite_records": [list(r) for r in recs[True]],
+            "program_ops_off": ops[1], "forwarded_off": launches[False][0].forwarded,
+            "stored_slots_off": launches[False][0].stored_slots,
+            "tile_off": geo[False].tile, "stages_off": geo[False].stages,
+            "rewrite_on_ms": dev[True], "rewrite_off_ms": dev[False],
+            "max_abs_err_off": err_off}
+        log(f"[rewrite] {name} at n={N_MAIN} on cuda: records {recs[True]} (off: none); "
+            f"outputs bit-equal on and off, equal to eager and the float64 oracle; program "
+            f"on {ops[0]} ops ({launches[True][0].forwarded} forwarded, "
+            f"{launches[True][0].stored_slots} stored slots, tile {geo[True].tile} x "
+            f"{geo[True].stages}), off {ops[1]} ops ({launches[False][0].forwarded} "
+            f"forwarded, {launches[False][0].stored_slots} stored slots, tile "
+            f"{geo[False].tile} x {geo[False].stages}); kernel device ms on "
+            f"{dev[True]:.4f}, off {dev[False]:.4f} (medians of two rounds in turns)")
+        del got, want, launches
+
+    # (b) the smoke/rewrite chain on the card
+    n = REWRITE_N
+    x = torch.linspace(0.1, 1.0, n, device=DEVICE)
+    dead_mat = torch.ones((REWRITE_DEAD_ROWS, n), device=DEVICE)
+    mask = torch.arange(n, device=DEVICE) % 2 == 0
+    chain = {}
+    for ex in ("cuda", "fused"):
+        plan_cache.clear()
+        (on_s, on_f), on_ctx = rewrite_chain(ex, True, x, dead_mat, mask)
+        (off_s, off_f), off_ctx = rewrite_chain(ex, False, x, dead_mat, mask)
+        if not (torch.equal(on_s, off_s) and torch.equal(on_f, off_f)):
+            raise AssertionError(f"rewrite/smoke {ex}: outputs differ on and off")
+        compare(f"rewrite/smoke {ex} sum", on_s, 2.0 * torch.exp(x), 2e-5)
+        compare(f"rewrite/smoke {ex} compress", on_f, (x * 3.0)[mask], 2e-5)
+        codes = sorted({r["code"] for e in plan_cache.entries() for r in e.rewrites})
+        if not {"MZ501", "MZ502", "MZ503"} <= set(codes):
+            raise AssertionError(f"rewrite/smoke {ex}: records {codes}")
+        bytes_on, bytes_off = (c.counters.bytes_interior() for c in (on_ctx, off_ctx))
+        calls_on, calls_off = (c.stats.get("calls", 0) for c in (on_ctx, off_ctx))
+        # The reference gates fused; on cuda the kernel's whole outputs merge
+        # nothing, and the pushdown's filtered map reads a merged compress
+        # output either way, so the interior bytes only may not rise.
+        if not calls_on < calls_off or bytes_on > bytes_off \
+                or (ex == "fused" and not bytes_on < bytes_off):
+            raise AssertionError(f"rewrite/smoke {ex}: interior bytes on {bytes_on} off "
+                                 f"{bytes_off}, calls on {calls_on} off {calls_off}")
+        rewrite_chain(ex, True, x, dead_mat, mask)            # the second hit
+        t0 = stage_exec.trace_count()
+        (w_s, _w_f), warm = rewrite_chain(ex, True, x, dead_mat, mask)
+        if (warm.stats.get("planner_calls", 0) or stage_exec.trace_count() != t0
+                or warm.stats.get("exec_builds", 0) or not torch.equal(w_s, on_s)):
+            raise AssertionError(f"rewrite/smoke {ex} warm: {dict(warm.stats)}, traces "
+                                 f"{stage_exec.trace_count() - t0}")
+        ms = {on: host_ms(lambda on=on: rewrite_chain(ex, on, x, dead_mat, mask), 3)
+              for on in (True, False)}
+        chain[ex] = {"interior_on": bytes_on, "interior_off": bytes_off, "calls_on": calls_on,
+                     "calls_off": calls_off, "ms_on": ms[True], "ms_off": ms[False],
+                     "cuda_fallback_stages_on": on_ctx.stats.get("cuda_fallback_stages", 0),
+                     "cuda_fallback_stages_off": off_ctx.stats.get("cuda_fallback_stages", 0),
+                     "stages_on": on_ctx.stats.get("stages", 0),
+                     "stages_off": off_ctx.stats.get("stages", 0)}
+        log(f"[rewrite] smoke/rewrite chain at n={n} (dead matvec {REWRITE_DEAD_ROWS} x {n}) "
+            f"on {ex}: records {codes}; interior bytes on {bytes_on} off {bytes_off}; calls on "
+            f"{calls_on} off {calls_off}; stages on {chain[ex]['stages_on']} off "
+            f"{chain[ex]['stages_off']}; cuda_fallback_stages on "
+            f"{chain[ex]['cuda_fallback_stages_on']} off {chain[ex]['cuda_fallback_stages_off']} "
+            f"(compress is dynamic: its stage stays off the kernel); outputs bit-equal; the "
+            f"warm third call: 0 planner calls, 0 traces or lowerings, 0 builds; host clock "
+            f"(medians of 3 warm runs) on {ms[True]:.3f} ms, off {ms[False]:.3f} ms")
+        del on_s, on_f, off_s, off_f, w_s
+    result["smoke_rewrite"] = chain
+    del x, dead_mat, mask
+    torch.cuda.empty_cache()
+    return result
+
+
 def handoff_chain(x, executor: str, handoff: bool):
     """The reference's ``smoke/handoff`` chain: three evaluations of
     ``multiply(add(x, 1.0), 0.5)``; a ``cuda`` row's first evaluation runs
@@ -661,11 +898,13 @@ def timed_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_plans(sp, workloads_data, oracles) -> dict:
+def phase_plans(sp, workloads_data, oracles, rewrites) -> dict:
     """The plan cache, the cost model and ``mozart.pipeline`` on the card;
     any failed check raises.  Returns, per workload, what the kernels rows
-    carry: the pipeline's launches, the cold/warm/pipeline host times, the
-    kernel's device time and the ``auto`` picks."""
+    carry: the pipeline's launches, the cold/warm/pipeline host times and
+    the ``auto`` picks.  The host shares subtract the kernel's device time
+    on the pass-on and pass-off programs that the rewrite phase measured
+    (``rewrites``)."""
     import tempfile
 
     from repro_torch.core import mozart, plan_cache
@@ -691,10 +930,6 @@ def phase_plans(sp, workloads_data, oracles) -> dict:
     for name in ("black_scholes", "haversine"):
         fn, data = workloads_data[name]
         atol = 1e-2 if name == "haversine" else 0.0
-
-        def as_list(out):
-            return list(out) if isinstance(out, tuple) else [out]
-
         with mozart.session(executor="eager"):
             want = [o.value for o in as_list(fn(**data))]
 
@@ -723,9 +958,10 @@ def phase_plans(sp, workloads_data, oracles) -> dict:
             f"0 traces or lowerings, 0 builds, {stages} launch(es) and no fallback stage "
             f"({launches} launches in all); outputs equal eager's and the float64 oracle")
 
-        # 3. Host clock: cold session, warm session, pipeline call.
-        def session_eval():
-            with mozart.session(executor="cuda"):
+        # 3. Host clock: cold session, warm session, pipeline call; the warm
+        # ones also with the rewrite pass off (``rewrite=False``).
+        def session_eval(rewrite=True):
+            with mozart.session(executor="cuda", rewrite=rewrite):
                 vals = [o.value for o in as_list(fn(**data))]
             return vals
 
@@ -750,24 +986,59 @@ def phase_plans(sp, workloads_data, oracles) -> dict:
             check_outputs(f"plans/{name} arg_transparent call {call}", got, want,
                           oracles[name], atol)
             del got
-        warm, call, replay = [], [], []
+        p_off = mozart.pipeline(fn, executor="cuda", rewrite=False)
+        p_off.lower(**data).compile()
+        session_eval(False)
+        session_eval(False)                      # the off session's first hit (the tuner)
+        for f in (lambda: session_eval(False), lambda: p_off(**data)):
+            before = sp.split_pipeline.launches
+            check_outputs(f"plans/{name} rewrite off", as_list(f()), want, oracles[name], atol)
+            if sp.split_pipeline.launches - before != stages:
+                raise AssertionError(f"plans/{name} rewrite off: not on the kernel")
+        if not p_off.warm():
+            raise AssertionError(f"plans/{name} rewrite off pipeline: {p_off.last_call_stats}")
+        warm, call, replay, warm_off, call_off = [], [], [], [], []
+        legs = ((warm, session_eval), (call, lambda: p(**data)),
+                (replay, lambda: fast(**data)), (warm_off, lambda: session_eval(False)),
+                (call_off, lambda: p_off(**data)))
         for r in range(PLAN_ROUNDS):
-            legs = ((warm, session_eval), (call, lambda: p(**data)),
-                    (replay, lambda: fast(**data)))
-            for times, f in legs[r % 3:] + legs[:r % 3]:
+            k = r % len(legs)
+            for times, f in legs[k:] + legs[:k]:
                 times.append(timed_ms(f))
-        # device ms per call, summed over the call's kernel launches
-        kernel_ms, _l, _o = profiled_kernels(lambda: p(**data), "split_pipeline",
-                                             expect=stages, reps=5, warm=True)
+        # The pass on warm calls: its script replayed, the analysis (and
+        # MZ504's planner simulations) never re-run.
+        with mozart.session(executor="cuda") as wctx:
+            [o.value for o in as_list(fn(**data))]
+        p(**data)
+        rw_counts = {what: {k: st.get(k, 0) for k in REWRITE_COUNTERS}
+                     for what, st in (("warm_session", wctx.stats),
+                                      ("pipeline_call", p.last_call_stats))}
+        if any(c["rewrite_passes"] or c["rewrite_simulations"] or c["rewrite_replays"] != 1
+               for c in rw_counts.values()):
+            raise AssertionError(f"plans/{name}: the pass ran on a warm call: {rw_counts}")
+        log(f"[plans] {name} rewrite pass on warm calls (passes, replays, MZ504 planner "
+            f"simulations): {rw_counts}")
+        # device ms per call: one launch each, timed by the rewrite phase
+        kernel_ms = rewrites[name]["rewrite_on_ms"]
+        kernel_off_ms = rewrites[name]["rewrite_off_ms"]
         times = {"cold_ms": quartiles(cold), "warm_ms": quartiles(warm),
                  "pipeline_ms": quartiles(call), "fast_ms": quartiles(replay)}
+        off_times = {"warm_off_ms": quartiles(warm_off),
+                     "pipeline_off_ms": quartiles(call_off)}
         log(f"[plans] {name} host clock, medians of {PLAN_ROUNDS} rounds [quartiles] (cold: "
             f"plan cache cleared, so planning and lowering; the fx traces of the library "
             f"functions stay cached in the process; fast: arg_transparent, the retained "
             f"replay): "
             + "; ".join(f"{k[:-3]} {m:.3f} ms [{lo:.3f}-{hi:.3f}], host share "
                         f"{m - kernel_ms:.3f} ms" for k, (m, lo, hi) in times.items())
-            + f"; kernel {kernel_ms:.4f} ms device (torch.profiler)")
+            + f"; kernel {kernel_ms:.4f} ms device (the rewrite phase's)")
+        log(f"[plans] {name} rewrite pass off (rewrite=False), same rounds in turns: "
+            + "; ".join(f"{k[:-3]} {m:.3f} ms [{lo:.3f}-{hi:.3f}], host share "
+                        f"{m - kernel_off_ms:.3f} ms" for k, (m, lo, hi) in off_times.items())
+            + f"; kernel {kernel_off_ms:.4f} ms device; pass on minus off, host share: warm "
+            f"{(times['warm_ms'][0] - kernel_ms) - (off_times['warm_off_ms'][0] - kernel_off_ms):+.3f}"
+            f" ms, pipeline call "
+            f"{(times['pipeline_ms'][0] - kernel_ms) - (off_times['pipeline_off_ms'][0] - kernel_off_ms):+.3f} ms")
         for what, f in (("warm session", session_eval), ("pipeline call", lambda: p(**data))):
             log(f"[plans] {name} host profile of a {what}: " + host_profile(f, PLAN_ROUNDS))
 
@@ -819,12 +1090,100 @@ def phase_plans(sp, workloads_data, oracles) -> dict:
         log(f"[plans] {name} warm start: saved {saved}, loaded {loaded}; one auto session "
             f"with 0 planner calls, 0 tuning runs, 0 measurements: {dict(st)}")
         result[name] = {"plans_launches": launches, "pipeline_calls": PLAN_CALLS,
-                        **times, "kernel_device_ms": kernel_ms,
+                        **times, **off_times, "rewrite_counts": rw_counts,
                         "auto_picks": {str(k): v for k, v in picks.items()},
                         "auto_timings_s": {str(k): v for k, v in timings.items()}}
-        del p, fast, vals, want
+        del p, p_off, fast, vals, want
         torch.cuda.empty_cache()
     return result
+
+
+def phase_chaos(sp, ref, workloads_data, errs) -> dict:
+    """The reference's ``smoke/chaos`` on the card, scenarios 1 and 2 (the
+    serving wave runs in the serve phase, ``serve_chaos_wave``); any failed
+    check raises.  (1) ``compile:fail:1`` on Black-Scholes at n = 2**27
+    through ``mozart.pipeline(executor="cuda")``: one demotion to ``scan``,
+    ``cuda`` quarantined on the entry, then ``CHAOS_TTL - 1`` warm calls on
+    ``scan`` with no launch and the next on the kernel again, equal to its
+    plain version; (2) ``chunk:oom:1`` on the handoff chain at 2**27 on
+    ``fused``: bounded halvings, the fault-free answer."""
+    from repro_torch.core import mozart, plan_cache, resilience
+    fn, data = workloads_data["black_scholes"]
+    _err, launch = errs["black_scholes"]
+    plain_all = ref.split_pipeline_ref(*launch)
+    plain = [plain_all[j] for j in LAUNCH_OUTPUTS[fn.__name__]]
+    del plain_all
+    with mozart.session(executor="cuda"):
+        want = [o.value for o in as_list(fn(**data))]
+    torch.cuda.synchronize()
+    resilience.clear_events()
+    plan_cache.clear()
+    ttl = resilience.QUARANTINE_TTL
+    resilience.QUARANTINE_TTL = CHAOS_TTL
+    try:
+        p = mozart.pipeline(fn, executor="cuda")
+        sp.reset_counts()
+        with mozart.inject_faults("compile:fail:1") as plan:
+            got = as_list(p(**data))
+        torch.cuda.synchronize()
+        st = p.last_call_stats
+        (entry,) = plan_cache.entries()
+        quarantined = {k: dict(v) for k, v in entry.quarantined.items()}
+        if (plan.fired != [("compile", "stage 0 cuda")] or st.get("exec_demotions", 0) != 1
+                or st.get("exec_demoted_to_scan", 0) != 1 or sp.split_pipeline.launches
+                or quarantined != {0: {"cuda": 0}}):
+            raise AssertionError(f"chaos/compile: fired {plan.fired}, {st}, launches "
+                                 f"{sp.split_pipeline.launches}, quarantined {quarantined}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            compare(f"chaos/compile demoted call output {i} vs fault-free", g, w, 2e-5)
+        trail = []
+        for _call in range(CHAOS_TTL):
+            before = sp.split_pipeline.launches
+            got = as_list(p(**data))
+            torch.cuda.synchronize()
+            st = p.last_call_stats
+            trail.append((st.get("exec_quarantine_skips", 0),
+                          sp.split_pipeline.launches - before, st.get("cuda_stages", 0)))
+        if trail != [(1, 0, 0)] * (CHAOS_TTL - 1) + [(0, 1, 1)] or entry.quarantined:
+            raise AssertionError(f"chaos/compile: (skips, launches, cuda stages) per warm call "
+                                 f"{trail}; quarantined {entry.quarantined}")
+        err = max(compare(f"chaos/compile relaunched output {i} vs plain", g, w, 2e-5)
+                  for i, (g, w) in enumerate(zip(got, plain)))
+    finally:
+        resilience.QUARANTINE_TTL = ttl
+    compile_counts = {k: int(resilience.stats.get(k, 0)) for k in RESILIENCE_KEYS}
+    log(f"[chaos] compile:fail:1 on black_scholes n={N_MAIN}, mozart.pipeline(cuda): "
+        f"fired {plan.fired}; 1 demotion cuda -> scan, quarantined {quarantined}; output "
+        f"equal to the fault-free run; QUARANTINE_TTL {CHAOS_TTL}: (skips, launches, cuda "
+        f"stages) per warm call {trail}; the relaunch agrees with the plain version (max "
+        f"|kernel - plain| {err:.3e}); MZ4xx {compile_counts}")
+    del got, want, plain
+    resilience.clear_events()
+
+    x = torch.linspace(0.0, 1.0, N_MAIN, device=DEVICE)
+    plan_cache.clear()
+    want, _ctx = handoff_chain(x, "fused", True)
+    plan_cache.clear()
+    with mozart.inject_faults("chunk:oom:1") as plan:
+        got, ctx = handoff_chain(x, "fused", True)
+    halvings = ctx.stats.get("chunk_oom_halvings", 0)
+    if (not plan.fired or not 1 <= halvings <= resilience.MAX_OOM_HALVINGS
+            or ctx.stats.get("exec_demotions", 0)):
+        raise AssertionError(f"chaos/oom: fired {plan.fired}, {dict(ctx.stats)}")
+    compare("chaos/oom chain vs fault-free", got, want, 2e-5)
+    pins = pinned(ctx)
+    oom_counts = {k: int(resilience.stats.get(k, 0)) for k in RESILIENCE_KEYS}
+    log(f"[chaos] chunk:oom:1 on the handoff chain n={N_MAIN}, fused: fired {plan.fired}; "
+        f"{halvings} halving(s) (at most {resilience.MAX_OOM_HALVINGS}), 0 demotions, output "
+        f"equal to the fault-free run; pinned (executor, batches, tiles) {pins}; MZ4xx "
+        f"{oom_counts}")
+    resilience.clear_events()
+    del x, got, want
+    torch.cuda.empty_cache()
+    return {"compile": {"trail": trail, "quarantined": {str(k): v for k, v in
+                                                         quarantined.items()},
+                        "mz": compile_counts, "max_abs_err": err},
+            "oom": {"halvings": halvings, "mz": oom_counts}}
 
 
 def host_profile(fn, reps: int, top: int = 8) -> str:
@@ -940,10 +1299,15 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
         program, split_inputs, _bcasts, kinds = launch
         n = split_inputs[0].numel()
         in_bytes = sum(x.element_size() for x in split_inputs) * n
-        out_bytes = sum(4 if kind == "reduce" else
-                        (1 if is_bool else 4) * n
-                        for (kind, _o), (_s, is_bool) in zip(kinds, program.outputs))
-        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        each_out = [4 if kind == "reduce" else (1 if is_bool else 4) * n
+                    for (kind, _o), (_s, is_bool) in zip(kinds, program.outputs)]
+        bytes_ms = (in_bytes + sum(each_out)) / HBM_BYTES_PER_S * 1e3
+        # the same bound with only the outputs the workload returns: an output
+        # more (the escaping operand after MZ502) is bytes the launch need not
+        # write
+        needed = sorted(set(LAUNCH_OUTPUTS[fn.__name__]))
+        needed_bytes_ms = (in_bytes + sum(each_out[j] for j in needed)) \
+            / HBM_BYTES_PER_S * 1e3
         ops_ms = len(program.code) * n / F32_OPS_PER_S * 1e3
         kernel = lambda launch=launch: sp.split_pipeline(*launch)
         fns = {"kernel": kernel}
@@ -989,6 +1353,8 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "n": n, "program_ops": len(program.code),
+            "outputs": len(program.outputs), "outputs_returned": len(needed),
+            "bound_returned_ms": max(needed_bytes_ms, ops_ms),
             "forwarded": program.forwarded, "stored_slots": program.stored_slots,
             "tile": geo.tile, "stages": geo.stages, "smem": geo.smem, "event_ms": event_ms,
             "compare_ms": {k: v for k, v in dev.items() if k != "kernel"},
@@ -999,7 +1365,10 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
         rows.append(row)
         log(f"[times] {name} n={n}: kernel {kernel_ms:.4f} ms device, {event_ms:.4f} ms "
             f"CUDA events (bound {row['bound_ms']:.3f} ms by {row['bound_by']}, "
-            f"{row['bound_ms'] / kernel_ms:.1%} of it; tile {geo.tile}, {geo.stages} stages, "
+            f"{row['bound_ms'] / kernel_ms:.1%} of it; {len(program.outputs)} outputs, of which "
+            f"the workload returns {len(needed)}: bound {row['bound_returned_ms']:.3f} ms "
+            f"with those only, {row['bound_returned_ms'] / kernel_ms:.1%} of it; tile "
+            f"{geo.tile}, {geo.stages} stages, "
             f"{geo.smem} B shared memory), plain {plain_ms:.3f} ms, "
             f"eager executor {e2e['eager']:.3f} ms, fused executor "
             f"{e2e['fused']:.3f} ms ({fctx.stats['chunks']} chunks), scan executor "
@@ -1401,8 +1770,9 @@ def _profile_window(fn, reps: int, match: str = ""):
     kernels whose name contains ``match``.  After many launches in the
     process the profiler on the card drops the first kernel records of a
     window (seen on H100s: one to two after the ``fused`` executor's
-    ~50,000 launches); ``PROFILE_SENTINELS`` short spin kernels open the
-    window and are left out of the count."""
+    ~50,000 launches, and enough to exhaust 8 sentinels once after the
+    rewrite and chaos phases were added); ``PROFILE_SENTINELS`` short spin
+    kernels open the window and are left out of the count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1427,13 +1797,15 @@ def device_ms(fn, reps: int) -> float:
     which only lowers a window's count, so windows are measured until two
     record the most launches seen."""
     fn()
-    most = 0
+    seen = []
     for _attempt in range(6):
         launches, us, _out = _profile_window(fn, reps)
-        if launches and launches == most:
+        if launches and seen and launches == max(seen):
             return us / 1e3 / reps
-        most = max(most, launches)
-    raise AssertionError("torch.profiler kept dropping kernel records")
+        seen.append(launches)
+        if len(seen) > 1:
+            log(f"[profile] windows recorded {seen} kernel launches; again")
+    raise AssertionError(f"torch.profiler kept dropping kernel records: {seen}")
 
 
 def kernel_device_ms(fn, reps: int, match: str = "split_pipeline") -> float:
@@ -1740,6 +2112,67 @@ def log_profile(what: str, prof: dict) -> None:
         f"top (kernel, ms, count): {prof['top']}")
 
 
+@torch.inference_mode(False)
+def serve_chaos_wave(cfg, model) -> dict:
+    """The reference's ``smoke/chaos`` serving scenario in the continuous
+    batcher: under ``serve_step:fail:1`` the first wave's requests end with
+    the ``InjectedFault``, the step failure is counted and recorded (MZ405)
+    and the driver thread survives to serve the next wave, whose tokens equal
+    the same requests served fault-free.  Outside ``inference_mode``: the
+    driver thread updates the KV caches in place, which an inference tensor
+    allows only inside it."""
+    from repro_torch.core import mozart, resilience
+    from repro_torch.core.serving import AsyncServer, ContinuousBatcher
+    model.requires_grad_(False)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in CHAOS_PROMPTS]
+
+    def batcher():
+        return ContinuousBatcher(cfg, model, batch=2, max_len=CHAOS_MAX_LEN, device=DEVICE)
+
+    b = batcher()
+    wave1 = [b.submit(b.make_request(p, CHAOS_NEW)) for p in prompts[:2]]
+    srv = AsyncServer(b, idle_poll_s=1e-4)
+    t0 = time.perf_counter()
+    try:
+        with mozart.inject_faults("serve_step:fail:1") as plan:
+            srv.start()
+            for r in wave1:
+                r.done.wait(300)
+            wave2 = [b.submit(b.make_request(p, CHAOS_NEW)) for p in prompts[2:]]
+            for r in wave2:
+                r.done.wait(300)
+        alive = srv._thread.is_alive()
+    finally:
+        srv.close()
+    wall_s = time.perf_counter() - t0
+    fresh = batcher()
+    want = [fresh.make_request(p, CHAOS_NEW) for p in prompts[2:]]
+    fresh.run(want)
+    counts = {k: int(resilience.stats.get(k, 0)) for k in RESILIENCE_KEYS}
+    ok = (plan.fired == [("serve_step", "")] and alive
+          and all(r.finished and isinstance(r.error, resilience.InjectedFault) for r in wave1)
+          and all(r.finished and r.error is None and len(r.out) == CHAOS_NEW for r in wave2)
+          and [r.out for r in wave2] == [r.out for r in want]
+          and b.stats["step_failures"] == 1 and b.stats["failed_requests"] == 2
+          and counts["MZ405"] == 1)
+    log(f"[chaos] serve_step:fail:1 in the continuous batcher ({cfg.name}, {cfg.n_layers} "
+        f"layers, 2 slots, prompts {list(CHAOS_PROMPTS)}, {CHAOS_NEW} new tokens): wave 1 "
+        f"errors {[type(r.error).__name__ for r in wave1]}, step_failures "
+        f"{b.stats['step_failures']}, failed_requests {b.stats['failed_requests']}, driver "
+        f"thread alive {alive}; wave 2 tokens equal to the fault-free run: "
+        f"{[r.out for r in wave2] == [r.out for r in want]}; {wall_s:.2f} s; MZ4xx {counts}")
+    if not ok:
+        raise AssertionError(f"chaos/serve: fired {plan.fired}, wave 1 "
+                             f"{[(r.finished, r.error) for r in wave1]}, wave 2 "
+                             f"{[(r.error, r.out) for r in wave2]} vs {[r.out for r in want]}, "
+                             f"{dict(b.stats)}, {counts}")
+    resilience.clear_events()
+    return {"step_failures": int(b.stats["step_failures"]),
+            "failed_requests": int(b.stats["failed_requests"]), "mz": counts,
+            "wall_s": wall_s}
+
+
 @torch.inference_mode()
 def phase_serve(counters, flash) -> dict:
     from repro_torch.launch.serve import Server
@@ -1852,13 +2285,17 @@ def phase_serve(counters, flash) -> dict:
     log(f"[serve] requests {[r.rid for r in reqs[:PARITY_REQUESTS]]} against sequential "
         f"batch-1 prefill/decode_step: {checks}")
     peak = torch.cuda.max_memory_allocated()
-    del model, srv
+    del srv
+    resilience_clean("serve")
+    chaos = serve_chaos_wave(cfg, model)
+    del model
     torch.cuda.empty_cache()
     return {"launches": launches, "flash_variant_launches": variants, "greedy_s": gen_s, "greedy_tokens_per_s": B * new / gen_s,
             "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
             "decode_ms": statistics.median(step_ms), "peak_bytes": peak,
             "prefill_logit_diff": diff, "server": stats, "parity": checks,
-            "profile_decode": prof_decode, "profile_prefill": prof_prefill}
+            "profile_decode": prof_decode, "profile_prefill": prof_prefill,
+            "chaos": chaos}
 
 
 def main() -> int:
@@ -1876,6 +2313,7 @@ def main() -> int:
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False); "
             "this check runs on the card only")
         return 1
+    os.environ.pop("MOZART_FAULTS", None)        # the chaos phase arms its own plans
     sys.path.insert(0, str(ROOT / "src"))
     from scipy.special import erf
     from repro_torch import workloads as w
@@ -1884,10 +2322,14 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import split_pipeline as sp
+    from repro_torch.core import resilience
+    resilience.clear_faults()
+    resilience.clear_events()
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
     phase_build([sp.SOURCE, fa.SOURCE, fl.SOURCE, rn.SOURCE])
+    resilience_clean("build")
 
     t0 = time.perf_counter()
     bs = w.black_scholes_data(N_MAIN, seed=0, device="cuda")
@@ -1908,21 +2350,35 @@ def main() -> int:
     }
 
     errs = phase_kernel(sp, ref, workloads_data)
+    resilience_clean("kernel")
     launches = phase_main(sp, workloads_data, oracles)
+    resilience_clean("main")
+    rewrites = phase_rewrite(sp, ref, workloads_data, oracles)
+    resilience_clean("rewrite")
     handoff_row = phase_handoff(sp, ref)
+    resilience_clean("handoff")
     torch.cuda.empty_cache()
-    plans = phase_plans(sp, workloads_data, oracles)
+    plans = phase_plans(sp, workloads_data, oracles, rewrites)
+    resilience_clean("plans")
+    chaos = phase_chaos(sp, ref, workloads_data, errs)
     rows = phase_times(sp, ref, workloads_data, errs, launches,
                        args.split_pipeline_compare)
+    resilience_clean("times")
     for row in rows:
-        row.update(plans.get(row["name"][len("split_pipeline["):-1], {}))
+        name = row["name"][len("split_pipeline["):-1]
+        row.update(plans.get(name, {}))
+        row.update(rewrites.get(name, {}))
+    rows[0]["chaos"] = chaos
+    rows[0]["smoke_rewrite"] = rewrites["smoke_rewrite"]
     rows.append(handoff_row)
     del workloads_data, errs, bs, hv, qs, bs_pre, hv_pre
     torch.cuda.empty_cache()
 
     adamw_kernel = phase_adamw_kernel(fa, ref)
+    resilience_clean("adamw")
     fl.flash_attention.launches = 0
     train = phase_train(fa, sp, ref)
+    resilience_clean("train")
     if fl.flash_attention.launches:                  # autograd records: no kernel
         raise AssertionError(f"training launched flash_attention "
                              f"{fl.flash_attention.launches} times")
@@ -1936,9 +2392,12 @@ def main() -> int:
         f"there)")
 
     kern = phase_attn_kernels(fl, rn, ref, args.rmsnorm_compare)
+    resilience_clean("attn")
     rms_launches = phase_ops(rn, ref)
+    resilience_clean("ops")
     serve = phase_serve((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm),
                         fl.flash_attention)
+    resilience_clean("serve (after the chaos wave)")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
                  "replaces": ATTN_REPLACES,
                  "launches": serve["launches"]["flash_attention"],

@@ -3,14 +3,17 @@
 Public API:
     mozart.session / configure / evaluate      — runtime scope
     mozart.pipeline                            — AOT lower / compile / call
+    mozart.inject_faults                       — deterministic fault plans
     plan_cache / cost_model / pipeline         — plan cache, executor="auto"
+    rewrite / resilience                       — static rewrite pass (MZ5xx),
+                                                 degradation ladder (MZ4xx)
     splittable / annotate                      — attach SAs to functions
     split types & specs                        — Along, Broadcast(_), Generic,
                                                  Unknown, Reduce, Pytree, Custom
 """
 
 from repro_torch.core import runtime as mozart
-from repro_torch.core import cost_model, pipeline, plan_cache
+from repro_torch.core import cost_model, pipeline, plan_cache, resilience, rewrite
 from repro_torch.core.annotation import SA, AnnotatedFn, annotate, splittable
 from repro_torch.core.future import Future
 from repro_torch.core.split_types import (
@@ -47,7 +50,7 @@ from repro_torch.core.stage_exec import (
 )
 
 __all__ = [
-    "mozart", "plan_cache", "cost_model", "pipeline", "SA", "AnnotatedFn", "annotate", "splittable", "Future",
+    "mozart", "plan_cache", "cost_model", "pipeline", "resilience", "rewrite", "SA", "AnnotatedFn", "annotate", "splittable", "Future",
     "BROADCAST", "Along", "ArraySplit", "Broadcast", "Concat", "ConcatSplit",
     "Custom", "Generic", "GenericVar", "Pytree", "PytreeSplit", "Reduce",
     "ReduceSplit", "RuntimeInfo", "ScalarSplit", "SplitSpec", "SplitType",

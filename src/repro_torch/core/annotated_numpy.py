@@ -244,6 +244,7 @@ def _compress(mask, x):
 _compress_ann = annotate(_compress, name="compress",
                          mask=st.Generic("S"), x=st.Generic("S"), ret=st.Unknown())
 _compress_ann.sa.dynamic = True
+_compress_ann.sa.selective = "x"     # row subset of x: pushdown-eligible
 _reg("compress", _compress_ann)
 
 

@@ -51,6 +51,13 @@ class SA:
         #: per-call cost relative to one elementwise op (``Stage.flops_hint``
         #: feeds it to the cost model behind ``executor="auto"``).
         self.cost_hint = cost_hint
+        #: name of the data argument a SELECTIVE op filters (row-subset
+        #: semantics: output rows are a subset of that argument's rows, the
+        #: other arguments are selectors).  Set ad hoc by integrations, like
+        #: ``dynamic``: ``compress`` ("x").  The static rewrite pass
+        #: (core/rewrite.py) uses it to prove filter-before-map commutation
+        #: for the MZ503 pushdown.
+        self.selective: str | None = None
 
 
 def _meta(v: Any) -> Any:

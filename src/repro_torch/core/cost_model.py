@@ -37,6 +37,7 @@ from typing import Any
 import torch
 
 from repro_torch import hardware
+from repro_torch.core import resilience
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.planner import Stage
 from repro_torch.core.stage_exec import (
@@ -135,8 +136,9 @@ def analytic_seconds(name: str, f: StageFeatures, chip: hardware.Chip,
 def candidates(f: StageFeatures, ctx,
                blocked: "set | frozenset" = frozenset()) -> list[str]:
     """Applicable executors in deterministic preference order.  ``blocked``
-    removes quarantined names unless that would leave nothing (nothing is
-    quarantined until ROADMAP A5 ports the degradation ladder)."""
+    removes quarantined names (the degradation ladder,
+    ``core/resilience.py``) unless that would leave nothing: a wrong answer
+    is never an option, a retried crash is recoverable."""
     out = []
     for name in CANDIDATE_ORDER:
         if math.isfinite(analytic_seconds(name, f, ctx.chip, ctx.device)):
@@ -191,11 +193,17 @@ class AutoExecutor(StageExecutor):
         concrete = resolve_stage_inputs(stage, graph, ctx, streams_ok=True,
                                         tally=False)
         entry = getattr(ctx, "_plan_entry", None)
-        # ROADMAP A5: quarantined executors (the degradation ladder) sit out
-        # selection; nothing is quarantined before that port.
-        blocked: set = set()
+        # Quarantined executors (the degradation ladder) sit out selection;
+        # read-only here: run_stage already aged the quarantine this dispatch.
+        blocked = (entry.quarantined_execs(stage.id)
+                   if entry is not None else set())
         name = entry.chosen_exec.get(stage.id) if entry is not None else None
-        if name is not None and self._recheck_due(stage, concrete, ctx, entry):
+        if name is not None and name in blocked:
+            # A pinned choice that later failed: skip it (the pin stays, and
+            # warm calls replay it again once the quarantine ages out).
+            ctx.stats["auto_quarantine_skips"] += 1
+            name = None
+        elif name is not None and self._recheck_due(stage, concrete, ctx, entry):
             name = None              # periodic re-analysis: pin drifted
         elif name is not None and self._aged_out(stage, concrete, ctx, entry):
             name = None              # shape drift past a crossover: re-measure
@@ -215,8 +223,9 @@ class AutoExecutor(StageExecutor):
         ctx.stats[f"auto_pick_{name}"] += 1
         if ctx.log:
             print(f"[mozart] stage {stage.id}: auto -> {name}")
-        # ROADMAP A5: the delegate runs through the degradation ladder.
-        get_executor(name).run(stage, graph, ctx)
+        # Delegate through the degradation ladder (no re-tick: this dispatch
+        # already aged the quarantine at the outer run_stage).
+        resilience.run_stage(name, stage, graph, ctx, _tick=False)
 
     def _aged_out(self, stage: Stage, concrete: dict[tuple, Any], ctx,
                   entry) -> bool:
@@ -270,8 +279,11 @@ class AutoExecutor(StageExecutor):
                          entry, blocked: "set | frozenset" = frozenset()) -> str:
         """Time a bounded sample under each viable candidate, record the
         extrapolated seconds (overwriting stale values) and pin the measured
-        winner.  A candidate that fails while it is measured raises (ROADMAP
-        A5 decides whether the ladder may skip it instead)."""
+        winner.  Quarantined candidates are neither measured nor pinned; a
+        candidate that fails its sample stays unscored, counted
+        (``note_swallowed``), unless the failure is a kernel fault or a
+        failure of the ``cuda`` candidate other than an injected fault
+        (``resilience.cuda_may_skip``), which propagate."""
         pinned = False
         try:
             feats = features_of(stage, concrete, ctx)
@@ -295,7 +307,13 @@ class AutoExecutor(StageExecutor):
             # strategy's fixed cost is not extrapolated from a smaller sample.
             elems = max(s for _c, _d, _b, s in runs)
             for c, d, batch, _s in runs:
-                secs = d.sampled_time(stage, concrete, ctx, batch, n, elems)
+                try:
+                    secs = d.sampled_time(stage, concrete, ctx, batch, n, elems)
+                except resilience.PROBE_ERRORS as e:
+                    if c == "cuda" and not resilience.cuda_may_skip(e):
+                        raise
+                    resilience.note_swallowed("auto_measure", e, ctx)
+                    continue
                 entry.record_exec_timing(stage.id, c, secs)
             measured = entry.exec_timings.get(stage.id, {})
             name = choose(feats, ctx, measured, blocked)

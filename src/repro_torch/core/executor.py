@@ -23,8 +23,10 @@ whole function chain; (3) merge partial results associatively.
 Every chunking executor ingests handed-off ``ChunkStream`` inputs without a
 merge (``core/handoff.py``).  The fused and scan drivers are pinned into the
 plan-cache entry (``stage_exec.pinned_exec``), so a warm call builds none;
-each build counts as a trace (``note_trace``).  The ``"cuda"`` executor (the
-split-pipeline kernel) lives in ``core/cuda_exec.py``.
+each build counts as a trace (``note_trace``).  The chunk loop halves its
+batch on memory exhaustion, at most ``resilience.MAX_OOM_HALVINGS`` times,
+and each drive crosses the ``chunk`` fault boundary.  The ``"cuda"``
+executor (the split-pipeline kernel) lives in ``core/cuda_exec.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import resilience
 from repro_torch.core.planner import Stage
 from repro_torch.core.stage_exec import (
     ChunkStream,
@@ -136,6 +139,34 @@ class ChunkedExecutor(StageExecutor):
             mode = "pipelined"           # dynamic-shape fns run call by call
         n = effective_elements(ctx, stage_num_elements(stage, concrete, ctx.pedantic))
         batch = self.choose_batch(stage, concrete, ctx, n)
+        # Chunk-granular OOM policy: on resource exhaustion halve the batch
+        # and re-drive, at most MAX_OOM_HALVINGS times and only while no
+        # stream was released (a released buffer is never re-read).  The
+        # surviving size is re-pinned so warm calls start from it.
+        halvings = 0
+        while True:
+            released = ctx.stats.get("streams_released", 0)
+            try:
+                self._drive(stage, concrete, ctx, mode, n, batch)
+                break
+            except resilience.PROBE_ERRORS as e:
+                if (not resilience.is_resource_exhausted(e) or batch <= 1
+                        or halvings >= resilience.MAX_OOM_HALVINGS
+                        or released != ctx.stats.get("streams_released", 0)):
+                    raise
+                halvings += 1
+                batch = max(1, batch // 2)
+                ctx.stats["chunk_oom_halvings"] += 1
+                resilience.record_event(
+                    "MZ403", f"stage {stage.id}: {type(e).__name__}, "
+                             f"batch halved to {batch}")
+        if halvings:
+            entry = getattr(ctx, "_plan_entry", None)
+            if entry is not None:
+                entry.pin(stage.id, batch)   # survive into warm calls
+
+    def _drive(self, stage: Stage, concrete: dict[tuple, Any], ctx,
+               mode: str, n: int, batch: int) -> None:
         concrete, ranges = self._ingest_streams(stage, concrete, ctx, n, batch)
         ctx.stats["chunks"] += len(ranges)
 
@@ -150,6 +181,7 @@ class ChunkedExecutor(StageExecutor):
         unsafe = undonatable_stream_keys(stage, concrete, ctx, donate) if donate else set()
         partials: dict[int, list[Any]] = {p: [] for p in esc}
         for i, (s, e) in enumerate(ranges):
+            resilience.maybe_fail("chunk", f"stage {stage.id} chunk [{s},{e})")
             env = chunk_env_for(stage, concrete, s, e, ctx.pedantic, chunk_index=i)
             if fused_fn is None:
                 run_chain(stage, env)
@@ -319,7 +351,10 @@ class ScanExecutor(StageExecutor):
         driver = pinned_exec(
             stage, ctx, "scan", (esc,),
             lambda: _build_scan_driver(stage, esc, split_axes, out_axes))
-        carry = driver(split_rows, bcast_env, n_chunks) if n_chunks else {}
+        carry = {}
+        if n_chunks:
+            resilience.maybe_fail("chunk", f"stage {stage.id} scan driver")
+            carry = driver(split_rows, bcast_env, n_chunks)
         ctx.stats["donated_chunks"] += len(donate)
         ctx.stats["chunks"] += n_chunks + (1 if n_main < n else 0)
         ctx.stats["calls"] += 1

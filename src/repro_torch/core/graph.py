@@ -25,7 +25,7 @@ class NodeRef:
 class Node:
     __slots__ = (
         "id", "fn", "bound", "arg_types", "out_type", "out_aval",
-        "result", "done", "future_ref", "stage_id", "pinned",
+        "result", "done", "future_ref", "stage_id", "pinned", "alias_refs",
     )
 
     def __init__(self, node_id: int, fn, bound: dict[str, Any],
@@ -43,9 +43,14 @@ class Node:
         # Pinned nodes survive prune(): the Pipeline bound-arguments fast
         # path re-executes a retained node set per call (core/pipeline.py).
         self.pinned = False
+        # Futures of nodes CSE-merged into this one (core/rewrite.py): while
+        # any of them is alive, this node's output is observable.
+        self.alias_refs: list[weakref.ref] = []
 
     def future_alive(self) -> bool:
-        return self.future_ref is not None and self.future_ref() is not None
+        if self.future_ref is not None and self.future_ref() is not None:
+            return True
+        return any(r() is not None for r in self.alias_refs)
 
     def deps(self) -> list[int]:
         out = []

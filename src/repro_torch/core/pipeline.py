@@ -39,7 +39,7 @@ from typing import Any, Callable
 
 from torch.utils import _pytree as pytree
 
-from repro_torch.core import stage_exec
+from repro_torch.core import resilience, stage_exec
 from repro_torch.core.future import Future
 from repro_torch.core.graph import NodeRef
 from repro_torch.core.handoff import resolve_decisions
@@ -265,14 +265,12 @@ class Pipeline:
     # -- bound-arguments fast path -------------------------------------------
     def _run_stages(self, stages, entry, ho) -> None:
         ctx = self.ctx
-        executor = stage_exec.get_executor(ctx.executor)
         prev = (ctx._plan_entry, ctx._handoff)
         ctx._plan_entry, ctx._handoff = entry, ho
         try:
             with stage_exec.counter_scope(ctx.counters):
-                # ROADMAP A5: the degradation ladder wraps this call.
                 for s in stages:
-                    executor.run(s, ctx.graph, ctx)
+                    resilience.run_stage(ctx.executor, s, ctx.graph, ctx)
         finally:
             ctx._plan_entry, ctx._handoff = prev
 
@@ -296,10 +294,17 @@ class Pipeline:
                     # would reference DONE producers of the build call.
                     return _NO_FAST
         stages, entry = lookup_or_plan(pending, ctx.graph, ctx)
+        # The rewrite pass (inside lookup_or_plan) may have retired nodes and
+        # reordered the rest: the retained set is the REWRITTEN live graph.
+        # A decline below re-enters lookup_or_plan through evaluate(), where
+        # the pass is a no-op on its own output.
+        live = ctx.graph.pending()
+        if not live:
+            return _NO_FAST              # everything rewritten away
         leaves, treespec = pytree.tree_flatten((args, kwargs))
         slot_of = {id(l): j for j, l in enumerate(leaves)}
         node_bindings, bound_ids = [], set()
-        for idx, n in enumerate(pending):
+        for idx, n in enumerate(live):
             for name, v in n.bound.items():
                 if isinstance(v, NodeRef) or id(v) not in slot_of:
                     continue
@@ -317,10 +322,10 @@ class Pipeline:
                     input_bindings.append((s_idx, key, slot_of[id(si.value)]))
         ho = resolve_decisions(ctx, entry, stages)
         self._run_stages(stages, entry, ho)
-        for n in pending:
+        for n in live:
             n.pinned = True              # survive prune(): re-executed per call
         self._fast = _FastReplay(
-            pending=pending, stages=stages, entry=entry, handoff=ho, out=out,
+            pending=live, stages=stages, entry=entry, handoff=ho, out=out,
             treespec=treespec, leaf_specs=[_leaf_spec(l) for l in leaves],
             alias_sig=_alias_sig(leaves), node_bindings=node_bindings,
             input_bindings=input_bindings)

@@ -7,7 +7,8 @@ nor the split-type unifier, and (through the entry's executable table) runs
 no ``torch.fx`` trace and no kernel lowering either.
 
 **Key.**  A pipeline is identified by a structural fingerprint of the
-pending dataflow graph: per node, the annotated function's name, the
+pending dataflow graph as the static rewrite pass (``core/rewrite.py``)
+leaves it: per node, the annotated function's name, the
 aliasing pattern of its arguments (which argument is which external value /
 which earlier node), static argument values, the *constructed* split types
 (SA-local generics normalized, ``unknown`` uids erased), and the shape,
@@ -15,7 +16,10 @@ dtype and device type of every external tensor and abstract output.  The
 context knobs that change planning, batch sizing or the executables
 (``executor``, the session's chip, ``pipeline``, the device type,
 ``handoff``) are part of the key; tensor *values* are not, so calling the
-same pipeline on fresh data of the same shape is a hit.
+same pipeline on fresh data of the same shape is a hit.  The pass itself
+runs once per distinct captured graph: its script is kept under the
+captured graph's ``_rewrite_key`` and replayed on later captures, which
+then look their entry up under the key the first one computed.
 
 **Template.**  A hit does not reuse ``Stage`` objects (they reference the
 prior call's nodes); it re-instantiates them from a symbolic template that
@@ -61,6 +65,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import hardware
+from repro_torch.core import resilience
+from repro_torch.core import rewrite as rewrite_mod
 from repro_torch.core import split_types as st
 from repro_torch.core.graph import DataflowGraph, Node, NodeRef
 from repro_torch.core.planner import Stage, StageInput, _value_key, plan
@@ -93,6 +99,14 @@ _loaded_paths: set[str] = set()
 #: it afterwards.  Populated by ``stage_exec.pinned_exec``.
 _exec_tables: dict[int, dict] = {}
 
+#: The rewrite pass's scripts (``rewrite.Script``), keyed by the UNREWRITTEN
+#: graph's ``_rewrite_key``, with the function objects they were written
+#: for and the rewritten graph's fingerprint: a warm call replays the
+#: script and looks its entry up without running the pass or fingerprinting
+#: twice.  Runtime-only (a restarted process runs the pass once per graph),
+#: bounded like ``_entries``.
+_rewrite_scripts: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
+
 #: monotone version of the persistable state; ``save`` skips the disk write
 #: when the target file already reflects the current version.
 _mutations = 0
@@ -110,6 +124,7 @@ def clear() -> None:
     with _lock:
         _entries.clear()
         _exec_tables.clear()
+        _rewrite_scripts.clear()
         stats.clear()
         _loaded_paths.clear()
         _mark_dirty()
@@ -375,12 +390,13 @@ class PlanEntry:
     ho_age: int = 0
     #: bucket label this entry was pinned for (``Pipeline.compile(bucket=)``).
     bucket: tuple | None = None
-    #: per-stage quarantined executors ``{stage_id: {name: age}}``.  Written
-    #: and read so a schema-v7 file keeps its shape; nothing quarantines
-    #: until the degradation ladder is ported (ROADMAP A5).
+    #: per-stage quarantined executors ``{stage_id: {name: age}}``, written
+    #: by the degradation ladder (``resilience.run_stage``); a name is
+    #: skipped until its age reaches ``resilience.QUARANTINE_TTL``.
+    #: Persisted.
     quarantined: dict[int, dict[str, int]] = dataclasses.field(default_factory=dict)
-    #: MZ5xx rewrite records; empty until the rewrite pass is ported
-    #: (ROADMAP A4).  Persisted.
+    #: MZ5xx records (``RewriteRecord.to_json()``) of the rewrite pass that
+    #: produced this entry's graph, declines included.  Persisted.
     rewrites: list = dataclasses.field(default_factory=list)
     #: warm hits since the last periodic re-analysis tick
     #: (``MOZART_REANALYZE_EVERY``).  Runtime-only.
@@ -476,6 +492,40 @@ class PlanEntry:
             self.exec_timings.setdefault(stage_id, {})[str(name)] = float(seconds)
         _mark_dirty()
 
+    # -- executor quarantine (resilience degradation ladder) -----------------
+    def quarantine_exec(self, stage_id: int, name: str) -> None:
+        """Ban ``name`` for this stage until the quarantine ages out."""
+        with self._lock:
+            self.quarantined.setdefault(int(stage_id), {})[str(name)] = 0
+        _mark_dirty()
+
+    def quarantined_execs(self, stage_id: int) -> set:
+        """The currently banned executor names for a stage (read-only)."""
+        with self._lock:
+            return set(self.quarantined.get(int(stage_id), ()))
+
+    def tick_quarantine(self, stage_id: int, ttl: int) -> set:
+        """Age this stage's quarantines by one dispatch; names reaching
+        ``ttl`` are dropped (eligible again).  Returns the still-banned set.
+        Called once per stage dispatch (``resilience.run_stage``)."""
+        with self._lock:
+            ages = self.quarantined.get(int(stage_id))
+            if not ages:
+                return set()
+            expired = []
+            for name in ages:
+                ages[name] += 1
+                if ages[name] >= ttl:
+                    expired.append(name)
+            for name in expired:
+                del ages[name]
+            if not ages:
+                del self.quarantined[int(stage_id)]
+            alive = set(ages or ())
+        if expired:
+            _mark_dirty()
+        return alive
+
     # -- pinned executables (in-process, keyed by fingerprint) ---------------
     def exec_table(self) -> dict:
         """The entry's executable table (see ``_exec_tables``), keyed by
@@ -553,18 +603,78 @@ def _instantiate(entry: PlanEntry, pending: list[Node],
 # Lookup
 # ---------------------------------------------------------------------------
 
+_PYNUM = (bool, int, float, complex)
+
+
+def _rewrite_key(pending: list[Node], graph: DataflowGraph, ctx) -> tuple | None:
+    """Everything the rewrite pass decides on: the fingerprint, plus which
+    nodes have a live Future (dead-stage elimination, pushdown) and which
+    captured numbers are equal (CSE keys them by value; the fingerprint by
+    type only).  None = uncacheable."""
+    base = fingerprint(pending, graph, ctx)
+    if base is None:
+        return None
+    classes: dict[tuple, int] = {}
+    nums = []
+    for n in pending:
+        for name, v in n.bound.items():
+            if name not in n.fn.sa.static and isinstance(v, _PYNUM):
+                nums.append(classes.setdefault((type(v), v), len(classes)))
+    return base + (tuple(n.future_alive() for n in pending), tuple(nums))
+
+
+def _rewrite(pending: list[Node], graph: DataflowGraph,
+             ctx) -> tuple["rewrite_mod.RewriteResult", tuple | None]:
+    """Run the rewrite pass on the first capture of a graph and replay its
+    script on every later one.  Returns the result and, on a replay, the
+    rewritten graph's fingerprint (None: compute it)."""
+    if not (getattr(ctx, "rewrite", True) and getattr(ctx, "plan_cache", True)
+            and pending):
+        return rewrite_mod.apply(pending, graph, ctx), None
+    key0 = _rewrite_key(pending, graph, ctx)
+    if key0 is None:
+        return rewrite_mod.apply(pending, graph, ctx), None
+    with _lock:
+        memo = _rewrite_scripts.get(key0)
+        if memo is not None:
+            _rewrite_scripts.move_to_end(key0)
+    if memo is not None:
+        script, fns, key = memo
+        if len(fns) == len(pending) and all(n.fn is f for n, f in zip(pending, fns)):
+            return rewrite_mod.replay(pending, graph, ctx, script), key
+    script = rewrite_mod.Script()
+    fns = tuple(n.fn for n in pending)
+    rw = rewrite_mod.apply(pending, graph, ctx, script=script)
+    key = fingerprint(rw.pending, graph, ctx) if rw.pending else None
+    with _lock:
+        _rewrite_scripts[key0] = (script, fns, key)
+        while len(_rewrite_scripts) > _MAX_ENTRIES:
+            _rewrite_scripts.popitem(last=False)
+    return rw, key
+
 
 def lookup_or_plan(pending: list[Node], graph: DataflowGraph,
                    ctx) -> tuple[list[Stage], PlanEntry | None]:
     """Return (stages, cache entry or None).  Counts live in ``ctx.stats``:
-    ``planner_calls`` increments only when the planner actually runs."""
-    # ROADMAP A4: the rewrite pass (core/rewrite.py) runs here, before the fingerprint.
+    ``planner_calls`` increments only when the planner actually runs.
+
+    The static rewrite pass (``core/rewrite.py``) runs FIRST, so the
+    fingerprint, the planner, the handoff analysis and the templates see the
+    rewritten graph.  It runs once per distinct unrewritten graph: warm
+    calls replay its script (``_rewrite``) and land on the rewritten graph's
+    key without fingerprinting it again."""
+    rw, key = _rewrite(pending, graph, ctx)
+    pending = rw.pending
+    ctx._last_rewrites = rw.records
     max_nodes = None if ctx.pipeline else 1
+    if not pending:                      # the pass eliminated every node
+        return [], None
     if not getattr(ctx, "plan_cache", True):
         ctx.stats["planner_calls"] += 1
         return plan(pending, graph, max_stage_nodes=max_nodes), None
 
-    key = fingerprint(pending, graph, ctx)
+    if key is None:
+        key = fingerprint(pending, graph, ctx)
     if key is None:
         with _lock:
             stats["uncacheable"] += 1
@@ -588,7 +698,7 @@ def lookup_or_plan(pending: list[Node], graph: DataflowGraph,
             entry.bind_fns(pending)      # rehydrated entry: bind live identities
         ctx.stats["plan_cache_hits"] += 1
         _note_entry_key(ctx, key)        # configure() rekeys only owned entries
-        _maybe_reanalyze(ctx, entry)
+        _maybe_reanalyze(ctx, entry, rw.records)
         # O(graph) template instantiation happens outside the global lock so
         # concurrent sessions on different pipelines don't serialize here.
         return _instantiate(entry, pending, graph), entry
@@ -616,7 +726,8 @@ def lookup_or_plan(pending: list[Node], graph: DataflowGraph,
             entry = PlanEntry(key=key, stage_templates=templates,
                               fns=tuple(n.fn for n in pending),
                               fn_names=tuple(n.fn.name for n in pending),
-                              handoff=ho)
+                              handoff=ho,
+                              rewrites=[r.to_json() for r in rw.records])
             _entries[key] = entry
             _mark_dirty()
             while len(_entries) > _MAX_ENTRIES:
@@ -627,8 +738,9 @@ def lookup_or_plan(pending: list[Node], graph: DataflowGraph,
 
 
 def peek(pending: list[Node], graph: DataflowGraph, ctx) -> PlanEntry | None:
-    """Read-only lookup of the entry a pending graph maps to: no hit
-    counters, no LRU reshuffle, no planning."""
+    """Read-only lookup of the entry an UNREWRITTEN pending graph maps to:
+    no rewrite pass, no hit counters, no LRU reshuffle, no planning.  It
+    hits only when the pass left this graph alone."""
     if not getattr(ctx, "plan_cache", True):
         return None
     key = fingerprint(pending, graph, ctx)
@@ -641,13 +753,16 @@ def peek(pending: list[Node], graph: DataflowGraph, ctx) -> PlanEntry | None:
     return None
 
 
-def _maybe_reanalyze(ctx, entry: PlanEntry) -> None:
+def _maybe_reanalyze(ctx, entry: PlanEntry, records: list) -> None:
     """Periodic re-analysis tick (``MOZART_REANALYZE_EVERY``, 0/unset = off).
 
     Every N warm hits this drops the entry's recorded handoff decisions
     (``resolve_decisions`` re-analyzes on next use, so vetoed donations get
-    reconsidered) and flags every stage for a pinned-executor drift re-check
-    (``cost_model.AutoExecutor``)."""
+    reconsidered), flags every stage for a pinned-executor drift re-check
+    (``cost_model.AutoExecutor``) and refreshes the rewrite records from
+    this capture's (a formerly declined rewrite that now applies replaces
+    its MZ505 record).  A replayed script's records are the pass's own: its
+    decisions are a function of ``_rewrite_key``."""
     try:
         every = int(os.environ.get("MOZART_REANALYZE_EVERY", "0") or 0)
     except ValueError:
@@ -661,6 +776,7 @@ def _maybe_reanalyze(ctx, entry: PlanEntry) -> None:
         entry.evals_since_reanalysis = 0
         entry.handoff = None             # resolve_decisions re-analyzes
         entry.ho_age = 0
+        entry.rewrites = [r.to_json() for r in records]
         entry.recheck_stages = set(range(len(entry.stage_templates)))
     with _lock:
         stats["reanalysis_ticks"] += 1
@@ -864,6 +980,7 @@ def save(path: str, force: bool = False) -> int:
             "chip": _chip_name(),
             "entries": encoded,
         }
+        resilience.maybe_fail("persist", where=ap)
         tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
         with open(tmp, "w") as f:
             json.dump(payload, f)

@@ -15,7 +15,14 @@ Outside every session annotated functions run eagerly (the plain library).
 
 Plans are cached across evaluations (``core/plan_cache.py``): a repeated
 pipeline skips the planner, replays its handoff decisions and its pinned
-drivers and kernel programs.  ``mozart.pipeline(fn)`` is the ahead-of-time
+drivers and kernel programs.  Before planning, the static rewrite pass
+(``core/rewrite.py``, ``rewrite=True`` by default) eliminates dead calls,
+shares common subexpressions, pushes filters ahead of maps and regroups
+interleaved chains.  Every stage dispatches through the degradation ladder
+(``core/resilience.py``): a failing executor is quarantined and the stage
+completes on a lower rung, except for kernel faults (and, on ``cuda``,
+any failure but an injected one), which propagate;
+``mozart.inject_faults(spec)`` arms deterministic faults.  ``mozart.pipeline(fn)`` is the ahead-of-time
 entry point over the same machinery (``core/pipeline.py``); a session is an
 anonymous pipeline's scope.
 """
@@ -33,12 +40,14 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import hardware
+from repro_torch.core import resilience
 from repro_torch.core.future import Future
 from repro_torch.core.graph import DataflowGraph, NodeRef
 from repro_torch.core.handoff import resolve_decisions
 from repro_torch.core.plan_cache import lookup_or_plan
 from repro_torch.core.planner import plan
-from repro_torch.core.stage_exec import BoundaryCounters, counter_scope, get_executor
+from repro_torch.core.resilience import inject_faults  # noqa: F401  (mozart.inject_faults)
+from repro_torch.core.stage_exec import BoundaryCounters, counter_scope
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -75,6 +84,7 @@ class MozartContext:
         autotune: bool = True,
         plan_cache_path: str | None = None,
         handoff: bool = True,
+        rewrite: bool = True,
     ):
         self.executor = executor
         self.device = resolve_device(device)
@@ -87,6 +97,7 @@ class MozartContext:
         self.plan_cache = plan_cache             # reuse plans across evaluations
         self.autotune = autotune                 # measure+pin chunk sizes on cached plans
         self.handoff = handoff                   # cross-stage chunk handoff (core/handoff.py)
+        self.rewrite = rewrite                   # static graph rewrite pass (core/rewrite.py)
         # Persist plans, tuned batches and executor choices across processes;
         # the MOZART_PLAN_CACHE variable pre-warms every context.
         if plan_cache_path is None:
@@ -101,6 +112,7 @@ class MozartContext:
         self._batch_override: int | None = None  # set by the auto-tuner only
         self._n_cap: int | None = None           # set during sampled tuning only
         self._entry_keys: set = set()            # cache keys this context used
+        self._last_rewrites: list = []           # RewriteRecords of the last plan
         if self.plan_cache_path:
             from repro_torch.core.plan_cache import load_once
             load_once(self.plan_cache_path)
@@ -152,7 +164,6 @@ class MozartContext:
                 names = ",".join(n.fn.name for n in s.nodes)
                 print(f"[mozart] stage {s.id}: [{names}] inputs="
                       f"{[str(si.split_type) for si in s.inputs.values()]}")
-        executor = get_executor(self.executor)
         # Handoff decisions: replayed from the cache entry (zero analysis on
         # warm calls); uncacheable pipelines analyze fresh per evaluation.
         ho = resolve_decisions(self, entry, stages)
@@ -165,11 +176,10 @@ class MozartContext:
             # Dispatch PER STAGE (``executor="auto"`` routes each stage on its
             # own, core/cost_model.py).  Trace and boundary events attribute
             # to THIS context's counters (plus the process-global aggregate).
-            # ROADMAP A5: the degradation ladder (resilience.run_stage) wraps
-            # this call.
+            # ``resilience.run_stage`` arms the degradation ladder.
             with counter_scope(self.counters):
                 for s in stages:
-                    executor.run(s, self.graph, self)
+                    resilience.run_stage(self.executor, s, self.graph, self)
         finally:
             self._plan_entry, self._handoff = prev_entry, prev_ho
         self.graph.prune()

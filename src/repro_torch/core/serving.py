@@ -22,10 +22,11 @@ admission group aim at slot ``batch``, out of range, and are dropped.
 
 The port's only driver is ``"jit"``: direct calls of the torch functions
 (the name is kept so callers match the reference).  ``driver="mozart"``
-rides ``mozart.pipeline`` (plan cache, AOT), which the port does not have
-yet (ROADMAP A8), and raises.  The reference's resilience hooks
-(``maybe_fail("serve_step")``, ``record_event``) wait for A12.  Recurrent
-families (pad-free buckets) wait for their model code.
+rides ``mozart.pipeline`` (plan cache, AOT) and raises until its port
+(ROADMAP A6).  Each ``step()`` crosses the ``serve_step`` fault boundary
+(``core/resilience.py``); ``AsyncServer`` fails the requests in flight when
+a step raises, records ``MZ405`` and keeps driving.  Recurrent families
+(pad-free buckets) wait for their model code.
 
 Latency is honest: each decode step is timed through the host read of the
 argmax.  Per-request latency runs submit -> final token.
@@ -47,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import resilience
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
@@ -151,8 +153,8 @@ def _make_prefill_bucket(cfg: ModelConfig):
 def check_driver(driver: str) -> None:
     if driver == "mozart":
         raise NotImplementedError(
-            "driver='mozart' rides mozart.pipeline (plan cache, AOT), which the "
-            "port has not ported yet (ROADMAP A8); use driver='jit'")
+            "driver='mozart' (serving over mozart.pipeline: plan cache, AOT) "
+            "is not ported yet (ROADMAP A6); use driver='jit'")
     if driver != "jit":
         raise ValueError(f"unknown driver {driver!r}")
 
@@ -381,6 +383,7 @@ class ContinuousBatcher:
     def step(self) -> bool:
         """Sweep deadlines and cancellations, admit at the step boundary,
         then decode once; False when idle."""
+        resilience.maybe_fail("serve_step")
         self._sweep_expired()
         self._admit()
         return self._decode_once()
@@ -493,8 +496,11 @@ class AsyncServer:
             try:
                 busy = self.batcher.step()
             except Exception as e:    # route into requests, never die silent
-                self.batcher.fail_pending(e)
+                n = self.batcher.fail_pending(e)
                 self.batcher.stats["step_failures"] += 1
+                resilience.record_event(
+                    "MZ405", f"serving step failed ({type(e).__name__}: "
+                             f"{e}); {n} requests failed")
                 continue
             if not busy:
                 time.sleep(self.idle_poll_s)

@@ -44,6 +44,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch import hardware
+from repro_torch.core import resilience
 from repro_torch.core import split_types as st
 from repro_torch.core.graph import DataflowGraph, NodeRef
 from repro_torch.core.planner import Stage, _value_key
@@ -538,6 +539,7 @@ def chunk_env_for(stage: Stage, concrete: dict[tuple, Any], s: int, e: int,
                   pedantic: bool, chunk_index: int | None = None) -> dict[tuple, Any]:
     """Build one chunk's canonical env; a ``ChunkStream`` input supplies its
     chunk ``chunk_index`` (the range's piece, with no slice)."""
+    resilience.maybe_fail("split", f"stage {stage.id} range [{s},{e})")
     env: dict[tuple, Any] = {}
     for key, si in stage.inputs.items():
         v = concrete[key]
@@ -612,6 +614,7 @@ def finish_stage(stage: Stage, partials: dict[int, list[Any]],
     consumer accepts the producer grid stay UNMERGED as a
     :class:`ChunkStream` over ``ranges``; the merge happens lazily and only
     if the value is observed."""
+    resilience.maybe_fail("merge", f"stage {stage.id}")
     ho = None
     if ctx is not None and ranges is not None:
         plan = getattr(ctx, "_handoff", None)
@@ -659,6 +662,7 @@ def pinned_exec(stage: Stage, ctx, kind: str, extra_key: tuple,
         if table is None:
             table = stage._exec_cache = {}
     if key not in table:
+        resilience.maybe_fail("compile", f"stage {stage.id} {kind}")
         table[key] = build()
         ctx.stats["exec_builds"] += 1
     return table[key]
@@ -735,7 +739,9 @@ def resolve_stage_inputs(stage: Stage, graph: DataflowGraph, ctx,
     PytreeSplit} edge re-wraps the producer's pieces under the consumer's
     grid (``adapt_stream``).  Anything else is materialized, with a
     zero-byte ``fallback`` event naming the reason.  ``tally=False`` skips
-    the ingest/materialize stats."""
+    the ingest/materialize stats and the ``ingest`` fault boundary."""
+    if tally:
+        resilience.maybe_fail("ingest", f"stage {stage.id}")
     plan = getattr(ctx, "_handoff", None)
     ho = plan.get(stage.id) if plan else None
     concrete: dict[tuple, Any] = {}
@@ -869,7 +875,9 @@ def mark_stream_consumed(stage: Stage, concrete: dict[tuple, Any], ctx,
                          consumed: "set | frozenset | tuple") -> None:
     """After the stage consumed the canonical keys in ``consumed``: release
     the stream AND its graph-node original, so a late ``materialize`` hits
-    the backstop error instead of returning released buffers."""
+    the backstop error instead of returning released buffers.  Each input
+    released counts in ``ctx.stats["streams_released"]``: an attempt that
+    moved it is never re-driven (``resilience._recoverable``)."""
     for key, si in stage.inputs.items():
         v = concrete.get(key)
         if stage.ckey(key) in consumed and isinstance(v, ChunkStream):
@@ -878,6 +886,7 @@ def mark_stream_consumed(stage: Stage, concrete: dict[tuple, Any], ctx,
             for t in {id(v): v, id(orig): orig}.values():
                 if isinstance(t, ChunkStream):
                     t.release(donor)
+            ctx.stats["streams_released"] += 1
 
 
 def materialize_inputs(stage: Stage, concrete: dict[tuple, Any],
@@ -1022,13 +1031,20 @@ class StageExecutor:
             concrete = materialize_inputs(stage, concrete, ctx)
             best, best_dt = None, None
             for b in cands:
-                dt = self.sampled_time(stage, concrete, ctx, b, n)
+                try:
+                    dt = self.sampled_time(stage, concrete, ctx, b, n)
+                except resilience.PROBE_ERRORS as e:
+                    # unsampleable candidate: skip it, counted (a kernel
+                    # fault re-raises from note_swallowed)
+                    resilience.note_swallowed("tune_sample", e, ctx)
+                    continue
                 entry.record_trial(stage.id, b, dt)
                 if best_dt is None or dt < best_dt:
                     best, best_dt = b, dt
-            entry.pin(stage.id, best)
+            entry.pin(stage.id, best if best is not None else est)
             pinned = True
-            ctx.stats["autotuned_stages"] += 1
+            if best is not None:
+                ctx.stats["autotuned_stages"] += 1
         finally:
             if not pinned:
                 entry.release_tuning(stage.id)

@@ -5,6 +5,10 @@ into a shared library with a plain C interface, at first use, into
 ``build/kernels/`` of the checkout (listed in ``.gitignore``), keyed by a
 hash of the source and the flags; it is loaded with ``ctypes``.  Nothing is
 built or loaded when a module is imported.
+
+Every failure to build, load or launch one of these kernels raises
+:class:`KernelError`, which the runtime never demotes around, swallows or
+retries (``core/resilience.py``).
 """
 
 from __future__ import annotations
@@ -29,14 +33,18 @@ _libs: dict[Path, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
+
+
 def nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ((Path(home) / "bin" / "nvcc") if home else None,
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and Path(cand).is_file():
             return str(cand)
-    raise RuntimeError("nvcc not found: the port's kernels are built on a "
-                       "machine with the CUDA toolkit")
+    raise KernelError("nvcc not found: the port's kernels are built on a "
+                      "machine with the CUDA toolkit")
 
 
 def library_path(source: Path) -> Path:
@@ -60,8 +68,8 @@ def build(source: Path) -> tuple[Path, float, str]:
         proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+            raise KernelError(f"nvcc failed on {source.name} ({proc.returncode}):\n"
+                              f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
@@ -71,12 +79,16 @@ def build(source: Path) -> tuple[Path, float, str]:
 
 def load(source: Path, configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The loaded library of ``source``, built if needed; ``configure``
-    declares its entry points (and may check its ABI) once, on first load."""
+    declares its entry points (and may check its ABI) once, on first load.
+    A library that will not load raises ``KernelError``."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
             path, _secs, _log = build(source)
-            lib = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path.name}: {e}") from e
             configure(lib)
             _libs[source] = lib
         return lib

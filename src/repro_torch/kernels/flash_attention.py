@@ -137,7 +137,7 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: boo
         rc = lib.flash_attention_launch(_DTYPE_CODE[q.dtype], *args)
     if rc != 0:
         msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention ({chosen}) launch failed: {msg} ({rc})")
+        raise kernel_build.KernelError(f"flash_attention ({chosen}) launch failed: {msg} ({rc})")
     flash_attention.launches += 1
     flash_attention.variant_launches[chosen] += 1
     return out

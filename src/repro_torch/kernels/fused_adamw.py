@@ -111,7 +111,7 @@ def fused_adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         n, int(vectorized), float(eps), float(wd), p.device.index, stream)
     if rc != 0:
         msg = lib.fused_adamw_error_string(rc).decode()
-        raise RuntimeError(f"fused_adamw launch failed: {msg} ({rc})")
+        raise kernel_build.KernelError(f"fused_adamw launch failed: {msg} ({rc})")
     fused_adamw.launches += 1
     return po, mo, vo
 

@@ -70,7 +70,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
                             x.device.index, stream)
     if rc != 0:
         msg = lib.rmsnorm_error_string(rc).decode()
-        raise RuntimeError(f"rmsnorm launch failed: {msg} ({rc})")
+        raise kernel_build.KernelError(f"rmsnorm launch failed: {msg} ({rc})")
     rmsnorm.launches += 1
     return out.reshape(x.shape)
 

@@ -243,7 +243,7 @@ def _configure(lib: ctypes.CDLL) -> None:
            lib.split_pipeline_num_opcodes(), lib.split_pipeline_vec())
     want = (ctypes.sizeof(_Params), len(OPCODES), VEC)
     if abi != want:
-        raise RuntimeError(f"split_pipeline ABI mismatch: kernel "
+        raise kernel_build.KernelError(f"split_pipeline ABI mismatch: kernel "
                            f"{abi} vs wrapper {want}")
 
 
@@ -257,7 +257,7 @@ def _ctas_per_sm(tile: int, smem: int, device: int) -> int:
     ctas = lib.split_pipeline_occupancy(tile, smem, device)
     if ctas <= 0:
         msg = lib.split_pipeline_error_string(-ctas).decode() if ctas else "no CTA fits"
-        raise RuntimeError(f"split_pipeline occupancy ({tile}, {smem} B): {msg}")
+        raise kernel_build.KernelError(f"split_pipeline occupancy ({tile}, {smem} B): {msg}")
     return ctas
 
 
@@ -395,7 +395,7 @@ def _launch(program: Program, split_inputs: Sequence[torch.Tensor],
     rc = lib.split_pipeline_launch(ctypes.addressof(p), dev.index, stream)
     if rc != 0:
         msg = lib.split_pipeline_error_string(rc).decode()
-        raise RuntimeError(f"split_pipeline launch failed: {msg} ({rc})")
+        raise kernel_build.KernelError(f"split_pipeline launch failed: {msg} ({rc})")
     split_pipeline.launches += 1
     for path, tiles in paths.items():
         split_pipeline.tile_paths[path] += tiles

@@ -12,8 +12,8 @@ Two scheduling modes:
   prefill masks the pad keys out of every attention softmax.
 
 The driver is ``jit``: direct calls of the torch prefill and decode steps.
-``--driver mozart`` rides ``mozart.pipeline``, which the port does not have
-yet (ROADMAP A8), and raises.
+``--driver mozart`` (serving over ``mozart.pipeline``) raises until its
+port (ROADMAP A6).
 
 ``decode_us_per_call`` is honest per-step latency: the timer spans the
 decode AND the host read of the sampled token.

@@ -31,7 +31,7 @@ from test_torch_executors import CASES, _data, _tol, close
 from test_torch_plan_cache import JTINY, TTINY
 
 DISPATCH_S = 20e-6
-JAX_CFG = dict(rewrite=False)
+JAX_CFG = dict()
 
 
 @pytest.fixture(autouse=True)
@@ -299,19 +299,35 @@ class TestAutoSelection:
         assert {e for _name, e in seen} == {60_000}
 
     def test_a_failing_candidate_raises_while_measured(self, monkeypatch):
-        """No candidate failure is swallowed while ``auto`` measures (the
-        degradation ladder that may skip one waits for ROADMAP A5)."""
+        """A kernel fault raised while ``auto`` measures a candidate
+        propagates (the claim is released); any other probe error is
+        swallowed, counted (``swallowed_errors``) and leaves that candidate
+        unscored, as the reference's ``note_swallowed("auto_measure")``."""
+        from repro_torch.core import resilience
         from repro_torch.core.executor import FusedExecutor
+        from repro_torch.kernels.build import KernelError
         x = torch.linspace(0.0, 1.0, 60_000)
         _run_port(x)
+
+        def fault(self, *a, **k):
+            raise KernelError("fused sample failed")
+        monkeypatch.setattr(FusedExecutor, "sampled_time", fault)
+        with pytest.raises(KernelError, match="fused sample failed"):
+            _run_port(x)
+        (entry,) = tpc.entries()
+        assert entry.chosen_exec == {}          # the claim was released
 
         def boom(self, *a, **k):
             raise RuntimeError("fused sample failed")
         monkeypatch.setattr(FusedExecutor, "sampled_time", boom)
-        with pytest.raises(RuntimeError, match="fused sample failed"):
-            _run_port(x)
-        (entry,) = tpc.entries()
-        assert entry.chosen_exec == {}          # the claim was released
+        resilience.clear_events()
+        v, ctx = _run_port(x)
+        assert ctx.stats["swallowed_errors"] == 1
+        assert resilience.stats["swallowed:auto_measure"] == 1
+        assert "fused" not in entry.exec_timings.get(0, {})
+        assert entry.chosen_exec and "fused" not in entry.chosen_exec.values()
+        assert v == pytest.approx(float((torch.exp(x) * 0.5).sum()), rel=1e-4)
+        resilience.clear_events()
 
 
 class TestAutoReMeasurementAging:

@@ -5,9 +5,10 @@ Quickstart, Black-Scholes (n = 50 000) and Haversine run on the port's
 ``cuda`` takes the kernel's plain version there) and on the JAX ``eager``
 and ``pallas`` executors (Pallas in interpret mode), with the same
 ``batch_elements``; chunk, call and stage counts and boundary bytes must be
-equal.  The JAX side runs without rewrite, plan cache and tuner, which the
-port does not have yet, and with the same ``handoff`` setting as the port
-(off in the original cases, on in the ``handoff_on`` ones).
+equal.  Both sides run the static rewrite pass (on by default; it collapses
+Black-Scholes' repeated ``multiply(e_rt, strike)``), neither runs the plan
+cache or the tuner, and both take the same ``handoff`` setting (off in the
+original cases, on in the ``handoff_on`` ones).
 
 Tolerances: float32 rtol 2e-5, atol 2e-5 * max|ref| (same op order, libm
 ulps apart); sums rtol 1e-4.  Haversine's ``arcsin(sqrt(a))`` is
@@ -31,7 +32,7 @@ from repro_torch import workloads as tw
 from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
-JAX_CFG = dict(rewrite=False, plan_cache=False, autotune=False)
+JAX_CFG = dict(plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
 PORT_CFG = dict(plan_cache=False, autotune=False)

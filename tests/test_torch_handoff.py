@@ -5,9 +5,10 @@ The counterparts of ``tests/test_handoff.py``: the ``can_handoff`` /
 every port executor; ``StageHandoff`` decisions equal to JAX's ``analyze``
 on the same pipelines; boundary traffic (interior and terminal bytes equal
 to JAX's); ConcatSplit conversions; zero-chunk streams; and the donation
-veto.  The JAX side runs with ``rewrite=False, plan_cache=False,
-autotune=False`` and the port's ``handoff`` and ``batch_elements`` (without
-a plan cache both analyze afresh on every evaluation).
+veto.  The JAX side runs with ``plan_cache=False, autotune=False``, the
+rewrite pass on as the port's, and the port's ``handoff`` and
+``batch_elements`` (without a plan cache both analyze afresh on every
+evaluation).
 
 Where torch and XLA differ the port's value is asserted with the reason:
 a chunk inside one source chunk is a view in torch (``rechunk`` copies 0
@@ -39,7 +40,7 @@ from repro_torch.core import splittable as tsplittable
 from repro_torch.core import stage_exec as tse
 from repro_torch.core.stage_exec import ChunkStream
 
-JAX_CFG = dict(rewrite=False, plan_cache=False, autotune=False)
+JAX_CFG = dict(plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
 PORT_CFG = dict(plan_cache=False, autotune=False)

@@ -505,3 +505,38 @@ def test_warm_pinned_cuda_call_launches_and_lowers_nothing():
     for g, v in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), v.numpy(), rtol=2e-5,
                                    atol=2e-5 * float(v.abs().max()))
+
+
+@pytest.mark.cuda
+def test_injected_compile_fault_demotes_cuda_then_the_kernel_launches_again(monkeypatch):
+    """An injected ``compile`` fault on a pipeline's first call demotes
+    ``cuda`` to ``scan`` once and quarantines it; the calls within
+    ``QUARANTINE_TTL`` dispatch ``scan`` (counted skips, no launch), and the
+    call after the quarantine ages out launches the kernel again, equal to
+    its plain version."""
+    _card()
+    from repro_torch import workloads as w
+    from repro_torch.core import mozart, resilience
+    from repro_torch.kernels import split_pipeline as sp
+    monkeypatch.setattr(resilience, "QUARANTINE_TTL", 3)
+    data = w.black_scholes_data(1 << 20, seed=0, device="cuda")
+    p = mozart.pipeline(w.black_scholes, executor="cuda")
+    sp.reset_counts()
+    with mozart.inject_faults("compile:fail:1") as plan:
+        first = p(**data)
+    assert plan.fired and p.last_call_stats["exec_demotions"] == 1
+    assert p.last_call_stats["exec_demoted_to_scan"] == 1 and sp.split_pipeline.launches == 0
+    trail = []
+    for _ in range(3):
+        got = p(**data)
+        torch.cuda.synchronize()
+        trail.append((p.last_call_stats.get("exec_quarantine_skips", 0),
+                      sp.split_pipeline.launches))
+    assert trail == [(1, 0), (1, 0), (0, 1)]
+    with mozart.session(executor="cuda", device="cpu"):
+        outs = w.black_scholes(**{k: v.cpu() for k, v in data.items()})
+        want = [o.value for o in outs]
+    for out in (first, got):
+        for g, v in zip(out, want):
+            np.testing.assert_allclose(g.cpu().numpy(), v.numpy(), rtol=2e-5,
+                                       atol=2e-5 * float(v.abs().max()))

@@ -27,7 +27,7 @@ from repro.core import mozart as jmozart
 from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
-JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+JAX_CFG = dict(handoff=False, plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
 PORT_CFG = dict(plan_cache=False, autotune=False)

@@ -28,7 +28,7 @@ from repro_torch.models import weights
 from repro_torch.optim import adamw
 from repro_torch.optim.mozart_adamw import mozart_adamw_update
 
-JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+JAX_CFG = dict(handoff=False, plan_cache=False, autotune=False)
 
 
 def _np_setup(n=1000, seed=0):
@@ -133,7 +133,7 @@ def test_mozart_update_matches_jax(executor):
 @contextlib.contextmanager
 def _spy_jax_sessions(monkeypatch):
     """Record the contexts of the JAX ``mozart_adamw_update``'s sessions,
-    configured like the port (no rewrite, handoff, plan cache or tuner)."""
+    configured like the port (no handoff, plan cache or tuner)."""
     seen = []
     real = jmozart.session
 

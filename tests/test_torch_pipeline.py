@@ -4,9 +4,9 @@ reference's ``tests/test_pipeline.py`` where the port has the machinery
 JAX package: the same pipeline compiled on both sides is warm on both, its
 warm calls show the same zeros in ``last_call_stats`` (planner calls,
 tuning and measurement runs, traces), and the outputs agree within float32
-2e-5 (sums 1e-4).  The JAX side runs with ``rewrite=False`` and ``pallas``
-where the port runs ``cuda``; the port side on the CPU, where ``cuda`` runs
-the kernel's plain version.
+2e-5 (sums 1e-4).  Both sides run the static rewrite pass (the default); the
+JAX side runs ``pallas`` where the port runs ``cuda``; the port side on the
+CPU, where ``cuda`` runs the kernel's plain version.
 """
 
 import json
@@ -177,7 +177,7 @@ def test_compiled_pipeline_is_warm_like_jax(executor):
     xn = np.linspace(0.0, 1.0, n, dtype=np.float32)
     yn = np.ones(n, np.float32)
     jp = jmozart.pipeline(jquickstart, executor={"cuda": "pallas"}.get(executor, executor),
-                          chip=JTINY, rewrite=False)
+                          chip=JTINY)
     jp.lower(jnp.asarray(xn), jnp.asarray(yn)).compile()
     p = _pipe(quickstart, executor=executor, chip=TTINY)
     p.lower(torch.from_numpy(xn), torch.from_numpy(yn)).compile()

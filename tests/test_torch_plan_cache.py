@@ -3,8 +3,8 @@ against the JAX package's, on the same numpy inputs.
 
 Quickstart, Black-Scholes, Haversine, the two-stage chain and the
 ``smoke/handoff`` chain run through both packages with the plan cache on:
-the JAX side with ``rewrite=False`` (the port has no rewrite pass until
-ROADMAP A4) and ``pallas`` where the port uses ``cuda``; the port side on
+both sides with the static rewrite pass on (the default), the JAX side with
+``pallas`` where the port uses ``cuda``; the port side on
 the CPU, where ``cuda`` runs the kernel's plain version.  Both sides use the
 same chip constants (the host model, or the tiny chip that forces tuning).
 
@@ -41,7 +41,7 @@ from repro_torch.kernels import split_pipeline as tsp
 
 from test_torch_executors import CASES, _data, _tol, close
 
-JAX_CFG = dict(rewrite=False)
+JAX_CFG = dict()
 JAX_OF = {"cuda": "pallas"}
 
 #: the same tiny fast memory on both sides: the §5.2 estimate falls below

@@ -1,9 +1,9 @@
 """The port's planner against the JAX planner: on the quickstart chain,
 Black-Scholes, Haversine, data_cleaning and two multi-stage chains, the
 stage node lists, input/output split types and escaping positions are equal.
-The JAX side runs without its rewrite pass (the port has none yet), so MZ502
-common-subexpression sharing does not collapse Black-Scholes' repeated
-``multiply(e_rt, strike)``."""
+Both sides run their rewrite pass (the default), so MZ502
+common-subexpression sharing collapses Black-Scholes' repeated
+``multiply(e_rt, strike)`` on both."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +19,7 @@ from repro_torch import workloads as tw
 from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
-JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+JAX_CFG = dict(handoff=False, plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
 PORT_CFG = dict(plan_cache=False, autotune=False)

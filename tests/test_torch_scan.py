@@ -2,8 +2,8 @@
 ``cuda``, held against the JAX package on the CPU (``cuda`` runs the
 kernel's plain version there, in the reference's ``pallas``'s place).
 
-The JAX side runs with ``rewrite=False, plan_cache=False, autotune=False``
-and the port's ``handoff`` and ``batch_elements``.  Chunk, call and stage
+The JAX side runs with ``plan_cache=False, autotune=False``, the rewrite
+pass on as the port's, and the port's ``handoff`` and ``batch_elements``.  Chunk, call and stage
 counts and boundary bytes are held equal to JAX's ``scan`` (on the paper's
 workloads in ``tests/test_torch_executors.py``; here on the handoff chain
 and the delegation cases).  Tolerances: float32 rtol 2e-5.
@@ -26,7 +26,7 @@ from repro_torch.optim import mozart_adamw as tmozart_adamw
 
 from test_torch_kernels_card import STREAM_FORMS, stream_ingest_case
 
-JAX_CFG = dict(rewrite=False, plan_cache=False, autotune=False)
+JAX_CFG = dict(plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
 PORT_CFG = dict(plan_cache=False, autotune=False)

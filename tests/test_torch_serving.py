@@ -430,7 +430,7 @@ def test_join_drops_dummy_rows(gqa):
 @pytest.mark.parametrize("what", ["batcher", "server"])
 def test_mozart_driver_waits_for_the_pipeline_api(gqa, what):
     _, tcfg, _, model, _ = gqa
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="A6"):
         if what == "batcher":
             ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="mozart", device="cpu")
         else:

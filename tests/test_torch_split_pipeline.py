@@ -28,7 +28,7 @@ from repro_torch.kernels import program as prog
 from repro_torch.kernels.ref import split_pipeline_ref
 from repro_torch.kernels.split_pipeline import split_pipeline
 
-JAX_CFG = dict(rewrite=False, handoff=False, plan_cache=False, autotune=False)
+JAX_CFG = dict(handoff=False, plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
 PORT_CFG = dict(plan_cache=False, autotune=False)
