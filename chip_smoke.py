@@ -139,10 +139,32 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              decode times; then ``launch.serve.Server(mode="continuous")``
              on 12 requests (prompts 256-2048, 8-48 new tokens) with decode
              and request percentiles, and 3 of them against sequential
-             batch-1 ``prefill``/``decode_step``; then ``serve_step:fail:1``
-             in a 2-slot ``ContinuousBatcher`` driven by ``AsyncServer`` (2
-             requests fail with the ``InjectedFault``, MZ405, the driver
-             thread survives, 2 more requests equal the fault-free run).
+             batch-1 ``prefill``/``decode_step``; the same 12 requests
+             through ``Server(driver="mozart")`` (serving over
+             ``mozart.pipeline``): tokens equal to the ``jit`` leg's, every
+             step warm (0 planner calls, 0 traces) with one step-function
+             call, the buckets labelled, decode p50/p99 and tokens/s beside
+             the ``jit`` leg's, one decode step by each driver in turns (the
+             mozart driver's per-step host cost), and a second batcher started from the saved
+             plan file serving with 0 planner calls; then
+             ``serve_step:fail:1`` in a 2-slot ``ContinuousBatcher`` driven
+             by ``AsyncServer``, on each driver (2 requests fail with the
+             ``InjectedFault``, MZ405, the driver thread survives, 2 more
+             requests equal the fault-free run);
+10. archs  — internlm2-20b (GQA group 6), granite-34b (MQA, plain GELU MLP)
+             and gemma3-4b (qk-norm, 1024-key windows on 5 of 6 layers) at
+             their published widths, one at a time, random weights from a
+             seed, at full depth where the card holds the weights, a
+             4 x 2048 prefill and its KV cache (else the depth is cut and the
+             line says so): a greedy prefill with one tc flash-attention
+             launch per layer (window launches counted apart), each launch
+             held in place against the kernel's plain version on its own
+             q, k, v, the prefill against the plain attention path (first
+             tokens equal; last-position logits within 2e-2 max|logit|, or
+             within 1.5 x the distance between two plain paths of the same
+             run where that is larger), 4 decode steps, and for
+             gemma3-4b a short ``Server(driver="mozart")`` run.  The attn
+             phase times the kernel at these prefill shapes beside SDPA.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -152,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import itertools
 import json
 import math
@@ -194,9 +217,16 @@ RMS_SHAPES = ((8, 128), (3, 512), (2, 5, 256), (300, 1024), (8192, 3072), (65536
               (2, 20000))   # the last: w wider than the kernel's shared-memory copy
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_REQUESTS, SERVE_MAX_LEN, PARITY_REQUESTS = 12, 2112, 3
+STEP_ROUNDS = 12                 # interleaved jit/mozart decode steps timed in the serve phase
 REWRITE_N, REWRITE_DEAD_ROWS = 1 << 26, 8   # smoke/rewrite: 8 x 2**26 dead matrix (2 GiB)
 CHAOS_TTL = 3                    # QUARANTINE_TTL in the chaos phase
 CHAOS_PROMPTS, CHAOS_NEW, CHAOS_MAX_LEN = (256, 200, 240, 256), 8, 512
+ARCHS = ("internlm2-20b", "granite-34b", "gemma3-4b")   # the archs phase, one at a time
+ARCH_BATCH, ARCH_PROMPT, ARCH_DECODE = 4, 2048, 4        # greedy prefill + decode steps
+ARCH_SERVE = "gemma3-4b"         # its Server(driver="mozart") run: 2 slots, 4 requests
+ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW, ARCH_SERVE_MAX_LEN = (900, 130, 513, 1024), (12, 6, 9, 7), 1040
+ARCH_MARGIN = 3 << 30            # device bytes left free when sizing a model's depth
+ARCH_FLOOR_FACTOR = 1.5          # kernel vs plain logits against plain vs plain (arch_run)
 #: process-wide resilience counters no phase but chaos may move
 RESILIENCE_KEYS = ("MZ401", "MZ402", "MZ403", "MZ404", "MZ405", "MZ406", "swallowed_errors")
 DEVICE = "cuda"
@@ -313,9 +343,9 @@ def phase_build(sources) -> None:
 L2_ESTIMATE: dict[str, int] = {}
 
 #: workload function name -> for each of its outputs, the index of that
-#: output among the kernel launch's outputs (filled by ``lowered``).  After
-#: the rewrite pass's MZ502 the launch has one more: the reference's planner
-#: counts the retired duplicate as a consumer, so the shared operand escapes.
+#: output among the kernel launch's outputs (filled by ``lowered``).  The
+#: launch writes no more than these (ROADMAP C6: a node the rewrite pass
+#: retired keeps nothing escaping).
 LAUNCH_OUTPUTS: dict[str, list] = {}
 
 
@@ -599,6 +629,14 @@ REWRITE_RECORDS = {
 REWRITE_COUNTERS = ("rewrite_passes", "rewrite_replays", "rewrite_simulations")
 #: lowered instruction counts with the pass on and off
 REWRITE_OPS = {"black_scholes": (31, 32), "haversine": (16, 16)}
+#: (outputs, bytes per element) of the lowered program, pass on or off: the
+#: node the pass retired keeps nothing escaping (ROADMAP C6)
+REWRITE_IO = {"black_scholes": (2, 28), "haversine": (1, 12)}
+
+
+def program_io(program) -> tuple:
+    """(outputs, bytes per element through the kernel) of a float32 program."""
+    return len(program.outputs), 4 * (program.n_split + len(program.outputs))
 
 
 def rewrite_chain(executor: str, on: bool, x, dead_mat, mask):
@@ -660,6 +698,10 @@ def phase_rewrite(sp, ref, workloads_data, oracles) -> dict:
         if ops != REWRITE_OPS[name]:
             raise AssertionError(f"rewrite/{name}: lowered {ops} instructions, expected "
                                  f"{REWRITE_OPS[name]}")
+        io = tuple(program_io(launches[on][0]) for on in (True, False))
+        if io != (REWRITE_IO[name],) * 2:
+            raise AssertionError(f"rewrite/{name}: (outputs, B/element) on/off {io}, expected "
+                                 f"{REWRITE_IO[name]} both (C6)")
         kinds = launches[False][3]
         err_off = 0.0
         for i, (kind, g, w) in enumerate(zip(kinds, sp.split_pipeline(*launches[False]),
@@ -680,6 +722,7 @@ def phase_rewrite(sp, ref, workloads_data, oracles) -> dict:
             "stored_slots_off": launches[False][0].stored_slots,
             "tile_off": geo[False].tile, "stages_off": geo[False].stages,
             "rewrite_on_ms": dev[True], "rewrite_off_ms": dev[False],
+            "outputs_on": io[0][0], "bytes_per_element_on": io[0][1],
             "max_abs_err_off": err_off}
         log(f"[rewrite] {name} at n={N_MAIN} on cuda: records {recs[True]} (off: none); "
             f"outputs bit-equal on and off, equal to eager and the float64 oracle; program "
@@ -687,8 +730,9 @@ def phase_rewrite(sp, ref, workloads_data, oracles) -> dict:
             f"{launches[True][0].stored_slots} stored slots, tile {geo[True].tile} x "
             f"{geo[True].stages}), off {ops[1]} ops ({launches[False][0].forwarded} "
             f"forwarded, {launches[False][0].stored_slots} stored slots, tile "
-            f"{geo[False].tile} x {geo[False].stages}); kernel device ms on "
-            f"{dev[True]:.4f}, off {dev[False]:.4f} (medians of two rounds in turns)")
+            f"{geo[False].tile} x {geo[False].stages}); (outputs, B/element) on {io[0]}, off "
+            f"{io[1]}; kernel device ms on {dev[True]:.4f}, off {dev[False]:.4f} (on/off "
+            f"{dev[True] / dev[False]:.4f}; medians of two rounds in turns)")
         del got, want, launches
 
     # (b) the smoke/rewrite chain on the card
@@ -938,7 +982,14 @@ def phase_plans(sp, workloads_data, oracles, rewrites) -> dict:
         p.lower(**data)
         p.compile()
         stages = len(p.plan_entry.stage_templates)
-        log(f"[plans] {name}: {p.describe()}; compile's last pass {p.last_call_stats}")
+        programs = [v[0] for k, v in p.plan_entry.exec_table().items()
+                    if k[1] == "cuda" and isinstance(v, tuple)]
+        io = [program_io(pr) for pr in programs]
+        if io != [REWRITE_IO[name]]:
+            raise AssertionError(f"plans/{name}: pinned programs' (outputs, B/element) {io}, "
+                                 f"expected [{REWRITE_IO[name]}] (C6)")
+        log(f"[plans] {name}: {p.describe()}; compile's last pass {p.last_call_stats}; the "
+            f"pinned program writes {io[0][0]} output(s), {io[0][1]} B/element")
         sp.reset_counts()
         for call in range(PLAN_CALLS):
             before = sp.split_pipeline.launches
@@ -1302,12 +1353,6 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
         each_out = [4 if kind == "reduce" else (1 if is_bool else 4) * n
                     for (kind, _o), (_s, is_bool) in zip(kinds, program.outputs)]
         bytes_ms = (in_bytes + sum(each_out)) / HBM_BYTES_PER_S * 1e3
-        # the same bound with only the outputs the workload returns: an output
-        # more (the escaping operand after MZ502) is bytes the launch need not
-        # write
-        needed = sorted(set(LAUNCH_OUTPUTS[fn.__name__]))
-        needed_bytes_ms = (in_bytes + sum(each_out[j] for j in needed)) \
-            / HBM_BYTES_PER_S * 1e3
         ops_ms = len(program.code) * n / F32_OPS_PER_S * 1e3
         kernel = lambda launch=launch: sp.split_pipeline(*launch)
         fns = {"kernel": kernel}
@@ -1353,8 +1398,7 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "n": n, "program_ops": len(program.code),
-            "outputs": len(program.outputs), "outputs_returned": len(needed),
-            "bound_returned_ms": max(needed_bytes_ms, ops_ms),
+            "outputs": len(program.outputs),
             "forwarded": program.forwarded, "stored_slots": program.stored_slots,
             "tile": geo.tile, "stages": geo.stages, "smem": geo.smem, "event_ms": event_ms,
             "compare_ms": {k: v for k, v in dev.items() if k != "kernel"},
@@ -1365,9 +1409,7 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
         rows.append(row)
         log(f"[times] {name} n={n}: kernel {kernel_ms:.4f} ms device, {event_ms:.4f} ms "
             f"CUDA events (bound {row['bound_ms']:.3f} ms by {row['bound_by']}, "
-            f"{row['bound_ms'] / kernel_ms:.1%} of it; {len(program.outputs)} outputs, of which "
-            f"the workload returns {len(needed)}: bound {row['bound_returned_ms']:.3f} ms "
-            f"with those only, {row['bound_returned_ms'] / kernel_ms:.1%} of it; tile "
+            f"{row['bound_ms'] / kernel_ms:.1%} of it; {len(program.outputs)} outputs; tile "
             f"{geo.tile}, {geo.stages} stages, "
             f"{geo.smem} B shared memory), plain {plain_ms:.3f} ms, "
             f"eager executor {e2e['eager']:.3f} ms, fused executor "
@@ -1738,11 +1780,13 @@ def attn_inputs(B, Hq, Hkv, Sq, Sk, D, dtype, gen):
     return q, k, v
 
 
-def attn_bound(B, Hq, Hkv, Sq, Sk, D, causal, elem) -> dict:
+def attn_bound(B, Hq, Hkv, Sq, Sk, D, causal, elem, window=None) -> dict:
     """Bytes: q, k, v read once and the output written once.  Operations:
-    2 * D for q.k and 2 * D for p.v per (query, visible key) pair (causal:
-    the pairs this run's mask leaves), over the dense bfloat16 rate."""
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    2 * D for q.k and 2 * D for p.v per (query, visible key) pair (causal
+    and window: the pairs this run's mask leaves), over the dense bfloat16
+    rate."""
+    span = Sk if window is None else min(window, Sk)
+    pairs = sum(min(i + 1, span) for i in range(Sq)) if causal else Sq * Sk
     flops = 4 * B * Hq * pairs * D
     nbytes = elem * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1751,6 +1795,15 @@ def attn_bound(B, Hq, Hkv, Sq, Sk, D, causal, elem) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "flops": flops, "bytes": nbytes}
 
+
+#: the greedy prefills of the archs phase, causal bfloat16 on the model's
+#: head-split views: (name, B, Hq, Hkv, S, D, window)
+ARCH_ATTN = (
+    ("internlm2-20b", 4, 48, 8, 2048, 128, None),      # GQA group 6
+    ("granite-34b", 4, 48, 1, 2048, 128, None),        # MQA, group 48
+    ("gemma3-4b local", 4, 8, 4, 2048, 256, 1024),     # the 1024-key window
+    ("gemma3-4b global", 4, 8, 4, 2048, 256, None),
+)
 
 ATTN_EDGES = (  # bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, head-split views)
     (2, 4, 4, 300, 300, 256, True, None, True),     # the model's head-split views, ragged
@@ -1944,6 +1997,7 @@ def phase_attn_kernels(fl, rn, ref, rms_compare=()) -> dict:
         f"{attn['library_event_ms']:.4f} ms, plain {attn['plain_ms']:.3f} ms; max |kernel - "
         f"plain| {gemma_err:.3e}")
     del q, k, v
+    shapes = [attn_shape_times(fl, ref, F, gen, *case) for case in ARCH_ATTN]
 
     worst = 0.0
     for shape in RMS_SHAPES:
@@ -2007,7 +2061,44 @@ def phase_attn_kernels(fl, rn, ref, rms_compare=()) -> dict:
             f"back-to-back calls {c_burst:.5f} ms per call")
     del xs, ys, w, wl
     torch.cuda.empty_cache()
-    return {"attn": attn, "rms": rms}
+    return {"attn": attn, "rms": rms, "attn_shapes": shapes}
+
+
+def attn_shape_times(fl, ref, F, gen, name, B, Hq, Hkv, S, D, window) -> dict:
+    """The tc kernel at one model's prefill shape (head-split views, as
+    ``attention.py`` makes them) against the plain version, with device
+    times of the kernel and of ``F.scaled_dot_product_attention`` on the
+    same inputs (``enable_gqa``; with a window, SDPA takes k and v expanded
+    to every query head beforehand and a boolean mask) beside the bound."""
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               .transpose(1, 2) for H in (Hq, Hkv, Hkv))
+    err = attn_case(fl, ref, f"{name} prefill {(B, Hq, Hkv, S, D)} window {window}", q, k, v,
+                    True, window, "tc")
+    kernel = lambda: fl.flash_attention(q, k, v, causal=True, window=window)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=Hq != Hkv)
+    else:
+        group = Hq // Hkv
+        ke, ve = (t.repeat_interleave(group, dim=1) for t in (k, v))
+        i = torch.arange(S, device="cuda")
+        mask = (i[:, None] >= i[None, :]) & (i[None, :] > i[:, None] - window)
+        sdpa = lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+    lib = sdpa()
+    compare(f"{name} SDPA vs plain", lib, ref.attention_ref(q, k, v, causal=True,
+                                                           window=window), 2e-2,
+            atol_scale=0.0, atol=2e-2)
+    row = {"name": name, "shape": [B, Hq, Hkv, S, D], "window": window, "max_abs_err": err,
+           "ms": device_ms(kernel, 10), "library_ms": device_ms(sdpa, 10),
+           **attn_bound(B, Hq, Hkv, S, S, D, True, 2, window)}
+    log(f"[attn] flash_attention at {name}'s prefill {(B, Hq, Hkv, S, D)} causal bfloat16 "
+        f"window {window}, device times: tc kernel {row['ms']:.4f} ms (bound "
+        f"{row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of "
+        f"it), F.scaled_dot_product_attention {row['library_ms']:.4f} ms; max |kernel - "
+        f"plain| {err:.3e}")
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_ops(rn, ref) -> int:
@@ -2113,7 +2204,7 @@ def log_profile(what: str, prof: dict) -> None:
 
 
 @torch.inference_mode(False)
-def serve_chaos_wave(cfg, model) -> dict:
+def serve_chaos_wave(cfg, model, driver: str) -> dict:
     """The reference's ``smoke/chaos`` serving scenario in the continuous
     batcher: under ``serve_step:fail:1`` the first wave's requests end with
     the ``InjectedFault``, the step failure is counted and recorded (MZ405)
@@ -2128,7 +2219,8 @@ def serve_chaos_wave(cfg, model) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in CHAOS_PROMPTS]
 
     def batcher():
-        return ContinuousBatcher(cfg, model, batch=2, max_len=CHAOS_MAX_LEN, device=DEVICE)
+        return ContinuousBatcher(cfg, model, batch=2, max_len=CHAOS_MAX_LEN, driver=driver,
+                                 device=DEVICE)
 
     b = batcher()
     wave1 = [b.submit(b.make_request(p, CHAOS_NEW)) for p in prompts[:2]]
@@ -2156,21 +2248,156 @@ def serve_chaos_wave(cfg, model) -> dict:
           and [r.out for r in wave2] == [r.out for r in want]
           and b.stats["step_failures"] == 1 and b.stats["failed_requests"] == 2
           and counts["MZ405"] == 1)
-    log(f"[chaos] serve_step:fail:1 in the continuous batcher ({cfg.name}, {cfg.n_layers} "
-        f"layers, 2 slots, prompts {list(CHAOS_PROMPTS)}, {CHAOS_NEW} new tokens): wave 1 "
+    log(f"[chaos] serve_step:fail:1 in the continuous batcher (driver {driver}, {cfg.name}, "
+        f"{cfg.n_layers} layers, 2 slots, prompts {list(CHAOS_PROMPTS)}, {CHAOS_NEW} new "
+        f"tokens): wave 1 "
         f"errors {[type(r.error).__name__ for r in wave1]}, step_failures "
         f"{b.stats['step_failures']}, failed_requests {b.stats['failed_requests']}, driver "
         f"thread alive {alive}; wave 2 tokens equal to the fault-free run: "
         f"{[r.out for r in wave2] == [r.out for r in want]}; {wall_s:.2f} s; MZ4xx {counts}")
     if not ok:
-        raise AssertionError(f"chaos/serve: fired {plan.fired}, wave 1 "
+        raise AssertionError(f"chaos/serve ({driver}): fired {plan.fired}, wave 1 "
                              f"{[(r.finished, r.error) for r in wave1]}, wave 2 "
                              f"{[(r.error, r.out) for r in wave2]} vs {[r.out for r in want]}, "
                              f"{dict(b.stats)}, {counts}")
     resilience.clear_events()
-    return {"step_failures": int(b.stats["step_failures"]),
+    return {"driver": driver, "step_failures": int(b.stats["step_failures"]),
             "failed_requests": int(b.stats["failed_requests"]), "mz": counts,
             "wall_s": wall_s}
+
+
+def decode_step_turns(cfg, model, batcher) -> dict:
+    """One decode step (batch ``SERVE_BATCH`` on a cache filled to 1024
+    positions, through the host read) by each driver in turns, jit, mozart,
+    mozart, jit, ``STEP_ROUNDS`` times: medians and quartiles of each, and
+    of the difference within a round, the mozart driver's per-step host
+    cost (capture, fingerprint, plan-cache hit, rewrite replay)."""
+    from repro_torch.models import transformer as tfm
+    caches = batcher._init_caches(SERVE_BATCH)
+    caches.length.fill_(1024)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device=DEVICE)
+    steps = {"jit": lambda: tfm.decode_step(model, cfg, tok, caches),
+             "mozart": lambda: batcher._decode(model, tok, caches)}
+
+    def one(name):
+        t0 = time.perf_counter()
+        logits, _c = steps[name]()
+        torch.argmax(logits[:, -1], -1).cpu()
+        return (time.perf_counter() - t0) * 1e3
+
+    for name in steps:
+        one(name)
+    got = {"jit": [], "mozart": []}
+    for r in range(STEP_ROUNDS):
+        for name in (("jit", "mozart") if r % 2 == 0 else ("mozart", "jit")):
+            got[name].append(one(name))
+    delta = [m - j for m, j in zip(got["mozart"], got["jit"])]
+    out = {name: {"median": statistics.median(v), "quartiles": quartiles(v)[1:]}
+           for name, v in got.items()}
+    out["mozart_minus_jit"] = {"median": statistics.median(delta),
+                               "quartiles": quartiles(delta)[1:]}
+    q = lambda k: "[{:.2f}-{:.2f}]".format(*out[k]["quartiles"])
+    log(f"[serve] one decode step through the host read, {STEP_ROUNDS} rounds in turns: jit "
+        f"{out['jit']['median']:.2f} ms {q('jit')}, mozart {out['mozart']['median']:.2f} ms "
+        f"{q('mozart')}; mozart - jit per round {out['mozart_minus_jit']['median']:.3f} ms "
+        f"{q('mozart_minus_jit')}")
+    if not batcher._decode.warm():
+        raise AssertionError(f"serve/mozart decode turns: {batcher._decode.last_call_stats}")
+    return out
+
+
+class StepCalls:
+    """Real (non-``meta``) calls of the model's prefill and decode steps while
+    installed: a warm ``mozart`` step must call its function exactly once
+    (the K/V writes are in place).  Abstract evaluation runs the steps on
+    ``meta`` tensors and is not counted."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as tfm
+        self.tfm, self.calls = tfm, {"prefill": 0, "decode_step": 0}
+        self.real = {name: getattr(tfm, name) for name in self.calls}
+
+    def __enter__(self):
+        for name, real in self.real.items():
+            def counted(params, cfg, tokens, *a, _name=name, _real=real, **kw):
+                if tokens.device.type != "meta":
+                    self.calls[_name] += 1
+                return _real(params, cfg, tokens, *a, **kw)
+            setattr(self.tfm, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.real.items():
+            setattr(self.tfm, name, real)
+
+
+def serve_mozart_leg(cfg, model, jit_reqs, jit_stats, prompt_buckets) -> dict:
+    """``Server(driver="mozart")`` on the continuous run the ``jit`` leg just
+    served: the same requests must give the same tokens; after ``warmup``
+    every step is warm (0 planner calls, 0 traces), calls its step function
+    exactly once, and each bucket is labelled; then a second batcher started
+    from the saved plan file serves 4 requests with 0 planner calls and no
+    warmup.  Decode p50/p99 and tokens/s print beside the ``jit`` leg's."""
+    from repro_torch.core import plan_cache
+    from repro_torch.core.serving import ContinuousBatcher
+    from repro_torch.launch.serve import Server
+    path = ROOT / "build" / "serve_plans.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    plan_cache.clear()
+    srv = Server(cfg, model, SERVE_BATCH, SERVE_MAX_LEN, driver="mozart",
+                 plan_cache_path=str(path), mode="continuous", device=DEVICE)
+    t0 = time.perf_counter()
+    srv.warmup(SERVE_PROMPT)
+    warm_s = time.perf_counter() - t0
+    reqs = serve_requests(cfg.vocab_size)
+    with StepCalls() as steps:
+        stats = srv.run(reqs)
+    same = [r.out for r in reqs] == [r.out for r in jit_reqs]
+    buckets = stats["buckets"]
+    log(f"[serve] Server(continuous, driver mozart) on the same {len(reqs)} requests, "
+        f"warmup {warm_s:.1f} s (buckets {buckets}): {stats['tokens']} tokens in "
+        f"{stats['wall_s']:.2f} s ({stats['tokens_per_s']:.1f} tokens/s; jit "
+        f"{jit_stats['tokens_per_s']:.1f}), decode p50 {stats['decode_p50_us'] / 1e3:.2f} ms "
+        f"p99 {stats['decode_p99_us'] / 1e3:.2f} ms (jit {jit_stats['decode_p50_us'] / 1e3:.2f}"
+        f" / {jit_stats['decode_p99_us'] / 1e3:.2f}), request p50 "
+        f"{stats['request_p50_ms']:.0f} ms p99 {stats['request_p99_ms']:.0f} ms (jit "
+        f"{jit_stats['request_p50_ms']:.0f} / {jit_stats['request_p99_ms']:.0f}); planner "
+        f"calls {stats['planner_calls']}, traces {stats['jit_traces']}, warm {stats['warm']}, "
+        f"decode_warm {stats['decode_warm']}; step-function calls {steps.calls} for "
+        f"{stats['prefill_calls']} prefills and {stats['decode_steps']} decode steps; tokens "
+        f"equal to the jit leg's: {same}")
+    if not (same and stats["warm"] and stats["planner_calls"] == 0
+            and stats["jit_traces"] == 0 and stats["decode_warm"]
+            and ("decode", SERVE_BATCH) in buckets
+            and len(buckets) == 1 + len(srv._batcher.batch_buckets) * len(
+                srv._batcher.prompt_buckets)
+            and steps.calls == {"prefill": stats["prefill_calls"],
+                                "decode_step": stats["decode_steps"]}):
+        raise AssertionError(f"serve/mozart: tokens equal {same}, {stats}, steps {steps.calls}")
+    steps_ms = decode_step_turns(cfg, model, srv._batcher)
+    saved = json.load(open(path))
+    plan_cache.clear()                          # a restarted replica
+    again = ContinuousBatcher(cfg, model, SERVE_BATCH, SERVE_MAX_LEN, driver="mozart",
+                              plan_cache_path=str(path), prompt_buckets=prompt_buckets,
+                              device=DEVICE)
+    loaded = plan_cache.cache_info().get("persist_loaded", 0)
+    restart = [again.make_request(r.prompt, r.max_new) for r in reqs[:4]]
+    rstats = again.run(restart)
+    log(f"[serve] warm start from the plan file ({len(saved['entries'])} entries saved, "
+        f"{loaded} loaded): 4 requests, {rstats['tokens']} tokens, planner calls "
+        f"{rstats['planner_calls']}, traces {rstats['jit_traces']}, warm {rstats['warm']}")
+    if (rstats["planner_calls"] or not rstats["warm"] or rstats["completed"] != 4
+            or loaded != len(buckets)):
+        raise AssertionError(f"serve/mozart warm start: loaded {loaded}, {rstats}")
+    del srv, again
+    path.unlink(missing_ok=True)
+    plan_cache.clear()
+    return {**{k: v for k, v in stats.items() if k != "decode_last_call"},
+            "buckets": [list(b) for b in buckets], "warmup_s": warm_s,
+            "tokens_equal_jit": same, "step_calls": steps.calls, "decode_turns_ms": steps_ms,
+            "warm_start": {"entries_loaded": loaded, "planner_calls": rstats["planner_calls"],
+                           "tokens": rstats["tokens"], "warm": rstats["warm"]}}
 
 
 @torch.inference_mode()
@@ -2284,18 +2511,254 @@ def phase_serve(counters, flash) -> dict:
     checks = [parity(model, cfg, r) for r in reqs[:PARITY_REQUESTS]]
     log(f"[serve] requests {[r.rid for r in reqs[:PARITY_REQUESTS]]} against sequential "
         f"batch-1 prefill/decode_step: {checks}")
-    peak = torch.cuda.max_memory_allocated()
+    prompt_buckets = srv._batcher.prompt_buckets
     del srv
+    mozart_leg = serve_mozart_leg(cfg, model, reqs, stats, prompt_buckets)
+    peak = torch.cuda.max_memory_allocated()
     resilience_clean("serve")
-    chaos = serve_chaos_wave(cfg, model)
+    chaos = [serve_chaos_wave(cfg, model, driver) for driver in ("jit", "mozart")]
     del model
     torch.cuda.empty_cache()
     return {"launches": launches, "flash_variant_launches": variants, "greedy_s": gen_s, "greedy_tokens_per_s": B * new / gen_s,
             "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
             "decode_ms": statistics.median(step_ms), "peak_bytes": peak,
             "prefill_logit_diff": diff, "server": stats, "parity": checks,
+            "server_mozart": mozart_leg,
             "profile_decode": prof_decode, "profile_prefill": prof_prefill,
             "chaos": chaos}
+
+
+# ---------------------------------------------------------------------------
+# the new dense configs at their published widths
+# ---------------------------------------------------------------------------
+
+
+def arch_depth(cfg) -> dict:
+    """The most layers (up to the published depth) whose weights, KV cache
+    for a batch-4 prompt of 2048 + the decode steps, and a 4 x 2048 prefill's
+    largest working set fit the card's free memory less ``ARCH_MARGIN``.
+    The working set is the plain path's float32 scores (four alive at once:
+    scores, masked, softmax, the probabilities cast for p.v) or the MLP's.
+    Where the dense plain path (the config's own switch at 2048 keys) would
+    cut the depth and the blocked one (1024-key blocks) would not, the plain
+    side of the comparison takes the blocked path: the same function."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import weights
+    meta = weights.leaves(tfm.init_model(cfg, None, "meta"))
+    nbytes = lambda ps: sum(p.numel() * p.element_size() for p in ps)
+    layers = nbytes(p for n, p in meta.items() if n.startswith("layers."))
+    fixed = nbytes(meta.values()) - layers
+    a, B, S = cfg.attn, ARCH_BATCH, ARCH_PROMPT
+    kv = 2 * B * (S + ARCH_DECODE) * a.n_kv_heads * a.head_dim * cfg.dtype.itemsize
+    per_layer = layers / cfg.n_layers + kv
+    mlp = 6 * B * S * cfg.d_ff * cfg.dtype.itemsize
+    work = {"dense": max(4 * B * a.n_heads * S * S * 4, mlp),
+            "blocked": max(4 * B * a.n_heads * S * min(S, cfg.attn_block_k) * 4, mlp)}
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    fit = {k: int((free - ARCH_MARGIN - fixed - w) // per_layer) for k, w in work.items()}
+    plain = "dense" if fit["dense"] >= cfg.n_layers or fit["blocked"] < cfg.n_layers \
+        else "blocked"
+    return {"published": cfg.n_layers, "layers": max(1, min(cfg.n_layers, fit[plain])),
+            "plain": plain, "free": free, "fixed": fixed, "per_layer": per_layer,
+            "work": work[plain]}
+
+
+def arch_window_calls(ref):
+    """Wrap the model's switch to the kernel: record each call's window and
+    hold each call's output against the kernel's plain version on the same
+    q, k, v (||kernel - plain|| / ||plain||, in the model's head order)."""
+    from repro_torch.models import attention
+    real, seen, rel = attention._kernel_attention, [], []
+
+    def recording(q, k, v, *, causal, window):
+        out = real(q, k, v, causal=causal, window=window)
+        group = q.shape[1] // k.shape[1]
+        B, Hq, S, D = q.shape
+        qk = q.reshape(B, group, Hq // group, S, D).transpose(1, 2).reshape(B, Hq, S, D)
+        want = ref.attention_ref(qk, k, v, causal=causal, window=window)
+        want = want.reshape(B, Hq // group, group, S, D).transpose(1, 2).reshape(B, Hq, S, D)
+        rel.append(float((out.double() - want.double()).norm() / want.double().norm()))
+        seen.append(window)
+        del want
+        return out
+    attention._kernel_attention = recording
+    return seen, rel, lambda: setattr(attention, "_kernel_attention", real)
+
+
+@torch.inference_mode()
+def arch_run(arch: str, counters, flash, ref) -> dict:
+    """One model at its published widths (depth as ``arch_depth`` allows),
+    random weights from seed 0: a greedy prefill (batch 4 x 2048) with the
+    kernel, its flash-attention launches (one per layer, all tc; window
+    calls apart from global ones), each launch held in place against the
+    kernel's plain version on its own q, k, v (``ATTN_REL_TOL``); the
+    prefill held against the plain attention path: first tokens equal, and
+    last-position logits within 2e-2 max|logit| or, where two plain paths
+    (the chosen one and the blocked path with 512-key blocks) are
+    themselves nearly that far apart, within ``ARCH_FLOOR_FACTOR`` times
+    their distance in the same run: random weights make a deep bfloat16
+    stack chaotic, and at internlm2-20b's 48 layers the two plain paths
+    already differ by 1.95% of max|logit| on an H100 (PERF.md §6); then
+    ``ARCH_DECODE`` decode steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import param_count
+    cfg = get_config(arch)
+    depth = arch_depth(cfg)
+    if depth["layers"] < cfg.n_layers:
+        cfg = cfg.with_runtime(n_layers=depth["layers"])
+    a = cfg.attn
+    windows = tfm.layer_windows(cfg)
+    cut = ("full depth" if cfg.n_layers == depth["published"]
+           else "depth cut: the card holds no more")
+    log(f"[archs] {arch} at its published widths: d_model {cfg.d_model}, d_ff {cfg.d_ff} "
+        f"({'gated ' if cfg.gated_mlp else 'plain '}{cfg.activation}), {a.n_heads}x{a.head_dim} "
+        f"heads over {a.n_kv_heads} kv (group {a.n_heads // a.n_kv_heads}), vocab "
+        f"{cfg.vocab_size}, qk-norm {a.qk_norm}, window {a.window} every "
+        f"{a.pattern_period or '-'}; layers {cfg.n_layers} of {depth['published']} "
+        f"({cut}; free {depth['free'] / 1e9:.2f} GB, fixed "
+        f"{depth['fixed'] / 1e9:.2f} GB, {depth['per_layer'] / 1e9:.3f} GB per layer with its "
+        f"KV, working set {depth['work'] / 1e9:.2f} GB with the {depth['plain']} plain "
+        f"attention path); {param_count(cfg) / 1e9:.3f} B "
+        f"parameters, random weights (seed 0)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tfm.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    B, S = ARCH_BATCH, ARCH_PROMPT
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)), dtype=torch.int32,
+                             device=DEVICE)
+
+    plain_cfg = (cfg if depth["plain"] == "dense"
+                 else cfg.with_runtime(dense_attn_threshold=cfg.attn_block_k))
+
+    def prefill(use_kernel):
+        c = cfg if use_kernel is None else plain_cfg
+        caches = tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE)
+        return tfm.prefill(model, c, prompt, caches=caches, use_kernel=use_kernel)
+
+    prefill(None)                                          # library and allocator warm-up
+    # this path's run: counts set to 0 just before, read just after
+    for c in counters:
+        c.launches = 0
+    flash.variant_launches = {name: 0 for name in flash.variant_launches}
+    seen, rel, restore = arch_window_calls(ref)
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lk, caches = prefill(None)
+        first_k = torch.argmax(lk[:, -1], -1)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        restore()
+    launches = {c.__name__: c.launches for c in counters}
+    variants = dict(flash.variant_launches)
+    by_window = {"window": sum(w != tfm.BIG_WINDOW for w in seen),
+                 "global": sum(w == tfm.BIG_WINDOW for w in seen)}
+    want_window = sum(w != tfm.BIG_WINDOW for w in windows)
+    if (launches["flash_attention"] != cfg.n_layers or variants["tc"] != cfg.n_layers
+            or len(seen) != cfg.n_layers or by_window["window"] != want_window
+            or seen != windows):
+        raise AssertionError(f"archs/{arch}: flash_attention {launches['flash_attention']} "
+                             f"launches ({variants}, windows {by_window}) for {cfg.n_layers} "
+                             f"layers ({want_window} windowed)")
+    plain_ms = host_ms(lambda: prefill(False), 1)
+    lp, _ = prefill(False)
+    diff = float((lk.float() - lp.float()).abs().max())
+    scale = float(lp.float().abs().max())
+    first_p = torch.argmax(lp[:, -1], -1)
+    other = cfg.with_runtime(dense_attn_threshold=512, attn_block_k=512)
+    lb, _ = tfm.prefill(model, other, prompt, use_kernel=False,
+                        caches=tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE))
+    floor = float((lb.float() - lp.float()).abs().max())
+    diff_other = float((lk.float() - lb.float()).abs().max())
+    del lp, lb
+    kernel_ms = host_ms(lambda: prefill(None), 2)
+    tok = first_k[:, None].to(torch.int32)
+    step_ms = []
+    for _ in range(ARCH_DECODE):
+        t1 = time.perf_counter()
+        logits, caches = tfm.decode_step(model, cfg, tok, caches)
+        host = torch.argmax(logits[:, -1], -1).cpu()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        tok = host[:, None].to(device=DEVICE, dtype=torch.int32)
+    finite = bool(torch.isfinite(logits.float()).all())
+    peak = torch.cuda.max_memory_allocated()
+    bound = max(2e-2 * scale, ARCH_FLOOR_FACTOR * floor)
+    log(f"[archs] {arch}: init {init_s:.1f} s; prefill batch {B} x {S}: kernel path "
+        f"{kernel_ms:.1f} ms (the counted run, each launch checked in place: "
+        f"{prefill_ms:.1f} ms), plain ({depth['plain']}) "
+        f"attention path {plain_ms:.1f} ms; launches {launches}, flash_attention by variant {variants}, by "
+        f"window {by_window}; each launch against the plain version on its q, k, v: "
+        f"||kernel - plain|| / ||plain|| max {max(rel):.3e}; last-position logits max "
+        f"|kernel - plain| {diff:.4f} = {diff / scale:.4f} max|logit| (max |logit| "
+        f"{scale:.2f}), against the blocked-512 plain path {diff_other:.4f}; the two plain "
+        f"paths apart {floor:.4f} = {floor / scale:.4f} max|logit| (bound "
+        f"max(2e-2, {ARCH_FLOOR_FACTOR} x that) = {bound / scale:.4f} max|logit|); first tokens "
+        f"{first_k.tolist()} / {first_p.tolist()}; "
+        f"{ARCH_DECODE} decode steps median {statistics.median(step_ms):.2f} ms, logits finite "
+        f"{finite}; peak device memory {peak / 1e9:.2f} GB")
+    if (diff > bound or not torch.equal(first_k, first_p) or not finite
+            or max(rel) > ATTN_REL_TOL):
+        raise AssertionError(f"archs/{arch}: logits {diff} vs max(2e-2 * {scale}, "
+                             f"{ARCH_FLOOR_FACTOR} * {floor}), first tokens "
+                             f"{first_k.tolist()} / {first_p.tolist()}, finite {finite}, "
+                             f"in-place kernel error {max(rel)}")
+    served = arch_serve(cfg, model) if arch == ARCH_SERVE else None
+    del model, caches, logits, lk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.n_layers, "published_layers": depth["published"],
+            "plain_path": depth["plain"],
+            "launches": launches, "flash_variant_launches": variants,
+            "flash_by_window": by_window, "prefill_ms": kernel_ms, "plain_prefill_ms": plain_ms,
+            "prefill_logit_diff": diff, "max_logit": scale, "plain_paths_diff": floor,
+            "launch_rel_err_max": max(rel),
+            "decode_ms": statistics.median(step_ms), "peak_bytes": peak, "init_s": init_s,
+            "server_mozart": served}
+
+
+def arch_serve(cfg, model) -> dict:
+    """A short continuous run through ``Server(driver="mozart")``: 2 slots,
+    4 requests, every step warm; the first request against sequential
+    batch-1 prefill/decode_step."""
+    from repro_torch.launch.serve import Request, Server
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    max_new=m)
+            for i, (n, m) in enumerate(zip(ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW))]
+    srv = Server(cfg, model, 2, ARCH_SERVE_MAX_LEN, driver="mozart", mode="continuous",
+                 device=DEVICE)
+    t0 = time.perf_counter()
+    srv.warmup(max(ARCH_SERVE_PROMPTS))
+    warm_s = time.perf_counter() - t0
+    stats = srv.run(reqs)
+    check = parity(model, cfg, reqs[0])
+    log(f"[archs] {cfg.name}: Server(continuous, driver mozart) 2 slots, {len(reqs)} requests "
+        f"(prompts {list(ARCH_SERVE_PROMPTS)}), warmup {warm_s:.1f} s: {stats['tokens']} "
+        f"tokens in {stats['wall_s']:.2f} s ({stats['tokens_per_s']:.1f} tokens/s), decode "
+        f"p50 {stats['decode_p50_us'] / 1e3:.2f} ms p99 {stats['decode_p99_us'] / 1e3:.2f} ms; "
+        f"planner calls {stats['planner_calls']}, traces {stats['jit_traces']}, warm "
+        f"{stats['warm']}; request 0 against sequential batch-1 decoding: {check}")
+    if (stats["completed"] != len(reqs) or not stats["warm"] or stats["planner_calls"]
+            or any(len(r.out) != r.max_new for r in reqs)):
+        raise AssertionError(f"archs/{cfg.name} serve: {stats}")
+    del srv
+    return {k: stats[k] for k in ("tokens", "wall_s", "tokens_per_s", "decode_p50_us",
+                                  "decode_p99_us", "planner_calls", "jit_traces", "warm")} | {
+        "warmup_s": warm_s, "parity": check}
+
+
+def phase_archs(counters, flash, ref) -> list:
+    out = []
+    for arch in ARCHS:
+        out.append(arch_run(arch, counters, flash, ref))
+        resilience_clean(f"archs/{arch}")
+    return out
 
 
 def main() -> int:
@@ -2397,7 +2860,9 @@ def main() -> int:
     resilience_clean("ops")
     serve = phase_serve((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm),
                         fl.flash_attention)
-    resilience_clean("serve (after the chaos wave)")
+    resilience_clean("serve (after the chaos waves)")
+    archs = phase_archs((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm),
+                        fl.flash_attention, ref)
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
                  "replaces": ATTN_REPLACES,
                  "launches": serve["launches"]["flash_attention"],
@@ -2406,7 +2871,8 @@ def main() -> int:
                                                  "bound_by", "library_ms", "shape", "event_ms",
                                                  "simt_ms", "library_event_ms")},
                  "serve": {k: v for k, v in serve.items()
-                           if k not in ("launches", "flash_variant_launches")}})
+                           if k not in ("launches", "flash_variant_launches")},
+                 "shapes": kern["attn_shapes"], "archs": archs})
     rows.append({"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
                  "replaces": RMS_REPLACES, "launches": rms_launches,
                  "path": "kernels.ops.rmsnorm",

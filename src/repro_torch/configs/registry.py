@@ -12,12 +12,14 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "gemma-7b": "repro_torch.configs.gemma_7b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
 }
 
 #: ids the JAX package knows whose families the port does not run yet.
 NOT_PORTED = ("olmoe-1b-7b", "deepseek-moe-16b", "seamless-m4t-large-v2",
-              "gemma3-4b", "internlm2-20b", "granite-34b", "hymba-1.5b",
-              "qwen2-vl-2b", "rwkv6-1.6b")
+              "hymba-1.5b", "qwen2-vl-2b", "rwkv6-1.6b")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -60,10 +60,17 @@ class SA:
         self.selective: str | None = None
 
 
+def _meta_leaf(l: Any) -> Any:
+    if isinstance(l, torch.Tensor):
+        return st.aval_of(l)
+    twin = getattr(l, "mozart_meta", None)    # containers of weights (ParamTree)
+    return twin() if callable(twin) else l
+
+
 def _meta(v: Any) -> Any:
-    """Every tensor leaf of ``v`` as a tensor on the ``meta`` device."""
-    return pytree.tree_map(
-        lambda l: st.aval_of(l) if isinstance(l, torch.Tensor) else l, v)
+    """Every tensor leaf of ``v`` as a tensor on the ``meta`` device, and
+    every container with a ``mozart_meta()`` hook as its meta twin."""
+    return pytree.tree_map(_meta_leaf, v)
 
 
 class AnnotatedFn:
@@ -131,7 +138,10 @@ class AnnotatedFn:
             for l in leaves:
                 shape = getattr(l, "shape", None)
                 dtype = getattr(l, "dtype", None)
-                if shape is None or dtype is None:
+                hook = getattr(l, "mozart_fingerprint", None)
+                if callable(hook):
+                    leaf_ids.append(("fp", hook()))
+                elif shape is None or dtype is None:
                     leaf_ids.append(("py", type(l).__name__))
                 else:
                     leaf_ids.append((tuple(shape), str(dtype)))

@@ -63,6 +63,18 @@ class Node:
         return f"Node#{self.id}({self.fn.name})"
 
 
+def live_consumers(pending: list[Node]) -> dict[int, list[int]]:
+    """Consumer map over not-yet-executed nodes only: the edges a plan can
+    still need.  ``DataflowGraph.consumers()`` also counts edges from done
+    nodes, and a node the rewrite pass retired is done with its ``bound``
+    intact: counted, it would keep its producers escaping."""
+    out: dict[int, list[int]] = {}
+    for n in pending:
+        for d in n.deps():
+            out.setdefault(d, []).append(n.id)
+    return out
+
+
 class DataflowGraph:
     """Pending (not yet executed) annotated calls, in program order.
 

@@ -43,7 +43,7 @@ from repro_torch.core import resilience, stage_exec
 from repro_torch.core.future import Future
 from repro_torch.core.graph import NodeRef
 from repro_torch.core.handoff import resolve_decisions
-from repro_torch.core.plan_cache import lookup_or_plan, save
+from repro_torch.core.plan_cache import _mark_dirty, lookup_or_plan, save
 from repro_torch.core.runtime import MozartContext, _stack
 
 #: compile() runs at most this many passes while converging to the pinned
@@ -212,7 +212,10 @@ class Pipeline:
             entry = self._entry
             if entry is not None:
                 with entry._lock:
+                    relabelled = entry.bucket != tuple(bucket)
                     entry.bucket = tuple(bucket)
+                if relabelled:
+                    _mark_dirty()                # the label persists too
             with self._lock:
                 self._buckets[tuple(bucket)] = entry
         if self.ctx.plan_cache_path:

@@ -68,7 +68,7 @@ from repro_torch import hardware
 from repro_torch.core import resilience
 from repro_torch.core import rewrite as rewrite_mod
 from repro_torch.core import split_types as st
-from repro_torch.core.graph import DataflowGraph, Node, NodeRef
+from repro_torch.core.graph import DataflowGraph, Node, NodeRef, live_consumers
 from repro_torch.core.planner import Stage, StageInput, _value_key, plan
 
 _MAX_ENTRIES = 256
@@ -572,7 +572,7 @@ def _make_templates(stages: list[Stage], pending: list[Node]) -> list[_StageTemp
 
 def _instantiate(entry: PlanEntry, pending: list[Node],
                  graph: DataflowGraph) -> list[Stage]:
-    consumers = graph.consumers()
+    consumers = live_consumers(graph.pending())
     stages: list[Stage] = []
     for sid, tm in enumerate(entry.stage_templates):
         nodes = [pending[p] for p in tm.positions]
@@ -843,13 +843,27 @@ def _split_type_classes() -> dict[str, type]:
 
 
 def _type_enc(t: st.SplitType) -> dict:
+    if isinstance(t, st.UnknownSplit):
+        # unique per instantiation: persisted by axis, with its uid only to
+        # tell apart the unknowns of one entry (the fingerprint erases it).
+        # The reference skips such entries, so an Unknown-returning pipeline
+        # (a serving step) would never persist.
+        return {"cls": "UnknownSplit", "params": _enc(t.params), "axis": t.axis}
     rebuilt = type(t)(*t.params)       # raises / differs => entry is skipped
     if rebuilt != t:
         raise TypeError(f"{type(t).__name__} does not round-trip from params")
     return {"cls": type(t).__name__, "params": _enc(t.params)}
 
 
-def _type_dec(d: dict, classes: dict[str, type]) -> st.SplitType:
+def _type_dec(d: dict, classes: dict[str, type],
+              unknowns: dict | None = None) -> st.SplitType:
+    if d["cls"] == "UnknownSplit":
+        # one fresh unknown per persisted uid of the entry being decoded
+        key = _dec(d["params"])
+        memo = {} if unknowns is None else unknowns
+        if key not in memo:
+            memo[key] = st.UnknownSplit(int(d["axis"]))
+        return memo[key]
     return classes[d["cls"]](*_dec(d["params"]))
 
 
@@ -889,14 +903,15 @@ def _entry_enc(e: PlanEntry) -> dict:
 
 
 def _entry_dec(d: dict, classes: dict[str, type]) -> PlanEntry:
+    unknowns: dict = {}
     templates = [
         _StageTemplate(
             positions=[int(p) for p in tm["positions"]],
-            inputs=[(_dec(desc), _type_dec(t, classes))
+            inputs=[(_dec(desc), _type_dec(t, classes, unknowns))
                     for desc, t in tm["inputs"]],
-            out_types={int(p): _type_dec(t, classes)
+            out_types={int(p): _type_dec(t, classes, unknowns)
                        for p, t in tm["out_types"].items()},
-            arg_types={(int(p), name): _type_dec(t, classes)
+            arg_types={(int(p), name): _type_dec(t, classes, unknowns)
                        for p, name, t in tm["arg_types"]},
         )
         for tm in d["templates"]

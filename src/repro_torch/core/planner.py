@@ -16,7 +16,7 @@ import dataclasses
 from typing import Any
 
 from repro_torch.core import split_types as st
-from repro_torch.core.graph import DataflowGraph, Node, NodeRef
+from repro_torch.core.graph import DataflowGraph, Node, NodeRef, live_consumers
 
 
 def _value_key(v: Any) -> tuple:
@@ -226,7 +226,7 @@ def plan(nodes: list[Node], graph: DataflowGraph,
     N_CALLS += 1
     open_stages = _group(nodes, graph, max_stage_nodes)
 
-    consumers = graph.consumers()
+    consumers = live_consumers(graph.pending())
     stages: list[Stage] = []
     for s in open_stages:
         inputs: dict[tuple, StageInput] = {}

@@ -64,7 +64,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch import hardware
 from repro_torch.core import split_types as st
-from repro_torch.core.graph import DataflowGraph, Node, NodeRef
+from repro_torch.core.graph import DataflowGraph, Node, NodeRef, live_consumers
 
 #: assumed selectivity of a filter whose mask is unknowable statically; the
 #: cost-model justification for a pushdown states it explicitly.
@@ -207,21 +207,11 @@ def _retire(node: Node) -> None:
     node.alias_refs = []
 
 
-def _live_consumers(pending: list) -> dict[int, list[int]]:
-    """Consumer map over not-yet-executed nodes only (``graph.consumers()``
-    also counts edges from done nodes, including ones this pass retired)."""
-    out: dict[int, list[int]] = {}
-    for n in pending:
-        for d in n.deps():
-            out.setdefault(d, []).append(n.id)
-    return out
-
-
 def _eliminate_dead(pending: list, graph: DataflowGraph, ctx,
                     records: list, ops: list) -> list:
     """Transitively retire nodes with no consumer and no live Future."""
     while True:
-        cons = _live_consumers(pending)
+        cons = live_consumers(pending)
         dead = [n for n in pending
                 if not cons.get(n.id) and not n.future_alive()]
         if not dead:
@@ -395,7 +385,7 @@ def _pushdown(pending: list, graph: DataflowGraph, ctx,
     declined: set[tuple] = set()      # (map id, filter id): one MZ505 each
     # Reduce-past-map cannot be licensed by the SA contracts (no
     # distributivity law): record the decline so the report explains it.
-    cons0 = _live_consumers(pending)
+    cons0 = live_consumers(pending)
     for r_node in pending:
         if not isinstance(r_node.out_type, st.ReduceSplit):
             continue
@@ -412,7 +402,7 @@ def _pushdown(pending: list, graph: DataflowGraph, ctx,
                      "reduce/map commutation is not provable from SA "
                      "contracts (no distributivity law)")
     for _ in range(len(pending)):
-        cons = _live_consumers(pending)
+        cons = live_consumers(pending)
         pos = {n.id: i for i, n in enumerate(pending)}
         swap = None
         for f_node in pending:

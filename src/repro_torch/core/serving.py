@@ -20,10 +20,18 @@ leaf's batch axis (axes found once by diffing ``init_caches`` shapes at two
 batch sizes, built on the ``meta`` device).  Dummy rows of a padded
 admission group aim at slot ``batch``, out of range, and are dropped.
 
-The port's only driver is ``"jit"``: direct calls of the torch functions
-(the name is kept so callers match the reference).  ``driver="mozart"``
-rides ``mozart.pipeline`` (plan cache, AOT) and raises until its port
-(ROADMAP A6).  Each ``step()`` crosses the ``serve_step`` fault boundary
+Two drivers.  ``"mozart"`` (the default, as the reference's): prefill and
+decode are annotated opaque library calls (every argument ``_``, the return
+``Unknown``) run through ``mozart.pipeline(executor="eager")``; ``warmup``
+lowers and compiles each one per bucket (labelled ``("decode", batch)`` and
+``("prefill", bb, lb)``), so every warm step is a plan-cache hit with zero
+planner calls and zero traces, and ``plan_cache_path`` lets a restarted
+replica start warm.  A warm step runs the step function exactly once: the
+``eager`` executor calls it on the whole arguments, never splits or merges
+its output, and has no executor below it to re-drive a failed step (the K/V
+writes are in place, so a second run would write twice).  ``"jit"``:
+direct calls of the torch functions (the name is kept so callers match the
+reference).  Each ``step()`` crosses the ``serve_step`` fault boundary
 (``core/resilience.py``); ``AsyncServer`` fails the requests in flight when
 a step raises, records ``MZ405`` and keeps driving.  Recurrent families
 (pad-free buckets) wait for their model code.
@@ -150,12 +158,26 @@ def _make_prefill_bucket(cfg: ModelConfig):
     return prefill_bucket
 
 
+def _annotated_steps(cfg: ModelConfig):
+    """Scheduler prefill/decode as annotated opaque library calls."""
+    from repro_torch.core import annotate
+    from repro_torch.core.split_types import Unknown, _
+
+    decode = annotate(
+        lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches),
+        name="sched_decode_step", ret=Unknown(), p=_, tok=_, caches=_)
+    prefill = annotate(
+        _make_prefill_bucket(cfg),
+        name="sched_prefill_bucket", ret=Unknown(), p=_, toks=_, plens=_, caches=_)
+    return prefill, decode
+
+
+#: per-call pipeline counters the batcher sums (all 0 on a warm step).
+DELTA_KEYS = ("planner_calls", "jit_traces", "autotuned_stages", "auto_measured_stages")
+
+
 def check_driver(driver: str) -> None:
-    if driver == "mozart":
-        raise NotImplementedError(
-            "driver='mozart' (serving over mozart.pipeline: plan cache, AOT) "
-            "is not ported yet (ROADMAP A6); use driver='jit'")
-    if driver != "jit":
+    if driver not in ("mozart", "jit"):
         raise ValueError(f"unknown driver {driver!r}")
 
 
@@ -166,8 +188,9 @@ class ContinuousBatcher:
     one thread at a time; ``submit()`` is thread-safe."""
 
     def __init__(self, cfg: ModelConfig, params, batch: int, max_len: int,
-                 driver: str = "jit", prompt_buckets: list | None = None,
-                 max_queue: int | None = None, device: torch.device | str = "cuda"):
+                 driver: str = "mozart", prompt_buckets: list | None = None,
+                 plan_cache_path: str | None = None, max_queue: int | None = None,
+                 device: torch.device | str = "cuda"):
         if batch < 1:
             raise ValueError("batch must be >= 1")
         check_driver(driver)
@@ -183,6 +206,7 @@ class ContinuousBatcher:
         self.params = params
         self.batch = batch
         self.max_len = max_len
+        self.driver = driver
         self.prompt_buckets = sorted(prompt_buckets) if prompt_buckets else None
         self.batch_buckets = _pow2_buckets(1, batch)
 
@@ -199,19 +223,39 @@ class ContinuousBatcher:
         self.occupancy: list = []
 
         self._join = _make_join(_cache_batch_axes(cfg, batch, max_len))
-        self._prefill = _make_prefill_bucket(cfg)
+        if driver == "mozart":
+            from repro_torch.core import mozart
+            prefill_fn, decode_fn = _annotated_steps(cfg)
+            self._prefill = mozart.pipeline(prefill_fn, executor="eager", device=self.device,
+                                            plan_cache_path=plan_cache_path)
+            self._decode = mozart.pipeline(decode_fn, executor="eager", device=self.device,
+                                           plan_cache_path=plan_cache_path)
+        else:
+            self._prefill = _make_prefill_bucket(cfg)
+            self._decode = lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches)
 
     def _init_caches(self, batch: int) -> KVCache:
         return tfm.init_caches(self.cfg, batch, self.max_len, per_slot=True,
                                device=self.device)
 
+    # -- driver dispatch -----------------------------------------------------
+    def _call(self, step, *args):
+        """``(outputs, stats delta)`` of one prefill or decode step."""
+        if self.driver == "mozart":
+            return step.call_with_stats(self.params, *args)
+        return step(self.params, *args), {}
+
     def _call_prefill(self, toks: np.ndarray, plens: np.ndarray, caches: KVCache):
-        return self._prefill(self.params, torch.as_tensor(toks, device=self.device),
-                             torch.as_tensor(plens, device=self.device), caches)
+        return self._call(self._prefill, torch.as_tensor(toks, device=self.device),
+                          torch.as_tensor(plens, device=self.device), caches)
 
     def _call_decode(self, tok: np.ndarray, caches: KVCache):
-        return tfm.decode_step(self.params, self.cfg,
-                               torch.as_tensor(tok, device=self.device), caches)
+        return self._call(self._decode, torch.as_tensor(tok, device=self.device), caches)
+
+    def _note_delta(self, delta: dict) -> None:
+        for k in DELTA_KEYS:
+            if delta.get(k, 0):
+                self.stats[k] += delta[k]
 
     # -- admission -----------------------------------------------------------
     def submit(self, req: ServeRequest) -> ServeRequest:
@@ -279,7 +323,7 @@ class ContinuousBatcher:
             slots[i] = free[i]
 
         t0 = time.perf_counter()
-        logits, pref_caches = self._call_prefill(toks, plens, self._init_caches(bb))
+        (logits, pref_caches), delta = self._call_prefill(toks, plens, self._init_caches(bb))
         first = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         self.caches = self._join(self.caches, pref_caches, slots)
         del pref_caches
@@ -287,6 +331,7 @@ class ContinuousBatcher:
 
         self.stats["prefill_calls"] += 1
         self.stats["prefill_s_x1e6"] += int(dt * 1e6)
+        self._note_delta(delta)
         now = time.perf_counter()
         for i, r in enumerate(group):
             s = int(slots[i])
@@ -313,13 +358,14 @@ class ContinuousBatcher:
         if not active:
             return False
         t0 = time.perf_counter()
-        logits, new_caches = self._call_decode(self._tok, self.caches)
+        (logits, new_caches), delta = self._call_decode(self._tok, self.caches)
         tok = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(np.int32)
         dt = time.perf_counter() - t0        # through the host read: honest
         self.caches = new_caches
         self.decode_lat_s.append(dt)
         self.occupancy.append(len(active))
         self.stats["decode_steps"] += 1
+        self._note_delta(delta)
         now = time.perf_counter()
         for i, r in active:
             t = int(tok[i])
@@ -390,24 +436,37 @@ class ContinuousBatcher:
 
     # -- warmup --------------------------------------------------------------
     def warmup(self, max_prompt_len: int | None = None) -> None:
-        """Run every (batch, length) bucket's prefill and the decode step
-        once ahead of serving (allocator and library warm-up);
-        ``max_prompt_len`` bounds the pow-2 length buckets (default: the
-        largest bucket under ``max_len``)."""
+        """Pin every (batch, length) bucket's prefill and the decode step
+        ahead of serving: with the ``mozart`` driver each is lowered and
+        compiled (one plan entry per bucket, labelled), with ``jit`` run
+        once (allocator and library warm-up).  ``max_prompt_len`` bounds the
+        pow-2 length buckets (default: the largest bucket under
+        ``max_len``).  The serving counters start clean afterwards: warm
+        steps after this point must add zero planner calls and traces."""
         if self.prompt_buckets is None:
             hi = max_prompt_len or max(1, self.max_len - 1)
             self.prompt_buckets = _pow2_buckets(8, hi)
-        logits, _ = self._call_decode(np.zeros((self.batch, 1), np.int32),
-                                      self._init_caches(self.batch))
+        mozart = self.driver == "mozart"
+        tok = torch.zeros((self.batch, 1), dtype=torch.int32, device=self.device)
+        if mozart:
+            self._decode.lower(self.params, tok, self._init_caches(self.batch))
+            self._decode.compile(bucket=("decode", self.batch))
+        (logits, _), _d = self._call_decode(tok, self._init_caches(self.batch))
         torch.argmax(logits[:, -1], dim=-1).cpu()
         for bb in self.batch_buckets:
             for lb in self.prompt_buckets:
-                self._call_prefill(np.zeros((bb, lb), np.int32),
-                                   np.full((bb,), min(lb, 2), np.int32),
-                                   self._init_caches(bb))
+                toks = torch.zeros((bb, lb), dtype=torch.int32, device=self.device)
+                plens = torch.full((bb,), min(lb, 2), dtype=torch.int32, device=self.device)
+                if mozart:
+                    self._prefill.lower(self.params, toks, plens, self._init_caches(bb))
+                    self._prefill.compile(bucket=("prefill", bb, lb))
+                else:
+                    self._call_prefill(toks, plens, self._init_caches(bb))
             # every row aims at slot ``batch``: all dropped
             self.caches = self._join(self.caches, self._init_caches(bb),
                                      np.full((bb,), self.batch, np.int32))
+        for k in DELTA_KEYS:
+            self.stats.pop(k, None)
 
     # -- batch front-end -----------------------------------------------------
     def reset_metrics(self) -> None:
@@ -446,7 +505,7 @@ class ContinuousBatcher:
             return ys[min(len(ys) - 1, int(round(p / 100 * (len(ys) - 1))))]
 
         toks = int(self.stats["tokens"])
-        return {
+        out = {
             "wall_s": wall_s,
             "tokens": toks,
             "tokens_per_s": toks / max(wall_s, 1e-9),
@@ -464,7 +523,13 @@ class ContinuousBatcher:
             "cancelled": int(self.stats["cancelled_requests"]),
             "shed": int(self.stats["shed_requests"]),
             "failed": int(self.stats["failed_requests"]),
+            "planner_calls": int(self.stats["planner_calls"]),
+            "jit_traces": int(self.stats["jit_traces"]),
         }
+        out["warm"] = out["planner_calls"] == 0 and out["jit_traces"] == 0
+        if self.driver == "mozart":
+            out["buckets"] = sorted(list(self._prefill.buckets) + list(self._decode.buckets))
+        return out
 
     def make_request(self, prompt, max_new: int, eos: int | None = None,
                      timeout_s: float | None = None) -> ServeRequest:

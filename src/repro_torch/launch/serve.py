@@ -11,15 +11,21 @@ Two scheduling modes:
   admitted.  Prompts are left-padded to the group's longest prompt and
   prefill masks the pad keys out of every attention softmax.
 
-The driver is ``jit``: direct calls of the torch prefill and decode steps.
-``--driver mozart`` (serving over ``mozart.pipeline``) raises until its
-port (ROADMAP A6).
+Two drivers, orthogonal to the mode:
+
+* ``--driver jit``: direct calls of the torch prefill and decode steps.
+* ``--driver mozart``: prefill and decode are annotated library calls run
+  through ``mozart.pipeline(executor="eager")``, lowered and compiled ahead
+  of the request loop, so every decode step is a warm pipeline call (zero
+  planner calls, zero traces).  ``--plan-cache`` (or ``MOZART_PLAN_CACHE``)
+  persists the plans, so a restarted replica's first step is planned.
 
 ``decode_us_per_call`` is honest per-step latency: the timer spans the
 decode AND the host read of the sampled token.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b --smoke --device cpu \
+        --driver mozart --plan-cache plans.json
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import mozart
 from repro_torch.core.serving import ContinuousBatcher, ServeRequest, check_driver
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -46,10 +53,30 @@ class Request:
     done: bool = False
 
 
+def _mozart_steps(cfg: ModelConfig):
+    """Prefill and decode as opaque annotated library calls for the pipeline
+    API: every argument broadcasts (``_``: whole-model state, not rows) and
+    the return is ``Unknown`` (logits and caches), so each step is its own
+    stage running the unmodified function.  What the pipeline adds over a
+    direct call is the lifecycle: the plan is resolved before the request
+    loop and persists through the plan cache."""
+    from repro_torch.core import annotate
+    from repro_torch.core.split_types import Unknown, _
+
+    decode = annotate(
+        lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches),
+        name="serve_decode_step", ret=Unknown(), p=_, tok=_, caches=_)
+    prefill = annotate(
+        lambda p, toks, mask, caches: tfm.prefill(p, cfg, tokens=toks, caches=caches,
+                                                  pad_mask=mask),
+        name="serve_prefill", ret=Unknown(), p=_, toks=_, mask=_, caches=_)
+    return prefill, decode
+
+
 class Server:
     def __init__(self, cfg: ModelConfig, params, batch: int, max_len: int,
-                 driver: str = "jit", mode: str = "continuous",
-                 device: torch.device | str = "cuda"):
+                 driver: str = "jit", plan_cache_path: str | None = None,
+                 mode: str = "continuous", device: torch.device | str = "cuda"):
         check_driver(driver)
         if mode not in ("continuous", "fixed"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -57,16 +84,41 @@ class Server:
         self.params = params
         self.batch = batch
         self.max_len = max_len
+        self.driver = driver
         self.mode = mode
         self.device = torch.device(device)
-        self._batcher = (ContinuousBatcher(cfg, params, batch, max_len, driver=driver,
-                                           device=device)
-                         if mode == "continuous" else None)
+        self._batcher = None
+        if mode == "continuous":
+            self._batcher = ContinuousBatcher(cfg, params, batch, max_len, driver=driver,
+                                              plan_cache_path=plan_cache_path, device=device)
+        elif driver == "mozart":
+            prefill_fn, decode_fn = _mozart_steps(cfg)
+            self._prefill = mozart.pipeline(prefill_fn, executor="eager", device=self.device,
+                                            plan_cache_path=plan_cache_path)
+            self._decode = mozart.pipeline(decode_fn, executor="eager", device=self.device,
+                                           plan_cache_path=plan_cache_path)
+        else:
+            self._prefill = lambda p, toks, mask, caches: tfm.prefill(
+                p, cfg, tokens=toks, caches=caches, pad_mask=mask)
+            self._decode = lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches)
 
     def warmup(self, prompt_len: int) -> None:
-        """Run the serving steps once before the first request."""
+        """Before the first request: the continuous batcher pins its buckets;
+        the fixed groups' pipelines (driver ``mozart``) are lowered and
+        compiled at a full group of ``prompt_len`` tokens."""
         if self.mode == "continuous":
             self._batcher.warmup(max_prompt_len=prompt_len)
+            return
+        if self.driver != "mozart":
+            return
+        dev = self.device
+        caches = tfm.init_caches(self.cfg, self.batch, self.max_len, device=dev)
+        toks = torch.zeros((self.batch, prompt_len), dtype=torch.int32, device=dev)
+        mask = torch.ones((self.batch, prompt_len), dtype=torch.bool, device=dev)
+        _logits, caches = self._prefill.lower(self.params, toks, mask, caches).compile()(
+            self.params, toks, mask, caches)
+        tok = torch.zeros((self.batch, 1), dtype=torch.int32, device=dev)
+        self._decode.lower(self.params, tok, caches).compile()
 
     def run(self, requests: list[Request]) -> dict:
         if self.mode == "continuous":
@@ -80,6 +132,9 @@ class Server:
         for r, s in zip(requests, sreqs):
             r.out[:] = s.out
             r.done = True
+        if self.driver == "mozart":
+            stats["decode_warm"] = self._batcher._decode.warm()
+            stats["decode_last_call"] = self._batcher._decode.last_call_stats
         return stats
 
     def _run_fixed(self, requests: list[Request]) -> dict:
@@ -103,10 +158,9 @@ class Server:
                                 for r in group])
             mask = np.stack([np.arange(plen) >= plen - len(r.prompt) for r in group])
             caches = tfm.init_caches(self.cfg, self.batch, self.max_len, device=dev)
-            logits, caches = tfm.prefill(
-                self.params, self.cfg, tokens=torch.as_tensor(prompts, dtype=torch.int32,
-                                                              device=dev),
-                caches=caches, pad_mask=torch.as_tensor(mask, device=dev))
+            logits, caches = self._prefill(
+                self.params, torch.as_tensor(prompts, dtype=torch.int32, device=dev),
+                torch.as_tensor(mask, device=dev), caches)
             tok_host = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(np.int32)
             steps = max(r.max_new for r in group)
             for _ in range(steps):
@@ -118,16 +172,19 @@ class Server:
                             r.done = True
                 # time through the host read of the sampled token
                 td = time.perf_counter()
-                logits, caches = tfm.decode_step(
-                    self.params, self.cfg, torch.as_tensor(tok_host[:, None], device=dev),
-                    caches)
+                logits, caches = self._decode(
+                    self.params, torch.as_tensor(tok_host[:, None], device=dev), caches)
                 tok_host = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(np.int32)
                 decode_s += time.perf_counter() - td
                 decode_calls += 1
         wall = time.time() - t0
-        return {"wall_s": wall, "tokens": tokens_out,
-                "tokens_per_s": tokens_out / max(wall, 1e-9),
-                "decode_us_per_call": decode_s * 1e6 / max(decode_calls, 1)}
+        stats = {"wall_s": wall, "tokens": tokens_out,
+                 "tokens_per_s": tokens_out / max(wall, 1e-9),
+                 "decode_us_per_call": decode_s * 1e6 / max(decode_calls, 1)}
+        if self.driver == "mozart":
+            stats["decode_warm"] = self._decode.warm()
+            stats["decode_last_call"] = self._decode.last_call_stats
+        return stats
 
 
 def main():
@@ -140,6 +197,9 @@ def main():
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--driver", choices=("jit", "mozart"), default="jit")
     ap.add_argument("--mode", choices=("continuous", "fixed"), default="continuous")
+    ap.add_argument("--plan-cache", default=None,
+                    help="plan-cache path for --driver mozart (also honours "
+                         "MOZART_PLAN_CACHE)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -151,7 +211,8 @@ def main():
                     max_new=args.max_new)
             for i in range(args.requests)]
     srv = Server(cfg, params, args.batch, max_len=args.prompt_len + args.max_new + 1,
-                 driver=args.driver, mode=args.mode, device=args.device)
+                 driver=args.driver, plan_cache_path=args.plan_cache, mode=args.mode,
+                 device=args.device)
     srv.warmup(args.prompt_len)
     stats = srv.run(reqs)
     print(f"served {stats['tokens']} tokens in {stats['wall_s']:.2f}s "
@@ -164,6 +225,8 @@ def main():
               f"request p50={stats['request_p50_ms']:.1f}ms "
               f"p99={stats['request_p99_ms']:.1f}ms  "
               f"occupancy={stats['mean_occupancy']:.2f}")
+    if args.driver == "mozart":
+        print(f"decode warm={stats['decode_warm']} last_call={stats['decode_last_call']}")
 
 
 if __name__ == "__main__":

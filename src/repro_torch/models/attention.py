@@ -26,7 +26,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import AttnConfig, ModelConfig
-from repro_torch.models.layers import apply_rope, normal
+from repro_torch.models.layers import apply_rope, normal, rms_norm
 
 NEG_INF = -1e30
 
@@ -46,15 +46,20 @@ class KVCache(NamedTuple):
 
 def init_attn(cfg: ModelConfig, generator: torch.Generator | None,
               device: torch.device | str, n_layers: int) -> dict:
-    """Stacked ``(L, in, out)`` projections, used as ``x @ W``."""
+    """Stacked ``(L, in, out)`` projections, used as ``x @ W``; with qk-norm
+    also the stacked ``(L, head_dim)`` float32 scales ``q_norm``/``k_norm``."""
     a = cfg.attn
     d = cfg.d_model
     hq, hkv, hd = a.n_heads, a.n_kv_heads, a.head_dim
     scale = d ** -0.5
     shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
               "wo": (hq * hd, d)}
-    return {k: normal((n_layers, *s), scale, cfg.dtype, generator, device)
-            for k, s in shapes.items()}
+    p = {k: normal((n_layers, *s), scale, cfg.dtype, generator, device)
+         for k, s in shapes.items()}
+    if a.qk_norm:
+        p["q_norm"] = torch.ones((n_layers, hd), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((n_layers, hd), dtype=torch.float32, device=device)
+    return p
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
@@ -67,10 +72,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, S, H * D)
 
 
-def _qkv(p, x: torch.Tensor, a: AttnConfig, positions: torch.Tensor):
+def _qkv(p, x: torch.Tensor, a: AttnConfig, positions: torch.Tensor, cfg: ModelConfig):
     q = _split_heads(x @ p["wq"].to(x.dtype), a.n_heads, a.head_dim)
     k = _split_heads(x @ p["wk"].to(x.dtype), a.n_kv_heads, a.head_dim)
     v = _split_heads(x @ p["wv"].to(x.dtype), a.n_kv_heads, a.head_dim)
+    if a.qk_norm:                        # per head, before RoPE (the reference's)
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, a.rope_theta)
     k = apply_rope(k, positions, a.rope_theta)
     return q, k, v
@@ -326,7 +334,7 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                          else length.reshape(1, 1).expand(B, 1))
         else:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    q, k, v = _qkv(p, x, a, positions)
+    q, k, v = _qkv(p, x, a, positions, cfg)
 
     new_cache = None
     if mode == "decode":

@@ -11,14 +11,28 @@ import torch
 from repro_torch.models.config import ModelConfig
 
 
+#: elements drawn at once by ``normal``: a leaf past this is drawn in slices
+#: along its first axis, so the float32 temporary stays at most 256 MB
+#: (granite-34b's stacked MLP leaf would otherwise need a 53 GB one).
+DRAW_ELEMENTS = 1 << 26
+
+
 def normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
            generator: torch.Generator | None, device: torch.device | str) -> torch.Tensor:
-    """``N(0, 1) * scale`` drawn in float32, then cast (as the JAX init does).
-    On the ``meta`` device only shape and dtype are made."""
-    if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    """``N(0, 1) * scale`` drawn in float32, then cast (as the JAX init does),
+    into a leaf allocated once in ``dtype``; a leaf of more than
+    ``DRAW_ELEMENTS`` is drawn in slices of its first axis.  On the ``meta``
+    device only shape and dtype are made."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta" or out.numel() == 0:
+        return out
+    row = max(out[0].numel(), 1) if out.dim() else 1
+    step = max(DRAW_ELEMENTS // row, 1) if out.dim() else 1
+    for i in range(0, max(out.shape[0], 1) if out.dim() else 1, step):
+        part = out[i:i + step] if out.dim() else out
+        x = torch.randn(part.shape, generator=generator, dtype=torch.float32, device=device)
+        part.copy_(x.mul_(scale))
+    return out
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

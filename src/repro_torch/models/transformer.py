@@ -35,7 +35,6 @@ def check_ported(cfg: ModelConfig) -> None:
         ("MoE", cfg.moe is not None), ("encoder-decoder", cfg.encdec),
         ("attention", a is None),
         ("M-RoPE", a is not None and a.mrope),
-        ("qk-norm", a is not None and a.qk_norm),
         ("logit softcap", a is not None and a.logit_softcap is not None),
         ("banded attention", cfg.banded_attention)) if cond]
     if missing:

@@ -53,6 +53,35 @@ class ParamTree(nn.Module):
         return {k: v.tree() if isinstance(v, ParamTree) else v
                 for k, v in self.items()}
 
+    # -- Mozart capture hooks (``core/plan_cache.py``, ``core/annotation.py``)
+    def mozart_fingerprint(self) -> tuple:
+        """Structural identity for the plan cache: every leaf's path, shape,
+        dtype and device type (a whole model passed to an annotated call is
+        one value, keyed like a tensor)."""
+        return ("ParamTree", tuple(
+            (name, tuple(p.shape), str(p.dtype), p.device.type)
+            for name, p in self.named_parameters()))
+
+    def mozart_meta(self) -> "ParamTree":
+        """The same tree on the ``meta`` device, for abstract evaluation:
+        shapes and dtypes only, never a real weight.  Cached per
+        fingerprint, so a cold registration builds it once."""
+        fp = self.mozart_fingerprint()
+        twin = _META_TWINS.get(fp)
+        if twin is None:
+            twin = ParamTree(unflatten({
+                name: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                for name, p in self.named_parameters()}))
+            twin.requires_grad_(False)
+            if len(_META_TWINS) >= 8:            # a few models per process
+                _META_TWINS.clear()
+            _META_TWINS[fp] = twin
+        return twin
+
+
+#: meta twins of the ParamTrees captured so far, by fingerprint.
+_META_TWINS: dict[tuple, ParamTree] = {}
+
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     """``{"a.b.c": leaf}`` in sorted-path order (the reference's leaf order)."""

@@ -93,6 +93,37 @@ CASES = {
 
 STAT_KEYS = ("chunks", "calls", "stages")
 
+#: Where the port's plans differ from the reference's on purpose (ROADMAP
+#: C6): the reference counts a node its rewrite pass retired as a consumer,
+#: so on Black-Scholes the operand shared by MZ502 (the retired
+#: ``multiply#26``'s input) escapes its stage there as a third output; the
+#: port escapes only the two outputs the workload returns.  A dead call that
+#: MZ501 retired keeps its operands escaping there in the same way.  (case, counter)
+#: -> (port, reference); ``escaping`` counts escaping outputs per plan, the
+#: others are per evaluation on the chunk-loop executors, with handoff off
+#: or on (``eager`` moves no boundary).  Every other count is equal.
+C6_DIFFERENCES = {
+    ("black_scholes", "escaping"): (2, 3),
+    ("black_scholes/handoff_off", "bytes_interior"): (2 * 4 * 50_000, 3 * 4 * 50_000),
+    ("black_scholes/handoff_on", "streamed_outputs"): (2, 3),
+    # MZ501 retires ``matvec(dm, a)``; ``a`` also feeds a live call
+    # (``tests/test_torch_rewrite.py::_dead_consumer``)
+    ("dead_consumer", "escaping"): (1, 2),
+    ("dead_consumer/handoff_off", "bytes_interior"): (4 * 4096, 2 * 4 * 4096),
+}
+
+
+def assert_counts_as_named(name, got: dict, want: dict) -> None:
+    """``got`` (port) equals ``want`` (reference) except where
+    ``C6_DIFFERENCES`` names a difference, which must hold both ways: the
+    port shows its value and the reference its own."""
+    for key in got:
+        named = C6_DIFFERENCES.get((name, key))
+        if named is None:
+            assert got[key] == want[key], (name, key, got[key], want[key])
+        else:
+            assert (got[key], want[key]) == named, (name, key)
+
 
 def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
@@ -190,12 +221,18 @@ def test_port_matches_jax_eager_and_pallas_handoff_on(name, executor):
 
 
 def _counts_equal_jax(name, executor, handoff):
+    """Counts and boundary bytes equal to JAX's, but for the named C6
+    differences (none on ``eager``, which moves no boundary)."""
     _got, ctx = run_port(name, executor, handoff)
     _want, jstats, jbytes, jterminal = _jax(name, executor, handoff)
     keys = STAT_KEYS + (("streamed_outputs", "stream_ingests") if handoff else ())
-    assert {k: ctx.stats[k] for k in keys} == {k: jstats.get(k, 0) for k in keys}
-    assert ctx.counters.bytes_interior() == jbytes
-    assert ctx.counters.bytes_terminal() == jterminal
+    got = {k: ctx.stats[k] for k in keys}
+    want = {k: jstats.get(k, 0) for k in keys}
+    got.update(bytes_interior=ctx.counters.bytes_interior(),
+               bytes_terminal=ctx.counters.bytes_terminal())
+    want.update(bytes_interior=jbytes, bytes_terminal=jterminal)
+    case = f"{name}/handoff_{'on' if handoff else 'off'}" if executor != "eager" else ""
+    assert_counts_as_named(case, got, want)
 
 
 @pytest.mark.parametrize("executor", ["eager", "pipelined", "fused", "scan"])

@@ -147,6 +147,22 @@ def test_flash_attention_tensor_core_edges_match_plain_version(B, Hq, Hkv, Sq, S
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window", [
+    (4, 48, 8, 2048, 128, None),     # internlm2-20b: GQA group 6
+    (4, 48, 1, 2048, 128, None),     # granite-34b: MQA, group 48
+    (4, 8, 4, 2048, 256, 1024),      # gemma3-4b's local layers: 1024-key window
+    (4, 8, 4, 2048, 256, None),      # gemma3-4b's global layers
+])
+def test_flash_attention_at_the_new_models_prefill_shapes(B, Hq, Hkv, S, D, window):
+    """A greedy prefill's attention (batch 4 x 2048, causal, bfloat16, the
+    model's head-split views) at the published widths of the three dense
+    configs served since the gemma-7b slice: the tc variant, within the
+    bfloat16 tolerance of the plain version."""
+    _card()
+    _attn_case(B, Hq, Hkv, S, S, D, torch.bfloat16, True, window, split=True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D", [40, 24])
 def test_flash_attention_bfloat16_outside_the_rule_takes_simt(D):
     """A bfloat16 head dim that is not a multiple of 16 goes to the CUDA-core

@@ -174,13 +174,30 @@ def test_from_numpy_rejects_other_layouts(bad):
         weights.from_numpy(tree, tcfg, "cpu")
 
 
-def test_registry_has_gemma_7b_only():
-    full = registry.get_config("gemma-7b")
-    assert (full.d_model, full.d_ff, full.vocab_size, full.n_layers) == (3072, 24576, 256000, 28)
-    assert full.dtype == torch.bfloat16 and full.activation == "gelu"
-    assert registry.ARCH_IDS == ("gemma-7b",)
+PORTED = ("gemma-7b", "internlm2-20b", "granite-34b", "gemma3-4b")
+
+
+def _fields(cfg) -> dict:
+    """A config's fields, dtype by name (the packages' dtypes differ in type)."""
+    import dataclasses
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out["dtype"] = getattr(out["dtype"], "__name__", str(out["dtype"])).split(".")[-1]
+    out["attn"] = dataclasses.asdict(cfg.attn)
+    return out
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_registry_has_the_ported_ids(arch):
+    """Each ported id's full and smoke configs equal the JAX package's field
+    by field; an id whose family is not ported and an unknown id raise."""
+    from repro.configs.registry import get_smoke_config as jget_smoke
+    assert registry.ARCH_IDS == PORTED
+    assert _fields(registry.get_config(arch)) == _fields(jget_config(arch))
+    assert _fields(registry.get_smoke_config(arch)) == _fields(jget_smoke(arch))
+    assert registry.get_config(arch).dtype == torch.bfloat16
+    ttfm.check_ported(registry.get_config(arch))
     with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("granite-34b")
+        registry.get_config("olmoe-1b-7b")
     with pytest.raises(KeyError, match="unknown"):
         registry.get_config("no-such-arch")
 
@@ -193,6 +210,67 @@ def test_param_count_matches_jax(which):
     from repro.models.config import MoEConfig as JMoE
     jmoe = jc.with_runtime(family="moe", moe=JMoE(n_experts=4, top_k=2, d_expert=32))
     assert param_count(moe) == jparam_count(jmoe)
+
+
+@pytest.mark.parametrize("which", ["config", "smoke_config"])
+@pytest.mark.parametrize("arch", PORTED[1:])
+def test_param_count_matches_jax_for_the_new_ids(arch, which):
+    from repro.configs.registry import get_smoke_config as jget_smoke
+    jc = jget_config(arch) if which == "config" else jget_smoke(arch)
+    tc = getattr(registry, f"get_{which}")(arch)
+    assert param_count(tc) == jparam_count(jc)
+
+
+@pytest.mark.parametrize("arch", PORTED[1:])
+def test_init_layout_matches_jax_at_published_width(arch):
+    """Paths, shapes and dtypes at full width and depth (meta device),
+    qk-norm's stacked ``(L, head_dim)`` float32 scales included."""
+    jcfg, tcfg = jget_config(arch), registry.get_config(arch)
+    want = weights.flatten(jax.eval_shape(
+        lambda k: jtfm.init_model(k, jcfg), jax.random.PRNGKey(0)))
+    got = weights.flatten(ttfm.init_model(tcfg, None, "meta").tree())
+    assert list(got) == list(want)
+    for name, t in got.items():
+        assert tuple(t.shape) == want[name].shape, name
+        assert str(t.dtype).split(".")[-1] == str(want[name].dtype), name
+    assert ("layers.attn.q_norm" in got) == tcfg.attn.qk_norm
+
+
+def test_sliced_draw_keeps_the_distribution_and_the_small_leaves(monkeypatch):
+    """A leaf past ``DRAW_ELEMENTS`` is drawn slice by slice into one
+    preallocated leaf: the same shape, dtype and N(0, scale) statistics; a
+    leaf under the limit takes the same numbers as one whole draw."""
+    from repro_torch.models import layers
+    g = torch.Generator().manual_seed(0)
+    whole = layers.normal((3, 40, 50), 0.5, torch.bfloat16, g, "cpu")
+    g = torch.Generator().manual_seed(0)
+    want = (torch.randn((3, 40, 50), generator=g) * 0.5).to(torch.bfloat16)
+    assert torch.equal(whole, want)
+    monkeypatch.setattr(layers, "DRAW_ELEMENTS", 1000)        # 3 slices of 1 layer
+    sliced = layers.normal((7, 30, 40), 0.5, torch.bfloat16,
+                           torch.Generator().manual_seed(1), "cpu")
+    assert sliced.shape == (7, 30, 40) and sliced.dtype == torch.bfloat16
+    x = sliced.float()
+    assert abs(float(x.mean())) < 0.02 and abs(float(x.std()) - 0.5) < 0.02
+    assert not torch.equal(sliced[0], sliced[1])
+
+
+def test_qk_norm_carry_across_round_trip_is_exact():
+    """gemma3-4b's smoke tree (``q_norm``/``k_norm`` per layer) carries
+    across and back bit for bit, in bfloat16."""
+    from repro.configs.registry import get_smoke_config as jget_smoke
+    jcfg = jget_smoke("gemma3-4b")
+    tcfg = registry.get_smoke_config("gemma3-4b")
+    params = jax.tree_util.tree_map(np.asarray, jtfm.init_model(jax.random.PRNGKey(7), jcfg))
+    r = np.random.RandomState(7)
+    for k in ("q_norm", "k_norm"):            # not all ones: the values travel
+        leaf = params["layers"]["attn"][k]
+        params["layers"]["attn"][k] = (1 + 0.1 * r.randn(*leaf.shape)).astype(np.float32)
+    model = weights.from_numpy(params, tcfg, "cpu")
+    assert model["layers"]["attn"]["q_norm"].dtype == torch.float32
+    back = weights.flatten(weights.to_numpy(model))
+    for name, want in weights.flatten(params).items():
+        np.testing.assert_array_equal(back[name], np.asarray(want, np.float32), name)
 
 
 def test_unported_families_raise():

@@ -24,6 +24,7 @@ from repro_torch import hardware as thw
 from repro_torch.core import annotated_numpy as anp
 from repro_torch.core import mozart, plan_cache
 from repro_torch.core import split_types as st
+from repro_torch.core import splittable
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -173,18 +174,75 @@ def test_loaded_handoff_decisions_replay(tmp_path):
     torch.testing.assert_close(got, want)
 
 
+class _Tagged(st.ArraySplit):
+    """An array split whose params do not rebuild it (an extra tag)."""
+
+    name = "Tagged"
+
+    def __init__(self, shape, axis=0):
+        super().__init__(shape, axis)
+        self.params = self.params + ("tag",)
+
+
+class _TaggedSpec(st.SplitSpec):
+    def construct(self, value, bound, generics):
+        return _Tagged(tuple(value.shape), 0)
+
+
+@splittable(x=st.Along(0), ret=_TaggedSpec(), elementwise=True, name="tagged_exp")
+def _tagged_exp(x):
+    return torch.exp(x)
+
+
 def test_unpersistable_split_types_are_skipped_not_fatal(tmp_path):
+    """An entry whose split type does not rebuild from its params is
+    skipped; everything else still persists.  (The reference's example,
+    ``compress``'s ``UnknownSplit``, persists in the port: see
+    ``test_unknown_split_entries_persist_unlike_the_reference``.)"""
     x = torch.linspace(0.0, 1.0, 64)
     with _session(executor="pipelined", batch_elements=16):
         _ = float(_pipeline(x).value)                  # persistable
     with _session(executor="pipelined", batch_elements=16):
-        mask = anp.greater(x, 0.5)
-        kept = anp.compress(mask, x)                   # dynamic -> UnknownSplit
-        _ = float(anp.sum(kept).value)
+        _ = float(anp.sum(_tagged_exp(x)).value)       # Tagged: not rebuildable
     assert len(plan_cache.entries()) == 2
     path = str(tmp_path / "plans.json")
     assert plan_cache.save(path) == 1
     assert plan_cache.stats["persist_skipped"] >= 1
+
+
+def _compressed_sum(x):
+    with _session(executor="pipelined", batch_elements=16) as ctx:
+        kept = anp.compress(anp.greater(x, 0.5), x)    # dynamic -> UnknownSplit
+        total = float(anp.sum(kept).value)
+    return total, ctx
+
+
+def test_unknown_split_entries_persist_unlike_the_reference(tmp_path):
+    """The reference skips every entry holding an ``UnknownSplit`` (its uid
+    is process-local), so a pipeline returning ``Unknown`` (a serving step)
+    never persists there.  The port persists it by axis, one fresh unknown
+    per persisted uid of an entry, and a restarted process replays it with
+    zero planner calls."""
+    x = torch.linspace(0.0, 1.0, 64)
+    want, _ = _compressed_sum(x)
+    jx = np.linspace(0.0, 1.0, 64, dtype=np.float32)
+    from repro.core import annotated_numpy as janp
+    from repro.core import mozart as jmozart
+    jpc.clear()
+    with jmozart.session(executor="pipelined", batch_elements=16):
+        float(janp.sum(janp.compress(janp.greater(jx, 0.5), jx)))
+    jpath, path = str(tmp_path / "jax.json"), str(tmp_path / "plans.json")
+    assert jpc.save(jpath) == 0 and jpc.stats["persist_skipped"] == 1
+    jpc.clear()
+    assert plan_cache.save(path) == 1
+    payload = json.load(open(path))
+    kinds = {t["cls"] for tm in payload["entries"][0]["templates"]
+             for t in plan_cache._template_types(tm)}
+    assert "UnknownSplit" in kinds
+    plan_cache.clear()
+    assert plan_cache.load(path) == 1
+    got, ctx = _compressed_sum(x)
+    assert ctx.stats["planner_calls"] == 0 and got == want
 
 
 # ---------------------------------------------------------------------------

@@ -812,14 +812,15 @@ def _serve_churn(batcher, server_cls, inject, prompts):
     return wave1, wave2
 
 
-def test_serve_step_fault_fails_wave_and_driver_survives_like_jax():
+def _serve_step_fault_like_jax(driver):
     jcfg = jsmoke("internlm2-20b").with_runtime(dtype=jnp.float32)
     params, tcfg, model = _carry(jcfg)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, p).astype(np.int32) for p in (5, 7, 4, 6)]
     jb = JBatcher(jcfg, params, batch=2, max_len=MAX_LEN, driver="jit", max_queue=16)
     jw1, jw2 = _serve_churn(jb, JAsyncServer, jmozart.inject_faults, prompts)
-    tb = ContinuousBatcher(tcfg, model, batch=2, max_len=MAX_LEN, device="cpu", max_queue=16)
+    tb = ContinuousBatcher(tcfg, model, batch=2, max_len=MAX_LEN, driver=driver, device="cpu",
+                           max_queue=16)
     tw1, tw2 = _serve_churn(tb, AsyncServer, tmozart.inject_faults, prompts)
     assert all(r.finished for r in tw1 + tw2)
     assert all(isinstance(r.error, InjectedFault) for r in tw1)
@@ -830,18 +831,38 @@ def test_serve_step_fault_fails_wave_and_driver_survives_like_jax():
     assert tb.stats["step_failures"] == 1 and tb.stats["failed_requests"] == 2
     assert resilience.stats["MZ405"] == jres.stats["MZ405"] == 1
     # the next wave equals the same requests served fault-free
-    fresh = ContinuousBatcher(tcfg, model, batch=2, max_len=MAX_LEN, device="cpu")
+    fresh = ContinuousBatcher(tcfg, model, batch=2, max_len=MAX_LEN, driver=driver,
+                              device="cpu")
     ref = [fresh.make_request(p, 4) for p in prompts[2:]]
     fresh.run(ref)
     assert [r.out for r in ref] == [r.out for r in tw2]
 
 
+def test_serve_step_fault_fails_wave_and_driver_survives_like_jax():
+    _serve_step_fault_like_jax("jit")
+
+
+def test_serve_step_fault_on_the_mozart_driver_like_jax():
+    """The same wave with the port's default driver, serving over
+    ``mozart.pipeline``: the fault fires at the step boundary, before the
+    pipeline, and the pipelines stay usable."""
+    _serve_step_fault_like_jax("mozart")
+
+
 def test_async_server_survives_an_injected_step_fault():
     """The request in flight when the fault fires fails with it; a later
     ``generate`` on the same server completes."""
+    _async_server_survives("jit")
+
+
+def test_async_server_survives_an_injected_step_fault_on_the_mozart_driver():
+    _async_server_survives("mozart")
+
+
+def _async_server_survives(driver):
     jcfg = jsmoke("internlm2-20b").with_runtime(dtype=jnp.float32)
     _params, tcfg, model = _carry(jcfg)
-    b = ContinuousBatcher(tcfg, model, batch=2, max_len=MAX_LEN, device="cpu")
+    b = ContinuousBatcher(tcfg, model, batch=2, max_len=MAX_LEN, driver=driver, device="cpu")
     prompt = np.arange(5, dtype=np.int32)
     req = b.submit(b.make_request(prompt, 3))
     server = AsyncServer(b, idle_poll_s=1e-4)

@@ -39,7 +39,7 @@ from repro_torch.core import plan_cache as tpc
 from repro_torch.core import rewrite
 from repro_torch.core.stage_exec import available_executors, trace_count
 
-from test_torch_executors import CASES, _data, _tol, close
+from test_torch_executors import CASES, _data, _tol, assert_counts_as_named, close
 
 TOL = 2e-5
 PORT_EXECUTORS = sorted(available_executors())
@@ -703,3 +703,159 @@ def test_cluster_order_equals_the_reference(edges, n):
     ids = np.random.RandomState(len(edges)).permutation(1000)[:n]
     nodes = [_StubNode(int(ids[i]), [int(ids[d]) for d in deps[i]]) for i in range(n)]
     assert [x.id for x in rewrite._cluster(nodes)] == [x.id for x in jrewrite._cluster(nodes)]
+
+
+# ---------------------------------------------------------------------------
+# C6: a node the pass retired is no consumer (the named difference from JAX)
+# ---------------------------------------------------------------------------
+
+
+def _dead_consumer(anp, arr, n):
+    """MZ501 retires ``matvec``; its operand ``a`` feeds a live call too."""
+    x = arr(np.linspace(0.1, 1.0, n, dtype=np.float32))
+    dm = arr(np.ones((4, n), np.float32))
+
+    def f():
+        a = anp.exp(x)
+        anp.matvec(dm, a)                # dead: retired before planning
+        return (anp.multiply(a, 2.0),)
+    return f
+
+
+def _c6_cases():
+    bs = _data("black_scholes")
+    n = 4096
+    return {
+        "black_scholes": (
+            lambda: CASES["black_scholes"][0](**{k: jnp.asarray(v) for k, v in bs.items()}),
+            lambda: CASES["black_scholes"][1](
+                **{k: torch.from_numpy(v.copy()) for k, v in bs.items()})),
+        "smoke_rewrite": (_smoke_rewrite_chain(janp, jnp.asarray, n, 8),
+                          _smoke_rewrite_chain(tanp, torch.from_numpy, n, 8)),
+        "dead_consumer": (_dead_consumer(janp, jnp.asarray, n),
+                          _dead_consumer(tanp, torch.from_numpy, n)),
+    }
+
+
+def _escaping_run(side, fn, executor, monkeypatch, **kw):
+    """Run one capture; returns (escaping outputs over the plan's stages,
+    interior bytes, outputs as numpy)."""
+    if side == "jax":
+        from repro.core import plan_cache as mod
+        session = lambda: jmozart.session(executor=JAX_OF.get(executor, executor), **kw)
+        value = np.asarray
+    else:
+        from repro_torch.core import runtime as mod
+        session = lambda: tmozart.session(executor=executor, device="cpu", **kw)
+        value = lambda o: o.value.numpy()
+    seen = []
+    real = mod.lookup_or_plan
+
+    def recording(pending, graph, ctx):
+        stages, entry = real(pending, graph, ctx)
+        seen.append(sum(len(s.escaping) for s in stages))
+        return stages, entry
+    monkeypatch.setattr(mod, "lookup_or_plan", recording)
+    with session() as ctx:
+        outs = [value(o) for o in as_tuple(fn())]
+    monkeypatch.setattr(mod, "lookup_or_plan", real)
+    return sum(seen), ctx.counters.bytes_interior(), outs
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("executor", ["fused", "cuda"])
+@pytest.mark.parametrize("case", ["black_scholes", "smoke_rewrite", "dead_consumer"])
+def test_c6_escaping_sets_and_bytes_against_jax_as_named(case, executor, monkeypatch):
+    """With the pass on, a retired node keeps nothing escaping in the port;
+    the reference's plans differ exactly where ``C6_DIFFERENCES`` says
+    (Black-Scholes: the CSE'd operand; ``dead_consumer``: the operand of
+    the retired ``matvec``), with ``smoke/rewrite`` equal; outputs equal to
+    JAX's and to the port's own ``rewrite=False`` run."""
+    jfn, tfn = _c6_cases()[case]
+    batch = CASES["black_scholes"][2] if case == "black_scholes" else 1024
+    kw = dict(batch_elements=batch, handoff=False, plan_cache=False, autotune=False)
+    jpc.clear()
+    jesc, jbytes, jout = _escaping_run("jax", jfn, executor, monkeypatch, **kw)
+    tesc, tbytes, tout = _escaping_run("port", tfn, executor, monkeypatch, **kw)
+    assert_counts_as_named(case, {"escaping": tesc}, {"escaping": jesc})
+    if executor == "fused":
+        assert_counts_as_named(f"{case}/handoff_off", {"bytes_interior": tbytes},
+                               {"bytes_interior": jbytes})
+    if case == "smoke_rewrite":
+        assert tesc == jesc
+    else:
+        assert tesc < jesc
+    _off_esc, _off_bytes, off = _escaping_run("port", tfn, executor, monkeypatch,
+                                              rewrite=False, **kw)
+    for i, (g, w, o) in enumerate(zip(tout, jout, off)):
+        close(g, w, **(_tol(case, i) if case in CASES else {}))
+        assert np.array_equal(g, o), (case, i)
+
+
+def test_c6_black_scholes_kernel_program_writes_two_outputs():
+    """On ``cuda`` (the plain version on the CPU) the lowered Black-Scholes
+    program escapes only call and put: 28 B/element, as with the pass off."""
+    from repro_torch.core import cuda_exec
+    jfn, tfn, batch = CASES["black_scholes"]
+    data = _data("black_scholes")
+    programs = []
+    real = cuda_exec.lower_stage
+
+    def recording(stage, *a, **kw):
+        program, kinds = real(stage, *a, **kw)
+        programs.append((len(program.outputs), program.n_split, len(program.code)))
+        return program, kinds
+    for on in (True, False):
+        tpc.clear()
+        programs.clear()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cuda_exec, "lower_stage", recording)
+            with tmozart.session(executor="cuda", device="cpu", batch_elements=batch,
+                                 rewrite=on) as ctx:
+                outs = [o.value.numpy() for o in
+                        tfn(**{k: torch.from_numpy(v.copy()) for k, v in data.items()})]
+        assert ctx.stats["cuda_stages"] == 1 and ctx.stats["cuda_fallback_stages"] == 0
+        (outputs, inputs, instructions), = programs
+        assert (outputs, inputs, instructions) == (2, 5, 31 if on else 32), on
+        assert 4 * (outputs + inputs) == 28
+        if on:
+            on_outs = outs
+    for g, w in zip(on_outs, outs):
+        assert np.array_equal(g, w)
+
+
+def test_c6_retired_alias_future_reads_the_survivor():
+    """A Future of the CSE-retired duplicate still reads the survivor's
+    value, and only while it lives does the survivor escape."""
+    from repro_torch.core import runtime as truntime
+    x = torch.linspace(0.1, 1.0, 96)
+    plans = []
+    real = truntime.lookup_or_plan
+
+    def recording(pending, graph, ctx):
+        stages, entry = real(pending, graph, ctx)
+        plans.append({n.fn.name: n.id in s.escaping for s in stages for n in s.nodes})
+        return stages, entry
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(truntime, "lookup_or_plan", recording)
+        with tmozart.session(executor="fused", device="cpu", batch_elements=32,
+                             plan_cache=False) as ctx:
+            b1 = tanp.exp(x)
+            b2 = tanp.exp(x)                 # retired by MZ502; its Future lives
+            s = tanp.add(b1, b1)
+            del b1
+            got_s = s.value.numpy()
+            got_b2 = b2.value.numpy()
+        with tmozart.session(executor="fused", device="cpu", batch_elements=32,
+                             plan_cache=False):
+            s2 = tanp.add(tanp.exp(x), tanp.exp(x))
+            got_s2 = s2.value.numpy()
+    assert [r.code for r in ctx._last_rewrites].count("MZ502") == 1
+    np.testing.assert_allclose(got_b2, np.exp(x.numpy()), rtol=TOL)
+    np.testing.assert_allclose(got_s, 2 * np.exp(x.numpy()), rtol=TOL)
+    np.testing.assert_allclose(got_s2, got_s, rtol=TOL)
+    assert plans[0] == {"exp": True, "add": True}     # the alias is alive
+    assert plans[1] == {"exp": False, "add": True}    # nothing keeps exp escaping

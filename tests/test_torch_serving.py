@@ -205,10 +205,12 @@ def test_decode_writes_in_place_and_returns_new_lengths(gqa):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=["gemma-7b", ARCH])
+@pytest.fixture(scope="module", params=["gemma-7b", ARCH, "granite-34b", "gemma3-4b"])
 def arch(request):
+    """gemma-7b (MHA, tied), internlm2-20b (GQA 3), granite-34b (MQA, plain
+    GELU MLP) and gemma3-4b (qk-norm, a 5:1 sliding-window pattern)."""
     jcfg = (jgemma.smoke_config() if request.param == "gemma-7b"
-            else jsmoke(ARCH)).with_runtime(dtype=jnp.float32)
+            else jsmoke(request.param)).with_runtime(dtype=jnp.float32)
     params, tcfg, model = _carry(jcfg, seed=4)
     return jcfg, tcfg, params, model
 
@@ -248,6 +250,44 @@ def test_right_padded_bucket_prefill_matches_jax(arch):
         ttfm.init_caches(tcfg, 4, 16, per_slot=True, device="cpu"))
     _close(tl, jl, "bucket logits")
     _same_cache(tc, jc)
+
+
+def test_qk_norm_qkv_matches_the_reference():
+    """gemma3-4b's ``_qkv``: q and k RMS-normalised per head with the
+    layer's ``q_norm``/``k_norm`` (not all ones here) before RoPE."""
+    jcfg = jsmoke("gemma3-4b").with_runtime(dtype=jnp.float32)
+    params = jtfm.init_model(jax.random.PRNGKey(11), jcfg)
+    r = np.random.RandomState(11)
+    jp = jax.tree_util.tree_map(lambda a: np.asarray(a[0]), params["layers"]["attn"])
+    jp["q_norm"] = (1 + 0.2 * r.randn(*jp["q_norm"].shape)).astype(np.float32)
+    jp["k_norm"] = (1 + 0.2 * r.randn(*jp["k_norm"].shape)).astype(np.float32)
+    tcfg = port_config(jcfg)
+    tp = {k: torch.from_numpy(v) for k, v in jp.items()}
+    x = r.randn(2, 5, jcfg.d_model).astype(np.float32)
+    pos = np.tile(np.arange(5), (2, 1)).astype(np.int32)
+    want = jattn._qkv({k: jnp.asarray(v) for k, v in jp.items()}, jnp.asarray(x), jcfg.attn,
+                      jnp.asarray(pos), jcfg)
+    got = tattn._qkv(tp, torch.from_numpy(x), tcfg.attn, torch.from_numpy(pos), tcfg)
+    for g, w, what in zip(got, want, "qkv"):
+        _close(g, w, f"_qkv {what}")
+    plain = tattn._qkv(tp, torch.from_numpy(x), tcfg.attn.__class__(
+        **{**dataclasses.asdict(tcfg.attn), "qk_norm": False}), torch.from_numpy(pos), tcfg)
+    assert not torch.allclose(plain[0], got[0])       # the norm did something
+
+
+def test_sliding_window_prefill_past_the_window_matches_jax():
+    """gemma3-4b's smoke config (window 8 on 5 of 6 layers) over 20 tokens:
+    the local layers drop keys the global layer keeps."""
+    jcfg = jsmoke("gemma3-4b").with_runtime(dtype=jnp.float32)
+    params, tcfg, model = _carry(jcfg, seed=12)
+    tokens = np.random.RandomState(12).randint(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
+    jl, jc = jtfm.prefill(params, jcfg, tokens=jnp.asarray(tokens),
+                          caches=jtfm.init_caches(jcfg, 2, 24))
+    tl, tc = ttfm.prefill(model, tcfg, torch.from_numpy(tokens),
+                          caches=ttfm.init_caches(tcfg, 2, 24, device="cpu"))
+    _close(tl, jl, "windowed prefill logits")
+    _same_cache(tc, jc)
+    assert ttfm.layer_windows(tcfg) == [8] * 5 + [ttfm.BIG_WINDOW]
 
 
 def test_greedy_generate_matches_jax(arch):
@@ -344,9 +384,12 @@ def test_training_loss_takes_no_kernel(count_plain_attention):
 # ---------------------------------------------------------------------------
 
 
-def _batcher(gqa, batch, **kw):
+def _batcher(gqa, batch, driver="jit", **kw):
+    """A batcher on the CPU; the tests that mean the ``jit`` driver get it
+    by default here (the batcher's own default is ``mozart``)."""
     _, tcfg, _, model, _ = gqa
-    return ContinuousBatcher(tcfg, model, batch=batch, max_len=MAX_LEN, device="cpu", **kw)
+    return ContinuousBatcher(tcfg, model, batch=batch, max_len=MAX_LEN, driver=driver,
+                             device="cpu", **kw)
 
 
 def _requests(b, prompts):
@@ -427,14 +470,200 @@ def test_join_drops_dummy_rows(gqa):
     assert roll.start.tolist() == [[0, 3]] * tcfg.n_layers
 
 
-@pytest.mark.parametrize("what", ["batcher", "server"])
-def test_mozart_driver_waits_for_the_pipeline_api(gqa, what):
+# ---------------------------------------------------------------------------
+# driver="mozart": serving over mozart.pipeline (plan cache, AOT)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(autouse=True)
+def _fresh_port_plan_cache():
+    from repro_torch.core import plan_cache
+    plan_cache.clear()
+    yield
+    plan_cache.clear()
+
+
+def test_mozart_is_the_default_driver_and_others_are_refused(gqa):
     _, tcfg, _, model, _ = gqa
-    with pytest.raises(NotImplementedError, match="A6"):
-        if what == "batcher":
-            ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="mozart", device="cpu")
-        else:
-            tserve.Server(tcfg, model, 2, MAX_LEN, driver="mozart", device="cpu")
+    assert ContinuousBatcher(tcfg, model, 2, MAX_LEN, device="cpu").driver == "mozart"
+    with pytest.raises(ValueError, match="unknown driver"):
+        ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="xla", device="cpu")
+    with pytest.raises(ValueError, match="unknown driver"):
+        tserve.Server(tcfg, model, 2, MAX_LEN, driver="xla", device="cpu")
+
+
+def test_mozart_warm_zero_retrace_across_occupancy(gqa, reference):
+    """The reference's test: occupancy moves (joins, leaves, a dead-air
+    tail), yet no step plans or traces: every step replays the pinned plan
+    entry of its bucket, each entry labelled with its bucket."""
+    b = _batcher(gqa, 2, driver="mozart")
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    reqs = _requests(b, gqa[4])
+    stats = b.run(reqs)
+    assert [r.out for r in reqs] == reference
+    assert stats["planner_calls"] == 0 and stats["jit_traces"] == 0, stats
+    assert stats["warm"] is True
+    assert ("decode", 2) in b._decode.buckets
+    prefill_buckets = set(b._prefill.buckets)
+    assert prefill_buckets == {("prefill", bb, lb) for bb in (1, 2) for lb in (8, 16)}
+    assert stats["buckets"] == sorted(prefill_buckets | {("decode", 2)})
+    entries = {b._prefill.buckets[k].uid for k in prefill_buckets}
+    assert len(entries) == len(prefill_buckets)
+    for k in prefill_buckets:
+        assert tuple(b._prefill.buckets[k].bucket) == k
+    assert b._decode.warm() and b._decode.last_call_stats.get("planner_calls", 0) == 0
+
+
+def test_jit_driver_summary_is_warm_without_buckets(gqa, reference):
+    b = _batcher(gqa, 2)
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    reqs = _requests(b, gqa[4])
+    stats = b.run(reqs)
+    assert [r.out for r in reqs] == reference
+    assert (stats["planner_calls"], stats["jit_traces"], stats["warm"]) == (0, 0, True)
+    assert "buckets" not in stats
+
+
+@pytest.fixture
+def step_calls(monkeypatch):
+    """Real (non-meta) calls of the model's prefill and decode steps; the
+    abstract evaluation of a cold registration runs them on meta tensors."""
+    calls = {"prefill": 0, "decode": 0}
+    for name, fn in (("prefill", "prefill"), ("decode", "decode_step")):
+        real = getattr(ttfm, fn)
+
+        def counted(params, cfg, *a, _real=real, _name=name, **kw):
+            tokens = kw.get("tokens", a[0] if a else None)
+            if tokens is not None and tokens.device.type != "meta":
+                calls[_name] += 1
+            return _real(params, cfg, *a, **kw)
+
+        monkeypatch.setattr(ttfm, fn, counted)
+    return calls
+
+
+def test_warm_mozart_step_runs_the_step_function_exactly_once(gqa, reference, step_calls):
+    """K/V are written in place, so a warm step that ran its function twice
+    would write twice: one real call per step, on the whole arguments (the
+    returned cache shares the rolling cache's storage: nothing was split or
+    merged), one stage on ``eager``, and no rewrite of the one-node graph."""
+    b = _batcher(gqa, 2, driver="mozart")
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    step_calls.update(prefill=0, decode=0)
+    reqs = _requests(b, gqa[4])
+    stats = b.run(reqs)
+    assert [r.out for r in reqs] == reference
+    assert step_calls == {"prefill": stats["prefill_calls"], "decode": stats["decode_steps"]}
+    k_before = b.caches.k
+    (logits, caches), delta = b._call_decode(b._tok, b.caches)
+    assert step_calls["decode"] == stats["decode_steps"] + 1
+    assert caches.k is k_before and logits.shape[:2] == (2, 1)
+    assert delta.get("stages") == 1 and delta.get("calls") == 1 and "chunks" not in delta
+    assert delta.get("planner_calls", 0) == 0 and delta["jit_traces"] == 0
+    assert b._decode.ctx._last_rewrites == []
+    assert b._decode.ctx.counters.bytes_interior() == 0
+    assert b._decode.ctx.stats.get("rewrites_applied", 0) == 0
+
+
+def test_cold_mozart_registration_never_touches_a_real_weight(gqa, monkeypatch):
+    """The first capture abstractly evaluates the step on the model's meta
+    twin: every leaf the step reads during ``lower`` lies on ``meta``."""
+    from repro_torch.models import weights as wmod
+    b = _batcher(gqa, 1, driver="mozart")
+    seen = []
+    real = ttfm.decode_step
+
+    def spy(params, cfg, token, caches, **kw):
+        seen.append({t.device.type for t in [token, *params.parameters(), *caches]})
+        return real(params, cfg, token, caches, **kw)
+
+    monkeypatch.setattr(ttfm, "decode_step", spy)
+    b._decode.lower(b.params, torch.zeros((1, 1), dtype=torch.int32), b._init_caches(1))
+    assert seen == [{"meta"}]
+    twin = b.params.mozart_meta()
+    assert twin is b.params.mozart_meta()           # cached per fingerprint
+    assert wmod._META_TWINS[b.params.mozart_fingerprint()] is twin
+    assert twin.mozart_fingerprint()[1] == tuple(
+        (n, sh, dt, "meta") for n, sh, dt, _dev in b.params.mozart_fingerprint()[1])
+
+
+@pytest.mark.parametrize("mode", ["fixed", "continuous"])
+def test_server_parity_mozart(gqa, reference, mode):
+    """The reference's ``test_fixed_group_server_parity`` under
+    ``driver="mozart"``, in both modes, after ``warmup``: the decode
+    pipeline's last call was warm."""
+    _, tcfg, _, model, prompts = gqa
+    srv = tserve.Server(tcfg, model, batch=2, max_len=MAX_LEN, driver="mozart", mode=mode,
+                        device="cpu")
+    srv.warmup(max(p for p, _ in SPECS))
+    reqs = [tserve.Request(rid=i, prompt=prompts[i], max_new=SPECS[i][1])
+            for i in range(len(SPECS))]
+    stats = srv.run(reqs)
+    assert [r.out for r in reqs] == reference
+    assert stats["decode_warm"] is True
+    assert stats["decode_last_call"].get("planner_calls", 0) == 0
+
+
+def test_bucket_label_round_trips_through_plan_cache(gqa, reference, tmp_path):
+    """A serving plan file: ``warmup`` saves the labelled entries; after a
+    restart (``plan_cache.clear()``) a second batcher on the same file and
+    prompt buckets serves with zero planner calls and no warmup."""
+    import json
+    from repro_torch.core import plan_cache
+    path = str(tmp_path / "plans.json")
+    b = _batcher(gqa, 2, driver="mozart", plan_cache_path=path)
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    payload = json.load(open(path))
+    assert payload["schema"] == plan_cache.SCHEMA_VERSION
+    labels = {tuple(plan_cache._dec(e["bucket"])) for e in payload["entries"] if e.get("bucket")}
+    assert labels == {("decode", 2)} | {("prefill", bb, lb) for bb in (1, 2) for lb in (8, 16)}
+    plan_cache.clear()
+    assert plan_cache.load(path) == len(labels)
+    assert {e.bucket for e in plan_cache.entries()} == labels
+    plan_cache.clear()
+    again = _batcher(gqa, 2, driver="mozart", plan_cache_path=path,
+                     prompt_buckets=b.prompt_buckets)
+    reqs = _requests(again, gqa[4])
+    stats = again.run(reqs)
+    assert [r.out for r in reqs] == reference
+    assert stats["planner_calls"] == 0 and stats["warm"] is True, stats
+
+
+def test_mozart_driver_fails_the_wave_and_survives_a_step_fault(gqa, reference):
+    """``serve_step`` faults on this driver: the request in flight fails
+    with the injected fault, MZ405 is recorded, the next request completes
+    with the reference's tokens and its steps stay warm."""
+    from repro_torch.core import mozart, resilience
+    b = _batcher(gqa, 2, driver="mozart")
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    resilience.clear_events()
+    req = b.submit(b.make_request(gqa[4][0], SPECS[0][1]))
+    server = AsyncServer(b, idle_poll_s=1e-4)
+    try:
+        with mozart.inject_faults("serve_step:fail:1"):
+            server.start()
+            assert req.done.wait(60)
+            out = asyncio.run(server.generate(gqa[4][1], SPECS[1][1]))
+    finally:
+        server.close()
+    assert isinstance(req.error, resilience.InjectedFault) and req.out == []
+    assert out == reference[1]
+    assert b.stats["step_failures"] == 1 and resilience.stats["MZ405"] == 1
+    assert b.stats["planner_calls"] == 0 and b.stats["jit_traces"] == 0
+    resilience.clear_events()
+
+
+def test_serve_cli_mozart_driver_with_a_plan_file(monkeypatch, capsys, tmp_path):
+    path = str(tmp_path / "serve.json")
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "gemma-7b", "--smoke", "--device",
+                                     "cpu", "--requests", "3", "--batch", "2",
+                                     "--prompt-len", "5", "--max-new", "3",
+                                     "--driver", "mozart", "--plan-cache", path])
+    tserve.main()
+    out = capsys.readouterr().out
+    assert "served 9 tokens" in out and "decode warm=True" in out
+    import os
+    assert os.path.exists(path)
 
 
 def test_batcher_refuses_parameters_on_another_device(gqa):
@@ -581,7 +810,8 @@ def test_padded_prefill_matches_unpadded(gqa, reference):
 @pytest.mark.parametrize("mode", ["fixed", "continuous"])
 def test_server_parity(gqa, reference, mode):
     _, tcfg, _, model, prompts = gqa
-    srv = tserve.Server(tcfg, model, batch=2, max_len=MAX_LEN, mode=mode, device="cpu")
+    srv = tserve.Server(tcfg, model, batch=2, max_len=MAX_LEN, driver="jit", mode=mode,
+                        device="cpu")
     reqs = [tserve.Request(rid=i, prompt=prompts[i], max_new=SPECS[i][1])
             for i in range(len(SPECS))]
     stats = srv.run(reqs)
