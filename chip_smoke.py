@@ -151,20 +151,29 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              by ``AsyncServer``, on each driver (2 requests fail with the
              ``InjectedFault``, MZ405, the driver thread survives, 2 more
              requests equal the fault-free run);
-10. archs  — internlm2-20b (GQA group 6), granite-34b (MQA, plain GELU MLP)
-             and gemma3-4b (qk-norm, 1024-key windows on 5 of 6 layers) at
-             their published widths, one at a time, random weights from a
-             seed, at full depth where the card holds the weights, a
-             4 x 2048 prefill and its KV cache (else the depth is cut and the
-             line says so): a greedy prefill with one tc flash-attention
-             launch per layer (window launches counted apart), each launch
+10. archs  — internlm2-20b (GQA group 6), granite-34b (MQA, plain GELU MLP),
+             gemma3-4b (qk-norm, 1024-key windows on 5 of 6 layers),
+             olmoe-1b-7b (MoE, 64 experts top-8, qk-norm) and
+             deepseek-moe-16b (MoE, 64 experts top-6 + 2 shared, a dense
+             first layer) at their published widths, one at a time, random
+             weights from a seed, at full depth where the card holds the
+             weights, a 4 x 2048 prefill and its KV cache (else the depth is
+             cut and the line says so): a greedy prefill with one tc
+             flash-attention launch per layer (window launches counted
+             apart; deepseek's dense pre-layer included), each launch
              held in place against the kernel's plain version on its own
              q, k, v, the prefill against the plain attention path (first
              tokens equal; last-position logits within 2e-2 max|logit|, or
              within 1.5 x the distance between two plain paths of the same
-             run where that is larger), 4 decode steps, and for
-             gemma3-4b a short ``Server(driver="mozart")`` run.  The attn
-             phase times the kernel at these prefill shapes beside SDPA.
+             run where that is larger), 4 decode steps, for the MoE models
+             the assignments the capacity dropped in the prefill and in one
+             decode step, for gemma3-4b a short ``Server(driver="mozart")``
+             run against batch-1 decoding, and for deepseek-moe-16b the
+             same requests through ``Server`` on ``jit`` and ``mozart``
+             (tokens equal, every mozart step warm: capacity routing makes a
+             token depend on its batch, so batch-1 decoding is no oracle
+             there).  The attn phase times the kernel at these prefill
+             shapes beside SDPA.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -188,6 +197,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 ROOT = Path(__file__).resolve().parent
 N_MAIN = 1 << 27
@@ -221,9 +231,11 @@ STEP_ROUNDS = 12                 # interleaved jit/mozart decode steps timed in 
 REWRITE_N, REWRITE_DEAD_ROWS = 1 << 26, 8   # smoke/rewrite: 8 x 2**26 dead matrix (2 GiB)
 CHAOS_TTL = 3                    # QUARANTINE_TTL in the chaos phase
 CHAOS_PROMPTS, CHAOS_NEW, CHAOS_MAX_LEN = (256, 200, 240, 256), 8, 512
-ARCHS = ("internlm2-20b", "granite-34b", "gemma3-4b")   # the archs phase, one at a time
+ARCHS = ("internlm2-20b", "granite-34b", "gemma3-4b",   # the archs phase, one at a time
+         "olmoe-1b-7b", "deepseek-moe-16b")
 ARCH_BATCH, ARCH_PROMPT, ARCH_DECODE = 4, 2048, 4        # greedy prefill + decode steps
-ARCH_SERVE = "gemma3-4b"         # its Server(driver="mozart") run: 2 slots, 4 requests
+ARCH_SERVE = {"gemma3-4b": ("mozart",),                  # Server runs: 2 slots, 4 requests
+              "deepseek-moe-16b": ("jit", "mozart")}      # on these drivers in turn
 ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW, ARCH_SERVE_MAX_LEN = (900, 130, 513, 1024), (12, 6, 9, 7), 1040
 ARCH_MARGIN = 3 << 30            # device bytes left free when sizing a model's depth
 ARCH_FLOOR_FACTOR = 1.5          # kernel vs plain logits against plain vs plain (arch_run)
@@ -1803,6 +1815,7 @@ ARCH_ATTN = (
     ("granite-34b", 4, 48, 1, 2048, 128, None),        # MQA, group 48
     ("gemma3-4b local", 4, 8, 4, 2048, 256, 1024),     # the 1024-key window
     ("gemma3-4b global", 4, 8, 4, 2048, 256, None),
+    ("olmoe-1b-7b / deepseek-moe-16b", 4, 16, 16, 2048, 128, None),   # MHA
 )
 
 ATTN_EDGES = (  # bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, head-split views)
@@ -2088,14 +2101,15 @@ def attn_shape_times(fl, ref, F, gen, name, B, Hq, Hkv, S, D, window) -> dict:
     compare(f"{name} SDPA vs plain", lib, ref.attention_ref(q, k, v, causal=True,
                                                            window=window), 2e-2,
             atol_scale=0.0, atol=2e-2)
+    plain = lambda: ref.attention_ref(q, k, v, causal=True, window=window)
     row = {"name": name, "shape": [B, Hq, Hkv, S, D], "window": window, "max_abs_err": err,
            "ms": device_ms(kernel, 10), "library_ms": device_ms(sdpa, 10),
-           **attn_bound(B, Hq, Hkv, S, S, D, True, 2, window)}
+           "plain_ms": cuda_ms(plain, 3), **attn_bound(B, Hq, Hkv, S, S, D, True, 2, window)}
     log(f"[attn] flash_attention at {name}'s prefill {(B, Hq, Hkv, S, D)} causal bfloat16 "
         f"window {window}, device times: tc kernel {row['ms']:.4f} ms (bound "
         f"{row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of "
-        f"it), F.scaled_dot_product_attention {row['library_ms']:.4f} ms; max |kernel - "
-        f"plain| {err:.3e}")
+        f"it), F.scaled_dot_product_attention {row['library_ms']:.4f} ms; the plain version "
+        f"{row['plain_ms']:.3f} ms (CUDA events); max |kernel - plain| {err:.3e}")
     del q, k, v, lib
     torch.cuda.empty_cache()
     return row
@@ -2194,11 +2208,11 @@ def profiled(fn, top: int = 6) -> dict:
                     for e in sorted(events, key=dev, reverse=True)[:top]]}
 
 
-def log_profile(what: str, prof: dict) -> None:
+def log_profile(what: str, prof: dict, phase: str = "serve") -> None:
     if prof["busy_share"] is None:
-        log(f"[serve] profile {what}: device time not measured (no device events)")
+        log(f"[{phase}] profile {what}: device time not measured (no device events)")
         return
-    log(f"[serve] profile {what}: window {prof['wall_ms']:.1f} ms, device busy "
+    log(f"[{phase}] profile {what}: window {prof['wall_ms']:.1f} ms, device busy "
         f"{prof['device_ms']:.1f} ms ({prof['busy_share']:.1%}), {prof['launches']} kernels; "
         f"top (kernel, ms, count): {prof['top']}")
 
@@ -2533,12 +2547,25 @@ def phase_serve(counters, flash) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def moe_work(cfg, T: int) -> int:
+    """Bytes of one MoE layer's dispatch on ``T`` tokens: the (E·C, D)
+    buffer and its expert output, three (E·C, F) intermediates, the
+    (T·k, D) gather and its weighted copy, and the float32 (T, E) router
+    logits and probabilities (E·C = T·k·capacity_factor)."""
+    m, D, elem = cfg.moe, cfg.d_model, cfg.dtype.itemsize
+    rows = m.n_experts * int(max(1, (T * m.top_k * m.capacity_factor) // m.n_experts))
+    return (elem * (2 * rows * D + 3 * rows * m.d_expert + 2 * T * m.top_k * D)
+            + 2 * 4 * T * m.n_experts)
+
+
 def arch_depth(cfg) -> dict:
     """The most layers (up to the published depth) whose weights, KV cache
     for a batch-4 prompt of 2048 + the decode steps, and a 4 x 2048 prefill's
     largest working set fit the card's free memory less ``ARCH_MARGIN``.
     The working set is the plain path's float32 scores (four alive at once:
-    scores, masked, softmax, the probabilities cast for p.v) or the MLP's.
+    scores, masked, softmax, the probabilities cast for p.v), the MLP's or
+    the MoE dispatch's (``moe_work``).  DeepSeekMoE's dense pre-layers and
+    their KV count as fixed.
     Where the dense plain path (the config's own switch at 2048 keys) would
     cut the depth and the blocked one (1024-key blocks) would not, the plain
     side of the comparison takes the blocked path: the same function."""
@@ -2547,11 +2574,14 @@ def arch_depth(cfg) -> dict:
     meta = weights.leaves(tfm.init_model(cfg, None, "meta"))
     nbytes = lambda ps: sum(p.numel() * p.element_size() for p in ps)
     layers = nbytes(p for n, p in meta.items() if n.startswith("layers."))
-    fixed = nbytes(meta.values()) - layers
     a, B, S = cfg.attn, ARCH_BATCH, ARCH_PROMPT
+    kd = tfm.first_dense(cfg)
     kv = 2 * B * (S + ARCH_DECODE) * a.n_kv_heads * a.head_dim * cfg.dtype.itemsize
-    per_layer = layers / cfg.n_layers + kv
+    fixed = nbytes(meta.values()) - layers + kd * kv
+    per_layer = layers / (cfg.n_layers - kd) + kv
     mlp = 6 * B * S * cfg.d_ff * cfg.dtype.itemsize
+    if cfg.moe is not None:
+        mlp = max(mlp, moe_work(cfg, B * S))
     work = {"dense": max(4 * B * a.n_heads * S * S * 4, mlp),
             "blocked": max(4 * B * a.n_heads * S * min(S, cfg.attn_block_k) * 4, mlp)}
     torch.cuda.empty_cache()
@@ -2586,6 +2616,65 @@ def arch_window_calls(ref):
     return seen, rel, lambda: setattr(attention, "_kernel_attention", real)
 
 
+class RoutingReplay:
+    """Record an MoE model's expert choices (each ``moe_block`` call's top-k
+    indices, in call order) in one run, and give later runs the same
+    choices, with gates from their own router probabilities.  Capacity
+    ranks depend on the choices alone, so a replayed run makes every
+    dispatch and drop decision of the recorded one and differs from it
+    only continuously.  Free, a bfloat16 rounding difference anywhere
+    before a router can flip a choice, and with capacity that reorders the
+    ranks of every later assignment to the expert: the outputs then differ
+    by the routing, not by the arithmetic under comparison."""
+
+    def __init__(self, mlp):
+        self.mlp, self.real, self.choices, self.at = mlp, mlp.route, [], None
+
+    def _route(self, p, xt, cfg):
+        gate_vals, expert_idx, aux = self.real(p, xt, cfg)
+        if self.at is None:
+            self.choices.append(expert_idx)
+            return gate_vals, expert_idx, aux
+        expert_idx = self.choices[self.at]
+        self.at += 1
+        probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)
+        gate_vals = torch.gather(probs, 1, expert_idx)
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+        return gate_vals, expert_idx, aux
+
+    def run(self, fn, replay: bool):
+        """``fn()`` recording (``replay=False``, the first run) or replaying
+        every recorded choice, in order."""
+        self.at = 0 if replay else None
+        self.mlp.route = self._route
+        try:
+            out = fn()
+        finally:
+            self.mlp.route = self.real
+        if replay and self.at != len(self.choices):
+            raise AssertionError(f"routing replay: {self.at} of {len(self.choices)} calls")
+        return out
+
+
+def moe_line(cfg) -> str:
+    m = cfg.moe
+    if m is None:
+        return ""
+    return (f"; MoE {m.n_experts} experts top-{m.top_k} (d_expert {m.d_expert}), "
+            f"{m.n_shared} shared, {m.first_k_dense} dense pre-layer(s), capacity factor "
+            f"{m.capacity_factor}")
+
+
+def drops_line(cfg, drops: dict) -> str:
+    """The assignments the capacity dropped (MoE): a token's output depends
+    on its batch, the reason batch-1 decoding is no oracle for MoE serving."""
+    if cfg.moe is None:
+        return ""
+    (pr, pd), (dr, dd) = drops["prefill"], drops["decode_step"]
+    return (f"; capacity dropped {pd} of {pr} assignments in the prefill ({pd / pr:.2%}) "
+            f"and {dd} of {dr} in decode step 1 ({dd / dr:.2%})")
+
+
 @torch.inference_mode()
 def arch_run(arch: str, counters, flash, ref) -> dict:
     """One model at its published widths (depth as ``arch_depth`` allows),
@@ -2600,8 +2689,13 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
     their distance in the same run: random weights make a deep bfloat16
     stack chaotic, and at internlm2-20b's 48 layers the two plain paths
     already differ by 1.95% of max|logit| on an H100 (PERF.md §6); then
-    ``ARCH_DECODE`` decode steps."""
+    ``ARCH_DECODE`` decode steps.  For an MoE model both plain paths replay
+    the kernel path's expert choices (``RoutingReplay``), so all three make
+    the same dispatch and drop decisions; the distance with free routing is
+    printed beside it, with the assignments the capacity dropped and
+    profiles of a prefill and a decode step."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.models import mlp
     from repro_torch.models import transformer as tfm
     from repro_torch.models.config import param_count
     cfg = get_config(arch)
@@ -2616,7 +2710,8 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         f"({'gated ' if cfg.gated_mlp else 'plain '}{cfg.activation}), {a.n_heads}x{a.head_dim} "
         f"heads over {a.n_kv_heads} kv (group {a.n_heads // a.n_kv_heads}), vocab "
         f"{cfg.vocab_size}, qk-norm {a.qk_norm}, window {a.window} every "
-        f"{a.pattern_period or '-'}; layers {cfg.n_layers} of {depth['published']} "
+        f"{a.pattern_period or '-'}{moe_line(cfg)}; layers {cfg.n_layers} of "
+        f"{depth['published']} "
         f"({cut}; free {depth['free'] / 1e9:.2f} GB, fixed "
         f"{depth['fixed'] / 1e9:.2f} GB, {depth['per_layer'] / 1e9:.3f} GB per layer with its "
         f"KV, working set {depth['work'] / 1e9:.2f} GB with the {depth['plain']} plain "
@@ -2645,11 +2740,15 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
     for c in counters:
         c.launches = 0
     flash.variant_launches = {name: 0 for name in flash.variant_launches}
+    pin = RoutingReplay(mlp) if cfg.moe is not None else None
+    pinned = (lambda fn: pin.run(fn, replay=True)) if pin else (lambda fn: fn())
     seen, rel, restore = arch_window_calls(ref)
     try:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        lk, caches = prefill(None)
+        with mlp.count_drops() as prefill_drops:
+            lk, caches = (pin.run(lambda: prefill(None), replay=False) if pin
+                          else prefill(None))
         first_k = torch.argmax(lk[:, -1], -1)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t1) * 1e3
@@ -2667,25 +2766,43 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
                              f"launches ({variants}, windows {by_window}) for {cfg.n_layers} "
                              f"layers ({want_window} windowed)")
     plain_ms = host_ms(lambda: prefill(False), 1)
-    lp, _ = prefill(False)
+    free = None
+    if pin:             # MoE, free routing: how far the routing alone moves it
+        lf, _ = prefill(False)
+        free = {"logit_diff": float((lk.float() - lf.float()).abs().max()),
+                "first_tokens_equal": bool(torch.equal(torch.argmax(lf[:, -1], -1),
+                                                       first_k))}
+        del lf
+    lp, _ = pinned(lambda: prefill(False))
     diff = float((lk.float() - lp.float()).abs().max())
     scale = float(lp.float().abs().max())
     first_p = torch.argmax(lp[:, -1], -1)
     other = cfg.with_runtime(dense_attn_threshold=512, attn_block_k=512)
-    lb, _ = tfm.prefill(model, other, prompt, use_kernel=False,
-                        caches=tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE))
+    lb, _ = pinned(lambda: tfm.prefill(
+        model, other, prompt, use_kernel=False,
+        caches=tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE)))
     floor = float((lb.float() - lp.float()).abs().max())
     diff_other = float((lk.float() - lb.float()).abs().max())
     del lp, lb
     kernel_ms = host_ms(lambda: prefill(None), 2)
+    prof = profiled(lambda: prefill(None), top=8) if pin else None
     tok = first_k[:, None].to(torch.int32)
     step_ms = []
-    for _ in range(ARCH_DECODE):
+    for i in range(ARCH_DECODE):
         t1 = time.perf_counter()
-        logits, caches = tfm.decode_step(model, cfg, tok, caches)
+        with mlp.count_drops() as step_drops:
+            logits, caches = tfm.decode_step(model, cfg, tok, caches)
         host = torch.argmax(logits[:, -1], -1).cpu()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         tok = host[:, None].to(device=DEVICE, dtype=torch.int32)
+        if i == 0:
+            decode_drops = (step_drops.routed, step_drops.dropped)
+    drops = {"prefill": (prefill_drops.routed, prefill_drops.dropped),
+             "decode_step": decode_drops}
+    if pin:                             # one more step, on a copy of the cache
+        spare = pytree.tree_map(torch.clone, caches)
+        decode_prof = profiled(lambda: tfm.decode_step(model, cfg, tok, spare), top=8)
+        del spare
     finite = bool(torch.isfinite(logits.float()).all())
     peak = torch.cuda.max_memory_allocated()
     bound = max(2e-2 * scale, ARCH_FLOOR_FACTOR * floor)
@@ -2701,14 +2818,22 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         f"max(2e-2, {ARCH_FLOOR_FACTOR} x that) = {bound / scale:.4f} max|logit|); first tokens "
         f"{first_k.tolist()} / {first_p.tolist()}; "
         f"{ARCH_DECODE} decode steps median {statistics.median(step_ms):.2f} ms, logits finite "
-        f"{finite}; peak device memory {peak / 1e9:.2f} GB")
+        f"{finite}; peak device memory {peak / 1e9:.2f} GB{drops_line(cfg, drops)}")
+    if pin:
+        log(f"[archs] {arch}: the plain paths replayed the kernel path's routing (each "
+            f"moe_block call's top-k experts; gates from their own router); with free "
+            f"routing the dense plain path sits {free['logit_diff']:.4f} = "
+            f"{free['logit_diff'] / scale:.4f} max|logit| from the kernel path, first tokens "
+            f"equal {free['first_tokens_equal']} (capacity makes the routing discontinuous)")
+        log_profile(f"{arch} prefill (kernel path)", prof, "archs")
+        log_profile(f"{arch} decode step", decode_prof, "archs")
     if (diff > bound or not torch.equal(first_k, first_p) or not finite
             or max(rel) > ATTN_REL_TOL):
         raise AssertionError(f"archs/{arch}: logits {diff} vs max(2e-2 * {scale}, "
                              f"{ARCH_FLOOR_FACTOR} * {floor}), first tokens "
                              f"{first_k.tolist()} / {first_p.tolist()}, finite {finite}, "
                              f"in-place kernel error {max(rel)}")
-    served = arch_serve(cfg, model) if arch == ARCH_SERVE else None
+    served = arch_serve(cfg, model, ARCH_SERVE[arch]) if arch in ARCH_SERVE else None
     del model, caches, logits, lk
     gc.collect()
     torch.cuda.empty_cache()
@@ -2719,38 +2844,56 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
             "prefill_logit_diff": diff, "max_logit": scale, "plain_paths_diff": floor,
             "launch_rel_err_max": max(rel),
             "decode_ms": statistics.median(step_ms), "peak_bytes": peak, "init_s": init_s,
-            "server_mozart": served}
+            "moe_drops": drops if pin else None, "moe_free_routing": free,
+            "moe_prefill_profile": prof, "moe_decode_profile": decode_prof if pin else None,
+            "server": served}
 
 
-def arch_serve(cfg, model) -> dict:
-    """A short continuous run through ``Server(driver="mozart")``: 2 slots,
-    4 requests, every step warm; the first request against sequential
+def arch_serve(cfg, model, drivers: tuple) -> dict:
+    """The same 4 requests through ``Server(continuous)`` on each of
+    ``drivers`` in turn: 2 slots, buckets from ``warmup``, every step warm.
+    With both drivers the mozart tokens must equal the jit tokens (an MoE
+    model: capacity makes a token depend on its batch, so batch-1 decoding
+    is no oracle, while the two drivers run the same function on the same
+    batches); with mozart alone, request 0 is held against sequential
     batch-1 prefill/decode_step."""
     from repro_torch.launch.serve import Request, Server
     rng = np.random.default_rng(3)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                    max_new=m)
-            for i, (n, m) in enumerate(zip(ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW))]
-    srv = Server(cfg, model, 2, ARCH_SERVE_MAX_LEN, driver="mozart", mode="continuous",
-                 device=DEVICE)
-    t0 = time.perf_counter()
-    srv.warmup(max(ARCH_SERVE_PROMPTS))
-    warm_s = time.perf_counter() - t0
-    stats = srv.run(reqs)
-    check = parity(model, cfg, reqs[0])
-    log(f"[archs] {cfg.name}: Server(continuous, driver mozart) 2 slots, {len(reqs)} requests "
-        f"(prompts {list(ARCH_SERVE_PROMPTS)}), warmup {warm_s:.1f} s: {stats['tokens']} "
-        f"tokens in {stats['wall_s']:.2f} s ({stats['tokens_per_s']:.1f} tokens/s), decode "
-        f"p50 {stats['decode_p50_us'] / 1e3:.2f} ms p99 {stats['decode_p99_us'] / 1e3:.2f} ms; "
-        f"planner calls {stats['planner_calls']}, traces {stats['jit_traces']}, warm "
-        f"{stats['warm']}; request 0 against sequential batch-1 decoding: {check}")
-    if (stats["completed"] != len(reqs) or not stats["warm"] or stats["planner_calls"]
-            or any(len(r.out) != r.max_new for r in reqs)):
-        raise AssertionError(f"archs/{cfg.name} serve: {stats}")
-    del srv
-    return {k: stats[k] for k in ("tokens", "wall_s", "tokens_per_s", "decode_p50_us",
-                                  "decode_p99_us", "planner_calls", "jit_traces", "warm")} | {
-        "warmup_s": warm_s, "parity": check}
+    specs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+             for n, m in zip(ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW)]
+    legs, outs = {}, {}
+    for driver in drivers:
+        reqs = [Request(rid=i, prompt=p, max_new=m) for i, (p, m) in enumerate(specs)]
+        srv = Server(cfg, model, 2, ARCH_SERVE_MAX_LEN, driver=driver, mode="continuous",
+                     device=DEVICE)
+        t0 = time.perf_counter()
+        srv.warmup(max(ARCH_SERVE_PROMPTS))
+        warm_s = time.perf_counter() - t0
+        stats = srv.run(reqs)
+        del srv
+        log(f"[archs] {cfg.name}: Server(continuous, driver {driver}) 2 slots, {len(reqs)} "
+            f"requests (prompts {list(ARCH_SERVE_PROMPTS)}), warmup {warm_s:.1f} s: "
+            f"{stats['tokens']} tokens in {stats['wall_s']:.2f} s ({stats['tokens_per_s']:.1f} "
+            f"tokens/s), decode p50 {stats['decode_p50_us'] / 1e3:.2f} ms p99 "
+            f"{stats['decode_p99_us'] / 1e3:.2f} ms; planner calls {stats['planner_calls']}, "
+            f"traces {stats['jit_traces']}, warm {stats['warm']}")
+        if (stats["completed"] != len(reqs) or not stats["warm"] or stats["planner_calls"]
+                or any(len(r.out) != r.max_new for r in reqs)):
+            raise AssertionError(f"archs/{cfg.name} serve ({driver}): {stats}")
+        outs[driver] = reqs
+        legs[driver] = {k: stats[k] for k in (
+            "tokens", "wall_s", "tokens_per_s", "decode_p50_us", "decode_p99_us",
+            "planner_calls", "jit_traces", "warm")} | {"warmup_s": warm_s}
+    if "jit" in outs:
+        equal = [r.out for r in outs["mozart"]] == [r.out for r in outs["jit"]]
+        check = f"mozart tokens equal to jit tokens: {equal}"
+        if not equal:
+            raise AssertionError(f"archs/{cfg.name} serve: {check}")
+    else:
+        check = ("request 0 against sequential batch-1 decoding: "
+                 f"{parity(model, cfg, outs['mozart'][0])}")
+    log(f"[archs] {cfg.name}: {check}")
+    return legs | {"check": check}
 
 
 def phase_archs(counters, flash, ref) -> list:

@@ -15,7 +15,7 @@ Layout (device-independent — the logical tensors are saved whole):
 * ``restore`` rebuilds the caller's tree, each leaf on the target leaf's
   device and in its dtype.
 
-A tree is nested dicts / NamedTuples (or a ``ParamTree``) of tensors;
+A tree is nested dicts / lists / NamedTuples (or a ``ParamTree``) of tensors;
 paths join keys with "/".  bfloat16 leaves are stored as float32 (exact;
 numpy has no bfloat16 of its own) and cast back on restore.
 """
@@ -38,6 +38,8 @@ def _children(tree: Any):
         return tree._asdict().items()
     if hasattr(tree, "items"):
         return tree.items()
+    if isinstance(tree, (list, torch.nn.ModuleList)):          # pre_layers
+        return [(str(i), v) for i, v in enumerate(tree)]
     return None
 
 
@@ -150,6 +152,8 @@ def _rebuild(tree: Any, data, prefix: str) -> Any:
            for k, v in kids}
     if isinstance(tree, tuple) and hasattr(tree, "_asdict"):
         return type(tree)(**out)
+    if isinstance(tree, (list, torch.nn.ModuleList)):
+        return list(out.values())
     return out
 
 

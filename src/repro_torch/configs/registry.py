@@ -15,11 +15,12 @@ _MODULES = {
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "granite-34b": "repro_torch.configs.granite_34b",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
 }
 
 #: ids the JAX package knows whose families the port does not run yet.
-NOT_PORTED = ("olmoe-1b-7b", "deepseek-moe-16b", "seamless-m4t-large-v2",
-              "hymba-1.5b", "qwen2-vl-2b", "rwkv6-1.6b")
+NOT_PORTED = ("seamless-m4t-large-v2", "hymba-1.5b", "qwen2-vl-2b", "rwkv6-1.6b")
 
 ARCH_IDS = tuple(_MODULES)
 

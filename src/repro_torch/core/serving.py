@@ -17,7 +17,10 @@ decode dead air whose cache writes are dropped (``cache_update_decode``).
 
 Prefilled caches are copied into the rolling cache slot by slot along each
 leaf's batch axis (axes found once by diffing ``init_caches`` shapes at two
-batch sizes, built on the ``meta`` device).  Dummy rows of a padded
+batch sizes, built on the ``meta`` device); the cache is walked as a pytree,
+so a ``{"stack", "pre"}`` dict of ``KVCache``s (DeepSeekMoE) joins as a flat
+one does.  MoE models route their pad tokens too, as the reference's do:
+capacity makes a served token depend on its batch.  Dummy rows of a padded
 admission group aim at slot ``batch``, out of range, and are dropped.
 
 Two drivers.  ``"mozart"`` (the default, as the reference's): prefill and
@@ -55,6 +58,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import resilience
 from repro_torch.models import transformer as tfm
@@ -114,11 +118,12 @@ def _bucket_for(n: int, buckets: list) -> int:
 
 
 def _cache_batch_axes(cfg: ModelConfig, batch: int, max_len: int) -> list:
-    """Per-leaf batch-axis index of the per-slot cache: ``init_caches``
+    """Per-leaf batch-axis index of the per-slot cache pytree: ``init_caches``
     shapes at ``batch`` and ``batch + 1`` (on the ``meta`` device) differ in
     exactly one dim per leaf."""
-    a = tfm.init_caches(cfg, batch, max_len, per_slot=True, device="meta")
-    b = tfm.init_caches(cfg, batch + 1, max_len, per_slot=True, device="meta")
+    a = pytree.tree_leaves(tfm.init_caches(cfg, batch, max_len, per_slot=True, device="meta"))
+    b = pytree.tree_leaves(tfm.init_caches(cfg, batch + 1, max_len, per_slot=True,
+                                           device="meta"))
     axes = []
     for la, lb in zip(a, b):
         diff = [i for i, (x, y) in enumerate(zip(la.shape, lb.shape)) if x != y]
@@ -135,8 +140,8 @@ def _make_join(axes: list):
     ``slots`` (host ints) maps group row -> rolling slot; rows whose slot is
     out of range (dummy padding rows aimed at slot ``batch``) are dropped,
     not clamped."""
-    def join(roll: KVCache, pref: KVCache, slots: np.ndarray) -> KVCache:
-        for r, p, ax in zip(roll, pref, axes):
+    def join(roll, pref, slots: np.ndarray):
+        for r, p, ax in zip(pytree.tree_leaves(roll), pytree.tree_leaves(pref), axes):
             rows = np.nonzero((slots >= 0) & (slots < r.shape[ax]))[0]
             if rows.size:
                 dst = torch.as_tensor(slots[rows], dtype=torch.long, device=r.device)
@@ -150,7 +155,7 @@ def _make_prefill_bucket(cfg: ModelConfig):
     """The scheduler's prefill step for one admission group: prompts
     right-padded to the length bucket, a pad mask over the garbage keys and
     ``last_pos`` at each row's own last real position."""
-    def prefill_bucket(p, toks: torch.Tensor, plens: torch.Tensor, caches: KVCache):
+    def prefill_bucket(p, toks: torch.Tensor, plens: torch.Tensor, caches):
         S = toks.shape[1]
         mask = torch.arange(S, dtype=torch.int32, device=toks.device)[None, :] < plens[:, None]
         return tfm.prefill(p, cfg, tokens=toks, caches=caches, pad_mask=mask,
@@ -194,7 +199,7 @@ class ContinuousBatcher:
         if batch < 1:
             raise ValueError("batch must be >= 1")
         check_driver(driver)
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(f"{cfg.family} serving (pad-free prefill "
                                       "buckets) waits for its model code")
         self.device = torch.device(device)
@@ -234,7 +239,7 @@ class ContinuousBatcher:
             self._prefill = _make_prefill_bucket(cfg)
             self._decode = lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches)
 
-    def _init_caches(self, batch: int) -> KVCache:
+    def _init_caches(self, batch: int) -> KVCache | dict:
         return tfm.init_caches(self.cfg, batch, self.max_len, per_slot=True,
                                device=self.device)
 
@@ -245,11 +250,11 @@ class ContinuousBatcher:
             return step.call_with_stats(self.params, *args)
         return step(self.params, *args), {}
 
-    def _call_prefill(self, toks: np.ndarray, plens: np.ndarray, caches: KVCache):
+    def _call_prefill(self, toks: np.ndarray, plens: np.ndarray, caches):
         return self._call(self._prefill, torch.as_tensor(toks, device=self.device),
                           torch.as_tensor(plens, device=self.device), caches)
 
-    def _call_decode(self, tok: np.ndarray, caches: KVCache):
+    def _call_decode(self, tok: np.ndarray, caches):
         return self._call(self._decode, torch.as_tensor(tok, device=self.device), caches)
 
     def _note_delta(self, delta: dict) -> None:

@@ -45,20 +45,22 @@ class KVCache(NamedTuple):
 
 
 def init_attn(cfg: ModelConfig, generator: torch.Generator | None,
-              device: torch.device | str, n_layers: int) -> dict:
+              device: torch.device | str, n_layers: int | None) -> dict:
     """Stacked ``(L, in, out)`` projections, used as ``x @ W``; with qk-norm
-    also the stacked ``(L, head_dim)`` float32 scales ``q_norm``/``k_norm``."""
+    also the stacked ``(L, head_dim)`` float32 scales ``q_norm``/``k_norm``.
+    ``n_layers=None`` gives one layer's, unstacked."""
     a = cfg.attn
     d = cfg.d_model
     hq, hkv, hd = a.n_heads, a.n_kv_heads, a.head_dim
     scale = d ** -0.5
+    lead = () if n_layers is None else (n_layers,)
     shapes = {"wq": (d, hq * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
               "wo": (hq * hd, d)}
-    p = {k: normal((n_layers, *s), scale, cfg.dtype, generator, device)
+    p = {k: normal((*lead, *s), scale, cfg.dtype, generator, device)
          for k, s in shapes.items()}
     if a.qk_norm:
-        p["q_norm"] = torch.ones((n_layers, hd), dtype=torch.float32, device=device)
-        p["k_norm"] = torch.ones((n_layers, hd), dtype=torch.float32, device=device)
+        p["q_norm"] = torch.ones((*lead, hd), dtype=torch.float32, device=device)
+        p["k_norm"] = torch.ones((*lead, hd), dtype=torch.float32, device=device)
     return p
 
 

@@ -1,8 +1,8 @@
 """Model configuration: the counterpart of ``src/repro/models/config.py``.
 
-The same frozen dataclasses with torch dtypes.  The MoE/SSM/RWKV fields are
+The same frozen dataclasses with torch dtypes.  The SSM/RWKV fields are
 kept as data so that the slices that port those families fill them in; the
-port's model code runs the dense family only and says so for the others.
+port's model code runs the dense and MoE families and says so for the others.
 """
 
 from __future__ import annotations

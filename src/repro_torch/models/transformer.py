@@ -1,5 +1,5 @@
-"""The dense transformer stack: the counterpart of
-``src/repro/models/transformer.py`` for the dense family.
+"""The transformer stack: the counterpart of
+``src/repro/models/transformer.py`` for the dense and MoE families.
 
 The reference scans a homogeneous per-layer block over parameters stacked
 along a leading ``L`` axis, with ``jax.checkpoint`` remat per layer (and a
@@ -9,6 +9,11 @@ each layer under ``torch.utils.checkpoint`` in train mode when
 ``cfg.remat``.  Decode state is the reference's stacked KV cache (a
 ``KVCache`` whose leaves carry a leading ``L`` axis); prefill and decode
 write each layer's K/V into it in place and return it with new lengths.
+
+MoE stacks with leading dense layers (DeepSeekMoE's ``first_k_dense``) keep
+them apart, as the reference does: a list ``params["pre_layers"]`` of
+unstacked dense blocks (global attention, ``cfg.d_ff``) before the stack of
+MoE blocks, and the decode state ``{"stack": KVCache, "pre": KVCache}``.
 Other families wait for later slices.
 """
 
@@ -31,15 +36,20 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise for what the port's model code does not run yet."""
     a = cfg.attn
     missing = [what for what, cond in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
-        ("MoE", cfg.moe is not None), ("encoder-decoder", cfg.encdec),
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
+        ("encoder-decoder", cfg.encdec),
         ("attention", a is None),
         ("M-RoPE", a is not None and a.mrope),
         ("logit softcap", a is not None and a.logit_softcap is not None),
         ("banded attention", cfg.banded_attention)) if cond]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  "ported yet (the port runs dense models)")
+                                  "ported yet (the port runs dense and MoE models)")
+
+
+def first_dense(cfg: ModelConfig) -> int:
+    """Leading dense layers kept apart from the stack (DeepSeekMoE)."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else 0
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator | None,
@@ -56,16 +66,27 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None,
             "final_norm": ones(D)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = normal((D, V), D ** -0.5, cfg.dtype, generator, device)
+    kd = first_dense(cfg)
+    n = L - kd
     tree["layers"] = {
-        "attn": attn_mod.init_attn(cfg, generator, device, L),
-        "ln1": ones(L, D), "ln2": ones(L, D),
-        "mlp": mlp_mod.init_mlp(cfg, generator, device, L),
+        "attn": attn_mod.init_attn(cfg, generator, device, n),
+        "ln1": ones(n, D), "ln2": ones(n, D),
     }
+    if cfg.moe is not None:
+        tree["layers"]["moe"] = mlp_mod.init_moe(cfg, generator, device, n)
+    else:
+        tree["layers"]["mlp"] = mlp_mod.init_mlp(cfg, generator, device, n)
+    if kd:
+        tree["pre_layers"] = [
+            {"attn": attn_mod.init_attn(cfg, generator, device, None),
+             "ln1": ones(D), "ln2": ones(D),
+             "mlp": mlp_mod.init_mlp(cfg, generator, device, None)} for _ in range(kd)]
     return ParamTree(tree)
 
 
 def layer_windows(cfg: ModelConfig) -> list[int]:
-    """Per-layer effective attention window."""
+    """Per-layer effective attention window, for all ``n_layers`` (the
+    pre-layers' entries included; they run global whatever it says)."""
     L, a = cfg.n_layers, cfg.attn
     if a is None:
         return [BIG_WINDOW] * L
@@ -92,37 +113,58 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
                  positions: torch.Tensor | None, cache: KVCache | None = None,
                  mode: str = "train", pad_mask: torch.Tensor | None = None,
                  use_kernel: bool | None = None):
+    """One block: (x, new_cache, aux), aux None for a dense block."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out, new_cache = attn_mod.attention_block(
         p["attn"], h, cfg, positions=positions, causal=True, window=window,
         cache=cache, mode=mode, use_kernel=use_kernel, pad_mask=pad_mask)
     x = x + a_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_mod.mlp_block(p["mlp"], h2, cfg), new_cache
+    if "moe" in p:
+        m_out, aux = mlp_mod.moe_block(p["moe"], h2, cfg)
+        return x + m_out, new_cache, aux
+    return x + mlp_mod.mlp_block(p["mlp"], h2, cfg), new_cache, None
 
 
 def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
-              caches: KVCache | None = None, mode: str = "train",
+              caches: KVCache | dict | None = None, mode: str = "train",
               positions: torch.Tensor | None = None,
               pad_mask: torch.Tensor | None = None, use_kernel: bool | None = None):
-    """The layer stack.  Returns (x, new_caches, aux): ``caches`` is the
-    stacked KV cache (None in train mode); ``pad_mask`` (B, S) marks real
-    tokens; ``use_kernel`` picks the flash-attention kernel where it applies
-    (``attention._takes_kernel``).  The dense family has no auxiliary loss."""
-    layers = _unstack(params["layers"], cfg.n_layers)
+    """The pre-layers (if any, global attention), then the layer stack.
+    Returns (x, new_caches, aux): ``caches`` is the stacked KV cache, or
+    ``{"stack", "pre"}`` with pre-layers (None in train mode); ``pad_mask``
+    (B, S) marks real tokens; ``use_kernel`` picks the flash-attention
+    kernel where it applies (``attention._takes_kernel``); ``aux`` is the
+    MoE load-balance loss summed over the layers (0 for a dense model)."""
+    kd = first_dense(cfg)
     remat = cfg.remat and mode == "train"
-    lengths, starts = [], []
-    for i, (p, window) in enumerate(zip(layers, layer_windows(cfg))):
-        cache = None if caches is None else KVCache(*(leaf[i] for leaf in caches))
-        args = (p, x, cfg, window, positions, cache, mode, pad_mask, use_kernel)
-        x, new = (checkpoint(_apply_block, *args, use_reentrant=False) if remat
-                  else _apply_block(*args))
-        if caches is not None:          # K/V went into caches.k/v in place
-            lengths.append(new.length)
-            starts.append(new.start)
-    if caches is not None:
-        caches = KVCache(caches.k, caches.v, torch.stack(lengths), torch.stack(starts))
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    split = isinstance(caches, dict)
+
+    def run(layers, windows, stacked):
+        nonlocal x, aux
+        lengths, starts = [], []
+        for i, (p, window) in enumerate(zip(layers, windows)):
+            cache = None if stacked is None else KVCache(*(leaf[i] for leaf in stacked))
+            args = (p, x, cfg, window, positions, cache, mode, pad_mask, use_kernel)
+            x, new, a = (checkpoint(_apply_block, *args, use_reentrant=False) if remat
+                         else _apply_block(*args))
+            if a is not None:
+                aux = aux + a
+            if stacked is not None:     # K/V went into stacked.k/v in place
+                lengths.append(new.length)
+                starts.append(new.start)
+        if stacked is None:
+            return None
+        return KVCache(stacked.k, stacked.v, torch.stack(lengths), torch.stack(starts))
+
+    pre = None
+    if kd:
+        pre = run([p.tree() if isinstance(p, ParamTree) else p for p in params["pre_layers"]],
+                  [BIG_WINDOW] * kd, caches["pre"] if split else None)
+    stack = run(_unstack(params["layers"], cfg.n_layers - kd), layer_windows(cfg)[kd:],
+                caches["stack"] if split else caches)
+    return x, ({"stack": stack, "pre": pre} if split else stack), aux
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -141,7 +183,7 @@ def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
 def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
                    positions: torch.Tensor | None = None):
     """Teacher-forced forward up to the final norm: (hidden, aux_loss);
-    the dense family has no auxiliary loss (0)."""
+    aux is the MoE load-balance loss summed over the layers (0 if dense)."""
     x = embed_tokens(params["embed"], tokens, cfg)
     x, _, aux = run_stack(params, x, cfg, positions=positions)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
@@ -158,18 +200,27 @@ def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = False,
-                device: torch.device | str = "cuda") -> KVCache:
+                device: torch.device | str = "cuda") -> KVCache | dict:
     """Decode state: the KV cache of every layer stacked along a leading
-    ``L`` axis.  ``per_slot=True`` gives every batch row its own position
-    counter (continuous batching: rows join and leave mid-flight)."""
+    ``L`` axis, or ``{"stack": KVCache(L - k), "pre": KVCache(k)}`` for a
+    model with ``k`` pre-layers (as the reference's).  ``per_slot=True``
+    gives every batch row its own position counter (continuous batching:
+    rows join and leave mid-flight)."""
     check_ported(cfg)
     one = attn_mod.init_kv_cache(cfg, batch, max_len, per_slot=per_slot, device=device)
-    return KVCache(*(leaf.unsqueeze(0).repeat(cfg.n_layers, *([1] * leaf.dim()))
-                     for leaf in one))
+
+    def stacked(n: int) -> KVCache:
+        return KVCache(*(leaf.unsqueeze(0).repeat(n, *([1] * leaf.dim())) for leaf in one))
+
+    kd = first_dense(cfg)
+    if kd:
+        return {"stack": stacked(cfg.n_layers - kd), "pre": stacked(kd)}
+    return stacked(cfg.n_layers)
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: KVCache | None = None,
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            caches: KVCache | dict | None = None,
             positions: torch.Tensor | None = None, pad_mask: torch.Tensor | None = None,
             last_pos: torch.Tensor | None = None, use_kernel: bool | None = None):
     """Process the prompt, fill caches, return logits of the LAST position.
@@ -194,7 +245,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, caches: KVCache | No
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: KVCache,
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: KVCache | dict,
                 positions: torch.Tensor | None = None):
     """One decode step.  token: (B, 1) integer.  Returns (logits, caches)."""
     x = embed_tokens(params["embed"], token, cfg)

@@ -2,14 +2,17 @@
 
 The port keeps the JAX package's parameter layout: the same nested tree
 (``embed``, ``final_norm``, ``layers/{attn/{wq,wk,wv,wo}, ln1, ln2,
-mlp/{w_in,w_gate,w_out}}``), layers stacked along a leading ``L`` axis and
-matrices stored ``(in, out)`` and used as ``x @ W``.  A JAX parameter tree
-therefore copies across exactly, and the optimizer sees the same leaves in
-the same (sorted-path) order as the reference's ``tree_flatten``.
+mlp/{w_in,w_gate,w_out}}`` or ``moe/{router, shared, w_gate, w_in, w_out}``,
+and DeepSeekMoE's list ``pre_layers``), layers stacked along a leading ``L``
+axis and matrices stored ``(in, out)`` and used as ``x @ W``.  A JAX
+parameter tree therefore copies across exactly, and the optimizer sees the
+same leaves in the same order as the reference's ``tree_flatten`` (dict
+keys sorted, list items in index order).
 
 ``ParamTree`` holds that tree as ``nn.Parameter``s of nested modules and
-can be indexed like the reference's dict (``params["layers"]["attn"]``).
-KV caches carry across the same way: the reference's stacked ``KVCache``
+can be indexed like the reference's dict (``params["layers"]["attn"]``,
+``params["pre_layers"][0]``).  KV caches carry across the same way: the
+reference's stacked ``KVCache`` (or its ``{"stack", "pre"}`` dict of them)
 and the port's have the same leaves in the same layout.
 """
 
@@ -27,7 +30,8 @@ from repro_torch.models.config import ModelConfig
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: sub-dicts become child
-    modules, tensors become parameters, registered in sorted key order."""
+    modules, lists of sub-dicts ``nn.ModuleList``s, tensors become
+    parameters, registered in sorted key order."""
 
     def __init__(self, tree: Mapping[str, Any]):
         super().__init__()
@@ -36,6 +40,8 @@ class ParamTree(nn.Module):
             v = tree[k]
             if hasattr(v, "items"):
                 self.add_module(k, ParamTree(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
             else:
                 self.register_parameter(
                     k, v if isinstance(v, nn.Parameter) else nn.Parameter(v))
@@ -50,7 +56,8 @@ class ParamTree(nn.Module):
 
     def tree(self) -> dict:
         """The parameters as a plain nested dict (the reference's layout)."""
-        return {k: v.tree() if isinstance(v, ParamTree) else v
+        return {k: v.tree() if isinstance(v, ParamTree)
+                else [x.tree() for x in v] if isinstance(v, nn.ModuleList) else v
                 for k, v in self.items()}
 
     # -- Mozart capture hooks (``core/plan_cache.py``, ``core/annotation.py``)
@@ -84,11 +91,14 @@ _META_TWINS: dict[tuple, ParamTree] = {}
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
-    """``{"a.b.c": leaf}`` in sorted-path order (the reference's leaf order)."""
+    """``{"a.b.c": leaf}`` in the reference's leaf order (dict keys sorted,
+    list items as ``a.0``, ``a.1``, ... in index order)."""
     out: dict[str, Any] = {}
-    for k, v in sorted(tree.items()):
+    items = (sorted(tree.items()) if hasattr(tree, "items")
+             else [(str(i), v) for i, v in enumerate(tree)])
+    for k, v in items:
         name = f"{prefix}.{k}" if prefix else k
-        if hasattr(v, "items"):
+        if hasattr(v, "items") or isinstance(v, (list, tuple)):
             out.update(flatten(v, name))
         else:
             out[name] = v
@@ -96,6 +106,8 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
 
 
 def unflatten(flat: Mapping[str, Any]) -> dict:
+    """The nested tree of ``flatten``'s names; a node whose keys are all
+    indices becomes a list."""
     tree: dict = {}
     for name, v in flat.items():
         node = tree
@@ -103,7 +115,14 @@ def unflatten(flat: Mapping[str, Any]) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = v
-    return tree
+
+    def lists(node):
+        if not hasattr(node, "items"):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
 
 
 def leaves(model: nn.Module) -> dict[str, nn.Parameter]:
@@ -169,20 +188,25 @@ def to_numpy(params: ParamTree | Mapping[str, Any]) -> dict:
 
 
 def cache_from_numpy(cache: Any, cfg: ModelConfig,
-                     device: torch.device | str = "cuda") -> KVCache:
+                     device: torch.device | str = "cuda") -> KVCache | dict:
     """The reference's stacked ``KVCache`` (leaves as numpy arrays: k, v
-    (L, n_blk, blk, B, Hkv, D), length (L,) or (L, B), start (L, B)) as the
-    port's; k and v take ``cfg.dtype`` (bfloat16 bit for bit), the counters
-    int32."""
+    (L, n_blk, blk, B, Hkv, D), length (L,) or (L, B), start (L, B)), or its
+    ``{"stack", "pre"}`` dict of them, as the port's; k and v take
+    ``cfg.dtype`` (bfloat16 bit for bit), the counters int32."""
+    if isinstance(cache, dict):
+        return {name: cache_from_numpy(c, cfg, device) for name, c in cache.items()}
     k, v, length, start = cache
     kv = [_tensor(x).to(device=device, dtype=cfg.dtype) for x in (k, v)]
     ints = [torch.from_numpy(np.array(x, dtype=np.int32)).to(device) for x in (length, start)]
     return KVCache(*kv, *ints)
 
 
-def cache_to_numpy(cache: KVCache) -> KVCache:
-    """The port's KV cache as a ``KVCache`` of numpy arrays in the
-    reference's layout; bfloat16 leaves come out as float32 (exact)."""
+def cache_to_numpy(cache: KVCache | dict) -> KVCache | dict:
+    """The port's KV cache as a ``KVCache`` of numpy arrays (or a dict of
+    them) in the reference's layout; bfloat16 leaves come out as float32
+    (exact)."""
+    if isinstance(cache, dict):
+        return {name: cache_to_numpy(c) for name, c in cache.items()}
     def host(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

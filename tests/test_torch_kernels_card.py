@@ -152,10 +152,11 @@ def test_flash_attention_tensor_core_edges_match_plain_version(B, Hq, Hkv, Sq, S
     (4, 48, 1, 2048, 128, None),     # granite-34b: MQA, group 48
     (4, 8, 4, 2048, 256, 1024),      # gemma3-4b's local layers: 1024-key window
     (4, 8, 4, 2048, 256, None),      # gemma3-4b's global layers
+    (4, 16, 16, 2048, 128, None),    # olmoe-1b-7b and deepseek-moe-16b: MHA
 ])
 def test_flash_attention_at_the_new_models_prefill_shapes(B, Hq, Hkv, S, D, window):
     """A greedy prefill's attention (batch 4 x 2048, causal, bfloat16, the
-    model's head-split views) at the published widths of the three dense
+    model's head-split views) at the published widths of the dense and MoE
     configs served since the gemma-7b slice: the tc variant, within the
     bfloat16 tolerance of the plain version."""
     _card()

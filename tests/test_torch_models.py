@@ -174,7 +174,9 @@ def test_from_numpy_rejects_other_layouts(bad):
         weights.from_numpy(tree, tcfg, "cpu")
 
 
-PORTED = ("gemma-7b", "internlm2-20b", "granite-34b", "gemma3-4b")
+PORTED = ("gemma-7b", "internlm2-20b", "granite-34b", "gemma3-4b", "olmoe-1b-7b",
+          "deepseek-moe-16b")
+MOE = ("olmoe-1b-7b", "deepseek-moe-16b")
 
 
 def _fields(cfg) -> dict:
@@ -183,6 +185,7 @@ def _fields(cfg) -> dict:
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     out["dtype"] = getattr(out["dtype"], "__name__", str(out["dtype"])).split(".")[-1]
     out["attn"] = dataclasses.asdict(cfg.attn)
+    out["moe"] = cfg.moe and dataclasses.asdict(cfg.moe)
     return out
 
 
@@ -197,7 +200,7 @@ def test_registry_has_the_ported_ids(arch):
     assert registry.get_config(arch).dtype == torch.bfloat16
     ttfm.check_ported(registry.get_config(arch))
     with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("olmoe-1b-7b")
+        registry.get_config("hymba-1.5b")
     with pytest.raises(KeyError, match="unknown"):
         registry.get_config("no-such-arch")
 
@@ -274,9 +277,9 @@ def test_qk_norm_carry_across_round_trip_is_exact():
 
 
 def test_unported_families_raise():
-    cfg = tgemma.smoke_config().with_runtime(
-        family="moe", moe=MoEConfig(n_experts=4, top_k=2, d_expert=32))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    from repro_torch.models.config import SSMConfig
+    cfg = tgemma.smoke_config().with_runtime(family="hybrid", ssm=SSMConfig())
+    with pytest.raises(NotImplementedError, match="family 'hybrid' not ported"):
         ttfm.init_model(cfg, None, "meta")
 
 
@@ -300,3 +303,98 @@ def test_logits_and_plain_cross_entropy_match_jax():
     jce = jlm.cross_entropy(jnp.asarray(want[..., :256]), jnp.asarray(labels),
                             jnp.asarray(mask))
     np.testing.assert_allclose(float(ce), float(jce), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: olmoe-1b-7b, deepseek-moe-16b (dense pre-layer, shared experts)
+# ---------------------------------------------------------------------------
+
+
+def _moe_pair(arch, dtype_j, dtype_t):
+    from repro.configs.registry import get_smoke_config as jget_smoke
+    return (jget_smoke(arch).with_runtime(dtype=dtype_j),
+            registry.get_smoke_config(arch).with_runtime(dtype=dtype_t))
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_f32_loss_and_every_grad_match_jax(arch):
+    """The smoke configs (4 experts top-2; deepseek with 2 shared experts
+    and a dense pre-layer): loss with the summed aux loss, and the gradient
+    of every leaf, ``pre_layers`` and the routers included, in the
+    reference's leaf order; the aux loss also on its own, with a gradient."""
+    jcfg, tcfg = _moe_pair(arch, jnp.float32, torch.float32)
+    params = jtfm.init_model(jax.random.PRNGKey(0), jcfg)
+    tokens = _tokens()
+    jl, jg = jax.value_and_grad(jlm.loss_fn)(params, {"tokens": jnp.asarray(tokens)}, jcfg, 5)
+    model = weights.from_numpy(jax.tree_util.tree_map(np.asarray, params), tcfg, "cpu")
+    tl = tlm.loss_fn(model, {"tokens": torch.from_numpy(tokens)}, tcfg, 5)
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    jflat = weights.flatten(jax.tree_util.tree_map(np.asarray, jg))
+    tflat = weights.leaves(model)
+    assert list(tflat) == list(jflat)
+    assert ("pre_layers.0.mlp.w_in" in tflat) == (arch == "deepseek-moe-16b")
+    for name, p in tflat.items():
+        want = jflat[name]
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-4,
+                                   atol=1e-6 * float(np.abs(want).max()), err_msg=name)
+    _, jaux = jtfm.forward_hidden(params, jcfg, tokens=jnp.asarray(tokens[:, :-1]))
+    _, taux = ttfm.forward_hidden(model, tcfg, torch.from_numpy(tokens[:, :-1]))
+    assert taux.requires_grad and float(taux.detach()) > 0
+    np.testing.assert_allclose(float(taux.detach()), float(jaux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_bf16_loss_matches_jax(arch):
+    """bfloat16 matrices, float32 routers; the reference under ``jax.jit``
+    (eagerly its CPU backend has no bf16 x bf16 -> f32 dot for the pre-layer)."""
+    jcfg, tcfg = _moe_pair(arch, jnp.bfloat16, torch.bfloat16)
+    params = jtfm.init_model(jax.random.PRNGKey(1), jcfg)
+    tokens = _tokens(seed=1)
+    jl = jax.jit(lambda p, t: jlm.loss_fn(p, {"tokens": t}, jcfg))(params, jnp.asarray(tokens))
+    model = weights.from_numpy(jax.tree_util.tree_map(np.asarray, params), tcfg, "cpu")
+    assert model["layers"]["moe"]["w_in"].dtype == torch.bfloat16
+    assert model["layers"]["moe"]["router"].dtype == torch.float32
+    with torch.no_grad():
+        tl = tlm.loss_fn(model, {"tokens": torch.from_numpy(tokens)}, tcfg)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=2e-2)
+
+
+def test_pre_layers_carry_across_round_trip_is_exact():
+    """deepseek-moe's smoke tree in bfloat16, the list ``pre_layers``
+    included, carries across and back bit for bit; the port's tree holds the
+    list as an ``nn.ModuleList`` and its meta twin keeps it."""
+    jcfg, tcfg = _moe_pair("deepseek-moe-16b", jnp.bfloat16, torch.bfloat16)
+    params = jax.tree_util.tree_map(np.asarray, jtfm.init_model(jax.random.PRNGKey(5), jcfg))
+    model = weights.from_numpy(params, tcfg, "cpu")
+    assert isinstance(model["pre_layers"], torch.nn.ModuleList)
+    assert model["pre_layers"][0]["mlp"]["w_in"].shape == (64, 48)
+    tree = weights.to_numpy(model)
+    assert isinstance(tree["pre_layers"], list) and len(tree["pre_layers"]) == 1
+    back = weights.flatten(tree)
+    for name, want in weights.flatten(params).items():
+        np.testing.assert_array_equal(back[name], np.asarray(want, np.float32), name)
+    again = weights.from_numpy(tree, tcfg, "cpu")
+    for (n, x), y in zip(weights.leaves(model).items(), weights.leaves(again).values()):
+        assert x.dtype == y.dtype and torch.equal(x, y), n
+    twin = model.mozart_meta()
+    assert [n for n, _ in twin.named_parameters()] == [n for n, _ in model.named_parameters()]
+    assert isinstance(twin["pre_layers"], torch.nn.ModuleList)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_caches_at_published_width(arch):
+    """The decode state is a stacked ``KVCache`` or ``{"stack", "pre"}`` as
+    the reference's, and ``layer_windows`` keeps all ``n_layers`` entries
+    (the parameters' layout is ``test_init_layout_matches_jax_at_published_width``'s)."""
+    jcfg, tcfg = jget_config(arch), registry.get_config(arch)
+    kd = tcfg.moe.first_k_dense
+    want = jax.eval_shape(lambda: jtfm.init_caches(jcfg, 4, 2080, per_slot=True))
+    caches = ttfm.init_caches(tcfg, 4, 2080, per_slot=True, device="meta")
+    assert isinstance(caches, dict) == bool(kd)
+    pairs = ([(caches[k], want[k]) for k in ("stack", "pre")] if kd else [(caches, want)])
+    for g, w in pairs:
+        for gl, wl in zip(g, w):
+            assert tuple(gl.shape) == wl.shape
+            assert str(gl.dtype).split(".")[-1] == str(wl.dtype)
+    assert len(ttfm.layer_windows(tcfg)) == tcfg.n_layers

@@ -6,7 +6,8 @@ the fixed-group server, and the flash-attention switch.
 
 Models: the gemma-7b smoke config (MHA, tied embedding) and the GQA
 internlm2-20b smoke config of ``tests/test_serving.py`` (6 query heads over
-2 kv heads), both in float32; JAX ``init_model`` makes the parameters and
+2 kv heads), and the MoE smoke configs of olmoe-1b-7b and deepseek-moe-16b
+(whose decode state is a ``{"stack", "pre"}`` dict of caches), in float32; JAX ``init_model`` makes the parameters and
 ``weights.from_numpy`` carries them across.  Tolerances: logits and
 attention outputs rtol 1e-5 with atol 1e-5 * max|reference| (the same
 float32 arithmetic summed in another order; near-zero entries carry only
@@ -39,6 +40,7 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models import weights
 from repro_torch.models.config import AttnConfig as TAttn
 from repro_torch.models.config import ModelConfig as TModel
+from repro_torch.models.config import MoEConfig as TMoE
 
 ARCH = "internlm2-20b"            # GQA; dense rows: batched == per-row exactly
 MAX_LEN = 48
@@ -50,7 +52,8 @@ SPECS = [(5, 3), (9, 7), (6, 2), (3, 5), (8, 4), (9, 1)]
 
 def port_config(jcfg) -> TModel:
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    return TModel(**{**kw, "attn": TAttn(**dataclasses.asdict(jcfg.attn)),
+    moe = jcfg.moe and TMoE(**dataclasses.asdict(jcfg.moe))
+    return TModel(**{**kw, "attn": TAttn(**dataclasses.asdict(jcfg.attn)), "moe": moe,
                      "dtype": torch.float32})
 
 
@@ -72,6 +75,11 @@ def _close(got, want, what=""):
 
 
 def _same_cache(tcache, jcache):
+    if isinstance(jcache, dict):
+        assert isinstance(tcache, dict) and set(tcache) == set(jcache)
+        for name in jcache:
+            _same_cache(tcache[name], jcache[name])
+        return
     t = weights.cache_to_numpy(tcache)
     _close(t.k, jcache.k, "cache k")
     _close(t.v, jcache.v, "cache v")
@@ -205,10 +213,12 @@ def test_decode_writes_in_place_and_returns_new_lengths(gqa):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=["gemma-7b", ARCH, "granite-34b", "gemma3-4b"])
+@pytest.fixture(scope="module", params=["gemma-7b", ARCH, "granite-34b", "gemma3-4b",
+                                        "olmoe-1b-7b", "deepseek-moe-16b"])
 def arch(request):
     """gemma-7b (MHA, tied), internlm2-20b (GQA 3), granite-34b (MQA, plain
-    GELU MLP) and gemma3-4b (qk-norm, a 5:1 sliding-window pattern)."""
+    GELU MLP), gemma3-4b (qk-norm, a 5:1 sliding-window pattern), olmoe
+    (MoE, qk-norm) and deepseek-moe (a dense pre-layer, shared experts)."""
     jcfg = (jgemma.smoke_config() if request.param == "gemma-7b"
             else jsmoke(request.param)).with_runtime(dtype=jnp.float32)
     params, tcfg, model = _carry(jcfg, seed=4)
@@ -846,3 +856,116 @@ def test_dense_attention_offset_and_kv_len_match_jax(offset, kv_len):
     got = tattn._dense_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                                  causal=True, window=None, offset=offset, kv_len=kv_len)
     _close(got, want, "dense attention")
+
+
+# ---------------------------------------------------------------------------
+# MoE serving: the batcher against the JAX batcher (capacity routing makes a
+# served token depend on its batch, so batch-1 decoding is no oracle)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["olmoe-1b-7b", "deepseek-moe-16b"])
+def moe(request):
+    jcfg = jsmoke(request.param).with_runtime(dtype=jnp.float32)
+    params, tcfg, model = _carry(jcfg, seed=13)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, jcfg.vocab_size, p).astype(np.int32) for p, _ in SPECS]
+    return jcfg, tcfg, params, model, prompts
+
+
+@pytest.fixture(scope="module")
+def moe_reference(moe):
+    """The JAX batcher's tokens on the same weights, requests, 2 slots and
+    prompt buckets, per driver."""
+    from repro.core import plan_cache as jplan_cache
+    from repro.core.serving import ContinuousBatcher as JBatcher
+    jcfg, _, params, _, prompts = moe
+    out = {}
+    for driver in ("jit", "mozart"):
+        jplan_cache.clear()
+        b = JBatcher(jcfg, params, 2, MAX_LEN, driver=driver)
+        b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+        reqs = [b.make_request(p, n) for p, (_, n) in zip(prompts, SPECS)]
+        b.run(reqs)
+        out[driver] = [r.out for r in reqs]
+    jplan_cache.clear()
+    return out
+
+
+@pytest.mark.parametrize("driver", ["jit", "mozart"])
+def test_moe_batcher_matches_the_jax_batcher(moe, moe_reference, driver):
+    """Six requests through two slots after ``warmup`` (buckets 8 and 16):
+    tokens equal to the reference batcher's on the same driver, and the
+    two drivers equal each other; the mozart driver's steps all warm.  The
+    capacity drops assignments on the way (a 2-row decode step has
+    capacity 1 per expert), so the equality covers dropping."""
+    from repro_torch.models import mlp as tmlp
+    _, tcfg, _, model, prompts = moe
+    b = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver=driver, device="cpu")
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    reqs = [b.make_request(p, n) for p, (_, n) in zip(prompts, SPECS)]
+    with tmlp.count_drops() as drops:
+        stats = b.run(reqs)
+    assert [r.out for r in reqs] == moe_reference[driver] == moe_reference["jit"]
+    assert 0 < drops.dropped < drops.routed
+    assert stats["completed"] == len(SPECS)
+    assert (stats["planner_calls"], stats["jit_traces"], stats["warm"]) == (0, 0, True)
+
+
+def test_deepseek_dict_cache_joins_slot_by_slot():
+    """``_cache_batch_axes`` walks the ``{"stack", "pre"}`` cache's leaves;
+    ``_make_join`` copies a real row into its slot in both caches and drops
+    the dummy row aimed at slot ``batch``."""
+    tcfg = port_config(jsmoke("deepseek-moe-16b"))
+    roll = ttfm.init_caches(tcfg, 2, 8, per_slot=True, device="cpu")
+    pref = ttfm.init_caches(tcfg, 2, 8, per_slot=True, device="cpu")
+    assert set(roll) == {"stack", "pre"}
+    for c in pref.values():
+        for leaf in c:
+            leaf.fill_(3)
+    axes = serving._cache_batch_axes(tcfg, 2, 8)
+    assert axes == [3, 3, 1, 1] * 2
+    out = serving._make_join(axes)(roll, pref, np.array([1, 2]))
+    assert out is roll
+    for name, n in (("stack", 2), ("pre", 1)):
+        c = roll[name]
+        assert c.k.shape[0] == n
+        assert bool((c.k[:, :, :, 1] == 3).all()) and bool((c.k[:, :, :, 0] == 0).all())
+        assert c.length.tolist() == [[0, 3]] * n and c.start.tolist() == [[0, 3]] * n
+
+
+def test_deepseek_plan_file_warm_start(tmp_path):
+    """The deepseek batcher's plan file: ``warmup`` saves the labelled
+    entries (their fingerprints hold the dict of caches); after a restart a
+    second batcher on the file serves the same requests with zero planner
+    calls and the first batcher's tokens."""
+    from repro_torch.core import plan_cache
+    jcfg = jsmoke("deepseek-moe-16b").with_runtime(dtype=jnp.float32)
+    _, tcfg, model = _carry(jcfg, seed=13)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, jcfg.vocab_size, p).astype(np.int32) for p, _ in SPECS]
+    path = str(tmp_path / "plans.json")
+    b = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="mozart", device="cpu",
+                          plan_cache_path=path)
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    first = [b.make_request(p, n) for p, (_, n) in zip(prompts, SPECS)]
+    b.run(first)
+    plan_cache.clear()
+    assert plan_cache.load(path) == 5                # decode + 2 batch x 2 length buckets
+    plan_cache.clear()
+    again = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="mozart", device="cpu",
+                              plan_cache_path=path, prompt_buckets=b.prompt_buckets)
+    reqs = [again.make_request(p, n) for p, (_, n) in zip(prompts, SPECS)]
+    stats = again.run(reqs)
+    assert stats["planner_calls"] == 0 and stats["warm"] is True, stats
+    assert [r.out for r in reqs] == [r.out for r in first]
+
+
+def test_moe_serve_cli_runs_on_the_cpu(monkeypatch, capsys):
+    for driver in ("jit", "mozart"):
+        monkeypatch.setattr("sys.argv", ["serve", "--arch", "olmoe-1b-7b", "--smoke",
+                                         "--device", "cpu", "--requests", "3", "--batch", "2",
+                                         "--prompt-len", "5", "--max-new", "3",
+                                         "--driver", driver])
+        tserve.main()
+        assert "served 9 tokens" in capsys.readouterr().out

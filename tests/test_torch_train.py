@@ -187,3 +187,26 @@ class TestFault:
             make_state, run_from, fault_cfg=fault.FaultConfig(),
             latest_step=lambda: ckpt.latest_step(tmp_path))
         assert out == "done" and state_log.count(0) == 1 and state_log.count(5) == 2
+
+
+def test_moe_train_checkpoints_and_resumes_with_pre_layers(tmp_path):
+    """deepseek-moe's smoke config on the CPU (a dense pre-layer: a list in
+    the parameter tree, saved as ``params/pre_layers/0/...``): two steps,
+    a checkpoint, and a resumed third step from it."""
+    from repro_torch.configs.registry import get_smoke_config
+    cfg = get_smoke_config("deepseek-moe-16b")
+    kw = dict(batch=2, seq=16, ckpt_dir=str(tmp_path), device="cpu", log_every=1)
+    first = ttrain.train(cfg, steps=2, **kw)
+    assert len(first["losses"]) == 2 and np.all(np.isfinite(first["losses"]))
+    keys = ckpt.load_meta(tmp_path, 2)["keys"]
+    assert "params/pre_layers/0/mlp/w_in" in keys and "params/layers/moe/router" in keys
+    second = ttrain.train(cfg, steps=3, **kw)
+    assert len(second["losses"]) == 1 and ckpt.latest_step(tmp_path) == 3
+    model = ttrain.tfm.init_model(cfg, torch.Generator().manual_seed(9), "cpu")
+    back = ckpt.restore(tmp_path, 2, {"params": model.tree()})["params"]
+    assert isinstance(back["pre_layers"], list)
+    saved = {n: p.detach().clone() for n, p in weights.flatten(back).items()}
+    weights.assign(model, saved)
+    with torch.no_grad():
+        loss = tlm.loss_fn(model, DataPipeline(cfg, 2, 16, device="cpu").batch_for_step(2), cfg)
+    np.testing.assert_allclose(second["losses"][0], float(loss), rtol=1e-6)
