@@ -153,9 +153,11 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              requests equal the fault-free run);
 10. archs  — internlm2-20b (GQA group 6), granite-34b (MQA, plain GELU MLP),
              gemma3-4b (qk-norm, 1024-key windows on 5 of 6 layers),
-             olmoe-1b-7b (MoE, 64 experts top-8, qk-norm) and
+             olmoe-1b-7b (MoE, 64 experts top-8, qk-norm),
              deepseek-moe-16b (MoE, 64 experts top-6 + 2 shared, a dense
-             first layer) at their published widths, one at a time, random
+             first layer), hymba-1.5b (attention and SSM heads, GQA group
+             5 at head dim 64, 1024-key windows on 30 of 32 layers) and
+             rwkv6-1.6b (RWKV-6, no attention) at their published widths, one at a time, random
              weights from a seed, at full depth where the card holds the
              weights, a 4 x 2048 prefill and its KV cache (else the depth is
              cut and the line says so): a greedy prefill with one tc
@@ -172,8 +174,17 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              same requests through ``Server`` on ``jit`` and ``mozart``
              (tokens equal, every mozart step warm: capacity routing makes a
              token depend on its batch, so batch-1 decoding is no oracle
-             there).  The attn phase times the kernel at these prefill
-             shapes beside SDPA.
+             there).  The recurrent models (hymba-1.5b, rwkv6-1.6b; rwkv6
+             launches no flash attention and has no plain comparison) hand
+             their state from a 2032-token prefill to 16 forced decode
+             steps (logits within 2e-2 max|logit| of the full prefill's,
+             next tokens equal), time layer 0's recurrence with CUDA events
+             and profile it, and serve through pad-free exact-length
+             buckets (``warmup(prompt_lens=...)``): hymba on ``jit`` and
+             ``mozart`` (tokens equal), rwkv6 on ``mozart``, each request
+             against batch-1 decoding, and a warm start from the plan file.
+             The attn phase times the kernel at these prefill shapes beside
+             SDPA.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -232,10 +243,14 @@ REWRITE_N, REWRITE_DEAD_ROWS = 1 << 26, 8   # smoke/rewrite: 8 x 2**26 dead matr
 CHAOS_TTL = 3                    # QUARANTINE_TTL in the chaos phase
 CHAOS_PROMPTS, CHAOS_NEW, CHAOS_MAX_LEN = (256, 200, 240, 256), 8, 512
 ARCHS = ("internlm2-20b", "granite-34b", "gemma3-4b",   # the archs phase, one at a time
-         "olmoe-1b-7b", "deepseek-moe-16b")
+         "olmoe-1b-7b", "deepseek-moe-16b", "hymba-1.5b", "rwkv6-1.6b")
 ARCH_BATCH, ARCH_PROMPT, ARCH_DECODE = 4, 2048, 4        # greedy prefill + decode steps
 ARCH_SERVE = {"gemma3-4b": ("mozart",),                  # Server runs: 2 slots, 4 requests
-              "deepseek-moe-16b": ("jit", "mozart")}      # on these drivers in turn
+              "deepseek-moe-16b": ("jit", "mozart"),      # on these drivers in turn
+              "hymba-1.5b": ("jit", "mozart"),
+              "rwkv6-1.6b": ("mozart",)}
+ARCH_HANDOFF = 16                # recurrent models: prompt tokens forced through decode_step
+RECURRENT_REPS = 3               # CUDA-event timings of one layer's recurrence
 ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW, ARCH_SERVE_MAX_LEN = (900, 130, 513, 1024), (12, 6, 9, 7), 1040
 ARCH_MARGIN = 3 << 30            # device bytes left free when sizing a model's depth
 ARCH_FLOOR_FACTOR = 1.5          # kernel vs plain logits against plain vs plain (arch_run)
@@ -1816,6 +1831,8 @@ ARCH_ATTN = (
     ("gemma3-4b local", 4, 8, 4, 2048, 256, 1024),     # the 1024-key window
     ("gemma3-4b global", 4, 8, 4, 2048, 256, None),
     ("olmoe-1b-7b / deepseek-moe-16b", 4, 16, 16, 2048, 128, None),   # MHA
+    ("hymba-1.5b local", 4, 25, 5, 2048, 64, 1024),   # GQA group 5, head dim 64
+    ("hymba-1.5b global", 4, 25, 5, 2048, 64, None),
 )
 
 ATTN_EDGES = (  # bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, head-split views)
@@ -2558,14 +2575,27 @@ def moe_work(cfg, T: int) -> int:
             + 2 * 4 * T * m.n_experts)
 
 
+def scan_work(cfg, T: int) -> int:
+    """Bytes of one recurrent layer's float32 tensors made ahead of its step
+    loop and by it, on ``T`` tokens: Hymba's SSM heads dA and dBx (T, d_in,
+    N), the list of h_t and its stack; RWKV's outer products k_t^T v_t
+    (T, H, hd, hd), r, k, v, w and the step outputs (T, D).  0 for a stack
+    without a recurrence."""
+    if cfg.family == "hybrid":
+        return 4 * 4 * T * cfg.ssm.expand * cfg.d_model * cfg.ssm.state_dim
+    if cfg.family == "ssm":
+        return 4 * T * cfg.d_model * (cfg.rwkv.head_dim + 6)
+    return 0
+
+
 def arch_depth(cfg) -> dict:
     """The most layers (up to the published depth) whose weights, KV cache
     for a batch-4 prompt of 2048 + the decode steps, and a 4 x 2048 prefill's
     largest working set fit the card's free memory less ``ARCH_MARGIN``.
     The working set is the plain path's float32 scores (four alive at once:
-    scores, masked, softmax, the probabilities cast for p.v), the MLP's or
-    the MoE dispatch's (``moe_work``).  DeepSeekMoE's dense pre-layers and
-    their KV count as fixed.
+    scores, masked, softmax, the probabilities cast for p.v), the MLP's, the
+    MoE dispatch's (``moe_work``) or the recurrence's (``scan_work``).
+    DeepSeekMoE's dense pre-layers and their KV count as fixed.
     Where the dense plain path (the config's own switch at 2048 keys) would
     cut the depth and the blocked one (1024-key blocks) would not, the plain
     side of the comparison takes the blocked path: the same function."""
@@ -2576,14 +2606,16 @@ def arch_depth(cfg) -> dict:
     layers = nbytes(p for n, p in meta.items() if n.startswith("layers."))
     a, B, S = cfg.attn, ARCH_BATCH, ARCH_PROMPT
     kd = tfm.first_dense(cfg)
-    kv = 2 * B * (S + ARCH_DECODE) * a.n_kv_heads * a.head_dim * cfg.dtype.itemsize
+    kv = (0 if a is None
+          else 2 * B * (S + ARCH_DECODE) * a.n_kv_heads * a.head_dim * cfg.dtype.itemsize)
     fixed = nbytes(meta.values()) - layers + kd * kv
     per_layer = layers / (cfg.n_layers - kd) + kv
-    mlp = 6 * B * S * cfg.d_ff * cfg.dtype.itemsize
+    mlp = max(6 * B * S * cfg.d_ff * cfg.dtype.itemsize, scan_work(cfg, B * S))
     if cfg.moe is not None:
         mlp = max(mlp, moe_work(cfg, B * S))
-    work = {"dense": max(4 * B * a.n_heads * S * S * 4, mlp),
-            "blocked": max(4 * B * a.n_heads * S * min(S, cfg.attn_block_k) * 4, mlp)}
+    scores = lambda keys: 0 if a is None else 4 * B * a.n_heads * S * keys * 4
+    work = {"dense": max(scores(S), mlp),
+            "blocked": max(scores(min(S, cfg.attn_block_k)), mlp)}
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
     fit = {k: int((free - ARCH_MARGIN - fixed - w) // per_layer) for k, w in work.items()}
@@ -2675,25 +2707,172 @@ def drops_line(cfg, drops: dict) -> str:
             f"and {dd} of {dr} in decode step 1 ({dd / dr:.2%})")
 
 
+def attn_line(cfg) -> str:
+    a = cfg.attn
+    if a is None:
+        return "no attention"
+    return (f"{a.n_heads}x{a.head_dim} heads over {a.n_kv_heads} kv (group "
+            f"{a.n_heads // a.n_kv_heads}), qk-norm {a.qk_norm}, window {a.window} every "
+            f"{a.pattern_period or '-'}")
+
+
+def recurrence_line(cfg) -> str:
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        return (f"; parallel SSM heads (d_inner {s.expand * cfg.d_model}, state {s.state_dim}, "
+                f"conv {s.conv_width}), outputs averaged with attention's")
+    if cfg.family == "ssm":
+        return f"; RWKV-6 time mix ({cfg.d_model // cfg.rwkv.head_dim} heads of {cfg.rwkv.head_dim}) and channel mix"
+    return ""
+
+
+def tokens_agree(want_logits: torch.Tensor, got: torch.Tensor, noise: float) -> list:
+    """Greedy tokens of two computations of one function: per row equal, or
+    a near-tie, where the reference's top-2 logit margin is at most twice
+    ``noise`` (a logit distance two computations of the same function
+    showed in the same run: a flip within it says nothing about either).
+    Returns the near-tie rows as (row, margin); raises on any other row."""
+    top = torch.topk(want_logits[:, -1].float(), 2, dim=-1)
+    want = top.indices[:, 0]
+    ties = []
+    for row in torch.nonzero(want != got).flatten().tolist():
+        margin = float(top.values[row, 0] - top.values[row, 1])
+        if margin > 2 * noise:
+            raise AssertionError(f"row {row}: token {int(got[row])} != {int(want[row])}, "
+                                 f"top-2 margin {margin:.4f} > 2 x {noise:.4f}")
+        ties.append((row, round(margin, 4)))
+    return ties
+
+
+def state_handoff(cfg, model, prompt, lk) -> dict:
+    """The recurrent state across prefill and decode: prefill the first
+    S - ``ARCH_HANDOFF`` tokens, then force the last ``ARCH_HANDOFF``
+    through ``decode_step`` one at a time; the last logits against the full
+    prefill's (``lk``), next tokens equal or a near-tie (``tokens_agree``).
+    This carries the conv window, the SSM or WKV state, the token shifts and
+    the KV cache across the two modes.  The bound is max(``tol``,
+    ``ARCH_FLOOR_FACTOR`` x the floor) max|logit|, the floor being the
+    distance of the same full prefill made one row at a time (only the
+    GEMMs' shapes change).  Twice: in the model's dtype (``tol`` 2e-2;
+    random weights make a deep bfloat16 stack chaotic: hymba-1.5b's floor
+    measured 3.3% of max|logit| on an H100, PERF.md §6), and on a float32
+    copy of the same weights (``tol`` 2e-5, ``TOL``'s float32), which holds
+    the handoff itself to float32 rounding."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import weights
+    B, S = prompt.shape
+    cut = S - ARCH_HANDOFF
+
+    def prefill(m, c, tokens):
+        caches = tfm.init_caches(c, tokens.shape[0], S + ARCH_DECODE, device=DEVICE)
+        return tfm.prefill(m, c, tokens, caches=caches)
+
+    out = {}
+    for dtype, tol in ((cfg.dtype, 2e-2), (torch.float32, TOL[torch.float32])):
+        c = cfg.with_runtime(dtype=dtype)
+        m = model if dtype == cfg.dtype else weights.ParamTree(weights.unflatten(
+            {n: p.detach().float() for n, p in model.named_parameters()}))
+        full = lk if dtype == cfg.dtype else prefill(m, c, prompt)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(m, c, prompt[:, :cut])
+        for t in range(cut, S):
+            logits, caches = tfm.decode_step(m, c, prompt[:, t:t + 1], caches)
+        nxt = torch.argmax(logits[:, -1], -1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows = torch.cat([prefill(m, c, prompt[i:i + 1])[0] for i in range(B)])
+        scale = float(full.float().abs().max())
+        dist = lambda x: float((x[:, -1].float() - full[:, -1].float()).abs().max())
+        diff, floor = dist(logits), dist(rows)
+        bound = max(tol * scale, ARCH_FLOOR_FACTOR * floor)
+        name = str(dtype).split(".")[-1]
+        log(f"[archs] {cfg.name}: state handoff in {name}, prefill {cut} tokens then "
+            f"{ARCH_HANDOFF} forced decode steps ({ms:.1f} ms): last logits max |handoff - "
+            f"full prefill| {diff:.3e} = {diff / scale:.3e} max|logit|; the full prefill one "
+            f"row at a time {floor:.3e} = {floor / scale:.3e} (bound max({tol:g}, "
+            f"{ARCH_FLOOR_FACTOR} x that) = {bound / scale:.3e} max|logit|); next tokens "
+            f"{nxt.tolist()} / {torch.argmax(full[:, -1], -1).tolist()}")
+        ties = tokens_agree(full, nxt, floor)
+        if diff > bound:
+            raise AssertionError(f"archs/{cfg.name} state handoff ({name}): {diff} vs "
+                                 f"max({tol} * {scale}, {ARCH_FLOOR_FACTOR} * {floor})")
+        out[name] = {"ms": ms, "logit_diff": diff, "rows_floor": floor, "max_logit": scale,
+                     "bound": bound, "near_ties": ties}
+        del m, full, logits, caches, rows
+    torch.cuda.empty_cache()
+    return {"prefill_tokens": cut, "decode_steps": ARCH_HANDOFF, **out}
+
+
+def recurrence_times(cfg, model, prompt, prefill_ms: float) -> dict:
+    """Layer 0's recurrent sub-layer (Hymba's ``ssm_block``, RWKV's
+    ``time_mix``) and its step loop alone (``ssm._scan``, ``rwkv._wkv``) on
+    this prompt's own inputs, captured from one prefill: CUDA-event medians
+    of ``RECURRENT_REPS`` calls, the loop's share of a prefill (n_layers x
+    its time over the prefill's) and a profile of one sub-layer call (a
+    whole prefill would pass the profiler's ~50,000 records)."""
+    from repro_torch.models import rwkv, ssm
+    from repro_torch.models import transformer as tfm
+    mod, names = ((ssm, ("ssm_block", "_scan")) if cfg.family == "hybrid"
+                  else (rwkv, ("time_mix", "_wkv")))
+    real = {n: getattr(mod, n) for n in names}
+    seen = {}
+
+    def capture(name):
+        def call(*args, **kw):
+            seen.setdefault(name, (args, kw))
+            return real[name](*args, **kw)
+        return call
+    for n in names:
+        setattr(mod, n, capture(n))
+    try:
+        tfm.prefill(model, cfg, prompt, caches=tfm.init_caches(
+            cfg, prompt.shape[0], prompt.shape[1] + ARCH_DECODE, device=DEVICE))
+    finally:
+        for n in names:
+            setattr(mod, n, real[n])
+    (block_args, block_kw), (loop_args, loop_kw) = (seen[n] for n in names)
+    block = lambda: real[names[0]](*block_args, **block_kw)
+    loop = lambda: real[names[1]](*loop_args, **loop_kw)
+    out = {"layer": names[0], "loop": names[1], "layer_ms": cuda_ms(block, RECURRENT_REPS),
+           "loop_ms": cuda_ms(loop, RECURRENT_REPS), "profile": profiled(block, top=6)}
+    out["loop_share"] = cfg.n_layers * out["loop_ms"] / prefill_ms
+    out["layer_share"] = cfg.n_layers * out["layer_ms"] / prefill_ms
+    log(f"[archs] {cfg.name}: layer 0's {names[0]} on the prefill's inputs "
+        f"{out['layer_ms']:.2f} ms, its step loop {names[1]} ({prompt.shape[1]} steps) "
+        f"{out['loop_ms']:.2f} ms (CUDA events, medians of {RECURRENT_REPS}); x "
+        f"{cfg.n_layers} layers = {out['layer_share']:.1%} / {out['loop_share']:.1%} of the "
+        f"{prefill_ms:.1f} ms prefill")
+    log_profile(f"{cfg.name} layer 0 {names[0]}", out["profile"], "archs")
+    del seen, block_args, loop_args
+    return out
+
+
 @torch.inference_mode()
 def arch_run(arch: str, counters, flash, ref) -> dict:
     """One model at its published widths (depth as ``arch_depth`` allows),
     random weights from seed 0: a greedy prefill (batch 4 x 2048) with the
-    kernel, its flash-attention launches (one per layer, all tc; window
-    calls apart from global ones), each launch held in place against the
-    kernel's plain version on its own q, k, v (``ATTN_REL_TOL``); the
-    prefill held against the plain attention path: first tokens equal, and
-    last-position logits within 2e-2 max|logit| or, where two plain paths
-    (the chosen one and the blocked path with 512-key blocks) are
-    themselves nearly that far apart, within ``ARCH_FLOOR_FACTOR`` times
-    their distance in the same run: random weights make a deep bfloat16
-    stack chaotic, and at internlm2-20b's 48 layers the two plain paths
-    already differ by 1.95% of max|logit| on an H100 (PERF.md §6); then
-    ``ARCH_DECODE`` decode steps.  For an MoE model both plain paths replay
-    the kernel path's expert choices (``RoutingReplay``), so all three make
-    the same dispatch and drop decisions; the distance with free routing is
-    printed beside it, with the assignments the capacity dropped and
-    profiles of a prefill and a decode step."""
+    kernel, its flash-attention launches (one per attention layer, all tc;
+    window calls apart from global ones; none for RWKV), each launch held in
+    place against the kernel's plain version on its own q, k, v
+    (``ATTN_REL_TOL``); the prefill held against the plain attention path:
+    first tokens equal or a near-tie within the two plain paths' distance
+    (``tokens_agree``; hymba-1.5b's 32 bfloat16 layers flip a near-tie),
+    and last-position logits within 2e-2 max|logit| or,
+    where two plain paths (the chosen one and the blocked path with 512-key
+    blocks) are themselves nearly that far apart, within
+    ``ARCH_FLOOR_FACTOR`` times their distance in the same run: random
+    weights make a deep bfloat16 stack chaotic, and at internlm2-20b's 48
+    layers the two plain paths already differ by 1.95% of max|logit| on an
+    H100 (PERF.md §6); then ``ARCH_DECODE`` decode steps.  For an MoE model
+    both plain paths replay the kernel path's expert choices
+    (``RoutingReplay``), so all three make the same dispatch and drop
+    decisions; the distance with free routing is printed beside it, with
+    the assignments the capacity dropped and profiles of a prefill and a
+    decode step.  A recurrent model (hybrid, RWKV) also hands its state from
+    a prefill to forced decode steps (``state_handoff``) and times one
+    layer's recurrence (``recurrence_times``); an attention-free model's
+    plain path is its kernel path, so it has no plain comparison."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import mlp
     from repro_torch.models import transformer as tfm
@@ -2703,14 +2882,13 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
     if depth["layers"] < cfg.n_layers:
         cfg = cfg.with_runtime(n_layers=depth["layers"])
     a = cfg.attn
-    windows = tfm.layer_windows(cfg)
+    windows = tfm.layer_windows(cfg) if a is not None else []
+    recurrent = tfm.layer_kind(cfg) in ("hybrid", "rwkv")
     cut = ("full depth" if cfg.n_layers == depth["published"]
            else "depth cut: the card holds no more")
     log(f"[archs] {arch} at its published widths: d_model {cfg.d_model}, d_ff {cfg.d_ff} "
-        f"({'gated ' if cfg.gated_mlp else 'plain '}{cfg.activation}), {a.n_heads}x{a.head_dim} "
-        f"heads over {a.n_kv_heads} kv (group {a.n_heads // a.n_kv_heads}), vocab "
-        f"{cfg.vocab_size}, qk-norm {a.qk_norm}, window {a.window} every "
-        f"{a.pattern_period or '-'}{moe_line(cfg)}; layers {cfg.n_layers} of "
+        f"({'gated ' if cfg.gated_mlp else 'plain '}{cfg.activation}), {attn_line(cfg)}, vocab "
+        f"{cfg.vocab_size}{moe_line(cfg)}{recurrence_line(cfg)}; layers {cfg.n_layers} of "
         f"{depth['published']} "
         f"({cut}; free {depth['free'] / 1e9:.2f} GB, fixed "
         f"{depth['fixed'] / 1e9:.2f} GB, {depth['per_layer'] / 1e9:.3f} GB per layer with its "
@@ -2759,31 +2937,35 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
     by_window = {"window": sum(w != tfm.BIG_WINDOW for w in seen),
                  "global": sum(w == tfm.BIG_WINDOW for w in seen)}
     want_window = sum(w != tfm.BIG_WINDOW for w in windows)
-    if (launches["flash_attention"] != cfg.n_layers or variants["tc"] != cfg.n_layers
-            or len(seen) != cfg.n_layers or by_window["window"] != want_window
-            or seen != windows):
+    if (launches["flash_attention"] != len(windows) or variants["tc"] != len(windows)
+            or by_window["window"] != want_window or seen != windows):
         raise AssertionError(f"archs/{arch}: flash_attention {launches['flash_attention']} "
-                             f"launches ({variants}, windows {by_window}) for {cfg.n_layers} "
-                             f"layers ({want_window} windowed)")
-    plain_ms = host_ms(lambda: prefill(False), 1)
-    free = None
-    if pin:             # MoE, free routing: how far the routing alone moves it
-        lf, _ = prefill(False)
-        free = {"logit_diff": float((lk.float() - lf.float()).abs().max()),
-                "first_tokens_equal": bool(torch.equal(torch.argmax(lf[:, -1], -1),
-                                                       first_k))}
-        del lf
-    lp, _ = pinned(lambda: prefill(False))
-    diff = float((lk.float() - lp.float()).abs().max())
-    scale = float(lp.float().abs().max())
-    first_p = torch.argmax(lp[:, -1], -1)
-    other = cfg.with_runtime(dense_attn_threshold=512, attn_block_k=512)
-    lb, _ = pinned(lambda: tfm.prefill(
-        model, other, prompt, use_kernel=False,
-        caches=tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE)))
-    floor = float((lb.float() - lp.float()).abs().max())
-    diff_other = float((lk.float() - lb.float()).abs().max())
-    del lp, lb
+                             f"launches ({variants}, windows {by_window}) for {len(windows)} "
+                             f"attention layers ({want_window} windowed)")
+    rel_max = max(rel, default=0.0)
+    scale = float(lk.float().abs().max())
+    plain_ms = diff = floor = diff_other = free = None
+    first_p, ties = first_k, []
+    if a is not None:
+        plain_ms = host_ms(lambda: prefill(False), 1)
+        if pin:             # MoE, free routing: how far the routing alone moves it
+            lf, _ = prefill(False)
+            free = {"logit_diff": float((lk.float() - lf.float()).abs().max()),
+                    "first_tokens_equal": bool(torch.equal(torch.argmax(lf[:, -1], -1),
+                                                           first_k))}
+            del lf
+        lp, _ = pinned(lambda: prefill(False))
+        diff = float((lk.float() - lp.float()).abs().max())
+        scale = float(lp.float().abs().max())
+        first_p = torch.argmax(lp[:, -1], -1)
+        other = cfg.with_runtime(dense_attn_threshold=512, attn_block_k=512)
+        lb, _ = pinned(lambda: tfm.prefill(
+            model, other, prompt, use_kernel=False,
+            caches=tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE)))
+        floor = float((lb.float() - lp.float()).abs().max())
+        diff_other = float((lk.float() - lb.float()).abs().max())
+        ties = tokens_agree(lp, first_k, floor)
+        del lp, lb
     kernel_ms = host_ms(lambda: prefill(None), 2)
     prof = profiled(lambda: prefill(None), top=8) if pin else None
     tok = first_k[:, None].to(torch.int32)
@@ -2805,18 +2987,26 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         del spare
     finite = bool(torch.isfinite(logits.float()).all())
     peak = torch.cuda.max_memory_allocated()
-    bound = max(2e-2 * scale, ARCH_FLOOR_FACTOR * floor)
+    handoff = state_handoff(cfg, model, prompt, lk) if recurrent else None
+    recurrence = recurrence_times(cfg, model, prompt, kernel_ms) if recurrent else None
+    if a is None:
+        bound = None
+        against = ("no attention: the kernel path is the plain path (no flash launch), no "
+                   "plain comparison")
+    else:
+        bound = max(2e-2 * scale, ARCH_FLOOR_FACTOR * floor)
+        against = (f"plain ({depth['plain']}) attention path {plain_ms:.1f} ms; each launch "
+                   f"against the plain version on its q, k, v: ||kernel - plain|| / ||plain|| "
+                   f"max {rel_max:.3e}; last-position logits max |kernel - plain| {diff:.4f} = "
+                   f"{diff / scale:.4f} max|logit| (max |logit| {scale:.2f}), against the "
+                   f"blocked-512 plain path {diff_other:.4f}; the two plain paths apart "
+                   f"{floor:.4f} = {floor / scale:.4f} max|logit| (bound max(2e-2, "
+                   f"{ARCH_FLOOR_FACTOR} x that) = {bound / scale:.4f} max|logit|)")
     log(f"[archs] {arch}: init {init_s:.1f} s; prefill batch {B} x {S}: kernel path "
         f"{kernel_ms:.1f} ms (the counted run, each launch checked in place: "
-        f"{prefill_ms:.1f} ms), plain ({depth['plain']}) "
-        f"attention path {plain_ms:.1f} ms; launches {launches}, flash_attention by variant {variants}, by "
-        f"window {by_window}; each launch against the plain version on its q, k, v: "
-        f"||kernel - plain|| / ||plain|| max {max(rel):.3e}; last-position logits max "
-        f"|kernel - plain| {diff:.4f} = {diff / scale:.4f} max|logit| (max |logit| "
-        f"{scale:.2f}), against the blocked-512 plain path {diff_other:.4f}; the two plain "
-        f"paths apart {floor:.4f} = {floor / scale:.4f} max|logit| (bound "
-        f"max(2e-2, {ARCH_FLOOR_FACTOR} x that) = {bound / scale:.4f} max|logit|); first tokens "
-        f"{first_k.tolist()} / {first_p.tolist()}; "
+        f"{prefill_ms:.1f} ms); launches {launches}, flash_attention by variant {variants}, by "
+        f"window {by_window}; {against}; first tokens "
+        f"{first_k.tolist()} / {first_p.tolist()} (near-ties (row, top-2 margin): {ties}); "
         f"{ARCH_DECODE} decode steps median {statistics.median(step_ms):.2f} ms, logits finite "
         f"{finite}; peak device memory {peak / 1e9:.2f} GB{drops_line(cfg, drops)}")
     if pin:
@@ -2827,52 +3017,60 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
             f"equal {free['first_tokens_equal']} (capacity makes the routing discontinuous)")
         log_profile(f"{arch} prefill (kernel path)", prof, "archs")
         log_profile(f"{arch} decode step", decode_prof, "archs")
-    if (diff > bound or not torch.equal(first_k, first_p) or not finite
-            or max(rel) > ATTN_REL_TOL):
+    if (bound is not None and diff > bound) or not finite or rel_max > ATTN_REL_TOL:
         raise AssertionError(f"archs/{arch}: logits {diff} vs max(2e-2 * {scale}, "
-                             f"{ARCH_FLOOR_FACTOR} * {floor}), first tokens "
-                             f"{first_k.tolist()} / {first_p.tolist()}, finite {finite}, "
-                             f"in-place kernel error {max(rel)}")
+                             f"{ARCH_FLOOR_FACTOR} * {floor}), finite {finite}, "
+                             f"in-place kernel error {rel_max}")
     served = arch_serve(cfg, model, ARCH_SERVE[arch]) if arch in ARCH_SERVE else None
     del model, caches, logits, lk
     gc.collect()
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.n_layers, "published_layers": depth["published"],
-            "plain_path": depth["plain"],
+            "plain_path": depth["plain"] if a is not None else None,
             "launches": launches, "flash_variant_launches": variants,
             "flash_by_window": by_window, "prefill_ms": kernel_ms, "plain_prefill_ms": plain_ms,
             "prefill_logit_diff": diff, "max_logit": scale, "plain_paths_diff": floor,
-            "launch_rel_err_max": max(rel),
+            "launch_rel_err_max": rel_max, "first_token_near_ties": ties,
             "decode_ms": statistics.median(step_ms), "peak_bytes": peak, "init_s": init_s,
             "moe_drops": drops if pin else None, "moe_free_routing": free,
             "moe_prefill_profile": prof, "moe_decode_profile": decode_prof if pin else None,
-            "server": served}
+            "state_handoff": handoff, "recurrence": recurrence, "server": served}
 
 
 def arch_serve(cfg, model, drivers: tuple) -> dict:
     """The same 4 requests through ``Server(continuous)`` on each of
-    ``drivers`` in turn: 2 slots, buckets from ``warmup``, every step warm.
-    With both drivers the mozart tokens must equal the jit tokens (an MoE
-    model: capacity makes a token depend on its batch, so batch-1 decoding
-    is no oracle, while the two drivers run the same function on the same
-    batches); with mozart alone, request 0 is held against sequential
-    batch-1 prefill/decode_step."""
+    ``drivers`` in turn: 2 slots, buckets from ``warmup`` (a pad-free model,
+    hybrid or RWKV: one bucket per exact prompt length, ``prompt_lens``),
+    every step warm.  With both drivers the mozart tokens must equal the
+    jit tokens; without capacity routing (no MoE model: there capacity makes
+    a token depend on its batch) every request is also held against
+    sequential batch-1 prefill/decode_step.  A pad-free model's mozart leg
+    saves its plans, and a second batcher started from the file serves the
+    same requests with 0 planner calls and no warmup."""
+    from repro_torch.core import plan_cache
+    from repro_torch.core.serving import ContinuousBatcher
     from repro_torch.launch.serve import Request, Server
     rng = np.random.default_rng(3)
     specs = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
              for n, m in zip(ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW)]
+    path = ROOT / "build" / "arch_serve_plans.json"
+    path.parent.mkdir(exist_ok=True)
     legs, outs = {}, {}
     for driver in drivers:
         reqs = [Request(rid=i, prompt=p, max_new=m) for i, (p, m) in enumerate(specs)]
+        path.unlink(missing_ok=True)
+        plan_cache.clear()
         srv = Server(cfg, model, 2, ARCH_SERVE_MAX_LEN, driver=driver, mode="continuous",
-                     device=DEVICE)
+                     device=DEVICE, plan_cache_path=str(path) if driver == "mozart" else None)
+        pad_free = srv._batcher.pad_free
         t0 = time.perf_counter()
-        srv.warmup(max(ARCH_SERVE_PROMPTS))
+        srv.warmup(max(ARCH_SERVE_PROMPTS), prompt_lens=list(ARCH_SERVE_PROMPTS))
         warm_s = time.perf_counter() - t0
         stats = srv.run(reqs)
         del srv
         log(f"[archs] {cfg.name}: Server(continuous, driver {driver}) 2 slots, {len(reqs)} "
-            f"requests (prompts {list(ARCH_SERVE_PROMPTS)}), warmup {warm_s:.1f} s: "
+            f"requests (prompts {list(ARCH_SERVE_PROMPTS)}{', pad-free: exact-length buckets' if pad_free else ''}), "
+            f"warmup {warm_s:.1f} s: "
             f"{stats['tokens']} tokens in {stats['wall_s']:.2f} s ({stats['tokens_per_s']:.1f} "
             f"tokens/s), decode p50 {stats['decode_p50_us'] / 1e3:.2f} ms p99 "
             f"{stats['decode_p99_us'] / 1e3:.2f} ms; planner calls {stats['planner_calls']}, "
@@ -2884,16 +3082,36 @@ def arch_serve(cfg, model, drivers: tuple) -> dict:
         legs[driver] = {k: stats[k] for k in (
             "tokens", "wall_s", "tokens_per_s", "decode_p50_us", "decode_p99_us",
             "planner_calls", "jit_traces", "warm")} | {"warmup_s": warm_s}
+        if driver == "mozart" and pad_free:
+            plan_cache.clear()                          # a restarted replica
+            again = ContinuousBatcher(cfg, model, 2, ARCH_SERVE_MAX_LEN, driver="mozart",
+                                      plan_cache_path=str(path), device=DEVICE)
+            loaded = plan_cache.cache_info().get("persist_loaded", 0)
+            restart = [again.make_request(p, m) for p, m in specs]
+            rstats = again.run(restart)
+            same = [r.out for r in restart] == [r.out for r in reqs]
+            log(f"[archs] {cfg.name}: warm start from the plan file ({loaded} entries "
+                f"loaded): {rstats['tokens']} tokens, planner calls {rstats['planner_calls']}, "
+                f"traces {rstats['jit_traces']}, warm {rstats['warm']}, tokens equal {same}")
+            if rstats["planner_calls"] or not rstats["warm"] or not same or not loaded:
+                raise AssertionError(f"archs/{cfg.name} warm start: loaded {loaded}, {rstats}")
+            legs[driver]["warm_start"] = {"entries_loaded": loaded,
+                                          "planner_calls": rstats["planner_calls"],
+                                          "warm": rstats["warm"]}
+            del again
+    path.unlink(missing_ok=True)
+    plan_cache.clear()
+    checks = []
     if "jit" in outs:
         equal = [r.out for r in outs["mozart"]] == [r.out for r in outs["jit"]]
-        check = f"mozart tokens equal to jit tokens: {equal}"
+        checks.append(f"mozart tokens equal to jit tokens: {equal}")
         if not equal:
-            raise AssertionError(f"archs/{cfg.name} serve: {check}")
-    else:
-        check = ("request 0 against sequential batch-1 decoding: "
-                 f"{parity(model, cfg, outs['mozart'][0])}")
-    log(f"[archs] {cfg.name}: {check}")
-    return legs | {"check": check}
+            raise AssertionError(f"archs/{cfg.name} serve: {checks[-1]}")
+    if cfg.moe is None:
+        checks.append("requests against sequential batch-1 decoding: "
+                      f"{[parity(model, cfg, r) for r in outs['mozart']]}")
+    log(f"[archs] {cfg.name}: {'; '.join(checks)}")
+    return legs | {"check": "; ".join(checks)}
 
 
 def phase_archs(counters, flash, ref) -> list:

@@ -17,10 +17,12 @@ _MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
 #: ids the JAX package knows whose families the port does not run yet.
-NOT_PORTED = ("seamless-m4t-large-v2", "hymba-1.5b", "qwen2-vl-2b", "rwkv6-1.6b")
+NOT_PORTED = ("seamless-m4t-large-v2", "qwen2-vl-2b")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -2,7 +2,7 @@
 
 Public API:
     mozart.session / configure / evaluate      — runtime scope
-    mozart.pipeline                            — AOT lower / compile / call
+    mozart.pipeline / Pipeline                 — AOT lower / compile / call
     mozart.inject_faults                       — deterministic fault plans
     plan_cache / cost_model / pipeline         — plan cache, executor="auto"
     rewrite / resilience                       — static rewrite pass (MZ5xx),
@@ -16,6 +16,7 @@ from repro_torch.core import runtime as mozart
 from repro_torch.core import cost_model, pipeline, plan_cache, resilience, rewrite
 from repro_torch.core.annotation import SA, AnnotatedFn, annotate, splittable
 from repro_torch.core.future import Future
+from repro_torch.core.pipeline import Pipeline
 from repro_torch.core.split_types import (
     BROADCAST,
     Along,
@@ -42,20 +43,23 @@ from repro_torch.core.split_types import (
     _,
 )
 from repro_torch.core.stage_exec import (
+    ChunkStream,
     StageExecutor,
     available_executors,
     bytes_interior,
+    bytes_materialized,
     get_executor,
     register_executor,
 )
 
 __all__ = [
     "mozart", "plan_cache", "cost_model", "pipeline", "resilience", "rewrite", "SA", "AnnotatedFn", "annotate", "splittable", "Future",
+    "Pipeline",
     "BROADCAST", "Along", "ArraySplit", "Broadcast", "Concat", "ConcatSplit",
     "Custom", "Generic", "GenericVar", "Pytree", "PytreeSplit", "Reduce",
     "ReduceSplit", "RuntimeInfo", "ScalarSplit", "SplitSpec", "SplitType",
     "TypeEnv", "UnificationError", "Unknown", "UnknownSplit",
     "default_split_type", "_",
-    "StageExecutor", "available_executors", "bytes_interior",
-    "get_executor", "register_executor",
+    "ChunkStream", "StageExecutor", "available_executors", "bytes_interior",
+    "bytes_materialized", "get_executor", "register_executor",
 ]

@@ -14,12 +14,19 @@ decode dead air whose cache writes are dropped (``cache_update_decode``).
   keeps pad keys out of every real query's softmax (so these prefills take
   the plain attention paths, as in the reference: the kernel has no pad
   mask) and ``last_pos`` gathers each row's own last-position logits.
+  Recurrent families (``ssm``: RWKV, ``hybrid``: Hymba's SSM heads) scan
+  their state over every position, so padding would corrupt it: they are
+  bucketed by *exact* prompt length (pad-free groups, one plan entry per
+  distinct length), prefill runs unmasked and a hybrid model's attention
+  stays on the flash-attention kernel.  ``warmup`` needs the exact
+  ``prompt_lens`` for them.
 
 Prefilled caches are copied into the rolling cache slot by slot along each
 leaf's batch axis (axes found once by diffing ``init_caches`` shapes at two
 batch sizes, built on the ``meta`` device); the cache is walked as a pytree,
-so a ``{"stack", "pre"}`` dict of ``KVCache``s (DeepSeekMoE) joins as a flat
-one does.  MoE models route their pad tokens too, as the reference's do:
+so a ``{"stack", "pre"}`` dict of ``KVCache``s (DeepSeekMoE), the hybrid
+``{"kv", "ssm"}`` and an ``RWKVState`` join as a flat ``KVCache`` does.
+MoE models route their pad tokens too, as the reference's do:
 capacity makes a served token depend on its batch.  Dummy rows of a padded
 admission group aim at slot ``batch``, out of range, and are dropped.
 
@@ -36,8 +43,7 @@ writes are in place, so a second run would write twice).  ``"jit"``:
 direct calls of the torch functions (the name is kept so callers match the
 reference).  Each ``step()`` crosses the ``serve_step`` fault boundary
 (``core/resilience.py``); ``AsyncServer`` fails the requests in flight when
-a step raises, records ``MZ405`` and keeps driving.  Recurrent families
-(pad-free buckets) wait for their model code.
+a step raises, records ``MZ405`` and keeps driving.
 
 Latency is honest: each decode step is timed through the host read of the
 argmax.  Per-request latency runs submit -> final token.
@@ -62,10 +68,14 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core import resilience
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ServeRequest", "ContinuousBatcher", "AsyncServer"]
+
+#: model families whose per-position recurrence makes padded prefill
+#: incorrect (the state integrates every position, real or pad): bucketed
+#: by exact prompt length instead.
+_PAD_FREE_FAMILIES = ("ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -151,11 +161,17 @@ def _make_join(axes: list):
     return join
 
 
-def _make_prefill_bucket(cfg: ModelConfig):
-    """The scheduler's prefill step for one admission group: prompts
-    right-padded to the length bucket, a pad mask over the garbage keys and
-    ``last_pos`` at each row's own last real position."""
+def _make_prefill_bucket(cfg: ModelConfig, masked: bool = True):
+    """The scheduler's prefill step for one admission group.
+
+    ``masked=True`` (attention families): prompts right-padded to the length
+    bucket, a pad mask over the garbage keys and ``last_pos`` at each row's
+    own last real position.  ``masked=False`` (pad-free recurrent families):
+    the group is exact-length, no padding exists, and the unmasked attention
+    paths (the flash-attention kernel on a card) stay eligible."""
     def prefill_bucket(p, toks: torch.Tensor, plens: torch.Tensor, caches):
+        if not masked:
+            return tfm.prefill(p, cfg, tokens=toks, caches=caches)
         S = toks.shape[1]
         mask = torch.arange(S, dtype=torch.int32, device=toks.device)[None, :] < plens[:, None]
         return tfm.prefill(p, cfg, tokens=toks, caches=caches, pad_mask=mask,
@@ -163,7 +179,7 @@ def _make_prefill_bucket(cfg: ModelConfig):
     return prefill_bucket
 
 
-def _annotated_steps(cfg: ModelConfig):
+def _annotated_steps(cfg: ModelConfig, masked: bool):
     """Scheduler prefill/decode as annotated opaque library calls."""
     from repro_torch.core import annotate
     from repro_torch.core.split_types import Unknown, _
@@ -172,7 +188,7 @@ def _annotated_steps(cfg: ModelConfig):
         lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches),
         name="sched_decode_step", ret=Unknown(), p=_, tok=_, caches=_)
     prefill = annotate(
-        _make_prefill_bucket(cfg),
+        _make_prefill_bucket(cfg, masked),
         name="sched_prefill_bucket", ret=Unknown(), p=_, toks=_, plens=_, caches=_)
     return prefill, decode
 
@@ -199,9 +215,6 @@ class ContinuousBatcher:
         if batch < 1:
             raise ValueError("batch must be >= 1")
         check_driver(driver)
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(f"{cfg.family} serving (pad-free prefill "
-                                      "buckets) waits for its model code")
         self.device = torch.device(device)
         wdev = next(iter(params.parameters())).device
         if wdev.type != self.device.type:
@@ -212,6 +225,7 @@ class ContinuousBatcher:
         self.batch = batch
         self.max_len = max_len
         self.driver = driver
+        self.pad_free = cfg.family in _PAD_FREE_FAMILIES
         self.prompt_buckets = sorted(prompt_buckets) if prompt_buckets else None
         self.batch_buckets = _pow2_buckets(1, batch)
 
@@ -230,16 +244,16 @@ class ContinuousBatcher:
         self._join = _make_join(_cache_batch_axes(cfg, batch, max_len))
         if driver == "mozart":
             from repro_torch.core import mozart
-            prefill_fn, decode_fn = _annotated_steps(cfg)
+            prefill_fn, decode_fn = _annotated_steps(cfg, masked=not self.pad_free)
             self._prefill = mozart.pipeline(prefill_fn, executor="eager", device=self.device,
                                             plan_cache_path=plan_cache_path)
             self._decode = mozart.pipeline(decode_fn, executor="eager", device=self.device,
                                            plan_cache_path=plan_cache_path)
         else:
-            self._prefill = _make_prefill_bucket(cfg)
+            self._prefill = _make_prefill_bucket(cfg, masked=not self.pad_free)
             self._decode = lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches)
 
-    def _init_caches(self, batch: int) -> KVCache | dict:
+    def _init_caches(self, batch: int):
         return tfm.init_caches(self.cfg, batch, self.max_len, per_slot=True,
                                device=self.device)
 
@@ -288,6 +302,8 @@ class ContinuousBatcher:
         return req
 
     def _bucket_len(self, plen: int) -> int:
+        if self.pad_free:
+            return plen                      # exact length: no padding at all
         if self.prompt_buckets:
             return _bucket_for(plen, self.prompt_buckets)
         return _pow2_buckets(1, plen)[-1]
@@ -440,17 +456,27 @@ class ContinuousBatcher:
         return self._decode_once()
 
     # -- warmup --------------------------------------------------------------
-    def warmup(self, max_prompt_len: int | None = None) -> None:
+    def warmup(self, max_prompt_len: int | None = None,
+               prompt_lens: list | None = None) -> None:
         """Pin every (batch, length) bucket's prefill and the decode step
         ahead of serving: with the ``mozart`` driver each is lowered and
         compiled (one plan entry per bucket, labelled), with ``jit`` run
-        once (allocator and library warm-up).  ``max_prompt_len`` bounds the
-        pow-2 length buckets (default: the largest bucket under
-        ``max_len``).  The serving counters start clean afterwards: warm
-        steps after this point must add zero planner calls and traces."""
-        if self.prompt_buckets is None:
-            hi = max_prompt_len or max(1, self.max_len - 1)
-            self.prompt_buckets = _pow2_buckets(8, hi)
+        once (allocator and library warm-up).  For pad-free (recurrent)
+        families pass ``prompt_lens``, the exact lengths expected; otherwise
+        ``max_prompt_len`` bounds the pow-2 length buckets (default: the
+        largest bucket under ``max_len``).  The serving counters start clean
+        afterwards: warm steps after this point must add zero planner calls
+        and traces."""
+        if self.pad_free:
+            len_buckets = sorted(set(prompt_lens or []))
+            if not len_buckets:
+                raise ValueError(f"{self.cfg.family} prefill is pad-free: warmup needs "
+                                 "the exact prompt_lens it will serve")
+        else:
+            if self.prompt_buckets is None:
+                hi = max_prompt_len or max(1, self.max_len - 1)
+                self.prompt_buckets = _pow2_buckets(8, hi)
+            len_buckets = self.prompt_buckets
         mozart = self.driver == "mozart"
         tok = torch.zeros((self.batch, 1), dtype=torch.int32, device=self.device)
         if mozart:
@@ -459,7 +485,7 @@ class ContinuousBatcher:
         (logits, _), _d = self._call_decode(tok, self._init_caches(self.batch))
         torch.argmax(logits[:, -1], dim=-1).cpu()
         for bb in self.batch_buckets:
-            for lb in self.prompt_buckets:
+            for lb in len_buckets:
                 toks = torch.zeros((bb, lb), dtype=torch.int32, device=self.device)
                 plens = torch.full((bb,), min(lb, 2), dtype=torch.int32, device=self.device)
                 if mozart:

@@ -102,12 +102,17 @@ class Server:
                 p, cfg, tokens=toks, caches=caches, pad_mask=mask)
             self._decode = lambda p, tok, caches: tfm.decode_step(p, cfg, tok, caches)
 
-    def warmup(self, prompt_len: int) -> None:
-        """Before the first request: the continuous batcher pins its buckets;
-        the fixed groups' pipelines (driver ``mozart``) are lowered and
-        compiled at a full group of ``prompt_len`` tokens."""
+    def warmup(self, prompt_len: int, prompt_lens: list | None = None) -> None:
+        """Before the first request: the continuous batcher pins its buckets
+        (a pad-free batcher, the recurrent families', one per exact length:
+        ``prompt_lens``, default ``[prompt_len]``); the fixed groups'
+        pipelines (driver ``mozart``) are lowered and compiled at a full
+        group of ``prompt_len`` tokens."""
         if self.mode == "continuous":
-            self._batcher.warmup(max_prompt_len=prompt_len)
+            if self._batcher.pad_free:
+                self._batcher.warmup(prompt_lens=prompt_lens or [prompt_len])
+            else:
+                self._batcher.warmup(max_prompt_len=prompt_len)
             return
         if self.driver != "mozart":
             return

@@ -1,8 +1,8 @@
 """Model configuration: the counterpart of ``src/repro/models/config.py``.
 
-The same frozen dataclasses with torch dtypes.  The SSM/RWKV fields are
-kept as data so that the slices that port those families fill them in; the
-port's model code runs the dense and MoE families and says so for the others.
+The same frozen dataclasses with torch dtypes.  The port's model code runs
+the dense, MoE, hybrid (``ssm``: Hymba's SSM heads) and RWKV (``rwkv``)
+families and says so for the others (``transformer.check_ported``).
 """
 
 from __future__ import annotations

@@ -111,11 +111,16 @@ def count_drops():
 def route(p, xt: torch.Tensor, cfg: ModelConfig):
     """Router -> softmax -> top-k -> renormalised gates, in float32, and the
     Switch load-balance loss ``E * sum_e me_e * ce_e * aux_loss_weight``.
-    Returns (gate_vals (T, k) float32, expert_idx (T, k) int64, aux)."""
+    Returns (gate_vals (T, k) float32, expert_idx (T, k) int64, aux).
+
+    The top k come from a stable descending sort, so equal probabilities
+    (an all-zero row ties every expert) take the lower expert index first,
+    as ``lax.top_k`` does; ``torch.topk`` breaks ties otherwise."""
     m = cfg.moe
     E, k = m.n_experts, m.top_k
     probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)     # (T, E)
-    gate_vals, expert_idx = torch.topk(probs, k, dim=-1)
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = gate_vals[:, :k], expert_idx[:, :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(0)
     ce = torch.zeros(E, dtype=torch.float32, device=xt.device).index_add_(

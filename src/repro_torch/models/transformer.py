@@ -1,20 +1,26 @@
 """The transformer stack: the counterpart of
-``src/repro/models/transformer.py`` for the dense and MoE families.
+``src/repro/models/transformer.py`` for the dense, MoE, hybrid (Hymba) and
+RWKV families.
 
 The reference scans a homogeneous per-layer block over parameters stacked
 along a leading ``L`` axis, with ``jax.checkpoint`` remat per layer (and a
 nested scan at 8+ layers, which changes memory, not values).  The port
 keeps the stacked layout and runs the stack as a Python loop over layers,
 each layer under ``torch.utils.checkpoint`` in train mode when
-``cfg.remat``.  Decode state is the reference's stacked KV cache (a
-``KVCache`` whose leaves carry a leading ``L`` axis); prefill and decode
-write each layer's K/V into it in place and return it with new lengths.
+``cfg.remat``.  Decode state is the reference's pytree of stacked per-layer
+states (leaves with a leading ``L`` axis): a ``KVCache`` for attention
+stacks, ``{"kv": KVCache, "ssm": SSMState}`` for the hybrid stack (Hymba's
+parallel attention and SSM heads) and an ``RWKVState`` for RWKV.  Prefill
+and decode write each layer's K/V into the cache in place; every other
+leaf (lengths, starts, recurrent states) is restacked from the layers' new
+values, so a caller keeps only the returned state.
 
 MoE stacks with leading dense layers (DeepSeekMoE's ``first_k_dense``) keep
 them apart, as the reference does: a list ``params["pre_layers"]`` of
 unstacked dense blocks (global attention, ``cfg.d_ff``) before the stack of
 MoE blocks, and the decode state ``{"stack": KVCache, "pre": KVCache}``.
-Other families wait for later slices.
+The vision-language and encoder-decoder families, M-RoPE, logit softcap and
+banded attention wait for later slices (``check_ported``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_tokens, normal, rms_norm, unembed
@@ -32,19 +40,35 @@ from repro_torch.models.weights import ParamTree
 BIG_WINDOW = 1 << 30      # "global attention" encoded as a huge window
 
 
+#: families whose model code the port runs.
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port's model code does not run yet."""
+    """Raise for what the port's model code does not run yet: the "vlm" and
+    "audio" families, encoder-decoder stacks, M-RoPE, logit softcap and
+    banded attention; and attention-free stacks other than RWKV's."""
     a = cfg.attn
     missing = [what for what, cond in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
+        (f"family {cfg.family!r}", cfg.family not in PORTED_FAMILIES),
         ("encoder-decoder", cfg.encdec),
-        ("attention", a is None),
+        ("attention", a is None and cfg.family != "ssm"),
         ("M-RoPE", a is not None and a.mrope),
         ("logit softcap", a is not None and a.logit_softcap is not None),
         ("banded attention", cfg.banded_attention)) if cond]
     if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  "ported yet (the port runs dense and MoE models)")
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs the "
+            f"{', '.join(PORTED_FAMILIES)} families without M-RoPE, softcap or banding)")
+
+
+def layer_kind(cfg: ModelConfig) -> str:
+    """The stack's block kind, as the reference's ``layer_kind``."""
+    if cfg.family == "ssm":
+        return "rwkv"
+    if cfg.family == "hybrid":
+        return "hybrid"
+    return "moe" if cfg.moe is not None else "dense"
 
 
 def first_dense(cfg: ModelConfig) -> int:
@@ -68,14 +92,18 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None,
         tree["lm_head"] = normal((D, V), D ** -0.5, cfg.dtype, generator, device)
     kd = first_dense(cfg)
     n = L - kd
-    tree["layers"] = {
-        "attn": attn_mod.init_attn(cfg, generator, device, n),
-        "ln1": ones(n, D), "ln2": ones(n, D),
-    }
-    if cfg.moe is not None:
-        tree["layers"]["moe"] = mlp_mod.init_moe(cfg, generator, device, n)
+    kind = layer_kind(cfg)
+    layers = tree["layers"] = {"ln1": ones(n, D), "ln2": ones(n, D)}
+    if kind == "rwkv":
+        layers["rwkv"] = rwkv_mod.init_rwkv(cfg, generator, device, n)
     else:
-        tree["layers"]["mlp"] = mlp_mod.init_mlp(cfg, generator, device, n)
+        layers["attn"] = attn_mod.init_attn(cfg, generator, device, n)
+        if kind == "hybrid":
+            layers["ssm"] = ssm_mod.init_ssm(cfg, generator, device, n)
+        if kind == "moe":
+            layers["moe"] = mlp_mod.init_moe(cfg, generator, device, n)
+        else:
+            layers["mlp"] = mlp_mod.init_mlp(cfg, generator, device, n)
     if kd:
         tree["pre_layers"] = [
             {"attn": attn_mod.init_attn(cfg, generator, device, None),
@@ -110,14 +138,30 @@ def _unstack(tree, n: int) -> list[dict]:
 
 
 def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
-                 positions: torch.Tensor | None, cache: KVCache | None = None,
+                 positions: torch.Tensor | None, cache=None,
                  mode: str = "train", pad_mask: torch.Tensor | None = None,
                  use_kernel: bool | None = None):
-    """One block: (x, new_cache, aux), aux None for a dense block."""
+    """One block: (x, new_cache, aux), aux None but for an MoE block.
+    ``cache`` is the layer's ``KVCache``, ``{"kv", "ssm"}`` (hybrid) or
+    ``RWKVState`` (None in train mode: recurrent states start at zero)."""
+    if "rwkv" in p:
+        st = cache if cache is not None else rwkv_mod.init_rwkv_state(
+            cfg, x.shape[0], x.device)
+        tm, st = rwkv_mod.time_mix(p["rwkv"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, st)
+        x = x + tm
+        cm, st = rwkv_mod.channel_mix(p["rwkv"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg, st)
+        return x + cm, st, None
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    hybrid = "ssm" in p
     a_out, new_cache = attn_mod.attention_block(
         p["attn"], h, cfg, positions=positions, causal=True, window=window,
-        cache=cache, mode=mode, use_kernel=use_kernel, pad_mask=pad_mask)
+        cache=cache["kv"] if hybrid and cache is not None else cache, mode=mode,
+        use_kernel=use_kernel, pad_mask=pad_mask)
+    if hybrid:            # parallel heads on the same input, mean combine
+        s_out, ssm_new = ssm_mod.ssm_block(p["ssm"], h, cfg,
+                                           None if cache is None else cache["ssm"], mode=mode)
+        a_out = 0.5 * (a_out + s_out)
+        new_cache = {"kv": new_cache, "ssm": ssm_new}
     x = x + a_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
@@ -126,37 +170,56 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     return x + mlp_mod.mlp_block(p["mlp"], h2, cfg), new_cache, None
 
 
+def _layer_state(stacked, i: int):
+    """Layer ``i``'s view of a stacked decode state (any of its forms)."""
+    if isinstance(stacked, dict):
+        return {k: _layer_state(v, i) for k, v in stacked.items()}
+    return type(stacked)(*(leaf[i] for leaf in stacked))
+
+
+def _restack(stacked, news: list):
+    """The stacked decode state after every layer ran: K/V went into
+    ``stacked`` in place; every other leaf (lengths, starts, recurrent
+    states) is stacked from the layers' new values."""
+    if isinstance(stacked, dict):
+        return {k: _restack(v, [n[k] for n in news]) for k, v in stacked.items()}
+    if isinstance(stacked, KVCache):
+        return KVCache(stacked.k, stacked.v, torch.stack([n.length for n in news]),
+                       torch.stack([n.start for n in news]))
+    return type(stacked)(*(torch.stack(leaves).to(old.dtype)
+                           for old, leaves in zip(stacked, zip(*news))))
+
+
 def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
-              caches: KVCache | dict | None = None, mode: str = "train",
+              caches=None, mode: str = "train",
               positions: torch.Tensor | None = None,
               pad_mask: torch.Tensor | None = None, use_kernel: bool | None = None):
     """The pre-layers (if any, global attention), then the layer stack.
-    Returns (x, new_caches, aux): ``caches`` is the stacked KV cache, or
-    ``{"stack", "pre"}`` with pre-layers (None in train mode); ``pad_mask``
-    (B, S) marks real tokens; ``use_kernel`` picks the flash-attention
-    kernel where it applies (``attention._takes_kernel``); ``aux`` is the
-    MoE load-balance loss summed over the layers (0 for a dense model)."""
+    Returns (x, new_caches, aux): ``caches`` is the stacked decode state
+    (``init_caches``'s form; ``{"stack", "pre"}`` with pre-layers; None in
+    train mode); ``pad_mask`` (B, S) marks real tokens; ``use_kernel`` picks
+    the flash-attention kernel where it applies
+    (``attention._takes_kernel``); ``aux`` is the MoE load-balance loss
+    summed over the layers (0 for other models)."""
     kd = first_dense(cfg)
     remat = cfg.remat and mode == "train"
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    split = isinstance(caches, dict)
+    # DeepSeekMoE's {"stack", "pre"}, told apart from the hybrid {"kv", "ssm"} by key
+    split = isinstance(caches, dict) and "stack" in caches
 
     def run(layers, windows, stacked):
         nonlocal x, aux
-        lengths, starts = [], []
+        news = []
         for i, (p, window) in enumerate(zip(layers, windows)):
-            cache = None if stacked is None else KVCache(*(leaf[i] for leaf in stacked))
+            cache = None if stacked is None else _layer_state(stacked, i)
             args = (p, x, cfg, window, positions, cache, mode, pad_mask, use_kernel)
             x, new, a = (checkpoint(_apply_block, *args, use_reentrant=False) if remat
                          else _apply_block(*args))
             if a is not None:
                 aux = aux + a
-            if stacked is not None:     # K/V went into stacked.k/v in place
-                lengths.append(new.length)
-                starts.append(new.start)
-        if stacked is None:
-            return None
-        return KVCache(stacked.k, stacked.v, torch.stack(lengths), torch.stack(starts))
+            if stacked is not None:
+                news.append(new)
+        return None if stacked is None else _restack(stacked, news)
 
     pre = None
     if kd:
@@ -200,27 +263,33 @@ def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = False,
-                device: torch.device | str = "cuda") -> KVCache | dict:
-    """Decode state: the KV cache of every layer stacked along a leading
-    ``L`` axis, or ``{"stack": KVCache(L - k), "pre": KVCache(k)}`` for a
-    model with ``k`` pre-layers (as the reference's).  ``per_slot=True``
-    gives every batch row its own position counter (continuous batching:
-    rows join and leave mid-flight)."""
+                device: torch.device | str = "cuda"):
+    """Decode state, every layer's stacked along a leading ``L`` axis, as
+    the reference's: a ``KVCache``; ``{"stack": KVCache(L - k), "pre":
+    KVCache(k)}`` for a model with ``k`` pre-layers; ``{"kv": KVCache,
+    "ssm": SSMState}`` for the hybrid family; an ``RWKVState`` for RWKV.
+    ``per_slot=True`` gives every batch row its own position counter
+    (continuous batching: rows join and leave mid-flight)."""
     check_ported(cfg)
-    one = attn_mod.init_kv_cache(cfg, batch, max_len, per_slot=per_slot, device=device)
 
-    def stacked(n: int) -> KVCache:
-        return KVCache(*(leaf.unsqueeze(0).repeat(n, *([1] * leaf.dim())) for leaf in one))
+    def stacked(one, n: int):
+        return type(one)(*(leaf.unsqueeze(0).repeat(n, *([1] * leaf.dim())) for leaf in one))
 
+    kind, L = layer_kind(cfg), cfg.n_layers
+    if kind == "rwkv":
+        return stacked(rwkv_mod.init_rwkv_state(cfg, batch, device), L)
+    kv = attn_mod.init_kv_cache(cfg, batch, max_len, per_slot=per_slot, device=device)
+    if kind == "hybrid":
+        return {"kv": stacked(kv, L), "ssm": stacked(ssm_mod.init_ssm_state(cfg, batch, device), L)}
     kd = first_dense(cfg)
     if kd:
-        return {"stack": stacked(cfg.n_layers - kd), "pre": stacked(kd)}
-    return stacked(cfg.n_layers)
+        return {"stack": stacked(kv, L - kd), "pre": stacked(kv, kd)}
+    return stacked(kv, L)
 
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            caches: KVCache | dict | None = None,
+            caches=None,
             positions: torch.Tensor | None = None, pad_mask: torch.Tensor | None = None,
             last_pos: torch.Tensor | None = None, use_kernel: bool | None = None):
     """Process the prompt, fill caches, return logits of the LAST position.
@@ -245,7 +314,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches: KVCache | dict,
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
                 positions: torch.Tensor | None = None):
     """One decode step.  token: (B, 1) integer.  Returns (logits, caches)."""
     x = embed_tokens(params["embed"], token, cfg)

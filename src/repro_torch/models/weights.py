@@ -11,9 +11,10 @@ keys sorted, list items in index order).
 
 ``ParamTree`` holds that tree as ``nn.Parameter``s of nested modules and
 can be indexed like the reference's dict (``params["layers"]["attn"]``,
-``params["pre_layers"][0]``).  KV caches carry across the same way: the
-reference's stacked ``KVCache`` (or its ``{"stack", "pre"}`` dict of them)
-and the port's have the same leaves in the same layout.
+``params["pre_layers"][0]``).  Decode states carry across the same way: the
+reference's stacked ``KVCache``, ``SSMState`` and ``RWKVState`` (and its
+``{"stack", "pre"}`` and ``{"kv", "ssm"}`` dicts of them) and the port's
+have the same leaves in the same layout.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from torch import nn
 
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rwkv import RWKVState
+from repro_torch.models.ssm import SSMState
 
 
 class ParamTree(nn.Module):
@@ -187,28 +190,38 @@ def to_numpy(params: ParamTree | Mapping[str, Any]) -> dict:
     return unflatten({k: host(v) for k, v in flatten(tree).items()})
 
 
-def cache_from_numpy(cache: Any, cfg: ModelConfig,
-                     device: torch.device | str = "cuda") -> KVCache | dict:
-    """The reference's stacked ``KVCache`` (leaves as numpy arrays: k, v
-    (L, n_blk, blk, B, Hkv, D), length (L,) or (L, B), start (L, B)), or its
-    ``{"stack", "pre"}`` dict of them, as the port's; k and v take
-    ``cfg.dtype`` (bfloat16 bit for bit), the counters int32."""
+def cache_from_numpy(cache: Any, cfg: ModelConfig, device: torch.device | str = "cuda"):
+    """The reference's stacked decode state, leaves as numpy arrays, as the
+    port's: a ``KVCache`` (k, v (L, n_blk, blk, B, Hkv, D), length (L,) or
+    (L, B), start (L, B)), an ``SSMState`` (h (L, B, d_in, N), conv (L, B,
+    W-1, d_in)) or an ``RWKVState`` (wkv (L, B, H, hd, hd), shift_t and
+    shift_c (L, B, D)), told apart by their field names, or a dict of them.
+    k, v, conv and the shifts take ``cfg.dtype`` (bfloat16 bit for bit), h
+    and wkv float32, the counters int32."""
     if isinstance(cache, dict):
         return {name: cache_from_numpy(c, cfg, device) for name, c in cache.items()}
+    as_model = lambda x: _tensor(x).to(device=device, dtype=cfg.dtype)
+    as_f32 = lambda x: _tensor(x).to(device=device, dtype=torch.float32)
+    fields = getattr(cache, "_fields", None)
+    if fields == SSMState._fields:
+        return SSMState(h=as_f32(cache.h), conv=as_model(cache.conv))
+    if fields == RWKVState._fields:
+        return RWKVState(wkv=as_f32(cache.wkv), shift_t=as_model(cache.shift_t),
+                         shift_c=as_model(cache.shift_c))
     k, v, length, start = cache
-    kv = [_tensor(x).to(device=device, dtype=cfg.dtype) for x in (k, v)]
     ints = [torch.from_numpy(np.array(x, dtype=np.int32)).to(device) for x in (length, start)]
-    return KVCache(*kv, *ints)
+    return KVCache(as_model(k), as_model(v), *ints)
 
 
-def cache_to_numpy(cache: KVCache | dict) -> KVCache | dict:
-    """The port's KV cache as a ``KVCache`` of numpy arrays (or a dict of
-    them) in the reference's layout; bfloat16 leaves come out as float32
-    (exact)."""
+def cache_to_numpy(cache):
+    """The port's decode state as the same named tuples (or dict of them)
+    of numpy arrays, in the reference's layout; bfloat16 leaves come out as
+    float32 (exact)."""
     if isinstance(cache, dict):
         return {name: cache_to_numpy(c) for name, c in cache.items()}
+
     def host(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return KVCache(*(host(t) for t in cache))
+    return type(cache)(*(host(t) for t in cache))

@@ -164,6 +164,18 @@ def test_flash_attention_at_the_new_models_prefill_shapes(B, Hq, Hkv, S, D, wind
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [64, None])
+def test_flash_attention_at_hymbas_head_dim_and_odd_group(window):
+    """hymba-1.5b's attention at a small size: head dim 64 (128-byte rows),
+    GQA group 5 (an odd group, 10 q heads over 2 kv heads), the model's
+    head-split views, a ragged 300 keys, causal, bfloat16, with a 64-key
+    window and without: the tc variant, within the bfloat16 tolerance of
+    the plain version."""
+    _card()
+    _attn_case(2, 10, 2, 300, 300, 64, torch.bfloat16, True, window, split=True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D", [40, 24])
 def test_flash_attention_bfloat16_outside_the_rule_takes_simt(D):
     """A bfloat16 head dim that is not a multiple of 16 goes to the CUDA-core

@@ -175,8 +175,9 @@ def test_from_numpy_rejects_other_layouts(bad):
 
 
 PORTED = ("gemma-7b", "internlm2-20b", "granite-34b", "gemma3-4b", "olmoe-1b-7b",
-          "deepseek-moe-16b")
+          "deepseek-moe-16b", "hymba-1.5b", "rwkv6-1.6b")
 MOE = ("olmoe-1b-7b", "deepseek-moe-16b")
+RECURRENT = ("hymba-1.5b", "rwkv6-1.6b")
 
 
 def _fields(cfg) -> dict:
@@ -184,8 +185,8 @@ def _fields(cfg) -> dict:
     import dataclasses
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     out["dtype"] = getattr(out["dtype"], "__name__", str(out["dtype"])).split(".")[-1]
-    out["attn"] = dataclasses.asdict(cfg.attn)
-    out["moe"] = cfg.moe and dataclasses.asdict(cfg.moe)
+    for sub in ("attn", "moe", "ssm", "rwkv"):
+        out[sub] = out[sub] and dataclasses.asdict(out[sub])
     return out
 
 
@@ -199,8 +200,9 @@ def test_registry_has_the_ported_ids(arch):
     assert _fields(registry.get_smoke_config(arch)) == _fields(jget_smoke(arch))
     assert registry.get_config(arch).dtype == torch.bfloat16
     ttfm.check_ported(registry.get_config(arch))
+    assert registry.NOT_PORTED == ("seamless-m4t-large-v2", "qwen2-vl-2b")
     with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("hymba-1.5b")
+        registry.get_config("qwen2-vl-2b")
     with pytest.raises(KeyError, match="unknown"):
         registry.get_config("no-such-arch")
 
@@ -236,7 +238,7 @@ def test_init_layout_matches_jax_at_published_width(arch):
     for name, t in got.items():
         assert tuple(t.shape) == want[name].shape, name
         assert str(t.dtype).split(".")[-1] == str(want[name].dtype), name
-    assert ("layers.attn.q_norm" in got) == tcfg.attn.qk_norm
+    assert ("layers.attn.q_norm" in got) == bool(tcfg.attn and tcfg.attn.qk_norm)
 
 
 def test_sliced_draw_keeps_the_distribution_and_the_small_leaves(monkeypatch):
@@ -277,9 +279,8 @@ def test_qk_norm_carry_across_round_trip_is_exact():
 
 
 def test_unported_families_raise():
-    from repro_torch.models.config import SSMConfig
-    cfg = tgemma.smoke_config().with_runtime(family="hybrid", ssm=SSMConfig())
-    with pytest.raises(NotImplementedError, match="family 'hybrid' not ported"):
+    cfg = tgemma.smoke_config().with_runtime(family="vlm")
+    with pytest.raises(NotImplementedError, match="family 'vlm' not ported"):
         ttfm.init_model(cfg, None, "meta")
 
 
@@ -398,3 +399,192 @@ def test_moe_caches_at_published_width(arch):
             assert tuple(gl.shape) == wl.shape
             assert str(gl.dtype).split(".")[-1] == str(wl.dtype)
     assert len(ttfm.layer_windows(tcfg)) == tcfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: hymba-1.5b (attention + SSM heads), rwkv6-1.6b
+# ---------------------------------------------------------------------------
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}         # tests/test_kernels.py
+
+
+def _rec_pair(arch, dtype):
+    """The smoke configs; hymba's with ``pattern_period`` 2, so its 8-key
+    windows (shorter than the 17-token inputs) sit beside a global layer."""
+    import dataclasses
+    from repro.configs.registry import get_smoke_config as jget_smoke
+    j = jget_smoke(arch).with_runtime(dtype=JDT[dtype])
+    t = registry.get_smoke_config(arch).with_runtime(dtype=TDT[dtype])
+    if j.attn is not None:
+        j = j.with_runtime(attn=dataclasses.replace(j.attn, pattern_period=2))
+        t = t.with_runtime(attn=dataclasses.replace(t.attn, pattern_period=2))
+    return j, t
+
+
+def _rec_params(jcfg, seed):
+    """The reference's init as numpy arrays, with the SSM and RWKV float32
+    leaves (``A_log``, ``D_skip``, ``dt_bias``, ``mu_*``, ``decay_base``,
+    ``bonus_u``, ``ln_x``) moved off their init constants, so that each
+    term they scale carries weight."""
+    params = jax.tree_util.tree_map(np.asarray, jtfm.init_model(jax.random.PRNGKey(seed), jcfg))
+    r = np.random.RandomState(seed)
+    for group in ("ssm", "rwkv"):
+        leaves = params["layers"].get(group, {})
+        for k, v in leaves.items():
+            if v.dtype == np.float32:
+                leaves[k] = (v + 0.1 * r.randn(*v.shape)).astype(np.float32)
+    return params
+
+
+def _close_rel(got, want, tol, what):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=tol,
+                               atol=tol * max(float(np.abs(want).max()), 1e-30), err_msg=what)
+
+
+def _same_state(tcache, jcache, tol, what):
+    """Every leaf of two decode states (the port's through
+    ``cache_to_numpy``), in the reference's order; integer leaves exactly."""
+    got = jax.tree_util.tree_leaves(weights.cache_to_numpy(tcache))
+    want = jax.tree_util.tree_leaves_with_path(jax.tree_util.tree_map(np.asarray, jcache))
+    assert len(got) == len(want)
+    for g, (path, w) in zip(got, want):
+        name = f"{what} {jax.tree_util.keystr(path)}"
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            _close_rel(g, w, tol, name)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_forward_train_logits_match_jax(arch):
+    """Teacher-forced logits of the whole smoke model (2 layers) on 17
+    tokens, float32."""
+    jcfg, tcfg = _rec_pair(arch, "float32")
+    params = _rec_params(jcfg, 0)
+    tokens = _tokens()
+    jl, _ = jtfm.forward_train(jax.tree_util.tree_map(jnp.asarray, params), jcfg,
+                               tokens=jnp.asarray(tokens))
+    model = weights.from_numpy(params, tcfg, "cpu")
+    with torch.no_grad():
+        tl, taux = ttfm.forward_train(model, tcfg, torch.from_numpy(tokens))
+    assert tl.dtype == torch.float32 and float(taux) == 0.0
+    _close_rel(tl, jl, TOL["float32"], f"{arch} logits")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_bf16_loss_matches_jax(arch):
+    """bfloat16 matrices, float32 recurrences: the loss within the bfloat16
+    ``TOL`` (rtol 2e-2), as ``test_bf16_loss_matches_jax``.  Logits are not
+    compared in bfloat16: the RWKV stack amplifies rounding, and the
+    reference's own bfloat16 logits sit 6% of max|logit| from its float32
+    ones.  The reference runs under ``jax.jit`` (eagerly its CPU backend
+    has no bf16 x bf16 -> f32 dot for the attention scores)."""
+    jcfg, tcfg = _rec_pair(arch, "bfloat16")
+    params = _rec_params(jcfg, 0)
+    tokens = _tokens(seed=4)
+    jl = jax.jit(lambda p, t: jlm.loss_fn(p, {"tokens": t}, jcfg))(params, jnp.asarray(tokens))
+    model = weights.from_numpy(params, tcfg, "cpu")
+    with torch.no_grad():
+        tl = tlm.loss_fn(model, {"tokens": torch.from_numpy(tokens)}, tcfg)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_prefill_and_decode_match_jax(arch):
+    """float32: ``prefill`` of 17 tokens into a 24-position cache, then 4
+    ``decode_step``s on the reference's greedy tokens: logits and every
+    leaf of the decode state (K/V, lengths, starts, SSM h and conv window,
+    RWKV wkv and shifts) after each.  Then the reference's state after the
+    prefill carries across (``cache_from_numpy``) and one port decode step
+    from it equals the reference's."""
+    jcfg, tcfg = _rec_pair(arch, "float32")
+    params = _rec_params(jcfg, 1)
+    model = weights.from_numpy(params, tcfg, "cpu")
+    tokens = _tokens(seed=1)
+    jc = jtfm.init_caches(jcfg, 2, 24)
+    tc = ttfm.init_caches(tcfg, 2, 24, device="cpu")
+    jlog, jc = jtfm.prefill(params, jcfg, tokens=jnp.asarray(tokens), caches=jc)
+    tlog, tc = ttfm.prefill(model, tcfg, torch.from_numpy(tokens), caches=tc)
+    _close_rel(tlog, jlog, TOL["float32"], "prefill logits")
+    _same_state(tc, jc, TOL["float32"], "after the prefill")
+    carried = weights.cache_from_numpy(jax.tree_util.tree_map(np.asarray, jc), tcfg, "cpu")
+    first = np.argmax(np.asarray(jlog)[:, -1], -1)[:, None].astype(np.int32)
+    tok = first
+    for step in range(4):
+        jlog, jc = jtfm.decode_step(params, jcfg, jnp.asarray(tok), jc)
+        tlog, tc = ttfm.decode_step(model, tcfg, torch.from_numpy(tok), tc)
+        _close_rel(tlog, jlog, TOL["float32"], f"decode step {step} logits")
+        _same_state(tc, jc, TOL["float32"], f"after decode step {step}")
+        if step == 0:
+            clog, _ = ttfm.decode_step(model, tcfg, torch.from_numpy(first), carried)
+            _close_rel(clog, jlog, TOL["float32"], "decode from the carried state")
+        tok = np.argmax(np.asarray(jlog)[:, -1], -1)[:, None].astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_f32_loss_and_every_grad_match_jax(arch):
+    """The smoke configs' loss (CE chunks of 5 over 16 positions) and the
+    gradient of every leaf, the SSM's and RWKV's float32 leaves included,
+    in the reference's leaf order.  Gradients rtol 1e-4 with atol the
+    float32 ``TOL`` (2e-5) times max|g|: the RWKV stack's gradients move by
+    up to 1.7e-5·max|g| under float32 reordering alone (the reference's
+    literal per-step einsum in the port moves them as much)."""
+    jcfg, tcfg = _rec_pair(arch, "float32")
+    params = _rec_params(jcfg, 2)
+    tokens = _tokens(seed=2)
+    jl, jg = jax.value_and_grad(jlm.loss_fn)(jax.tree_util.tree_map(jnp.asarray, params),
+                                            {"tokens": jnp.asarray(tokens)}, jcfg, 5)
+    model = weights.from_numpy(params, tcfg, "cpu")
+    tl = tlm.loss_fn(model, {"tokens": torch.from_numpy(tokens)}, tcfg, 5)
+    tl.backward()
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
+    jflat = weights.flatten(jax.tree_util.tree_map(np.asarray, jg))
+    tflat = weights.leaves(model)
+    assert list(tflat) == list(jflat)
+    assert ("layers.ssm.A_log" in tflat) == (arch == "hymba-1.5b")
+    assert ("layers.rwkv.bonus_u" in tflat) == (arch == "rwkv6-1.6b")
+    for name, p in tflat.items():
+        want = jflat[name]
+        np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-4,
+                                   atol=TOL["float32"] * float(np.abs(want).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_carry_across_round_trip_is_exact(arch):
+    """bfloat16 smoke trees carry across and back bit for bit; the SSM and
+    RWKV vectors stay float32, their matrices take the model dtype."""
+    jcfg, tcfg = _rec_pair(arch, "bfloat16")
+    params = _rec_params(jcfg, 3)
+    model = weights.from_numpy(params, tcfg, "cpu")
+    layers = model["layers"]
+    if arch == "hymba-1.5b":
+        assert layers["ssm"]["A_log"].dtype == torch.float32
+        assert layers["ssm"]["in_proj"].dtype == torch.bfloat16
+    else:
+        assert layers["rwkv"]["mu_r"].dtype == layers["rwkv"]["bonus_u"].dtype == torch.float32
+        assert layers["rwkv"]["w_r"].dtype == torch.bfloat16
+    back = weights.flatten(weights.to_numpy(model))
+    for name, want in weights.flatten(params).items():
+        np.testing.assert_array_equal(back[name], np.asarray(want, np.float32), name)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_caches_at_published_width(arch):
+    """The decode state is the reference's: ``{"kv": KVCache, "ssm":
+    SSMState}`` (hybrid) or an ``RWKVState``, every leaf stacked over the
+    layers, the same shapes and dtypes (meta device: no memory)."""
+    jcfg, tcfg = jget_config(arch), registry.get_config(arch)
+    want = jax.eval_shape(lambda: jtfm.init_caches(jcfg, 4, 2080, per_slot=True))
+    caches = ttfm.init_caches(tcfg, 4, 2080, per_slot=True, device="meta")
+    got = jax.tree_util.tree_leaves(caches)
+    assert len(got) == len(jax.tree_util.tree_leaves(want))
+    for g, w in zip(got, jax.tree_util.tree_leaves(want)):
+        assert tuple(g.shape) == w.shape
+        assert str(g.dtype).split(".")[-1] == str(w.dtype)
+    assert isinstance(caches, dict) == (arch == "hymba-1.5b")

@@ -177,6 +177,29 @@ def test_decode_sized_group_drops_as_the_reference(E, k):
     np.testing.assert_allclose(alone.numpy(), np.asarray(jalone), **TOL["float32"])
 
 
+@pytest.mark.parametrize("E,k", [(4, 2), (16, 4), (64, 8)])
+def test_tied_rows_route_to_the_lower_experts_as_the_reference(E, k):
+    """All-zero rows tie every expert's probability: ``lax.top_k`` takes the
+    lower index first, and so must ``route`` (``torch.topk`` does not).  A
+    batch of 8 rows, 3 of them zero, float32, capacity factor 1.0: the tied
+    rows route to experts 0..k-1 on both sides, the routing of every row is
+    equal, and so, since the tied rows take capacity, are the outputs."""
+    jcfg, tcfg = _cfgs("float32", n_experts=E, top_k=k, capacity_factor=1.0)
+    jp, tp = _both(_params(jcfg, seed=14), "float32")
+    x = np.random.RandomState(15).randn(8, 1, 64).astype(np.float32)
+    x[[1, 4, 6]] = 0.0
+    jx = jnp.asarray(x)
+    probs = jax.nn.softmax(jx.reshape(8, 64) @ jp["router"], axis=-1)
+    _, je = jax.lax.top_k(probs, k)
+    _, te, _ = tmlp.route(tp, torch.from_numpy(x).reshape(8, 64), tcfg)
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    assert te[[1, 4, 6]].tolist() == [list(range(k))] * 3
+    jout, jaux = jmlp.moe_block(jp, jx, jcfg)
+    tout, taux = tmlp.moe_block(tp, torch.from_numpy(x), tcfg)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL["float32"])
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+
+
 @pytest.mark.parametrize("n_shared", [0, 2])
 def test_moe_gradients_match_jax(n_shared):
     """d/d(x, every parameter) of sum(out · w) + aux, float32, at a capacity

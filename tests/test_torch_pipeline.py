@@ -139,6 +139,22 @@ class TestLifecycle:
         with pytest.raises(NotImplementedError, match="A10"):
             _pipe(quickstart).verify()
 
+    def test_core_exports_every_reference_name_but_the_checking_layers(self):
+        """``repro_torch.core`` re-exports what ``repro.core`` does
+        (``Pipeline``, ``ChunkStream``, ``bytes_materialized`` among them),
+        the same objects as its submodules', except the checking layers'
+        names, which wait for ROADMAP A10."""
+        import repro.core as jcore
+        import repro_torch.core as tcore
+        waiting = {"CODES", "Diagnostic", "Report", "verify"}
+        missing = set(jcore.__all__) - set(tcore.__all__)
+        assert missing == waiting
+        assert all(hasattr(tcore, name) for name in tcore.__all__)
+        from repro_torch.core import ChunkStream, bytes_materialized
+        assert tcore.Pipeline is Pipeline
+        assert ChunkStream is stage_exec.ChunkStream
+        assert bytes_materialized is stage_exec.bytes_materialized
+
     def test_describe_and_buckets(self):
         x, y = _data()
         p = _pipe(quickstart, executor="cuda")

@@ -6,8 +6,11 @@ the fixed-group server, and the flash-attention switch.
 
 Models: the gemma-7b smoke config (MHA, tied embedding) and the GQA
 internlm2-20b smoke config of ``tests/test_serving.py`` (6 query heads over
-2 kv heads), and the MoE smoke configs of olmoe-1b-7b and deepseek-moe-16b
-(whose decode state is a ``{"stack", "pre"}`` dict of caches), in float32; JAX ``init_model`` makes the parameters and
+2 kv heads), the MoE smoke configs of olmoe-1b-7b and deepseek-moe-16b
+(whose decode state is a ``{"stack", "pre"}`` dict of caches), and the
+recurrent smoke configs of hymba-1.5b (``{"kv", "ssm"}``) and rwkv6-1.6b
+(an ``RWKVState``), served through pad-free prefill buckets, in float32;
+JAX ``init_model`` makes the parameters and
 ``weights.from_numpy`` carries them across.  Tolerances: logits and
 attention outputs rtol 1e-5 with atol 1e-5 * max|reference| (the same
 float32 arithmetic summed in another order; near-zero entries carry only
@@ -41,6 +44,8 @@ from repro_torch.models import weights
 from repro_torch.models.config import AttnConfig as TAttn
 from repro_torch.models.config import ModelConfig as TModel
 from repro_torch.models.config import MoEConfig as TMoE
+from repro_torch.models.config import RWKVConfig as TRWKV
+from repro_torch.models.config import SSMConfig as TSSM
 
 ARCH = "internlm2-20b"            # GQA; dense rows: batched == per-row exactly
 MAX_LEN = 48
@@ -52,8 +57,9 @@ SPECS = [(5, 3), (9, 7), (6, 2), (3, 5), (8, 4), (9, 1)]
 
 def port_config(jcfg) -> TModel:
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    moe = jcfg.moe and TMoE(**dataclasses.asdict(jcfg.moe))
-    return TModel(**{**kw, "attn": TAttn(**dataclasses.asdict(jcfg.attn)), "moe": moe,
+    sub = lambda cls, v: v and cls(**dataclasses.asdict(v))
+    return TModel(**{**kw, "attn": sub(TAttn, jcfg.attn), "moe": sub(TMoE, jcfg.moe),
+                     "ssm": sub(TSSM, jcfg.ssm), "rwkv": sub(TRWKV, jcfg.rwkv),
                      "dtype": torch.float32})
 
 
@@ -969,3 +975,142 @@ def test_moe_serve_cli_runs_on_the_cpu(monkeypatch, capsys):
                                          "--driver", driver])
         tserve.main()
         assert "served 9 tokens" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: pad-free prefill buckets, one per exact length
+# ---------------------------------------------------------------------------
+
+#: (prompt_len, max_new): three distinct lengths, so three prefill buckets
+PAD_FREE_SPECS = [(5, 3), (9, 7), (5, 2), (3, 5), (9, 4), (3, 1)]
+PAD_FREE_LENS = sorted({p for p, _ in PAD_FREE_SPECS})
+
+
+@pytest.fixture(scope="module", params=["hymba-1.5b", "rwkv6-1.6b"])
+def recurrent(request):
+    jcfg = jsmoke(request.param).with_runtime(dtype=jnp.float32)
+    params, tcfg, model = _carry(jcfg, seed=17)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, jcfg.vocab_size, p).astype(np.int32) for p, _ in PAD_FREE_SPECS]
+    return jcfg, tcfg, params, model, prompts
+
+
+@pytest.fixture(scope="module")
+def recurrent_reference(recurrent):
+    """The JAX batcher's tokens on the same weights, requests, 2 slots and
+    exact-length buckets, per driver, and sequential batch-1 JAX decoding
+    (no capacity routing: a row's tokens do not depend on its batch)."""
+    from repro.core import plan_cache as jplan_cache
+    from repro.core.serving import ContinuousBatcher as JBatcher
+    jcfg, _, params, _, prompts = recurrent
+    out = {}
+    for driver in ("jit", "mozart"):
+        jplan_cache.clear()
+        b = JBatcher(jcfg, params, 2, MAX_LEN, driver=driver)
+        b.warmup(prompt_lens=PAD_FREE_LENS)
+        reqs = [b.make_request(p, n) for p, (_, n) in zip(prompts, PAD_FREE_SPECS)]
+        b.run(reqs)
+        out[driver] = [r.out for r in reqs]
+    jplan_cache.clear()
+    prefill = jax.jit(lambda p, t, c: jtfm.prefill(p, jcfg, tokens=t, caches=c))
+    decode = jax.jit(lambda p, t, c: jtfm.decode_step(p, jcfg, t, c))
+    out["batch1"] = []
+    for prompt, (_, max_new) in zip(prompts, PAD_FREE_SPECS):
+        logits, caches = prefill(params, jnp.asarray(prompt[None]),
+                                 jtfm.init_caches(jcfg, 1, MAX_LEN))
+        tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+        toks = [int(tok[0, 0])]
+        while len(toks) < max_new:
+            logits, caches = decode(params, tok, caches)
+            tok = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
+            toks.append(int(tok[0, 0]))
+        out["batch1"].append(toks)
+    return out
+
+
+@pytest.mark.parametrize("driver", ["jit", "mozart"])
+def test_recurrent_batcher_matches_the_jax_batcher(recurrent, recurrent_reference, driver):
+    """Six requests of three exact lengths through two slots after
+    ``warmup(prompt_lens=...)``: tokens equal to the reference batcher's on
+    the same driver, to its other driver's and to batch-1 decoding; the
+    mozart driver's steps all warm, one prefill bucket per exact length."""
+    _, tcfg, _, model, prompts = recurrent
+    b = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver=driver, device="cpu")
+    assert b.pad_free
+    b.warmup(prompt_lens=PAD_FREE_LENS)
+    reqs = [b.make_request(p, n) for p, (_, n) in zip(prompts, PAD_FREE_SPECS)]
+    stats = b.run(reqs)
+    want = recurrent_reference
+    assert [r.out for r in reqs] == want[driver] == want["jit"] == want["batch1"]
+    assert stats["completed"] == len(PAD_FREE_SPECS)
+    assert (stats["planner_calls"], stats["jit_traces"], stats["warm"]) == (0, 0, True)
+    if driver == "mozart":
+        assert stats["buckets"] == sorted(
+            [("decode", 2)] + [("prefill", bb, lb) for bb in (1, 2) for lb in PAD_FREE_LENS])
+
+
+def test_pad_free_warmup_needs_the_exact_prompt_lens(recurrent):
+    """A pad-free batcher buckets by exact length and refuses a warmup
+    without the lengths it will serve (pow-2 buckets would pad)."""
+    _, tcfg, _, model, _ = recurrent
+    b = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="jit", device="cpu")
+    assert [b._bucket_len(n) for n in (1, 5, 7, 9)] == [1, 5, 7, 9]
+    for kw in ({}, {"max_prompt_len": 16}, {"prompt_lens": []}):
+        with pytest.raises(ValueError, match="pad-free"):
+            b.warmup(**kw)
+
+
+def test_recurrent_states_join_slot_by_slot(recurrent):
+    """``_cache_batch_axes`` finds the batch axis of every leaf of the
+    hybrid ``{"kv", "ssm"}`` and of an ``RWKVState``; ``_make_join`` copies
+    a real row into its slot and drops the dummy row aimed at slot
+    ``batch``."""
+    _, tcfg, _, _, _ = recurrent
+    roll = ttfm.init_caches(tcfg, 2, 8, per_slot=True, device="cpu")
+    pref = ttfm.init_caches(tcfg, 2, 8, per_slot=True, device="cpu")
+    for leaf in torch.utils._pytree.tree_leaves(pref):
+        leaf.fill_(3)
+    axes = serving._cache_batch_axes(tcfg, 2, 8)
+    assert axes == ([3, 3, 1, 1, 1, 1] if tcfg.family == "hybrid" else [1, 1, 1])
+    out = serving._make_join(axes)(roll, pref, np.array([1, 2]))
+    assert out is roll
+    for leaf, ax in zip(torch.utils._pytree.tree_leaves(roll), axes):
+        assert bool((leaf.select(ax, 1) == 3).all()) and bool((leaf.select(ax, 0) == 0).all())
+
+
+def test_recurrent_plan_file_warm_start(recurrent, tmp_path):
+    """The plan file of a pad-free mozart batcher (fingerprints holding the
+    SSM / RWKV state tuples): after a restart a second batcher on the file
+    serves the same requests with zero planner calls and the same tokens."""
+    from repro_torch.core import plan_cache
+    _, tcfg, _, model, prompts = recurrent
+    path = str(tmp_path / "plans.json")
+    b = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="mozart", device="cpu",
+                          plan_cache_path=path)
+    b.warmup(prompt_lens=PAD_FREE_LENS)
+    first = [b.make_request(p, n) for p, (_, n) in zip(prompts, PAD_FREE_SPECS)]
+    b.run(first)
+    plan_cache.clear()
+    assert plan_cache.load(path) == 1 + 2 * len(PAD_FREE_LENS)
+    plan_cache.clear()
+    again = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver="mozart", device="cpu",
+                              plan_cache_path=path)
+    reqs = [again.make_request(p, n) for p, (_, n) in zip(prompts, PAD_FREE_SPECS)]
+    stats = again.run(reqs)
+    assert stats["planner_calls"] == 0 and stats["warm"] is True, stats
+    assert [r.out for r in reqs] == [r.out for r in first]
+
+
+def test_recurrent_serve_cli_runs_on_the_cpu(monkeypatch, capsys):
+    """``Server.warmup`` passes the prompt length as the one exact bucket."""
+    for arch in ("hymba-1.5b", "rwkv6-1.6b"):
+        for driver in ("jit", "mozart"):
+            monkeypatch.setattr("sys.argv", ["serve", "--arch", arch, "--smoke", "--device",
+                                             "cpu", "--requests", "3", "--batch", "2",
+                                             "--prompt-len", "5", "--max-new", "3",
+                                             "--driver", driver])
+            tserve.main()
+            out = capsys.readouterr().out
+            assert "served 9 tokens" in out
+            if driver == "mozart":
+                assert "warm=True" in out
