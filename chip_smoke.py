@@ -183,8 +183,21 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              buckets (``warmup(prompt_lens=...)``): hymba on ``jit`` and
              ``mozart`` (tokens equal), rwkv6 on ``mozart``, each request
              against batch-1 decoding, and a warm start from the plan file.
-             The attn phase times the kernel at these prefill shapes beside
-             SDPA.
+             The embedding-input models: qwen2-vl-2b (M-RoPE, GQA group 6)
+             prefills from ``input_embeds`` (the text rows the embedding
+             table's, a 48 x 32 image's rows a seeded normal x 0.02) with
+             the image's three position streams (``vl_positions``), checks
+             M-RoPE of equal streams against RoPE and that the image layout
+             moves the logits, and serves text through a ``mozart``
+             ``Server`` against batch-1 decoding with a warm start from the
+             plan file; seamless-m4t-large-v2 (encoder-decoder) encodes
+             ``enc_embeds`` (4 x 2048 x 1024) in the prefill (24
+             non-causal launches before the decoder's 24 causal ones,
+             counted apart; cross-attention launches nothing), decodes with
+             ``enc_out``, hands its cache over as the recurrent models do,
+             and profiles the cross K/V recomputation's share of a decode
+             step.  The attn phase times the kernel at these prefill shapes
+             beside SDPA (seamless's encoder non-causal on both).
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -243,12 +256,21 @@ REWRITE_N, REWRITE_DEAD_ROWS = 1 << 26, 8   # smoke/rewrite: 8 x 2**26 dead matr
 CHAOS_TTL = 3                    # QUARANTINE_TTL in the chaos phase
 CHAOS_PROMPTS, CHAOS_NEW, CHAOS_MAX_LEN = (256, 200, 240, 256), 8, 512
 ARCHS = ("internlm2-20b", "granite-34b", "gemma3-4b",   # the archs phase, one at a time
-         "olmoe-1b-7b", "deepseek-moe-16b", "hymba-1.5b", "rwkv6-1.6b")
+         "olmoe-1b-7b", "deepseek-moe-16b", "hymba-1.5b", "rwkv6-1.6b",
+         "qwen2-vl-2b", "seamless-m4t-large-v2")
 ARCH_BATCH, ARCH_PROMPT, ARCH_DECODE = 4, 2048, 4        # greedy prefill + decode steps
 ARCH_SERVE = {"gemma3-4b": ("mozart",),                  # Server runs: 2 slots, 4 requests
               "deepseek-moe-16b": ("jit", "mozart"),      # on these drivers in turn
               "hymba-1.5b": ("jit", "mozart"),
-              "rwkv6-1.6b": ("mozart",)}
+              "rwkv6-1.6b": ("mozart",),
+              "qwen2-vl-2b": ("mozart",)}
+#: padded families whose mozart Server leg also warm-starts a second batcher
+#: from its plan file (the pad-free ones always do)
+ARCH_WARM_START = ("qwen2-vl-2b",)
+#: qwen2-vl's prompt as Qwen2-VL lays out one image (M-RoPE, arXiv:2409.12191):
+#: a text prefix, an image of rows x cols merged patches, a text tail
+VL_PREFIX, VL_IMAGE, VL_TAIL = 64, (48, 32), 448
+ARCH_ENC_FRAMES = 2048           # seamless: enc_embeds frames per row
 ARCH_HANDOFF = 16                # recurrent models: prompt tokens forced through decode_step
 RECURRENT_REPS = 3               # CUDA-event timings of one layer's recurrence
 ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW, ARCH_SERVE_MAX_LEN = (900, 130, 513, 1024), (12, 6, 9, 7), 1040
@@ -1823,8 +1845,9 @@ def attn_bound(B, Hq, Hkv, Sq, Sk, D, causal, elem, window=None) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
-#: the greedy prefills of the archs phase, causal bfloat16 on the model's
-#: head-split views: (name, B, Hq, Hkv, S, D, window)
+#: the greedy prefills of the archs phase, bfloat16 on the model's
+#: head-split views: (name, B, Hq, Hkv, S, D, window[, causal]), causal but
+#: for seamless's encoder
 ARCH_ATTN = (
     ("internlm2-20b", 4, 48, 8, 2048, 128, None),      # GQA group 6
     ("granite-34b", 4, 48, 1, 2048, 128, None),        # MQA, group 48
@@ -1833,6 +1856,9 @@ ARCH_ATTN = (
     ("olmoe-1b-7b / deepseek-moe-16b", 4, 16, 16, 2048, 128, None),   # MHA
     ("hymba-1.5b local", 4, 25, 5, 2048, 64, 1024),   # GQA group 5, head dim 64
     ("hymba-1.5b global", 4, 25, 5, 2048, 64, None),
+    ("qwen2-vl-2b", 4, 12, 2, 2048, 128, None),        # GQA group 6, M-RoPE'd q/k
+    ("seamless-m4t-large-v2 decoder", 4, 16, 16, 2048, 64, None),
+    ("seamless-m4t-large-v2 encoder", 4, 16, 16, 2048, 64, None, False),   # non-causal
 )
 
 ATTN_EDGES = (  # bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, head-split views)
@@ -2094,19 +2120,22 @@ def phase_attn_kernels(fl, rn, ref, rms_compare=()) -> dict:
     return {"attn": attn, "rms": rms, "attn_shapes": shapes}
 
 
-def attn_shape_times(fl, ref, F, gen, name, B, Hq, Hkv, S, D, window) -> dict:
+def attn_shape_times(fl, ref, F, gen, name, B, Hq, Hkv, S, D, window,
+                     causal: bool = True) -> dict:
     """The tc kernel at one model's prefill shape (head-split views, as
     ``attention.py`` makes them) against the plain version, with device
     times of the kernel and of ``F.scaled_dot_product_attention`` on the
     same inputs (``enable_gqa``; with a window, SDPA takes k and v expanded
-    to every query head beforehand and a boolean mask) beside the bound."""
+    to every query head beforehand and a boolean mask) beside the bound.
+    ``causal=False`` (an encoder) goes to the kernel, the plain version and
+    SDPA alike."""
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(torch.bfloat16)
                .transpose(1, 2) for H in (Hq, Hkv, Hkv))
-    err = attn_case(fl, ref, f"{name} prefill {(B, Hq, Hkv, S, D)} window {window}", q, k, v,
-                    True, window, "tc")
-    kernel = lambda: fl.flash_attention(q, k, v, causal=True, window=window)
+    err = attn_case(fl, ref, f"{name} prefill {(B, Hq, Hkv, S, D)} window {window} causal "
+                    f"{causal}", q, k, v, causal, window, "tc")
+    kernel = lambda: fl.flash_attention(q, k, v, causal=causal, window=window)
     if window is None:
-        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                       enable_gqa=Hq != Hkv)
     else:
         group = Hq // Hkv
@@ -2115,14 +2144,15 @@ def attn_shape_times(fl, ref, F, gen, name, B, Hq, Hkv, S, D, window) -> dict:
         mask = (i[:, None] >= i[None, :]) & (i[None, :] > i[:, None] - window)
         sdpa = lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
     lib = sdpa()
-    compare(f"{name} SDPA vs plain", lib, ref.attention_ref(q, k, v, causal=True,
+    compare(f"{name} SDPA vs plain", lib, ref.attention_ref(q, k, v, causal=causal,
                                                            window=window), 2e-2,
             atol_scale=0.0, atol=2e-2)
-    plain = lambda: ref.attention_ref(q, k, v, causal=True, window=window)
-    row = {"name": name, "shape": [B, Hq, Hkv, S, D], "window": window, "max_abs_err": err,
-           "ms": device_ms(kernel, 10), "library_ms": device_ms(sdpa, 10),
-           "plain_ms": cuda_ms(plain, 3), **attn_bound(B, Hq, Hkv, S, S, D, True, 2, window)}
-    log(f"[attn] flash_attention at {name}'s prefill {(B, Hq, Hkv, S, D)} causal bfloat16 "
+    plain = lambda: ref.attention_ref(q, k, v, causal=causal, window=window)
+    row = {"name": name, "shape": [B, Hq, Hkv, S, D], "window": window, "causal": causal,
+           "max_abs_err": err, "ms": device_ms(kernel, 10), "library_ms": device_ms(sdpa, 10),
+           "plain_ms": cuda_ms(plain, 3), **attn_bound(B, Hq, Hkv, S, S, D, causal, 2, window)}
+    log(f"[attn] flash_attention at {name}'s prefill {(B, Hq, Hkv, S, D)} "
+        f"{'causal' if causal else 'non-causal'} bfloat16 "
         f"window {window}, device times: tc kernel {row['ms']:.4f} ms (bound "
         f"{row['bound_ms']:.4f} ms by {row['bound_by']}, {row['bound_ms'] / row['ms']:.1%} of "
         f"it), F.scaled_dot_product_attention {row['library_ms']:.4f} ms; the plain version "
@@ -2595,8 +2625,11 @@ def arch_depth(cfg) -> dict:
     The working set is the plain path's float32 scores (four alive at once:
     scores, masked, softmax, the probabilities cast for p.v), the MLP's, the
     MoE dispatch's (``moe_work``) or the recurrence's (``scan_work``).
-    DeepSeekMoE's dense pre-layers and their KV count as fixed.
-    Where the dense plain path (the config's own switch at 2048 keys) would
+    DeepSeekMoE's dense pre-layers and their KV count as fixed, and so does
+    an encoder-decoder's encoder stack (``enc_layers``); each decoder layer
+    of one also holds its (B, Hkv, S_enc, D) cross K and V
+    (``_cross_kv_per_layer``), and its dense cross-attention scores join the
+    working set.  Where the dense plain path (the config's own switch at 2048 keys) would
     cut the depth and the blocked one (1024-key blocks) would not, the plain
     side of the comparison takes the blocked path: the same function."""
     from repro_torch.models import transformer as tfm
@@ -2608,12 +2641,16 @@ def arch_depth(cfg) -> dict:
     kd = tfm.first_dense(cfg)
     kv = (0 if a is None
           else 2 * B * (S + ARCH_DECODE) * a.n_kv_heads * a.head_dim * cfg.dtype.itemsize)
+    cross_kv = (2 * B * ARCH_ENC_FRAMES * a.n_kv_heads * a.head_dim * cfg.dtype.itemsize
+                if cfg.encdec else 0)
     fixed = nbytes(meta.values()) - layers + kd * kv
-    per_layer = layers / (cfg.n_layers - kd) + kv
+    per_layer = layers / (cfg.n_layers - kd) + kv + cross_kv
     mlp = max(6 * B * S * cfg.d_ff * cfg.dtype.itemsize, scan_work(cfg, B * S))
     if cfg.moe is not None:
         mlp = max(mlp, moe_work(cfg, B * S))
     scores = lambda keys: 0 if a is None else 4 * B * a.n_heads * S * keys * 4
+    if cfg.encdec:                       # cross-attention: always the dense path
+        mlp = max(mlp, scores(ARCH_ENC_FRAMES))
     work = {"dense": max(scores(S), mlp),
             "blocked": max(scores(min(S, cfg.attn_block_k)), mlp)}
     torch.cuda.empty_cache()
@@ -2628,8 +2665,9 @@ def arch_depth(cfg) -> dict:
 
 def arch_window_calls(ref):
     """Wrap the model's switch to the kernel: record each call's window and
-    hold each call's output against the kernel's plain version on the same
-    q, k, v (||kernel - plain|| / ||plain||, in the model's head order)."""
+    causality (``seen``: (window, causal) pairs) and hold each call's output
+    against the kernel's plain version on the same q, k, v (||kernel -
+    plain|| / ||plain||, in the model's head order)."""
     from repro_torch.models import attention
     real, seen, rel = attention._kernel_attention, [], []
 
@@ -2641,7 +2679,7 @@ def arch_window_calls(ref):
         want = ref.attention_ref(qk, k, v, causal=causal, window=window)
         want = want.reshape(B, Hq // group, group, S, D).transpose(1, 2).reshape(B, Hq, S, D)
         rel.append(float((out.double() - want.double()).norm() / want.double().norm()))
-        seen.append(window)
+        seen.append((window, causal))
         del want
         return out
     attention._kernel_attention = recording
@@ -2744,8 +2782,8 @@ def tokens_agree(want_logits: torch.Tensor, got: torch.Tensor, noise: float) -> 
     return ties
 
 
-def state_handoff(cfg, model, prompt, lk) -> dict:
-    """The recurrent state across prefill and decode: prefill the first
+def state_handoff(cfg, model, prompt, lk, enc=None) -> dict:
+    """The decode state across prefill and decode: prefill the first
     S - ``ARCH_HANDOFF`` tokens, then force the last ``ARCH_HANDOFF``
     through ``decode_step`` one at a time; the last logits against the full
     prefill's (``lk``), next tokens equal or a near-tie (``tokens_agree``).
@@ -2753,7 +2791,10 @@ def state_handoff(cfg, model, prompt, lk) -> dict:
     the KV cache across the two modes.  The bound is max(``tol``,
     ``ARCH_FLOOR_FACTOR`` x the floor) max|logit|, the floor being the
     distance of the same full prefill made one row at a time (only the
-    GEMMs' shapes change).  Twice: in the model's dtype (``tol`` 2e-2;
+    GEMMs' shapes change).  An encoder-decoder model (``enc``: its
+    ``enc_embeds``) prefills with them and decodes with
+    ``enc_out=encode(...)``: its self-attention cache and the cross K/V
+    recomputed at every step, together.  Twice: in the model's dtype (``tol`` 2e-2;
     random weights make a deep bfloat16 stack chaotic: hymba-1.5b's floor
     measured 3.3% of max|logit| on an H100, PERF.md §6), and on a float32
     copy of the same weights (``tol`` 2e-5, ``TOL``'s float32), which holds
@@ -2763,9 +2804,10 @@ def state_handoff(cfg, model, prompt, lk) -> dict:
     B, S = prompt.shape
     cut = S - ARCH_HANDOFF
 
-    def prefill(m, c, tokens):
+    def prefill(m, c, tokens, rows=slice(None)):
         caches = tfm.init_caches(c, tokens.shape[0], S + ARCH_DECODE, device=DEVICE)
-        return tfm.prefill(m, c, tokens, caches=caches)
+        kw = {} if enc is None else {"enc_embeds": enc[rows]}
+        return tfm.prefill(m, c, tokens, caches=caches, **kw)
 
     out = {}
     for dtype, tol in ((cfg.dtype, 2e-2), (torch.float32, TOL[torch.float32])):
@@ -2776,12 +2818,14 @@ def state_handoff(cfg, model, prompt, lk) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = prefill(m, c, prompt[:, :cut])
+        dkw = {} if enc is None else {"enc_out": tfm.encode(m, enc, c)}
         for t in range(cut, S):
-            logits, caches = tfm.decode_step(m, c, prompt[:, t:t + 1], caches)
+            logits, caches = tfm.decode_step(m, c, prompt[:, t:t + 1], caches, **dkw)
         nxt = torch.argmax(logits[:, -1], -1)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        rows = torch.cat([prefill(m, c, prompt[i:i + 1])[0] for i in range(B)])
+        rows = torch.cat([prefill(m, c, prompt[i:i + 1], slice(i, i + 1))[0]
+                          for i in range(B)])
         scale = float(full.float().abs().max())
         dist = lambda x: float((x[:, -1].float() - full[:, -1].float()).abs().max())
         diff, floor = dist(logits), dist(rows)
@@ -2799,7 +2843,7 @@ def state_handoff(cfg, model, prompt, lk) -> dict:
                                  f"max({tol} * {scale}, {ARCH_FLOOR_FACTOR} * {floor})")
         out[name] = {"ms": ms, "logit_diff": diff, "rows_floor": floor, "max_logit": scale,
                      "bound": bound, "near_ties": ties}
-        del m, full, logits, caches, rows
+        del m, full, logits, caches, rows, dkw
     torch.cuda.empty_cache()
     return {"prefill_tokens": cut, "decode_steps": ARCH_HANDOFF, **out}
 
@@ -2848,6 +2892,111 @@ def recurrence_times(cfg, model, prompt, prefill_ms: float) -> dict:
     return out
 
 
+def vl_positions(B: int) -> torch.Tensor:
+    """qwen2-vl's (3, B, S) t/h/w position streams for one image between two
+    text spans (``VL_PREFIX``, ``VL_IMAGE``, ``VL_TAIL``): the prefix at
+    t = h = w = 0..63, the 48 x 32 merged patches at t = 64, h = 64 + row,
+    w = 64 + col, the tail from 64 + 48 = 112 upward on all three."""
+    rows, cols = VL_IMAGE
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    text = np.stack([np.arange(VL_PREFIX)] * 3)
+    image = np.stack([np.full(rows * cols, VL_PREFIX), VL_PREFIX + r, VL_PREFIX + c])
+    tail = np.stack([VL_PREFIX + max(rows, cols) + np.arange(VL_TAIL)] * 3)
+    pos = np.concatenate([text, image, tail], axis=1)
+    assert pos.shape[1] == ARCH_PROMPT, pos.shape
+    return torch.as_tensor(pos, dtype=torch.int32, device=DEVICE)[:, None].expand(
+        3, B, ARCH_PROMPT).contiguous()
+
+
+def arch_inputs(cfg, model, prompt) -> tuple:
+    """(the prefill's inputs, the decode steps' extra inputs, a line saying
+    what they are).  Tokens for most models.  qwen2-vl (the stub vision
+    frontend, as the reference's): ``input_embeds`` whose text rows are the
+    embedding table's rows of ``prompt`` and whose image rows are a seeded
+    normal x 0.02, with ``vl_positions``; decode steps take positions from
+    the cache length.  seamless: the tokens and ``enc_embeds``, a seeded
+    normal (B, ``ARCH_ENC_FRAMES``, d), decode steps against its encoder
+    output (``enc_out``, made here)."""
+    from repro_torch.models import transformer as tfm
+    B = prompt.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    if cfg.family == "vlm":
+        rows, cols = VL_IMAGE
+        emb = tfm._inputs_to_embeds(model, cfg, tokens=prompt)
+        emb[:, VL_PREFIX:VL_PREFIX + rows * cols] = (torch.randn(
+            (B, rows * cols, cfg.d_model), generator=gen, device=DEVICE) * 0.02).to(cfg.dtype)
+        return ({"input_embeds": emb, "positions": vl_positions(B)}, {},
+                f"; input_embeds: {VL_PREFIX} text tokens, a {rows} x {cols} image at "
+                f"t = {VL_PREFIX}, a {VL_TAIL}-token tail from {VL_PREFIX + max(rows, cols)} "
+                f"(M-RoPE sections {cfg.attn.mrope_sections})")
+    if cfg.encdec:
+        enc = torch.randn((B, ARCH_ENC_FRAMES, cfg.d_model), generator=gen,
+                          device=DEVICE).to(cfg.dtype)
+        return ({"tokens": prompt, "enc_embeds": enc}, {"enc_out": tfm.encode(model, enc, cfg)},
+                f"; encoder {cfg.n_encoder_layers} layers over enc_embeds "
+                f"{tuple(enc.shape)}, a cross-attention per decoder layer")
+    return {"tokens": prompt}, {}, ""
+
+
+def mrope_checks(cfg, model, pk, lk, floor: float, prefill) -> dict:
+    """qwen2-vl: on layer 0's q and k of this prompt (float32), M-RoPE with
+    three equal streams against RoPE (within ``TOL``'s float32 2e-5 of
+    max|RoPE|); and the prefill's last logits with the image layout against
+    those with 1-D positions, which must differ by more than the two plain
+    paths' distance (``floor``): the sections are in use."""
+    from repro_torch.models import attention, layers
+    a, B, S = cfg.attn, ARCH_BATCH, ARCH_PROMPT
+    lp = model["layers"]
+    h = layers.rms_norm(pk["input_embeds"], lp["ln1"][0], cfg.norm_eps).float()
+    pos = torch.arange(S, device=DEVICE)[None].expand(B, S)
+    worst = 0.0
+    for name, heads in (("wq", a.n_heads), ("wk", a.n_kv_heads)):
+        x = attention._split_heads(h @ lp["attn"][name][0].float(), heads, a.head_dim)
+        want = layers.apply_rope(x, pos, a.rope_theta)
+        got = layers.apply_mrope(x, pos.expand(3, B, S), a.rope_theta, a.mrope_sections)
+        rel = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        if rel > TOL[torch.float32]:
+            raise AssertionError(f"archs/{cfg.name}: M-RoPE of three equal streams vs RoPE "
+                                 f"({name}): {rel:.3e} > {TOL[torch.float32]}")
+    l1, _ = prefill(None, positions=None)
+    moved = float((l1.float() - lk.float()).abs().max())
+    log(f"[archs] {cfg.name}: M-RoPE with three equal streams vs RoPE on layer 0's q and k "
+        f"(float32): max {worst:.3e} of max|RoPE| (bound {TOL[torch.float32]:g}); the "
+        f"image layout's last logits against 1-D positions' {moved:.4f} (must exceed the "
+        f"two plain paths' {floor:.4f})")
+    if not moved > floor:
+        raise AssertionError(f"archs/{cfg.name}: image positions moved the logits by {moved}, "
+                             f"not past the plain paths' {floor}")
+    return {"mrope_vs_rope_rel": worst, "image_vs_1d_logit_diff": moved}
+
+
+def cross_kv_share(cfg, model, tok, caches, dk) -> dict:
+    """seamless: one decode step (on a copy of the cache) and its cross K/V
+    recomputation alone (``_cross_kv_per_layer`` of ``enc_out``, every
+    layer's): device times (``device_ms``: profiler windows measured again
+    until they record every launch; late in the script the profiler drops
+    records) and CUDA-event times (3 reps), the recomputation's share of
+    the step by both, and a profile of the step (its top kernels)."""
+    from repro_torch.models import transformer as tfm
+    spare = pytree.tree_map(torch.clone, caches)
+    step = lambda: tfm.decode_step(model, cfg, tok, spare, **dk)
+    cross = lambda: tfm._cross_kv_per_layer(model, dk["enc_out"], cfg)
+    out = {"step_profile": profiled(step, top=8), "step_device_ms": device_ms(step, 3),
+           "cross_device_ms": device_ms(cross, 3), "step_ms": cuda_ms(step, 3),
+           "cross_ms": cuda_ms(cross, 3)}
+    out["device_share"] = out["cross_device_ms"] / out["step_device_ms"]
+    out["time_share"] = out["cross_ms"] / out["step_ms"]
+    log_profile(f"{cfg.name} decode step", out["step_profile"], "archs")
+    log(f"[archs] {cfg.name}: cross K/V recomputation per decode step ({cfg.n_layers} layers' "
+        f"K and V of the {ARCH_ENC_FRAMES}-frame encoder output): "
+        f"{out['cross_device_ms']:.3f} ms device of the step's {out['step_device_ms']:.3f} "
+        f"({out['device_share']:.1%}); CUDA events {out['cross_ms']:.3f} of {out['step_ms']:.3f} "
+        f"ms ({out['time_share']:.1%})")
+    del spare
+    return out
+
+
 @torch.inference_mode()
 def arch_run(arch: str, counters, flash, ref) -> dict:
     """One model at its published widths (depth as ``arch_depth`` allows),
@@ -2872,7 +3021,14 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
     decode step.  A recurrent model (hybrid, RWKV) also hands its state from
     a prefill to forced decode steps (``state_handoff``) and times one
     layer's recurrence (``recurrence_times``); an attention-free model's
-    plain path is its kernel path, so it has no plain comparison."""
+    plain path is its kernel path, so it has no plain comparison.  The
+    embedding-input models take ``arch_inputs``: qwen2-vl prefills from
+    ``input_embeds`` with an image's M-RoPE positions (``mrope_checks``);
+    seamless encodes ``enc_embeds`` in the prefill (one non-causal launch
+    per encoder layer before the decoder's causal ones; cross-attention
+    never launches), decodes against the encoder output, hands its cache
+    over as the recurrent models do, and gives the cross K/V recomputation's
+    share of a decode step (``cross_kv_share``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import mlp
     from repro_torch.models import transformer as tfm
@@ -2883,6 +3039,9 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         cfg = cfg.with_runtime(n_layers=depth["layers"])
     a = cfg.attn
     windows = tfm.layer_windows(cfg) if a is not None else []
+    # the kernel calls of one prefill, in order: (window, causal)
+    want_calls = ([(tfm.BIG_WINDOW, False)] * cfg.n_encoder_layers if cfg.encdec else []) + [
+        (w, True) for w in windows]
     recurrent = tfm.layer_kind(cfg) in ("hybrid", "rwkv")
     cut = ("full depth" if cfg.n_layers == depth["published"]
            else "depth cut: the card holds no more")
@@ -2907,11 +3066,12 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
 
     plain_cfg = (cfg if depth["plain"] == "dense"
                  else cfg.with_runtime(dense_attn_threshold=cfg.attn_block_k))
+    pk, dk, inputs_line = arch_inputs(cfg, model, prompt)
 
-    def prefill(use_kernel):
-        c = cfg if use_kernel is None else plain_cfg
+    def prefill(use_kernel, c=None, **over):
+        c = c or (cfg if use_kernel is None else plain_cfg)
         caches = tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE)
-        return tfm.prefill(model, c, prompt, caches=caches, use_kernel=use_kernel)
+        return tfm.prefill(model, c, caches=caches, use_kernel=use_kernel, **{**pk, **over})
 
     prefill(None)                                          # library and allocator warm-up
     # this path's run: counts set to 0 just before, read just after
@@ -2934,14 +3094,18 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         restore()
     launches = {c.__name__: c.launches for c in counters}
     variants = dict(flash.variant_launches)
-    by_window = {"window": sum(w != tfm.BIG_WINDOW for w in seen),
-                 "global": sum(w == tfm.BIG_WINDOW for w in seen)}
+    by_window = {"window": sum(w != tfm.BIG_WINDOW for w, _ in seen),
+                 "global": sum(w == tfm.BIG_WINDOW for w, _ in seen)}
+    by_causal = {"causal": sum(c for _, c in seen), "non-causal": sum(not c for _, c in seen)}
     want_window = sum(w != tfm.BIG_WINDOW for w in windows)
-    if (launches["flash_attention"] != len(windows) or variants["tc"] != len(windows)
-            or by_window["window"] != want_window or seen != windows):
+    # cross-attention takes the plain path: every launch is a self-attention's
+    cross_launches = launches["flash_attention"] - len(want_calls)
+    if (launches["flash_attention"] != len(want_calls) or variants["tc"] != len(want_calls)
+            or by_window["window"] != want_window or seen != want_calls):
         raise AssertionError(f"archs/{arch}: flash_attention {launches['flash_attention']} "
-                             f"launches ({variants}, windows {by_window}) for {len(windows)} "
-                             f"attention layers ({want_window} windowed)")
+                             f"launches ({variants}, windows {by_window}, {by_causal}) for "
+                             f"{len(want_calls)} self-attention layers ({want_window} windowed, "
+                             f"{cfg.n_encoder_layers if cfg.encdec else 0} non-causal)")
     rel_max = max(rel, default=0.0)
     scale = float(lk.float().abs().max())
     plain_ms = diff = floor = diff_other = free = None
@@ -2959,13 +3123,12 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         scale = float(lp.float().abs().max())
         first_p = torch.argmax(lp[:, -1], -1)
         other = cfg.with_runtime(dense_attn_threshold=512, attn_block_k=512)
-        lb, _ = pinned(lambda: tfm.prefill(
-            model, other, prompt, use_kernel=False,
-            caches=tfm.init_caches(cfg, B, S + ARCH_DECODE, device=DEVICE)))
+        lb, _ = pinned(lambda: prefill(False, other))
         floor = float((lb.float() - lp.float()).abs().max())
         diff_other = float((lk.float() - lb.float()).abs().max())
         ties = tokens_agree(lp, first_k, floor)
         del lp, lb
+    vl = mrope_checks(cfg, model, pk, lk, floor, prefill) if cfg.family == "vlm" else None
     kernel_ms = host_ms(lambda: prefill(None), 2)
     prof = profiled(lambda: prefill(None), top=8) if pin else None
     tok = first_k[:, None].to(torch.int32)
@@ -2973,7 +3136,7 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
     for i in range(ARCH_DECODE):
         t1 = time.perf_counter()
         with mlp.count_drops() as step_drops:
-            logits, caches = tfm.decode_step(model, cfg, tok, caches)
+            logits, caches = tfm.decode_step(model, cfg, tok, caches, **dk)
         host = torch.argmax(logits[:, -1], -1).cpu()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         tok = host[:, None].to(device=DEVICE, dtype=torch.int32)
@@ -2985,9 +3148,11 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         spare = pytree.tree_map(torch.clone, caches)
         decode_prof = profiled(lambda: tfm.decode_step(model, cfg, tok, spare), top=8)
         del spare
+    cross = cross_kv_share(cfg, model, tok, caches, dk) if cfg.encdec else None
     finite = bool(torch.isfinite(logits.float()).all())
     peak = torch.cuda.max_memory_allocated()
-    handoff = state_handoff(cfg, model, prompt, lk) if recurrent else None
+    handoff = (state_handoff(cfg, model, prompt, lk, enc=pk.get("enc_embeds"))
+               if recurrent or cfg.encdec else None)
     recurrence = recurrence_times(cfg, model, prompt, kernel_ms) if recurrent else None
     if a is None:
         bound = None
@@ -3002,10 +3167,11 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
                    f"blocked-512 plain path {diff_other:.4f}; the two plain paths apart "
                    f"{floor:.4f} = {floor / scale:.4f} max|logit| (bound max(2e-2, "
                    f"{ARCH_FLOOR_FACTOR} x that) = {bound / scale:.4f} max|logit|)")
-    log(f"[archs] {arch}: init {init_s:.1f} s; prefill batch {B} x {S}: kernel path "
-        f"{kernel_ms:.1f} ms (the counted run, each launch checked in place: "
+    log(f"[archs] {arch}: init {init_s:.1f} s{inputs_line}; prefill batch {B} x {S}: kernel "
+        f"path {kernel_ms:.1f} ms (the counted run, each launch checked in place: "
         f"{prefill_ms:.1f} ms); launches {launches}, flash_attention by variant {variants}, by "
-        f"window {by_window}; {against}; first tokens "
+        f"window {by_window}, by causality {by_causal}, from cross-attention "
+        f"{cross_launches}; {against}; first tokens "
         f"{first_k.tolist()} / {first_p.tolist()} (near-ties (row, top-2 margin): {ties}); "
         f"{ARCH_DECODE} decode steps median {statistics.median(step_ms):.2f} ms, logits finite "
         f"{finite}; peak device memory {peak / 1e9:.2f} GB{drops_line(cfg, drops)}")
@@ -3022,19 +3188,22 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
                              f"{ARCH_FLOOR_FACTOR} * {floor}), finite {finite}, "
                              f"in-place kernel error {rel_max}")
     served = arch_serve(cfg, model, ARCH_SERVE[arch]) if arch in ARCH_SERVE else None
-    del model, caches, logits, lk
+    del model, caches, logits, lk, pk, dk
     gc.collect()
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.n_layers, "published_layers": depth["published"],
             "plain_path": depth["plain"] if a is not None else None,
             "launches": launches, "flash_variant_launches": variants,
-            "flash_by_window": by_window, "prefill_ms": kernel_ms, "plain_prefill_ms": plain_ms,
+            "flash_by_window": by_window, "flash_by_causal": by_causal,
+            "flash_cross_launches": cross_launches, "prefill_ms": kernel_ms,
+            "plain_prefill_ms": plain_ms,
             "prefill_logit_diff": diff, "max_logit": scale, "plain_paths_diff": floor,
             "launch_rel_err_max": rel_max, "first_token_near_ties": ties,
             "decode_ms": statistics.median(step_ms), "peak_bytes": peak, "init_s": init_s,
             "moe_drops": drops if pin else None, "moe_free_routing": free,
             "moe_prefill_profile": prof, "moe_decode_profile": decode_prof if pin else None,
-            "state_handoff": handoff, "recurrence": recurrence, "server": served}
+            "state_handoff": handoff, "recurrence": recurrence, "mrope": vl,
+            "cross_kv": cross, "server": served}
 
 
 def arch_serve(cfg, model, drivers: tuple) -> dict:
@@ -3045,8 +3214,9 @@ def arch_serve(cfg, model, drivers: tuple) -> dict:
     jit tokens; without capacity routing (no MoE model: there capacity makes
     a token depend on its batch) every request is also held against
     sequential batch-1 prefill/decode_step.  A pad-free model's mozart leg
-    saves its plans, and a second batcher started from the file serves the
-    same requests with 0 planner calls and no warmup."""
+    (and that of a model in ``ARCH_WARM_START``) saves its plans, and a
+    second batcher started from the file (on the first one's prompt
+    buckets) serves the same requests with 0 planner calls and no warmup."""
     from repro_torch.core import plan_cache
     from repro_torch.core.serving import ContinuousBatcher
     from repro_torch.launch.serve import Request, Server
@@ -3067,6 +3237,7 @@ def arch_serve(cfg, model, drivers: tuple) -> dict:
         srv.warmup(max(ARCH_SERVE_PROMPTS), prompt_lens=list(ARCH_SERVE_PROMPTS))
         warm_s = time.perf_counter() - t0
         stats = srv.run(reqs)
+        buckets = srv._batcher.prompt_buckets
         del srv
         log(f"[archs] {cfg.name}: Server(continuous, driver {driver}) 2 slots, {len(reqs)} "
             f"requests (prompts {list(ARCH_SERVE_PROMPTS)}{', pad-free: exact-length buckets' if pad_free else ''}), "
@@ -3082,10 +3253,11 @@ def arch_serve(cfg, model, drivers: tuple) -> dict:
         legs[driver] = {k: stats[k] for k in (
             "tokens", "wall_s", "tokens_per_s", "decode_p50_us", "decode_p99_us",
             "planner_calls", "jit_traces", "warm")} | {"warmup_s": warm_s}
-        if driver == "mozart" and pad_free:
+        if driver == "mozart" and (pad_free or cfg.name in ARCH_WARM_START):
             plan_cache.clear()                          # a restarted replica
             again = ContinuousBatcher(cfg, model, 2, ARCH_SERVE_MAX_LEN, driver="mozart",
-                                      plan_cache_path=str(path), device=DEVICE)
+                                      plan_cache_path=str(path), device=DEVICE,
+                                      prompt_buckets=buckets)
             loaded = plan_cache.cache_info().get("persist_loaded", 0)
             restart = [again.make_request(p, m) for p, m in specs]
             rstats = again.run(restart)

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-Only the architectures whose model code the port runs are registered; the
-JAX package's other ids raise ``KeyError`` naming them as not ported yet.
+The JAX package's ten ids, each a copy of its config on the port's
+``ModelConfig``.
 """
 
 from __future__ import annotations
@@ -19,20 +19,16 @@ _MODULES = {
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
-
-#: ids the JAX package knows whose families the port does not run yet.
-NOT_PORTED = ("seamless-m4t-large-v2", "qwen2-vl-2b")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
-        if arch_id in NOT_PORTED:
-            raise KeyError(f"arch {arch_id!r} is not ported yet; ported: "
-                           f"{sorted(_MODULES)}")
-        raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[arch_id])
 
 

@@ -19,7 +19,9 @@ decode dead air whose cache writes are dropped (``cache_update_decode``).
   bucketed by *exact* prompt length (pad-free groups, one plan entry per
   distinct length), prefill runs unmasked and a hybrid model's attention
   stays on the flash-attention kernel.  ``warmup`` needs the exact
-  ``prompt_lens`` for them.
+  ``prompt_lens`` for them.  Vision-language models serve token prompts
+  (M-RoPE with three equal streams); encoder-decoder models are refused
+  (``check_servable``).
 
 Prefilled caches are copied into the rolling cache slot by slot along each
 leaf's batch axis (axes found once by diffing ``init_caches`` shapes at two
@@ -202,6 +204,18 @@ def check_driver(driver: str) -> None:
         raise ValueError(f"unknown driver {driver!r}")
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Refuse an encoder-decoder model: its requests carry an encoder input
+    that the token-prompt batchers have no place for.  (The reference
+    fails later, with an ``AttributeError``, when its decode step encodes
+    ``None``.)"""
+    if cfg.encdec:
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder model is not served by the batchers; the "
+            f"reference serves such models only through prefill(enc_embeds=...) and "
+            f"decode_step(enc_out=...)")
+
+
 class ContinuousBatcher:
     """Rolling decode batch with step-boundary admission.
 
@@ -215,6 +229,7 @@ class ContinuousBatcher:
         if batch < 1:
             raise ValueError("batch must be >= 1")
         check_driver(driver)
+        check_servable(cfg)
         self.device = torch.device(device)
         wdev = next(iter(params.parameters())).device
         if wdev.type != self.device.type:

@@ -1,6 +1,5 @@
 """Token data pipeline with SA-annotated preprocessing: the counterpart of
-``src/repro/data/pipeline.py`` (token batches; the embedding-input and
-encoder-decoder batches wait for the slices that port those families).
+``src/repro/data/pipeline.py``.
 
 Sources: synthetic (seeded Zipfian tokens — deterministic across restarts,
 indexable by step for exact resume) or a binary token file (memory-mapped
@@ -12,7 +11,11 @@ the training loop.
 Tokens equal the JAX pipeline's bit for bit: the raw int64 draws are cast
 to int32 first (wrapping the ~0.1% of Zipf draws beyond int32, as
 ``jnp.asarray`` does with 64-bit types off) and then taken modulo the
-vocabulary.
+vocabulary.  So do the stub frontends' inputs: an encoder-decoder batch
+adds ``enc_embeds`` (B, 64, d), a vision-language batch ``input_embeds``
+(B, seq + 1, d) x 0.02 and M-RoPE's ``positions`` (3, B, seq + 1), the
+floats drawn from ``np.random.default_rng(step)`` in float64 and rounded
+through float32 to ``cfg.dtype``, as the reference's ``jnp.asarray`` does.
 """
 
 from __future__ import annotations
@@ -75,9 +78,6 @@ class DataPipeline:
                  seed: int = 0, token_file: str | None = None,
                  prefetch: int = 2, use_mozart: bool = True,
                  device: torch.device | str = "cuda"):
-        if cfg.encdec or cfg.family == "vlm":
-            raise NotImplementedError(f"{cfg.family} batches wait for the "
-                                      "slice that ports that family")
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
@@ -99,7 +99,17 @@ class DataPipeline:
         else:
             tokens = torch.from_numpy(
                 (raw % self.cfg.vocab_size).astype(np.int32)).to(self.device)
-        return {"tokens": tokens}
+        batch = {"tokens": tokens}
+        cfg, B, S = self.cfg, self.batch, self.seq + 1
+        rng = np.random.default_rng(step)
+        floats = lambda a: torch.from_numpy(a.astype(np.float32)).to(self.device, cfg.dtype)
+        if cfg.encdec:
+            batch["enc_embeds"] = floats(rng.standard_normal((B, 64, cfg.d_model)))
+        elif cfg.family == "vlm":
+            batch["input_embeds"] = floats(rng.standard_normal((B, S, cfg.d_model)) * 0.02)
+            batch["positions"] = torch.arange(S, dtype=torch.int32, device=self.device)[
+                None, None].expand(3, B, S).contiguous()
+        return batch
 
     # -- prefetching iterator -------------------------------------------------
     def _worker(self, start_step: int):

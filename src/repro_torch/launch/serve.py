@@ -39,7 +39,8 @@ import torch
 
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core import mozart
-from repro_torch.core.serving import ContinuousBatcher, ServeRequest, check_driver
+from repro_torch.core.serving import (ContinuousBatcher, ServeRequest, check_driver,
+                                      check_servable)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -78,6 +79,7 @@ class Server:
                  driver: str = "jit", plan_cache_path: str | None = None,
                  mode: str = "continuous", device: torch.device | str = "cuda"):
         check_driver(driver)
+        check_servable(cfg)
         if mode not in ("continuous", "fixed"):
             raise ValueError(f"unknown mode {mode!r}")
         self.cfg = cfg

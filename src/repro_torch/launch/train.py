@@ -4,7 +4,7 @@
 It trains a config with the port's stack: the SA-annotated data pipeline,
 the model, AdamW, async checkpointing with exact resume, the straggler
 watchdog and step retries.  The reference's mesh, shardings and ZeRO-1
-optimizer-state sharding wait for the mesh port (ROADMAP A14).  Runs on
+optimizer-state sharding wait for the mesh port (ROADMAP A8).  Runs on
 the card unless given ``device="cpu"``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b --smoke \
@@ -41,7 +41,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
         loss = lm.loss_fn(model, batch, cfg)
         loss.backward()
         params = weights.leaves(model)
-        grads = {n: p.grad for n, p in params.items()}
+        # a leaf the loss does not reach (the token embedding of an
+        # embedding-input batch) has no gradient: zeros, as jax.grad gives
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in params.items()}
         new_p, new_s, metrics = adamw.update(params, grads, opt_state, opt_cfg)
         model.zero_grad(set_to_none=True)
         weights.assign(model, new_p)

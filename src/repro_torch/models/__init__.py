@@ -1,1 +1,1 @@
-"""Model code of the port (dense family): the counterpart of ``repro.models``."""
+"""Model code of the port (every family of the reference): the counterpart of ``repro.models``."""

@@ -6,7 +6,8 @@ of the reference's Pallas switch) when ``use_kernel`` holds, else dense
 softmax up to ``cfg.dense_attn_threshold`` keys, else blocked attention with
 an online softmax over key blocks whose scores are recomputed in backward.
 Scores, softmax and the probability-value product accumulate in float32
-(``preferred_element_type=f32`` in the reference).
+(``preferred_element_type=f32`` in the reference).  An encoder-decoder's
+cross-attention always takes the dense path, as the reference's.
 
 Decode uses the reference's block-partitioned KV cache ``(n_blk, blk, B,
 Hkv, D)``: each block computes a local partial softmax (log-sum-exp form)
@@ -26,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import AttnConfig, ModelConfig
-from repro_torch.models.layers import apply_rope, normal, rms_norm
+from repro_torch.models.layers import apply_mrope, apply_rope, normal, rms_norm
 
 NEG_INF = -1e30
 
@@ -81,8 +82,14 @@ def _qkv(p, x: torch.Tensor, a: AttnConfig, positions: torch.Tensor, cfg: ModelC
     if a.qk_norm:                        # per head, before RoPE (the reference's)
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, a.rope_theta)
-    k = apply_rope(k, positions, a.rope_theta)
+    if a.mrope:                          # (3, B, S) streams; 2-D: three equal ones
+        pos3 = positions if positions.dim() == 3 else positions.expand(3, *positions.shape)
+        q = apply_mrope(q, pos3, a.rope_theta, a.mrope_sections)
+        k = apply_mrope(k, pos3, a.rope_theta, a.mrope_sections)
+    else:
+        pos = positions if positions.dim() == 2 else positions[0]
+        q = apply_rope(q, pos, a.rope_theta)
+        k = apply_rope(k, pos, a.rope_theta)
     return q, k, v
 
 
@@ -318,17 +325,29 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor | None = None, causal: bool = True,
                     window: int | None = None, cache: KVCache | None = None,
                     mode: str = "train", use_kernel: bool | None = None,
-                    pad_mask: torch.Tensor | None = None):
+                    pad_mask: torch.Tensor | None = None,
+                    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Full attention sub-layer (B, S, d) -> (B, S, d).  Returns (out,
     new_cache | None).
 
     ``pad_mask`` (prefill/train, (B, S) bool, True = real token): pad keys
     are masked out of every query's softmax, and the prefill cache records
-    each row's valid span so later decode steps skip the pad K/V too."""
+    each row's valid span so later decode steps skip the pad K/V too.
+
+    ``cross_kv`` (an encoder-decoder's cross-attention): the given (B, Hkv,
+    S_enc, D) K and V, q from ``wq`` without RoPE, on the plain dense path,
+    non-causal, with no window and no cache in every mode.  It never takes
+    the kernel, as the reference's cross-attention never takes its Pallas
+    switch."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"attention mode {mode!r}")
     a = cfg.attn
     B, S, _ = x.shape
+    if cross_kv is not None:
+        q = _split_heads(x @ p["wq"].to(x.dtype), a.n_heads, a.head_dim)
+        k, v = cross_kv
+        o = _dense_attention(q, k, v, causal=False, window=None)
+        return _merge_heads(o) @ p["wo"].to(x.dtype), None
     if positions is None:
         if mode == "decode" and cache is not None:
             length = cache.length

@@ -1,8 +1,9 @@
 """Model configuration: the counterpart of ``src/repro/models/config.py``.
 
 The same frozen dataclasses with torch dtypes.  The port's model code runs
-the dense, MoE, hybrid (``ssm``: Hymba's SSM heads) and RWKV (``rwkv``)
-families and says so for the others (``transformer.check_ported``).
+every family: dense, MoE, hybrid (``ssm``: Hymba's SSM heads), RWKV
+(``rwkv``), vision-language (M-RoPE) and encoder-decoder audio; logit
+softcap and banded attention it refuses (``transformer.check_ported``).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Shared building blocks: norms, embeddings, rotary position encodings.
 
-The counterpart of ``src/repro/models/layers.py`` (standard RoPE only;
-M-RoPE waits for the slice that ports qwen2-vl).
+The counterpart of ``src/repro/models/layers.py``: standard RoPE and
+Qwen2-VL's multimodal M-RoPE.
 """
 
 from __future__ import annotations
@@ -66,6 +66,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                        # (d/2,)
     ang = positions[:, None, :, None].to(torch.float32) * freqs   # (B,1,S,d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL's multimodal rotary.  x: (B, H, S, D); positions: (3, B, S)
+    integer, the t/h/w streams.  The D/2 frequency bands split into
+    ``sections`` (one per stream, in order) and each band rotates by its
+    own stream's position, in float32 as ``apply_rope``.  With three equal
+    streams (text) it is ``apply_rope``."""
+    d = x.shape[-1]
+    half = d // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(d, theta, x.device)                        # (half,)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device), output_size=half)   # stream per band
+    pos = positions[sec_ids].permute(1, 2, 0).to(torch.float32)   # (B, S, half)
+    ang = pos[:, None] * freqs                                    # (B,1,S,half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -28,15 +28,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def make_batch_views(batch: dict[str, Any], cfg: ModelConfig):
-    """Split a raw token batch into model inputs + labels (next token)."""
-    if cfg.encdec or "input_embeds" in batch:
-        raise NotImplementedError("encoder-decoder and embedding-input "
-                                  "batches wait for the slices that port them")
+    """Split a raw batch into model inputs + labels (next token) per
+    family: an encoder-decoder's ``enc_embeds`` pass whole beside its
+    tokens; an embedding-input batch (the vlm/audio stub frontends) feeds
+    ``input_embeds`` and its ``positions`` (M-RoPE's (3, B, S + 1)) less
+    the last position, with labels from its tokens."""
+    kw: dict[str, Any] = {}
     tokens = batch["tokens"]
+    if cfg.encdec:
+        kw["enc_embeds"] = batch["enc_embeds"]
+        kw["tokens"] = tokens[:, :-1]
+    elif "input_embeds" in batch:
+        kw["input_embeds"] = batch["input_embeds"][:, :-1]
+        if "positions" in batch:
+            kw["positions"] = batch["positions"][..., :-1]
+    else:
+        kw["tokens"] = tokens[:, :-1]
     mask = batch.get("mask")
     if mask is not None:
         mask = mask[:, 1:]
-    return {"tokens": tokens[:, :-1]}, tokens[:, 1:], mask
+    return kw, tokens[:, 1:], mask
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,

@@ -1,6 +1,7 @@
 """The transformer stack: the counterpart of
-``src/repro/models/transformer.py`` for the dense, MoE, hybrid (Hymba) and
-RWKV families.
+``src/repro/models/transformer.py`` for the dense, MoE, hybrid (Hymba),
+RWKV, vision-language (Qwen2-VL) and encoder-decoder (SeamlessM4T)
+families.
 
 The reference scans a homogeneous per-layer block over parameters stacked
 along a leading ``L`` axis, with ``jax.checkpoint`` remat per layer (and a
@@ -19,8 +20,16 @@ MoE stacks with leading dense layers (DeepSeekMoE's ``first_k_dense``) keep
 them apart, as the reference does: a list ``params["pre_layers"]`` of
 unstacked dense blocks (global attention, ``cfg.d_ff``) before the stack of
 MoE blocks, and the decode state ``{"stack": KVCache, "pre": KVCache}``.
-The vision-language and encoder-decoder families, M-RoPE, logit softcap and
-banded attention wait for later slices (``check_ported``).
+The vision-language and audio families take precomputed embeddings, as
+the reference's stub frontends give them: ``input_embeds`` in place of
+token embeddings (with M-RoPE's three position streams for Qwen2-VL), and
+an encoder-decoder's ``enc_embeds``, which ``encode`` runs through a
+bidirectional stack (``enc_layers``, ``enc_norm``).  Each decoder block of
+an encoder-decoder model then attends the encoder output through its own
+cross-attention (``cross``, normed by ``ln3``) between self-attention and
+the MLP; ``_cross_kv_per_layer`` projects every layer's K/V from the
+encoder output at once.  Logit softcap and banded attention wait for a
+later slice (``check_ported``).
 """
 
 from __future__ import annotations
@@ -41,25 +50,23 @@ BIG_WINDOW = 1 << 30      # "global attention" encoded as a huge window
 
 
 #: families whose model code the port runs.
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port's model code does not run yet: the "vlm" and
-    "audio" families, encoder-decoder stacks, M-RoPE, logit softcap and
-    banded attention; and attention-free stacks other than RWKV's."""
+    """Raise for what the port's model code does not run yet: logit softcap
+    and banded attention; a family it does not know, and attention-free
+    stacks other than RWKV's."""
     a = cfg.attn
     missing = [what for what, cond in (
         (f"family {cfg.family!r}", cfg.family not in PORTED_FAMILIES),
-        ("encoder-decoder", cfg.encdec),
         ("attention", a is None and cfg.family != "ssm"),
-        ("M-RoPE", a is not None and a.mrope),
         ("logit softcap", a is not None and a.logit_softcap is not None),
         ("banded attention", cfg.banded_attention)) if cond]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs the "
-            f"{', '.join(PORTED_FAMILIES)} families without M-RoPE, softcap or banding)")
+            f"{', '.join(PORTED_FAMILIES)} families without softcap or banding)")
 
 
 def layer_kind(cfg: ModelConfig) -> str:
@@ -68,7 +75,9 @@ def layer_kind(cfg: ModelConfig) -> str:
         return "rwkv"
     if cfg.family == "hybrid":
         return "hybrid"
-    return "moe" if cfg.moe is not None else "dense"
+    if cfg.moe is not None:
+        return "moe"
+    return "cross" if cfg.encdec else "dense"
 
 
 def first_dense(cfg: ModelConfig) -> int:
@@ -104,6 +113,15 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None,
             layers["moe"] = mlp_mod.init_moe(cfg, generator, device, n)
         else:
             layers["mlp"] = mlp_mod.init_mlp(cfg, generator, device, n)
+        if kind == "cross":              # an encoder-decoder's decoder block
+            layers["cross"] = attn_mod.init_attn(cfg, generator, device, n)
+            layers["ln3"] = ones(n, D)
+    if cfg.encdec:                       # the encoder: a dense stack and its norm
+        ne = cfg.n_encoder_layers
+        tree["enc_layers"] = {"ln1": ones(ne, D), "ln2": ones(ne, D),
+                              "attn": attn_mod.init_attn(cfg, generator, device, ne),
+                              "mlp": mlp_mod.init_mlp(cfg, generator, device, ne)}
+        tree["enc_norm"] = ones(D)
     if kd:
         tree["pre_layers"] = [
             {"attn": attn_mod.init_attn(cfg, generator, device, None),
@@ -140,10 +158,14 @@ def _unstack(tree, n: int) -> list[dict]:
 def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
                  positions: torch.Tensor | None, cache=None,
                  mode: str = "train", pad_mask: torch.Tensor | None = None,
-                 use_kernel: bool | None = None):
+                 use_kernel: bool | None = None, causal: bool = True,
+                 cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None):
     """One block: (x, new_cache, aux), aux None but for an MoE block.
     ``cache`` is the layer's ``KVCache``, ``{"kv", "ssm"}`` (hybrid) or
-    ``RWKVState`` (None in train mode: recurrent states start at zero)."""
+    ``RWKVState`` (None in train mode: recurrent states start at zero).
+    ``causal`` is False in the encoder; ``cross_kv`` is an encoder-decoder
+    layer's (K, V) of the encoder output: its cross sub-layer runs between
+    self-attention and the MLP (skipped without it, as the reference's)."""
     if "rwkv" in p:
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
             cfg, x.shape[0], x.device)
@@ -154,7 +176,7 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     hybrid = "ssm" in p
     a_out, new_cache = attn_mod.attention_block(
-        p["attn"], h, cfg, positions=positions, causal=True, window=window,
+        p["attn"], h, cfg, positions=positions, causal=causal, window=window,
         cache=cache["kv"] if hybrid and cache is not None else cache, mode=mode,
         use_kernel=use_kernel, pad_mask=pad_mask)
     if hybrid:            # parallel heads on the same input, mean combine
@@ -163,6 +185,10 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
         a_out = 0.5 * (a_out + s_out)
         new_cache = {"kv": new_cache, "ssm": ssm_new}
     x = x + a_out
+    if "cross" in p and cross_kv is not None:
+        c_out, _ = attn_mod.attention_block(
+            p["cross"], rms_norm(x, p["ln3"], cfg.norm_eps), cfg, cross_kv=cross_kv)
+        x = x + c_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         m_out, aux = mlp_mod.moe_block(p["moe"], h2, cfg)
@@ -193,12 +219,15 @@ def _restack(stacked, news: list):
 def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
               caches=None, mode: str = "train",
               positions: torch.Tensor | None = None,
+              cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
               pad_mask: torch.Tensor | None = None, use_kernel: bool | None = None):
     """The pre-layers (if any, global attention), then the layer stack.
     Returns (x, new_caches, aux): ``caches`` is the stacked decode state
     (``init_caches``'s form; ``{"stack", "pre"}`` with pre-layers; None in
-    train mode); ``pad_mask`` (B, S) marks real tokens; ``use_kernel`` picks
-    the flash-attention kernel where it applies
+    train mode); ``cross_kv`` the stacked (L, B, Hkv, S_enc, D) K and V of
+    an encoder-decoder's cross-attention (``_cross_kv_per_layer``), layer
+    ``i`` taking slice ``i``; ``pad_mask`` (B, S) marks real tokens;
+    ``use_kernel`` picks the flash-attention kernel where it applies
     (``attention._takes_kernel``); ``aux`` is the MoE load-balance loss
     summed over the layers (0 for other models)."""
     kd = first_dense(cfg)
@@ -207,12 +236,13 @@ def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
     # DeepSeekMoE's {"stack", "pre"}, told apart from the hybrid {"kv", "ssm"} by key
     split = isinstance(caches, dict) and "stack" in caches
 
-    def run(layers, windows, stacked):
+    def run(layers, windows, stacked, ckv=None):
         nonlocal x, aux
         news = []
         for i, (p, window) in enumerate(zip(layers, windows)):
             cache = None if stacked is None else _layer_state(stacked, i)
-            args = (p, x, cfg, window, positions, cache, mode, pad_mask, use_kernel)
+            args = (p, x, cfg, window, positions, cache, mode, pad_mask, use_kernel,
+                    True, None if ckv is None else (ckv[0][i], ckv[1][i]))
             x, new, a = (checkpoint(_apply_block, *args, use_reentrant=False) if remat
                          else _apply_block(*args))
             if a is not None:
@@ -226,8 +256,55 @@ def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
         pre = run([p.tree() if isinstance(p, ParamTree) else p for p in params["pre_layers"]],
                   [BIG_WINDOW] * kd, caches["pre"] if split else None)
     stack = run(_unstack(params["layers"], cfg.n_layers - kd), layer_windows(cfg)[kd:],
-                caches["stack"] if split else caches)
+                caches["stack"] if split else caches, cross_kv)
     return x, ({"stack": stack, "pre": pre} if split else stack), aux
+
+
+def encode(params, enc_embeds: torch.Tensor, cfg: ModelConfig,
+           use_kernel: bool | None = None) -> torch.Tensor:
+    """The encoder of an encoder-decoder model (SeamlessM4T): its dense
+    stack over ``enc_embeds`` (B, S_enc, d), bidirectional (every layer's
+    self-attention non-causal and global, RoPE over ``arange`` positions),
+    no cache, then ``enc_norm``.  Under ``cfg.remat`` each layer is
+    checkpointed while autograd records."""
+    x = enc_embeds.to(cfg.dtype)
+    n = cfg.n_encoder_layers
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p in _unstack(params["enc_layers"], n):
+        args = (p, x, cfg, BIG_WINDOW, None, None, "train", None, use_kernel, False)
+        x, _, _ = (checkpoint(_apply_block, *args, use_reentrant=False) if remat
+                   else _apply_block(*args))
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_kv_per_layer(params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Every decoder layer's cross-attention K and V of the encoder output
+    at once: each (L, B, Hkv, S_enc, D)."""
+    a = cfg.attn
+    B, S, _ = enc_out.shape
+    cross = params["layers"]["cross"]
+
+    def heads(w):                        # (L, D, Hkv*hd) -> (L, B, Hkv, S, hd)
+        y = torch.einsum("bsd,ldo->lbso", enc_out, w.to(enc_out.dtype))
+        return y.reshape(-1, B, S, a.n_kv_heads, a.head_dim).transpose(2, 3)
+    return heads(cross["wk"]), heads(cross["wv"])
+
+
+def _inputs_to_embeds(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+                      input_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """``input_embeds`` (a stub frontend's, cast to ``cfg.dtype``) where
+    given, else the token embeddings."""
+    if input_embeds is not None:
+        return input_embeds.to(cfg.dtype)
+    return embed_tokens(params["embed"], tokens, cfg)
+
+
+def _encoded_cross_kv(params, cfg: ModelConfig, enc_embeds, use_kernel=None):
+    """An encoder-decoder's stacked cross K/V of ``enc_embeds`` (None for
+    other models)."""
+    if not cfg.encdec:
+        return None
+    return _cross_kv_per_layer(params, encode(params, enc_embeds, cfg, use_kernel), cfg)
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -243,19 +320,28 @@ def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     return logits
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
+def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+                   input_embeds: torch.Tensor | None = None,
+                   enc_embeds: torch.Tensor | None = None,
                    positions: torch.Tensor | None = None):
     """Teacher-forced forward up to the final norm: (hidden, aux_loss);
-    aux is the MoE load-balance loss summed over the layers (0 if dense)."""
-    x = embed_tokens(params["embed"], tokens, cfg)
-    x, _, aux = run_stack(params, x, cfg, positions=positions)
+    aux is the MoE load-balance loss summed over the layers (0 if dense).
+    The input is ``tokens`` (B, S) or ``input_embeds`` (B, S, d);
+    ``positions`` (B, S) or M-RoPE's (3, B, S); an encoder-decoder model
+    also takes ``enc_embeds`` (B, S_enc, d)."""
+    x = _inputs_to_embeds(params, cfg, tokens, input_embeds)
+    x, _, aux = run_stack(params, x, cfg, positions=positions,
+                          cross_kv=_encoded_cross_kv(params, cfg, enc_embeds))
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
+def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+                  input_embeds: torch.Tensor | None = None,
+                  enc_embeds: torch.Tensor | None = None,
                   positions: torch.Tensor | None = None):
     """Teacher-forced forward: (logits, aux_loss)."""
-    hidden, aux = forward_hidden(params, cfg, tokens, positions)
+    hidden, aux = forward_hidden(params, cfg, tokens=tokens, input_embeds=input_embeds,
+                                 enc_embeds=enc_embeds, positions=positions)
     return unembed(hidden, _head(params, cfg)), aux
 
 
@@ -288,11 +374,18 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fal
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            caches=None,
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
+            input_embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None, caches=None,
             positions: torch.Tensor | None = None, pad_mask: torch.Tensor | None = None,
             last_pos: torch.Tensor | None = None, use_kernel: bool | None = None):
     """Process the prompt, fill caches, return logits of the LAST position.
+
+    The prompt is ``tokens`` (B, S) or ``input_embeds`` (B, S, d) with
+    ``positions`` (B, S) or M-RoPE's (3, B, S) (Qwen2-VL); an
+    encoder-decoder model encodes ``enc_embeds`` first (SeamlessM4T; the
+    encoder's attention takes the kernel non-causal where the decoder's
+    does, its cross-attention never).
 
     ``pad_mask`` (B, S) bool, True = real token: pad key positions are
     masked out of every attention softmax and the cache records each row's
@@ -301,10 +394,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     position (correct for unpadded and left-padded prompts).  Without a pad
     mask every layer's attention takes the flash-attention kernel on a CUDA
     device (``use_kernel``, default: there)."""
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = _inputs_to_embeds(params, cfg, tokens, input_embeds)
     x, caches, _ = run_stack(params, x, cfg, caches=caches, mode="prefill",
-                             positions=positions, pad_mask=pad_mask,
-                             use_kernel=use_kernel)
+                             positions=positions, pad_mask=pad_mask, use_kernel=use_kernel,
+                             cross_kv=_encoded_cross_kv(params, cfg, enc_embeds, use_kernel))
     if last_pos is not None:
         idx = last_pos.long()[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
@@ -315,9 +408,15 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
+                enc_out: torch.Tensor | None = None,
                 positions: torch.Tensor | None = None):
-    """One decode step.  token: (B, 1) integer.  Returns (logits, caches)."""
+    """One decode step.  token: (B, 1) integer.  Returns (logits, caches).
+    An encoder-decoder model attends ``enc_out`` (``encode``'s output),
+    whose cross K/V every layer recomputes at every step, as the
+    reference's; without it the cross sub-layers are skipped."""
     x = embed_tokens(params["embed"], token, cfg)
+    cross_kv = (_cross_kv_per_layer(params, enc_out, cfg)
+                if cfg.encdec and enc_out is not None else None)
     x, caches, _ = run_stack(params, x, cfg, caches=caches, mode="decode",
-                             positions=positions)
+                             positions=positions, cross_kv=cross_kv)
     return logits_from_hidden(params, x, cfg), caches

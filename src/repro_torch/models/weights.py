@@ -3,7 +3,8 @@
 The port keeps the JAX package's parameter layout: the same nested tree
 (``embed``, ``final_norm``, ``layers/{attn/{wq,wk,wv,wo}, ln1, ln2,
 mlp/{w_in,w_gate,w_out}}`` or ``moe/{router, shared, w_gate, w_in, w_out}``,
-and DeepSeekMoE's list ``pre_layers``), layers stacked along a leading ``L``
+DeepSeekMoE's list ``pre_layers``, and an encoder-decoder's ``enc_layers``,
+``enc_norm`` and per-layer ``cross`` and ``ln3``), layers stacked along a leading ``L``
 axis and matrices stored ``(in, out)`` and used as ``x @ W``.  A JAX
 parameter tree therefore copies across exactly, and the optimizer sees the
 same leaves in the same order as the reference's ``tree_flatten`` (dict

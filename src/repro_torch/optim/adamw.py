@@ -13,7 +13,7 @@ Parameters, gradients and the moments are flat dicts ``{path: tensor}`` in
 the reference's leaf order (``models.weights.leaves``).  lr, the global
 gradient norm and the clip factor stay on the device: a step makes no host
 read.  The update is functional (fresh outputs), as the reference's is;
-ZeRO-1 sharding of m and v waits for the mesh port (ROADMAP A14).
+ZeRO-1 sharding of m and v waits for the mesh port (ROADMAP A8).
 """
 
 from __future__ import annotations

@@ -176,6 +176,21 @@ def test_flash_attention_at_hymbas_head_dim_and_odd_group(window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal", [
+    (4, 12, 2, 2048, 128, True),     # qwen2-vl-2b: GQA group 6
+    (4, 16, 16, 2048, 64, True),     # seamless-m4t-large-v2's decoder
+    (4, 16, 16, 2048, 64, False),    # seamless-m4t-large-v2's encoder: non-causal
+])
+def test_flash_attention_at_the_embedding_input_models_prefill_shapes(B, Hq, Hkv, S, D, causal):
+    """A 4 x 2048 prefill's attention at qwen2-vl-2b's and seamless's
+    published widths (bfloat16, the model's head-split views), the encoder's
+    without the causal mask: the tc variant, within the bfloat16 tolerance
+    of the plain version."""
+    _card()
+    _attn_case(B, Hq, Hkv, S, S, D, torch.bfloat16, causal, None, split=True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D", [40, 24])
 def test_flash_attention_bfloat16_outside_the_rule_takes_simt(D):
     """A bfloat16 head dim that is not a multiple of 16 goes to the CUDA-core

@@ -175,7 +175,8 @@ def test_from_numpy_rejects_other_layouts(bad):
 
 
 PORTED = ("gemma-7b", "internlm2-20b", "granite-34b", "gemma3-4b", "olmoe-1b-7b",
-          "deepseek-moe-16b", "hymba-1.5b", "rwkv6-1.6b")
+          "deepseek-moe-16b", "hymba-1.5b", "rwkv6-1.6b", "qwen2-vl-2b",
+          "seamless-m4t-large-v2")
 MOE = ("olmoe-1b-7b", "deepseek-moe-16b")
 RECURRENT = ("hymba-1.5b", "rwkv6-1.6b")
 
@@ -192,17 +193,17 @@ def _fields(cfg) -> dict:
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_registry_has_the_ported_ids(arch):
-    """Each ported id's full and smoke configs equal the JAX package's field
-    by field; an id whose family is not ported and an unknown id raise."""
+    """Each id's full and smoke configs equal the JAX package's field by
+    field, the ids are the JAX registry's, and an unknown id raises."""
+    from repro.configs.registry import ARCH_IDS as JARCH_IDS
     from repro.configs.registry import get_smoke_config as jget_smoke
     assert registry.ARCH_IDS == PORTED
+    assert set(registry.ARCH_IDS) == set(JARCH_IDS)
+    assert not hasattr(registry, "NOT_PORTED")
     assert _fields(registry.get_config(arch)) == _fields(jget_config(arch))
     assert _fields(registry.get_smoke_config(arch)) == _fields(jget_smoke(arch))
     assert registry.get_config(arch).dtype == torch.bfloat16
     ttfm.check_ported(registry.get_config(arch))
-    assert registry.NOT_PORTED == ("seamless-m4t-large-v2", "qwen2-vl-2b")
-    with pytest.raises(KeyError, match="not ported yet"):
-        registry.get_config("qwen2-vl-2b")
     with pytest.raises(KeyError, match="unknown"):
         registry.get_config("no-such-arch")
 
@@ -279,9 +280,36 @@ def test_qk_norm_carry_across_round_trip_is_exact():
 
 
 def test_unported_families_raise():
-    cfg = tgemma.smoke_config().with_runtime(family="vlm")
-    with pytest.raises(NotImplementedError, match="family 'vlm' not ported"):
+    cfg = tgemma.smoke_config().with_runtime(family="diffusion")
+    with pytest.raises(NotImplementedError, match="family 'diffusion' not ported"):
         ttfm.init_model(cfg, None, "meta")
+
+
+@pytest.mark.parametrize("what", ["logit softcap", "banded attention"])
+def test_check_ported_still_refuses_softcap_and_banding(what):
+    """What A7.5 ports: a logit softcap and the banded sliding-window path
+    (``init_model`` and ``init_caches`` refuse them)."""
+    import dataclasses
+    cfg = tgemma.smoke_config()
+    cfg = (cfg.with_runtime(attn=dataclasses.replace(cfg.attn, logit_softcap=30.0))
+           if what == "logit softcap" else cfg.with_runtime(banded_attention=True))
+    for make in (lambda: ttfm.init_model(cfg, None, "meta"),
+                 lambda: ttfm.init_caches(cfg, 1, 8, device="meta")):
+        with pytest.raises(NotImplementedError, match=f"{what} not ported"):
+            make()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_embedding_input_families_pass_check_ported(arch):
+    """M-RoPE, the vlm and audio families and encoder-decoder stacks are
+    ported: their full configs pass, and their caches are the reference's
+    at published width (meta device)."""
+    jcfg, tcfg = jget_config(arch), registry.get_config(arch)
+    ttfm.check_ported(tcfg)
+    want = jax.eval_shape(lambda: jtfm.init_caches(jcfg, 4, 2080, per_slot=True))
+    got = ttfm.init_caches(tcfg, 4, 2080, per_slot=True, device="meta")
+    for g, w in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert tuple(g.shape) == w.shape and str(g.dtype).split(".")[-1] == str(w.dtype)
 
 
 def test_logits_and_plain_cross_entropy_match_jax():

@@ -1114,3 +1114,81 @@ def test_recurrent_serve_cli_runs_on_the_cpu(monkeypatch, capsys):
             assert "served 9 tokens" in out
             if driver == "mozart":
                 assert "warm=True" in out
+
+
+# ---------------------------------------------------------------------------
+# the embedding-input families: qwen2-vl-2b served on tokens (M-RoPE with
+# three equal streams), seamless-m4t-large-v2 refused
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def vlm():
+    jcfg = jsmoke("qwen2-vl-2b").with_runtime(dtype=jnp.float32)
+    params, tcfg, model = _carry(jcfg, seed=19)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, jcfg.vocab_size, p).astype(np.int32) for p, _ in SPECS]
+    return jcfg, tcfg, params, model, prompts
+
+
+@pytest.fixture(scope="module")
+def vlm_reference(vlm):
+    """The JAX batcher's tokens on the same weights, requests, 2 slots and
+    prompt buckets, per driver, and sequential batch-1 JAX decoding."""
+    from repro.core import plan_cache as jplan_cache
+    from repro.core.serving import ContinuousBatcher as JBatcher
+    jcfg, _, params, _, prompts = vlm
+    out = {}
+    for driver in ("jit", "mozart"):
+        jplan_cache.clear()
+        b = JBatcher(jcfg, params, 2, MAX_LEN, driver=driver)
+        b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+        reqs = [b.make_request(p, n) for p, (_, n) in zip(prompts, SPECS)]
+        b.run(reqs)
+        out[driver] = [r.out for r in reqs]
+    jplan_cache.clear()
+    out["batch1"] = [np.asarray(jlm.greedy_generate(params, jcfg, jnp.asarray(p[None]), n))[0]
+                     .tolist() for p, (_, n) in zip(prompts, SPECS)]
+    return out
+
+
+@pytest.mark.parametrize("driver", ["jit", "mozart"])
+def test_vlm_batcher_matches_the_jax_batcher(vlm, vlm_reference, driver):
+    """qwen2-vl's smoke model serves token prompts like any padded family:
+    six requests through two slots after ``warmup``, tokens equal to the
+    reference batcher's on the same driver, its other driver's and batch-1
+    decoding; the mozart driver's steps all warm."""
+    _, tcfg, _, model, prompts = vlm
+    b = ContinuousBatcher(tcfg, model, 2, MAX_LEN, driver=driver, device="cpu")
+    assert not b.pad_free
+    b.warmup(max_prompt_len=max(p for p, _ in SPECS))
+    reqs = [b.make_request(p, n) for p, (_, n) in zip(prompts, SPECS)]
+    stats = b.run(reqs)
+    want = vlm_reference
+    assert [r.out for r in reqs] == want[driver] == want["jit"] == want["batch1"]
+    assert stats["completed"] == len(SPECS)
+    assert (stats["planner_calls"], stats["jit_traces"], stats["warm"]) == (0, 0, True)
+
+
+def test_vlm_serve_cli_runs_on_the_cpu(monkeypatch, capsys):
+    for driver in ("jit", "mozart"):
+        monkeypatch.setattr("sys.argv", ["serve", "--arch", "qwen2-vl-2b", "--smoke",
+                                         "--device", "cpu", "--requests", "3", "--batch", "2",
+                                         "--prompt-len", "5", "--max-new", "3",
+                                         "--driver", driver])
+        tserve.main()
+        assert "served 9 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("how", ["batcher", "server continuous", "server fixed"])
+def test_encoder_decoder_models_are_refused_at_construction(how):
+    """The batchers have no place for an encoder input: a seamless model is
+    refused with a ``ValueError`` naming the entry points that serve it."""
+    jcfg = jsmoke("seamless-m4t-large-v2").with_runtime(dtype=jnp.float32)
+    _, tcfg, model = _carry(jcfg)
+    with pytest.raises(ValueError, match=r"prefill\(enc_embeds=...\) and "
+                                         r"decode_step\(enc_out=...\)"):
+        if how == "batcher":
+            ContinuousBatcher(tcfg, model, 2, MAX_LEN, device="cpu")
+        else:
+            tserve.Server(tcfg, model, 2, MAX_LEN, mode=how.split()[1], device="cpu")

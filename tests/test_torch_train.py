@@ -210,3 +210,30 @@ def test_moe_train_checkpoints_and_resumes_with_pre_layers(tmp_path):
     with torch.no_grad():
         loss = tlm.loss_fn(model, DataPipeline(cfg, 2, 16, device="cpu").batch_for_step(2), cfg)
     np.testing.assert_allclose(second["losses"][0], float(loss), rtol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_embedding_input_families_train_checkpoint_and_resume(arch, tmp_path):
+    """The qwen2-vl smoke config (``input_embeds`` and M-RoPE positions from
+    the pipeline; the token embedding unused, so its gradient is zeros) and
+    the seamless one (``enc_embeds``; encoder, ``cross`` and ``ln3``
+    leaves), float32 as the reference's ``TestTrainDriver``: two steps, a
+    checkpoint, and a resumed third step from it whose loss is the saved
+    model's on step 2's batch."""
+    from repro_torch.configs.registry import get_smoke_config
+    cfg = get_smoke_config(arch).with_runtime(dtype=torch.float32)
+    kw = dict(batch=2, seq=16, ckpt_dir=str(tmp_path), device="cpu", log_every=1)
+    first = ttrain.train(cfg, steps=2, **kw)
+    assert len(first["losses"]) == 2 and np.all(np.isfinite(first["losses"]))
+    assert ckpt.latest_step(tmp_path) == 2
+    second = ttrain.train(cfg, steps=3, **kw)
+    assert len(second["losses"]) == 1 and ckpt.latest_step(tmp_path) == 3
+    model = ttrain.tfm.init_model(cfg, torch.Generator().manual_seed(9), "cpu")
+    back = ckpt.restore(tmp_path, 2, {"params": model.tree()})["params"]
+    weights.assign(model, {n: p.detach().clone() for n, p in weights.flatten(back).items()})
+    with torch.no_grad():
+        loss = tlm.loss_fn(model, DataPipeline(cfg, 2, 16, device="cpu").batch_for_step(2), cfg)
+    np.testing.assert_allclose(second["losses"][0], float(loss), rtol=1e-6)
+    if arch == "qwen2-vl-2b":        # the unused embedding: zero gradient, decay only
+        init = ttrain.tfm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert torch.allclose(back["embed"], init["embed"].detach(), rtol=1e-2)
