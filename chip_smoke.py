@@ -30,6 +30,23 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              ``eager`` executor on the card and to the float64 numpy oracle
              on a 2**20 prefix; then the ``scan`` executor on Black-Scholes
              and Haversine, held to the same;
+   dtypes  — the split pipeline at every dtype the Pallas kernel takes
+             (ROADMAP B1) and 64-bit inputs narrowed (C9): Black-Scholes
+             and Haversine at n = 2**27 in bfloat16, then float16, every
+             stage on the kernel, outputs against ``eager`` and the float64
+             oracle (the same half-rounded inputs, a 2**20 prefix) within
+             2e-2 / 2e-3 of max|ref| (Haversine's asin(sqrt(a)) near a = 1
+             given four roundings of ``a`` beyond that, ``hv_slack``); the
+             hash bucketing chain ``mod(add(multiply(ids, 40503), 12345),
+             1024)`` with ``sum(equal(b, 7))`` and ``max(b)`` on int64 ids,
+             which reach the kernel as int32, equal to ``eager``; a uint8
+             and an int16 chain that wrap, with their uint32 and int32 sums,
+             at n in {1, 1000, 70001, 2**27 + 3}; Black-Scholes from float64
+             inputs bit-equal to the float32 run; each launch held in place
+             against its plain version (integers equal, halves within one
+             ulp), timed (``torch.profiler``) beside its bytes bound and the
+             plain version, and the float32 programs re-timed on the typed
+             kernel;
    rewrite — the static rewrite pass (on by default) against
              ``rewrite=False``: Black-Scholes and Haversine at n = 2**27 on
              ``cuda`` (outputs bit-equal, equal to ``eager`` and the float64
@@ -666,6 +683,271 @@ def phase_main(sp, workloads_data, oracles) -> dict:
 
 def as_list(out) -> list:
     return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+# ---------------------------------------------------------------------------
+# dtypes: the split pipeline at every dtype the Pallas kernel takes (B1, C9)
+# ---------------------------------------------------------------------------
+
+#: bf16/f16 outputs against ``eager`` and the float64 oracle: this fraction
+#: of max|ref| (rtol and atol); the kernel against its plain version: one
+#: ulp of the dtype (both round the same float32 results).
+HALF_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3}
+HALF_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+#: Haversine's asin(sqrt(a)) is ill-conditioned as a -> 1 (antipodal
+#: points): one rounding of ``a`` at unit roundoff u moves the output by up
+#: to R u / sqrt(1 - a).  Near there a half-precision result is held to
+#: ``HV_ROUNDINGS`` such roundings beyond the bound above.
+HALF_U = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+HV_ROUNDINGS = 4
+NARROW_SIZES = (1, 1000, 70001, (1 << 27) + 3)
+#: float32 kernel device times the typed kernel must stay within: the
+#: float32-only kernel's times on an H100 (2.2336 / 1.4038 ms, PERF.md) plus
+#: the +-6% cards differ by.
+F32_LIMIT_MS = {"black_scholes": 2.37, "haversine": 1.49}
+
+
+def hash_buckets(ids):
+    """The bucketing step of a hash partition: a multiplicative hash of the
+    ids into 1024 buckets, how many land in bucket 7, the largest bucket."""
+    from repro_torch.core import annotated_numpy as anp
+    b = anp.mod(anp.add(anp.multiply(ids, 40503), 12345), 1024)
+    return b, anp.sum(anp.equal(b, 7)), anp.max(b)
+
+
+def narrow_chains(u8, i16):
+    """A uint8 and an int16 chain that wrap, and their sums (uint32, int32)."""
+    from repro_torch.core import annotated_numpy as anp
+    c = anp.add(anp.multiply(u8, 7), 13)
+    d = anp.subtract(anp.multiply(i16, 300), 1234)
+    return c, anp.sum(c), d, anp.sum(d)
+
+
+def same_ints(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Integer or bool tensors equal, compared on the host in int64 (the
+    card's torch has no comparison for every unsigned dtype)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.cpu().to(torch.int64), b.cpu().to(torch.int64))
+
+
+def as_int(t: torch.Tensor) -> int:
+    return int(t.cpu().to(torch.int64))
+
+
+def half_check(what: str, got: torch.Tensor, want: torch.Tensor, tol: float,
+               slack: torch.Tensor | None = None) -> float:
+    """Every element of ``got`` within ``tol`` x max|want| of ``want`` (plus
+    ``slack`` where given); logs the largest difference over max|want| and
+    how many elements the slack admitted; returns the former."""
+    g, wv = got.double(), want.double()
+    diff = (g - wv).abs()
+    bound = tol * float(wv.abs().max())
+    worst = float(diff.max()) / float(wv.abs().max())
+    over = int((diff > bound).sum())
+    allow = bound if slack is None else bound + slack
+    if not bool(torch.isfinite(g).all()) or bool((diff > allow).any()):
+        i = int(torch.argmax(diff - allow))
+        raise AssertionError(f"{what}: |{float(g[i])} - {float(wv[i])}| exceeds "
+                             f"{tol} x max|ref| = {bound}"
+                             + ("" if slack is None else f" + {float(slack[i])}"))
+    log(f"[dtypes] {what}: max |diff| {worst:.3e} of max|ref| (bound {tol}); "
+        f"{over} of {g.numel()} elements past the bound"
+        + ("" if slack is None else " within the conditioning slack"))
+    return worst
+
+
+def hv_slack(data: dict, dtype: torch.dtype) -> torch.Tensor:
+    """``HV_ROUNDINGS`` x R u / sqrt(max(1 - a, u)) per element, with ``a``
+    in float64 from the half-rounded inputs."""
+    lat1, lon1, miles = 0.70984286, 1.23892197, 3959.0
+    lat2, lon2 = data["lat2"].double(), data["lon2"].double()
+    a = torch.sin((lat2 - lat1) / 2) ** 2 + \
+        torch.cos(lat2) * math.cos(lat1) * torch.sin((lon2 - lon1) / 2) ** 2
+    u = HALF_U[dtype]
+    return HV_ROUNDINGS * miles * u / torch.sqrt(torch.clamp(1 - a, min=u))
+
+
+def typed_case(sp, ref, what: str, launch) -> float:
+    """One launch against the plain version on the same inputs: integers
+    and bools equal, halves within one ulp, float32 as ``kernel_case``;
+    returns max |kernel - plain|."""
+    program, ins, bcast, kinds = launch
+    got = sp.split_pipeline(program, ins, bcast, kinds)
+    want = ref.split_pipeline_ref(program, ins, bcast, kinds)
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, ((kind, _op), gv, wv) in enumerate(zip(kinds, got, want)):
+        if gv.dtype != wv.dtype:
+            raise AssertionError(f"{what} output {i}: {gv.dtype} vs plain {wv.dtype}")
+        if not gv.dtype.is_floating_point:
+            if not same_ints(gv, wv):
+                raise AssertionError(f"{what} output {i}: kernel and plain version differ")
+            continue
+        tol = HALF_ULP.get(gv.dtype, 2e-5)
+        err = max(err, compare(f"{what} output {i}", gv, wv,
+                               max(tol, 1e-4) if kind == "reduce" else tol, atol_scale=tol))
+    return err
+
+
+def launch_bytes(launch) -> int:
+    """Bytes a launch must move: each input read once, each output written
+    once at its dtype's width (a reduction: its partials, left out)."""
+    from repro_torch.kernels import program as P
+    program, ins, _bcast, kinds = launch
+    n = ins[0].numel()
+    return sum(x.element_size() * n for x in ins) + sum(
+        P.ITEMSIZE[c] * n for (kind, _op), c in zip(kinds, program.output_types)
+        if kind == "concat")
+
+
+def typed_row(sp, ref, name: str, launch, launches: int, err: float) -> dict:
+    """A ``kernels`` row: device time (``torch.profiler``), plain version
+    (CUDA events) and the bound of one launch at its dtypes."""
+    program, ins, _b, _k = launch
+    n = ins[0].numel()
+    bytes_ms = launch_bytes(launch) / HBM_BYTES_PER_S * 1e3
+    ops_ms = len(program.code) * n / F32_OPS_PER_S * 1e3
+    kernel_ms = kernel_device_ms(lambda: sp.split_pipeline(*launch), 10)
+    plain_ms = cuda_ms(lambda: ref.split_pipeline_ref(*launch), 3)
+    row = {"name": f"split_pipeline[{name}]", "route": "cuda", "source": SOURCE,
+           "replaces": REPLACES, "launches": launches, "max_abs_err": err,
+           "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None, "n": n, "bytes_per_element": launch_bytes(launch) / n,
+           "program_ops": len(program.code), "dtypes": sorted({str(x.dtype) for x in ins})}
+    log(f"[dtypes] {name}: kernel {kernel_ms:.4f} ms device (bound {row['bound_ms']:.4f} ms "
+        f"by {row['bound_by']}, {row['bytes_per_element']:.0f} B/element, "
+        f"{row['bound_ms'] / kernel_ms:.1%} of it), plain {plain_ms:.3f} ms, "
+        f"{len(program.code)} instructions, max |kernel - plain| {err:.3e}")
+    return row
+
+
+def run_session(fn, data, executor: str):
+    from repro_torch.core import mozart
+    with mozart.session(executor=executor) as ctx:
+        outs = as_list(fn(**data))
+        vals = [o.value for o in outs]
+    torch.cuda.synchronize()
+    return vals, dict(ctx.stats)
+
+
+def kernel_path(sp, fn, data, what: str):
+    """``fn`` on the ``cuda`` executor with the launch count set to 0 just
+    before and read just after: every stage on the kernel, one launch each,
+    no fallback.  Returns (outputs, stats, launches)."""
+    sp.split_pipeline.launches = 0
+    vals, stats = run_session(fn, data, "cuda")
+    launched = sp.split_pipeline.launches
+    if not (stats.get("stages", 0) > 0 and stats.get("cuda_stages", 0) == stats["stages"]
+            and stats.get("cuda_fallback_stages", 0) == 0 and launched == stats["cuda_stages"]):
+        raise AssertionError(f"{what}: not every stage on the kernel: {stats}, "
+                             f"launches {launched}")
+    return vals, stats, launched
+
+
+def phase_dtypes(sp, ref, w, workloads_data, erf, errs) -> list:
+    """Black-Scholes and Haversine in bfloat16 and float16, the hash
+    bucketing chain from int64 ids (int32 after C9), narrow-integer chains
+    that wrap, Black-Scholes from float64 inputs, and the float32 programs
+    re-timed; returns the ``kernels`` rows."""
+    from repro_torch.kernels import program as P
+    saved = dict(L2_ESTIMATE), dict(LAUNCH_OUTPUTS)     # the float32 rows' own
+    rows = []
+    for dtype in (torch.bfloat16, torch.float16):
+        tol, short = HALF_TOL[dtype], str(dtype).replace("torch.", "")
+        for name in ("black_scholes", "haversine"):
+            fn, data32 = workloads_data[name]
+            data = {k: v.to(dtype) for k, v in data32.items()}
+            got, stats, launched = kernel_path(sp, fn, data, f"{name} {short}")
+            want, _e = run_session(fn, data, "eager")
+            pre = {k: v[:PREFIX].float() for k, v in data.items()}
+            oracle = (w.black_scholes_np(pre, erf=erf) if name == "black_scholes"
+                      else (w.haversine_np(**pre),))
+            slack = hv_slack(data, dtype) if name == "haversine" else None
+            for i, (g, e, o) in enumerate(zip(got, want, oracle)):
+                if g.dtype != dtype or e.dtype != dtype:
+                    raise AssertionError(f"{name} {short} output {i}: {g.dtype}")
+                half_check(f"{name} {short} output {i} vs eager", g, e, tol, slack)
+                half_check(f"{name} {short} output {i} vs the float64 oracle (2**20 prefix)",
+                           g[:PREFIX].cpu(), torch.from_numpy(np.asarray(o, np.float64)), tol,
+                           None if slack is None else slack[:PREFIX].cpu())
+            del slack
+            launch = lowered(fn, data)
+            err = typed_case(sp, ref, f"{name} {short}", launch)
+            log(f"[dtypes] {name} {short} n={N_MAIN}: {stats}, launches {launched}; within "
+                f"{tol} of max|ref| of eager and the float64 oracle (2**20 prefix)")
+            rows.append(typed_row(sp, ref, f"{name}_{short}", launch, launched, err))
+            del got, want, data, launch
+
+    # the hash bucketing chain: int64 ids (torch's default), int32 after C9
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, 2**31 - 1, (N_MAIN,), device="cuda", generator=g)
+    got, stats, launched = kernel_path(sp, hash_buckets, {"ids": ids}, "hash buckets")
+    want, _e = run_session(hash_buckets, {"ids": ids}, "eager")
+    for i, (gv, wv) in enumerate(zip(got, want)):
+        if gv.dtype != torch.int32 or not same_ints(gv, wv):
+            raise AssertionError(f"hash buckets output {i}: {gv.dtype}, equal "
+                                 f"{same_ints(gv, wv)}")
+    ids32 = ids.to(torch.int32)
+    b_ref = torch.remainder(ids32 * 40503 + 12345, 1024)
+    if not (torch.equal(got[0], b_ref) and as_int(got[1]) == int((b_ref == 7).sum())
+            and as_int(got[2]) == int(b_ref.max())):
+        raise AssertionError("hash buckets: outputs differ from torch's int32 arithmetic")
+    launch = lowered(hash_buckets, {"ids": ids})
+    if launch[0].in_dtypes != (P.I32,) or launch[1][0].dtype != torch.int32:
+        raise AssertionError(f"hash buckets: the ids reach the kernel as "
+                             f"{launch[1][0].dtype} ({launch[0].in_dtypes})")
+    err = typed_case(sp, ref, "hash buckets", launch)
+    log(f"[dtypes] hash buckets n={N_MAIN}: int64 ids reach the kernel as int32; {stats}, "
+        f"launches {launched}; equal to eager; bucket 7 holds {as_int(got[1])}, the "
+        f"largest bucket is {as_int(got[2])}")
+    rows.append(typed_row(sp, ref, "hash_buckets_int32", launch, launched, err))
+    del ids, ids32, b_ref, got, want, launch
+
+    # narrow integers that wrap, at the kernel's edge sizes
+    for n in NARROW_SIZES:
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        data = {"u8": torch.randint(0, 256, (n,), device="cuda", generator=gen,
+                                    dtype=torch.uint8),
+                "i16": torch.randint(-32768, 32768, (n,), device="cuda", generator=gen,
+                                     dtype=torch.int16)}
+        got, stats, launched = kernel_path(sp, narrow_chains, data, f"narrow n={n}")
+        want, _e = run_session(narrow_chains, data, "eager")
+        dts = [gv.dtype for gv in got]
+        if dts != [torch.uint8, torch.uint32, torch.int16, torch.int32]:
+            raise AssertionError(f"narrow n={n}: dtypes {dts}")
+        for i, (gv, wv) in enumerate(zip(got, want)):
+            if not same_ints(gv, wv):
+                raise AssertionError(f"narrow n={n} output {i}: kernel path and eager differ")
+        typed_case(sp, ref, f"narrow n={n}", lowered(narrow_chains, data))
+        log(f"[dtypes] narrow uint8/int16 chains n={n}: {stats}, launches {launched}; equal "
+            f"to eager and the plain version; sums {as_int(got[1])} (uint32), "
+            f"{as_int(got[3])} (int32)")
+        del got, want, data
+
+    # C9: Black-Scholes from float64 inputs is the float32 run, bit for bit
+    fn, data32 = workloads_data["black_scholes"]
+    got32, _s, _l = kernel_path(sp, fn, data32, "black_scholes float32")
+    got64, stats, launched = kernel_path(sp, fn, {k: v.double() for k, v in data32.items()},
+                                         "black_scholes from float64")
+    for i, (a, b) in enumerate(zip(got64, got32)):
+        if a.dtype != torch.float32 or not torch.equal(a, b):
+            raise AssertionError(f"black_scholes from float64 output {i}: {a.dtype}, "
+                                 "not the float32 run")
+    log(f"[dtypes] black_scholes from float64 inputs: {stats}, launches {launched}; float32 "
+        "outputs bit-equal to the float32 run")
+    del got32, got64
+
+    # the float32 programs on the typed kernel, re-timed
+    for name, limit in F32_LIMIT_MS.items():
+        launch = errs[name][1]
+        ms = kernel_device_ms(lambda launch=launch: sp.split_pipeline(*launch), 10)
+        log(f"[dtypes] float32 {name} re-timed on the typed kernel: {ms:.4f} ms device "
+            f"(limit {limit} ms: {'within' if ms <= limit else 'OVER'})")
+        rows[0].setdefault("float32_retime_ms", {})[name] = ms
+    L2_ESTIMATE.clear(), L2_ESTIMATE.update(saved[0])
+    LAUNCH_OUTPUTS.clear(), LAUNCH_OUTPUTS.update(saved[1])
+    return rows
 
 
 #: the rewrite records the CPU tests hold both packages to (rewrite on)
@@ -1398,10 +1680,7 @@ def phase_times(sp, ref, workloads_data, errs, launches, compare_sources=()) -> 
         err, launch = errs[name]
         program, split_inputs, _bcasts, kinds = launch
         n = split_inputs[0].numel()
-        in_bytes = sum(x.element_size() for x in split_inputs) * n
-        each_out = [4 if kind == "reduce" else (1 if is_bool else 4) * n
-                    for (kind, _o), (_s, is_bool) in zip(kinds, program.outputs)]
-        bytes_ms = (in_bytes + sum(each_out)) / HBM_BYTES_PER_S * 1e3
+        bytes_ms = launch_bytes(launch) / HBM_BYTES_PER_S * 1e3
         ops_ms = len(program.code) * n / F32_OPS_PER_S * 1e3
         kernel = lambda launch=launch: sp.split_pipeline(*launch)
         fns = {"kernel": kernel}
@@ -3349,6 +3628,8 @@ def main() -> int:
     resilience_clean("kernel")
     launches = phase_main(sp, workloads_data, oracles)
     resilience_clean("main")
+    dtype_rows = phase_dtypes(sp, ref, w, workloads_data, erf, errs)
+    resilience_clean("dtypes")
     rewrites = phase_rewrite(sp, ref, workloads_data, oracles)
     resilience_clean("rewrite")
     handoff_row = phase_handoff(sp, ref)
@@ -3367,6 +3648,7 @@ def main() -> int:
     rows[0]["chaos"] = chaos
     rows[0]["smoke_rewrite"] = rewrites["smoke_rewrite"]
     rows.append(handoff_row)
+    rows.extend(dtype_rows)
     del workloads_data, errs, bs, hv, qs, bs_pre, hv_pre
     torch.cuda.empty_cache()
 

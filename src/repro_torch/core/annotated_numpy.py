@@ -11,13 +11,15 @@ scalars beside a tensor take the tensor's (weak-typed) dtype, ``sign(nan)``
 is nan, integer sums accumulate in int32 (unsigned ones in uint32), bool
 arithmetic (``square``, ``power``, ``mod``) promotes to int32, ``abs`` and
 ``floor`` of bool stay bool, ``sign`` of bool raises ``TypeError``, and an
-integer ``mod`` by zero gives 0.
+integer ``mod`` by zero gives 0.  64-bit arguments arrive narrowed to 32
+bits (``annotation.canonicalize``), as JAX with x64 off gives them, and a
+result torch widens to 64 bits (a bool beside a Python int) is narrowed
+back (``_narrow``): JAX gives int32 there.
 
-Dtype tests use ``is`` (never ``==``): under ``torch.fx`` tracing (the
-``cuda`` executor's lowering, ``core/cuda_exec.py``) a traced operand's
-dtype is a proxy that is never identical to a dtype, so the trace records
-the float path, the only one the kernel takes (it accepts float32 and bool
-operands, and refuses ``MOD`` on bool).
+The ``cuda`` executor's lowering (``core/cuda_exec.py``) runs these
+functions on ``meta`` tensors of the stage's real dtypes, so every dtype
+branch below resolves as it does on real inputs and the kernel program
+computes what the function computes at that dtype.
 
 Usage:
     from repro_torch.core import annotated_numpy as anp
@@ -33,7 +35,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import split_types as st
-from repro_torch.core.annotation import AnnotatedFn, annotate
+from repro_torch.core.annotation import CANONICAL, AnnotatedFn, annotate
 from repro_torch.core.future import register_operator
 
 __all_ops__: dict[str, AnnotatedFn] = {}
@@ -56,6 +58,12 @@ def _tensor_operands(x, y):
     elif isinstance(x, _SCALARS) and isinstance(y, torch.Tensor):
         x = torch.full((), x, dtype=torch.result_type(y, x), device=y.device)
     return x, y
+
+
+def _narrow(t):
+    """A result torch computed in 64 bits, at JAX's 32 (x64 off)."""
+    to = CANONICAL.get(t.dtype) if isinstance(t, torch.Tensor) else None
+    return t if to is None else t.to(to)
 
 
 def _tensors_only(f: Callable) -> Callable:
@@ -162,7 +170,7 @@ class _BinarySpec(st.SplitSpec):
 for _name, _fn in _BINARY.items():
     def _mkb(f):
         def op(x, y):
-            return f(x, y)
+            return _narrow(f(x, y))
         return op
     _reg(_name, annotate(_mkb(_fn), name=_name, elementwise=True,
                          x=_BinarySpec(), y=_BinarySpec(), ret=st.Generic("S")))
@@ -173,7 +181,7 @@ def _where(c, x, y):
     cond = c != 0                       # any dtype: nonzero selects x
     if isinstance(cond, bool):          # Python scalar condition
         cond = torch.tensor(cond)
-    return torch.where(cond, x, y)
+    return _narrow(torch.where(cond, x, y))
 
 
 _reg("where", annotate(_where, name="where", elementwise=True,
@@ -186,12 +194,12 @@ _reg("where", annotate(_where, name="where", elementwise=True,
 # integration ("we implemented split types for each reduction operator ...
 # these only required merge functions").
 _SMALL_INTS = (torch.bool, torch.int8, torch.int16, torch.int32)
-_SMALL_UINTS = (torch.uint8, torch.uint16)
+_SMALL_UINTS = (torch.uint8, torch.uint16, torch.uint32)
 
 
 def _int_reduction(red: Callable) -> Callable:
     """jnp's accumulators: int32 for bool and small signed ints, uint32 for
-    small unsigned ones.  Torch has no uint32 sum or product, so those
+    unsigned ones.  Torch has no uint32 sum or product, so those
     accumulate in int64 and wrap modulo 2**32 on the cast, as JAX's do."""
     def op(x, **kw):
         if x.dtype in _SMALL_UINTS:

@@ -15,6 +15,13 @@ The decorated function behaves as follows:
   dataflow graph and a ``Future`` is returned (libmozart ``register()``);
 * called with no lazy context — the original runs immediately, which is
   exactly "the library without Mozart" (the baseline).
+
+Every concrete tensor argument is first narrowed as the reference's JAX
+(x64 off) narrows it at the library boundary (``canonicalize``): int64 to
+int32 and uint64 to uint32, wrapping modulo 2**32, float64 to float32,
+complex128 to complex64; a Python int outside int32 raises
+``OverflowError``.  Avals, plan fingerprints, the cost model and every
+executor see the 32-bit dtypes.
 """
 
 from __future__ import annotations
@@ -60,6 +67,52 @@ class SA:
         self.selective: str | None = None
 
 
+#: what JAX with x64 off makes of a 64-bit dtype.
+CANONICAL: dict[torch.dtype, torch.dtype] = {
+    torch.int64: torch.int32, torch.uint64: torch.uint32,
+    torch.float64: torch.float32, torch.complex128: torch.complex64}
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _narrow(l: Any, cache=None) -> Any:
+    """A 64-bit tensor's 32-bit copy (integers wrap modulo 2**32); ``cache``
+    (a ``WeakIdKeyDictionary``) keeps one copy per tensor and version."""
+    to = CANONICAL.get(l.dtype) if isinstance(l, torch.Tensor) else None
+    if to is None:
+        return l
+    if cache is None:
+        return l.to(to)
+    hit = cache.get(l)
+    if hit is None or hit[0] != l._version:
+        hit = cache[l] = (l._version, l.to(to))
+    return hit[1]
+
+
+def canonicalize_tensors(v: Any, cache=None) -> Any:
+    """``v`` with every 64-bit tensor leaf narrowed (``CANONICAL``); ``v``
+    itself when no leaf is 64-bit."""
+    if isinstance(v, torch.Tensor):
+        return _narrow(v, cache)
+    if isinstance(v, (list, tuple, dict)) and any(
+            isinstance(l, torch.Tensor) and l.dtype in CANONICAL
+            for l in pytree.tree_leaves(v)):
+        return pytree.tree_map(lambda l: _narrow(l, cache), v)
+    return v
+
+
+def canonicalize(v: Any, cache=None) -> Any:
+    """One argument of a library call as the reference receives it:
+    64-bit tensors narrowed (``canonicalize_tensors``), and a Python int
+    outside int32 refused with ``OverflowError``, as JAX's argument parsing
+    refuses it (whatever its operands: x64 is off)."""
+    if isinstance(v, int) and not isinstance(v, bool):
+        if not _INT32_MIN <= v <= _INT32_MAX:
+            raise OverflowError(f"Python int {v} does not fit int32 (the reference "
+                                "runs with x64 off)")
+        return v
+    return canonicalize_tensors(v, cache)
+
+
 def _meta_leaf(l: Any) -> Any:
     if isinstance(l, torch.Tensor):
         return st.aval_of(l)
@@ -102,9 +155,12 @@ class AnnotatedFn:
                or (isinstance(v, torch.Tensor) and v.device.type == "meta")
                for v in bound.values()):
             return self.fn(**bound)
-
         ctx = current_context()
-        if ctx is None or not ctx.lazy:
+        lazy = ctx is not None and ctx.lazy
+        cache = ctx._narrowed if lazy else None
+        static = self.sa.static
+        bound = {k: (v if k in static else canonicalize(v, cache)) for k, v in bound.items()}
+        if not lazy:
             return self.call_eager(self._force_all(bound))
         return ctx.register_call(self, bound)
 

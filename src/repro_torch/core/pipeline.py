@@ -40,6 +40,7 @@ from typing import Any, Callable
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import resilience, stage_exec
+from repro_torch.core.annotation import canonicalize_tensors
 from repro_torch.core.future import Future
 from repro_torch.core.graph import NodeRef
 from repro_torch.core.handoff import resolve_decisions
@@ -156,6 +157,7 @@ class Pipeline:
         the plan cache) and then discarded.  The arguments become the example
         ``compile()`` specializes to."""
         self._require_fn()
+        args, kwargs = canonicalize_tensors((args, kwargs))
         with self._lock:
             ctx = self.ctx
             _stack().append(ctx)
@@ -228,8 +230,11 @@ class Pipeline:
 
         With ``arg_transparent=True`` and a completed ``compile()``, warm
         calls skip even the capture: the retained node set is re-executed
-        with this call's tensors rebound (``_FastReplay``)."""
+        with this call's tensors rebound (``_FastReplay``).  64-bit tensor
+        arguments are narrowed first (``annotation.canonicalize_tensors``),
+        as every annotated call narrows them."""
         self._require_fn()
+        args, kwargs = canonicalize_tensors((args, kwargs))
         with self._lock:
             ctx = self.ctx
             before = dict(ctx.stats)

@@ -38,6 +38,7 @@ from typing import Any
 
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch import hardware
 from repro_torch.core import resilience
@@ -108,6 +109,10 @@ class MozartContext:
         #: this context's scoped trace/boundary-traffic view (stage_exec).
         self.counters = BoundaryCounters()
         self._plan_entry = None                  # active plan_cache.PlanEntry
+        #: 64-bit argument -> (its version, the 32-bit copy) for this
+        #: context's registrations: one narrowed copy per tensor, so every
+        #: call on it names the same stage input (annotation.canonicalize)
+        self._narrowed = WeakIdKeyDictionary()
         self._handoff = None                     # active handoff decisions
         self._batch_override: int | None = None  # set by the auto-tuner only
         self._n_cap: int | None = None           # set during sampled tuning only

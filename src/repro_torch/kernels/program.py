@@ -3,11 +3,23 @@
 ``core/cuda_exec.py`` lowers one Mozart stage into a ``Program``: a list of
 instructions ``(opcode, dst_slot, a, b, c)`` over five kinds of values —
 split inputs (one tile of each is resident), scalars (the stage's broadcast
-inputs, passed at run time, followed by the program's immediates), slots
-(tile-wide intermediates in shared memory, allocated by liveness), and the
-previous instruction's result, which the kernel keeps in registers
-(*forwarded*).  Every value is float32; a bool is 1.0/0.0 and is stored as
-one byte.
+inputs, passed at run time, followed by the program's immediates and by
+copies of broadcast inputs at another dtype), slots (tile-wide
+intermediates in shared memory, allocated by liveness), and the previous
+instruction's result, which the kernel keeps in registers (*forwarded*).
+
+Every value has one of the kernel's dtypes (``DTYPES``): bool, int8/16/32,
+uint8/16/32, float16, bfloat16 or float32.  The kernel holds each as one
+32-bit word: a float-class value (and a bool, as 1.0/0.0) as the float32
+value it rounds to, a signed integer sign-extended to int32, an unsigned
+one zero-extended to uint32.  ``types`` gives, per instruction, the dtype it
+computes in (its operands') and the dtype of its result: float instructions
+compute in float32 and round to a float16/bfloat16 result after each
+instruction, integer ones compute in 32 bits and wrap to an 8- or 16-bit
+result, and ``CAST`` converts its operand from one dtype to the other.  A
+program built without dtypes (every ``*_dtypes`` field empty) is the float32
+program of the kernel's first version: every value float32, comparisons and
+logical opcodes giving bool.
 
 ``assemble`` builds a program from SSA form and ``forward`` re-assembles
 any program: a value read only by the next instruction, or the last
@@ -17,15 +29,18 @@ Both marks keep the index of a slot that no stored value uses (the
 *register slot*), so ``unmarked`` turns a marked program back into an
 equivalent one that stores every result.
 
-The opcode order is the kernel's ABI: ``csrc/split_pipeline.cu`` declares
-the same enum, and the wrapper checks the count when it loads the kernel.
+The opcode order and the dtype codes are the kernel's ABI:
+``csrc/split_pipeline.cu`` declares the same enums, and the wrapper checks
+their counts and the parameter block's size when it loads the kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import Sequence
+from typing import Any, Sequence
+
+import torch
 
 #: opcode names in ABI order, with their arity.
 OPCODES: tuple[tuple[str, int], ...] = (
@@ -37,6 +52,7 @@ OPCODES: tuple[tuple[str, int], ...] = (
     ("MIN", 2), ("GT", 2), ("LT", 2), ("GE", 2), ("LE", 2), ("EQ", 2), ("NE", 2),
     ("AND", 2), ("OR", 2), ("ATAN2", 2), ("MOD", 2),
     ("WHERE", 3),
+    ("CAST", 1),
 )
 OP = {name: i for i, (name, _arity) in enumerate(OPCODES)}
 ARITY = {name: arity for name, arity in OPCODES}
@@ -45,6 +61,24 @@ _ARITY_OF = [arity for _name, arity in OPCODES]
 #: opcodes whose result is a bool (1.0/0.0).
 BOOL_RESULT = frozenset(
     {"ISNAN", "NOT", "BOOL", "GT", "LT", "GE", "LE", "EQ", "NE", "AND", "OR"})
+#: opcodes the kernel computes in float only (their operands are cast first).
+FLOAT_ONLY = frozenset(
+    {"EXP", "LOG", "LOG1P", "SQRT", "ERF", "SIN", "COS", "TANH", "ASIN", "ACOS",
+     "EXPM1", "RECIP", "DIV", "ATAN2"})
+
+#: the kernel's dtypes by code (``DType`` in the CUDA source).  A code below
+#: 8 is also the load/store format of a row of that dtype (0: 32-bit words).
+DTYPES: tuple[torch.dtype, ...] = (
+    torch.float32, torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16,
+    torch.float16, torch.bfloat16, torch.int32, torch.uint32)
+F32, BOOL, I8, U8, I16, U16, F16, BF16, I32, U32 = range(len(DTYPES))
+CODE = {dt: i for i, dt in enumerate(DTYPES)}
+ITEMSIZE = (4, 1, 1, 1, 2, 2, 2, 2, 4, 4)
+#: word classes: float (and bool, as 1.0/0.0), signed and unsigned integers.
+FLOAT, SIGNED, UNSIGNED = 0, 1, 2
+CLASS = (FLOAT, FLOAT, SIGNED, UNSIGNED, SIGNED, UNSIGNED, FLOAT, FLOAT, SIGNED, UNSIGNED)
+#: bits of an integer dtype (0 for the float class).
+BITS = (0, 0, 8, 8, 16, 16, 0, 0, 32, 32)
 
 # Operand encoding: kind in the top two bits of a uint16, index below.
 KIND_INPUT, KIND_SCALAR, KIND_SLOT, KIND_FWD = 0, 1, 2, 3
@@ -73,11 +107,19 @@ class Program:
 
     ``code`` holds ``(opcode, dst_slot, a, b, c)`` with encoded operands
     (unused operands are 0).  Scalar ``i < n_bcast`` is broadcast input
-    ``i``; scalar ``n_bcast + j`` is ``imms[j]``.  ``outputs`` lists, per
-    escaping value, its operand and whether it is stored as bool; the
-    caller's ``out_kinds`` say whether each is a concat output or a
-    reduction of that operand.  ``n_slots`` counts every slot the code
-    names, the register slot included."""
+    ``i``; scalar ``n_bcast + j`` is ``imms[j]``; scalar ``n_bcast +
+    len(imms) + k`` is broadcast input ``bcast_copies[k]`` again, at
+    another dtype.  ``outputs`` lists, per escaping value, its operand and
+    whether it is stored as bool; the caller's ``out_kinds`` say whether
+    each is a concat output or a reduction of that operand.  ``n_slots``
+    counts every slot the code names, the register slot included.
+
+    Dtype codes (``DTYPES``): ``types`` per instruction (operand dtype,
+    result dtype), ``in_dtypes`` per split input, ``scalar_dtypes`` per
+    scalar, ``out_dtypes`` per output (a concat output's dtype, or a
+    reduction's accumulator and result dtype).  Left empty, they take the
+    float32 program's: see ``instr_types``, ``scalar_types`` and
+    ``output_types``; an empty ``in_dtypes`` takes the inputs' own."""
 
     code: tuple[tuple[int, int, int, int, int], ...]
     n_split: int
@@ -85,10 +127,37 @@ class Program:
     n_slots: int
     imms: tuple[float, ...]
     outputs: tuple[tuple[int, bool], ...]
+    types: tuple[tuple[int, int], ...] = ()
+    in_dtypes: tuple[int, ...] = ()
+    scalar_dtypes: tuple[int, ...] = ()
+    bcast_copies: tuple[int, ...] = ()
+    out_dtypes: tuple[int, ...] = ()
 
     @property
     def n_scalars(self) -> int:
-        return self.n_bcast + len(self.imms)
+        return self.n_bcast + len(self.imms) + len(self.bcast_copies)
+
+    @property
+    def instr_types(self) -> tuple[tuple[int, int], ...]:
+        """(operand dtype, result dtype) per instruction."""
+        if self.types:
+            return self.types
+        return tuple((F32, BOOL if OPCODES[op][0] in BOOL_RESULT else F32)
+                     for op, *_ in self.code)
+
+    @property
+    def scalar_types(self) -> tuple[int, ...]:
+        return self.scalar_dtypes or (F32,) * self.n_scalars
+
+    @property
+    def output_types(self) -> tuple[int, ...]:
+        return self.out_dtypes or tuple(BOOL if b else F32 for _s, b in self.outputs)
+
+    def scalar_sources(self) -> list[tuple[str, Any]]:
+        """Per scalar: ``("bcast", i)`` or ``("imm", value)``."""
+        return ([("bcast", i) for i in range(self.n_bcast)]
+                + [("imm", v) for v in self.imms]
+                + [("bcast", i) for i in self.bcast_copies])
 
     @property
     def stored_slots(self) -> int:
@@ -105,9 +174,11 @@ class Program:
 
 def assemble(code: Sequence[tuple[int, Sequence[Src]]],
              outputs: Sequence[tuple[Src, bool]], *, n_split: int, n_bcast: int,
-             imms: Sequence[float]) -> Program:
+             imms: Sequence[float], **dtypes) -> Program:
     """The program of SSA instructions ``(opcode, sources)`` with forwarding
-    marks and slots allocated by liveness.
+    marks and slots allocated by liveness; ``dtypes`` are the ``Program``'s
+    dtype fields (``types``, ``in_dtypes``, ``scalar_dtypes``,
+    ``bcast_copies``, ``out_dtypes``), kept as they are.
 
     Instruction j's result is *forwarded* (``NO_STORE``; its readers name
     it ``KIND_FWD``) when instruction j + 1 is its only reader and no
@@ -162,7 +233,8 @@ def assemble(code: Sequence[tuple[int, Sequence[Src]]],
         out_code.append((op, slot_of[i] if stored[i] else NO_STORE | reg, *ops))
     return Program(code=tuple(out_code), n_split=n_split, n_bcast=n_bcast,
                    n_slots=n_stored + (0 if all(stored) else 1), imms=tuple(imms),
-                   outputs=tuple((enc(s), is_bool) for s, is_bool in outputs))
+                   outputs=tuple((enc(s), is_bool) for s, is_bool in outputs),
+                   **{k: tuple(v) for k, v in dtypes.items()})
 
 
 def _ssa(program: Program) -> tuple[list, list]:
@@ -196,7 +268,9 @@ def forward(program: Program) -> Program:
     (``assemble``); an already marked program comes back unchanged."""
     code, outputs = _ssa(program)
     return assemble(code, outputs, n_split=program.n_split, n_bcast=program.n_bcast,
-                    imms=program.imms)
+                    imms=program.imms, types=program.types, in_dtypes=program.in_dtypes,
+                    scalar_dtypes=program.scalar_dtypes,
+                    bcast_copies=program.bcast_copies, out_dtypes=program.out_dtypes)
 
 
 def unmarked(program: Program) -> Program:

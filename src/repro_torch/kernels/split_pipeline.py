@@ -7,10 +7,14 @@ intermediates never reach device memory, writes the concat outputs, and
 writes one partial per CTA for each reduction, which this wrapper combines
 after the launch.
 
-Two pure rules, callable on CPU and meta tensors, shape a launch:
-``geometry`` picks the tile size and the depth of the input ring from the
-program's rows, and ``load_paths`` says which tiles the kernel copies with
-TMA bulk copies and which with plain loads.  The grid is
+The kernel takes every dtype of ``program.DTYPES`` (bool, int8/16/32,
+uint8/16/32, float16, bfloat16, float32): inputs are read and outputs
+written at their own width, and every value is a 32-bit word in between
+(``program.py``).  Two pure rules, callable on CPU and meta tensors, shape
+a launch: ``geometry`` picks the tile size and the depth of the input ring
+from the program's rows (an input's ring row holds its tile at its own
+width; a slot row is 32-bit words), and ``load_paths`` says which tiles the
+kernel copies with TMA bulk copies and which with plain loads.  The grid is
 min(tiles, SMs x CTAs per SM), the latter from the CUDA occupancy
 calculator for the launch's shared memory.
 
@@ -23,7 +27,9 @@ version (``kernels/ref.py``); a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import struct
 from pathlib import Path
 from typing import Any, Callable, NamedTuple, Sequence
 
@@ -31,6 +37,7 @@ import torch
 
 from repro_torch import hardware
 from repro_torch.kernels import build as kernel_build
+from repro_torch.kernels import program as P
 from repro_torch.kernels.program import (
     KIND_FWD,
     KIND_INPUT,
@@ -41,7 +48,7 @@ from repro_torch.kernels.program import (
     Program,
     decode,
 )
-from repro_torch.kernels.ref import split_pipeline_ref
+from repro_torch.kernels.ref import reduce_words, scalar_word, split_pipeline_ref
 
 # Mirrors of the kernel's limits (csrc/split_pipeline.cu).
 VEC = 8
@@ -60,6 +67,9 @@ TILES = (2048, 1024, 512)
 STAGES = tuple(range(1, MAX_STAGES + 1))
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "split_pipeline.cu"
+#: version of the parameter block and the typed program (``ABI_VERSION`` in
+#: the CUDA source): 2 since the kernel takes every dtype of ``DTYPES``.
+ABI_VERSION = 2
 
 _OUT_KIND = {("concat", False): 0, ("concat", True): 1, ("reduce", "add"): 2,
              ("reduce", "mul"): 3, ("reduce", "max"): 4, ("reduce", "min"): 5}
@@ -70,7 +80,8 @@ _COMBINE = {"add": torch.sum, "mul": torch.prod, "max": torch.amax,
 class _Instr(ctypes.Structure):
     _fields_ = [("op", ctypes.c_uint8), ("dst", ctypes.c_uint8),
                 ("a", ctypes.c_uint16), ("b", ctypes.c_uint16),
-                ("c", ctypes.c_uint16)]
+                ("c", ctypes.c_uint16),
+                ("sdt", ctypes.c_uint8), ("dt", ctypes.c_uint8)]   # dtype codes
 
 
 class _Params(ctypes.Structure):
@@ -85,10 +96,11 @@ class _Params(ctypes.Structure):
         ("n_out", ctypes.c_int), ("tile", ctypes.c_int),
         ("stages", ctypes.c_int), ("grid", ctypes.c_int),
         ("aligned", ctypes.c_int), ("smem", ctypes.c_int),
-        ("in_bool", ctypes.c_uint8 * MAX_IN),
+        ("in_dtype", ctypes.c_uint8 * MAX_IN),
         ("out_kind", ctypes.c_uint8 * MAX_OUT),
+        ("out_dtype", ctypes.c_uint8 * MAX_OUT),
         ("out_src", ctypes.c_uint16 * MAX_OUT),
-        ("scalars", ctypes.c_float * MAX_SCALARS),
+        ("scalars", ctypes.c_uint32 * MAX_SCALARS),    # 32-bit words
         ("code", _Instr * MAX_INSTR),
     ]
 
@@ -125,16 +137,18 @@ def _align128(x: int) -> int:
 
 
 def smem_bytes(tile: int, stages: int, n_in: int, stored: int, n_scalars: int,
-               n_instr: int, n_out: int, any_reduce: bool) -> int:
+               n_instr: int, n_out: int, any_reduce: bool,
+               in_bytes: int | None = None) -> int:
     """The kernel's shared-memory layout (``layout`` in the CUDA source):
     ring mbarriers, 16 bytes per scalar and per decoded instruction (plus a
     spare one), decoded outputs, per-thread reduction accumulators, then
-    ``stages * n_in`` ring rows and ``stored`` slot rows of ``4 * tile``
-    bytes."""
+    ``stages`` ring stages of one row per input at its width (``in_bytes *
+    tile`` bytes a stage: the inputs' element sizes summed, 4 per input by
+    default) and ``stored`` slot rows of ``4 * tile`` bytes."""
     outs = 16 * MAX_STAGES + 16 * n_scalars + 16 * (n_instr + 1)
     red = _align128(outs + 8 * MAX_OUT)
     ring = _align128(red + (4 * (n_out * (tile // VEC) + 32) if any_reduce else 0))
-    return ring + 4 * tile * (stages * n_in + stored)
+    return ring + tile * (stages * (4 * n_in if in_bytes is None else in_bytes) + 4 * stored)
 
 
 def estimated_ctas_per_sm(tile: int, smem: int) -> int:
@@ -146,7 +160,7 @@ def estimated_ctas_per_sm(tile: int, smem: int) -> int:
 def geometry(n_in: int, stored: int, n_scalars: int, n_instr: int, n_out: int,
              any_reduce: bool,
              ctas_per_sm: Callable[[int, int], int] = estimated_ctas_per_sm,
-             tiles: Sequence[int] = TILES) -> Geometry:
+             tiles: Sequence[int] = TILES, in_bytes: int | None = None) -> Geometry:
     """Tile size and ring depth for a program with ``n_in`` split inputs and
     ``stored`` stored slots.  Of every (tile, stages) in ``TILES`` x
     ``STAGES`` whose shared memory fits a CTA, take the one with the most
@@ -158,11 +172,14 @@ def geometry(n_in: int, stored: int, n_scalars: int, n_instr: int, n_out: int,
     alternative; PERF.md has the numbers).  Every program ``fits_kernel``
     accepts fits: 16 inputs and 40 slots take 1024 x 1 (or 512-element tiles
     when the decoded program and reductions leave no room).  ``tiles``
-    narrows the tile sizes weighed (the plan cache's tuner pins one)."""
+    narrows the tile sizes weighed (the plan cache's tuner pins one);
+    ``in_bytes`` is the inputs' element sizes summed (4 per input by
+    default)."""
     best = None
     for tile in tiles:
         for stages in STAGES:
-            smem = smem_bytes(tile, stages, n_in, stored, n_scalars, n_instr, n_out, any_reduce)
+            smem = smem_bytes(tile, stages, n_in, stored, n_scalars, n_instr, n_out, any_reduce,
+                              in_bytes)
             if smem > SMEM_PER_BLOCK:
                 continue
             ctas = ctas_per_sm(tile, smem)
@@ -179,27 +196,42 @@ def _geometry_args(program: Program, out_kinds: Sequence[tuple[str, str]]) -> tu
             len(program.outputs), any(k == "reduce" for k, _op in out_kinds))
 
 
+def _in_rows(program: Program) -> tuple[int | None, bool]:
+    """(the inputs' element sizes summed, whether one is 1 or 2 bytes: the
+    kernel's NARROW variant) when the program names its input dtypes;
+    (None, False) for a float32 program of the first version (4 bytes per
+    input, at most: a bool input takes 1)."""
+    if not program.in_dtypes:
+        return None, False
+    return (sum(P.ITEMSIZE[c] for c in program.in_dtypes),
+            any(P.ITEMSIZE[c] != 4 for c in program.in_dtypes))
+
+
 def program_geometry(program: Program, out_kinds: Sequence[tuple[str, str]],
                      device: int | None = None,
                      tiles: Sequence[int] = TILES) -> Geometry:
     """``geometry`` of ``program`` over ``tiles``: with the card's occupancy
     calculator for a device index, with ``estimated_ctas_per_sm`` for None."""
-    return _device_geometry(_geometry_args(program, out_kinds), device, tuple(tiles))
+    return _device_geometry(_geometry_args(program, out_kinds), device, tuple(tiles),
+                            _in_rows(program))
 
 
 @functools.lru_cache(maxsize=256)
-def _device_geometry(args: tuple, device: int | None, tiles: tuple) -> Geometry:
+def _device_geometry(args: tuple, device: int | None, tiles: tuple,
+                     rows: tuple = (None, False)) -> Geometry:
+    in_bytes, narrow = rows
     if device is None:
-        return geometry(*args, tiles=tiles)
-    return geometry(*args, ctas_per_sm=lambda tile, smem: _ctas_per_sm(tile, smem, device),
-                    tiles=tiles)
+        return geometry(*args, tiles=tiles, in_bytes=in_bytes)
+    return geometry(*args, ctas_per_sm=lambda tile, smem: _ctas_per_sm(tile, smem, device,
+                                                                       narrow),
+                    tiles=tiles, in_bytes=in_bytes)
 
 
 def sized(program: Program, out_kinds: Sequence[tuple[str, str]], tile: int,
           stages: int) -> Geometry:
     """``program`` at another tile size and ring depth than the rule's."""
     args = _geometry_args(program, out_kinds)
-    return Geometry(tile, stages, smem_bytes(tile, stages, *args))
+    return Geometry(tile, stages, smem_bytes(tile, stages, *args, _in_rows(program)[0]))
 
 
 def load_paths(split_inputs: Sequence[torch.Tensor], tile: int) -> dict[str, int]:
@@ -207,7 +239,8 @@ def load_paths(split_inputs: Sequence[torch.Tensor], tile: int) -> dict[str, int
     (``"bulk"``) and how many by plain loads (``"plain"``).  A bulk copy
     needs a 16-byte aligned source and a size that is a multiple of 16: so
     every whole tile takes it when every input's base is 16-byte aligned
-    (a float32 tile is 4 * tile bytes, a bool tile tile bytes), and the
+    (a tile is itemsize * tile bytes: 1, 2 or 4 * tile, a multiple of 16
+    for every tile size), and the
     ragged last tile, or every tile of a launch with an unaligned base,
     takes plain loads.  Reads only lengths and addresses, so CPU and meta
     tensors answer as CUDA ones would."""
@@ -231,17 +264,19 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.split_pipeline_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.split_pipeline_launch.restype = ctypes.c_int
-    lib.split_pipeline_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.split_pipeline_occupancy.argtypes = [ctypes.c_int] * 4
     lib.split_pipeline_occupancy.restype = ctypes.c_int
     lib.split_pipeline_error_string.argtypes = [ctypes.c_int]
     lib.split_pipeline_error_string.restype = ctypes.c_char_p
-    for name in ("split_pipeline_params_size",
-                 "split_pipeline_num_opcodes", "split_pipeline_vec"):
+    for name in ("split_pipeline_params_size", "split_pipeline_num_opcodes",
+                 "split_pipeline_vec", "split_pipeline_abi_version",
+                 "split_pipeline_num_dtypes"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    abi = (lib.split_pipeline_params_size(),
-           lib.split_pipeline_num_opcodes(), lib.split_pipeline_vec())
-    want = (ctypes.sizeof(_Params), len(OPCODES), VEC)
+    abi = (lib.split_pipeline_params_size(), lib.split_pipeline_num_opcodes(),
+           lib.split_pipeline_vec(), lib.split_pipeline_abi_version(),
+           lib.split_pipeline_num_dtypes())
+    want = (ctypes.sizeof(_Params), len(OPCODES), VEC, ABI_VERSION, len(P.DTYPES))
     if abi != want:
         raise kernel_build.KernelError(f"split_pipeline ABI mismatch: kernel "
                            f"{abi} vs wrapper {want}")
@@ -252,9 +287,11 @@ def _load() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=64)
-def _ctas_per_sm(tile: int, smem: int, device: int) -> int:
+def _ctas_per_sm(tile: int, smem: int, device: int, narrow: bool = False) -> int:
+    """CTAs per SM from the card's occupancy calculator, for the kernel's
+    variant (``narrow``: the one for programs with a 1- or 2-byte input)."""
     lib = _load()
-    ctas = lib.split_pipeline_occupancy(tile, smem, device)
+    ctas = lib.split_pipeline_occupancy(tile, smem, device, int(narrow))
     if ctas <= 0:
         msg = lib.split_pipeline_error_string(-ctas).decode() if ctas else "no CTA fits"
         raise kernel_build.KernelError(f"split_pipeline occupancy ({tile}, {smem} B): {msg}")
@@ -272,8 +309,26 @@ def _sm_count(device: int) -> int:
 
 
 def _check_program(program: Program) -> None:
-    """Every operand names a value the kernel has; raises otherwise."""
+    """Every operand names a value the kernel has, and every dtype code is
+    one it takes (an opcode of ``FLOAT_ONLY`` computing in the float
+    class); raises otherwise."""
     stored = program.stored_slots
+    types = program.instr_types
+    n_dt = len(P.DTYPES)
+    if len(types) != len(program.code) or len(program.scalar_types) != program.n_scalars \
+            or len(program.output_types) != len(program.outputs) \
+            or (program.in_dtypes and len(program.in_dtypes) != program.n_split):
+        raise ValueError("program dtypes do not match its instructions, scalars, "
+                         "inputs or outputs")
+    for code in (*program.in_dtypes, *program.scalar_types, *program.output_types,
+                 *(c for t in types for c in t)):
+        if not 0 <= code < n_dt:
+            raise ValueError(f"dtype code {code} (the kernel takes 0..{n_dt - 1})")
+    for i, (op, *_rest) in enumerate(program.code):
+        if 0 <= op < len(OPCODES) and OPCODES[op][0] in P.FLOAT_ONLY \
+                and P.CLASS[types[i][0]] != P.FLOAT:
+            raise ValueError(f"instruction {i}: {OPCODES[op][0]} computes in "
+                             f"{P.DTYPES[types[i][0]]}")
 
     def check(x: int, where: str, pc: int) -> None:
         kind, idx = decode(x)
@@ -300,11 +355,25 @@ def _template(program: Program) -> bytes:
     p.n_slots = program.stored_slots
     p.n_scalars = program.n_scalars
     p.n_instr = len(program.code)
-    for i, (op, dst, a, b, c) in enumerate(program.code):
-        p.code[i] = _Instr(op, dst, a, b, c)
+    for i, ((op, dst, a, b, c), (sdt, dt)) in enumerate(zip(program.code,
+                                                             program.instr_types)):
+        p.code[i] = _Instr(op, dst, a, b, c, sdt, dt)
+    codes = program.scalar_types
     for i, v in enumerate(program.imms):
-        p.scalars[program.n_bcast + i] = float(v)
+        p.scalars[program.n_bcast + i] = _bits(scalar_word(v, codes[program.n_bcast + i]),
+                                               codes[program.n_bcast + i])
+    for j, code in enumerate(program.in_dtypes):
+        p.in_dtype[j] = code
+    for j, code in enumerate(program.output_types):
+        p.out_dtype[j] = code
     return bytes(p)
+
+
+def _bits(word: float | int, code: int) -> int:
+    """A scalar word (``ref.scalar_word``) as the kernel's 32 bits."""
+    if P.CLASS[code] == P.FLOAT:
+        return struct.unpack("<I", struct.pack("<f", word))[0]
+    return word & 0xFFFFFFFF
 
 
 def _check_inputs(split_inputs: Sequence[torch.Tensor]) -> torch.device:
@@ -316,18 +385,29 @@ def _check_inputs(split_inputs: Sequence[torch.Tensor]) -> torch.device:
         if x.dim() != 1 or x.shape[0] != n:
             raise ValueError("split inputs must be 1-D of one length; got "
                              f"{[tuple(t.shape) for t in split_inputs]}")
-        if x.dtype not in (torch.float32, torch.bool):
+        if x.dtype not in P.CODE:
             raise TypeError(f"split input dtype {x.dtype}: the kernel takes "
-                            "float32 and bool")
+                            f"{', '.join(str(d).replace('torch.', '') for d in P.DTYPES)}")
     return dev
 
 
-def _scalar(v: Any) -> float:
-    if isinstance(v, torch.Tensor):
-        if v.numel() != 1:
-            raise ValueError(f"broadcast input of shape {tuple(v.shape)}")
-        return float(v.reshape(()))      # host read (syncs a CUDA scalar)
-    return float(v)
+def _in_codes(program: Program, split_inputs: Sequence[torch.Tensor]) -> tuple[int, ...]:
+    """The inputs' dtype codes: the program's, which the tensors must have
+    (a program without input dtypes takes float32 and bool inputs)."""
+    got = tuple(P.CODE[x.dtype] for x in split_inputs)
+    want = program.in_dtypes
+    if want and got != want:
+        raise TypeError(f"split inputs of dtypes {[str(x.dtype) for x in split_inputs]} "
+                        f"for a program lowered for {[str(P.DTYPES[c]) for c in want]}")
+    if not want and any(c not in (P.F32, P.BOOL) for c in got):
+        raise TypeError("a program without input dtypes takes float32 and bool inputs")
+    return got
+
+
+def _scalar(v: Any, code: int) -> int:
+    if isinstance(v, torch.Tensor) and v.numel() != 1:
+        raise ValueError(f"broadcast input of shape {tuple(v.shape)}")
+    return _bits(scalar_word(v, code), code)
 
 
 def split_pipeline(program: Program, split_inputs: Sequence[torch.Tensor],
@@ -337,8 +417,8 @@ def split_pipeline(program: Program, split_inputs: Sequence[torch.Tensor],
     tensors launch the kernel (``split_pipeline.launches`` counts launches,
     ``split_pipeline.tile_paths`` the tiles per load path).
 
-    Returns, per output, the concat result (length n, float32 or bool) or
-    the reduction as a 0-d float32 tensor."""
+    Returns, per output, the concat result (length n, of the output's
+    dtype) or the reduction as a 0-d tensor of its accumulator dtype."""
     return _launch(program, split_inputs, bcast_inputs, out_kinds)
 
 
@@ -353,8 +433,11 @@ def _launch(program: Program, split_inputs: Sequence[torch.Tensor],
     dev = _check_inputs(split_inputs)
     if len(bcast_inputs) != program.n_bcast or len(out_kinds) != len(program.outputs):
         raise ValueError("program does not match its inputs/outputs")
+    in_codes = _in_codes(program, split_inputs)
     if dev.type == "cpu":
         return split_pipeline_ref(program, split_inputs, bcast_inputs, out_kinds)
+    if not program.in_dtypes:          # the layout (widened bool rows) needs them
+        program = dataclasses.replace(program, in_dtypes=in_codes)
     if dev.type != "cuda":
         raise ValueError(f"split_pipeline runs on cuda or cpu, not {dev}")
     why = fits_kernel(program)
@@ -369,24 +452,29 @@ def _launch(program: Program, split_inputs: Sequence[torch.Tensor],
     lib = _load()
     g = geom or program_geometry(program, out_kinds, dev.index)
     paths = load_paths(split_inputs, g.tile)
-    grid = min(-(-n // g.tile), _sm_count(dev.index) * _ctas_per_sm(g.tile, g.smem, dev.index))
+    grid = min(-(-n // g.tile), _sm_count(dev.index) * _ctas_per_sm(g.tile, g.smem, dev.index,
+                                                                    _in_rows(program)[1]))
     p = _Params.from_buffer_copy(_template(program))
     p.n, p.tile, p.stages, p.grid, p.smem = n, g.tile, g.stages, grid, g.smem
     p.aligned = _aligned(split_inputs)
     for i, x in enumerate(split_inputs):
         p.inp[i] = x.data_ptr()
-        p.in_bool[i] = x.dtype == torch.bool
-    for i, v in enumerate(bcast_inputs):
-        p.scalars[i] = _scalar(v)
+        p.in_dtype[i] = in_codes[i]
+    codes = program.scalar_types
+    for i, (kind, v) in enumerate(program.scalar_sources()):
+        if kind == "bcast":
+            p.scalars[i] = _scalar(bcast_inputs[v], codes[i])
     outs = []
-    for j, ((kind, op), (src, is_bool)) in enumerate(zip(out_kinds, program.outputs)):
+    for j, ((kind, op), (src, is_bool), code) in enumerate(zip(out_kinds, program.outputs,
+                                                              program.output_types)):
         if kind == "reduce":
-            buf = torch.empty(grid, dtype=torch.float32, device=dev)
+            # one 32-bit partial per CTA: float32, or an integer's bits
+            buf = torch.empty(grid, dtype=torch.float32 if P.CLASS[code] == P.FLOAT
+                              else torch.int32, device=dev)
             p.out_kind[j] = _OUT_KIND[("reduce", op)]
         else:
-            buf = torch.empty(n, dtype=torch.bool if is_bool else torch.float32,
-                              device=dev)
-            p.out_kind[j] = _OUT_KIND[("concat", bool(is_bool))]
+            buf = torch.empty(n, dtype=P.DTYPES[code], device=dev)
+            p.out_kind[j] = _OUT_KIND[("concat", code == P.BOOL)]
         p.out[j] = buf.data_ptr()
         p.out_src[j] = src
         outs.append(buf)
@@ -399,8 +487,16 @@ def _launch(program: Program, split_inputs: Sequence[torch.Tensor],
     split_pipeline.launches += 1
     for path, tiles in paths.items():
         split_pipeline.tile_paths[path] += tiles
-    return [_COMBINE[op](buf) if kind == "reduce" else buf
-            for (kind, op), buf in zip(out_kinds, outs)]
+    return [_combine(buf, op, code) if kind == "reduce" else buf
+            for (kind, op), buf, code in zip(out_kinds, outs, program.output_types)]
+
+
+def _combine(partials: torch.Tensor, op: str, code: int) -> torch.Tensor:
+    """The per-CTA partials of a reduction as its 0-d result of dtype
+    ``code`` (unsigned partials zero-extended from their bits first)."""
+    if P.CLASS[code] == P.UNSIGNED:
+        partials = partials.to(torch.int64) & 0xFFFFFFFF
+    return reduce_words(partials, op, code)
 
 
 def reset_counts() -> None:

@@ -584,3 +584,185 @@ def test_injected_compile_fault_demotes_cuda_then_the_kernel_launches_again(monk
         for g, v in zip(out, want):
             np.testing.assert_allclose(g.cpu().numpy(), v.numpy(), rtol=2e-5,
                                        atol=2e-5 * float(v.abs().max()))
+
+
+# -- the split pipeline at every dtype (ROADMAP B1) ----------------------------
+
+#: the kernel's dtypes other than float32, and the edge sizes of a launch.
+TYPED = ["bool", "int8", "int16", "int32", "uint8", "uint16", "uint32", "float16",
+         "bfloat16"]
+EDGES = [1, 1000, 70001, (1 << 20) + 3]
+#: halves: one ulp of the dtype (the kernel and its plain version round the
+#: same float32 results; a libm ulp may round the other way).
+HALF_RTOL = {torch.float16: 2.0 ** -10, torch.bfloat16: 2.0 ** -7}
+
+
+def _typed_check(program, ins, bcast, kinds):
+    """One launch against the plain version: integers and bools exactly,
+    halves within one ulp, float32 as ``_sp_check``."""
+    from repro_torch.kernels import split_pipeline as sp
+    from repro_torch.kernels.ref import split_pipeline_ref
+    before = sp.split_pipeline.launches
+    got = sp.split_pipeline(program, ins, bcast, kinds)
+    want = split_pipeline_ref(program, ins, bcast, kinds)
+    torch.cuda.synchronize()
+    assert sp.split_pipeline.launches == before + 1
+    for (kind, _op), g, w in zip(kinds, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (g.dtype, w.dtype)
+        if not g.dtype.is_floating_point:
+            assert torch.equal(g.cpu(), w.cpu()), (kind, g, w)
+            continue
+        half = HALF_RTOL.get(g.dtype)
+        rtol = (2 * half if kind == "reduce" else half) if half else 2e-5
+        if kind == "reduce":
+            rtol = max(rtol, 1e-4)       # another summation order
+        g, w = g.cpu().double().numpy(), w.cpu().double().numpy()
+        finite = np.abs(w[np.isfinite(w)]) if w.ndim else np.abs(w[None][np.isfinite(w[None])])
+        atol = rtol * float(finite.max()) if finite.size else 0.0
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, equal_nan=True)
+
+
+def _typed_data(dname, n, seed):
+    r = np.random.RandomState(seed)
+    if dname == "bool":
+        return [torch.from_numpy(r.rand(n) > 0.5) for _ in range(2)]
+    if dname in ("float16", "bfloat16"):
+        return [torch.from_numpy((r.randn(n) * 3).astype(np.float32)).to(getattr(torch, dname))
+                for _ in range(2)]
+    lo = 0 if dname.startswith("uint") else -200
+    x = r.randint(lo, 250, n)
+    y = r.randint(lo, 13, n)
+    y[::7] = 0                           # integer mod by zero gives 0
+    return [torch.from_numpy(v.astype(np.int64)).to(getattr(torch, dname)) for v in (x, y)]
+
+
+def _typed_chain(anp, dname):
+    """A chain per dtype that wraps narrow integers, rounds halves, mods by
+    zero and compares, with a reduction and a concat output."""
+    if dname == "bool":
+        def run(x, y):
+            b = anp.logical_or(anp.logical_and(x, y), anp.logical_not(y))
+            return b, anp.sum(b), anp.max(anp.add(x, y))
+        return run
+    if dname in ("float16", "bfloat16"):
+        def run(x, y):
+            t = anp.add(anp.exp(anp.multiply(x, 0.1)), anp.mod(y, 1.5))
+            return anp.where(anp.greater(x, y), t, anp.sqrt(anp.abs(y))), anp.sum(t)
+        return run
+
+    def run(x, y):
+        b = anp.add(anp.multiply(x, 3), 117)
+        m = anp.mod(b, y)
+        return m, anp.sum(b), anp.max(anp.where(anp.greater(b, y), m, y))
+    return run
+
+
+def _typed_launch(dname, n, seed):
+    """The chain lowered on the CPU (the ``cuda`` executor's program) and its
+    inputs moved to the card."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import cuda_exec, mozart
+    data = dict(zip("xy", _typed_data(dname, n, seed)))
+    with mozart.session(executor="cuda", device="cpu") as ctx:
+        outs = _typed_chain(anp, dname)(**data)
+        stage = ctx.last_plan()[0]
+        concrete = {k: ctx.graph.resolve(si.value) for k, si in stage.inputs.items()}
+        program, ins, bcast, kinds = cuda_exec.prepare_launch(stage, concrete, ctx)
+        del outs
+    return program, [x.cuda() for x in ins], bcast, kinds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGES)
+@pytest.mark.parametrize("dname", TYPED)
+def test_split_pipeline_typed_chain_matches_plain_version(dname, n):
+    _card()
+    _typed_check(*_typed_launch(dname, n, n))
+
+
+def _typed_opcodes():
+    from repro_torch.kernels import program as P
+    cases = []
+    for dname in TYPED[1:]:
+        code = P.CODE[getattr(torch, dname)]
+        for name, arity in P.OPCODES:
+            if name in ("CAST", "WHERE") or (name in P.FLOAT_ONLY and P.CLASS[code] != P.FLOAT):
+                continue
+            cases.append((dname, name))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname,op", _typed_opcodes())
+def test_split_pipeline_every_opcode_at_every_dtype_matches_plain_version(dname, op):
+    """Each opcode computing in each dtype, stored and forwarded."""
+    _card()
+    from repro_torch.kernels import program as P
+    code = P.CODE[getattr(torch, dname)]
+    x, y = _typed_data(dname, 5003, 3)
+    if op == "POW":                                     # small exponents
+        y = (y.to(torch.int64) % 5).to(y.dtype) if not y.dtype.is_floating_point else y
+    x, y = x.cuda(), y.cuda()
+    arity = P.ARITY[op]
+    srcs = [P.operand(P.KIND_INPUT, i) for i in range(arity)]
+    rdt = P.BOOL if op in P.BOOL_RESULT else code
+    stored = P.Program(code=((P.OP[op], 0, *srcs, *([0] * (3 - arity))),), n_split=2,
+                       n_bcast=0, n_slots=1, imms=(),
+                       outputs=((P.operand(P.KIND_SLOT, 0), rdt == P.BOOL),),
+                       types=((code, rdt),), in_dtypes=(code, code), out_dtypes=(rdt,))
+    for program in (stored, P.forward(stored)):
+        _typed_check(program, [x, y], [], [("concat", "")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["float32"] + TYPED)
+def test_split_pipeline_casts_match_plain_version(src):
+    """CAST from one dtype to every other, on values inside every target's
+    range (a float out of range converts as the platform does)."""
+    _card()
+    from repro_torch.kernels import program as P
+    r = np.random.RandomState(5)
+    vals = r.randint(0, 100, 4099).astype(np.float32) + (0.25 if "float" in src else 0.0)
+    vals[::3] = 0.0
+    x = torch.from_numpy(vals).to(getattr(torch, src)).cuda()
+    s = P.CODE[x.dtype]
+    for d in range(len(P.DTYPES)):
+        program = P.Program(code=((P.OP["CAST"], P.NO_STORE | 0, P.operand(P.KIND_INPUT, 0),
+                                   0, 0),), n_split=1, n_bcast=0, n_slots=1, imms=(),
+                            outputs=((P.operand(P.KIND_FWD, 0), d == P.BOOL),),
+                            types=((s, d),), in_dtypes=(s,), out_dtypes=(d,))
+        _typed_check(program, [x], [], [("concat", "")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "max", "min", "mul"])
+@pytest.mark.parametrize("dname", ["int32", "uint32", "float16", "bfloat16"])
+def test_split_pipeline_typed_reductions_match_plain_version(dname, op):
+    """Per-CTA partials in the accumulator's class (a wrapped 32-bit
+    integer, or float32 rounded once at the end) at the edge sizes."""
+    _card()
+    from repro_torch.kernels import program as P
+    code = P.CODE[getattr(torch, dname)]
+    for n in EDGES:
+        x = _typed_data(dname, n, n)[0]
+        if op == "mul":                  # factors near 1: a product that stays finite
+            x = (1 + x.float() * 1e-3).to(x.dtype) if x.dtype.is_floating_point else \
+                (x.to(torch.int64) % 3 + 1).to(x.dtype)
+        program = P.Program(code=(), n_split=1, n_bcast=0, n_slots=0, imms=(),
+                            outputs=((P.operand(P.KIND_INPUT, 0), False),),
+                            in_dtypes=(code,), out_dtypes=(code,))
+        _typed_check(program, [x.cuda()], [], [("reduce", op)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("dname", ["uint8", "int16", "bfloat16"])
+def test_split_pipeline_narrow_misaligned_views_match_plain_version(dname, offset):
+    """1- and 2-byte inputs off the 16-byte grid take plain loads."""
+    _card()
+    from repro_torch.kernels import split_pipeline as sp
+    program, ins, bcast, kinds = _typed_launch(dname, 100_003 + offset, 7)
+    views = [torch.empty(x.numel() + offset, dtype=x.dtype, device="cuda")[offset:].copy_(x)
+             for x in ins]
+    assert sp.load_paths(views, 1024)["bulk"] == 0
+    _typed_check(program, views, bcast, kinds)

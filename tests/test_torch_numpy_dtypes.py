@@ -149,15 +149,26 @@ def test_float_mod_by_zero_keeps_nan():
 
 
 def test_bool_mod_stays_off_the_kernel():
-    """C1: the int32 stage runs on ``fused`` and is counted as a fallback,
-    where it once lowered to the kernel and stored NaN as True."""
+    """C1: a bool ``mod`` never reaches a float ``MOD`` of bools (which once
+    stored NaN as True).  Since the kernel takes integers (ROADMAP B1) the
+    stage runs on it as the reference's ``pallas`` does: both operands
+    ``CAST`` to int32, then an integer ``MOD`` whose zero divisor gives 0."""
+    from repro_torch.core import cuda_exec
+    from repro_torch.kernels import program as P
     x = torch.tensor([True, False, True, False])
     y = torch.tensor([True, True, False, False])
     with tmozart.session(executor="cuda", device="cpu") as ctx:
-        got = tanp.mod(x, y).value
+        out = tanp.mod(x, y)
+        stage = ctx.last_plan()[0]
+        concrete = {k: ctx.graph.resolve(si.value) for k, si in stage.inputs.items()}
+        program = cuda_exec.prepare_launch(stage, concrete, ctx)[0]
+        got = out.value
     assert got.dtype == torch.int32 and got.tolist() == [0, 0, 0, 0]
-    assert ctx.stats.get("cuda_stages", 0) == 0
-    assert ctx.stats["cuda_fallback_stages"] == 1
+    assert ctx.stats["cuda_stages"] == 1
+    assert ctx.stats.get("cuda_fallback_stages", 0) == 0
+    names = [P.OPCODES[op][0] for op, *_ in program.code]
+    assert names[:2] == ["CAST", "CAST"] and program.instr_types[0] == (P.BOOL, P.I32)
+    assert program.instr_types[names.index("MOD")] == (P.I32, P.I32)
 
 
 def test_lowering_refuses_mod_of_bool_operands():
@@ -181,3 +192,145 @@ def test_unsigned_reductions_wrap_like_jax():
             p = tanp.prod(torch.from_numpy(x.copy()))
             assert s.value.dtype == p.value.dtype == torch.uint32
             assert int(s.value) == int(jsum) and int(p.value) == int(jprod)
+
+
+# -- C9: 64-bit inputs narrowed as the reference narrows them ------------------
+
+#: op -> dtypes it runs on in both packages (torch has no CPU ``add`` for
+#: uint32, so uint64 inputs take the ops it has).
+C9_OPS = {"add": ("int64", "float64", "complex128"),
+          "multiply": ("int64", "uint64", "float64", "complex128"),
+          "sum": ("int64", "uint64", "float64", "complex128"),
+          "mod": ("int64", "float64"), "maximum": ("int64", "float64")}
+C9_NARROW = {"int64": "int32", "uint64": "uint32", "float64": "float32",
+             "complex128": "complex64"}
+
+
+def _c9_inputs(dname):
+    """Values past 32 bits: int64 beyond 2**31 (they wrap), uint64 beyond
+    2**32, float64 that round to float32, complex128 of both parts."""
+    r = np.random.RandomState(zlib.crc32(dname.encode()))
+    if dname == "int64":
+        x = r.randint(-(1 << 40), 1 << 40, N, dtype=np.int64)
+        y = r.randint(-9, 10, N).astype(np.int64) + (1 << 33)
+        return x, y
+    if dname == "uint64":
+        return (r.randint(0, 1 << 62, N, dtype=np.int64).astype(np.uint64) * np.uint64(3),
+                r.randint(0, 10, N).astype(np.uint64) + np.uint64(1 << 35))
+    x, y = r.randn(N) * 4, r.randn(N) * 3 + 0.1
+    if dname == "complex128":
+        return x + 1j * r.randn(N), y - 2j * r.randn(N)
+    return x, y
+
+
+def _c9_call(anp, op, x, y):
+    if op == "sum":
+        return anp.sum(x)
+    if op == "add":
+        return anp.add(x, 1)
+    return getattr(anp, op)(x, y)
+
+
+def _to_torch(a):
+    if a.dtype == np.uint64:
+        return torch.from_numpy(a.view(np.int64).copy()).view(torch.uint64)
+    return torch.from_numpy(a.copy())
+
+
+@pytest.mark.parametrize("executor", EXECUTORS)
+@pytest.mark.parametrize("op,dname", [(op, d) for op, ds in C9_OPS.items() for d in ds])
+def test_64bit_inputs_are_narrowed_as_jax_narrows_them(op, dname, executor):
+    """C9: dtypes equal, integers equal (int64 and uint64 wrap modulo
+    2**32), floats within float32's rtol 2e-5 of the reference's."""
+    x, y = _c9_inputs(dname)
+    with jmozart.session(executor="eager", **JAX_CFG):
+        want = np.asarray(_c9_call(janp, op, jnp.asarray(x), jnp.asarray(y)).value)
+    with tmozart.session(executor=executor, device="cpu", **PORT_CFG,
+                         batch_elements=BATCH) as ctx:
+        got = _c9_call(tanp, op, _to_torch(x), _to_torch(y)).value
+    assert str(got.dtype).replace("torch.", "") == want.dtype.name
+    assert want.dtype.name in (C9_NARROW[dname], "uint32")     # uint32: the sum's dtype
+    if got.dtype in (torch.uint32, torch.uint16):
+        got = got.to(torch.int64)
+    if np.issubdtype(want.dtype, np.integer):
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5 if op != "sum" else 1e-4,
+                                   atol=1e-5)
+    if executor == "cuda" and dname != "complex128":
+        assert ctx.stats["cuda_stages"] == 1 and ctx.stats.get("cuda_fallback_stages", 0) == 0
+
+
+@pytest.mark.parametrize("executor", EXECUTORS)
+def test_python_int_outside_int32_raises_overflow_like_jax(executor):
+    x = np.arange(6, dtype=np.int32)
+    with pytest.raises(OverflowError):
+        with jmozart.session(executor="eager", **JAX_CFG):
+            janp.add(jnp.asarray(x), 2**40).value
+    with pytest.raises(OverflowError):
+        with tmozart.session(executor=executor, device="cpu", **PORT_CFG):
+            tanp.add(torch.from_numpy(x), 2**40).value
+    with tmozart.session(executor=executor, device="cpu", **PORT_CFG):
+        assert tanp.add(torch.from_numpy(x), 2**31 - 1).value.dtype == torch.int32
+
+
+def _hash_chain(anp):
+    def run(ids, scale):
+        b = anp.mod(anp.add(anp.multiply(ids, 40503), 12345), 1024)
+        return b, anp.sum(b), anp.max(anp.multiply(scale, 0.5))
+    return run
+
+
+def _plan_shape(ctx):
+    return [[n.fn.name for n in s.nodes] for s in ctx.last_plan()]
+
+
+@pytest.mark.parametrize("executor", ["fused", "cuda"])
+def test_pipeline_on_64bit_inputs_plans_and_counts_as_jax(executor):
+    """``mozart.pipeline`` on int64 and float64 arguments: the same 32-bit
+    results, plan shape and counters as the reference's pipeline; a call
+    on int32/float32 arguments of the same shape is warm on both (one plan:
+    the narrowed dtypes are the plan's)."""
+    r = np.random.RandomState(3)
+    ids = r.randint(0, 1 << 40, 4000, dtype=np.int64)
+    scale = r.randn(4000)
+    jp = jmozart.pipeline(_hash_chain(janp), executor={"cuda": "pallas"}.get(executor, executor))
+    tp = tmozart.pipeline(_hash_chain(tanp), executor=executor, device="cpu")
+    keys = ("planner_calls", "plan_cache_hits", "plan_cache_misses", "stages", "evaluations",
+            "registered")
+    for a, b in ((ids, scale), (ids.astype(np.int32), scale.astype(np.float32)),
+                 (ids, scale)):
+        want = [np.asarray(v) for v in jp(jnp.asarray(a), jnp.asarray(b))]
+        got = tp(torch.from_numpy(a), torch.from_numpy(b))
+        for g, w in zip(got, want):
+            assert str(g.dtype).replace("torch.", "") == w.dtype.name
+            if w.dtype == np.float32:
+                np.testing.assert_allclose(g.numpy(), w, rtol=2e-5)
+            else:
+                np.testing.assert_array_equal(g.numpy(), w)
+        assert {k: tp.last_call_stats.get(k, 0) for k in keys} == \
+            {k: jp.last_call_stats.get(k, 0) for k in keys}
+        assert _plan_shape(tp.ctx) == _plan_shape(jp.ctx)
+    assert tp.last_call_stats.get("planner_calls", 0) == 0
+    if executor == "cuda":
+        assert tp.last_call_stats["cuda_stages"] == jp.last_call_stats["pallas_stages"]
+        assert tp.last_call_stats.get("cuda_fallback_stages", 0) == 0
+
+
+def test_a_64bit_tensor_read_by_many_calls_is_one_stage_input():
+    """A float64 tensor passed to several annotated calls is narrowed once
+    per session, so Black-Scholes from float64 inputs plans and lowers as
+    from float32 (5 split inputs, a plan cache hit) and gives the same
+    float32 outputs bit for bit."""
+    from repro_torch import workloads as tw
+    data = tw.black_scholes_data(257, device="cpu")
+    with tmozart.session(executor="cuda", device="cpu") as ctx32:
+        want = [o.value for o in tw.black_scholes(**data)]
+    with tmozart.session(executor="cuda", device="cpu") as ctx64:
+        outs = tw.black_scholes(**{k: v.double() for k, v in data.items()})
+        stage = ctx64.last_plan()[0]
+        got = [o.value for o in outs]
+    assert ctx64.stats["plan_cache_hits"] == 1 and ctx64.stats["cuda_stages"] == 1
+    assert sum(1 for si in stage.inputs.values() if si.split_type.splittable) == 5
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
