@@ -215,6 +215,28 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              and profiles the cross K/V recomputation's share of a decode
              step.  The attn phase times the kernel at these prefill shapes
              beside SDPA (seamless's encoder non-causal on both).
+11. band   — logit softcap and the banded sliding-window path (ROADMAP
+             A7.5) at gemma-7b's published widths, n_layers cut to 8
+             (``BAND_LAYERS``, printed): a banded config (window 1024,
+             ``banded_attention``) prefills 4 x 4096 with one tc window
+             launch per layer, each held in place against the banded and the
+             dense windowed plain paths, the logits against both plain
+             prefills; the windowed kernel timed at (4, 16, 4096, 256) beside
+             SDPA with a mask; then Gemma 2's softcap of 50 over 4 x 2048,
+             wq and wk scaled so that the cap bites: no flash-attention
+             launch, decode steps against teacher forcing, the cap's own
+             effect on the logits outside that bound, and the softcap
+             prefill (dense, off the kernel) timed beside the same prefill
+             uncapped on the kernel;
+12. libs   — the Table, Image and NLP integrations (ROADMAP A9) on the
+             card: fig4's crime_index, data_cleaning and birth_analysis at
+             2**24 rows of int64/float64 columns, movielens at 2**24 ratings
+             x 4,000 movies, nashville and gotham at 4000 x 3000 x 3 float32,
+             normalize_case -> pos_tag and token_counts over 2**17 x 64
+             tokens, each on ``eager``, ``pipelined`` and ``cuda`` (every
+             stage on ``fused``, counted in ``cuda_fallback_stages`` as the
+             CPU tests hold), results on the card and equal to their oracles,
+             cold and warm milliseconds; a ``{"libs": ...}`` JSON line.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -293,6 +315,25 @@ RECURRENT_REPS = 3               # CUDA-event timings of one layer's recurrence
 ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW, ARCH_SERVE_MAX_LEN = (900, 130, 513, 1024), (12, 6, 9, 7), 1040
 ARCH_MARGIN = 3 << 30            # device bytes left free when sizing a model's depth
 ARCH_FLOOR_FACTOR = 1.5          # kernel vs plain logits against plain vs plain (arch_run)
+#: the band phase: gemma-7b's widths, n_layers cut to 8; a 1024-key window
+#: banded over 4 x 4096 (S > 2w), then Gemma 2's published attention logit
+#: softcap (``attn_logit_softcapping`` 50.0 in its HF config) over 4 x 2048
+BAND_LAYERS, BAND_BATCH, BAND_PROMPT, BAND_WINDOW = 8, 4, 4096, 1024
+SOFTCAP, SOFTCAP_PROMPT, SOFTCAP_DECODE = 50.0, 2048, 4
+#: wq and wk are each scaled by this for the softcap half, so that random
+#: weights' scores (std ~1 at gemma's widths) reach the cap (std ~16)
+SOFTCAP_QK_SCALE = 4
+#: the libs phase's sizes: fig4's tables at 2**24 rows (movielens: 2**24
+#: ratings of 4,000 movies), its images at 4000 x 3000 x 3 float32, and a
+#: corpus of 2**17 documents x 64 tokens tagged by a (50,000 x 128) embedding
+#: and a 17-tag head
+LIBS_ROWS, LIBS_MOVIES, LIBS_IMAGE = 1 << 24, 4000, (4000, 3000)
+LIBS_DOCS, LIBS_TOKENS, LIBS_VOCAB, LIBS_DIM, LIBS_TAGS = 1 << 17, 64, 50_000, 128, 17
+LIBS_EXECUTORS = ("eager", "pipelined", "cuda")
+#: stages per library workload: the CPU tests' counts (tests/test_torch_table.py,
+#: _image.py, _nlp.py); on ``cuda`` every one of them falls back to ``fused``
+LIBS_STAGES = {"crime_index": 2, "data_cleaning": 1, "birth_analysis": 1, "movielens": 1,
+               "nashville": 1, "gotham": 1, "tagger": 1}
 #: process-wide resilience counters no phase but chaos may move
 RESILIENCE_KEYS = ("MZ401", "MZ402", "MZ403", "MZ404", "MZ405", "MZ406", "swallowed_errors")
 DEVICE = "cuda"
@@ -345,14 +386,24 @@ def compare(what: str, got: torch.Tensor, want: torch.Tensor, rtol: float,
     return float(diff.max())
 
 
+#: (phase, seconds since the previous check) per ``resilience_clean`` call;
+#: the first lap starts when the script is imported
+LAPS: list = []
+_LAP_START = [time.perf_counter()]
+
+
 def resilience_clean(phase: str) -> dict:
     """Every phase but chaos: no fault fired and no demotion, quarantine
     skip, halving or swallowed error since the last check (the process-wide
-    ``resilience.stats``); prints the phase's MZ4xx counts and starts the
-    next phase's count from 0."""
+    ``resilience.stats``); prints the phase's MZ4xx counts and the seconds
+    since the last check (``LAPS``), and starts the next phase's count
+    from 0."""
     from repro_torch.core import resilience
+    now = time.perf_counter()
+    LAPS.append((phase, round(now - _LAP_START[0], 1)))
+    _LAP_START[0] = now
     counts = {k: int(resilience.stats.get(k, 0)) for k in RESILIENCE_KEYS}
-    log(f"[resilience] {phase}: {counts}")
+    log(f"[resilience] {phase}: {counts}; {LAPS[-1][1]} s since the last check")
     if any(counts.values()):
         raise AssertionError(f"{phase}: resilience events outside the chaos phase: "
                              f"{counts}; last events {resilience.events()[-5:]}")
@@ -3573,6 +3624,341 @@ def phase_archs(counters, flash, ref) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# band: logit softcap and the banded sliding-window path (ROADMAP A7.5)
+# ---------------------------------------------------------------------------
+
+
+def band_launch_checks():
+    """Wrap the model's switch to the kernel: each call's window and
+    causality (``seen``) and its output held in place against the port's
+    banded plain path and its dense windowed plain path on the same q, k, v
+    (||kernel - plain|| / ||plain||, both in the model's head order)."""
+    from repro_torch.models import attention
+    real, seen, rel = attention._kernel_attention, [], {"banded": [], "dense": []}
+
+    def recording(q, k, v, *, causal, window):
+        out = real(q, k, v, causal=causal, window=window)
+        for name, plain in (("banded", lambda: attention._banded_attention(q, k, v,
+                                                                          window=window)),
+                            ("dense", lambda: attention._dense_attention(
+                                q, k, v, causal=causal, window=window))):
+            want = plain().double()
+            rel[name].append(float((out.double() - want).norm() / want.norm()))
+            del want
+        seen.append((window, causal))
+        return out
+    attention._kernel_attention = recording
+    return seen, rel, lambda: setattr(attention, "_kernel_attention", real)
+
+
+@torch.inference_mode()
+def phase_band(counters, flash, fl, ref) -> dict:
+    """gemma-7b at its published widths, n_layers cut to ``BAND_LAYERS``,
+    random weights from seed 0.  Banded: window 1024 with
+    ``banded_attention``, a 4 x 4096 prefill: one tc window launch per
+    layer (counted from 0 just before the run), each held in place against
+    the banded and the dense windowed plain paths (``ATTN_REL_TOL``); the
+    last-position logits against both plain prefills within max(2e-2, 1.5
+    x their distance) x max|logit|, first tokens equal or a near-tie; the
+    kernel timed at the shape beside SDPA with a mask.  Softcap: the same
+    weights, wq and wk scaled by ``SOFTCAP_QK_SCALE`` so that scores reach
+    the cap, with Gemma 2's cap of 50 over 4 x 2048: 0 flash-attention
+    launches (a softcap layer stays off the kernel), ``SOFTCAP_DECODE``
+    greedy decode steps, each step's logits against teacher forcing at its
+    position (a prefill of the prompt and the tokens so far) within
+    max(2e-2, 1.5 x floor) x max|logit|, the floor the distance between
+    teacher forcing on the dense and on the blocked path; the same teacher
+    forcing uncapped must move the logits by more than that bound (a path
+    that dropped the cap would fail the decode check); the softcap prefill
+    timed beside the uncapped one on the kernel."""
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.config import param_count
+    t_phase = time.perf_counter()
+    base = serve_config().with_runtime(n_layers=BAND_LAYERS)
+    band = base.with_runtime(attn=dataclasses.replace(base.attn, window=BAND_WINDOW),
+                             banded_attention=True)
+    windowed = band.with_runtime(banded_attention=False)      # the dense windowed path
+    cap = base.with_runtime(attn=dataclasses.replace(base.attn, logit_softcap=SOFTCAP))
+    a = base.attn
+    log(f"[band] {base.name} at its published widths: d_model {base.d_model}, "
+        f"{a.n_heads}x{a.head_dim} heads (kv {a.n_kv_heads}), d_ff {base.d_ff}, vocab "
+        f"{base.vocab_size}; layers {BAND_LAYERS} of 28 (depth cut: the phase's time), "
+        f"{param_count(base) / 1e9:.3f} B parameters, random weights (seed 0)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = tfm.init_model(base, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    rng = np.random.default_rng(0)
+    B, S = BAND_BATCH, BAND_PROMPT
+    prompt = torch.as_tensor(rng.integers(0, base.vocab_size, (B, S)), dtype=torch.int32,
+                             device=DEVICE)
+
+    def prefill(cfg, tokens, use_kernel, extra=0):
+        caches = tfm.init_caches(cfg, tokens.shape[0], tokens.shape[1] + extra, device=DEVICE)
+        return tfm.prefill(model, cfg, tokens, caches=caches, use_kernel=use_kernel)
+
+    prefill(band, prompt, None)                            # allocator and library warm-up
+    for c in counters:
+        c.launches = 0
+    flash.variant_launches = {name: 0 for name in flash.variant_launches}
+    seen, rel, restore = band_launch_checks()
+    try:
+        lk, _ = prefill(band, prompt, None)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = {c.__name__: c.launches for c in counters}
+    variants = dict(flash.variant_launches)
+    if (launches["flash_attention"] != BAND_LAYERS or variants["tc"] != BAND_LAYERS
+            or seen != [(BAND_WINDOW, True)] * BAND_LAYERS):
+        raise AssertionError(f"band: flash_attention {launches} ({variants}), calls {seen} "
+                             f"for {BAND_LAYERS} banded layers of window {BAND_WINDOW}")
+    rel_max = {k: max(v) for k, v in rel.items()}
+    if not all(r <= ATTN_REL_TOL for r in rel_max.values()):
+        raise AssertionError(f"band: kernel launches against the plain paths {rel_max}")
+    lb, _ = prefill(band, prompt, False)
+    lw, _ = prefill(windowed, prompt, False)
+    scale = float(lb.float().abs().max())
+    floor = float((lb.float() - lw.float()).abs().max())
+    diffs = {"banded": float((lk.float() - lb.float()).abs().max()),
+             "dense": float((lk.float() - lw.float()).abs().max())}
+    bound = max(2e-2 * scale, ARCH_FLOOR_FACTOR * floor)
+    if not all(d <= bound for d in diffs.values()):
+        raise AssertionError(f"band: last-position logits {diffs} beyond {bound:.4f} "
+                             f"(max|logit| {scale:.3f}, plain paths {floor:.4f} apart)")
+    ties = tokens_agree(lb, torch.argmax(lk[:, -1], -1), floor)
+    times = {"kernel": host_ms(lambda: prefill(band, prompt, None), 2),
+             "banded": host_ms(lambda: prefill(band, prompt, False), 1),
+             "dense": host_ms(lambda: prefill(windowed, prompt, False), 1)}
+    log(f"[band] banded prefill {B} x {S}, window {BAND_WINDOW}: flash_attention launches "
+        f"{launches['flash_attention']} ({variants}), all window {BAND_WINDOW} causal; "
+        f"in place: max ||kernel - banded plain|| / ||plain|| {rel_max['banded']:.3e}, "
+        f"dense windowed {rel_max['dense']:.3e}; last-position logits: kernel vs banded "
+        f"{diffs['banded']:.4f}, vs dense windowed {diffs['dense']:.4f}, banded vs dense "
+        f"windowed {floor:.4f} (bound {bound:.4f}, max|logit| {scale:.3f}); first tokens "
+        f"near-ties {ties}; prefill ms: kernel {times['kernel']:.1f}, banded plain "
+        f"{times['banded']:.1f}, dense windowed plain {times['dense']:.1f}")
+    del lk, lb, lw
+    torch.cuda.empty_cache()
+    shape = attn_shape_times(fl, ref, torch.nn.functional, torch.Generator(device=DEVICE)
+                             .manual_seed(7), "gemma-7b banded", B, a.n_heads, a.n_kv_heads,
+                             S, a.head_dim, BAND_WINDOW)
+
+    # softcap: no kernel launch; decode against teacher forcing
+    Sc = SOFTCAP_PROMPT
+    if a.qk_norm:
+        raise AssertionError("band: scaling wq and wk reaches the cap only without qk-norm")
+    for name in ("wq", "wk"):
+        model["layers"]["attn"][name].mul_(SOFTCAP_QK_SCALE)
+    for c in counters:
+        c.launches = 0
+    lc, caches = prefill(cap, prompt[:, :Sc], None, SOFTCAP_DECODE)
+    tokens = [torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)]
+    steps = []
+    for _ in range(SOFTCAP_DECODE):
+        t1 = time.perf_counter()
+        logits, caches = tfm.decode_step(model, cap, tokens[-1], caches)
+        tokens.append(torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32))
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t1) * 1e3, logits))
+    cap_launches = {c.__name__: c.launches for c in counters}
+    if cap_launches["flash_attention"]:
+        raise AssertionError(f"band: softcap layers launched flash_attention "
+                             f"{cap_launches['flash_attention']} times")
+    seq = torch.cat([prompt[:, :Sc]] + tokens[:-1], dim=1)
+    errs = []
+    for i, (_ms, logits) in enumerate(steps):
+        tf, _ = prefill(cap, seq[:, :Sc + i + 1], False)
+        errs.append(float((logits.float() - tf.float()).abs().max()))
+    blocked = cap.with_runtime(dense_attn_threshold=512, attn_block_k=512)
+    tfb, _ = prefill(blocked, seq, False)
+    cap_floor = float((tf.float() - tfb.float()).abs().max())
+    cap_scale = float(tf.float().abs().max())
+    cap_bound = max(2e-2 * cap_scale, ARCH_FLOOR_FACTOR * cap_floor)
+    if not max(errs) <= cap_bound:
+        raise AssertionError(f"band: softcap decode vs teacher forcing {errs} beyond "
+                             f"{cap_bound:.4f} (max|logit| {cap_scale:.3f})")
+    plain_logits, _ = prefill(base, seq, False)
+    moved = float((tf.float() - plain_logits.float()).abs().max())
+    if not moved > cap_bound:
+        raise AssertionError(f"band: the cap moves the logits by {moved:.4f}, inside the "
+                             f"decode bound {cap_bound:.4f}: the check cannot see a lost cap")
+    del tfb, plain_logits
+    cap_ms = {"softcap_plain": host_ms(lambda: prefill(cap, prompt[:, :Sc], None), 1),
+              "uncapped_kernel": host_ms(lambda: prefill(base, prompt[:, :Sc], None), 1)}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[band] softcap {SOFTCAP} prefill {B} x {Sc} + {SOFTCAP_DECODE} decode steps: "
+        f"flash_attention launches {cap_launches['flash_attention']} (softcap layers stay off "
+        f"the kernel); decode vs teacher forcing max |diff| per step "
+        f"{[round(e, 4) for e in errs]} (bound {cap_bound:.4f}: max|logit| {cap_scale:.3f}, "
+        f"dense vs blocked teacher forcing {cap_floor:.4f}); wq, wk x {SOFTCAP_QK_SCALE}: "
+        f"the cap moves the logits by {moved:.4f} (must exceed that bound); prefill "
+        f"{B} x {Sc} ms: softcap (dense plain, off the kernel) {cap_ms['softcap_plain']:.1f}, "
+        f"uncapped on the kernel {cap_ms['uncapped_kernel']:.1f}; decode ms "
+        f"{[round(m, 2) for m, _ in steps]}; peak {peak:.2f} GB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del model, caches, steps, tf
+    torch.cuda.empty_cache()
+    return {"layers": BAND_LAYERS, "launches_per_prefill": launches["flash_attention"],
+            "variant_launches": variants, "rel_err": rel_max, "logit_diff": diffs,
+            "plain_floor": floor, "prefill_ms": times, "shape": shape,
+            "softcap": {"launches": cap_launches["flash_attention"], "decode_vs_tf": errs,
+                        "bound": cap_bound, "cap_moves": moved, "prefill_ms": cap_ms}}
+
+
+# ---------------------------------------------------------------------------
+# libs: the Table, Image and NLP integrations on the card (ROADMAP A9)
+# ---------------------------------------------------------------------------
+
+
+def on_card(what: str, value) -> list:
+    """Every tensor leaf of a result (a Table's columns, a Corpus) on the
+    card; returns the leaves' (dtype, device)."""
+    leaves = [l for l in pytree.tree_leaves(value) if isinstance(l, torch.Tensor)]
+    if not leaves or any(l.device.type != "cuda" for l in leaves):
+        raise AssertionError(f"libs: {what} off the card: {[l.device for l in leaves]}")
+    return sorted({(str(l.dtype).replace("torch.", ""), str(l.device)) for l in leaves})
+
+
+def libs_cases(w, nlp):
+    """(name, pipeline, args) of each library workload, data drawn from
+    seeded numpy generators (fig4's) and moved to the card."""
+    r = np.random.RandomState(0)
+    corpus = nlp.make_corpus(LIBS_DOCS, LIBS_TOKENS, LIBS_VOCAB, seed=0, device=DEVICE)
+    emb = torch.from_numpy(r.randn(LIBS_VOCAB, LIBS_DIM).astype(np.float32)).to(DEVICE)
+    head = torch.from_numpy(r.randn(LIBS_DIM, LIBS_TAGS).astype(np.float32)).to(DEVICE)
+
+    def tagger(c, emb, head):
+        folded = nlp.normalize_case(c, LIBS_VOCAB)
+        return nlp.pos_tag(folded, emb, head), nlp.token_counts(folded)
+
+    im = w.image(*LIBS_IMAGE, seed=0, device=DEVICE)
+    return [("crime_index", w.crime_index, (w.crime_table(LIBS_ROWS, device=DEVICE),)),
+            ("data_cleaning", w.data_cleaning, (w.cleaning_table(LIBS_ROWS, device=DEVICE),)),
+            ("birth_analysis", w.birth_analysis, (w.birth_table(LIBS_ROWS, device=DEVICE),)),
+            ("movielens", w.movielens,
+             w.movielens_tables(LIBS_ROWS, LIBS_MOVIES, device=DEVICE)),
+            ("nashville", w.nashville, (im,)), ("gotham", w.gotham, (im,)),
+            ("tagger", tagger, (corpus, emb, head))]
+
+
+def libs_check(name: str, got: list, eager: list, args, w, tb, nlp) -> str:
+    """A library workload's results against its oracle: the numpy oracles
+    (crime_index_np, data_cleaning_np), ``_group_reduce`` of the whole
+    table on the card and a float64 ``np.bincount`` (birth_analysis,
+    movielens), the ``eager`` run (images; tags, where a mismatch must be a
+    near-tie of the tag logits); returns what was checked."""
+    if name == "crime_index":
+        want = w.crime_index_np(args[0])
+        if not math.isclose(float(got[0]), want, rel_tol=1e-5):
+            raise AssertionError(f"libs/crime_index: {float(got[0])} vs oracle {want}")
+        return f"{float(got[0]):.6g} vs numpy {want:.6g}"
+    if name == "data_cleaning":
+        want = w.data_cleaning_np(args[0])
+        if float(got[0]) != want[0] or not math.isclose(float(got[1]), want[1], rel_tol=1e-5):
+            raise AssertionError(f"libs/data_cleaning: {[float(g) for g in got]} vs {want}")
+        return f"valid {float(got[0]):.0f}, total {float(got[1]):.6g} vs numpy {want[1]:.6g}"
+    if name in ("birth_analysis", "movielens"):
+        res = got[0]
+        if name == "movielens":
+            res = tb.finalize_mean(res, "movie")
+            key, col, vals, t = "movie", "mean", "rating", args[0]
+        else:
+            key, col, vals, t = "year", "sum", "births", args[0]
+        keys = t.cols[key].cpu().numpy()
+        uniq, inv = np.unique(keys, return_inverse=True)
+        sums = np.bincount(inv, weights=t.cols[vals].cpu().numpy())
+        want = sums / np.bincount(inv) if name == "movielens" else sums
+        if not (np.array_equal(res.cols[key].cpu().numpy(), uniq)
+                and np.allclose(res.cols[col].cpu().numpy(), want, rtol=1e-9, atol=0)):
+            raise AssertionError(f"libs/{name}: groups differ from the float64 oracle")
+        whole = tb._group_reduce(t if name == "birth_analysis" else tb._join_inner(
+            args[0], args[1], "movie"), key, vals, "sum" if name == "birth_analysis" else "mean")
+        if name == "movielens":
+            whole = tb.finalize_mean(whole, "movie")
+        compare(f"libs/{name} vs _group_reduce", res.cols[col], whole.cols[col], 1e-9,
+                atol_scale=0.0)
+        return f"{len(uniq)} groups equal to np.bincount (float64) and _group_reduce"
+    if name in ("nashville", "gotham"):
+        compare(f"libs/{name} vs eager", got[0], eager[0], TOL[torch.float32])
+        return "equal to eager"
+    tags, count = got
+    c, emb, head = args
+    if int(count) != int(eager[1]) or int(count) != int(c.lengths.sum()):
+        raise AssertionError(f"libs/tagger: token count {int(count)} vs {int(eager[1])}")
+    bad = torch.nonzero(tags != eager[0])
+    if len(bad):
+        folded = nlp._normalize_case(c, LIBS_VOCAB).tokens[bad[:, 0], bad[:, 1]]
+        logits = emb[folded] @ head
+        top = torch.topk(logits, 2, dim=-1).values
+        margin = float((top[:, 0] - top[:, 1]).max())
+        if margin > 1e-4 * float(logits.abs().max()):
+            raise AssertionError(f"libs/tagger: {len(bad)} tags differ from eager, top-2 "
+                                 f"margin up to {margin}")
+    return f"tags equal to eager but {len(bad)} near-ties; {int(count)} tokens"
+
+
+def phase_libs() -> dict:
+    """The Table, Image and NLP integrations on the card: each workload on
+    ``eager``, ``pipelined`` and ``cuda`` (plan cache on, tuner off: a cold
+    then a warm session, host clock), every result on the card and equal to
+    its oracle (``libs_check``); ``cuda`` runs every stage on ``fused``
+    (``cuda_fallback_stages`` = ``LIBS_STAGES``, as the CPU tests hold: the
+    reference's ``pallas`` lowering refuses every such stage)."""
+    from repro_torch import workloads as w
+    from repro_torch.core import annotated_nlp as nlp
+    from repro_torch.core import annotated_table as tb
+    from repro_torch.core import mozart
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cases = libs_cases(w, nlp)
+    torch.cuda.synchronize()
+    log(f"[libs] data: tables of {LIBS_ROWS} rows (int64/float64 columns, movielens "
+        f"{LIBS_MOVIES} movies), images {LIBS_IMAGE[0]} x {LIBS_IMAGE[1]} x 3 float32, a corpus "
+        f"of {LIBS_DOCS} x {LIBS_TOKENS} tokens (vocab {LIBS_VOCAB}, d {LIBS_DIM}, "
+        f"{LIBS_TAGS} tags), made in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, fn, args in cases:
+        row, eager = {}, None
+        for ex in LIBS_EXECUTORS:
+            ms = []
+            for _ in range(2):                              # cold, then a plan-cache hit
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with mozart.session(executor=ex, autotune=False) as ctx:
+                    res = fn(*args)
+                    res = res if isinstance(res, tuple) else (res,)
+                    got = [r.value for r in res]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+            st = {k: int(ctx.stats.get(k, 0)) for k in ("stages", "chunks",
+                                                         "cuda_fallback_stages",
+                                                         "cuda_stages", "rewrites_applied")}
+            want_fb = LIBS_STAGES[name] if ex == "cuda" else 0
+            if st["stages"] != LIBS_STAGES[name] or st["cuda_fallback_stages"] != want_fb \
+                    or st["cuda_stages"]:
+                raise AssertionError(f"libs/{name} on {ex}: {st}; the CPU tests hold "
+                                     f"{LIBS_STAGES[name]} stages, all of them falling back "
+                                     f"on cuda")
+            leaves = [on_card(f"{name} on {ex} output {i}", g) for i, g in enumerate(got)]
+            if ex == "eager":
+                eager = got
+            checked = libs_check(name, got, eager, args, w, tb, nlp)
+            row[ex] = {"cold_ms": ms[0], "warm_ms": ms[1], **st}
+            log(f"[libs] {name} on {ex}: cold {ms[0]:.1f} ms, warm {ms[1]:.1f} ms; stages "
+                f"{st['stages']}, chunks {st['chunks']}, cuda_fallback_stages "
+                f"{st['cuda_fallback_stages']}, rewrites_applied {st['rewrites_applied']}; "
+                f"results {leaves}; {checked}")
+        out[name] = row
+        resilience_clean(f"libs/{name}")
+    del cases
+    torch.cuda.empty_cache()
+    log(f"[libs] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
@@ -3678,6 +4064,13 @@ def main() -> int:
     resilience_clean("serve (after the chaos waves)")
     archs = phase_archs((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm),
                         fl.flash_attention, ref)
+    band = phase_band((sp.split_pipeline, fa.fused_adamw, fl.flash_attention, rn.rmsnorm),
+                      fl.flash_attention, fl, ref)
+    resilience_clean("band")
+    libs = phase_libs()
+    log(json.dumps({"libs": libs}))
+    log(f"[phases] seconds per check (chaos counts in times, data in kernel): "
+        f"{json.dumps(LAPS)}; {sum(s for _, s in LAPS):.1f} s to the last")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,
                  "replaces": ATTN_REPLACES,
                  "launches": serve["launches"]["flash_attention"],
@@ -3687,7 +4080,8 @@ def main() -> int:
                                                  "simt_ms", "library_event_ms")},
                  "serve": {k: v for k, v in serve.items()
                            if k not in ("launches", "flash_variant_launches")},
-                 "shapes": kern["attn_shapes"], "archs": archs})
+                 "shapes": kern["attn_shapes"] + [band["shape"]], "archs": archs,
+                 "band": {k: v for k, v in band.items() if k != "shape"}})
     rows.append({"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
                  "replaces": RMS_REPLACES, "launches": rms_launches,
                  "path": "kernels.ops.rmsnorm",

@@ -21,7 +21,13 @@ Every concrete tensor argument is first narrowed as the reference's JAX
 int32 and uint64 to uint32, wrapping modulo 2**32, float64 to float32,
 complex128 to complex64; a Python int outside int32 raises
 ``OverflowError``.  Avals, plan fingerprints, the cost model and every
-executor see the 32-bit dtypes.
+executor see the 32-bit dtypes.  The leaves of a library container (a
+``Table``'s columns, a ``Corpus``'s arrays) stay as given at the boundary:
+a dynamic function (``sa.dynamic``, which the reference calls raw on them)
+receives them so, and every other function receives them narrowed
+(``narrow_leaves``, as the reference's trace narrows them): both in
+``AnnotatedFn.call_eager``, through which every executor, a call outside
+a lazy context and the abstract evaluation run a function.
 """
 
 from __future__ import annotations
@@ -76,7 +82,8 @@ _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
 
 def _narrow(l: Any, cache=None) -> Any:
     """A 64-bit tensor's 32-bit copy (integers wrap modulo 2**32); ``cache``
-    (a ``WeakIdKeyDictionary``) keeps one copy per tensor and version."""
+    (a ``WeakIdKeyDictionary``, or a dict that outlives none of its
+    tensors) keeps one copy per tensor and version."""
     to = CANONICAL.get(l.dtype) if isinstance(l, torch.Tensor) else None
     if to is None:
         return l
@@ -88,16 +95,25 @@ def _narrow(l: Any, cache=None) -> Any:
     return hit[1]
 
 
-def canonicalize_tensors(v: Any, cache=None) -> Any:
-    """``v`` with every 64-bit tensor leaf narrowed (``CANONICAL``); ``v``
-    itself when no leaf is 64-bit."""
+def narrow_leaves(v: Any, cache=None) -> Any:
+    """``v`` with every 64-bit tensor leaf of every pytree narrowed
+    (``CANONICAL``), a registered library container's leaves included:
+    what a non-dynamic library function receives; ``v`` itself when no
+    leaf is 64-bit."""
     if isinstance(v, torch.Tensor):
         return _narrow(v, cache)
-    if isinstance(v, (list, tuple, dict)) and any(
-            isinstance(l, torch.Tensor) and l.dtype in CANONICAL
-            for l in pytree.tree_leaves(v)):
-        return pytree.tree_map(lambda l: _narrow(l, cache), v)
-    return v
+    if v is None or isinstance(v, (bool, int, float, complex, str)):
+        return v
+    if not any(isinstance(l, torch.Tensor) and l.dtype in CANONICAL
+               for l in pytree.tree_leaves(v)):
+        return v
+    return pytree.tree_map(lambda l: _narrow(l, cache), v)
+
+
+def canonicalize_tensors(v: Any, cache=None) -> Any:
+    """``v`` narrowed (``narrow_leaves``) if it is a tensor, list, tuple or
+    dict; any other container (a ``Table``) stays as given."""
+    return narrow_leaves(v, cache) if isinstance(v, (torch.Tensor, list, tuple, dict)) else v
 
 
 def canonicalize(v: Any, cache=None) -> Any:
@@ -138,8 +154,15 @@ class AnnotatedFn:
         self._aval_cache: dict[tuple, Any] = {}
 
     # -- plain execution ----------------------------------------------------
-    def call_eager(self, bound: dict[str, Any]) -> Any:
-        """One black-box library call (PyTorch runs eagerly: no jit)."""
+    def call_eager(self, bound: dict[str, Any], cache=None) -> Any:
+        """One black-box library call (PyTorch runs eagerly: no jit).  A
+        dynamic function receives its arguments as given, as the reference
+        calls it raw; any other receives them narrowed (``narrow_leaves``,
+        one copy per tensor in ``cache``), as the reference's trace does."""
+        if not getattr(self.sa, "dynamic", False):
+            static = self.sa.static
+            bound = {k: (v if k in static else narrow_leaves(v, cache))
+                     for k, v in bound.items()}
         return self.fn(**bound)
 
     # -- laziness -----------------------------------------------------------
@@ -205,7 +228,8 @@ class AnnotatedFn:
         return tuple(parts)
 
     def abstract_eval(self, bound_avals: dict[str, Any]) -> Any:
-        """Output aval: the function run on ``meta`` tensors, statics as-is.
+        """Output aval: the function run (``call_eager``) on ``meta``
+        tensors, statics as-is.
 
         Cached per aval structure: re-registering the same call shape must
         not re-pay a whole-function abstract run."""
@@ -218,7 +242,7 @@ class AnnotatedFn:
         kw = {k: (v if k in self.sa.static else _meta(v))
               for k, v in bound_avals.items()}
         with torch.no_grad():
-            out = _meta(self.fn(**kw))
+            out = _meta(self.call_eager(kw))
         if key is not None:
             if len(self._aval_cache) > 128:      # runaway-shape backstop
                 self._aval_cache.clear()

@@ -847,8 +847,9 @@ def _type_enc(t: st.SplitType) -> dict:
         # unique per instantiation: persisted by axis, with its uid only to
         # tell apart the unknowns of one entry (the fingerprint erases it).
         # The reference skips such entries, so an Unknown-returning pipeline
-        # (a serving step) would never persist.
-        return {"cls": "UnknownSplit", "params": _enc(t.params), "axis": t.axis}
+        # (a serving step) would never persist.  A library's own unknown (a
+        # Table's, whose merge concatenates columns) keeps its class.
+        return {"cls": type(t).__name__, "params": _enc(t.params), "axis": t.axis}
     rebuilt = type(t)(*t.params)       # raises / differs => entry is skipped
     if rebuilt != t:
         raise TypeError(f"{type(t).__name__} does not round-trip from params")
@@ -857,14 +858,15 @@ def _type_enc(t: st.SplitType) -> dict:
 
 def _type_dec(d: dict, classes: dict[str, type],
               unknowns: dict | None = None) -> st.SplitType:
-    if d["cls"] == "UnknownSplit":
+    cls = classes[d["cls"]]
+    if issubclass(cls, st.UnknownSplit):
         # one fresh unknown per persisted uid of the entry being decoded
         key = _dec(d["params"])
         memo = {} if unknowns is None else unknowns
         if key not in memo:
-            memo[key] = st.UnknownSplit(int(d["axis"]))
+            memo[key] = cls(int(d["axis"]))
         return memo[key]
-    return classes[d["cls"]](*_dec(d["params"]))
+    return cls(*_dec(d["params"]))
 
 
 def _entry_enc(e: PlanEntry) -> dict:

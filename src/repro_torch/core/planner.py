@@ -240,11 +240,26 @@ def plan(nodes: list[Node], graph: DataflowGraph,
         out_types: dict[int, st.SplitType] = {}
         escaping: set[int] = set()
         node_ids = {n.id for n in s.nodes}
+        invariant: set[int] = set()
         for n in s.nodes:
             out_types[n.id] = _resolve(s.env, s.out_tvars[n.id], n.out_aval)
             ext_consumer = any(c not in node_ids for c in consumers.get(n.id, []))
             if ext_consumer or n.future_alive():
                 escaping.add(n.id)
+            # A function of chunk-invariant values only (broadcast inputs, or
+            # such functions' outputs) returns the same value in every chunk:
+            # a partial it returns (a reduction, a group, a filtered rest) is
+            # taken once, never combined once per chunk.  The reference
+            # combines it per chunk (ROADMAP C10).
+            if all(name in n.fn.sa.static
+                   or (v.node_id in invariant
+                       if isinstance(v, NodeRef) and v.node_id in node_ids
+                       else not inputs[_value_key(v)].split_type.splittable)
+                   for name, v in n.bound.items()):
+                invariant.add(n.id)
+                t = out_types[n.id]
+                if not t.splittable and not isinstance(t, st.ScalarSplit):
+                    out_types[n.id] = st.BROADCAST
         arg_types: dict[tuple[int, str], st.SplitType] = {}
         for n in s.nodes:
             for name in n.bound:

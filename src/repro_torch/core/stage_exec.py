@@ -594,10 +594,11 @@ def chain_plan(stage: Stage) -> tuple:
 def run_plan(plan: tuple, env: dict[tuple, Any]) -> None:
     """Drive one chunk env through every function of a chain plan in order:
     each step is one black-box library call."""
+    narrowed: dict = {}      # one narrowed copy per 64-bit tensor of this env
     for fn, out_key, srcs in plan:
         kw = {name: (static if key is None else env[key])
               for name, key, static in srcs}
-        env[out_key] = fn.call_eager(kw)
+        env[out_key] = fn.call_eager(kw, narrowed)
 
 
 def run_chain(stage: Stage, env: dict[tuple, Any]) -> None:

@@ -1,13 +1,17 @@
 """Attention: the counterpart of ``src/repro/models/attention.py``.
 
-Three execution paths for train and prefill, chosen as in the reference:
-the flash-attention kernel (``kernels/flash_attention.py``, the counterpart
-of the reference's Pallas switch) when ``use_kernel`` holds, else dense
-softmax up to ``cfg.dense_attn_threshold`` keys, else blocked attention with
-an online softmax over key blocks whose scores are recomputed in backward.
-Scores, softmax and the probability-value product accumulate in float32
-(``preferred_element_type=f32`` in the reference).  An encoder-decoder's
-cross-attention always takes the dense path, as the reference's.
+Four execution paths for train and prefill, chosen in the reference's
+order: the flash-attention kernel (``kernels/flash_attention.py``, the
+counterpart of the reference's Pallas switch) when ``use_kernel`` holds,
+else the banded O(S·w) sliding window for a ``banded_attention`` config
+(``_banded_attention``), else dense softmax up to
+``cfg.dense_attn_threshold`` keys, else blocked attention with an online
+softmax over key blocks whose scores are recomputed in backward.  Scores,
+softmax and the probability-value product accumulate in float32
+(``preferred_element_type=f32`` in the reference); a logit softcap
+``tanh(s / c) * c`` applies to the float32 scores before masking on every
+path but the kernel's.  An encoder-decoder's cross-attention always takes
+the dense path, as the reference's.
 
 Decode uses the reference's block-partitioned KV cache ``(n_blk, blk, B,
 Hkv, D)``: each block computes a local partial softmax (log-sum-exp form)
@@ -104,15 +108,21 @@ def _visible(q_ids: torch.Tensor, k_ids: torch.Tensor, causal: bool,
     return m
 
 
+def _capped(s: torch.Tensor, softcap: float | None) -> torch.Tensor:
+    """The reference's logit softcap on float32 scores (None: ``s``)."""
+    return s if softcap is None else torch.tanh(s / softcap) * softcap
+
+
 def _dense_attention(q, k, v, *, causal: bool, window: int | None, offset: int = 0,
-                     kv_len: int | None = None, kv_mask: torch.Tensor | None = None):
+                     kv_len: int | None = None, softcap: float | None = None,
+                     kv_mask: torch.Tensor | None = None):
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
     qs = (q * D ** -0.5).to(q.dtype)
-    s = torch.einsum("bghqd,bhkd->bghqk",
-                     qs.reshape(B, group, Hkv, Sq, D).to(torch.float32),
-                     k.to(torch.float32))
+    s = _capped(torch.einsum("bghqd,bhkd->bghqk",
+                             qs.reshape(B, group, Hkv, Sq, D).to(torch.float32),
+                             k.to(torch.float32)), softcap)
     dev = q.device
     k_ids = torch.arange(Sk, device=dev)[None, :]
     m = _visible(torch.arange(Sq, device=dev)[:, None] + offset, k_ids, causal, window)
@@ -128,7 +138,7 @@ def _dense_attention(q, k, v, *, causal: bool, window: int | None, offset: int =
 
 
 def _blocked_attention(q, k, v, *, causal: bool, window: int | None, block_k: int,
-                       kv_mask: torch.Tensor | None = None):
+                       softcap: float | None = None, kv_mask: torch.Tensor | None = None):
     """Online softmax over key blocks, O(block) scores; while autograd
     records, each block's step is checkpointed so backward recomputes its
     scores (flash-style)."""
@@ -146,7 +156,8 @@ def _blocked_attention(q, k, v, *, causal: bool, window: int | None, block_k: in
            else torch.nn.functional.pad(kv_mask.to(torch.bool), (0, pad)))
 
     def step(m_prev, l_prev, acc, kblk, vblk, idx: int):
-        s = torch.einsum("bghqd,bhkd->bghqk", qs, kblk.to(torch.float32))
+        s = _capped(torch.einsum("bghqd,bhkd->bghqk", qs, kblk.to(torch.float32)),
+                    softcap)
         k_ids = idx * block_k + torch.arange(block_k, device=q.device)[None, :]
         msk = _visible(q_ids, k_ids, causal, window) & (k_ids < Sk)
         if kmp is not None:              # (B, Sq, blk)
@@ -176,8 +187,43 @@ def _blocked_attention(q, k, v, *, causal: bool, window: int | None, block_k: in
     return (acc / safe).reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def _banded_attention(q, k, v, *, window: int, softcap: float | None = None):
+    """Exact causal sliding-window self-attention in O(S·w): queries in
+    blocks of ``w`` attend only their own and the previous key block (keys
+    in (i - w, i] lie in those two blocks); the padding keys of block -1 and
+    of the tail are masked by their global positions."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    assert Sq == Sk, "banded path is for self-attention (train/prefill)"
+    group = Hq // Hkv
+    w = int(window)
+    nb = -(-Sq // w)
+    pad = nb * w - Sq
+    F = torch.nn.functional
+    qb, kb, vb = (F.pad(t, (0, 0, 0, pad)).reshape(B, t.shape[1], nb, w, D)
+                  for t in (q, k, v))
+    # (B, Hkv, nb, 2w, D): block n's keys are block n-1's then its own
+    k2, v2 = (torch.cat([F.pad(t, (0, 0, 0, 0, 1, 0))[:, :, :-1], t], dim=3)
+              for t in (kb, vb))
+    qs = (qb * D ** -0.5).to(q.dtype).reshape(B, group, Hkv, nb, w, D)
+    s = _capped(torch.einsum("bghnqd,bhnkd->bghnqk", qs.to(torch.float32),
+                             k2.to(torch.float32)), softcap)
+    # global positions: query i of block n is n*w + i, key j is (n-1)*w + j
+    dev = q.device
+    m = _visible(torch.arange(w, device=dev)[:, None] + w,
+                 torch.arange(2 * w, device=dev)[None, :], True, w)
+    kg = ((torch.arange(nb, device=dev)[:, None] - 1) * w
+          + torch.arange(2 * w, device=dev)[None, :])
+    mask = m[None] & ((kg >= 0) & (kg < Sq))[:, None, :]          # (nb, w, 2w)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    o = torch.einsum("bghnqk,bhnkd->bghnqd", p.to(v2.dtype).to(torch.float32),
+                     v2.to(torch.float32))
+    return o.reshape(B, Hq, nb * w, D)[:, :, :Sq].to(q.dtype)
+
+
 def _decode_attention_blocked(q: torch.Tensor, cache: KVCache, *,
-                              window: int | None = None) -> torch.Tensor:
+                              window: int | None = None,
+                              softcap: float | None = None) -> torch.Tensor:
     """One-token decode over the block-partitioned cache with exact LSE
     combination across blocks."""
     B, Hq, _, D = q.shape             # Sq == 1
@@ -186,8 +232,8 @@ def _decode_attention_blocked(q: torch.Tensor, cache: KVCache, *,
     group = Hq // Hkv
     qs = (q * D ** -0.5).to(cache.k.dtype).reshape(B, group, Hkv, D)
     # scores per block: (n_blk, B, group, Hkv, blk)
-    s = torch.einsum("bghd,nkbhd->nbghk", qs.to(torch.float32),
-                     cache.k.to(torch.float32))
+    s = _capped(torch.einsum("bghd,nkbhd->nbghk", qs.to(torch.float32),
+                             cache.k.to(torch.float32)), softcap)
     # validity per (block, row, offset): rows may sit at different positions
     # (per-slot ``length``) and may start past 0 (left-pad ``start``)
     pos = torch.arange(n_blk * blk, device=q.device).reshape(n_blk, 1, blk)
@@ -294,15 +340,19 @@ def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tenso
 def _takes_kernel(use_kernel: bool | None, cfg: ModelConfig, q: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor, pad_mask) -> bool:
     """The reference's switch (``use_pallas``, attention.py:406), taken only
-    where the kernel computes the same function: no kv pad mask, no softcap,
-    no banded path; and never while autograd records (the kernel has no
-    backward).  ``use_kernel=None`` means "the inputs lie on a CUDA device";
-    on CPU tensors the kernel's wrapper runs its plain version."""
+    where the kernel computes the same function: no kv pad mask and no
+    softcap (the reference's kernel call drops the cap; the port keeps a
+    softcap layer off the kernel instead), and never while autograd records
+    (the kernel has no backward).  A banded config takes it with its
+    window, as the reference's does: the kernel's mask ``k > q - w`` is the
+    banded path's function.  ``use_kernel=None`` means "the inputs lie on a
+    CUDA device"; on CPU tensors the kernel's wrapper runs its plain
+    version."""
     if use_kernel is None:
         use_kernel = q.is_cuda
     recording = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     return (use_kernel and pad_mask is None and cfg.attn.logit_softcap is None
-            and not cfg.banded_attention and not recording)
+            and not recording)
 
 
 def _kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -336,9 +386,9 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
 
     ``cross_kv`` (an encoder-decoder's cross-attention): the given (B, Hkv,
     S_enc, D) K and V, q from ``wq`` without RoPE, on the plain dense path,
-    non-causal, with no window and no cache in every mode.  It never takes
-    the kernel, as the reference's cross-attention never takes its Pallas
-    switch."""
+    non-causal, with no window and no cache in every mode, and the layer's
+    logit softcap.  It never takes the kernel, as the reference's
+    cross-attention never takes its Pallas switch."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"attention mode {mode!r}")
     a = cfg.attn
@@ -346,7 +396,8 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
     if cross_kv is not None:
         q = _split_heads(x @ p["wq"].to(x.dtype), a.n_heads, a.head_dim)
         k, v = cross_kv
-        o = _dense_attention(q, k, v, causal=False, window=None)
+        o = _dense_attention(q, k, v, causal=False, window=None,
+                             softcap=a.logit_softcap)
         return _merge_heads(o) @ p["wo"].to(x.dtype), None
     if positions is None:
         if mode == "decode" and cache is not None:
@@ -362,15 +413,22 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
         if cache is None:
             raise ValueError("decode needs a KV cache")
         new_cache = cache_update_decode(cache, k, v)
-        o = _decode_attention_blocked(q, new_cache, window=window)
+        o = _decode_attention_blocked(q, new_cache, window=window,
+                                      softcap=a.logit_softcap)
     else:
         if mode == "prefill" and cache is not None:
             new_cache = cache_fill_prefill(cache, k, v, pad_mask=pad_mask)
         if _takes_kernel(use_kernel, cfg, q, k, v, pad_mask):
             o = _kernel_attention(q, k, v, causal=causal, window=window)
+        elif (cfg.banded_attention and a.window and not a.pattern_period
+              and causal and k.shape[2] == S and S > 2 * a.window
+              and pad_mask is None):
+            o = _banded_attention(q, k, v, window=a.window, softcap=a.logit_softcap)
         elif k.shape[2] <= cfg.dense_attn_threshold:
-            o = _dense_attention(q, k, v, causal=causal, window=window, kv_mask=pad_mask)
+            o = _dense_attention(q, k, v, causal=causal, window=window,
+                                 softcap=a.logit_softcap, kv_mask=pad_mask)
         else:
             o = _blocked_attention(q, k, v, causal=causal, window=window,
-                                   block_k=cfg.attn_block_k, kv_mask=pad_mask)
+                                   block_k=cfg.attn_block_k, softcap=a.logit_softcap,
+                                   kv_mask=pad_mask)
     return _merge_heads(o) @ p["wo"].to(x.dtype), new_cache

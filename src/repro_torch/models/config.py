@@ -2,8 +2,8 @@
 
 The same frozen dataclasses with torch dtypes.  The port's model code runs
 every family: dense, MoE, hybrid (``ssm``: Hymba's SSM heads), RWKV
-(``rwkv``), vision-language (M-RoPE) and encoder-decoder audio; logit
-softcap and banded attention it refuses (``transformer.check_ported``).
+(``rwkv``), vision-language (M-RoPE) and encoder-decoder audio, with or
+without a logit softcap and the banded sliding-window path.
 """
 
 from __future__ import annotations

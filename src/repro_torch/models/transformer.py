@@ -28,8 +28,10 @@ bidirectional stack (``enc_layers``, ``enc_norm``).  Each decoder block of
 an encoder-decoder model then attends the encoder output through its own
 cross-attention (``cross``, normed by ``ln3``) between self-attention and
 the MLP; ``_cross_kv_per_layer`` projects every layer's K/V from the
-encoder output at once.  Logit softcap and banded attention wait for a
-later slice (``check_ported``).
+encoder output at once.  A logit softcap applies in every attention
+sub-layer (self and cross, every mode) and a ``banded_attention`` config
+takes the O(S·w) banded path in train and long prefill
+(``attention.attention_block``).
 """
 
 from __future__ import annotations
@@ -54,19 +56,16 @@ PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port's model code does not run yet: logit softcap
-    and banded attention; a family it does not know, and attention-free
-    stacks other than RWKV's."""
+    """Raise for what the port's model code does not run: a family it does
+    not know, and attention-free stacks other than RWKV's."""
     a = cfg.attn
     missing = [what for what, cond in (
         (f"family {cfg.family!r}", cfg.family not in PORTED_FAMILIES),
-        ("attention", a is None and cfg.family != "ssm"),
-        ("logit softcap", a is not None and a.logit_softcap is not None),
-        ("banded attention", cfg.banded_attention)) if cond]
+        ("attention", a is None and cfg.family != "ssm")) if cond]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs the "
-            f"{', '.join(PORTED_FAMILIES)} families without softcap or banding)")
+            f"{', '.join(PORTED_FAMILIES)} families)")
 
 
 def layer_kind(cfg: ModelConfig) -> str:

@@ -766,3 +766,86 @@ def test_split_pipeline_narrow_misaligned_views_match_plain_version(dname, offse
              for x in ins]
     assert sp.load_paths(views, 1024)["bulk"] == 0
     _typed_check(program, views, bcast, kinds)
+
+
+# -- banded attention and the library integrations (ROADMAP A7.5, A9) ---------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window", [
+    (2, 4, 4, 1100, 128, 256),     # S > 2w, a ragged last band
+    (1, 4, 2, 2048, 256, 512),     # gemma's head dim, GQA
+    (1, 2, 2, 700, 256, 300),      # a window that is no multiple of a tile
+])
+def test_flash_attention_window_matches_the_banded_path(B, Hq, Hkv, S, D, window):
+    """The tc kernel's window mask (keys in (q - w, q]) against the model's
+    banded path, which a banded config would take instead, on the model's
+    head-split views in its head order (``attention._kernel_attention``)."""
+    _card()
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.models import attention
+    q, k, v = (_head_split(B, H, S, D, torch.bfloat16, seed)
+               for H, seed in ((Hq, 1), (Hkv, 2), (Hkv, 3)))
+    before = dict(fl.flash_attention.variant_launches)
+    got = attention._kernel_attention(q, k, v, causal=True, window=window)
+    want = attention._banded_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fl.flash_attention.variant_launches["tc"] == before["tc"] + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **TOL[torch.bfloat16])
+    rel = float((got.double() - want.double()).norm() / want.double().norm())
+    assert rel <= 1e-2, rel
+
+
+def _lib_case(name):
+    """(annotated op, its arguments on ``device``) for one op of each library."""
+    from repro_torch import workloads as w
+    from repro_torch.core import annotated_image as img
+    from repro_torch.core import annotated_nlp as nlp
+    from repro_torch.core import annotated_table as tb
+    r = np.random.RandomState(5)
+    if name == "groupby_agg":
+        t = w.crime_table(100_003, device="cpu")
+        return tb.groupby_agg, lambda dev: dict(
+            t=tb.Table({k: c.to(dev) for k, c in t.cols.items()}), key="city", val="crime",
+            op="max")
+    if name == "modulate":
+        im = w.image(301, 257, device="cpu")
+        return img.modulate, lambda dev: dict(img=im.to(dev), brightness=120.0,
+                                              saturation=10.0, hue=130.0)
+    c = nlp.make_corpus(3001, 64, 5000, seed=1, device="cpu")
+    emb = torch.from_numpy(r.randn(5000, 32).astype(np.float32))
+    head = torch.from_numpy(r.randn(32, 17).astype(np.float32))
+    return nlp.pos_tag, lambda dev: dict(corpus=nlp.Corpus(c.tokens.to(dev), c.lengths.to(dev)),
+                                         emb=emb.to(dev), head=head.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("executor", ["eager", "pipelined", "cuda"])
+@pytest.mark.parametrize("name", ["groupby_agg", "modulate", "pos_tag"])
+def test_library_op_on_the_card_matches_the_cpu(name, executor):
+    """One op of each integration on CUDA tensors against the same op on
+    CPU tensors (results on the card, dtypes equal; group keys, counts and
+    tags exactly but for tag near-ties, float64 extrema exactly, float32
+    images within 2e-5); on ``cuda`` the stage falls back to ``fused``."""
+    _card()
+    from repro_torch.core import mozart
+    fn, args = _lib_case(name)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with mozart.session(executor=executor, device=dev, batch_elements=4096) as ctx:
+            out[dev] = fn(**args(dev)).value
+        if executor == "cuda":
+            assert ctx.stats["cuda_fallback_stages"] == ctx.stats["stages"] == 1
+    got, want = out["cuda"], out["cpu"]
+    if name == "groupby_agg":
+        assert all(c.is_cuda for c in got.cols.values())
+        for k in want.cols:
+            assert got.cols[k].dtype == want.cols[k].dtype
+            np.testing.assert_array_equal(got.cols[k].cpu().numpy(), want.cols[k].numpy())
+    elif name == "modulate":
+        assert got.is_cuda and got.dtype == want.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
+    else:
+        assert got.is_cuda and got.dtype == want.dtype == torch.int32
+        assert float((got.cpu() != want).float().mean()) < 1e-4

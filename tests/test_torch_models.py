@@ -286,17 +286,29 @@ def test_unported_families_raise():
 
 
 @pytest.mark.parametrize("what", ["logit softcap", "banded attention"])
-def test_check_ported_still_refuses_softcap_and_banding(what):
-    """What A7.5 ports: a logit softcap and the banded sliding-window path
-    (``init_model`` and ``init_caches`` refuse them)."""
+def test_check_ported_accepts_softcap_and_banding(what):
+    """A7.5: ``check_ported`` accepts a logit softcap and the banded
+    sliding-window path, and a tiny model with each runs ``forward_train``,
+    ``prefill`` and ``decode_step`` (finite logits of the expected shapes;
+    ``tests/test_torch_softcap_band.py`` holds their values against JAX)."""
     import dataclasses
-    cfg = tgemma.smoke_config()
+    cfg = tgemma.smoke_config().with_runtime(dtype=torch.float32)
     cfg = (cfg.with_runtime(attn=dataclasses.replace(cfg.attn, logit_softcap=30.0))
-           if what == "logit softcap" else cfg.with_runtime(banded_attention=True))
-    for make in (lambda: ttfm.init_model(cfg, None, "meta"),
-                 lambda: ttfm.init_caches(cfg, 1, 8, device="meta")):
-        with pytest.raises(NotImplementedError, match=f"{what} not ported"):
-            make()
+           if what == "logit softcap"
+           else cfg.with_runtime(attn=dataclasses.replace(cfg.attn, window=4),
+                                 banded_attention=True))
+    ttfm.check_ported(cfg)
+    model = ttfm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(_tokens((2, 11), vocab=cfg.vocab_size))
+    with torch.no_grad():
+        logits, _ = ttfm.forward_train(model, cfg, tokens)
+        last, caches = ttfm.prefill(model, cfg, tokens,
+                                    caches=ttfm.init_caches(cfg, 2, 16, device="cpu"))
+        step, _ = ttfm.decode_step(model, cfg, tokens[:, :1], caches)
+    assert logits.shape == (2, 11, cfg.padded_vocab)
+    assert last.shape == step.shape == (2, 1, cfg.padded_vocab)
+    for t in (logits, last, step):
+        assert torch.isfinite(t[..., :cfg.vocab_size]).all()
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2"])
