@@ -236,7 +236,20 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              tokens, each on ``eager``, ``pipelined`` and ``cuda`` (every
              stage on ``fused``, counted in ``cuda_fallback_stages`` as the
              CPU tests hold), results on the card and equal to their oracles,
-             cold and warm milliseconds; a ``{"libs": ...}`` JSON line.
+             cold and warm milliseconds; a ``{"libs": ...}`` JSON line;
+13. verify — the annotation linter and dataflow analyzer (ROADMAP A10.1)
+             on the card: ``mozart.verify()`` (every probe and every
+             annotated op's output on the card, the CPU sweep's subjects and
+             findings); ``mozart.verify`` on Black-Scholes and Haversine at
+             n = 2**27 with ``executor="cuda"`` (no launch, no plan-cache
+             entry, no device memory left; a ``cuda`` session then launches
+             once per stage walked, its rewrite records the reported MZ5xx
+             codes); a warm ``Pipeline.verify`` reusing the recorded handoff
+             where the rewrite pass left the graph alone; then ``groupby_agg``
+             over 2**22 float64 keys with NaNs (ROADMAP C11: one NaN group,
+             last, against the CPU and numpy) and ``pos_tag`` on ids outside
+             the vocabulary (C12: no device assert, the rows JAX reads);
+             a ``{"verify": ...}`` JSON line.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -245,6 +258,8 @@ record and the device record.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import ctypes
 import gc
 import itertools
@@ -2247,11 +2262,35 @@ def device_ms(fn, reps: int) -> float:
     raise AssertionError(f"torch.profiler kept dropping kernel records: {seen}")
 
 
+class ProfilerDropped(AssertionError):
+    """``torch.profiler`` kept dropping a window's kernel records."""
+
+
 def kernel_device_ms(fn, reps: int, match: str = "split_pipeline") -> float:
     """Device milliseconds of one launch of the kernel named ``*match*``
-    that ``fn`` makes once per call (``torch.profiler``, after one warm-up
-    call)."""
-    ms, _launches, _out = profiled_kernels(fn, match, expect=1, reps=reps, warm=True)
+    that ``fn`` makes once per call, and nothing else (``torch.profiler``,
+    after one warm-up call).  Where the profiler keeps dropping the
+    window's records (seen on an H100 after the earlier phases' launches:
+    0 of 10 recorded in four windows running), CUDA events around ``reps``
+    back-to-back calls time it instead: the host enqueues the launches
+    faster than they run, so they queue behind each other and the events
+    hold the device's time (and the first enqueue)."""
+    try:
+        ms, _launches, _out = profiled_kernels(fn, match, expect=1, reps=reps, warm=True)
+        return ms
+    except ProfilerDropped:
+        pass
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    log(f"[profile] {match!r}: timed with CUDA events over {reps} back-to-back calls "
+        f"instead: {ms:.4f} ms")
     return ms
 
 
@@ -2267,7 +2306,7 @@ def profiled_kernels(fn, match: str, expect: int, reps: int = 1, warm: bool = Fa
         if launches == expect * reps:
             return us / 1e3 / reps, expect, out
         log(f"[profile] {match!r}: recorded {launches} of {expect * reps} launches; again")
-    raise AssertionError(f"torch.profiler kept dropping {match!r} kernel records")
+    raise ProfilerDropped(f"torch.profiler kept dropping {match!r} kernel records")
 
 
 def attn_case(fl, ref, what, q, k, v, causal, window, variant) -> float:
@@ -3959,6 +3998,311 @@ def phase_libs() -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# verify: the annotation linter and dataflow analyzer on the card (A10.1),
+# and the NaN-key and out-of-range-id repairs (C11, C12)
+# ---------------------------------------------------------------------------
+
+#: the verify phase: the sweep's probe size (the reference's default); five
+#: calls of each warm ``Pipeline.verify``; a table of 2**22 float64 keys
+#: 0-9,999 (-0.0 beside 0.0, 10% NaN) for C11; 2**12 documents of 64 ids
+#: around the libs phase's vocabulary for C12
+VERIFY_N, VERIFY_WARM_CALLS = 12, 5
+VERIFY_ROWS, VERIFY_KEYS, VERIFY_DOCS = 1 << 22, 10_000, 1 << 12
+#: (pipeline options, ``verify_handoff_reused`` per warm call), in this
+#: order: an entry's decisions describe the verifier's unrewritten plan only
+#: where the entry is keyed by that graph (Haversine: MZ505 declines only;
+#: Black-Scholes' MZ502 rewrites its graph, so the verifier re-analyzes, as
+#: the reference does, until a ``rewrite=False`` pipeline caches the
+#: unrewritten graph)
+VERIFY_WARM = {"black_scholes": (({}, 0), ({"rewrite": False}, 1)),
+               "haversine": (({}, 1),)}
+GROUP_OPS = ("sum", "count", "mean", "max", "min")
+
+
+def tensor_devices(value) -> list:
+    return [l.device.type for l in pytree.tree_leaves(value) if isinstance(l, torch.Tensor)]
+
+
+def diag_multiset(rep) -> collections.Counter:
+    return collections.Counter((d.code, d.severity, d.subject) for d in rep.diagnostics)
+
+
+@contextlib.contextmanager
+def watched_devices():
+    """Count the device of every tensor of every probe the sweep builds
+    (``analysis.builtin_probes``) and of every annotated op's output it
+    computes (``AnnotatedFn.call_raw``, the bare calls MZ108 makes)."""
+    from repro_torch.core import analysis
+    from repro_torch.core.annotation import AnnotatedFn
+    seen = {"probes": collections.Counter(), "outputs": collections.Counter(), "calls": 0}
+    probes, raw = analysis.builtin_probes, AnnotatedFn.call_raw
+
+    def watched_probes(*a, **k):
+        out = probes(*a, **k)
+        for p in out:
+            seen["probes"].update(tensor_devices([p.value, p.pieces, p.reference]))
+        return out
+
+    def watched_raw(self, bound):
+        out = raw(self, bound)
+        seen["calls"] += 1
+        seen["outputs"].update(tensor_devices(out) or ["no tensor"])
+        return out
+
+    analysis.builtin_probes, AnnotatedFn.call_raw = watched_probes, watched_raw
+    try:
+        yield seen
+    finally:
+        analysis.builtin_probes, AnnotatedFn.call_raw = probes, raw
+
+
+def verify_sweep() -> dict:
+    """(a) ``mozart.verify()`` on the card against the same sweep on the CPU,
+    plan cache emptied first (its entries are subjects of MZ205)."""
+    from repro_torch.core import mozart, plan_cache
+    dropped = plan_cache.cache_info()["entries"]
+    plan_cache.clear()
+    with watched_devices() as seen:
+        t0 = time.perf_counter()
+        card = mozart.verify(n=VERIFY_N, device=DEVICE)
+        card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = mozart.verify(n=VERIFY_N, device="cpu")
+    host_s = time.perf_counter() - t0
+    dev = torch.device(DEVICE).type
+    if not card.ok or card.warnings:
+        raise AssertionError(f"verify sweep on {DEVICE}:\n{card.render()}")
+    if set(seen["probes"]) != {dev} or set(seen["outputs"]) != {dev}:
+        raise AssertionError(f"verify sweep: probes on {dict(seen['probes'])}, op outputs "
+                             f"on {dict(seen['outputs'])}, not all on {dev}")
+    if card.checked != host.checked or diag_multiset(card) != diag_multiset(host):
+        raise AssertionError(f"verify sweep: {card.checked} checked on {DEVICE} "
+                             f"{sorted(diag_multiset(card).items())} vs {host.checked} on the "
+                             f"CPU {sorted(diag_multiset(host).items())}")
+    codes = collections.Counter(f"{d.code} {d.severity}" for d in card.diagnostics)
+    log(f"[verify] sweep on {DEVICE} (n = {VERIFY_N}, {dropped} plan-cache entries dropped "
+        f"first): {card.checked} checked, ok, {dict(codes)}; "
+        f"{sum(seen['probes'].values())} probe tensors and {seen['calls']} op calls "
+        f"({sum(seen['outputs'].values())} output tensors) all on {dev}; checked and "
+        f"(code, severity, subject) multiset equal to the CPU sweep; {card_s:.2f} s on the "
+        f"card, {host_s:.2f} s on the CPU")
+    return {"checked": card.checked, "codes": dict(codes), "probe_tensors":
+            sum(seen["probes"].values()), "op_calls": seen["calls"], "card_s": card_s,
+            "cpu_s": host_s}
+
+
+def verify_workload(sp, name: str, fn, args: tuple, oracle) -> dict:
+    """(b) ``mozart.verify(fn, *args, executor="cuda")`` on the main path's
+    data: no launch, no plan-cache entry, no device memory left; a ``cuda``
+    session then launches once per stage the verifier walked, its rewrite
+    records the verifier's MZ5xx codes, its outputs equal to the float64
+    oracle on a prefix.  (c) a warm ``Pipeline.verify``: reuses the recorded
+    handoff where ``VERIFY_WARM`` says, launches nothing."""
+    from repro_torch.core import mozart, plan_cache
+    torch.cuda.synchronize()
+    before = (sp.split_pipeline.launches, plan_cache.cache_info()["entries"],
+              torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    rep = mozart.verify(fn, *args, executor="cuda", device=DEVICE)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    after = (sp.split_pipeline.launches, plan_cache.cache_info()["entries"],
+             torch.cuda.memory_allocated())
+    if not rep.ok or after != before:
+        raise AssertionError(f"verify {name}: ok {rep.ok}, (launches, plan-cache entries, "
+                             f"bytes allocated) {before} -> {after}\n{rep.render(True)}")
+    mz5 = sorted(d.code for d in rep.diagnostics if d.code.startswith("MZ5"))
+    with mozart.session(executor="cuda", device=DEVICE) as ctx:
+        got = [o.value for o in as_list(fn(*args))]
+    torch.cuda.synchronize()
+    launched = sp.split_pipeline.launches - before[0]
+    stats = {k: int(ctx.stats.get(k, 0)) for k in ("stages", "cuda_stages",
+                                                  "cuda_fallback_stages")}
+    records = sorted(r.code for r in ctx._last_rewrites)
+    if not (launched == stats["stages"] == stats["cuda_stages"] == rep.checked
+            and stats["cuda_fallback_stages"] == 0 and records == mz5):
+        raise AssertionError(f"verify {name}: {launched} launches, {stats}, {rep.checked} "
+                             f"stages walked; records {records} vs reported {mz5}")
+    for i, (g, (ref64, rtol, atol)) in enumerate(zip(got, oracle)):
+        if not np.allclose(g[:ref64.shape[0]].double().cpu().numpy(), ref64, rtol=rtol,
+                           atol=atol):
+            raise AssertionError(f"verify {name}: session output {i} vs the float64 oracle")
+    del got
+    row = {"verify_ms": verify_ms, "stages": rep.checked, "codes": sorted(rep.codes()),
+           "launches_after": launched}
+    log(f"[verify] {name} at n = {args[0].numel()}: verify {verify_ms:.1f} ms, ok, codes "
+        f"{sorted(rep.codes())}, {rep.checked} stage walked; launches, plan-cache entries and "
+        f"bytes allocated unchanged {before}; then a cuda session: {launched} launch for "
+        f"{stats['stages']} stage, rewrite records {records} = the reported MZ5xx, outputs "
+        f"equal to the float64 oracle")
+    for cfg, per_call in VERIFY_WARM[name]:
+        p = mozart.pipeline(fn, executor="cuda", device=DEVICE, **cfg)
+        p(*args)
+        torch.cuda.synchronize()
+        launches, entries = sp.split_pipeline.launches, plan_cache.cache_info()["entries"]
+        reused = plan_cache.stats["verify_handoff_reused"]
+        times = []
+        for _ in range(VERIFY_WARM_CALLS):
+            t0 = time.perf_counter()
+            warm = p.verify(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        got_reused = plan_cache.stats["verify_handoff_reused"] - reused
+        if not (warm.ok and got_reused == per_call * VERIFY_WARM_CALLS
+                and sp.split_pipeline.launches == launches
+                and plan_cache.cache_info()["entries"] == entries):
+            raise AssertionError(f"warm Pipeline.verify on {name} {cfg}: ok {warm.ok}, "
+                                 f"reused {got_reused}, launches {launches} -> "
+                                 f"{sp.split_pipeline.launches}")
+        label = "rewrite off" if cfg.get("rewrite") is False else "rewrite on"
+        row[f"warm_verify_ms ({label})"] = statistics.median(times)
+        row[f"handoff_reused ({label})"] = got_reused
+        log(f"[verify] warm Pipeline.verify on {name} ({label}): median "
+            f"{statistics.median(times):.2f} ms host over {VERIFY_WARM_CALLS} calls "
+            f"({', '.join(f'{t:.2f}' for t in times)}), verify_handoff_reused "
+            f"+{got_reused}, no launch, no new plan-cache entry, codes {sorted(warm.codes())}")
+        del p, warm
+    return row
+
+
+def group_oracle(keys: np.ndarray, vals: np.ndarray, op: str) -> tuple:
+    """numpy per group, every NaN key one group, last: (keys, values, counts)."""
+    nan = np.isnan(keys)
+    uniq, inv = np.unique(keys[~nan], return_inverse=True)
+    v = vals[~nan]
+    counts = np.bincount(inv, minlength=len(uniq))
+    if op in ("sum", "mean", "count"):
+        got = np.bincount(inv, weights=v, minlength=len(uniq)) if op != "count" else counts
+        tail = vals[nan].sum() if op != "count" else nan.sum()
+    else:
+        got = np.full(len(uniq), -np.inf if op == "max" else np.inf)
+        (np.maximum if op == "max" else np.minimum).at(got, inv, v)
+        tail = vals[nan].max() if op == "max" else vals[nan].min()
+    return (np.append(uniq, np.nan), np.append(got, tail).astype(np.float64),
+            np.append(counts, nan.sum()))
+
+
+def tags_agree(what: str, got: torch.Tensor, want: torch.Tensor, rows: np.ndarray,
+               emb: torch.Tensor, head: torch.Tensor) -> int:
+    """Tags equal but where the two best logits tie within 1e-4 of the
+    largest (float32 sums in another order); returns the near-ties."""
+    bad = torch.nonzero(got.cpu() != want.cpu())
+    if len(bad):
+        ids = torch.from_numpy(rows[bad[:, 0].numpy(), bad[:, 1].numpy()])
+        logits = emb.cpu()[ids] @ head.cpu()
+        top = torch.topk(logits, 2, dim=-1).values
+        if float((top[:, 0] - top[:, 1]).max()) > 1e-4 * float(logits.abs().max()):
+            raise AssertionError(f"{what}: {len(bad)} tags differ beyond near-ties")
+    return len(bad)
+
+
+def verify_repairs() -> dict:
+    """(d) C11: ``groupby_agg`` of float64 keys with NaNs on the card (every
+    op, ``cuda`` sessions: the stage runs on ``fused``) equal to the same on
+    the CPU and to the numpy oracle: one NaN group, last.  C12: ``pos_tag``
+    on ids [0, V-1, V, V+2, -1, -V-1] and random ids in [-2V, 2V) on the
+    card, synchronised (no device assert), equal to the CPU and to the rows
+    JAX's gather reads (a negative id wraps once, then every id clamps)."""
+    from repro_torch.core import annotated_nlp as nlp
+    from repro_torch.core import annotated_table as tb
+    from repro_torch.core import mozart
+    r = np.random.RandomState(0)
+    keys = r.randint(0, VERIFY_KEYS, VERIFY_ROWS).astype(np.float64)
+    keys[(keys == 0) & (r.rand(VERIFY_ROWS) < 0.5)] = -0.0
+    keys[r.rand(VERIFY_ROWS) < 0.1] = np.nan
+    vals = r.rand(VERIFY_ROWS)
+    tables = {dev: tb.Table({"k": torch.from_numpy(keys).to(dev),
+                             "v": torch.from_numpy(vals).to(dev)}) for dev in (DEVICE, "cpu")}
+    out = {"groups": {}}
+    for op in GROUP_OPS:
+        res, ms = {}, {}
+        for dev, t in tables.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mozart.session(executor="cuda", device=dev, autotune=False) as ctx:
+                res[dev] = tb.groupby_agg(t, key="k", val="v", op=op).value
+            torch.cuda.synchronize()
+            ms[dev] = (time.perf_counter() - t0) * 1e3
+            if not ctx.stats["cuda_fallback_stages"] == ctx.stats["stages"] == 1:
+                raise AssertionError(f"C11 {op} on {dev}: {dict(ctx.stats)}")
+        card, host = res[DEVICE], res["cpu"]
+        on_card(f"C11 groupby_agg {op}", card)
+        want_keys, want_vals, want_counts = group_oracle(keys, vals, op)
+        got_keys = card.cols["k"].cpu().numpy()
+        np.testing.assert_array_equal(got_keys, host.cols["k"].numpy())
+        np.testing.assert_array_equal(got_keys, want_keys)
+        got = card.cols[op].cpu().numpy()
+        exact = op in ("count", "max", "min")
+        np.testing.assert_allclose(got, host.cols[op].numpy(), rtol=0 if exact else 1e-9)
+        np.testing.assert_allclose(got, want_vals, rtol=0 if exact else 1e-9)
+        if op == "mean":
+            np.testing.assert_array_equal(card.cols["_cnt"].cpu().numpy(), want_counts)
+        out["groups"][op] = {"groups": int(len(got_keys)), "nan_rows": int(want_counts[-1]),
+                             "card_ms": ms[DEVICE], "cpu_ms": ms["cpu"]}
+        log(f"[verify] C11 groupby_agg {op} over {VERIFY_ROWS} float64 keys: "
+            f"{len(got_keys)} groups, the NaN group last ({int(want_counts[-1])} rows), equal "
+            f"to the CPU and to numpy; {ms[DEVICE]:.1f} ms on {DEVICE}, {ms['cpu']:.1f} ms "
+            f"on the CPU")
+    del tables, res, card, host
+    v = LIBS_VOCAB
+    edge = np.array([0, v - 1, v, v + 2, -1, -v - 1], np.int64)
+    toks = r.randint(-2 * v, 2 * v, (VERIFY_DOCS, LIBS_TOKENS))
+    toks[:, :len(edge)] = edge
+    lengths = r.randint(len(edge), LIBS_TOKENS + 1, VERIFY_DOCS)
+    emb = torch.from_numpy(r.randn(v, LIBS_DIM).astype(np.float32))
+    head = torch.from_numpy(r.randn(LIBS_DIM, LIBS_TAGS).astype(np.float32))
+    rows = np.clip(np.where(toks < 0, toks + v, toks), 0, v - 1)
+    tags = {}
+    for dev in (DEVICE, "cpu"):
+        corpus = nlp.Corpus(torch.from_numpy(toks.astype(np.int32)).to(dev),
+                            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+        with mozart.session(executor="cuda", device=dev, autotune=False):
+            tags[dev] = nlp.pos_tag(corpus, emb.to(dev), head.to(dev)).value
+        torch.cuda.synchronize()                 # a device assert would surface here
+    on_card("C12 pos_tag", tags[DEVICE])
+    want = torch.argmax(emb[torch.from_numpy(rows)] @ head, dim=-1).to(torch.int32)
+    want = torch.where(torch.arange(LIBS_TOKENS)[None] < torch.from_numpy(lengths)[:, None],
+                       want, -1)
+    ties = tags_agree("C12 card vs CPU", tags[DEVICE], tags["cpu"], rows, emb, head)
+    oracle_ties = tags_agree("C12 card vs the gathered rows", tags[DEVICE], want, rows, emb,
+                             head)
+    out["pos_tag"] = {"tokens": int(toks.size), "out_of_range": int(((toks < 0) | (toks >= v))
+                                                                     .sum()),
+                      "near_ties_vs_cpu": ties, "near_ties_vs_rows": oracle_ties}
+    log(f"[verify] C12 pos_tag over {VERIFY_DOCS} x {LIBS_TOKENS} ids (vocab {v}, "
+        f"{out['pos_tag']['out_of_range']} out of range, {edge.tolist()} in every document) "
+        f"on {DEVICE}: no device assert, tags equal to the CPU ({ties} near-ties) and to the "
+        f"rows JAX's gather reads ({oracle_ties} near-ties)")
+    return out
+
+
+def phase_verify(sp) -> dict:
+    """The annotation linter and dataflow analyzer on the card (ROADMAP
+    A10.1): the sweep (``verify_sweep``), ``mozart.verify`` and a warm
+    ``Pipeline.verify`` on the main path's Black-Scholes and Haversine at
+    n = 2**27 (``verify_workload``), then the C11 and C12 repairs
+    (``verify_repairs``)."""
+    from scipy.special import erf
+    from repro_torch import workloads as w
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"sweep": verify_sweep()}
+    for name, fn, make in (("black_scholes", w.black_scholes, w.black_scholes_data),
+                           ("haversine", w.haversine, w.haversine_data)):
+        data = make(N_MAIN, seed=0, device=DEVICE)
+        pre = {k: v[:PREFIX] for k, v in data.items()}
+        oracle = ([(a, 2e-3, 1e-3) for a in w.black_scholes_np(pre, erf=erf)]
+                  if name == "black_scholes" else [(w.haversine_np(**pre), 2e-3, 1e-2)])
+        out[name] = verify_workload(sp, name, fn, tuple(data.values()), oracle)
+        del data, pre
+        torch.cuda.empty_cache()
+    out.update(verify_repairs())
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[verify] phase {out['seconds']:.1f} s")
+    return out
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
@@ -4069,6 +4413,9 @@ def main() -> int:
     resilience_clean("band")
     libs = phase_libs()
     log(json.dumps({"libs": libs}))
+    verify = phase_verify(sp)
+    resilience_clean("verify")
+    log(json.dumps({"verify": verify}))
     log(f"[phases] seconds per check (chaos counts in times, data in kernel): "
         f"{json.dumps(LAPS)}; {sum(s for _, s in LAPS):.1f} s to the last")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

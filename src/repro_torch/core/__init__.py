@@ -7,6 +7,8 @@ Public API:
     plan_cache / cost_model / pipeline         — plan cache, executor="auto"
     rewrite / resilience                       — static rewrite pass (MZ5xx),
                                                  degradation ladder (MZ4xx)
+    mozart.verify / verify / Report            — the annotation linter and
+                                                 dataflow analyzer (MZ1xx/2xx)
     splittable / annotate                      — attach SAs to functions
     split types & specs                        — Along, Broadcast(_), Generic,
                                                  Unknown, Reduce, Pytree, Custom
@@ -14,6 +16,7 @@ Public API:
 
 from repro_torch.core import runtime as mozart
 from repro_torch.core import cost_model, pipeline, plan_cache, resilience, rewrite
+from repro_torch.core.analysis import CODES, Diagnostic, Report, verify
 from repro_torch.core.annotation import SA, AnnotatedFn, annotate, splittable
 from repro_torch.core.future import Future
 from repro_torch.core.pipeline import Pipeline
@@ -62,4 +65,5 @@ __all__ = [
     "default_split_type", "_",
     "ChunkStream", "StageExecutor", "available_executors", "bytes_interior",
     "bytes_materialized", "get_executor", "register_executor",
+    "CODES", "Diagnostic", "Report", "verify",
 ]

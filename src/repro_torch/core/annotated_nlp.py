@@ -99,9 +99,13 @@ def _valid(corpus: Corpus):
 
 def _pos_tag(corpus: Corpus, emb, head):
     """Per-token classification with a preloaded model (emb (V, d), head
-    (d, T)): the first maximal tag per token, -1 past each length."""
+    (d, T)): the first maximal tag per token, -1 past each length.  An id
+    outside ``[0, V)`` reads the row JAX's gather reads: a negative id
+    wraps once (``id + V``), then every id clamps into range."""
     toks = corpus.tokens
-    x = emb.index_select(0, toks.reshape(-1)).reshape(*toks.shape, emb.shape[1])
+    v = emb.shape[0]
+    ids = torch.where(toks < 0, toks + v, toks).clamp(0, v - 1)
+    x = emb.index_select(0, ids.reshape(-1)).reshape(*toks.shape, emb.shape[1])
     logits = torch.einsum("dlk,kt->dlt", x, head)
     tags = torch.argmax(logits, dim=-1).to(torch.int32)
     return torch.where(_valid(corpus), tags, -1)

@@ -30,7 +30,7 @@ Usage:
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -298,3 +298,26 @@ _reg("normalize_axis", annotate(
 # -- operator table for Future dunders ---------------------------------------
 for _op in ("add", "subtract", "multiply", "divide", "power", "negative"):
     register_operator(_op, __all_ops__[_op])
+
+
+def __probe_examples__(n: int = 12, device: torch.device | str = "cuda") -> dict[str, Any]:
+    """Tiny concrete inputs per op for the annotation contract checker
+    (``core/analysis.py``): every value is chosen inside the op's domain
+    (arcsin/log need (0,1)) so the MZ108 whole-vs-merged comparison tests
+    the SA, not numerical edge cases.  Values may be a kwargs dict or a
+    list of them (one check per variant)."""
+    def lin(a: float, b: float, k: int) -> torch.Tensor:
+        return torch.linspace(a, b, k, dtype=torch.float32, device=device)
+
+    x, y = lin(0.1, 0.9, n), lin(0.2, 1.1, n)
+    m = (torch.arange(n * 4, dtype=torch.float32, device=device).reshape(n, 4) + 1.0) / (n * 4)
+    ex: dict[str, Any] = {name: {"x": x} for name in _UNARY}
+    ex.update({name: {"x": x, "y": y} for name in _BINARY})
+    ex["where"] = {"c": x > 0.5, "x": x, "y": y}
+    ex.update({name: {"x": x} for name in ("sum", "max", "min", "prod")})
+    ex["sum_axis"] = [{"x": m, "axis": 0}, {"x": m, "axis": 1}]
+    ex["compress"] = {"mask": x > 0.4, "x": x}
+    ex["matvec"] = {"m": m, "v": lin(0.1, 1.0, 4)}
+    ex["matmul"] = {"a": m, "b": lin(0.1, 1.2, 12).reshape(4, 3)}
+    ex["normalize_axis"] = [{"m": m, "axis": 0}, {"m": m, "axis": 1}]
+    return ex

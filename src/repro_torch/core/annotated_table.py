@@ -25,6 +25,7 @@ applied where the executors call a non-dynamic function).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Sequence
 
 import numpy as np
@@ -113,6 +114,29 @@ class TableSplit(st.SplitType):
                       for k in keys})
 
 
+#: flips the 63 low bits of a negative float64's bit pattern, so that the
+#: patterns, read as int64, sort as the floats do (``_unique_keys``).
+_LOW_BITS = 0x7FFFFFFFFFFFFFFF
+
+
+def _unique_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sorted unique keys and each row's group index, every NaN key in one
+    group sorted last, as the reference's ``np.unique`` (``equal_nan``)
+    groups them: ``torch.unique`` gives each NaN a group of its own.  A
+    floating key is grouped by its float64 bit pattern in the integer order
+    of the floats, after -0.0 is made 0.0 and every NaN the one positive
+    quiet NaN, which sorts after +inf."""
+    if not keys.is_floating_point():
+        return torch.unique(keys, sorted=True, return_inverse=True)
+    k = keys.double()
+    k = torch.where(k == 0, 0.0, k).masked_fill(torch.isnan(k), math.nan)
+    bits = k.view(torch.int64)
+    order, inv = torch.unique(bits ^ ((bits >> 63) & _LOW_BITS), sorted=True,
+                              return_inverse=True)
+    bits = order ^ ((order >> 63) & _LOW_BITS)
+    return bits.view(torch.float64).to(keys.dtype), inv
+
+
 def _resum(col: torch.Tensor, inv: torch.Tensor, n: int) -> torch.Tensor:
     """Float64 sums of ``col`` per group index ``inv``."""
     out = torch.zeros(n, dtype=torch.float64, device=col.device)
@@ -157,7 +181,7 @@ class GroupSplit(st.SplitType):
         # Re-aggregate the partials.  Partial columns already hold partial
         # sums/counts/extrema, so the second-level reduction is sum for
         # sum/count/mean and the op itself for max/min (associativity).
-        uniq, inv = torch.unique(cat[self.key_col], sorted=True, return_inverse=True)
+        uniq, inv = _unique_keys(cat[self.key_col])
         n = uniq.numel()
         if self.op == "sum":
             return Table({self.key_col: uniq, "sum": _resum(cat["sum"], inv, n)})
@@ -212,10 +236,10 @@ def _tree_nrows(aval_tree) -> int:
 
 def _group_reduce(t: Table, key: str, valcol: str, op: str) -> Table:
     """Group ``valcol`` by ``key``: keys sorted and unique (the key
-    column's dtype), float64 sums/means/extrema, int64 counts; ``mean``
-    carries (sum in ``mean``, float64 count in ``_cnt``), resolved by
-    ``finalize_mean``."""
-    uniq, inv = torch.unique(t.cols[key], sorted=True, return_inverse=True)
+    column's dtype, every NaN key one group, last), float64
+    sums/means/extrema, int64 counts; ``mean`` carries (sum in ``mean``,
+    float64 count in ``_cnt``), resolved by ``finalize_mean``."""
+    uniq, inv = _unique_keys(t.cols[key])
     n = uniq.numel()
     if op in ("sum", "mean", "count"):
         cnts = torch.zeros(n, dtype=torch.int64, device=inv.device)
@@ -298,7 +322,8 @@ _filter.sa.selective = "t"           # row-subset of t: pushdown-eligible
 _reg("filter_rows", _filter)
 
 
-def _groupby_agg(t: Table, key: str, val: str, op: str):
+def _group_reduce_partial(t: Table, key: str, val: str, op: str) -> Table:
+    """Per-chunk partial.  mean -> (sum in 'mean', count in '_cnt')."""
     return _group_reduce(t, key, val, op)
 
 
@@ -307,7 +332,7 @@ class _GroupRet(st.SplitSpec):
         return GroupSplit(bound["op"], bound["key"], bound["val"])
 
 
-_gb = annotate(_groupby_agg, name="groupby_agg", static=("key", "val", "op"),
+_gb = annotate(_group_reduce_partial, name="groupby_agg", static=("key", "val", "op"),
                t=st.Generic("S"), ret=_GroupRet())
 _gb.sa.dynamic = True
 _reg("groupby_agg", _gb)

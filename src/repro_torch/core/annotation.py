@@ -165,6 +165,11 @@ class AnnotatedFn:
                      for k, v in bound.items()}
         return self.fn(**bound)
 
+    def call_raw(self, bound: dict[str, Any]) -> Any:
+        """The bare library function on ``bound`` as given: no narrowing
+        (the contract checker's MZ108 tests the function, not the boundary)."""
+        return self.fn(**bound)
+
     # -- laziness -----------------------------------------------------------
     def __call__(self, *args, **kwargs):
         from repro_torch.core.runtime import current_context

@@ -427,10 +427,22 @@ class Pipeline:
                 f"executables={sorted(e.exec_table())}")
 
     def verify(self, *args, **kwargs):
-        """Static analysis of this pipeline: waits for the port of the
-        checking layers (``core/analysis.py``, ROADMAP A10)."""
-        raise NotImplementedError(
-            "Pipeline.verify needs the port of core/analysis.py (ROADMAP A10)")
+        """Static analysis of this pipeline (never executes it): trace with
+        the given example arguments — or the ones ``lower()`` saw — and run
+        the Mozart dataflow analyzer (``repro_torch.core.analysis``, MZ2xx
+        codes) under this Pipeline's configuration, on its device (which
+        stands where the reference passes its mesh).  Returns an
+        ``analysis.Report``."""
+        from repro_torch.core import analysis
+        self._require_fn()
+        if not args and not kwargs and self._example is not None:
+            args, kwargs = self._example
+        c = self.ctx
+        return analysis.verify_pipeline(
+            lambda *a: self.fn(*a, **kwargs), *args,
+            executor=c.executor, chip=c.chip, device=c.device,
+            batch_elements=c.batch_elements, pipeline=c.pipeline,
+            handoff=c.handoff, rewrite=c.rewrite)
 
     def _require_fn(self) -> None:
         if self.fn is None:

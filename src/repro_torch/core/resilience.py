@@ -53,9 +53,8 @@ A failed attempt is re-driven only if it released no stream
 ``stage_exec.mark_stream_consumed``): torch has no buffer donation, and a
 counted donation point (``donated_chunks``) releases nothing until the
 stage has consumed its inputs.  The MZ4xx events as ``analysis.Diagnostic``s
-and the refusal of boundary-sanitizer errors wait for the port of
-``core/analysis.py`` and the sanitizer (ROADMAP A10); ``events()`` returns
-plain records meanwhile.
+and the refusal of boundary-sanitizer errors wait for the port of the
+sanitizer (ROADMAP A10.2); ``events()`` returns plain records meanwhile.
 """
 
 from __future__ import annotations
@@ -163,17 +162,6 @@ def note_swallowed(where: str, e: BaseException, ctx=None) -> None:
 # Event log (MZ4xx records)
 # ---------------------------------------------------------------------------
 
-#: the MZ4xx vocabulary (the reference keeps it in ``analysis.CODES``).
-CODES = {
-    "MZ401": "fault fired at an instrumented boundary (injected or real)",
-    "MZ402": "executor demoted down the degradation ladder",
-    "MZ403": "chunk batch halved after resource exhaustion and re-pinned",
-    "MZ404": "executor quarantined in the plan entry (aging until retry)",
-    "MZ405": "serving step failed; affected requests failed, driver survived",
-    "MZ406": "transient error swallowed at a probe site (counted, not hidden)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class Event:
     """One recorded MZ4xx event, shaped as the reference's ``Diagnostic``."""
@@ -197,7 +185,9 @@ def record_event(code: str, where: str, severity: str = "warning") -> None:
 
 
 def events() -> list:
-    """The recorded MZ4xx events (most recent last)."""
+    """The recorded MZ4xx events (most recent last), each with its code's
+    meaning from ``analysis.CODES``."""
+    from repro_torch.core.analysis import CODES
     return [Event(code, sev, where, CODES.get(code, code))
             for code, sev, where in list(_events)]
 

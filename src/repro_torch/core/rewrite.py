@@ -47,9 +47,10 @@ calls :func:`replay` it, which does none of the analysis
 (``ctx.stats``: ``rewrite_passes`` counts analyses, ``rewrite_replays``
 replays, ``rewrite_simulations`` the planner simulations MZ504 runs).
 
-Not ported yet: ``records_to_diagnostics`` (the records as
-``analysis.Diagnostic``), ``lint --rewrite-report`` and ``mozart.verify``'s
-rewrite report need the port of ``core/analysis.py`` (ROADMAP A10).
+``records_to_diagnostics`` gives the records as ``analysis.Diagnostic``s:
+``mozart.verify`` and ``analysis.rewrite_report`` report a dry run of the
+pass so.  ``lint --rewrite-report`` waits for ``launch/lint.py`` (ROADMAP
+A10.2).
 """
 
 from __future__ import annotations
@@ -69,15 +70,6 @@ from repro_torch.core.graph import DataflowGraph, Node, NodeRef, live_consumers
 #: assumed selectivity of a filter whose mask is unknowable statically; the
 #: cost-model justification for a pushdown states it explicitly.
 ASSUMED_SELECTIVITY = 0.5
-
-#: MZ5xx code -> meaning (the reference keeps it in ``analysis.CODES``).
-CODES = {
-    "MZ501": "dead stage eliminated by the rewrite pass",
-    "MZ502": "common subexpression shared: duplicate call collapsed",
-    "MZ503": "selective stage pushed ahead of an elementwise map",
-    "MZ504": "stage chain reassociated into fewer stages for splitting",
-    "MZ505": "rewrite declined with reason",
-}
 
 #: rewrite kind -> MZ5xx code.
 REWRITE_CODES = {
@@ -108,6 +100,19 @@ class RewriteRecord:
         return cls(code=str(d["code"]), kind=str(d["kind"]),
                    subject=str(d["subject"]), detail=str(d["detail"]),
                    saved_s=float(d.get("saved_s", 0.0)))
+
+
+def records_to_diagnostics(records: list) -> list:
+    """RewriteRecords as MZ5xx ``analysis.Diagnostic``s (all info-severity:
+    rewrites are optimizations, never gate failures)."""
+    from repro_torch.core.analysis import Diagnostic
+    out = []
+    for r in records:
+        msg = r.detail
+        if r.kind != "declined" and r.saved_s > 0:
+            msg = f"{msg} (est {r.saved_s * 1e6:.1f}us saved)"
+        out.append(Diagnostic(r.code, "info", r.subject, msg))
+    return out
 
 
 @dataclasses.dataclass

@@ -260,3 +260,13 @@ def evaluate() -> None:
     ctx = current_context()
     if ctx is not None:
         ctx.evaluate()
+
+
+def verify(target=None, *args, **kwargs):
+    """``mozart.verify()``: lint every registered split annotation, or
+    ``mozart.verify(fn, *args, executor=...)``: trace one pipeline and run
+    the dataflow analyzer over its plan.  Both run on the card unless given
+    ``device="cpu"``.  Returns an ``analysis.Report``; see
+    ``repro_torch.core.analysis`` for the MZ codes."""
+    from repro_torch.core import analysis
+    return analysis.verify(target, *args, **kwargs)

@@ -809,6 +809,22 @@ def _lib_case(name):
         return tb.groupby_agg, lambda dev: dict(
             t=tb.Table({k: c.to(dev) for k, c in t.cols.items()}), key="city", val="crime",
             op="max")
+    if name == "groupby_agg_nan":
+        keys = r.randint(0, 50, 100_003).astype(np.float64)
+        keys[r.rand(100_003) < 0.1] = np.nan
+        t = tb.Table({"city": torch.from_numpy(keys),
+                      "crime": torch.from_numpy(r.rand(100_003))})
+        return tb.groupby_agg, lambda dev: dict(
+            t=tb.Table({k: c.to(dev) for k, c in t.cols.items()}), key="city", val="crime",
+            op="count")
+    if name == "pos_tag_out_of_range":
+        toks = torch.from_numpy(r.randint(-10_000, 10_000, (3001, 64)).astype(np.int32))
+        c = nlp.Corpus(toks, torch.full((3001,), 64, dtype=torch.int32))
+        emb = torch.from_numpy(r.randn(5000, 32).astype(np.float32))
+        head = torch.from_numpy(r.randn(32, 17).astype(np.float32))
+        return nlp.pos_tag, lambda dev: dict(corpus=nlp.Corpus(c.tokens.to(dev),
+                                                               c.lengths.to(dev)),
+                                             emb=emb.to(dev), head=head.to(dev))
     if name == "modulate":
         im = w.image(301, 257, device="cpu")
         return img.modulate, lambda dev: dict(img=im.to(dev), brightness=120.0,
@@ -822,12 +838,17 @@ def _lib_case(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("executor", ["eager", "pipelined", "cuda"])
-@pytest.mark.parametrize("name", ["groupby_agg", "modulate", "pos_tag"])
+@pytest.mark.parametrize("name", ["groupby_agg", "modulate", "pos_tag", "groupby_agg_nan",
+                                  "pos_tag_out_of_range"])
 def test_library_op_on_the_card_matches_the_cpu(name, executor):
     """One op of each integration on CUDA tensors against the same op on
     CPU tensors (results on the card, dtypes equal; group keys, counts and
     tags exactly but for tag near-ties, float64 extrema exactly, float32
-    images within 2e-5); on ``cuda`` the stage falls back to ``fused``."""
+    images within 2e-5); on ``cuda`` the stage falls back to ``fused``.
+    ``groupby_agg_nan``: float64 keys with NaNs form one NaN group, last,
+    also against numpy (ROADMAP C11; ``torch.unique`` on CUDA is another
+    implementation); ``pos_tag_out_of_range``: ids outside the vocabulary
+    wrap once and clamp, with no device assert (ROADMAP C12)."""
     _card()
     from repro_torch.core import mozart
     fn, args = _lib_case(name)
@@ -838,7 +859,15 @@ def test_library_op_on_the_card_matches_the_cpu(name, executor):
         if executor == "cuda":
             assert ctx.stats["cuda_fallback_stages"] == ctx.stats["stages"] == 1
     got, want = out["cuda"], out["cpu"]
-    if name == "groupby_agg":
+    if name == "groupby_agg_nan":
+        keys = args("cpu")["t"].cols["city"].numpy()
+        nan = np.isnan(keys)
+        uniq = np.append(np.unique(keys[~nan]), np.nan)
+        np.testing.assert_array_equal(got.cols["city"].cpu().numpy(), uniq)
+        np.testing.assert_array_equal(
+            got.cols["count"].cpu().numpy(),
+            [int((keys == k).sum()) for k in uniq[:-1]] + [int(nan.sum())])
+    if name.startswith("groupby_agg"):
         assert all(c.is_cuda for c in got.cols.values())
         for k in want.cols:
             assert got.cols[k].dtype == want.cols[k].dtype
@@ -849,3 +878,50 @@ def test_library_op_on_the_card_matches_the_cpu(name, executor):
     else:
         assert got.is_cuda and got.dtype == want.dtype == torch.int32
         assert float((got.cpu() != want).float().mean()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_verify_sweep_on_the_card_matches_the_cpu():
+    """``mozart.verify()`` on the card: every probe value on the card, no
+    error, and the CPU sweep's ``checked`` and (code, severity, subject)
+    multiset."""
+    _card()
+    import collections
+    from repro_torch.core import analysis, mozart
+    probes = analysis.builtin_probes()
+    leaves = [l for p in probes for v in (p.value, p.pieces, p.reference) if v is not None
+              for l in torch.utils._pytree.tree_leaves(v) if isinstance(l, torch.Tensor)]
+    assert leaves and all(l.is_cuda for l in leaves)
+    rep, cpu = mozart.verify(), mozart.verify(device="cpu")
+
+    def multiset(r):
+        return collections.Counter((d.code, d.severity, d.subject) for d in r.diagnostics)
+
+    assert rep.ok and not rep.warnings, rep.render()
+    assert rep.checked == cpu.checked == 83 and multiset(rep) == multiset(cpu)
+
+
+@pytest.mark.cuda
+def test_verify_pipeline_on_the_card_launches_nothing():
+    """``mozart.verify(black_scholes, ..., executor="cuda")`` on card data:
+    no kernel launch, no plan-cache entry, no memory left allocated; a
+    ``cuda`` session on the same inputs then launches once per stage the
+    verifier walked, and the session's rewrite records carry the codes
+    the verifier reported."""
+    _card()
+    from repro_torch import workloads as w
+    from repro_torch.core import mozart, plan_cache
+    from repro_torch.kernels import split_pipeline as sp
+    data = w.black_scholes_data(1 << 20, device="cuda")
+    launches, mem = sp.split_pipeline.launches, torch.cuda.memory_allocated()
+    rep = mozart.verify(w.black_scholes, *data.values(), executor="cuda")
+    assert rep.ok, rep.render()
+    assert sp.split_pipeline.launches == launches
+    assert plan_cache.cache_info()["entries"] == 0
+    assert torch.cuda.memory_allocated() == mem
+    with mozart.session(executor="cuda") as ctx:
+        call, put = w.black_scholes(**data)
+        call.value, put.value
+    assert ctx.stats["stages"] == rep.checked == sp.split_pipeline.launches - launches
+    assert sorted(d.code for d in rep.diagnostics if d.code.startswith("MZ5")) == \
+        sorted(r.code for r in ctx._last_rewrites)

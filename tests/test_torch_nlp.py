@@ -87,6 +87,44 @@ def test_argmax_takes_the_first_maximal_tag():
     assert set(np.unique(got.numpy())) <= {-1, 1}
 
 
+#: token ids outside [0, V) for V = 10 (ROADMAP C12): JAX's gather reads
+#: rows [0, 9, 9, 9, 9, 0] (a negative id wraps once, then every id clamps).
+OOB_IDS = [0, 9, 10, 12, -1, -11]
+OOB_ROWS = [0, 9, 9, 9, 9, 0]
+
+
+def _oob_corpora():
+    """Six documents, each a rotation of ``OOB_IDS``, lengths 6, 6, 5, 4, 6, 3."""
+    toks = np.stack([np.roll(OOB_IDS, i) for i in range(6)]).astype(np.int32)
+    lengths = np.array([6, 6, 5, 4, 6, 3], np.int32)
+    return (tnlp.Corpus(torch.from_numpy(toks), torch.from_numpy(lengths)),
+            jnlp.Corpus(jnp.asarray(toks), jnp.asarray(lengths)))
+
+
+def _oob_model():
+    r = np.random.RandomState(7)
+    return r.randn(10, 4).astype(np.float32), r.randn(4, 6).astype(np.float32)
+
+
+def _tag(nlp):
+    return lambda corpus, emb, head: nlp.pos_tag(corpus, emb, head)
+
+
+@pytest.mark.parametrize("executor", EXECUTORS)
+def test_out_of_range_ids_read_the_rows_jax_reads(executor):
+    c, jc = _oob_corpora()
+    emb, head = _oob_model()
+    (tags,), _ = check_pair(_tag(tnlp), (c, torch.from_numpy(emb), torch.from_numpy(head)),
+                            _tag(jnlp), (jc, jnp.asarray(emb), jnp.asarray(head)),
+                            executor, 2)
+    rows = dict(zip(OOB_IDS, OOB_ROWS))
+    want = np.argmax(emb[np.vectorize(rows.get)(c.tokens.numpy())] @ head, axis=-1)
+    valid = np.arange(6)[None] < c.lengths.numpy()[:, None]
+    np.testing.assert_array_equal(tags, np.where(valid, want, -1))
+    same_values(to_np(tnlp._pos_tag(c, torch.from_numpy(emb), torch.from_numpy(head))),
+                to_np(jnlp._pos_tag(jc, jnp.asarray(emb), jnp.asarray(head))))
+
+
 def test_corpus_split_roundtrip():
     c, jc = _corpora(17, 8, 50, 0)
     t, jt = tnlp.CorpusSplit(17), jnlp.CorpusSplit(17)

@@ -1,6 +1,6 @@
 """The port's AOT pipeline API (``mozart.pipeline``), case for case the
 reference's ``tests/test_pipeline.py`` where the port has the machinery
-(``sharded`` waits for ROADMAP A8, ``verify`` for A10), and held against the
+(``sharded`` waits for ROADMAP A8), and held against the
 JAX package: the same pipeline compiled on both sides is warm on both, its
 warm calls show the same zeros in ``last_call_stats`` (planner calls,
 tuning and measurement runs, traces), and the outputs agree within float32
@@ -136,24 +136,64 @@ class TestLifecycle:
             mozart.pipeline(quickstart, executor="cuda")
 
     def test_verify_waits_for_the_checking_layers(self):
-        with pytest.raises(NotImplementedError, match="A10"):
-            _pipe(quickstart).verify()
+        """``Pipeline.verify`` (a stub until the checking layers were ported;
+        the test keeps its name): on quickstart and Black-Scholes, lowered
+        then warm, the reference ``Pipeline.verify``'s (code, severity,
+        subject) with node ids renumbered, nothing executed, and the
+        recorded handoff reused where the reference reuses it (a graph the
+        rewrite pass leaves alone: quickstart; Black-Scholes' MZ502 makes
+        its entry describe another graph, so both packages re-analyze)."""
+        from test_torch_analysis import _normalized
+        from benchmarks import workloads as jw
+        from repro.core import plan_cache as jpc
+        from repro_torch import workloads as tw
+        x, y = _data(1024)
+        bs = tw.black_scholes_data(1024, device="cpu")
+        cases = [(quickstart, jquickstart, (x, y), (jnp.asarray(x.numpy()), jnp.asarray(y.numpy())),
+                  1),
+                 (tw.black_scholes, jw.black_scholes, tuple(bs.values()),
+                  tuple(jnp.asarray(v.numpy()) for v in bs.values()), 0)]
+        jpc.clear()
+        for fn, jfn, args, jargs, reused in cases:
+            p = _pipe(fn, executor="cuda", autotune=False).lower(*args)
+            jp = jmozart.pipeline(jfn, executor="pallas", autotune=False).lower(*jargs)
+            before = dict(p.ctx.stats)
+            rep, jrep = p.verify(), jp.verify()
+            assert dict(p.ctx.stats) == before              # traced, never run
+            assert rep.ok and _normalized(rep) == _normalized(jrep) != []
+            p(*args), p(*args)
+            jp(*jargs), jp(*jargs)
+            base, jbase = (plan_cache.stats["verify_handoff_reused"],
+                           jpc.stats["verify_handoff_reused"])
+            entries = plan_cache.cache_info()["entries"]
+            rep, jrep = p.verify(*args), jp.verify(*jargs)
+            assert _normalized(rep) == _normalized(jrep)
+            assert plan_cache.stats["verify_handoff_reused"] - base == reused
+            assert jpc.stats["verify_handoff_reused"] - jbase == reused
+            assert plan_cache.cache_info()["entries"] == entries
+        jpc.clear()
+        with pytest.raises(TypeError, match="wraps no function"):
+            Pipeline(None, device="cpu").verify()
 
     def test_core_exports_every_reference_name_but_the_checking_layers(self):
-        """``repro_torch.core`` re-exports what ``repro.core`` does
-        (``Pipeline``, ``ChunkStream``, ``bytes_materialized`` among them),
-        the same objects as its submodules', except the checking layers'
-        names, which wait for ROADMAP A10."""
+        """``repro_torch.core`` re-exports every name ``repro.core`` does
+        (the checking layers' ``CODES``, ``Diagnostic``, ``Report`` and
+        ``verify`` included, which once waited; the test keeps its name),
+        the same objects as its submodules', plus the port's named extras."""
         import repro.core as jcore
         import repro_torch.core as tcore
-        waiting = {"CODES", "Diagnostic", "Report", "verify"}
-        missing = set(jcore.__all__) - set(tcore.__all__)
-        assert missing == waiting
+        from repro_torch.core import analysis
+        assert set(jcore.__all__) - set(tcore.__all__) == set()
+        assert set(tcore.__all__) - set(jcore.__all__) == {
+            "plan_cache", "cost_model", "pipeline", "resilience", "rewrite", "bytes_interior"}
         assert all(hasattr(tcore, name) for name in tcore.__all__)
         from repro_torch.core import ChunkStream, bytes_materialized
         assert tcore.Pipeline is Pipeline
         assert ChunkStream is stage_exec.ChunkStream
         assert bytes_materialized is stage_exec.bytes_materialized
+        assert (tcore.CODES, tcore.Diagnostic, tcore.Report, tcore.verify) == \
+            (analysis.CODES, analysis.Diagnostic, analysis.Report, analysis.verify)
+        assert mozart.verify(n=8, device="cpu").ok
 
     def test_describe_and_buckets(self):
         x, y = _data()

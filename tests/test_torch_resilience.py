@@ -22,8 +22,7 @@ swallow; on ``cuda`` only injected faults and resource exhaustion demote;
 ``torch.OutOfMemoryError`` is resource exhaustion; a failed attempt is
 re-driven when it counted a donation point but released no stream, never
 when it released one.  ``test_sanitizer_errors_are_never_demoted_around``
-and ``test_mz4xx_codes_registered`` wait for the port of
-``core/analysis.py`` (ROADMAP A10).
+waits for the port of the sanitizer (ROADMAP A10.2).
 """
 
 import asyncio
@@ -627,7 +626,8 @@ def test_note_swallowed_is_counted_and_evented_but_reraises_kernel_faults():
     assert resilience.stats["swallowed:unit_test"] == 1
     ev = resilience.events()
     assert any(d.code == "MZ406" and "unit_test" in d.subject for d in ev)
-    assert ev[-1].message == resilience.CODES["MZ406"]
+    from repro_torch.core.analysis import CODES
+    assert ev[-1].message == CODES["MZ406"]
     with pytest.raises(KernelError):
         resilience.note_swallowed("unit_test", KernelError("launch failed"))
     assert resilience.stats["swallowed_errors"] == 1
@@ -987,3 +987,14 @@ def test_run_with_restarts_gives_up_after_max():
             lambda step: (None, 0), run_from,
             fault_cfg=FaultConfig(max_restarts=1, backoff_s=0.0),
             latest_step=lambda: None)
+
+
+def test_mz4xx_codes_registered():
+    """The resilience layer's MZ4xx codes stand in the verifier's table,
+    with the reference's meanings."""
+    from repro.core.analysis import CODES as JCODES
+    from repro_torch.core.analysis import CODES
+    for code in ("MZ401", "MZ402", "MZ403", "MZ404", "MZ405", "MZ406"):
+        assert CODES[code] == JCODES[code]
+    resilience.record_event("MZ402", "unit test")
+    assert resilience.events()[-1].message == CODES["MZ402"]

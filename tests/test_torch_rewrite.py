@@ -18,8 +18,9 @@ MZ5xx record fires and declines for the documented reason, CSE never merges
 calls that could differ (a property test), warm calls replay the rewritten
 graph from the schema-v7 plan cache with zero planner calls and zero traces,
 v6 files migrate forward, and the ``MOZART_REANALYZE_EVERY`` tick refreshes
-the records.  ``test_verify_*`` and ``test_lint_*`` wait for the port of
-``core/analysis.py`` (ROADMAP A10).
+the records.  ``test_verify_*`` have their counterparts in
+``tests/test_torch_analysis.py``; ``test_lint_*`` wait for the port of
+``launch/lint.py`` (ROADMAP A10.2).
 """
 
 import json

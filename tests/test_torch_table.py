@@ -264,6 +264,84 @@ def test_groupby_chunking_invariant(n, batch, seed):
 
 
 # ---------------------------------------------------------------------------
+# NaN group keys (ROADMAP C11): one group, sorted last, as np.unique
+# ---------------------------------------------------------------------------
+
+OPS = ["sum", "count", "mean", "max", "min"]
+
+
+def nan_key_cols(n=160, seed=0):
+    """Float64 keys 0-4 (-0.0 beside 0.0), 10% of them NaN, and float64
+    values, from a seeded ``RandomState``."""
+    r = np.random.RandomState(seed)
+    key = r.randint(0, 5, n).astype(np.float64)
+    key[(key == 0) & (r.rand(n) < 0.5)] = -0.0
+    key[r.rand(n) < 0.1] = np.nan
+    return {"key": key, "val": r.rand(n) * 10}
+
+
+def _nan_oracle(cols, op):
+    """numpy per group, the NaN rows one group last: (keys, values, counts)."""
+    key, val = cols["key"], cols["val"]
+    nan = np.isnan(key)
+    keys = np.unique(key[~nan])
+    rows = [val[key == k] for k in keys] + [val[nan]]
+    fold = dict(sum=np.sum, count=len, mean=np.sum, max=np.max, min=np.min)[op]
+    return (np.append(keys, np.nan), np.array([fold(r) for r in rows], np.float64),
+            np.array([len(r) for r in rows]))
+
+
+@pytest.mark.parametrize("executor", EXECUTORS)
+@pytest.mark.parametrize("op", OPS)
+def test_nan_keys_form_one_group_sorted_last(op, executor):
+    cols = nan_key_cols()
+    assert np.isnan(cols["key"]).sum() > 5 and (np.signbit(cols["key"]) & (cols["key"] == 0)).any()
+    t, jt = _tables(cols)
+    pipe = lambda tb: (lambda t: tb.groupby_agg(t, key="key", val="val", op=op))
+    (res,), ctx = check_pair(pipe(ttb), (t,), pipe(jtb), (jt,), executor, 16)
+    if executor != "eager":
+        assert ctx.stats["chunks"] > 5                # partials merged by GroupSplit
+    keys, vals, counts = _nan_oracle(cols, op)
+    assert np.isnan(res["key"][-1]) and not np.isnan(res["key"][:-1]).any()
+    np.testing.assert_array_equal(res["key"], keys)
+    np.testing.assert_allclose(res[op], vals, rtol=1e-9)
+    if op == "mean":
+        np.testing.assert_array_equal(res["_cnt"], counts)
+    same_values(to_np(ttb._group_reduce(t, "key", "val", op)),
+                to_np(jtb._group_reduce(jt, "key", "val", op)), "whole")
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_group_split_merges_nan_keyed_partials_as_the_reference(op):
+    cols = nan_key_cols(n=97, seed=3)
+    t, jt = _tables(cols)
+    ranges = [(s, min(s + 20, 97)) for s in range(0, 97, 20)]
+    parts = [ttb._group_reduce_partial(ttb.TableSplit(97).split(t, s, e), "key", "val", op)
+             for s, e in ranges]
+    jparts = [jtb._group_reduce_partial(jtb.TableSplit(97).split(jt, s, e), "key", "val", op)
+              for s, e in ranges]
+    assert all(np.isnan(p.cols["key"].numpy()).sum() <= 1 for p in parts)
+    got = to_np(ttb.GroupSplit(op, "key", "val").merge(parts))
+    same_values(got, to_np(jtb.GroupSplit(op, "key", "val").merge(jparts)), "merge")
+    keys, vals, _ = _nan_oracle(cols, op)
+    np.testing.assert_array_equal(got["key"], keys)
+    np.testing.assert_allclose(got[op], vals, rtol=1e-9)
+
+
+def test_integer_and_signed_zero_keys_keep_their_groups():
+    """Integer keys take ``torch.unique`` as before; float keys -0.0 and
+    0.0 stay one group, as in the reference."""
+    keys = np.array([3, -1, 3, 0, 7, -1], np.int64)
+    t, jt = _tables({"k": keys, "v": np.arange(6.0)})
+    same_values(to_np(ttb._group_reduce(t, "k", "v", "sum")),
+                to_np(jtb._group_reduce(jt, "k", "v", "sum")))
+    t, jt = _tables({"k": np.array([0.0, -0.0, 1.5, -0.0]), "v": np.arange(4.0)})
+    got = to_np(ttb._group_reduce(t, "k", "v", "count"))
+    same_values(got, to_np(jtb._group_reduce(jt, "k", "v", "count")))
+    np.testing.assert_array_equal(got["count"], [3, 1])
+
+
+# ---------------------------------------------------------------------------
 # tests/test_differential.py's table surface
 # ---------------------------------------------------------------------------
 
