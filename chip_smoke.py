@@ -249,7 +249,21 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              over 2**22 float64 keys with NaNs (ROADMAP C11: one NaN group,
              last, against the CPU and numpy) and ``pos_tag`` on ids outside
              the vocabulary (C12: no device assert, the rows JAX reads);
-             a ``{"verify": ...}`` JSON line.
+             a ``{"verify": ...}`` JSON line;
+14. lint   — the checking layer's runtime half (ROADMAP A10.2) and the
+             analytic roofline (A11): ``python -m repro_torch.launch.lint``
+             on the card (exit 0, every probe and op output on the card, the
+             report equal to ``--device cpu``'s, both timed); with
+             ``MOZART_SANITIZE=1`` the handoff chain at n = 2**27 on
+             ``fused``, ``scan`` and ``cuda`` bit-equal to the unsanitized
+             run with the same counters and split-pipeline launches; MZ301
+             (a scan carry a ``cuda`` launch released, read again), MZ302 (a
+             holed stream at a ``cuda`` stage's ingest: no demotion, no
+             MZ402) and MZ303 (a corrupted scope) raised on card tensors; a
+             warm ``cuda`` Black-Scholes at 2**27 timed with the sanitizer
+             on and off in turns; ``model_flops`` and ``roofline_terms`` of
+             the train phase's step and the serve phase's prefill beside
+             their measured times; a ``{"lint": ...}`` JSON line.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -4303,6 +4317,282 @@ def phase_verify(sp) -> dict:
     log(f"[verify] phase {out['seconds']:.1f} s")
     return out
 
+LINT_ROUNDS = 10                 # timed Black-Scholes evaluations per sanitizer setting
+SANITIZE_BATCH = 1 << 20         # the MZ301 case: a scan carry of 128 rows, no tail
+
+
+@contextlib.contextmanager
+def sanitizer(on: bool):
+    """``MOZART_SANITIZE`` set to 1 or 0 for the block, then restored."""
+    prev = os.environ.get("MOZART_SANITIZE")
+    os.environ["MOZART_SANITIZE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("MOZART_SANITIZE", None)
+        else:
+            os.environ["MOZART_SANITIZE"] = prev
+
+
+@contextlib.contextmanager
+def expect_trip(code: str, what: str):
+    """The block must raise a ``SanitizerError`` carrying ``code``."""
+    from repro_torch.core.stage_exec import SanitizerError
+    try:
+        yield
+    except SanitizerError as e:
+        if f"[{code}]" not in str(e):
+            raise AssertionError(f"{what}: {code} expected, got {e}") from e
+        log(f"[lint] {what}: {code} raised on {DEVICE}: {str(e)[:160]}")
+        return
+    raise AssertionError(f"{what}: no {code} raised")
+
+
+def lint_runs() -> dict:
+    """(a) ``python -m repro_torch.launch.lint`` on the card (exit 0, every
+    probe and op output on the card) against ``--device cpu`` in the same
+    process: the same checked count and (code, severity, subject)
+    multiset."""
+    from repro_torch.core import plan_cache
+    from repro_torch.launch import lint
+    plan_cache.clear()                  # live entries are subjects of MZ205
+    out = {}
+    paths = {d: ROOT / "build" / f"lint_{d}.json" for d in (DEVICE, "cpu")}
+    paths[DEVICE].parent.mkdir(parents=True, exist_ok=True)
+    dev = torch.device(DEVICE).type
+    for device in (DEVICE, "cpu"):
+        argv = ["--json", str(paths[device])] + (["--device", device] if device != DEVICE else [])
+        with watched_devices() as seen, contextlib.redirect_stdout(None):
+            t0 = time.perf_counter()
+            rc = lint.main(argv)
+            secs = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"lint {argv} exited {rc}: {paths[device].read_text()}")
+        if device == DEVICE and (set(seen["probes"]) != {dev} or set(seen["outputs"]) != {dev}):
+            raise AssertionError(f"lint: probes on {dict(seen['probes'])}, op outputs on "
+                                 f"{dict(seen['outputs'])}, not all on {dev}")
+        rep = json.loads(paths[device].read_text())
+        out[device] = {"checked": rep["checked"], "seconds": secs,
+                       "codes": collections.Counter(f"{d['code']} {d['severity']}"
+                                                    for d in rep["diagnostics"]),
+                       "subjects": collections.Counter((d["code"], d["severity"], d["subject"])
+                                                       for d in rep["diagnostics"])}
+    card, host = out[DEVICE], out["cpu"]
+    if card["checked"] != host["checked"] or card["subjects"] != host["subjects"]:
+        raise AssertionError(f"lint on {DEVICE}: {card['checked']} checked "
+                             f"{sorted(card['subjects'].items())} vs the CPU's {host['checked']} "
+                             f"{sorted(host['subjects'].items())}")
+    log(f"[lint] python -m repro_torch.launch.lint on {DEVICE}: exit 0, {card['checked']} "
+        f"checked, {dict(card['codes'])}, every probe and op output on {dev}; equal to "
+        f"--device cpu ({host['checked']} checked, the same (code, severity, subject) "
+        f"multiset); {card['seconds']:.2f} s on the card, {host['seconds']:.2f} s on the CPU "
+        f"({card_line()})")
+    return {"checked": card["checked"], "codes": dict(card["codes"]),
+            "card_s": card["seconds"], "cpu_s": host["seconds"]}
+
+
+def sanitized_chains(sp) -> dict:
+    """(b) The handoff chain at n = 2**27, handoff on, on ``fused``,
+    ``scan`` and ``cuda`` with ``MOZART_SANITIZE=1``: outputs bit-equal to
+    the unsanitized run, the same counters and the same split-pipeline
+    launches, every released stream poisoned (one zero-byte donate event
+    each), no trip."""
+    x = torch.linspace(0.0, 1.0, N_MAIN, device=DEVICE)
+    out = {}
+    for ex in ("fused", "scan", "cuda"):
+        with sanitizer(False):
+            for _warm in range(2):      # plan (miss), then the first hit tunes
+                handoff_chain(x, ex, True)
+        runs = {}
+        for on in (False, True):
+            with sanitizer(on):
+                before = sp.split_pipeline.launches
+                got, ctx = handoff_chain(x, ex, True)
+                runs[on] = (got, dict(ctx.stats), sp.split_pipeline.launches - before,
+                            [e for e in ctx.counters.materialize_events()
+                             if e[0] == "interior:donate"])
+        (off_v, off_st, off_l, off_d), (on_v, on_st, on_l, on_d) = runs[False], runs[True]
+        if not torch.equal(on_v, off_v):
+            raise AssertionError(f"sanitized {ex}: outputs differ from the unsanitized run")
+        if on_st != off_st or on_l != off_l:
+            raise AssertionError(f"sanitized {ex}: stats {on_st} launches {on_l} vs "
+                                 f"{off_st} / {off_l}")
+        if ex == "cuda" and on_l != 2:
+            raise AssertionError(f"sanitized cuda: {on_l} split-pipeline launches, not 2")
+        if on_st.get("stream_ingests", 0) == 0 or \
+                (ex != "cuda" and on_st.get("streams_released", 0) == 0):
+            raise AssertionError(f"sanitized {ex}: no stream checked or released: {on_st}")
+        if off_d or len(on_d) != on_st.get("streams_released", 0):
+            raise AssertionError(f"sanitized {ex}: donate events {on_d} / {off_d} for "
+                                 f"{on_st.get('streams_released', 0)} released streams")
+        out[ex] = {"launches": on_l, "streams_released": on_st.get("streams_released", 0),
+                   "stream_ingests": on_st.get("stream_ingests", 0)}
+        log(f"[lint] sanitized handoff chain on {ex} (n = {N_MAIN}): outputs bit-equal to "
+            f"the unsanitized run, stats equal, split-pipeline launches {on_l} (unsanitized "
+            f"{off_l}), {on_st.get('stream_ingests', 0)} stream ingests checked (MZ302), "
+            f"{len(on_d)} released streams poisoned (MZ301), no trip")
+        del off_v, on_v, runs
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def sanitizer_trips(sp) -> dict:
+    """(c) Each code raised with card tensors, none demoted: MZ301 on a scan
+    carry a real ``cuda`` launch released, read again; MZ302 on a holed
+    stream at a ``cuda`` stage's ingest (under the degradation ladder: no
+    demotion, no MZ402, no launch); MZ303 on a session's corrupted counter
+    scope."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import executor as ex_mod
+    from repro_torch.core import mozart, resilience
+    from repro_torch.core import stage_exec as se
+    x = torch.linspace(0.0, 1.0, N_MAIN, device=DEVICE)
+    out = {}
+    with sanitizer(True):
+        before = sp.split_pipeline.launches
+        with mozart.session(executor="scan", batch_elements=SANITIZE_BATCH,
+                            device=DEVICE) as ctx:
+            a = anp.multiply(anp.add(x, 1.0), 0.5)
+            mozart.evaluate()
+            stream = a._node.result
+            mozart.configure(executor="cuda")
+            b = anp.add(a, 1.0)
+            del a
+            mozart.evaluate()
+            launched = sp.split_pipeline.launches - before
+            if launched != 1 or ctx.stats.get("cuda_ingest_carry", 0) != 1 \
+                    or not stream.consumed:
+                raise AssertionError(f"MZ301 case: {launched} launches, {dict(ctx.stats)}")
+            with expect_trip("MZ301", "a scan carry released by a cuda launch, read again"):
+                stream.materialize()
+            compare("MZ301 case: the consumer's output", b.value[:PREFIX],
+                    x[:PREFIX] * 0.5 + 1.5, 2e-5)
+            del b, stream
+        out["MZ301"] = {"launches": launched, "released": ctx.stats["streams_released"]}
+
+        real = se.finish_stage
+
+        def holed(stage, partials, ranges=None, ctx=None):
+            real(stage, partials, ranges, ctx)
+            for node in stage.nodes:
+                if isinstance(node.result, se.ChunkStream):
+                    s1, e1 = node.result.ranges[1]
+                    node.result.ranges[1] = (s1 + 1, e1)
+        ex_mod.finish_stage = holed
+        before = sp.split_pipeline.launches
+        try:
+            with expect_trip("MZ302", "a holed stream at a cuda stage's ingest"):
+                with mozart.session(executor="fused", batch_elements=SANITIZE_BATCH,
+                                    device=DEVICE) as ctx:
+                    a = anp.multiply(anp.add(x, 1.0), 0.5)
+                    mozart.evaluate()
+                    mozart.configure(executor="cuda")
+                    b = anp.add(a, 1.0)
+                    del a
+                    b.value
+        finally:
+            ex_mod.finish_stage = real
+        demoted = ctx.stats.get("exec_demotions", 0), int(resilience.stats.get("MZ402", 0))
+        if demoted != (0, 0) or sp.split_pipeline.launches != before:
+            raise AssertionError(f"MZ302 case: (demotions, MZ402) {demoted}, launches "
+                                 f"{sp.split_pipeline.launches - before}")
+        out["MZ302"] = {"demotions": demoted[0], "MZ402": demoted[1]}
+
+        with mozart.session(executor="cuda", device=DEVICE) as ctx:
+            y = anp.multiply(x, 2.0)
+            with expect_trip("MZ303", "a session's counter scope bumped with no event"):
+                with se.counter_scope(ctx.counters):
+                    ctx.counters.interior += int(x.nbytes)
+            y.value
+        out["MZ303"] = {"scope_interior": ctx.counters.interior}
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def sanitizer_cost(w) -> dict:
+    """(d) Host ms of a warm ``cuda`` Black-Scholes evaluation at 2**27 with
+    the sanitizer on and off, in turns (off, on, on, off, ...)."""
+    from repro_torch.core import mozart
+    data = w.black_scholes_data(N_MAIN, seed=0, device=DEVICE)
+
+    def once():
+        with mozart.session(executor="cuda", device=DEVICE):
+            call, put = w.black_scholes(**data)
+            call.value, put.value
+
+    for on in (False, True):
+        with sanitizer(on):
+            once(), once()
+    times = {False: [], True: []}
+    for r in range(LINT_ROUNDS):
+        for on in ((False, True) if r % 2 == 0 else (True, False)):
+            with sanitizer(on):
+                times[on].append(timed_ms(once))
+    (off, off_q1, off_q3), (on, on_q1, on_q3) = quartiles(times[False]), quartiles(times[True])
+    log(f"[lint] warm cuda Black-Scholes at n = {N_MAIN}: sanitizer off {off:.3f} ms "
+        f"(quartiles {off_q1:.3f}-{off_q3:.3f}), on {on:.3f} ms ({on_q1:.3f}-{on_q3:.3f}) "
+        f"(host clock, medians of {LINT_ROUNDS} in turns; {card_line()})")
+    del data
+    torch.cuda.empty_cache()
+    return {"off_ms": off, "on_ms": on, "off_quartiles": [off_q1, off_q3],
+            "on_quartiles": [on_q1, on_q3]}
+
+
+def roofline_lines(train: dict, serve: dict) -> dict:
+    """(e) ``model_flops`` of the train phase's gemma-7b step (8 layers,
+    2 x 2048) and of the serve phase's 28-layer 4 x 2048 prefill, with
+    ``roofline_terms`` on ``chip_for("cuda")`` (memory term: the weights read
+    once) beside the times those phases measured.  Printed, not gated."""
+    from repro_torch import hardware
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import roofline
+    from repro_torch.models.config import active_param_count, param_count
+    chip = hardware.chip_for(DEVICE)
+    cells = (("train step", train_config(), ShapeSpec("gemma_train", "train", TRAIN_SEQ,
+                                                      TRAIN_BATCH),
+              statistics.median(train["step_ms"][1:])),
+             ("prefill", serve_config(), ShapeSpec("gemma_prefill", "prefill", SERVE_PROMPT,
+                                                   SERVE_BATCH), serve["prefill_ms"]))
+    out = {}
+    for what, cfg, shape, measured in cells:
+        flops = roofline.model_flops(cfg, shape, 1)
+        weight_bytes = param_count(cfg) * cfg.dtype.itemsize
+        terms = roofline.roofline_terms(flops, weight_bytes, 0.0, chip)
+        out[what] = {"n_layers": cfg.n_layers, "batch": shape.global_batch,
+                     "seq": shape.seq_len, "active_params": active_param_count(cfg),
+                     "model_flops": flops, "weight_bytes": weight_bytes,
+                     **{k: v * 1e3 for k, v in terms.items()}, "measured_ms": measured,
+                     "model_flops_share": terms["compute_s"] * 1e3 / measured}
+        log(f"[lint] roofline {cfg.name} {what} ({cfg.n_layers} layers, {shape.global_batch} x "
+            f"{shape.seq_len}): model_flops {flops:.4e} ({'6' if shape.kind == 'train' else '2'}"
+            f" x {active_param_count(cfg)} active parameters x {shape.global_batch * shape.seq_len}"
+            f" tokens); on {chip.name}: compute {terms['compute_s'] * 1e3:.3f} ms, memory "
+            f"(weights once) {terms['memory_s'] * 1e3:.3f} ms, collective "
+            f"{terms['collective_s'] * 1e3:.3f} ms; measured {measured:.1f} ms, so "
+            f"{out[what]['model_flops_share']:.1%} of the bf16 peak ({card_line()})")
+    return out
+
+
+def phase_lint(sp, train: dict, serve: dict) -> dict:
+    """The checking layer's runtime half (ROADMAP A10.2) and the analytic
+    roofline (A11) on the card: ``launch/lint.py`` (``lint_runs``), a clean
+    sanitized run (``sanitized_chains``), each MZ30x code raised
+    (``sanitizer_trips``), the sanitizer's host cost (``sanitizer_cost``) and
+    the roofline lines (``roofline_lines``)."""
+    from repro_torch import workloads as w
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"lint": lint_runs(), "sanitized": sanitized_chains(sp),
+           "trips": sanitizer_trips(sp), "cost": sanitizer_cost(w),
+           "roofline": roofline_lines(train, serve)}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[lint] phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
@@ -4416,6 +4706,9 @@ def main() -> int:
     verify = phase_verify(sp)
     resilience_clean("verify")
     log(json.dumps({"verify": verify}))
+    lint = phase_lint(sp, train, serve)
+    resilience_clean("lint")
+    log(json.dumps({"lint": lint}))
     log(f"[phases] seconds per check (chaos counts in times, data in kernel): "
         f"{json.dumps(LAPS)}; {sum(s for _, s in LAPS):.1f} s to the last")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

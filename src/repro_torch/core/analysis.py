@@ -14,8 +14,10 @@ this module checks the claims instead of trusting them:
    handoff fallbacks *with reasons* (MZ2xx codes); the static rewrite pass
    runs dry beside it (MZ5xx info notes).
 
-The MZ3xx sanitizer codes are defined here; the boundary checks that emit
-them wait for ROADMAP A10.2, as does ``launch/lint.py``.
+The MZ3xx codes are raised at run time by the boundary sanitizer in
+``core/stage_exec.py`` (``MOZART_SANITIZE=1``); the MZ4xx codes are the
+resilience events (``resilience.events()``).  ``launch/lint.py`` runs this
+module over the whole repo.
 
 Diagnostics are structured (code, severity, subject, message) so tests pin
 codes, not prose.  ``mozart.verify(...)`` is the API.  Laws are *data*

@@ -48,13 +48,21 @@ on plain PyTorch with its tensors on the card, and quarantining would keep
 later calls (and, through the persisted plan, restarted processes) off the
 kernel.  ``auto`` applies the same rule to its ``cuda`` candidate.
 
+**Sanitizer trips are never recoverable either.**  A
+``stage_exec.SanitizerError`` (MZ301-303, ``MOZART_SANITIZE=1``) is an
+invariant violation: ``_recoverable`` refuses it first, on every executor
+(``auto`` included), as the reference's does.  The port goes one step
+further at the probe sites, where the reference counts it as one more
+swallowed ``RuntimeError``: ``note_swallowed`` re-raises it, as a kernel
+fault, so neither the tuner nor ``auto``'s candidate scoring carries on
+past it, and the retry helpers do not retry it.
+
 A failed attempt is re-driven only if it released no stream
 (``ctx.stats["streams_released"]``, counted by
 ``stage_exec.mark_stream_consumed``): torch has no buffer donation, and a
 counted donation point (``donated_chunks``) releases nothing until the
-stage has consumed its inputs.  The MZ4xx events as ``analysis.Diagnostic``s
-and the refusal of boundary-sanitizer errors wait for the port of the
-sanitizer (ROADMAP A10.2); ``events()`` returns plain records meanwhile.
+stage has consumed its inputs.  The recorded MZ4xx events come back as
+``analysis.Diagnostic``s (``events()``).
 """
 
 from __future__ import annotations
@@ -126,6 +134,13 @@ def is_kernel_fault(e: BaseException) -> bool:
     return isinstance(e, RuntimeError) and str(e).startswith("CUDA error")
 
 
+def _never_absorbed(e: BaseException) -> bool:
+    """A kernel fault or a boundary-sanitizer trip (MZ3xx): never demoted
+    around, never swallowed, never retried."""
+    from repro_torch.core.stage_exec import SanitizerError
+    return isinstance(e, SanitizerError) or is_kernel_fault(e)
+
+
 def is_resource_exhausted(e: BaseException) -> bool:
     """Whether ``e`` is memory pressure (halve the chunk batch and retry)
     rather than a generic failure (demote down the executor ladder)."""
@@ -146,8 +161,9 @@ _stats_lock = threading.Lock()
 
 def note_swallowed(where: str, e: BaseException, ctx=None) -> None:
     """Count a deliberately swallowed probe error so it is observable.  A
-    kernel fault is re-raised instead: it is never skipped."""
-    if is_kernel_fault(e):
+    kernel fault or a sanitizer trip is re-raised instead: it is never
+    skipped."""
+    if _never_absorbed(e):
         raise e
     with _stats_lock:
         stats["swallowed_errors"] += 1
@@ -162,33 +178,24 @@ def note_swallowed(where: str, e: BaseException, ctx=None) -> None:
 # Event log (MZ4xx records)
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class Event:
-    """One recorded MZ4xx event, shaped as the reference's ``Diagnostic``."""
-
-    code: str
-    severity: str
-    subject: str
-    message: str
-
-
 _EVENT_CAP = 512
 _events: collections.deque = collections.deque(maxlen=_EVENT_CAP)
 
 
 def record_event(code: str, where: str, severity: str = "warning") -> None:
-    """Append one MZ4xx record to the bounded process log and bump its
-    counter."""
+    """Append one MZ4xx record (code, where) to the bounded process log and
+    bump its counter.  Records become ``analysis.Diagnostic``s on demand
+    (``events()``): this path must not import the verifier."""
     with _stats_lock:
         stats[code] += 1
     _events.append((code, severity, where))
 
 
 def events() -> list:
-    """The recorded MZ4xx events (most recent last), each with its code's
-    meaning from ``analysis.CODES``."""
-    from repro_torch.core.analysis import CODES
-    return [Event(code, sev, where, CODES.get(code, code))
+    """The recorded MZ4xx events as ``analysis.Diagnostic``s (most recent
+    last)."""
+    from repro_torch.core.analysis import CODES, Diagnostic
+    return [Diagnostic(code, sev, where, CODES.get(code, code))
             for code, sev, where in list(_events)]
 
 
@@ -434,10 +441,11 @@ def _recoverable(e: BaseException, ctx, released_before: int,
                  executor: str | None = None) -> bool:
     """Whether a failed attempt on ``executor`` may be re-driven by another.
 
-    Never for a kernel fault; never for an attempt that released a stream's
-    buffers (re-reading them would fail); on ``cuda`` only for an injected
-    fault (see :func:`cuda_may_skip`)."""
-    if is_kernel_fault(e):
+    Never for a sanitizer trip (an invariant violation) or a kernel fault;
+    never for an attempt that released a stream's buffers (re-reading them
+    would fail); on ``cuda`` only for an injected fault (see
+    :func:`cuda_may_skip`)."""
+    if _never_absorbed(e):
         return False
     if ctx.stats.get("streams_released", 0) != released_before:
         return False
@@ -504,13 +512,14 @@ def with_retries(fn: Callable[[], Any], *, retries: int,
                  on_retry: Callable[[int, Exception], None] | None = None,
                  backoff_s: float = 0.0) -> Any:
     """Run ``fn``; retry the transient classes with exponential backoff.
-    Non-transient errors and kernel faults propagate immediately."""
+    Non-transient errors, kernel faults and sanitizer trips propagate
+    immediately."""
     last: Exception | None = None
     for attempt in range(retries + 1):
         try:
             return fn()
         except TRANSIENT_ERRORS as e:
-            if is_kernel_fault(e):
+            if _never_absorbed(e):
                 raise
             last = e
             with _stats_lock:
@@ -543,7 +552,7 @@ def run_with_restarts(
         try:
             return run_from(state, start)
         except TRANSIENT_ERRORS as e:       # restart boundary
-            if is_kernel_fault(e):
+            if _never_absorbed(e):
                 raise
             restarts += 1
             with _stats_lock:

@@ -48,9 +48,9 @@ calls :func:`replay` it, which does none of the analysis
 replays, ``rewrite_simulations`` the planner simulations MZ504 runs).
 
 ``records_to_diagnostics`` gives the records as ``analysis.Diagnostic``s:
-``mozart.verify`` and ``analysis.rewrite_report`` report a dry run of the
-pass so.  ``lint --rewrite-report`` waits for ``launch/lint.py`` (ROADMAP
-A10.2).
+``mozart.verify``, ``analysis.rewrite_report`` and
+``python -m repro_torch.launch.lint --rewrite-report`` report a dry run of
+the pass so.
 """
 
 from __future__ import annotations

@@ -30,12 +30,19 @@ on the first execution of a *cached* plan (``StageExecutor._tune``).
 
 Built drivers and lowered kernel programs are pinned per plan entry
 (``pinned_exec``), so a warm call builds nothing.
+
+``MOZART_SANITIZE=1`` arms the boundary sanitizer at three boundaries
+(codes MZ301-303, ``core/analysis.py``): a released stream's chunk storage
+is poisoned (``mark_stream_consumed``), a stream's grid is checked before
+it is ingested (``resolve_stage_inputs``) and a scope's counters are held
+against the global aggregate (``counter_scope``).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
 import threading
 import time
 from typing import Any, Callable
@@ -47,11 +54,47 @@ from repro_torch import hardware
 from repro_torch.core import resilience
 from repro_torch.core import split_types as st
 from repro_torch.core.graph import DataflowGraph, NodeRef
-from repro_torch.core.planner import Stage, _value_key
+from repro_torch.core.planner import Stage, _count_of_type, _value_key
 
 
 class PedanticError(RuntimeError):
     pass
+
+
+def sanitize_active() -> bool:
+    """True when ``MOZART_SANITIZE`` is set (and not "0"): the boundary
+    sanitizer poisons released chunk storage, validates stream grids before
+    ingest, and cross-checks scoped counters (codes MZ301/MZ302/MZ303,
+    ``core/analysis.py``).  Read per call: tests flip it mid-process."""
+    return os.environ.get("MOZART_SANITIZE", "") not in ("", "0")
+
+
+class SanitizerError(RuntimeError):
+    """A boundary invariant the sanitizer caught red-handed (MZ3xx)."""
+
+
+class _PoisonedChunks(list):
+    """Released chunk list stand-in under MOZART_SANITIZE=1.
+
+    Stays EMPTY (``len`` 0 keeps ``__repr__`` benign) but any attempt to
+    read a chunk out of it, iterating or indexing, raises with the
+    releasing stage and edge, instead of handing back storage the caching
+    allocator has already reused."""
+
+    def __init__(self, donor: str):
+        super().__init__()
+        self.donor = donor
+
+    def _blow(self) -> None:
+        raise SanitizerError(
+            f"[MZ301] use-after-donate: chunk buffers were donated at "
+            f"{self.donor or 'an unknown stage/edge'} and then read")
+
+    def __getitem__(self, i):
+        self._blow()
+
+    def __iter__(self):
+        self._blow()
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +290,11 @@ def counter_scope(counters: "BoundaryCounters | None"):
 
     Scopes nest (re-entering with a scope already active is a no-op), and
     distinct scopes stack.  Thread local; the process-global aggregate is
-    always updated regardless."""
+    always updated regardless.
+
+    Under ``MOZART_SANITIZE=1`` a scope that exits cleanly is held against
+    the global aggregate (MZ303); an exception inside it propagates
+    untouched."""
     if counters is None:
         yield
         return
@@ -256,10 +303,39 @@ def counter_scope(counters: "BoundaryCounters | None"):
         yield                             # already attributed: no double count
         return
     stack.append(counters)
+    snap = None
+    if sanitize_active():
+        with _counts_lock:
+            snap = (counters.traces, counters.interior, counters.terminal,
+                    _GLOBAL_COUNTERS.traces, _GLOBAL_COUNTERS.interior,
+                    _GLOBAL_COUNTERS.terminal)
+    clean = False
     try:
         yield
+        clean = True
     finally:
         stack.remove(counters)
+        if snap is not None and clean:
+            # MZ303: every event lands on the global aggregate AND every
+            # active scope under one lock, so a scope can never see MORE
+            # than the global did over the same window (other threads may
+            # inflate the global side).
+            with _counts_lock:
+                deltas = (
+                    ("traces", counters.traces - snap[0],
+                     _GLOBAL_COUNTERS.traces - snap[3]),
+                    ("interior", counters.interior - snap[1],
+                     _GLOBAL_COUNTERS.interior - snap[4]),
+                    ("terminal", counters.terminal - snap[2],
+                     _GLOBAL_COUNTERS.terminal - snap[5]),
+                )
+            for field, scoped, global_ in deltas:
+                if scoped > global_:
+                    raise SanitizerError(
+                        f"[MZ303] scoped BoundaryCounters recorded more "
+                        f"{field} ({scoped}) than the process-global "
+                        f"aggregate ({global_}) over the same scope: "
+                        "counter attribution is corrupt")
 
 
 def note_trace() -> None:
@@ -411,6 +487,10 @@ class ChunkStream:
             lambda a: torch.zeros(tuple(a.shape), dtype=a.dtype), self.aval)
 
     def _check_live(self) -> None:
+        """Raise on every read of a released stream: MZ301 from the poisoned
+        storage under the sanitizer, else the backstop error."""
+        if isinstance(self._chunks, _PoisonedChunks):
+            self._chunks._blow()
         if self.consumed:
             raise RuntimeError(DONATED_MERGE_ERROR
                                + f" [donated at {self.donor or 'unknown stage/edge'}]")
@@ -506,10 +586,15 @@ class ChunkStream:
     def release(self, donor: str) -> None:
         """Drop the buffers after their last consumer (the port's rendering
         of the reference's donation: the caching allocator reuses them); a
-        later merge raises ``DONATED_MERGE_ERROR``."""
+        later merge raises ``DONATED_MERGE_ERROR``.  Under
+        ``MOZART_SANITIZE=1`` ``_PoisonedChunks`` take their place, so every
+        read, the raw chunk list's included, raises MZ301 naming the
+        donor."""
         self.consumed = True
         self.donor = self.donor or donor
         self._chunks = self.stacked = self.tail = None
+        if sanitize_active():
+            self._chunks = _PoisonedChunks(self.donor)
 
     def __repr__(self) -> str:
         if self.consumed:
@@ -739,12 +824,15 @@ def resolve_stage_inputs(stage: Stage, graph: DataflowGraph, ctx,
     previous evaluation produced).  A permitted ConcatSplit -> {ArraySplit,
     PytreeSplit} edge re-wraps the producer's pieces under the consumer's
     grid (``adapt_stream``).  Anything else is materialized, with a
-    zero-byte ``fallback`` event naming the reason.  ``tally=False`` skips
-    the ingest/materialize stats and the ``ingest`` fault boundary."""
+    zero-byte ``fallback`` event naming the reason.  Under
+    ``MOZART_SANITIZE=1`` a stream kept for ingest must tile its consumer's
+    extent (``_check_stream_tiles``, MZ302).  ``tally=False`` skips the
+    ingest/materialize stats and the ``ingest`` fault boundary."""
     if tally:
         resilience.maybe_fail("ingest", f"stage {stage.id}")
     plan = getattr(ctx, "_handoff", None)
     ho = plan.get(stage.id) if plan else None
+    sanitize = sanitize_active()
     concrete: dict[tuple, Any] = {}
     for i, (key, si) in enumerate(stage.inputs.items()):
         v = graph.resolve(si.value)
@@ -763,6 +851,10 @@ def resolve_stage_inputs(stage: Stage, graph: DataflowGraph, ctx,
                 else:
                     reason = "grid conversion not planned"
             if reason is None:
+                if sanitize:
+                    _check_stream_tiles(v, si.split_type,
+                                        f"stage {stage.id} input "
+                                        f"{stage.ckey(key)}")
                 if tally:
                     ctx.stats["stream_ingests"] += 1
             else:
@@ -776,6 +868,26 @@ def resolve_stage_inputs(stage: Stage, graph: DataflowGraph, ctx,
                     ctx.stats["stream_materialized"] += 1
         concrete[key] = v
     return concrete
+
+
+def _check_stream_tiles(v: "ChunkStream", consumer_type: st.SplitType,
+                        where: str) -> None:
+    """MZ302 (MOZART_SANITIZE=1): a stream about to be ingested must carry
+    sorted, contiguous ranges tiling [0, n), and n must match the extent
+    the consumer's split type declares.  A hole or overlap here means the
+    consumer would silently skip or double-process rows."""
+    prev = 0
+    for s, e in v.ranges:
+        if s != prev or e < s:
+            raise SanitizerError(
+                f"[MZ302] {where}: stream ranges {v.ranges} do not tile "
+                f"[0, {v.n}) (hole/overlap at ({s}, {e}))")
+        prev = e
+    expect = _count_of_type(consumer_type)
+    if expect is not None and prev != expect:
+        raise SanitizerError(
+            f"[MZ302] {where}: stream extent {prev} != consumer extent "
+            f"{expect} declared by {consumer_type}")
 
 
 def regrid_stream(stage: Stage, ctx, key: tuple, v: "ChunkStream",
@@ -878,7 +990,10 @@ def mark_stream_consumed(stage: Stage, concrete: dict[tuple, Any], ctx,
     the stream AND its graph-node original, so a late ``materialize`` hits
     the backstop error instead of returning released buffers.  Each input
     released counts in ``ctx.stats["streams_released"]``: an attempt that
-    moved it is never re-driven (``resilience._recoverable``)."""
+    moved it is never re-driven (``resilience._recoverable``).  Under
+    ``MOZART_SANITIZE=1`` the chunk storage is poisoned
+    (``_PoisonedChunks``): any read raises MZ301 naming this stage and edge,
+    and a zero-byte ``donate`` event records the release."""
     for key, si in stage.inputs.items():
         v = concrete.get(key)
         if stage.ckey(key) in consumed and isinstance(v, ChunkStream):
@@ -888,6 +1003,8 @@ def mark_stream_consumed(stage: Stage, concrete: dict[tuple, Any], ctx,
                 if isinstance(t, ChunkStream):
                     t.release(donor)
             ctx.stats["streams_released"] += 1
+            if sanitize_active():
+                note_materialized(0, kind="donate", where=donor)
 
 
 def materialize_inputs(stage: Stage, concrete: dict[tuple, Any],

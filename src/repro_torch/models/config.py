@@ -170,3 +170,17 @@ def param_count(cfg: ModelConfig) -> int:
         total += cfg.n_encoder_layers * enc_layer
         total += L * attn_params()               # cross-attention per dec layer
     return int(total)
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active-per-token parameters (MoE: only top-k + shared experts), the
+    N of ``launch.roofline.model_flops``."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    m = cfg.moe
+    mats = 3 if cfg.gated_mlp else 2
+    D, L = cfg.d_model, cfg.n_layers
+    moe_layers = L - m.first_k_dense
+    routed_all = m.n_experts * mats * D * m.d_expert
+    routed_act = m.top_k * mats * D * m.d_expert
+    return param_count(cfg) - moe_layers * (routed_all - routed_act)

@@ -1,8 +1,8 @@
 """The port's verifier (``repro_torch.core.analysis``) against the JAX
 package's (``src/repro/core/analysis.py``), on the CPU.
 
-Case for case ``tests/test_analysis.py`` up to its sanitizer section (the
-sanitizer waits for ROADMAP A10.2), each held against the reference run in
+Case for case ``tests/test_analysis.py`` up to its sanitizer section (held
+in ``tests/test_torch_sanitizer.py``), each held against the reference run in
 the same process on the same numpy values: the law matrix over
 ``CONTRACT_LAWS`` x ``builtin_probes(device="cpu")`` (each probe's findings
 equal to the reference's on its probe of the same name), the whole sweep

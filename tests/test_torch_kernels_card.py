@@ -925,3 +925,94 @@ def test_verify_pipeline_on_the_card_launches_nothing():
     assert ctx.stats["stages"] == rep.checked == sp.split_pipeline.launches - launches
     assert sorted(d.code for d in rep.diagnostics if d.code.startswith("MZ5")) == \
         sorted(r.code for r in ctx._last_rewrites)
+
+
+# -- the boundary sanitizer (MOZART_SANITIZE=1) --------------------------------
+
+
+def _card_chain(executor, n=1 << 20, batch=None):
+    """The smoke/handoff chain on the card: three evaluations of
+    ``multiply(add(x, 1.0), 0.5)``; a ``cuda`` row's first on ``fused``."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    from repro_torch.kernels import split_pipeline as sp
+    first = "fused" if executor == "cuda" else executor
+    x = torch.linspace(0.1, 2.0, n, device="cuda")
+    before = sp.split_pipeline.launches
+    with mozart.session(executor=first, handoff=True, batch_elements=batch,
+                        plan_cache=False, autotune=False) as ctx:
+        cur = x
+        for i in range(3):
+            cur = anp.multiply(anp.add(cur, 1.0), 0.5)
+            mozart.evaluate()
+            if i == 0 and first != executor:
+                mozart.configure(executor=executor)
+        out = cur.value
+    torch.cuda.synchronize()
+    return out, ctx, sp.split_pipeline.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("executor", ["fused", "scan", "cuda"])
+def test_sanitized_handoff_chain_on_the_card_equals_unsanitized(monkeypatch, executor):
+    """Same values, the same counters and the same split-pipeline launches
+    with the sanitizer on; no trip."""
+    _card()
+    monkeypatch.setenv("MOZART_SANITIZE", "0")
+    plain, plain_ctx, plain_launches = _card_chain(executor, batch=1 << 17)
+    monkeypatch.setenv("MOZART_SANITIZE", "1")
+    got, ctx, launches = _card_chain(executor, batch=1 << 17)
+    assert got.is_cuda and torch.equal(got, plain)
+    assert dict(ctx.stats) == dict(plain_ctx.stats)
+    assert launches == plain_launches == (2 if executor == "cuda" else 0)
+    assert ctx.stats["stream_ingests"] > 0
+
+
+@pytest.mark.cuda
+def test_each_sanitizer_code_is_raised_with_card_tensors(monkeypatch):
+    """MZ301: a scan carry released by a real ``cuda`` launch, read again;
+    MZ302: a holed stream of card chunks; MZ303: a corrupted scope; and a
+    trip inside a ``cuda`` stage leaves the session undemoted."""
+    _card()
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart, resilience
+    from repro_torch.core import split_types as st
+    from repro_torch.core import stage_exec as se
+    from repro_torch.kernels import split_pipeline as sp
+    monkeypatch.setenv("MOZART_SANITIZE", "1")
+    resilience.clear_events()
+    x = torch.linspace(0.1, 2.0, 1 << 20, device="cuda")
+    before = sp.split_pipeline.launches
+    with mozart.session(executor="scan", batch_elements=1 << 17) as ctx:
+        a = anp.multiply(anp.add(x, 1.0), 0.5)
+        mozart.evaluate()
+        stream = a._node.result
+        mozart.configure(executor="cuda")
+        b = anp.add(a, 1.0)
+        del a
+        mozart.evaluate()
+        assert sp.split_pipeline.launches == before + 1
+        assert ctx.stats["cuda_ingest_carry"] == 1 and stream.consumed
+        with pytest.raises(se.SanitizerError, match=r"MZ301.*stage \d+ input"):
+            stream.materialize()
+        assert torch.allclose(b.value, x * 0.5 + 1.5)
+
+    t = st.ArraySplit((6, 2), 0)
+    y = torch.arange(12, dtype=torch.float32, device="cuda").reshape(6, 2)
+    holed = se.ChunkStream([y[:2], y[3:]], [(0, 2), (3, 6)], t, st.aval_of(y))
+    with pytest.raises(se.SanitizerError, match=r"MZ302.*do not tile"):
+        se._check_stream_tiles(holed, t, "stage 1 input ('x', 0)")
+
+    c = se.BoundaryCounters()
+    with pytest.raises(se.SanitizerError, match=r"MZ303"):
+        with se.counter_scope(c):
+            c.interior += int(y.nbytes)
+
+    def trips(*args, **kw):
+        raise se.SanitizerError("[MZ302] planted in a cuda stage")
+    monkeypatch.setattr(sp, "_launch", trips)
+    with pytest.raises(se.SanitizerError, match="planted"):
+        with mozart.session(executor="cuda") as ctx:
+            anp.sum(anp.exp(x)).value
+    assert ctx.stats.get("exec_demotions", 0) == 0
+    assert resilience.stats["MZ402"] == 0

@@ -22,7 +22,8 @@ swallow; on ``cuda`` only injected faults and resource exhaustion demote;
 ``torch.OutOfMemoryError`` is resource exhaustion; a failed attempt is
 re-driven when it counted a donation point but released no stream, never
 when it released one.  ``test_sanitizer_errors_are_never_demoted_around``
-waits for the port of the sanitizer (ROADMAP A10.2).
+and the MZ4xx events as ``Diagnostic``s are held in
+``tests/test_torch_sanitizer.py``.
 """
 
 import asyncio

@@ -19,8 +19,8 @@ calls that could differ (a property test), warm calls replay the rewritten
 graph from the schema-v7 plan cache with zero planner calls and zero traces,
 v6 files migrate forward, and the ``MOZART_REANALYZE_EVERY`` tick refreshes
 the records.  ``test_verify_*`` have their counterparts in
-``tests/test_torch_analysis.py``; ``test_lint_*`` wait for the port of
-``launch/lint.py`` (ROADMAP A10.2).
+``tests/test_torch_analysis.py`` and ``test_lint_*`` theirs in
+``tests/test_torch_lint.py``.
 """
 
 import json
