@@ -98,12 +98,15 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              the same rounds (the pass's host cost);
    chaos   — the reference's ``smoke/chaos``: ``compile:fail:1`` on a
              Black-Scholes ``mozart.pipeline(executor="cuda")`` at 2**27
-             (one demotion to ``scan``, ``cuda`` quarantined, the warm calls
-             within ``QUARANTINE_TTL`` = 3 on ``scan`` with no launch, then
-             the kernel again, equal to its plain version) and
-             ``chunk:oom:1`` on the handoff chain on ``fused`` (bounded
-             halvings, the fault-free answer); the serving scenario runs at
-             the end of the serve phase.  Every other phase must show no
+             (the reference's walk ``cuda -> sharded -> scan``, ``cuda`` and
+             ``sharded`` quarantined, the warm calls within
+             ``QUARANTINE_TTL`` = 3 on ``scan`` with no launch, then the
+             kernel again, equal to its plain version), ``chunk:oom:1`` on
+             the handoff chain on ``fused`` (bounded halvings, the
+             fault-free answer), and ``compile:fail:1`` on the pipeline with
+             the one-rank card mesh (one demotion, to a ``sharded`` stage
+             that runs); the serving scenario runs at the end of the serve
+             phase.  Every other phase must show no
              fault fired, no demotion, quarantine skip, halving or
              swallowed error (a ``[resilience]`` line per phase);
 4. times   — device times (``torch.profiler``) of the kernel, of the
@@ -263,7 +266,22 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              warm ``cuda`` Black-Scholes at 2**27 timed with the sanitizer
              on and off in turns; ``model_flops`` and ``roofline_terms`` of
              the train phase's step and the serve phase's prefill beside
-             their measured times; a ``{"lint": ...}`` JSON line.
+             their measured times; a ``{"lint": ...}`` JSON line;
+15. sharded — the ``sharded`` executor (ROADMAP A8.1) on a one-rank NCCL
+             mesh (``make_host_mesh()``; one H100 gives one rank, so the
+             multi-rank collectives are held on the CPU by ``gloo`` worlds
+             of 2-8 ranks): Black-Scholes and Haversine at n = 2**27 (card
+             DTensors, Shard(0), local (2**27,), equal to ``fused`` at the
+             same batch and to the float64 oracle); sum/max/min/prod of
+             float32, int32, bool and bfloat16 inputs through the NCCL
+             group, equal to ``fused``; the handoff chain at 2**27
+             sharded -> sharded (no interior byte, no gather) and
+             sharded -> ``cuda`` (the split-pipeline kernel on the
+             consumer's stages, launches counted from 0); ``auto`` with the
+             mesh (the pick per stage); elastic restore of a CPU-saved tree
+             onto the card mesh; warm host milliseconds of ``sharded``,
+             ``fused`` and ``cuda`` Black-Scholes in turns; a
+             ``{"sharded": ...}`` JSON line.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -373,6 +391,9 @@ PLAN_CALLS = 10                  # warm pipeline calls per workload in the plans
 PLAN_ROUNDS = 10                 # timed rounds of cold, warm and pipeline evaluations
 PROFILE_SENTINELS = 64           # spin kernels opening each profiled window
 CHUNK = 1 << 25                  # elements per comparison slice
+SHARDED_BATCH = 1 << 22          # batch_elements of the sharded phase's fused and sharded runs
+SHARDED_REDUCE_N = 1 << 24       # elements per reduction input in the sharded phase
+SHARDED_ROUNDS = 10              # turns of the sharded phase's host-time comparison
 
 
 def log(*parts) -> None:
@@ -1202,14 +1223,15 @@ def phase_rewrite(sp, ref, workloads_data, oracles) -> dict:
     return result
 
 
-def handoff_chain(x, executor: str, handoff: bool):
+def handoff_chain(x, executor: str, handoff: bool, first: str | None = None, **session):
     """The reference's ``smoke/handoff`` chain: three evaluations of
-    ``multiply(add(x, 1.0), 0.5)``; a ``cuda`` row's first evaluation runs
-    on ``fused`` (a kernel stage merges its own outputs)."""
+    ``multiply(add(x, 1.0), 0.5)``; the first runs on ``first`` (a ``cuda``
+    row's on ``fused`` by default: a kernel stage merges its own outputs),
+    the others on ``executor``; ``session`` adds session options."""
     from repro_torch.core import annotated_numpy as anp
     from repro_torch.core import mozart
-    first = "fused" if executor == "cuda" else executor
-    with mozart.session(executor=first, handoff=handoff, device=x.device) as ctx:
+    first = first or ("fused" if executor == "cuda" else executor)
+    with mozart.session(executor=first, handoff=handoff, device=x.device, **session) as ctx:
         cur = x
         for i in range(HANDOFF_EVALS):
             cur = anp.multiply(anp.add(cur, 1.0), 0.5)
@@ -1564,11 +1586,14 @@ def phase_chaos(sp, ref, workloads_data, errs) -> dict:
     """The reference's ``smoke/chaos`` on the card, scenarios 1 and 2 (the
     serving wave runs in the serve phase, ``serve_chaos_wave``); any failed
     check raises.  (1) ``compile:fail:1`` on Black-Scholes at n = 2**27
-    through ``mozart.pipeline(executor="cuda")``: one demotion to ``scan``,
-    ``cuda`` quarantined on the entry, then ``CHAOS_TTL - 1`` warm calls on
-    ``scan`` with no launch and the next on the kernel again, equal to its
+    through ``mozart.pipeline(executor="cuda")``: the reference's walk
+    ``cuda -> sharded -> scan`` (no mesh: ``sharded`` raises), ``cuda`` and
+    ``sharded`` quarantined on the entry, then ``CHAOS_TTL - 1`` warm calls
+    on ``scan`` with no launch and the next on the kernel again, equal to its
     plain version; (2) ``chunk:oom:1`` on the handoff chain at 2**27 on
-    ``fused``: bounded halvings, the fault-free answer."""
+    ``fused``: bounded halvings, the fault-free answer.  The same
+    ``compile:fail:1`` with the card mesh runs in ``phase_sharded``, which
+    owns the process group (``sharded_chaos``)."""
     from repro_torch.core import mozart, plan_cache, resilience
     fn, data = workloads_data["black_scholes"]
     _err, launch = errs["black_scholes"]
@@ -1591,9 +1616,10 @@ def phase_chaos(sp, ref, workloads_data, errs) -> dict:
         st = p.last_call_stats
         (entry,) = plan_cache.entries()
         quarantined = {k: dict(v) for k, v in entry.quarantined.items()}
-        if (plan.fired != [("compile", "stage 0 cuda")] or st.get("exec_demotions", 0) != 1
+        if (plan.fired != [("compile", "stage 0 cuda")] or st.get("exec_demotions", 0) != 2
+                or st.get("exec_demoted_to_sharded", 0) != 1
                 or st.get("exec_demoted_to_scan", 0) != 1 or sp.split_pipeline.launches
-                or quarantined != {0: {"cuda": 0}}):
+                or quarantined != {0: {"cuda": 0, "sharded": 0}}):
             raise AssertionError(f"chaos/compile: fired {plan.fired}, {st}, launches "
                                  f"{sp.split_pipeline.launches}, quarantined {quarantined}")
         for i, (g, w) in enumerate(zip(got, want)):
@@ -1615,7 +1641,8 @@ def phase_chaos(sp, ref, workloads_data, errs) -> dict:
         resilience.QUARANTINE_TTL = ttl
     compile_counts = {k: int(resilience.stats.get(k, 0)) for k in RESILIENCE_KEYS}
     log(f"[chaos] compile:fail:1 on black_scholes n={N_MAIN}, mozart.pipeline(cuda): "
-        f"fired {plan.fired}; 1 demotion cuda -> scan, quarantined {quarantined}; output "
+        f"fired {plan.fired}; 2 demotions cuda -> sharded -> scan, quarantined "
+        f"{quarantined}; output "
         f"equal to the fault-free run; QUARANTINE_TTL {CHAOS_TTL}: (skips, launches, cuda "
         f"stages) per warm call {trail}; the relaunch agrees with the plain version (max "
         f"|kernel - plain| {err:.3e}); MZ4xx {compile_counts}")
@@ -4593,6 +4620,340 @@ def phase_lint(sp, train: dict, serve: dict) -> dict:
     return out
 
 
+def run_observed(fn, data, executor: str, **kw):
+    """One session evaluation: (each output's result before observation,
+    the observed values, the context)."""
+    from repro_torch.core import mozart
+    with mozart.session(executor=executor, **kw) as ctx:
+        outs = as_list(fn(**data))
+        mozart.evaluate()
+        raw = [o._node.result for o in outs]
+        got = [o.value for o in outs]
+    torch.cuda.synchronize()
+    return raw, got, ctx
+
+
+def sharded_workloads(w, erf, mesh) -> dict:
+    """(a) Black-Scholes and Haversine at n = 2**27 on ``sharded``: card
+    DTensors laid out Shard(0) with the whole (2**27,) local, equal to
+    ``fused`` at the same batch and to the float64 oracle on the prefix."""
+    from torch.distributed.tensor import DTensor, Shard
+    out = {}
+    for name, fn, data in (("black_scholes", w.black_scholes,
+                            w.black_scholes_data(N_MAIN, seed=0, device="cuda")),
+                           ("haversine", w.haversine,
+                            w.haversine_data(N_MAIN, seed=0, device="cuda"))):
+        pre = {k: v[:PREFIX] for k, v in data.items()}
+        oracle = ([(o, 2e-3, 1e-3) for o in w.black_scholes_np(pre, erf=erf)]
+                  if name == "black_scholes" else [(w.haversine_np(**pre), 2e-3, 1e-2)])
+        raw, got, ctx = run_observed(fn, data, "sharded", mesh=mesh,
+                                     batch_elements=SHARDED_BATCH)
+        _r, want, fctx = run_observed(fn, data, "fused", batch_elements=SHARDED_BATCH)
+        st = dict(ctx.stats)
+        if st.get("sharded_stages", 0) != st.get("stages", -1) or not st["stages"]:
+            raise AssertionError(f"sharded/{name}: not every stage sharded: {st}")
+        errs = []
+        for i, (r, g, wv, (ref64, rtol, atol)) in enumerate(zip(raw, got, want, oracle)):
+            if not (isinstance(r, DTensor) and r.placements[0] == Shard(0)
+                    and r.device_mesh == mesh and r.to_local().is_cuda
+                    and tuple(r.to_local().shape) == (N_MAIN,)):
+                raise AssertionError(f"sharded/{name} output {i}: {type(r).__name__} "
+                                     f"{getattr(r, 'placements', None)}")
+            if g.shape != wv.shape or g.dtype != wv.dtype \
+                    or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"sharded/{name} output {i}: {g.shape}/{g.dtype}")
+            errs.append(compare(f"sharded/{name} output {i} vs fused", g, wv, 2e-5,
+                                atol=1e-2 if name == "haversine" else 0.0))
+            if not np.allclose(g[:PREFIX].double().cpu().numpy(), ref64, rtol=rtol,
+                               atol=atol):
+                raise AssertionError(f"sharded/{name} output {i}: float64 oracle mismatch")
+        out[name] = {"stats": st, "max_abs_err_vs_fused": max(errs)}
+        log(f"[sharded] {name} n={N_MAIN} on a one-rank NCCL mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names}: every output a card DTensor "
+            f"{[str(p) for p in raw[0].placements]}, local {(N_MAIN,)}; max |sharded - "
+            f"fused| {max(errs):.3e} (batch {SHARDED_BATCH} on both); matches the float64 "
+            f"oracle; stats {st}; fused stats {dict(fctx.stats)}")
+        del raw, got, want, data, pre
+    return out
+
+
+#: the sharded phase's reductions: every (op, input dtype) pair of the CPU
+#: tests (``tests/sharded_scenarios.py`` ``REDUCE_CASES``): torch has no max
+#: or min of uint16 or uint32 (ROADMAP C13)
+SHARDED_REDUCE_DTYPES = (torch.float32, torch.int32, torch.bool, torch.bfloat16, torch.int8,
+                         torch.int16, torch.uint8, torch.uint16, torch.uint32, torch.float16)
+SHARDED_REDUCE_CASES = tuple((name, dtype) for dtype in SHARDED_REDUCE_DTYPES
+                             for name in ("sum", "max", "min", "prod")
+                             if not (dtype in (torch.uint16, torch.uint32)
+                                     and name in ("max", "min")))
+
+
+def reduce_case(dtype: torch.dtype, gen: torch.Generator) -> torch.Tensor:
+    """Seeded card inputs whose products stay finite and exact (within 32
+    bits unsigned), as the CPU tests' ``reduce_input``: float32 and
+    bfloat16 near 1, signed integers and float16 in {-1, 1} with five 2s
+    (float16 also five halves), unsigned ones 1 with twenty 2s and five 3s,
+    random bools."""
+    n = SHARDED_REDUCE_N
+    if dtype == torch.bool:
+        return torch.rand(n, generator=gen, device="cuda") < 0.5
+    if dtype in (torch.int8, torch.int16, torch.int32, torch.float16):
+        x = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, -1, 1)
+        x = x.to(dtype)
+        x[torch.randint(0, n, (5,), generator=gen, device="cuda")] = 2
+        if dtype == torch.float16:
+            x[torch.randint(0, n, (5,), generator=gen, device="cuda")] = 0.5
+        return x
+    if dtype in (torch.uint8, torch.uint16, torch.uint32):
+        x = torch.ones(n, dtype=torch.int32, device="cuda")
+        x[torch.randint(0, n, (20,), generator=gen, device="cuda")] = 2
+        x[torch.randint(0, n, (5,), generator=gen, device="cuda")] = 3
+        return x.to(dtype)
+    x = 1.0 + (torch.rand(n, generator=gen, device="cuda") - 0.5) * 1e-3
+    return x.to(dtype)
+
+
+def sharded_reductions(mesh) -> dict:
+    """(b) sum, max, min and prod (ReduceSplit add, max, min, mul) of every
+    input dtype of the CPU tests: each partial combined by the NCCL group's
+    collective (all-reduce; all-gather then a fold for mul; int16, uint16
+    and uint32 partials widened on the wire, bools as bytes), equal to
+    ``fused`` (integers, bools and the exact float16 cases exactly)."""
+    import torch.distributed as dist
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core.sharded import data_group
+    group, _order = data_group(mesh, (0,))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    out = {}
+    inputs = {}
+    for name, dtype in SHARDED_REDUCE_CASES:
+        if dtype not in inputs:
+            inputs = {dtype: reduce_case(dtype, gen)}
+        x = inputs[dtype]
+        fn = lambda x: getattr(anp, name)(x)
+        _r, (got,), ctx = run_observed(fn, {"x": x}, "sharded", mesh=mesh,
+                                       batch_elements=SHARDED_REDUCE_N // 8)
+        _r, (want,), _c = run_observed(fn, {"x": x}, "fused",
+                                       batch_elements=SHARDED_REDUCE_N // 8)
+        what = f"sharded/{name}({str(dtype)[6:]})"
+        if got.dtype != want.dtype or not got.is_cuda or ctx.stats["sharded_stages"] != 1:
+            raise AssertionError(f"{what}: {got.dtype} vs {want.dtype}, {dict(ctx.stats)}")
+        if not got.dtype.is_floating_point or dtype == torch.float16:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: {got.item()} != fused {want.item()}")
+            err = 0.0
+        else:
+            err = compare(what, got.float(), want.float(),
+                          2e-2 if dtype == torch.bfloat16 else 2e-5)
+        out[f"{name}/{str(dtype)[6:]}"] = {"value": float(got.double()), "err": err,
+                                          "dtype": str(got.dtype)[6:]}
+    log(f"[sharded] reductions over the {dist.get_backend(group)} group (all-reduce, mul "
+        f"all-gather + fold), n={SHARDED_REDUCE_N}, 8 chunks: equal to fused: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def sharded_handoff(sp, mesh) -> dict:
+    """(c) the handoff chain at n = 2**27: sharded -> sharded moves no
+    interior byte and gathers nothing; sharded -> cuda runs the consumer's
+    stages on the split-pipeline kernel (launches counted from 0 around the
+    run).  On one rank a sharded stage's output is a DTensor, never a
+    sharded stream (a stream needs two shards, as in the reference), so the
+    consumer reads the rank's local tensor: ``shard_passthrough`` and the
+    ``gather`` events stay 0 here; the CPU tests hold them on 2-8 gloo
+    ranks."""
+    from repro_torch.core import plan_cache
+    x = torch.linspace(0.0, 1.0, N_MAIN, device=DEVICE)
+    want, _ctx = handoff_chain(x, "fused", True)
+    out = {}
+    for consumer in ("sharded", "cuda"):
+        plan_cache.clear()
+        chain = lambda: handoff_chain(x, consumer, True, first="sharded", mesh=mesh,
+                                      batch_elements=SHARDED_BATCH)
+        for _warm in range(2):
+            chain()
+        sp.reset_counts()
+        got, ctx = chain()
+        launched = sp.split_pipeline.launches
+        st = dict(ctx.stats)
+        events = ctx.counters.materialize_events()
+        gathers = [e for e in events if e[0].startswith("interior:gather")]
+        err = compare(f"sharded -> {consumer} chain vs fused", got, want, 2e-5)
+        interior = ctx.counters.bytes_interior()
+        if consumer == "sharded" and (interior or gathers
+                                      or st.get("sharded_stages", 0) != HANDOFF_EVALS
+                                      or launched):
+            raise AssertionError(f"sharded -> sharded: interior {interior}, gathers "
+                                 f"{gathers}, {st}, launches {launched}")
+        if consumer == "cuda" and (st.get("cuda_stages", 0) != HANDOFF_EVALS - 1
+                                   or launched != st["cuda_stages"]
+                                   or st.get("cuda_fallback_stages", 0)
+                                   or st.get("sharded_stages", 0) != 1):
+            raise AssertionError(f"sharded -> cuda: {st}, launches {launched}")
+        out[consumer] = {"interior": interior, "gathers": len(gathers),
+                         "shard_passthrough": st.get("shard_passthrough", 0),
+                         "stream_materialized": st.get("stream_materialized", 0),
+                         "launches": launched, "max_abs_err": err}
+        log(f"[sharded] chain n={N_MAIN} sharded -> {consumer} (handoff on, warm): "
+            f"interior bytes {interior}, gather events {len(gathers)}, shard_passthrough "
+            f"{st.get('shard_passthrough', 0)} (one rank: no sharded stream), "
+            f"split_pipeline launches {launched}; equal to the fused chain "
+            f"(max |diff| {err:.3e}); stats {st}")
+        del got
+    del x, want
+    return out
+
+
+def sharded_auto(w, mesh) -> dict:
+    """(d) ``executor="auto"`` with the mesh on Black-Scholes at 2**27: the
+    miss, the first hit (measures every candidate on one sample and pins),
+    a warm replay; the pick and measured seconds per stage."""
+    from repro_torch.core import plan_cache
+    data = w.black_scholes_data(N_MAIN, seed=0, device="cuda")
+    _r, want, _c = run_observed(w.black_scholes, data, "fused")
+    plan_cache.clear()
+    picks = []
+    for call in range(3):
+        _r, got, ctx = run_observed(w.black_scholes, data, "auto", mesh=mesh)
+        for i, (g, wv) in enumerate(zip(got, want)):
+            compare(f"sharded/auto call {call} output {i} vs fused", g, wv, 2e-5)
+        picks.append({k: v for k, v in ctx.stats.items() if k.startswith("auto_")})
+    (entry,) = [e for e in plan_cache.entries() if e.key in ctx._entry_keys]
+    out = {"chosen": {str(k): v for k, v in entry.chosen_exec.items()},
+           "timings_s": {str(k): dict(v) for k, v in entry.exec_timings.items()},
+           "stats_per_call": picks}
+    log(f"[sharded] auto with the mesh on black_scholes n={N_MAIN}: picks per stage "
+        f"{out['chosen']}; measured seconds {out['timings_s']}; auto stats per call "
+        f"{picks}")
+    return out
+
+
+def sharded_restore(mesh) -> dict:
+    """(e) elastic restore: a tree saved from the CPU comes back as card
+    DTensors on the mesh (rows sharded, a vector replicated), equal."""
+    import tempfile
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.ckpt import checkpoint as ckpt
+    gen = torch.Generator().manual_seed(5)
+    tree = {"w": torch.randn(4096, 1024, generator=gen), "b": torch.arange(1024.0)}
+    sh = {"w": (mesh, (Shard(0), Replicate())), "b": (mesh, (Replicate(), Replicate()))}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 3, tree)
+        t0 = time.perf_counter()
+        r = ckpt.restore(d, 3, {k: v.to("meta") for k, v in tree.items()}, sh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    for k, v in r.items():
+        if not (isinstance(v, DTensor) and v.to_local().is_cuda
+                and tuple(v.placements) == sh[k][1]
+                and torch.equal(v.full_tensor().cpu(), tree[k])):
+            raise AssertionError(f"sharded/restore {k}: {type(v).__name__}")
+    log(f"[sharded] elastic restore of {{w: (4096, 1024), b: (1024,)}} saved from the CPU "
+        f"onto the card mesh: DTensors {[str(p) for p in r['w'].placements]} / "
+        f"{[str(p) for p in r['b'].placements]}, values equal; {ms:.1f} ms host clock")
+    return {"ms": ms}
+
+
+def sharded_host_ms(w, mesh) -> dict:
+    """(f) host milliseconds of a warm Black-Scholes evaluation at 2**27 on
+    ``sharded``, ``fused`` and ``cuda`` (plan cache warm, each run twice
+    first), in rotating turns; medians and quartiles."""
+    from repro_torch.core import plan_cache
+    data = w.black_scholes_data(N_MAIN, seed=0, device="cuda")
+    runs = {"sharded": {"mesh": mesh}, "fused": {}, "cuda": {}}
+    plan_cache.clear()
+    for ex, kw in runs.items():
+        for _warm in range(2):
+            run_observed(w.black_scholes, data, ex, **kw)
+    times = {ex: [] for ex in runs}
+    order = list(runs)
+    for r in range(SHARDED_ROUNDS):
+        for ex in order[r % 3:] + order[:r % 3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_observed(w.black_scholes, data, ex, **runs[ex])
+            times[ex].append((time.perf_counter() - t0) * 1e3)
+    out = {ex: {"median_ms": statistics.median(v),
+                "quartiles_ms": statistics.quantiles(v, n=4)[::2]} for ex, v in times.items()}
+    log(f"[sharded] warm black_scholes n={N_MAIN}, host clock ending in a synchronise, "
+        f"{SHARDED_ROUNDS} rotating turns: " + "; ".join(
+            f"{ex} {v['median_ms']:.3f} ms ({v['quartiles_ms'][0]:.3f}-"
+            f"{v['quartiles_ms'][1]:.3f})" for ex, v in out.items()) + f" ({card_line()})")
+    return out
+
+
+def sharded_chaos(sp, w, mesh) -> dict:
+    """(g) ``compile:fail:1`` on Black-Scholes at n = 2**27 through
+    ``mozart.pipeline(executor="cuda", mesh=...)``: one demotion, to a
+    ``sharded`` stage that runs, no launch, equal to the fault-free run.
+    Its MZ4xx events are cleared after it, as the chaos phase's."""
+    from repro_torch.core import mozart, plan_cache, resilience
+    fn = w.black_scholes
+    data = w.black_scholes_data(N_MAIN, seed=0, device="cuda")
+    resilience.clear_events()
+    plan_cache.clear()
+    with mozart.session(executor="cuda"):
+        want = [o.value for o in as_list(fn(**data))]
+    p = mozart.pipeline(fn, executor="cuda", mesh=mesh)
+    sp.reset_counts()
+    with mozart.inject_faults("compile:fail:1") as plan:
+        got = as_list(p(**data))
+    torch.cuda.synchronize()
+    st = p.last_call_stats
+    if (plan.fired != [("compile", "stage 0 cuda")] or st.get("exec_demotions", 0) != 1
+            or st.get("exec_demoted_to_sharded", 0) != 1 or st.get("sharded_stages", 0) != 1
+            or sp.split_pipeline.launches):
+        raise AssertionError(f"sharded/chaos: fired {plan.fired}, {st}, launches "
+                             f"{sp.split_pipeline.launches}")
+    for i, (g, wv) in enumerate(zip(got, want)):
+        compare(f"sharded/chaos demoted call output {i} vs fault-free", g, wv, 2e-5)
+    counts = {k: int(resilience.stats.get(k, 0)) for k in RESILIENCE_KEYS}
+    log(f"[sharded] chaos: compile:fail:1 on black_scholes n={N_MAIN}, mozart.pipeline(cuda) "
+        f"with the one-rank card mesh: fired {plan.fired}; 1 demotion cuda -> sharded, which "
+        f"ran the stage (sharded_stages {st.get('sharded_stages', 0)}); output equal to "
+        f"the fault-free run; MZ4xx {counts}")
+    resilience.clear_events()
+    plan_cache.clear()
+    del got, want, p, data
+    torch.cuda.empty_cache()
+    return {"mz": counts}
+
+
+def phase_sharded(sp, w, erf) -> dict:
+    """The ``sharded`` executor (ROADMAP A8.1) on a one-rank NCCL mesh
+    (``make_host_mesh()``; one H100 gives one rank, so the multi-rank
+    collectives, streams, re-layouts and the ranks' agreement on ``auto``
+    and the ladder are held on the CPU by ``gloo`` worlds of 2-8 ranks in
+    ``tests/test_torch_sharded*.py``): (g) ``sharded_chaos`` first (its
+    MZ4xx events cleared, so the phase's check after it reads the rest),
+    then (a) ``sharded_workloads``, (b) ``sharded_reductions``, (c)
+    ``sharded_handoff``, (d) ``sharded_auto``, (e) ``sharded_restore``, (f)
+    ``sharded_host_ms``.  The process group lives within this phase: made
+    here, ended here."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh()
+    try:
+        log(f"[sharded] mesh {mesh} over {dist.get_world_size()} rank(s), backend "
+            f"{dist.get_backend()} ({card_line()})")
+        out = {"chaos": sharded_chaos(sp, w, mesh),
+               "workloads": sharded_workloads(w, erf, mesh),
+               "reductions": sharded_reductions(mesh),
+               "handoff": sharded_handoff(sp, mesh),
+               "auto": sharded_auto(w, mesh),
+               "restore": sharded_restore(mesh),
+               "host_ms": sharded_host_ms(w, mesh)}
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[sharded] phase {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
@@ -4709,6 +5070,9 @@ def main() -> int:
     lint = phase_lint(sp, train, serve)
     resilience_clean("lint")
     log(json.dumps({"lint": lint}))
+    sharded = phase_sharded(sp, w, erf)
+    resilience_clean("sharded")
+    log(json.dumps({"sharded": sharded}))
     log(f"[phases] seconds per check (chaos counts in times, data in kernel): "
         f"{json.dumps(LAPS)}; {sum(s for _, s in LAPS):.1f} s to the last")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

@@ -13,7 +13,9 @@ Layout (device-independent — the logical tensors are saved whole):
   thread and writes on a daemon thread — ``wait()`` joins;
 * ``latest_step`` ignores uncommitted (crashed mid-write) checkpoints;
 * ``restore`` rebuilds the caller's tree, each leaf on the target leaf's
-  device and in its dtype.
+  device and in its dtype, or, given ``shardings``, as a ``DTensor`` laid
+  out on a mesh (elastic re-shard onto another topology: every rank reads
+  its own shard from the file, nothing is scattered from rank 0).
 
 A tree is nested dicts / lists / NamedTuples (or a ``ParamTree``) of tensors;
 paths join keys with "/".  bfloat16 leaves are stored as float32 (exact;
@@ -132,23 +134,47 @@ def latest_step(directory: str | Path) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(directory: str | Path, step: int, target_tree: Any) -> Any:
+def restore(directory: str | Path, step: int, target_tree: Any,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``target_tree``: every leaf comes back
     as a tensor on that leaf's device and in its dtype (dicts and
-    ``ParamTree``s come back as dicts, NamedTuples as their type)."""
+    ``ParamTree``s come back as dicts, NamedTuples as their type).
+
+    ``shardings``, a tree of the same structure whose leaves are
+    ``(mesh, placements)`` pairs, re-shards elastically: each leaf comes
+    back as a ``DTensor`` in the target leaf's dtype on that mesh, this
+    rank's shard cut from the file (``torch.chunk`` per sharded mesh
+    dimension, as ``Shard`` lays a tensor out)."""
     path = Path(directory) / f"step_{step:08d}"
     if not (path / "_COMPLETE").exists():
         raise FileNotFoundError(f"checkpoint {path} is incomplete")
     with np.load(path / "arrays.npz") as data:
-        return _rebuild(target_tree, data, "")
+        return _rebuild(target_tree, data, "", shardings)
 
 
-def _rebuild(tree: Any, data, prefix: str) -> Any:
+def _shard_of(arr: torch.Tensor, mesh, placements) -> Any:
+    """This rank's shard of the whole ``arr`` as a ``DTensor``."""
+    from torch.distributed.tensor import DTensor
+    local = arr
+    coord = mesh.get_coordinate()
+    for d, p in enumerate(placements):
+        if p.is_shard():
+            local = torch.chunk(local, int(mesh.shape[d]), dim=p.dim)[coord[d]]
+    local = local.contiguous().to(device=mesh.device_type)
+    return DTensor.from_local(local, mesh, tuple(placements), run_check=False,
+                              shape=arr.shape, stride=arr.stride())
+
+
+def _rebuild(tree: Any, data, prefix: str, shardings: Any = None) -> Any:
     kids = _children(tree)
     if kids is None:
         arr = torch.from_numpy(np.array(data[prefix]))
+        if shardings is not None:
+            mesh, placements = shardings
+            return _shard_of(arr.to(dtype=tree.dtype), mesh, placements)
         return arr.to(device=tree.device, dtype=tree.dtype)
-    out = {k: _rebuild(v, data, f"{prefix}/{k}" if prefix else str(k))
+    sub = dict(_children(shardings)) if shardings is not None else {}
+    out = {k: _rebuild(v, data, f"{prefix}/{k}" if prefix else str(k), sub.get(k))
            for k, v in kids}
     if isinstance(tree, tuple) and hasattr(tree, "_asdict"):
         return type(tree)(**out)

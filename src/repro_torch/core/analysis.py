@@ -926,8 +926,8 @@ def check_plan_cache(path: str | None = None) -> Report:
         keys = list(pc._entries.keys())
     for key in keys:
         rep.checked += 1
-        if len(key) < pc._PREFIX_LEN:
-            continue
+        if len(key) <= max(pc._P_EXEC, pc._P_CHIP, pc._P_DEV):
+            continue                   # not a key of the fields read here
         subject = f"plan entry executor={key[pc._P_EXEC]!r}"
         if key[pc._P_EXEC] not in avail:
             rep.diagnostics.append(Diagnostic(

@@ -14,7 +14,9 @@ cheapest:
    chunk (x chain length when not fused), scan one driver call, ``cuda``
    one kernel launch on the card.  Off the card the ``cuda`` executor runs
    the kernel's plain version, so it takes the penalty the reference gives
-   interpreted Pallas and ``auto`` never picks it there.
+   interpreted Pallas and ``auto`` never picks it there.  ``sharded``
+   divides the stream over the mesh's data extent (infinite without a mesh
+   or when the extent does not divide the element count).
 
 2. **Measured feedback.**  On the first execution of a *cached* plan the
    ``AutoExecutor`` times one bounded sample, the same size for every
@@ -40,6 +42,7 @@ from repro_torch import hardware
 from repro_torch.core import resilience
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.core.planner import Stage
+from repro_torch.core.sharded import agree, mesh_group
 from repro_torch.core.stage_exec import (
     StageExecutor,
     get_executor,
@@ -52,9 +55,9 @@ from repro_torch.core.stage_exec import (
 )
 
 #: fixed preference order = deterministic tie-break: on equal estimated cost
-#: the strategy with fewer moving parts wins.  ROADMAP A8 puts ``sharded``
-#: back between ``cuda`` and ``eager``.
-CANDIDATE_ORDER = ("scan", "fused", "pipelined", "cuda", "eager")
+#: the strategy with fewer moving parts wins (the reference's, ``cuda`` in
+#: ``pallas``'s place).
+CANDIDATE_ORDER = ("scan", "fused", "pipelined", "cuda", "sharded", "eager")
 
 #: off the card ``cuda`` runs the kernel's plain version, op by op over the
 #: whole value: keep it out of the measurement candidates too.
@@ -79,10 +82,12 @@ class StageFeatures:
     dynamic: bool              # chain contains dynamic-shape fns
     cuda_eligible: bool        # stage lowers onto the split-pipeline kernel
     on_cuda: bool              # the session runs on the card
+    mesh_devices: int = 0      # data-mesh extent (0: no mesh configured)
 
 
 def features_of(stage: Stage, concrete: dict[tuple, Any], ctx) -> StageFeatures:
     from repro_torch.core.cuda_exec import _eligible as cuda_eligible
+    from repro_torch.core.sharded import mesh_extent
     n = stage_num_elements(stage, concrete, ctx.pedantic)
     return StageFeatures(
         n=n,
@@ -92,6 +97,7 @@ def features_of(stage: Stage, concrete: dict[tuple, Any], ctx) -> StageFeatures:
         dynamic=has_dynamic(stage),
         cuda_eligible=n > 0 and cuda_eligible(stage, concrete),
         on_cuda=ctx.device.type == "cuda",
+        mesh_devices=mesh_extent(ctx) if getattr(ctx, "mesh", None) is not None else 0,
     )
 
 
@@ -130,6 +136,10 @@ def analytic_seconds(name: str, f: StageFeatures, chip: hardware.Chip,
         if not f.on_cuda:
             return f.n * _INTERPRET_PENALTY_S_PER_ELEM + dispatch
         return stream + dispatch
+    if name == "sharded":
+        if f.mesh_devices < 1 or f.n % max(f.mesh_devices, 1) != 0:
+            return math.inf
+        return stream / f.mesh_devices + 2 * dispatch
     return math.inf                      # strategies the model cannot score
 
 
@@ -190,8 +200,10 @@ class AutoExecutor(StageExecutor):
         # Streams pass through for scoring (features read types and avals);
         # the delegate's own run() re-resolves with its capability and owns
         # the ingest/materialize stats (tally=False here).
+        # shard_ok too: a sharded-form stream is not gathered just to score
+        # the stage; the delegate decides.
         concrete = resolve_stage_inputs(stage, graph, ctx, streams_ok=True,
-                                        tally=False)
+                                        tally=False, shard_ok=True)
         entry = getattr(ctx, "_plan_entry", None)
         # Quarantined executors (the degradation ladder) sit out selection;
         # read-only here: run_stage already aged the quarantine this dispatch.
@@ -208,17 +220,37 @@ class AutoExecutor(StageExecutor):
         elif name is not None and self._aged_out(stage, concrete, ctx, entry):
             name = None              # shape drift past a crossover: re-measure
         if name is not None:
-            ctx.stats["auto_pinned_replays"] += 1
+            plan = ("replay", name)
         elif (entry is not None and entry.hits > 0
                 and getattr(ctx, "autotune", True)
                 and not has_dynamic(stage)
                 and entry.try_claim_exec(stage.id)):
-            concrete = materialize_inputs(stage, concrete, ctx)
-            name = self._measure_and_pin(stage, concrete, ctx, entry, blocked)
-        if name is None:
+            plan = ("measure", None)
+        else:
             feats = features_of(stage, concrete, ctx)
             timings = entry.exec_timings.get(stage.id) if entry is not None else None
-            name = choose(feats, ctx, timings, blocked)
+            plan = ("choose", choose(feats, ctx, timings, blocked))
+        group = mesh_group(ctx)
+        if group is not None:
+            # SPMD: every rank of the mesh must run the stage on the same
+            # executor, or their collectives no longer match.  The analytic
+            # model reads each process's measured dispatch, so the first
+            # rank's decision stands (the ladder keeps the quarantines
+            # equal on every rank).
+            lead = tuple(agree(group, plan)[0])
+            if lead != plan:
+                ctx.stats["auto_mesh_overrides"] += 1
+                if plan[0] == "measure":
+                    entry.release_exec(stage.id)
+                elif lead[0] == "measure":
+                    entry.try_claim_exec(stage.id)
+                plan = lead
+        kind, name = plan
+        if kind == "replay":
+            ctx.stats["auto_pinned_replays"] += 1
+        elif kind == "measure":
+            concrete = materialize_inputs(stage, concrete, ctx)
+            name = self._measure_and_pin(stage, concrete, ctx, entry, blocked, group)
         ctx.stats["auto_stages"] += 1
         ctx.stats[f"auto_pick_{name}"] += 1
         if ctx.log:
@@ -276,14 +308,18 @@ class AutoExecutor(StageExecutor):
         return True
 
     def _measure_and_pin(self, stage: Stage, concrete: dict[tuple, Any], ctx,
-                         entry, blocked: "set | frozenset" = frozenset()) -> str:
+                         entry, blocked: "set | frozenset" = frozenset(),
+                         group=None) -> str:
         """Time a bounded sample under each viable candidate, record the
         extrapolated seconds (overwriting stale values) and pin the measured
         winner.  Quarantined candidates are neither measured nor pinned; a
         candidate that fails its sample stays unscored, counted
         (``note_swallowed``), unless the failure is a kernel fault or a
         failure of the ``cuda`` candidate other than an injected fault
-        (``resilience.cuda_may_skip``), which propagate."""
+        (``resilience.cuda_may_skip``), which propagate.  With ``group`` (a
+        mesh of several ranks) every rank samples the first rank's
+        candidates, and a candidate's seconds are its slowest rank's, kept
+        only where every rank timed it: every rank pins the same winner."""
         pinned = False
         try:
             feats = features_of(stage, concrete, ctx)
@@ -292,6 +328,8 @@ class AutoExecutor(StageExecutor):
             floor = min(scores.values())
             cands = [c for c in cands
                      if scores[c] <= floor * _MEASURE_RATIO] or cands[:1]
+            if group is not None:
+                cands = agree(group, cands)[0]
             if feats.n == 0 or len(cands) == 1:
                 entry.pin_exec(stage.id, cands[0], n=feats.n)
                 pinned = True
@@ -306,17 +344,26 @@ class AutoExecutor(StageExecutor):
             # asks for (``cuda``'s whole-launch floor), so a whole-value
             # strategy's fixed cost is not extrapolated from a smaller sample.
             elems = max(s for _c, _d, _b, s in runs)
+            if group is not None:
+                elems = agree(group, elems)[0]
+            fresh = {}
             for c, d, batch, _s in runs:
                 try:
-                    secs = d.sampled_time(stage, concrete, ctx, batch, n, elems)
+                    fresh[c] = d.sampled_time(stage, concrete, ctx, batch, n, elems)
                 except resilience.PROBE_ERRORS as e:
                     if c == "cuda" and not resilience.cuda_may_skip(e):
                         raise
                     resilience.note_swallowed("auto_measure", e, ctx)
-                    continue
+            if group is not None:
+                every = agree(group, fresh)
+                fresh = {c: max(r[c] for r in every) for c in fresh
+                         if all(c in r for r in every)}
+            for c, secs in fresh.items():
                 entry.record_exec_timing(stage.id, c, secs)
             measured = entry.exec_timings.get(stage.id, {})
             name = choose(feats, ctx, measured, blocked)
+            if group is not None:
+                name = agree(group, name)[0]
             entry.pin_exec(stage.id, name, n=feats.n)
             pinned = True
             ctx.stats["auto_measured_stages"] += 1

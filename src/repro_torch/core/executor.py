@@ -26,7 +26,8 @@ plan-cache entry (``stage_exec.pinned_exec``), so a warm call builds none;
 each build counts as a trace (``note_trace``).  The chunk loop halves its
 batch on memory exhaustion, at most ``resilience.MAX_OOM_HALVINGS`` times,
 and each drive crosses the ``chunk`` fault boundary.  The ``"cuda"``
-executor (the split-pipeline kernel) lives in ``core/cuda_exec.py``.
+executor (the split-pipeline kernel) lives in ``core/cuda_exec.py``,
+``"sharded"`` (a ``torch.distributed`` mesh) in ``core/sharded.py``.
 """
 
 from __future__ import annotations

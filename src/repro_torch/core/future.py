@@ -76,17 +76,23 @@ class Future:
 
         A result left unmerged by cross-stage chunk handoff (a
         ``ChunkStream``) merges here, lazily, exactly once: observation is
-        the only point a handed-off output materializes."""
+        the only point a handed-off output materializes.  A ``sharded``
+        stage's result (a ``DTensor``, or a sharded stream) comes back
+        whole, gathered over the mesh: every rank observes it."""
         if not self._node.done:
             self._ctx.evaluate()
         res = self._node.result
-        from repro_torch.core.stage_exec import ChunkStream, counter_scope
+        from repro_torch.core.stage_exec import ChunkStream, counter_scope, whole_value
         if isinstance(res, ChunkStream):
             # Observation of a pipeline output: TERMINAL bytes, attributed
             # to the owning context's counters.
             with counter_scope(getattr(self._ctx, "counters", None)):
                 res = res.materialize(terminal=True)
             self._node.result = res
+        else:
+            whole = whole_value(res)
+            if whole is not res:
+                self._node.result = res = whole
         return res
 
     def block(self) -> Any:

@@ -64,8 +64,9 @@ class StageHandoff:
     #: and every cross-evaluation ingest into such a consumer).
     convert_in: frozenset = frozenset()
     #: input positions permitted to ingest a sharded-form stream; recorded
-    #: only for executors that place per-shard buffers ("sharded", "auto"),
-    #: which the port does not have yet.
+    #: only for executors that place per-shard buffers ("sharded", "auto");
+    #: ``core/sharded.py`` re-checks the concrete mesh and placements per
+    #: call.
     shard_in: frozenset = frozenset()
     #: input positions that WOULD be ``last_use`` donation points but were
     #: vetoed because the producer's Future was alive during analysis.

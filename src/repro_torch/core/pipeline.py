@@ -430,9 +430,8 @@ class Pipeline:
         """Static analysis of this pipeline (never executes it): trace with
         the given example arguments — or the ones ``lower()`` saw — and run
         the Mozart dataflow analyzer (``repro_torch.core.analysis``, MZ2xx
-        codes) under this Pipeline's configuration, on its device (which
-        stands where the reference passes its mesh).  Returns an
-        ``analysis.Report``."""
+        codes) under this Pipeline's configuration: its device and its
+        mesh.  Returns an ``analysis.Report``."""
         from repro_torch.core import analysis
         self._require_fn()
         if not args and not kwargs and self._example is not None:
@@ -440,8 +439,9 @@ class Pipeline:
         c = self.ctx
         return analysis.verify_pipeline(
             lambda *a: self.fn(*a, **kwargs), *args,
-            executor=c.executor, chip=c.chip, device=c.device,
-            batch_elements=c.batch_elements, pipeline=c.pipeline,
+            executor=c.executor, chip=c.chip, device=c.device, mesh=c.mesh,
+            data_axes=c.data_axes, batch_elements=c.batch_elements,
+            inner_executor=c.inner_executor, pipeline=c.pipeline,
             handoff=c.handoff, rewrite=c.rewrite)
 
     def _require_fn(self) -> None:
@@ -466,7 +466,7 @@ def pipeline(fn: Callable | None = None, **config):
         def my_fn(x, y): ...
 
     ``config`` accepts every ``mozart.session`` knob (executor, device,
-    chip, batch_elements, plan_cache_path, ...)."""
+    chip, mesh, batch_elements, plan_cache_path, ...)."""
     if fn is None:
         return lambda f: Pipeline(f, **config)
     return Pipeline(fn, **config)

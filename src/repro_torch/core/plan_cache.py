@@ -14,8 +14,8 @@ which earlier node), static argument values, the *constructed* split types
 (SA-local generics normalized, ``unknown`` uids erased), and the shape,
 dtype and device type of every external tensor and abstract output.  The
 context knobs that change planning, batch sizing or the executables
-(``executor``, the session's chip, ``pipeline``, the device type,
-``handoff``) are part of the key; tensor *values* are not, so calling the
+(``executor``, the session's chip, ``pipeline``, the device type, the
+mesh's data-axis extents, ``handoff``) are part of the key; tensor *values* are not, so calling the
 same pipeline on fresh data of the same shape is a hit.  The pass itself
 runs once per distinct captured graph: its script is kept under the
 captured graph's ``_rewrite_key`` and replayed on later captures, which
@@ -38,14 +38,15 @@ candidate, extrapolated) and pins the fastest; later hits reuse it.  The
 
 **Persistence.**  ``save(path)`` / ``load(path)`` serialize fingerprints,
 stage templates, tuned batches, tiles, chosen executors and handoff
-decisions to a versioned JSON file (schema v7, the reference's layout), so
-a restarted process replays pinned plans with zero planner calls and zero
-tuning executions.  A schema guard and a chip guard (the card's name from
-its properties) reject stale or cross-chip files (cold planning, never a
-crash); saves write through a temp file + fsync + atomic rename under an
-advisory file lock, merging the on-disk entries first.  Entries whose split
-types cannot round-trip structurally are skipped.  Rehydrated entries carry
-function *names*; the first lookup match binds the live ``AnnotatedFn``s.
+decisions to a versioned JSON file (schema v8: the reference's v7 layout
+with the mesh in the key prefix), so a restarted process replays pinned
+plans with zero planner calls and zero tuning executions.  A schema guard
+and a chip guard (the card's name from its properties) reject stale or
+cross-chip files (cold planning, never a crash); saves write through a
+temp file + fsync + atomic rename under an advisory file lock, merging the
+on-disk entries first.  Entries whose split types cannot round-trip
+structurally are skipped.  Rehydrated entries carry function *names*; the
+first lookup match binds the live ``AnnotatedFn``s.
 
 Values that cannot be fingerprinted make a pipeline *uncacheable*: it is
 planned from scratch every time, which is always correct, merely slower.
@@ -73,14 +74,16 @@ from repro_torch.core.planner import Stage, StageInput, _value_key, plan
 
 _MAX_ENTRIES = 256
 
-#: serialized file format version (the reference's v7 layout: handoff
+#: serialized file format version: the reference's v7 layout (handoff
 #: decisions with ``convert_in``/``shard_in``/``vetoed``, block shapes,
-#: ``exec_meta``, ``bucket``, ``quarantined``, ``rewrites``).
-SCHEMA_VERSION = 7
+#: ``exec_meta``, ``bucket``, ``quarantined``, ``rewrites``); v8 adds the
+#: mesh fingerprint to the key prefix (``context_key_prefix``).
+SCHEMA_VERSION = 8
 
 #: older schemas the loader migrates forward in place: each lacks only
-#: fields that default to empty (see the reference's notes).
-_MIGRATABLE_SCHEMAS = (2, 3, 4, 5, 6)
+#: fields that default to empty (see the reference's notes), and a v7 or
+#: older key gains the absent mesh (``_migrate_key``).
+_MIGRATABLE_SCHEMAS = (2, 3, 4, 5, 6, 7)
 
 #: process-global cache statistics.
 stats: collections.Counter = collections.Counter()
@@ -279,18 +282,38 @@ def context_key_prefix(ctx) -> tuple:
     """The context-knob part of every fingerprint: the configuration a plan
     was cached under.  The chip is the session's own (its name comes from
     the card's properties), the device type separates a session on the card
-    from one on the CPU, and ``handoff`` is included because recorded
-    handoff decisions apply only under the configuration they were analyzed
-    for.  ``configure()`` uses this prefix to re-key entries when knobs
-    change mid-session (``rekey_config``)."""
+    from one on the CPU, the mesh's data-axis extents keep a plan (and a
+    pinned ``sharded`` choice, or a batch tuned for one extent) from ever
+    replaying under another mesh or none, and ``handoff`` is included
+    because recorded handoff decisions apply only under the configuration
+    they were analyzed for.  ``configure()`` uses this prefix to re-key
+    entries when knobs change mid-session (``rekey_config``)."""
     return (ctx.executor, ctx.chip.name, bool(ctx.pipeline), ctx.device.type,
-            bool(getattr(ctx, "handoff", True)))
+            mesh_fingerprint(ctx), bool(getattr(ctx, "handoff", True)))
 
 
-_PREFIX_LEN = 5
+def mesh_fingerprint(ctx) -> tuple | None:
+    """``((axis, extent), ...)`` over the context's data axes, or None."""
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is None:
+        return None
+    from repro_torch.core.sharded import axis_size
+    return tuple((str(a), axis_size(mesh, a)) for a in ctx.data_axes)
+
+
+_PREFIX_LEN = 6
 
 #: prefix component indices (kept in sync with ``context_key_prefix``).
-_P_EXEC, _P_CHIP, _P_PIPE, _P_DEV, _P_HANDOFF = range(_PREFIX_LEN)
+_P_EXEC, _P_CHIP, _P_PIPE, _P_DEV, _P_MESH, _P_HANDOFF = range(_PREFIX_LEN)
+
+
+def _migrate_key(key: tuple) -> tuple:
+    """A key of the v7 layout (no mesh component: a bool handoff flag sits
+    where the mesh goes) gains ``None``, the mesh of every session it could
+    have come from."""
+    if len(key) > _P_MESH and isinstance(key[_P_MESH], bool):
+        return key[:_P_MESH] + (None,) + key[_P_MESH:]
+    return key
 
 
 def rekey_config(old_prefix: tuple, new_prefix: tuple,
@@ -300,7 +323,7 @@ def rekey_config(old_prefix: tuple, new_prefix: tuple,
     Stage *templates* are executor-independent, so each matching entry is
     COPIED to ``new_prefix``.  Tuned chunk sizes, their trial history and
     pinned tiles migrate when only the executor (or handoff) knob changed,
-    and are dropped when the chip or device changed (measured on other
+    and are dropped when the chip, device or mesh changed (measured on other
     hardware).  Executor-selection state (``chosen_exec``/``exec_timings``)
     never migrates.  Handoff decisions migrate only when the executor did
     not change; otherwise the copy re-analyzes on first use
@@ -313,7 +336,8 @@ def rekey_config(old_prefix: tuple, new_prefix: tuple,
         return 0
     structural = old_prefix[_P_PIPE] != new_prefix[_P_PIPE]
     same_hw = (old_prefix[_P_CHIP] == new_prefix[_P_CHIP]
-               and old_prefix[_P_DEV] == new_prefix[_P_DEV])
+               and old_prefix[_P_DEV] == new_prefix[_P_DEV]
+               and old_prefix[_P_MESH] == new_prefix[_P_MESH])
     moved = 0
     with _lock:
         for key in [k for k in _entries if k[:_PREFIX_LEN] == old_prefix]:
@@ -921,7 +945,7 @@ def _entry_dec(d: dict, classes: dict[str, type]) -> PlanEntry:
     from repro_torch.core.handoff import StageHandoff
     raw_ho = d.get("handoff")
     return PlanEntry(
-        key=_dec(d["key"]),
+        key=_migrate_key(_dec(d["key"])),
         stage_templates=templates,
         fns=None,
         fn_names=tuple(d["fn_names"]),

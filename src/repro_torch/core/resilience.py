@@ -16,13 +16,16 @@ and ``serving``.
 
 2. **Graceful degradation.**  ``run_stage`` is the stage-dispatch wrapper:
    when an executor raises a recoverable error it demotes along
-   ``DEGRADE_ORDER`` (``cuda`` -> ``scan`` -> ``fused`` -> ``pipelined`` ->
-   ``eager``) until the stage completes, quarantines the broken choice on
+   ``DEGRADE_ORDER`` (``cuda`` -> ``sharded`` -> ``scan`` -> ``fused`` ->
+   ``pipelined`` -> ``eager``) until the stage completes, quarantines the broken choice on
    the plan entry (persisted: warm calls and restarted processes skip it)
    and ages the quarantine so the executor is retried after
    ``QUARANTINE_TTL`` dispatches.  Chunk-loop resource exhaustion is handled
    below the ladder: ``core/executor.py`` halves the chunk batch, at most
-   ``MAX_OOM_HALVINGS`` times, and re-pins the surviving size.
+   ``MAX_OOM_HALVINGS`` times, and re-pins the surviving size.  On a mesh
+   of several ranks every rank runs the stage (SPMD): after each attempt
+   the ranks compare outcomes (``_run_rung``), and a failure on one rank
+   demotes every rank alike, so their collectives stay matched.
 
 3. **Shared error taxonomy.**  ``TRANSIENT_ERRORS`` / ``PROBE_ERRORS``:
    probe and measurement sites (the tuner's samples, ``auto``'s candidate
@@ -85,6 +88,7 @@ log = logging.getLogger("repro_torch.resilience")
 __all__ = [
     "BOUNDARIES", "DEGRADE_ORDER", "FaultPlan", "FaultSpec", "InjectedFault",
     "InjectedResourceExhausted", "KernelError", "PROBE_ERRORS", "QUARANTINE_TTL",
+    "RankFailure",
     "StepFailure", "StepTimer", "FaultConfig", "TRANSIENT_ERRORS",
     "clear_events", "cuda_may_skip", "events", "inject_faults", "is_kernel_fault",
     "is_resource_exhausted", "maybe_fail", "note_swallowed", "record_event",
@@ -348,10 +352,10 @@ def maybe_fail(boundary: str, where: str = "") -> None:
 # ---------------------------------------------------------------------------
 
 #: demotion order: after a failure the ladder continues below the failed
-#: executor, ending at the un-annotated library baseline.  ``cuda`` takes
-#: ``pallas``'s place; ``sharded`` joins between ``cuda`` and ``scan`` with
-#: its executor (ROADMAP A8).
-DEGRADE_ORDER = ("cuda", "scan", "fused", "pipelined", "eager")
+#: executor, ending at the un-annotated library baseline: the reference's,
+#: ``cuda`` in ``pallas``'s place.  A session without a mesh walks through
+#: ``sharded`` (which raises there) to ``scan``, as the reference's does.
+DEGRADE_ORDER = ("cuda", "sharded", "scan", "fused", "pipelined", "eager")
 
 #: dispatches a quarantined executor sits out before it is retried
 #: (``MOZART_QUARANTINE_TTL``).  Read at every dispatch, so a caller may set
@@ -381,8 +385,6 @@ def run_stage(name: str, stage, graph, ctx, _tick: bool = True) -> None:
     entry.  Unrecoverable errors (kernel faults, programming errors, an
     attempt that released a stream) propagate unchanged.  ``_tick=False``
     (``auto``'s delegate) reads the quarantine without ageing it again."""
-    from repro_torch.core.stage_exec import get_executor
-
     entry = getattr(ctx, "_plan_entry", None)
     blocked: set = set()
     if entry is not None:
@@ -399,17 +401,13 @@ def run_stage(name: str, stage, graph, ctx, _tick: bool = True) -> None:
         record_event("MZ404", f"stage {stage.id}: {name} quarantined, "
                               f"dispatching {first}", severity="info")
 
-    released = ctx.stats.get("streams_released", 0)
-    try:
-        get_executor(first).run(stage, graph, ctx)
+    group = None
+    if first != "auto":                  # auto's delegate agrees in its own ladder
+        from repro_torch.core.sharded import mesh_group
+        group = mesh_group(ctx)
+    last = _run_rung(first, stage, graph, ctx, group)
+    if last is None:
         return
-    except PROBE_ERRORS as e:
-        if first == "auto":
-            # auto's delegate dispatch already ran this ladder
-            raise
-        last = e
-        if not _recoverable(e, ctx, released, first):
-            raise
 
     failed = first
     for alt in demotion_ladder(first):
@@ -425,16 +423,52 @@ def run_stage(name: str, stage, graph, ctx, _tick: bool = True) -> None:
                               f"({type(last).__name__})")
         log.warning("stage %s: executor %s failed (%s); demoting to %s",
                     stage.id, failed, last, alt)
-        released = ctx.stats.get("streams_released", 0)
-        try:
-            get_executor(alt).run(stage, graph, ctx)
+        last = _run_rung(alt, stage, graph, ctx, group)
+        if last is None:
             return
-        except PROBE_ERRORS as e:
-            last = e
-            if not _recoverable(e, ctx, released, alt):
-                raise
-            failed = alt
+        failed = alt
     raise last
+
+
+class RankFailure(RuntimeError):
+    """A stage attempt that failed on another rank of the mesh: this rank
+    demotes with it, or raises with it where the failure cannot be
+    recovered from."""
+
+
+def _run_rung(name: str, stage, graph, ctx, group) -> BaseException | None:
+    """One attempt of ``stage`` on ``name``: None when it ran, the error
+    when it failed and may be re-driven by the next rung; raises what may
+    not.  With ``group`` (a mesh of several ranks) the ranks first compare
+    outcomes: the attempt stands only where it ran on every rank, and if
+    any rank cannot go on (an unrecoverable error, or a stream released by
+    an attempt that must now be re-driven) every rank raises."""
+    from repro_torch.core.stage_exec import get_executor
+    released = ctx.stats.get("streams_released", 0)
+    err, fatal = None, False
+    try:
+        get_executor(name).run(stage, graph, ctx)
+    except PROBE_ERRORS as e:
+        if name == "auto":
+            raise                        # auto's delegate dispatch ran the ladder
+        err, fatal = e, not _recoverable(e, ctx, released, name)
+        if fatal and group is None:
+            raise
+    if group is None:
+        return err
+    from repro_torch.core.sharded import agree
+    moved = ctx.stats.get("streams_released", 0) != released
+    states = agree(group, (err is not None, fatal, moved))
+    failed_on = [r for r, (failed, _f, _m) in enumerate(states) if failed]
+    if not failed_on:
+        return None
+    if any(f or (m and not failed) for failed, f, m in states):
+        if fatal:
+            raise err
+        raise RankFailure(f"stage {stage.id}: {name} failed on group rank(s) "
+                          f"{failed_on} and cannot be re-driven") from err
+    return err or RankFailure(f"stage {stage.id}: {name} failed on group rank(s) "
+                              f"{failed_on}")
 
 
 def _recoverable(e: BaseException, ctx, released_before: int,

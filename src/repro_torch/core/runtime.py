@@ -11,6 +11,9 @@ is the user-facing way to scope configuration:
 
 A context runs on the card unless it is given ``device="cpu"``; on a machine
 without CUDA the default raises instead of quietly running on the CPU.
+``executor="sharded"`` with ``mesh=`` (a ``DeviceMesh`` on the context's
+device type, ``launch/mesh.py``) spreads each stage's split over the mesh's
+``data_axes`` (``core/sharded.py``).
 Outside every session annotated functions run eagerly (the plain library).
 
 Plans are cached across evaluations (``core/plan_cache.py``): a repeated
@@ -65,6 +68,15 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
+def _check_mesh(mesh, dev: torch.device):
+    """A session's mesh must live on the session's device type: a card
+    session never runs its shards on a CPU mesh, nor the reverse."""
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"the mesh lies on {mesh.device_type!r}, the session "
+                         f"runs on {dev.type!r}")
+    return mesh
+
+
 def _on_device(t: torch.Tensor, dev: torch.device) -> bool:
     return t.device.type == dev.type and (
         dev.index is None or t.device.index in (None, dev.index))
@@ -76,10 +88,13 @@ class MozartContext:
         executor: str = "pipelined",
         device: torch.device | str = "cuda",
         chip: hardware.Chip | None = None,
+        mesh=None,
+        data_axes: tuple[str, ...] = ("data",),
         lazy: bool = True,
         pedantic: bool = False,
         batch_elements: int | None = None,
         log: bool = False,
+        inner_executor: str = "fused",
         pipeline: bool = True,
         plan_cache: bool = True,
         autotune: bool = True,
@@ -90,10 +105,13 @@ class MozartContext:
         self.executor = executor
         self.device = resolve_device(device)
         self.chip = chip if chip is not None else hardware.chip_for(self.device)
+        self.mesh = _check_mesh(mesh, self.device)  # torch DeviceMesh ("sharded")
+        self.data_axes = tuple(data_axes)        # mesh axes the splits spread over
         self.lazy = lazy
         self.pedantic = pedantic
         self.batch_elements = batch_elements
         self.log = log
+        self.inner_executor = inner_executor     # per-shard strategy for "sharded"
         self.pipeline = pipeline                 # False: Table-4 "-pipe" ablation
         self.plan_cache = plan_cache             # reuse plans across evaluations
         self.autotune = autotune                 # measure+pin chunk sizes on cached plans
@@ -213,7 +231,7 @@ def configure(**kwargs) -> MozartContext:
     """Reconfigure the innermost context (flushes pending work first).
 
     When a knob that is part of the plan-cache key changes (executor, chip,
-    device, pipeline, handoff), the entries THIS context used are re-keyed
+    device, mesh, pipeline, handoff), the entries THIS context used are re-keyed
     (copied) to the new configuration, so the next evaluation hits instead
     of replanning (``plan_cache.rekey_config``, counted in
     ``configure_rekeyed``)."""
@@ -231,6 +249,7 @@ def configure(**kwargs) -> MozartContext:
         if k == "device":
             v = resolve_device(v)
         setattr(ctx, k, v)
+    _check_mesh(ctx.mesh, ctx.device)
     new_prefix = _pc.context_key_prefix(ctx)
     if old_prefix != new_prefix and getattr(ctx, "plan_cache", True):
         ctx.stats["configure_rekeyed"] += _pc.rekey_config(

@@ -13,7 +13,8 @@ and a registry so that strategies are *pluggable*:
 
 ``runtime.MozartContext.evaluate`` dispatches through ``get_executor``.  The
 built-in strategies live in ``core/executor.py`` ("eager", "pipelined",
-"fused", "scan"), ``core/cuda_exec.py`` ("cuda") and ``core/cost_model.py``
+"fused", "scan"), ``core/cuda_exec.py`` ("cuda"), ``core/sharded.py``
+("sharded", over a ``torch.distributed`` mesh) and ``core/cost_model.py``
 ("auto"), registered as a side effect of importing those modules.
 
 Cross-stage chunk handoff lives here too: ``ChunkStream`` (a stage output
@@ -43,6 +44,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import sys
 import threading
 import time
 from typing import Any, Callable
@@ -71,6 +73,27 @@ def sanitize_active() -> bool:
 
 class SanitizerError(RuntimeError):
     """A boundary invariant the sanitizer caught red-handed (MZ3xx)."""
+
+
+def is_dtensor(v: Any) -> bool:
+    """Whether ``v`` is a ``DTensor`` (the ``sharded`` executor's output
+    form), without importing ``torch.distributed.tensor`` for sessions that
+    never made one."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(v, mod.DTensor)
+
+
+def whole_value(v: Any) -> Any:
+    """``v`` with every ``DTensor`` leaf gathered whole (a collective every
+    rank of its mesh makes, ``core/sharded.py``); anything else, ``v``
+    itself."""
+    if is_dtensor(v):
+        from repro_torch.core.sharded import gather_whole
+        return gather_whole(v)
+    if (isinstance(v, torch.Tensor) or "torch.distributed.tensor" not in sys.modules
+            or not any(is_dtensor(l) for l in pytree.tree_leaves(v))):
+        return v
+    return pytree.tree_map(whole_value, v)
 
 
 class _PoisonedChunks(list):
@@ -122,6 +145,7 @@ def _ensure_builtin_executors() -> None:
     import repro_torch.core.cost_model  # noqa: F401  (auto)
     import repro_torch.core.cuda_exec  # noqa: F401  (cuda)
     import repro_torch.core.executor   # noqa: F401  (eager/pipelined/fused/scan)
+    import repro_torch.core.sharded    # noqa: F401  (sharded)
 
 
 def get_executor(name: str) -> "StageExecutor":
@@ -422,18 +446,22 @@ class ChunkStream:
     resolves it); ``materialize`` caches the merged value, so it is paid at
     most once.
 
-    Two storage forms share this class.  The chunk-LIST form holds one
+    Three storage forms share this class.  The chunk-LIST form holds one
     tensor per grid range (the chunk-loop executors' output).  The STACKED
     form (``from_stacked``) holds the ``scan`` driver's output carry: one
     ``(n_chunks, batch, ...)`` leaf per pytree leaf (split axis moved to
     position 1) plus an optional ragged ``tail`` chunk, so a scan -> scan
     boundary hands the carry over untouched.  A chunk-loop consumer derives
     the chunk list from it (rows of the carry: views in torch, counted as
-    the reference counts its unstack pass).
+    the reference counts its unstack pass).  The SHARDED form
+    (``from_sharded``) holds the ``sharded`` executor's ``DTensor``, one
+    grid range per mesh shard, of which this rank holds its own: a
+    sharded -> sharded boundary passes it through (zero interior bytes, no
+    gather); any other consumer gathers it whole (counted).
     """
 
     __slots__ = ("_chunks", "ranges", "split_type", "aval", "_merged",
-                 "consumed", "donor", "stacked", "tail")
+                 "consumed", "donor", "stacked", "tail", "sharded", "sharding")
 
     def __init__(self, chunks: list | None, ranges: list,
                  split_type: st.SplitType, aval: Any):
@@ -446,6 +474,8 @@ class ChunkStream:
         self.donor = ""                    # "stage N input K" that released them
         self.stacked = None                # (n_chunks, batch, ...) carry layout
         self.tail = None                   # ragged tail chunk (chunk-shaped)
+        self.sharded = None                # DTensor over the mesh's data axes
+        self.sharding = None               # its (mesh, placements)
 
     @classmethod
     def from_stacked(cls, stacked: Any, tail: Any, ranges: list,
@@ -458,6 +488,20 @@ class ChunkStream:
         s = cls(None, ranges, split_type, aval)
         s.stacked = stacked
         s.tail = tail
+        return s
+
+    @classmethod
+    def from_sharded(cls, sharded: Any, ranges: list, split_type: st.SplitType,
+                     aval: Any, sharding: tuple) -> "ChunkStream":
+        """Wrap the ``sharded`` executor's ``DTensor`` without gathering it.
+
+        ``sharding`` is its ``(mesh, placements)``; ``ranges`` is the
+        per-shard grid (one range per mesh shard).  A ``sharded`` consumer
+        with the same layout takes this rank's shard as it is; any other
+        consumer materializes (a counted ``gather``)."""
+        s = cls(None, ranges, split_type, aval)
+        s.sharded = sharded
+        s.sharding = sharding
         return s
 
     # -- aval-like surface (batch sizing reads .shape/.dtype) ---------------
@@ -505,8 +549,12 @@ class ChunkStream:
         """The chunk list, deriving (and counting) it from stacked storage.
 
         A stacked stream pays this pass only when a chunk-loop consumer
-        iterates it; a scan consumer uses ``stacked`` directly."""
+        iterates it; a scan consumer uses ``stacked`` directly.  A sharded
+        stream's list is this rank's local shard only (SPMD: no rank
+        addresses another's)."""
         self._check_live()
+        if self._chunks is None and self.sharded is not None:
+            self._chunks = [self.sharded.to_local()]
         if self._chunks is None:
             k = len(self.ranges) - (1 if self.tail is not None else 0)
             derived = [self._row(i) for i in range(k)]
@@ -522,8 +570,11 @@ class ChunkStream:
         """Chunk ``i`` of the grid without deriving the whole list.
 
         Zero-element grids (``ranges == [(0, 0)]``) may carry no buffer at
-        all; they resolve to an empty value built from the aval."""
+        all; they resolve to an empty value built from the aval.  A sharded
+        stream indexes its local list (``chunks``)."""
         self._check_live()
+        if self._chunks is None and self.sharded is not None:
+            return self.chunks[i]
         if self._chunks is None and self.stacked is not None:
             k = len(self.ranges) - (1 if self.tail is not None else 0)
             if i >= k and self.tail is not None:
@@ -556,6 +607,14 @@ class ChunkStream:
         output (``Future.value``), accounted under ``bytes_terminal``."""
         if self._merged is None:
             self._check_live()
+            if self.sharded is not None:
+                # Leaving the mesh: every rank gathers the shards (one
+                # collective), counted as a ``gather`` event.
+                self._merged = whole_value(self.sharded)
+                note_materialized(_value_nbytes(self._merged),
+                                  terminal=terminal, kind="gather",
+                                  where=f"stream n={self.n} {self.split_type}")
+                return self._merged
             if self.stacked is not None and self._chunks is None:
                 self._merged = self._merge_stacked()
             elif not self._chunks:
@@ -592,13 +651,15 @@ class ChunkStream:
         donor."""
         self.consumed = True
         self.donor = self.donor or donor
-        self._chunks = self.stacked = self.tail = None
+        self._chunks = self.stacked = self.tail = self.sharded = None
         if sanitize_active():
             self._chunks = _PoisonedChunks(self.donor)
 
     def __repr__(self) -> str:
         if self.consumed:
             form = "released"
+        elif self.sharded is not None:
+            form = f"sharded x{len(self.ranges)}"
         elif self._chunks is None and self.stacked is not None:
             form = "stacked"
         else:
@@ -814,7 +875,8 @@ def adapt_stream(v: "ChunkStream", consumer: st.SplitType) -> "ChunkStream | Non
 
 
 def resolve_stage_inputs(stage: Stage, graph: DataflowGraph, ctx,
-                         streams_ok: bool, tally: bool = True) -> dict[tuple, Any]:
+                         streams_ok: bool, tally: bool = True,
+                         shard_ok: bool = False) -> dict[tuple, Any]:
     """Resolve stage inputs, ingesting producer ChunkStreams where allowed.
 
     An input keeps its stream form only when (a) the executor can iterate a
@@ -823,8 +885,11 @@ def resolve_stage_inputs(stage: Stage, graph: DataflowGraph, ctx,
     split type at run time (cross-evaluation edges carry whatever grid the
     previous evaluation produced).  A permitted ConcatSplit -> {ArraySplit,
     PytreeSplit} edge re-wraps the producer's pieces under the consumer's
-    grid (``adapt_stream``).  Anything else is materialized, with a
-    zero-byte ``fallback`` event naming the reason.  Under
+    grid (``adapt_stream``).  A SHARDED-form stream, and a ``DTensor``
+    result of a ``sharded`` stage, also need ``shard_ok`` (only the
+    ``sharded`` executor takes a rank's shard); elsewhere they are gathered
+    whole, the stream with a counted ``gather``.  Anything else is
+    materialized, with a zero-byte ``fallback`` event naming the reason.  Under
     ``MOZART_SANITIZE=1`` a stream kept for ingest must tile its consumer's
     extent (``_check_stream_tiles``, MZ302).  ``tally=False`` skips the
     ingest/materialize stats and the ``ingest`` fault boundary."""
@@ -836,8 +901,13 @@ def resolve_stage_inputs(stage: Stage, graph: DataflowGraph, ctx,
     concrete: dict[tuple, Any] = {}
     for i, (key, si) in enumerate(stage.inputs.items()):
         v = graph.resolve(si.value)
+        if not shard_ok:
+            # A sharded stage's unstreamed output read off the mesh: gathered
+            # whole, uncounted as the reference's implicit reshard is.
+            v = whole_value(v)
         if isinstance(v, ChunkStream):
-            reason = _stream_fallback_reason(v, si, i, ho, streams_ok)
+            reason = _stream_fallback_reason(v, si, i, ho, streams_ok,
+                                             shard_ok)
             if reason is None and type(v.split_type) is not type(si.split_type):
                 # Grid conversion only where the decisions permit it.
                 if i in ho.convert_in:
@@ -902,7 +972,7 @@ def regrid_stream(stage: Stage, ctx, key: tuple, v: "ChunkStream",
 
 
 def _stream_fallback_reason(v: "ChunkStream", si, i: int, ho,
-                            streams_ok: bool) -> str | None:
+                            streams_ok: bool, shard_ok: bool = False) -> str | None:
     """Why this stream input must materialize, or None to ingest it."""
     if not streams_ok:
         return "stream-incapable executor"
@@ -915,6 +985,8 @@ def _stream_fallback_reason(v: "ChunkStream", si, i: int, ho,
         if pa is not None and ca is not None and pa != ca:
             return f"axis mismatch (producer axis {pa}, consumer axis {ca})"
         return f"grid geometry mismatch ({v.split_type} vs {si.split_type})"
+    if v.sharded is not None and not shard_ok:
+        return "shard-incapable consumer"
     return None
 
 
@@ -1016,6 +1088,8 @@ def materialize_inputs(stage: Stage, concrete: dict[tuple, Any],
             out[key] = v.materialize()
             if ctx is not None:
                 ctx.stats["stream_materialized"] += 1
+        else:
+            out[key] = whole_value(v)
     return out
 
 
@@ -1034,8 +1108,11 @@ def _block_stage_outputs(stage: Stage) -> None:
             if isinstance(r, ChunkStream):
                 # Raw storage, never the derived chunk list: blocking must
                 # not charge an unstack pass to the boundary counters.
-                r = [x for x in (r._chunks, r.stacked, r.tail) if x is not None]
+                r = [x for x in (r._chunks, r.stacked, r.tail, r.sharded)
+                     if x is not None]
             for leaf in pytree.tree_leaves(r):
+                if is_dtensor(leaf):
+                    leaf = leaf.to_local()
                 if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
                     torch.cuda.synchronize(leaf.device)
                     return
@@ -1079,10 +1156,15 @@ class StageExecutor:
     #: whether ``execute`` can iterate a ChunkStream input directly (the
     #: chunk-loop drivers can; whole-value strategies materialize instead).
     stream_capable: bool = False
+    #: whether ``execute`` takes SHARDED-form streams and ``DTensor`` inputs
+    #: (this rank's shard only).  Only ``sharded`` does; every other
+    #: executor gathers them whole.
+    shard_capable: bool = False
 
     # -- template method ----------------------------------------------------
     def run(self, stage: Stage, graph: DataflowGraph, ctx) -> None:
-        concrete = resolve_stage_inputs(stage, graph, ctx, self.stream_capable)
+        concrete = resolve_stage_inputs(stage, graph, ctx, self.stream_capable,
+                                        shard_ok=self.shard_capable)
         entry = getattr(ctx, "_plan_entry", None)
         if self._should_tune(stage, ctx, entry):
             self._tune(stage, concrete, ctx, entry)
@@ -1147,15 +1229,24 @@ class StageExecutor:
             # event, so streams are merged rather than complicating sampling
             # (and only when there is something to measure).
             concrete = materialize_inputs(stage, concrete, ctx)
-            best, best_dt = None, None
+            trials = {}
             for b in cands:
                 try:
-                    dt = self.sampled_time(stage, concrete, ctx, b, n)
+                    trials[b] = self.sampled_time(stage, concrete, ctx, b, n)
                 except resilience.PROBE_ERRORS as e:
                     # unsampleable candidate: skip it, counted (a kernel
                     # fault re-raises from note_swallowed)
                     resilience.note_swallowed("tune_sample", e, ctx)
-                    continue
+            from repro_torch.core.sharded import agree, mesh_group
+            group = mesh_group(ctx)
+            if group is not None:
+                # SPMD: every rank pins the same size, its slowest rank's
+                # time deciding, among the sizes every rank could time.
+                every = agree(group, trials)
+                trials = {b: max(r[b] for r in every) for b in trials
+                          if all(b in r for r in every)}
+            best, best_dt = None, None
+            for b, dt in trials.items():
                 entry.record_trial(stage.id, b, dt)
                 if best_dt is None or dt < best_dt:
                     best, best_dt = b, dt
@@ -1179,7 +1270,8 @@ class StageExecutor:
 
     def sample_elems(self, stage: Stage, concrete: dict[tuple, Any], ctx,
                      batch: int, n: int) -> int:
-        """Elements one timed sample re-executes: ``SAMPLE_CHUNKS`` chunks."""
+        """Elements one timed sample re-executes: ``SAMPLE_CHUNKS`` chunks
+        (``sharded`` rounds it to the mesh extent)."""
         return min(n, SAMPLE_CHUNKS * batch) if n > 0 else 0
 
     def sampled_time(self, stage: Stage, concrete: dict[tuple, Any], ctx,

@@ -4,8 +4,9 @@
 It trains a config with the port's stack: the SA-annotated data pipeline,
 the model, AdamW, async checkpointing with exact resume, the straggler
 watchdog and step retries.  The reference's mesh, shardings and ZeRO-1
-optimizer-state sharding wait for the mesh port (ROADMAP A8).  Runs on
-the card unless given ``device="cpu"``.
+optimizer-state sharding wait for the rest of the mesh port (ROADMAP
+A8.2; ``launch/mesh.py`` is ported).  Runs on the card unless given
+``device="cpu"``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b --smoke \
         --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt

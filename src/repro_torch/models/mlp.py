@@ -7,7 +7,8 @@ batched products over the experts.  Shared experts (DeepSeekMoE) run densely
 for every token.  Capacity makes a token's output depend on the rest of its
 group: assignments past an expert's C slots are dropped (``count_drops``
 reads how many).  The reference's expert-parallel ``shard_map`` branch waits
-for the mesh port; ``moe_block`` raises if asked for it.
+for the rest of the mesh port (ROADMAP A8.2); ``moe_block`` raises if asked
+for it.
 """
 
 from __future__ import annotations
@@ -185,7 +186,7 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
     expert-parallel ``shard_map`` branch, which is not ported: it raises."""
     if mesh is not None:
         raise NotImplementedError("the expert-parallel shard_map dispatch is not ported "
-                                  "yet (it waits for the mesh port)")
+                                  "yet (it waits for the rest of the mesh port)")
     m = cfg.moe
     B, S, D = x.shape
     T = B * S

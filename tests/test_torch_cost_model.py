@@ -2,9 +2,10 @@
 
 ``analytic_seconds`` and ``choose(features, ctx, timings=None)`` are held
 against the reference on a grid of the same features and the same ``Chip``
-constants, with ``pallas`` mapped to ``cuda`` (and the reference's
-``on_tpu`` to the port's ``on_cuda``), and with the measured no-op dispatch
-pinned to one value on both sides (it is a per-process wall-clock figure).
+constants and data-mesh extents, with ``pallas`` mapped to ``cuda`` (and
+the reference's ``on_tpu`` to the port's ``on_cuda``), and with the
+measured no-op dispatch pinned to one value on both sides (it is a
+per-process wall-clock figure).
 ``features_of`` is held against the reference on the paper's workloads.
 Measured winners depend on wall time and are only asserted to be pinned
 and replayed; the counters of a measurement pass are equal.
@@ -48,19 +49,23 @@ def same_dispatch(monkeypatch):
     monkeypatch.setattr(thw, "measured_dispatch_overhead_s", lambda device="cuda": DISPATCH_S)
 
 
-def _pair(n, elem_bytes, n_nodes, flops, dynamic, eligible, on_device):
+def _pair(n, elem_bytes, n_nodes, flops, dynamic, eligible, on_device, mesh_devices=0):
     j = jcm.StageFeatures(n=n, elem_bytes=elem_bytes, n_nodes=n_nodes,
                           flops_per_elem=flops, dynamic=dynamic,
-                          pallas_eligible=eligible, mesh_devices=0, on_tpu=on_device)
+                          pallas_eligible=eligible, mesh_devices=mesh_devices,
+                          on_tpu=on_device)
     t = tcm.StageFeatures(n=n, elem_bytes=elem_bytes, n_nodes=n_nodes,
                           flops_per_elem=flops, dynamic=dynamic,
-                          cuda_eligible=eligible, on_cuda=on_device)
+                          cuda_eligible=eligible, on_cuda=on_device,
+                          mesh_devices=mesh_devices)
     return j, t
 
 
+#: the last axis is the data-mesh extent: none, one rank, and 3 and 4 ranks
+#: (3 divides none of the element counts but 0, 4 divides all)
 GRID = list(itertools.product(
     (0, 1, 1000, 100_000, 1 << 27), (4, 12, 28, 148), (1, 3, 32), (8.0, 256.0),
-    (False, True), (False, True), (False, True)))
+    (False, True), (False, True), (False, True), (0, 1, 3, 4)))
 
 
 def _ctxs(jchip, tchip):
@@ -144,9 +149,9 @@ def test_features_of_equal_jax(name):
     assert len(tstages) == len(jstages)
     for t, j in zip(tfeats, jfeats):
         assert (t.n, t.elem_bytes, t.n_nodes, t.flops_per_elem, t.dynamic,
-                t.cuda_eligible, t.on_cuda) == \
+                t.cuda_eligible, t.on_cuda, t.mesh_devices) == \
             (j.n, j.elem_bytes, j.n_nodes, j.flops_per_elem, j.dynamic,
-             j.pallas_eligible, j.on_tpu)
+             j.pallas_eligible, j.on_tpu, j.mesh_devices)
 
 
 def test_cost_hint_feeds_the_flops(same_dispatch):
@@ -181,8 +186,27 @@ def test_cuda_is_never_picked_off_the_card(same_dispatch):
 
 
 def test_candidate_order_maps_the_reference():
-    assert tcm.CANDIDATE_ORDER == tuple(
-        {"pallas": "cuda"}.get(c, c) for c in jcm.CANDIDATE_ORDER if c != "sharded")
+    assert tcm.CANDIDATE_ORDER == tuple({"pallas": "cuda"}.get(c, c) for c in jcm.CANDIDATE_ORDER)
+    assert tcm.CANDIDATE_ORDER == ("scan", "fused", "pipelined", "cuda", "sharded", "eager")
+
+
+def test_sharded_needs_a_mesh_and_a_divisible_count(same_dispatch):
+    """``sharded`` scores ``stream / mesh_devices + 2 dispatches``, and is
+    no candidate without a mesh or where the extent does not divide n."""
+    jctx, tctx = _ctxs(JTINY, TTINY)
+    for n, m, finite in ((1 << 20, 0, False), (1 << 20, 4, True), (101, 4, False),
+                         (100, 4, True), (7, 1, True)):
+        jf, tf = _pair(n, 12, 2, 16.0, False, False, False, m)
+        got = tcm.analytic_seconds("sharded", tf, TTINY, "cpu")
+        assert math.isfinite(got) == finite, (n, m)
+        assert got == jcm.analytic_seconds("sharded", jf, JTINY) or not finite
+        assert ("sharded" in tcm.candidates(tf, tctx)) == finite
+    # the reference's crossover case: 4 ranks stream at a quarter of the
+    # time, so sharded wins at n = 2**20 and is out at n = 101
+    jf, tf = _pair(1 << 20, 8, 2, 16.0, False, False, False, 4)
+    assert tcm.choose(tf, tctx) == jcm.choose(jf, jctx) == "sharded"
+    assert tcm.drifted_past_crossover(tf, {"n": 101}, tctx)
+    assert not tcm.drifted_past_crossover(tf, {"n": 1 << 18}, tctx)
 
 
 # ---------------------------------------------------------------------------

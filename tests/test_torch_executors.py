@@ -1,8 +1,9 @@
 """Every port executor against the JAX package on the paper's workloads.
 
 Quickstart, Black-Scholes (n = 50 000) and Haversine run on the port's
-``eager``/``pipelined``/``fused``/``scan``/``cuda`` executors (on the CPU;
-``cuda`` takes the kernel's plain version there) and on the JAX ``eager``
+``eager``/``pipelined``/``fused``/``scan``/``cuda``/``sharded`` executors (on
+the CPU; ``cuda`` takes the kernel's plain version there, ``sharded`` a
+one-rank mesh, the JAX side's of one device with Auto axes) and on the JAX ``eager``
 and ``pallas`` executors (Pallas in interpret mode), with the same
 ``batch_elements``; chunk, call and stage counts and boundary bytes must be
 equal.  Both sides run the static rewrite pass (on by default; it collapses
@@ -32,6 +33,8 @@ from repro_torch import workloads as tw
 from repro_torch.core import annotated_numpy as tanp
 from repro_torch.core import mozart as tmozart
 
+from sharded_scenarios import jax_mesh, port_mesh
+
 JAX_CFG = dict(plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
@@ -45,7 +48,7 @@ def _fresh_port_plan_cache():
     from repro_torch.core import plan_cache
     plan_cache.clear()
     yield
-PORT_EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda"]
+PORT_EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda", "sharded"]
 
 
 @jsplittable(x=JAlong(0), y=JAlong(0), ret=JAlong(0), elementwise=True,
@@ -101,7 +104,8 @@ STAT_KEYS = ("chunks", "calls", "stages")
 #: MZ501 retired keeps its operands escaping there in the same way.  (case, counter)
 #: -> (port, reference); ``escaping`` counts escaping outputs per plan, the
 #: others are per evaluation on the chunk-loop executors, with handoff off
-#: or on (``eager`` moves no boundary).  Every other count is equal.
+#: or on (``eager``, and ``sharded`` on one rank, whose chunk loop merges
+#: inside the stage, move no boundary).  Every other count is equal.
 C6_DIFFERENCES = {
     ("black_scholes", "escaping"): (2, 3),
     ("black_scholes/handoff_off", "bytes_interior"): (2 * 4 * 50_000, 3 * 4 * 50_000),
@@ -132,8 +136,9 @@ def _as_tuple(out):
 def run_jax(name, executor, handoff=False):
     jfn, _tfn, batch = CASES[name]
     data = _data(name)
+    mesh = {"mesh": jax_mesh()} if executor == "sharded" else {}
     with jmozart.session(executor=executor, batch_elements=batch, handoff=handoff,
-                         **JAX_CFG) as ctx:
+                         **JAX_CFG, **mesh) as ctx:
         outs = _as_tuple(jfn(**{k: jnp.asarray(v) for k, v in data.items()}))
         vals = [np.asarray(o) for o in outs]
     return vals, ctx
@@ -142,8 +147,9 @@ def run_jax(name, executor, handoff=False):
 def run_port(name, executor, handoff=False):
     _jfn, tfn, batch = CASES[name]
     data = _data(name)
+    mesh = {"mesh": port_mesh()} if executor == "sharded" else {}
     with tmozart.session(executor=executor, device="cpu", **PORT_CFG, batch_elements=batch,
-                         handoff=handoff) as ctx:
+                         handoff=handoff, **mesh) as ctx:
         outs = _as_tuple(tfn(**{k: torch.from_numpy(v.copy()) for k, v in data.items()}))
         vals = [o.value.numpy() for o in outs]
     return vals, ctx
@@ -231,17 +237,18 @@ def _counts_equal_jax(name, executor, handoff):
     got.update(bytes_interior=ctx.counters.bytes_interior(),
                bytes_terminal=ctx.counters.bytes_terminal())
     want.update(bytes_interior=jbytes, bytes_terminal=jterminal)
-    case = f"{name}/handoff_{'on' if handoff else 'off'}" if executor != "eager" else ""
+    case = (f"{name}/handoff_{'on' if handoff else 'off'}"
+            if executor not in ("eager", "sharded") else "")
     assert_counts_as_named(case, got, want)
 
 
-@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused", "scan"])
+@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused", "scan", "sharded"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_chunk_call_stage_counts_equal_jax(name, executor):
     _counts_equal_jax(name, executor, handoff=False)
 
 
-@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused", "scan"])
+@pytest.mark.parametrize("executor", ["eager", "pipelined", "fused", "scan", "sharded"])
 @pytest.mark.parametrize("name", list(CASES))
 def test_chunk_call_stage_counts_equal_jax_handoff_on(name, executor):
     _counts_equal_jax(name, executor, handoff=True)

@@ -5,7 +5,8 @@ The counterparts of ``tests/test_handoff.py``: the ``can_handoff`` /
 every port executor; ``StageHandoff`` decisions equal to JAX's ``analyze``
 on the same pipelines; boundary traffic (interior and terminal bytes equal
 to JAX's); ConcatSplit conversions; zero-chunk streams; and the donation
-veto.  The JAX side runs with ``plan_cache=False, autotune=False``, the
+veto.  ``sharded`` runs on a one-rank mesh on each side (the reference's
+with Auto axes); its multi-rank streams are ``test_torch_sharded*.py``'s.  The JAX side runs with ``plan_cache=False, autotune=False``, the
 rewrite pass on as the port's, and the port's ``handoff`` and
 ``batch_elements`` (without a plan cache both analyze afresh on every
 evaluation).
@@ -40,6 +41,8 @@ from repro_torch.core import splittable as tsplittable
 from repro_torch.core import stage_exec as tse
 from repro_torch.core.stage_exec import ChunkStream
 
+from sharded_scenarios import jax_mesh, port_mesh
+
 JAX_CFG = dict(plan_cache=False, autotune=False)
 #: the port side of a comparison runs as the JAX side does: no plan cache
 #: and no tuner, so the counters compare like with like.
@@ -53,18 +56,18 @@ def _fresh_port_plan_cache():
     from repro_torch.core import plan_cache
     plan_cache.clear()
     yield
-EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda"]
+EXECUTORS = ["eager", "pipelined", "fused", "scan", "cuda", "sharded"]
 JAX_OF = {"cuda": "pallas"}
 
 JAXNS = types.SimpleNamespace(
     anp=janp, mozart=jmozart, arr=jnp.asarray, np=lambda v: np.asarray(v),
     session=lambda **kw: jmozart.session(**JAX_CFG, **kw), st=jst,
-    splittable=jsplittable)
+    splittable=jsplittable, mesh=jax_mesh)
 PORTNS = types.SimpleNamespace(
     anp=tanp, mozart=tmozart, arr=lambda a: torch.from_numpy(np.array(a)),
     np=lambda v: (v.value if hasattr(v, "_node") else v).numpy(),
     session=lambda **kw: tmozart.session(device="cpu", **PORT_CFG, **kw), st=tst,
-    splittable=tsplittable)
+    splittable=tsplittable, mesh=port_mesh)
 
 
 def _ranges(n, b):
@@ -223,7 +226,9 @@ SURFACES = {
 
 def _surface(ns, surface, executor, handoff):
     make, fn, batch = SURFACES[surface]
-    with ns.session(executor=executor, handoff=handoff, batch_elements=batch) as ctx:
+    mesh = {"mesh": ns.mesh()} if executor == "sharded" else {}
+    with ns.session(executor=executor, handoff=handoff, batch_elements=batch,
+                    **mesh) as ctx:
         out = ns.np(fn(ns, ns.arr(make())))
     return out, ctx
 
@@ -610,7 +615,8 @@ class TestZeroChunkStreams:
 
     @pytest.mark.parametrize("executor", EXECUTORS)
     def test_empty_chain_streams_safely(self, executor):
-        with tmozart.session(executor=executor, device="cpu", batch_elements=64):
+        mesh = {"mesh": port_mesh()} if executor == "sharded" else {}
+        with tmozart.session(executor=executor, device="cpu", batch_elements=64, **mesh):
             out = _eval_chain(PORTNS, torch.zeros(0)).value
         assert tuple(out.shape) == (0,)
 

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import sharded_scenarios as S
+
 from repro_torch.kernels import fused_adamw as fa
 from repro_torch.kernels.program import OPCODES
 from repro_torch.kernels.ref import adamw_ref
@@ -553,8 +555,9 @@ def test_warm_pinned_cuda_call_launches_and_lowers_nothing():
 
 @pytest.mark.cuda
 def test_injected_compile_fault_demotes_cuda_then_the_kernel_launches_again(monkeypatch):
-    """An injected ``compile`` fault on a pipeline's first call demotes
-    ``cuda`` to ``scan`` once and quarantines it; the calls within
+    """An injected ``compile`` fault on a pipeline's first call walks the
+    reference's ladder, ``cuda -> sharded -> scan`` (no mesh: ``sharded``
+    raises), and quarantines both; the calls within
     ``QUARANTINE_TTL`` dispatch ``scan`` (counted skips, no launch), and the
     call after the quarantine ages out launches the kernel again, equal to
     its plain version."""
@@ -568,7 +571,8 @@ def test_injected_compile_fault_demotes_cuda_then_the_kernel_launches_again(monk
     sp.reset_counts()
     with mozart.inject_faults("compile:fail:1") as plan:
         first = p(**data)
-    assert plan.fired and p.last_call_stats["exec_demotions"] == 1
+    assert plan.fired and p.last_call_stats["exec_demotions"] == 2
+    assert p.last_call_stats["exec_demoted_to_sharded"] == 1
     assert p.last_call_stats["exec_demoted_to_scan"] == 1 and sp.split_pipeline.launches == 0
     trail = []
     for _ in range(3):
@@ -1016,3 +1020,91 @@ def test_each_sanitizer_code_is_raised_with_card_tensors(monkeypatch):
             anp.sum(anp.exp(x)).value
     assert ctx.stats.get("exec_demotions", 0) == 0
     assert resilience.stats["MZ402"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The sharded executor on a one-rank NCCL mesh (the multi-rank collectives
+# are held on the CPU by tests/test_torch_sharded*.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _end_process_group():
+    """The one-rank NCCL group the sharded tests start ends with the module."""
+    yield
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _card_mesh():
+    _card()
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh()
+
+
+@pytest.mark.cuda
+def test_sharded_black_scholes_on_a_one_rank_nccl_mesh_equals_fused():
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch import workloads as w
+    from repro_torch.core import mozart
+    mesh = _card_mesh()
+    data = w.black_scholes_data(1 << 20, seed=0, device="cuda")
+    with mozart.session(executor="fused", batch_elements=1 << 16):
+        want = [o.value for o in w.black_scholes(**data)]
+    with mozart.session(executor="sharded", mesh=mesh, batch_elements=1 << 16) as ctx:
+        outs = w.black_scholes(**data)
+        mozart.evaluate()
+        raw = [o._node.result for o in outs]
+        got = [o.value for o in outs]
+    assert ctx.stats["sharded_stages"] == ctx.stats["stages"] >= 1
+    for r, g, wv in zip(raw, got, want):
+        assert isinstance(r, DTensor) and r.placements[0] == Shard(0)
+        assert r.to_local().is_cuda and tuple(r.to_local().shape) == (1 << 20,)
+        np.testing.assert_allclose(g.cpu().numpy(), wv.cpu().numpy(), rtol=2e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", S.REDUCE_CASES,
+                         ids=[f"{n}-{d}" for n, d in S.REDUCE_CASES])
+def test_sharded_reduction_through_nccl_equals_fused(name, dtype):
+    """Each op on each input dtype of the CPU worlds (``REDUCE_CASES``):
+    the partial through NCCL (int16, uint16 and uint32 widened on the wire,
+    bools as bytes) equals ``fused``; floats but float16 (exact here)
+    within tolerance."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    mesh = _card_mesh()
+    x = torch.from_numpy(S.reduce_input(dtype)).to("cuda")
+    if dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+    n = x.numel()
+    with mozart.session(executor="fused", batch_elements=n // 8):
+        want = getattr(anp, name)(x).value
+    with mozart.session(executor="sharded", mesh=mesh, batch_elements=n // 8) as ctx:
+        got = getattr(anp, name)(x).value
+    assert ctx.stats["sharded_stages"] == 1 and got.is_cuda and got.dtype == want.dtype
+    if dtype in ("bfloat16", "float32"):
+        torch.testing.assert_close(got, want, rtol=2e-2 if dtype == "bfloat16" else 2e-5,
+                                   atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_to_cuda_handoff_launches_the_split_pipeline():
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    from repro_torch.kernels import split_pipeline as sp
+    mesh = _card_mesh()
+    x = torch.linspace(0.0, 1.0, 1 << 20, device="cuda")
+    before = sp.split_pipeline.launches
+    with mozart.session(executor="sharded", mesh=mesh) as ctx:
+        a = anp.multiply(anp.add(x, 1.0), 0.5)
+        mozart.evaluate()
+        mozart.configure(executor="cuda")
+        b = anp.multiply(anp.add(a, 1.0), 0.5)
+        got = b.value
+    assert ctx.stats["sharded_stages"] == 1 and ctx.stats["cuda_stages"] == 1
+    assert sp.split_pipeline.launches == before + 1
+    torch.testing.assert_close(got, ((x + 1.0) * 0.5 + 1.0) * 0.5, rtol=2e-5, atol=1e-6)

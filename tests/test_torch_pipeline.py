@@ -1,6 +1,6 @@
 """The port's AOT pipeline API (``mozart.pipeline``), case for case the
-reference's ``tests/test_pipeline.py`` where the port has the machinery
-(``sharded`` waits for ROADMAP A8), and held against the
+reference's ``tests/test_pipeline.py`` (``sharded`` on a one-rank mesh on
+each side), and held against the
 JAX package: the same pipeline compiled on both sides is warm on both, its
 warm calls show the same zeros in ``last_call_stats`` (planner calls,
 tuning and measurement runs, traces), and the outputs agree within float32
@@ -29,6 +29,7 @@ from repro_torch.core import stage_exec
 from repro_torch.core.pipeline import WARM_STATS, Pipeline
 from repro_torch.core.stage_exec import available_executors
 
+from sharded_scenarios import jax_mesh, port_mesh
 from test_torch_plan_cache import JTINY, TTINY
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -214,11 +215,16 @@ class TestLifecycle:
 @pytest.mark.parametrize("executor", sorted(available_executors()))
 def test_pipeline_matches_session_differential(executor):
     x, y = _data()
-    with mozart.session(executor=executor, device="cpu", batch_elements=512):
+    kw = {"batch_elements": 512}
+    if executor == "sharded":
+        kw["mesh"] = port_mesh()
+    with mozart.session(executor=executor, device="cpu", **kw) as ctx:
         c0, s0 = quickstart(x, y)
         want_c, want_s = c0.value.numpy(), float(s0.value)
+    if executor == "sharded":
+        assert ctx.stats["sharded_stages"] == ctx.stats["stages"] == 1
     plan_cache.clear()
-    p = _pipe(quickstart, executor=executor, batch_elements=512)
+    p = _pipe(quickstart, executor=executor, **kw)
     p.lower(x, y).compile()
     c, s = p(x, y)
     np.testing.assert_allclose(c.numpy(), want_c, rtol=2e-5, atol=1e-6)
@@ -255,12 +261,14 @@ def test_compiled_pipeline_is_warm_like_jax(executor):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("executor", ["pipelined", "fused", "scan", "cuda", "auto", "eager"])
+@pytest.mark.parametrize("executor",
+                         ["pipelined", "fused", "scan", "cuda", "sharded", "auto", "eager"])
 def test_warm_calls_zero_planner_calls_and_zero_traces(executor):
     n = 30_000
     x = torch.linspace(0.0, 1.0, n)
     y = torch.ones(n)
-    p = _pipe(quickstart, executor=executor, chip=TTINY)
+    mesh = {"mesh": port_mesh()} if executor == "sharded" else {}
+    p = _pipe(quickstart, executor=executor, chip=TTINY, **mesh)
     p.lower(x, y).compile()
     assert p.warm(), f"compile() did not converge: {p.last_call_stats}"
     planner_before = p.ctx.stats["planner_calls"]
@@ -354,6 +362,62 @@ def test_call_with_stats_pairs_a_call_with_its_delta():
 # ---------------------------------------------------------------------------
 # Plan-cache-aware configure()
 # ---------------------------------------------------------------------------
+
+
+class TestShardedTuning:
+    """The counterparts of the reference's sharded tuner tests, on a
+    one-rank mesh on each side."""
+
+    @staticmethod
+    def _run(side):
+        n = 100_000
+        if side == "jax":
+            x = jnp.linspace(0.0, 1.0, n, dtype=jnp.float32)
+            with jmozart.session(executor="sharded", chip=JTINY, mesh=jax_mesh()) as ctx:
+                v = float(janp.sum(janp.multiply(janp.exp(x), 0.5)))
+        else:
+            x = torch.linspace(0.0, 1.0, n)
+            with mozart.session(executor="sharded", device="cpu", chip=TTINY,
+                                mesh=port_mesh()) as ctx:
+                v = float(anp.sum(anp.multiply(anp.exp(x), 0.5)).value)
+        return v, ctx
+
+    def test_sharded_tunes_inner_chunk_loop(self):
+        from repro.core import plan_cache as jpc
+        jpc.clear()
+        want = float(np.sum(np.exp(np.linspace(0, 1, 100_000, dtype=np.float32)) * 0.5))
+        for call, tuned in enumerate((0, 1, 0)):     # miss, first hit, pinned replay
+            v, ctx = self._run("port")
+            jv, jctx = self._run("jax")
+            assert ctx.stats["autotuned_stages"] == jctx.stats["autotuned_stages"] == tuned
+            # the tuning call also counts its sampled executions, as the reference's
+            assert ctx.stats["sharded_stages"] == jctx.stats["sharded_stages"]
+            assert tuned or ctx.stats["sharded_stages"] == 1
+            if tuned:
+                assert 0 < ctx.stats["tuning_sample_elems"] < 100_000
+            else:
+                assert ctx.stats.get("tuning_sample_elems", 0) == 0
+            assert np.isclose(v, want, rtol=1e-4) and np.isclose(jv, want, rtol=1e-4)
+        assert plan_cache.tuned_batches() and jpc.tuned_batches()
+
+    def test_sharded_sample_elems_rounded_to_mesh_extent(self):
+        from repro.core.stage_exec import get_executor as jget
+        ex, jex = stage_exec.get_executor("sharded"), jget("sharded")
+        ctx = mozart.MozartContext(executor="sharded", device="cpu", mesh=port_mesh())
+        jctx = jmozart.MozartContext(executor="sharded", mesh=jax_mesh())
+        for batch, n in ((7, 1000), (100, 1000), (1, 5), (3, 0)):
+            s = ex.sample_elems(None, {}, ctx, batch, n)
+            assert s == jex.sample_elems(jctx, batch, n)
+            assert n == 0 or 0 < s <= n
+
+    def test_verify_passes_the_mesh_through(self):
+        """``Pipeline.verify`` analyzes under the pipeline's mesh: the
+        ``sharded`` plan's handoff decisions record ``shard_in``."""
+        x, y = _data(1024)
+        p = _pipe(quickstart, executor="sharded", mesh=port_mesh()).lower(x, y)
+        rep = p.verify()
+        assert rep.ok
+        assert p.ctx.mesh is not None
 
 
 class TestConfigureRekey:

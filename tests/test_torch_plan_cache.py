@@ -39,6 +39,7 @@ from repro_torch.core import split_types as tst
 from repro_torch.core import stage_exec as tse
 from repro_torch.kernels import split_pipeline as tsp
 
+from sharded_scenarios import jax_mesh, port_mesh
 from test_torch_executors import CASES, _data, _tol, close
 
 JAX_CFG = dict()
@@ -307,7 +308,25 @@ class TestKey:
         assert tpc.value_fingerprint(x.to(device="meta")) != fp
         assert tpc.value_fingerprint(x.double()) != fp
         ctx = tmozart.MozartContext(executor="cuda", device="cpu")
-        assert tpc.context_key_prefix(ctx) == ("cuda", thw.CPU_HOST.name, True, "cpu", True)
+        assert tpc.context_key_prefix(ctx) == ("cuda", thw.CPU_HOST.name, True, "cpu",
+                                               None, True)
+
+    def test_mesh_is_part_of_the_key(self):
+        """A plan (and any pinned ``sharded`` choice) from a mesh session
+        never replays in a mesh-less session of the same pipeline; the
+        prefix names the data axes' extents, as the reference's."""
+        x = torch.arange(64.0)
+        _quick(x, "auto", mesh=port_mesh(), batch_elements=16)
+        _, ctx = _quick(x, "auto", batch_elements=16)
+        assert ctx.stats["plan_cache_hits"] == 0 and ctx.stats["plan_cache_misses"] == 1
+        mctx = tmozart.MozartContext(executor="auto", device="cpu", mesh=port_mesh())
+        jctx = jmozart.MozartContext(executor="auto", mesh=jax_mesh())
+        assert tpc.context_key_prefix(mctx)[tpc._P_MESH] == \
+            jpc.context_key_prefix(jctx)[jpc._P_MESH] == (("data", 1),)
+
+    def test_a_mesh_on_another_device_type_is_refused(self):
+        with pytest.raises(ValueError, match="mesh lies on 'cpu'"):
+            tmozart.MozartContext(executor="sharded", device="meta", mesh=port_mesh())
 
     def test_aliased_arguments_key_differently(self):
         x, y = torch.linspace(0, 1, 1024), torch.linspace(1, 2, 1024)

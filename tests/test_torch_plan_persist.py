@@ -271,9 +271,31 @@ def _assert_cold_planning_still_works(x):
 def test_file_names_the_schema_and_the_chip(tmp_path):
     path, _ = _saved_file(tmp_path)
     payload = json.load(open(path))
-    assert payload["schema"] == plan_cache.SCHEMA_VERSION == jpc.SCHEMA_VERSION == 7
+    # the reference's v7 layout plus the mesh in the key prefix
+    assert payload["schema"] == plan_cache.SCHEMA_VERSION == jpc.SCHEMA_VERSION + 1 == 8
     want = thw.chip_for("cuda" if torch.cuda.is_available() else "cpu").name
     assert payload["chip"] == want
+
+
+def test_v7_file_keys_gain_the_mesh(tmp_path):
+    """A v7 file's keys have no mesh component: loading inserts None (the
+    mesh of every session they can come from), and a mesh-less session
+    replays the entry with no planner call."""
+    path, x = _saved_file(tmp_path)
+    payload = json.load(open(path))
+    payload["schema"] = 7
+    for e in payload["entries"]:
+        key = plan_cache._dec(e["key"])
+        assert key[plan_cache._P_MESH] is None
+        e["key"] = plan_cache._enc(key[:plan_cache._P_MESH] + key[plan_cache._P_MESH + 1:])
+    json.dump(payload, open(path, "w"))
+    assert plan_cache.load(path) == 1
+    assert plan_cache.stats["persist_migrated_v7"] == 1
+    (entry,) = plan_cache.entries()
+    assert len(entry.key) == len(plan_cache._dec(payload["entries"][0]["key"])) + 1
+    with _session(executor="fused") as ctx:
+        _ = float(_pipeline(x).value)
+    assert ctx.stats["planner_calls"] == 0 and ctx.stats["plan_cache_hits"] == 1
 
 
 def test_schema_version_mismatch_rejected(tmp_path):

@@ -10,11 +10,11 @@ plain version; JAX with ``pallas`` where the port has ``cuda``), fires at
 the same crossings and recovers with the same counts (``exec_demotions``,
 ``exec_quarantine_skips``, ``chunk_oom_halvings``, the quarantined
 executors, the MZ4xx counters), and every faulted run returns the
-fault-free eager oracle's answer within float32 2e-5 (sums 1e-5).  The
-reference's ladder has a ``sharded`` rung between ``pallas`` and ``scan``
-that fails without a mesh; the port has none until ROADMAP A8, so the
-reference's ``pallas -> sharded -> scan`` walk is held against the port's
-``cuda -> scan`` (``_as_port``).
+fault-free eager oracle's answer within float32 2e-5 (sums 1e-5).  Both
+ladders have a ``sharded`` rung between ``pallas``/``cuda`` and ``scan``
+that fails without a mesh, so a mesh-less walk from the top is
+``cuda -> sharded -> scan`` on both; the sweep also runs ``sharded`` on a
+one-rank mesh on each side.
 
 Port-only: a kernel fault (``KernelError``, a CUDA error) propagates out of
 ``cuda`` sessions and ``Pipeline`` calls with no demotion, quarantine or
@@ -58,6 +58,7 @@ from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import split_pipeline as tsp
 from repro_torch.kernels.build import KernelError
 
+from sharded_scenarios import jax_mesh, port_mesh
 from test_torch_plan_cache import JTINY, TTINY
 from test_torch_serving import MAX_LEN, _carry
 from repro.configs.registry import get_smoke_config as jsmoke
@@ -128,6 +129,8 @@ def oracle():
 
 
 def _port_quickstart(executor, **kw):
+    if executor == "sharded":
+        kw["mesh"] = port_mesh()
     with tmozart.session(executor=executor, device="cpu", **kw) as ctx:
         c, s = TQ(torch.from_numpy(XN), torch.from_numpy(YN))
         got = (c.value.numpy(), float(s.value))
@@ -135,6 +138,8 @@ def _port_quickstart(executor, **kw):
 
 
 def _jax_quickstart(executor, **kw):
+    if executor == "sharded":
+        kw["mesh"] = jax_mesh()
     with jmozart.session(executor=JAX_OF.get(executor, executor), **kw) as ctx:
         c, s = JQ(jnp.asarray(XN), jnp.asarray(YN))
         got = (np.asarray(c), float(s))
@@ -151,11 +156,10 @@ RECOVERY = ("exec_demotions", "exec_quarantine_skips", "chunk_oom_halvings",
 
 
 def _as_port(stats: dict, quarantined: list) -> tuple[dict, list]:
-    """The reference's recovery counts as the port would show them: pallas
-    is cuda, and the sharded rung (ROADMAP A8) folds into the next one."""
+    """The reference's recovery counts and quarantines as the port shows
+    them: pallas is cuda, every other rung (``sharded`` among them) as it is."""
     out = {k: stats.get(k, 0) for k in RECOVERY}
-    out["exec_demotions"] -= stats.get("exec_demoted_to_sharded", 0)
-    quar = [{sid: {PORT_OF.get(n, n) for n in names if n != "sharded"}
+    quar = [{sid: {PORT_OF.get(n, n) for n in names}
              for sid, names in q.items()} for q in quarantined]
     return out, quar
 
@@ -166,16 +170,6 @@ def _quarantined(entries):
 
 def _mz(stats, codes=("MZ401", "MZ402", "MZ403", "MZ404", "MZ406")):
     return {c: stats.get(c, 0) for c in codes}
-
-
-def _mz_as_port(jstats, jctx_stats):
-    """The reference's MZ counters less the events of its sharded rung (one
-    MZ402 and one MZ404 per walk through it)."""
-    out = _mz(jstats)
-    skipped = jctx_stats.get("exec_demoted_to_sharded", 0)
-    out["MZ402"] -= skipped
-    out["MZ404"] -= skipped
-    return out
 
 
 def _where(fired):
@@ -263,7 +257,7 @@ class TestFaultPlan:
 # Chaos sweep: injected boundary faults, parity with the JAX package
 # ---------------------------------------------------------------------------
 
-SWEEP_EXECUTORS = ("pipelined", "fused", "scan", "cuda", "auto")
+SWEEP_EXECUTORS = ("pipelined", "fused", "scan", "cuda", "sharded", "auto")
 SWEEP_BOUNDARIES = ("split", "chunk", "compile", "ingest", "merge")
 
 
@@ -286,20 +280,29 @@ def test_boundary_fault_parity_with_jax(executor, boundary, oracle):
     want_counts, want_quar = _as_port(jctx.stats, jquar)
     assert {k: tctx.stats.get(k, 0) for k in RECOVERY} == want_counts
     assert _quarantined(tpc.entries()) == want_quar
-    assert _mz(resilience.stats) == _mz_as_port(jres.stats, jctx.stats)
+    assert _mz(resilience.stats) == _mz(jres.stats)
     if tplan.fired:
-        assert resilience.stats["MZ401"] == 1 and tctx.stats["exec_demotions"] == 1
+        assert resilience.stats["MZ401"] == 1 and tctx.stats["exec_demotions"] >= 1
 
 
 def test_cuda_compile_fault_demotes_once_to_scan(oracle):
-    """The port's walk: ``cuda`` -> ``scan`` in one step (the reference's
-    ``pallas`` also fails over its mesh-less ``sharded`` rung)."""
+    """The reference's walk: ``cuda`` -> ``sharded`` (no mesh: it raises)
+    -> ``scan``, one MZ402 and one MZ404 per rung, both quarantined; with a
+    mesh the same fault demotes once, to a ``sharded`` stage that runs."""
     with tmozart.inject_faults("compile:fail:1"):
         got, ctx = _port_quickstart("cuda", batch_elements=512)
     _check(got, oracle[0])
-    assert ctx.stats["exec_demotions"] == 1 and ctx.stats["exec_demoted_to_scan"] == 1
-    assert ctx.stats.get("cuda_stages", 0) == 0
-    assert _quarantined(tpc.entries()) == [{0: {"cuda"}}]
+    assert ctx.stats["exec_demotions"] == 2
+    assert ctx.stats["exec_demoted_to_sharded"] == 1 and ctx.stats["exec_demoted_to_scan"] == 1
+    assert ctx.stats.get("cuda_stages", 0) == 0 and ctx.stats.get("sharded_stages", 0) == 0
+    assert _quarantined(tpc.entries()) == [{0: {"cuda", "sharded"}}]
+    assert resilience.stats["MZ402"] == resilience.stats["MZ404"] == 2
+    tpc.clear()
+    with tmozart.inject_faults("compile:fail:1"):
+        got, ctx = _port_quickstart("cuda", batch_elements=512, mesh=port_mesh())
+    _check(got, oracle[0])
+    assert ctx.stats["exec_demotions"] == ctx.stats["exec_demoted_to_sharded"] == 1
+    assert ctx.stats["sharded_stages"] == 1
 
 
 @pytest.mark.parametrize("executor", ("fused", "scan"))
@@ -356,7 +359,7 @@ def test_counted_donation_without_release_is_redriven():
     finally:
         mp.undo()
     assert ctx.stats["donated_chunks"] >= 1 and ctx.stats.get("streams_released", 0) == 0
-    assert ctx.stats["exec_demotions"] == 1
+    assert ctx.stats["exec_demotions"] == 2 and ctx.stats["exec_demoted_to_scan"] == 1
     np.testing.assert_allclose(got, want, rtol=2e-5)
 
 
@@ -473,9 +476,9 @@ def test_real_out_of_memory_halves_the_batch():
 
 
 def test_demotion_ladder_order():
-    assert resilience.DEGRADE_ORDER == tuple(
-        PORT_OF.get(n, n) for n in jres.DEGRADE_ORDER if n != "sharded")
-    assert resilience.demotion_ladder("cuda") == ["scan", "fused", "pipelined", "eager"]
+    assert resilience.DEGRADE_ORDER == tuple(PORT_OF.get(n, n) for n in jres.DEGRADE_ORDER)
+    assert resilience.demotion_ladder("cuda") == [
+        "sharded", "scan", "fused", "pipelined", "eager"]
     assert resilience.demotion_ladder("eager") == []
     assert resilience.demotion_ladder("auto") == list(resilience.DEGRADE_ORDER)
     assert resilience.MAX_OOM_HALVINGS == jres.MAX_OOM_HALVINGS
@@ -601,7 +604,11 @@ def test_auto_does_not_skip_a_cuda_candidate_out_of_memory(monkeypatch, oracle):
     analytic scores keep ``cuda`` among the candidates ``auto`` measures on
     its first warm call.)"""
     from repro_torch.core import cost_model
-    monkeypatch.setattr(cost_model, "analytic_seconds", lambda *a, **k: 1.0)
+    real = cost_model.analytic_seconds
+    # every candidate scores alike; ``sharded`` keeps its real (infinite,
+    # mesh-less) score
+    monkeypatch.setattr(cost_model, "analytic_seconds",
+                        lambda name, *a, **k: real(name, *a, **k) if name == "sharded" else 1.0)
     _port_quickstart("auto", batch_elements=512)
     _kernel_runs_out_of_memory(monkeypatch)
     with pytest.raises(torch.OutOfMemoryError):
@@ -703,7 +710,7 @@ def test_cuda_quarantine_skips_then_launches_again(monkeypatch, oracle):
     x, y = torch.from_numpy(XN), torch.from_numpy(YN)
     with tmozart.inject_faults("compile:fail:1"):
         _check(tuple(v if i == 0 else float(v) for i, v in enumerate(p(x, y))), oracle[0])
-    assert p.last_call_stats["exec_demotions"] == 1 and launches["n"] == 0
+    assert p.last_call_stats["exec_demotions"] == 2 and launches["n"] == 0
     trail = []
     for _ in range(3):
         c, s = p(x, y)

@@ -40,6 +40,7 @@ from repro_torch.core import plan_cache as tpc
 from repro_torch.core import rewrite
 from repro_torch.core.stage_exec import available_executors, trace_count
 
+from sharded_scenarios import jax_mesh, port_mesh
 from test_torch_executors import CASES, _data, _tol, assert_counts_as_named, close
 
 TOL = 2e-5
@@ -102,7 +103,14 @@ def _chain_inputs(n):
     return (r.rand(n) + 0.5).astype(np.float32), np.arange(n) % 2 == 0
 
 
+def _mesh_kw(executor, mesh):
+    """``sharded`` runs on a one-rank mesh (each side's own), as the
+    reference's sweep gives it one."""
+    return {"mesh": mesh()} if executor == "sharded" else {}
+
+
 def _jax_chain(executor, x, mask, **kw):
+    kw.update(_mesh_kw(executor, jax_mesh))
     with jmozart.session(executor=JAX_OF.get(executor, executor), **kw) as ctx:
         s, f = _chain(janp)(jnp.asarray(x), jnp.asarray(mask))
         out = (np.asarray(s.value), np.asarray(f.value))
@@ -110,6 +118,7 @@ def _jax_chain(executor, x, mask, **kw):
 
 
 def _port_chain(executor, x, mask, **kw):
+    kw.update(_mesh_kw(executor, port_mesh))
     with tmozart.session(executor=executor, device="cpu", **kw) as ctx:
         s, f = _chain(tanp)(torch.from_numpy(x), torch.from_numpy(mask))
         out = (s.value.numpy(), f.value.numpy())
@@ -419,7 +428,8 @@ def test_rewrite_parity_aliased_inputs(executor):
     outs = {}
     for on in (True, False):
         tpc.clear()
-        with tmozart.session(executor=executor, device="cpu", rewrite=on, **_kw()):
+        with tmozart.session(executor=executor, device="cpu", rewrite=on, **_kw(),
+                             **_mesh_kw(executor, port_mesh)):
             p, a = aliased(x)
             outs[on] = (p.value.numpy(), a.value.numpy())
     for g, w in zip(outs[True], outs[False]):
@@ -593,7 +603,7 @@ def test_rewrites_roundtrip_schema_v7(tmp_path):
     path = str(tmp_path / "plans.json")
     assert tpc.save(path) == 1
     payload = json.load(open(path))
-    assert payload["schema"] == tpc.SCHEMA_VERSION == 7
+    assert payload["schema"] == tpc.SCHEMA_VERSION == 8
     tpc.clear()
     assert tpc.load(path) == 1
     (entry,) = tpc.entries()

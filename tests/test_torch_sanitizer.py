@@ -45,10 +45,11 @@ from repro_torch.core import stage_exec as tse
 from repro_torch.core.graph import NodeRef
 from repro_torch.core.stage_exec import ChunkStream, SanitizerError
 
+from sharded_scenarios import port_mesh
 from test_torch_handoff import JAXNS, PORTNS
 
 JAX_OF = {"cuda": "pallas"}
-EXECUTORS = ("eager", "pipelined", "fused", "scan", "cuda", "auto")
+EXECUTORS = ("eager", "pipelined", "fused", "scan", "cuda", "sharded", "auto")
 
 
 @pytest.fixture(autouse=True)
@@ -172,6 +173,13 @@ def _form(form):
     if form == "stacked_tail":
         return ChunkStream.from_stacked(x[:4].reshape(2, 2, 2), x[4:],
                                         [(0, 2), (2, 4), (4, 6)], t, aval)
+    if form == "sharded":                    # a one-rank mesh's DTensor
+        from torch.distributed.tensor import DTensor
+        from repro_torch.core.sharded import placements_for
+        mesh = port_mesh()
+        pl = placements_for(mesh, ("data",), 0)
+        return ChunkStream.from_sharded(DTensor.from_local(x, mesh, pl, run_check=False),
+                                        [(0, 6)], t, aval, (mesh, pl))
     e = torch.zeros((0, 2))
     return ChunkStream([], [(0, 0)], st.ArraySplit((0, 2), 0), st.aval_of(e))
 
@@ -184,7 +192,7 @@ READS = {
     "raw_iter": lambda s: list(s._chunks),
     "raw_index": lambda s: s._chunks[0],
 }
-FORMS = ("list", "stacked", "stacked_tail", "empty")
+FORMS = ("list", "stacked", "stacked_tail", "sharded", "empty")
 
 
 @pytest.mark.parametrize("read", sorted(READS))
@@ -208,7 +216,7 @@ def test_released_stream_read_raises_mz301_in_every_branch(monkeypatch, form, re
 def test_released_stream_without_sanitizer_keeps_the_backstop(form):
     s = _form(form)
     s.release("stage 3 input ('in', 0)")
-    assert s._chunks is None and s.stacked is None and s.tail is None
+    assert s._chunks is None and s.stacked is None and s.tail is None and s.sharded is None
     for read in ("chunks", "chunk", "materialize"):
         with pytest.raises(RuntimeError, match=r"MZ301") as ei:
             READS[read](s)
@@ -312,7 +320,8 @@ def _chain(ns, executor):
     stage merges its own outputs), as the reference's ``smoke/handoff``."""
     first = "fused" if executor in ("cuda", "pallas") else executor
     x = ns.arr(np.linspace(0.1, 2.0, 4096, dtype=np.float32))
-    with ns.session(executor=first, handoff=True, batch_elements=512) as ctx:
+    mesh = {"mesh": ns.mesh()} if executor == "sharded" else {}
+    with ns.session(executor=first, handoff=True, batch_elements=512, **mesh) as ctx:
         cur = x
         for i in range(3):
             cur = ns.anp.multiply(ns.anp.add(cur, 1.0), 0.5)
@@ -416,12 +425,13 @@ def test_sanitizer_trip_inside_a_stage_propagates_on_every_executor(monkeypatch,
     with no demotion, quarantine, MZ402 or swallow."""
     def trips(self, stage, concrete, ctx):
         raise SanitizerError("[MZ302] stage 0 input ('in', 0): planted")
-    for name in ("eager", "pipelined", "fused", "scan", "cuda"):
+    for name in ("eager", "pipelined", "fused", "scan", "cuda", "sharded"):
         monkeypatch.setattr(type(tse.get_executor(name)), "execute", trips)
     x = PORTNS.arr(np.linspace(0.1, 2.0, 4096, dtype=np.float32))
+    mesh = {"mesh": port_mesh()} if executor == "sharded" else {}
     for _ in range(2):                        # auto measures on the first hit
         with pytest.raises(SanitizerError, match="planted"):
-            with tmozart.session(executor=executor, device="cpu") as ctx:
+            with tmozart.session(executor=executor, device="cpu", **mesh) as ctx:
                 float(PORTNS.anp.sum(PORTNS.anp.exp(x)).value)
         assert ctx.stats.get("exec_demotions", 0) == 0
         assert ctx.stats.get("swallowed_errors", 0) == 0
