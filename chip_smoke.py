@@ -282,6 +282,24 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              onto the card mesh; warm host milliseconds of ``sharded``,
              ``fused`` and ``cuda`` Black-Scholes in turns; a
              ``{"sharded": ...}`` JSON line.
+16. zero1  — ZeRO-1 data-parallel training (ROADMAP A8.2a) on a one-rank
+             NCCL mesh: (a) ``train(mesh=...)`` of gemma-7b at its published
+             widths, 6 layers, 2 x 2048, 3 steps, against the mesh-free
+             ``train()`` on the same seed (losses and parameters bit-equal
+             expected; any difference is printed by step and leaf); (b) the
+             sharded update with ``path="kernel"``: the fused AdamW kernel
+             11 times per step (the wrapper's count and ``torch.profiler``),
+             each leaf's local shard against ``path="jnp"`` on step 1, the
+             losses against (a)'s; (c) a resume from the step-2 checkpoint
+             at gemma-7b's smoke config (a checkpoint at published widths
+             is 36 GB at 8 layers, 12.8 GB at one): step 3's loss and
+             parameters equal to the uninterrupted run's; (d)
+             ``optim/compress.py`` on step 1's gradients against the CPU
+             on the same values (codes, scales, residuals bit-equal) and
+             ``compressed_bytes``; (e) uint16/uint32 ``max``/``min``,
+             ``maximum``/``minimum``, ``greater``/``less`` and ``where``
+             (ROADMAP C13) on ``cuda`` and ``sharded`` at n = 2**24 against
+             int64; peak memory, seconds and a ``{"zero1": ...}`` JSON line.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -394,6 +412,13 @@ CHUNK = 1 << 25                  # elements per comparison slice
 SHARDED_BATCH = 1 << 22          # batch_elements of the sharded phase's fused and sharded runs
 SHARDED_REDUCE_N = 1 << 24       # elements per reduction input in the sharded phase
 SHARDED_ROUNDS = 10              # turns of the sharded phase's host-time comparison
+ZERO1_STEPS = 3                  # train() steps of the zero1 phase
+#: its depth: train() keeps the reference's jnp AdamW path, whose update at
+#: the train phase's 8 layers peaks at 78.1 GB (of 85.0 on an H100) and
+#: ran out of memory in the whole script after the earlier phases
+ZERO1_LAYERS = 6
+ZERO1_LOSS_RTOL = 1e-3           # kernel-path losses against the jnp path's
+C13_N = 1 << 24                  # elements of the zero1 phase's uint16/uint32 checks
 
 
 def log(*parts) -> None:
@@ -3110,8 +3135,8 @@ class RoutingReplay:
     def __init__(self, mlp):
         self.mlp, self.real, self.choices, self.at = mlp, mlp.route, [], None
 
-    def _route(self, p, xt, cfg):
-        gate_vals, expert_idx, aux = self.real(p, xt, cfg)
+    def _route(self, p, xt, cfg, dg=None):
+        gate_vals, expert_idx, aux = self.real(p, xt, cfg, dg)
         if self.at is None:
             self.choices.append(expert_idx)
             return gate_vals, expert_idx, aux
@@ -4678,14 +4703,12 @@ def sharded_workloads(w, erf, mesh) -> dict:
 
 
 #: the sharded phase's reductions: every (op, input dtype) pair of the CPU
-#: tests (``tests/sharded_scenarios.py`` ``REDUCE_CASES``): torch has no max
-#: or min of uint16 or uint32 (ROADMAP C13)
+#: tests (``tests/sharded_scenarios.py`` ``REDUCE_CASES``), uint16 and
+#: uint32 max and min included (ROADMAP C13)
 SHARDED_REDUCE_DTYPES = (torch.float32, torch.int32, torch.bool, torch.bfloat16, torch.int8,
                          torch.int16, torch.uint8, torch.uint16, torch.uint32, torch.float16)
 SHARDED_REDUCE_CASES = tuple((name, dtype) for dtype in SHARDED_REDUCE_DTYPES
-                             for name in ("sum", "max", "min", "prod")
-                             if not (dtype in (torch.uint16, torch.uint32)
-                                     and name in ("max", "min")))
+                             for name in ("sum", "max", "min", "prod"))
 
 
 def reduce_case(dtype: torch.dtype, gen: torch.Generator) -> torch.Tensor:
@@ -4954,6 +4977,314 @@ def phase_sharded(sp, w, erf) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# zero1: ZeRO-1 data-parallel training on a one-rank NCCL mesh (A8.2a, C13)
+# ---------------------------------------------------------------------------
+
+
+def zero1_config():
+    return train_config().with_runtime(n_layers=ZERO1_LAYERS)
+
+
+def zero1_train(mesh) -> dict:
+    """(a) ``train(mesh=...)`` against the mesh-free ``train()``: same seed,
+    batches and AdamW; on one rank every collective is a copy, so the
+    losses and parameters are expected bit-equal.  A difference is printed
+    by step and by leaf, and fails beyond ``ZERO1_LOSS_RTOL``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.train import train
+    cfg = zero1_config()
+    kw = dict(steps=ZERO1_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    plain = train(cfg, **kw)
+    want_losses = plain["losses"]
+    want = {n: p.detach().cpu() for n, p in sorted(plain["params"].named_parameters())}
+    del plain
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    got = train(cfg, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    moments = got["opt_state"].m
+    if not all(isinstance(t, DTensor) and t.to_local().is_cuda for t in moments.values()):
+        raise AssertionError("zero1: the moments are not card DTensors")
+    differ = {}
+    for n, p in sorted(got["params"].named_parameters()):
+        d = (p.detach().cpu().float() - want[n].float()).abs().max().item()
+        if d:
+            differ[n] = d
+    losses = got["losses"]
+    del got, moments
+    torch.cuda.empty_cache()
+    steps_differ = [i + 1 for i, (a, b) in enumerate(zip(losses, want_losses)) if a != b]
+    log(f"[zero1] (a) train(mesh=one-rank {dist.get_backend()} mesh) of {cfg.name}, "
+        f"{cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, {ZERO1_STEPS} steps: losses "
+        f"{losses} against the mesh-free train()'s {want_losses}: "
+        + ("bit-equal, parameters bit-equal" if not steps_differ and not differ else
+           f"steps {steps_differ} differ, leaves {differ} (first difference at step "
+           f"{steps_differ[0] if steps_differ else '-'})")
+        + f"; the mesh run {mesh_s:.1f} s, both {time.perf_counter() - t0:.1f} s; peak "
+        f"device memory of the mesh run {peak / 1e9:.2f} GB")
+    for a, b in zip(losses, want_losses):
+        if not math.isfinite(a) or abs(a - b) > ZERO1_LOSS_RTOL * abs(b):
+            raise AssertionError(f"zero1 (a): losses {losses} against {want_losses}")
+    return {"losses": losses, "plain_losses": want_losses, "bit_equal": not steps_differ
+            and not differ, "leaves_differ": differ, "peak_bytes": peak, "mesh_s": mesh_s}
+
+
+def zero1_kernel(fa, ref, mesh, losses_jnp: list) -> dict:
+    """(b) ``ZERO1_STEPS`` steps of the port's ``make_zero1_step(...,
+    path="kernel")``, each profiled whole: the fused AdamW kernel once per
+    leaf per step, by the wrapper's count (from 0 before the steps) and by
+    ``torch.profiler``; the losses against (a)'s ``jnp`` path.  Before
+    them, one unprofiled step on step 1's batch whose ``update_sharded`` is
+    wrapped: on the arguments the step hands it, each leaf's local shard is
+    updated by both paths (rtol 3e-5, bfloat16 within one ulp: the train
+    phase's check), and the gradient shards are copied to the host for (d)
+    (``compress_sample``); that step's results and launches are dropped.
+    Returns the host copies with the step's gradient bytes and their
+    ``compressed_bytes``."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import train as T
+    from repro_torch.models import weights
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw, compress
+    cfg = zero1_config()
+    model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    zero = T.zero1_layout(mesh, model)
+    state = adamw.init_sharded(weights.leaves(model), zero)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=max(ZERO1_STEPS, 2),
+                                warmup_steps=max(ZERO1_STEPS // 20, 1))   # train()'s
+    step_fn = T.make_zero1_step(cfg, opt_cfg, zero, "kernel")
+    pipe = DataPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
+    n_leaves = len(state.m)
+    seen = {}
+    real_update = adamw.update_sharded
+
+    def compared(params, shards, st, ocfg, z, path):
+        sc, _lr, _gn = adamw.step_scalars(ocfg, st.step + 1, shards, z.norm(shards))
+        err = 0.0
+        for name, p in params.items():
+            args = (z.local(p, name), shards[name], st.m[name].to_local(),
+                    st.v[name].to_local(), sc, ocfg)
+            kernel = adamw.update_leaf(*args, "kernel")
+            plain = adamw.update_leaf(*args, "jnp")
+            err = max(err, check_adamw_outputs(
+                f"zero1 step 1 {name} kernel vs jnp path", kernel, plain, args[0], 3e-5))
+            del kernel, plain
+        seen["vs_jnp"] = err
+        seen["grads_host"] = {n: g.detach().cpu() for n, g in compress_sample(shards).items()}
+        seen["step_bytes"] = (sum(g.numel() * g.element_size() for g in shards.values()),
+                              compress.compressed_bytes(shards))
+        return real_update(params, shards, st, ocfg, z, path)
+
+    adamw.update_sharded = compared
+    try:
+        dropped = step_fn(model, state, pipe.batch_for_step(0))
+    finally:
+        adamw.update_sharded = real_update
+    del dropped
+    torch.cuda.empty_cache()
+    if "vs_jnp" not in seen:
+        raise AssertionError("zero1 (b): make_zero1_step did not call update_sharded")
+    losses, per_step, profiled, update_ms = [], [], [], []
+    fa.fused_adamw.launches = 0
+    for step in range(ZERO1_STEPS):
+        batch = pipe.batch_for_step(step)
+        before = fa.fused_adamw.launches
+        n_prof, us, (new_p, state, metrics) = _profile_window(
+            lambda: step_fn(model, state, batch), 1, "fused_adamw")
+        launched = fa.fused_adamw.launches - before
+        per_step.append(launched)
+        profiled.append(n_prof)
+        update_ms.append(us / 1e3)
+        weights.assign(model, new_p)
+        del new_p
+        losses.append(float(metrics["loss"]))
+        if launched != n_leaves:
+            raise AssertionError(f"zero1 (b) step {step + 1}: {launched} fused_adamw "
+                                 f"launches for {n_leaves} leaves")
+    torch.cuda.synchronize()
+    total = fa.fused_adamw.launches
+    log(f"[zero1] (b) make_zero1_step(path=\"kernel\"), {ZERO1_STEPS} steps: fused_adamw "
+        f"launches per step {per_step} (wrapper), {profiled} (torch.profiler), "
+        f"{total} in all; its device ms per step {[round(t, 3) for t in update_ms]}; step 1 "
+        f"max |kernel path - jnp path| {seen['vs_jnp']:.3e} (rtol 3e-5, bfloat16 p within "
+        f"one ulp); losses {losses} against (a)'s jnp path {losses_jnp}")
+    for a, b in zip(losses, losses_jnp):
+        if abs(a - b) > ZERO1_LOSS_RTOL * abs(b):
+            raise AssertionError(f"zero1 (b): kernel-path losses {losses} vs {losses_jnp}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"launches": total, "launches_per_step": per_step, "profiled_per_step": profiled,
+            "update_device_ms": update_ms, "max_abs_err_vs_jnp": seen["vs_jnp"],
+            "losses": losses}, (seen["grads_host"], seen["step_bytes"])
+
+
+def zero1_resume(mesh) -> dict:
+    """(c) ``train(mesh=...)`` of gemma-7b's smoke config (2 layers, d 64,
+    vocab 256: a checkpoint at published widths is 12.8 GB for one layer,
+    and two runs of it took 105.3 s on an H100) for ``ZERO1_STEPS`` steps
+    with a checkpoint at step 2; the step-3 checkpoint removed, the run
+    again from the same directory resumes at step 2: its loss and the final
+    parameters equal the uninterrupted run's, bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.train import train
+    cfg = get_smoke_config("gemma-7b")
+    kw = dict(steps=ZERO1_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, device="cuda",
+              mesh=mesh, ckpt_every=2)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        full = train(cfg, ckpt_dir=d, **kw)
+        want = {n: p.detach().clone() for n, p in full["params"].named_parameters()}
+        want_loss = full["losses"][-1]
+        del full
+        steps = ckpt.all_steps(d)
+        shutil.rmtree(Path(d) / f"step_{ZERO1_STEPS:08d}")
+        t1 = time.perf_counter()
+        again = train(cfg, ckpt_dir=d, **kw)
+        resume_s = time.perf_counter() - t1
+        equal = all(torch.equal(p.detach(), want[n])
+                    for n, p in again["params"].named_parameters())
+        got_losses = again["losses"]
+        nbytes = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        del again
+    torch.cuda.empty_cache()
+    log(f"[zero1] (c) {cfg.name}, {cfg.n_layers} layers, checkpoints at steps {steps} "
+        f"({nbytes / 1e9:.2f} GB on disk after the resumed run; moments gathered on the "
+        f"main thread, written by the checkpointer's): resumed losses {got_losses} against "
+        f"step {ZERO1_STEPS}'s {want_loss}; parameters "
+        f"{'bit-equal' if equal else 'DIFFER'}; both runs {time.perf_counter() - t0:.1f} s, "
+        f"the resumed {resume_s:.1f} s")
+    if got_losses != [want_loss] or not equal or steps != [2, ZERO1_STEPS]:
+        raise AssertionError(f"zero1 (c): resumed {got_losses} vs {want_loss}, params "
+                             f"equal {equal}, checkpoints {steps}")
+    return {"losses": got_losses, "checkpoint_steps": steps, "resume_s": resume_s}
+
+
+def compress_sample(grads: dict) -> dict:
+    """The leaves of step 1's gradients that (d) compresses on the CPU too:
+    every leaf but the 786M-element embedding, layer 0's slice of the
+    stacked ones (the CPU takes seconds per 10^8 elements)."""
+    return {n: (g[0] if n.startswith("layers.") else g) for n, g in grads.items()
+            if n != "embed"}
+
+
+def zero1_compress(sample: dict, step_bytes: tuple) -> dict:
+    """(d) ``compress.apply`` and the int8 codes on the card against the CPU
+    on the same values (``sample``, host copies): bit-equal;
+    ``compressed_bytes`` of the step (``step_bytes``: as they are, packed)."""
+    from repro_torch.optim import compress
+    n = sum(g.numel() for g in sample.values())
+    t0 = time.perf_counter()
+    want, want_state = compress.apply(sample, compress.init(sample))
+    cpu_s = time.perf_counter() - t0
+    card = {k: v.to("cuda") for k, v in sample.items()}
+    got, got_state = compress.apply(card, compress.init(card))
+    torch.cuda.synchronize()
+    for k, g in sample.items():
+        flat = g.to(torch.float32).reshape(-1)
+        codes_cpu, scale_cpu = compress._quantize(flat)
+        codes, scale = compress._quantize(flat.to("cuda"))
+        for what, a, b in (("codes", codes, codes_cpu), ("scales", scale, scale_cpu),
+                           ("decompressed", got[k], want[k]),
+                           ("residual", got_state.residual[k], want_state.residual[k])):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"zero1 (d) {k} {what}: card != CPU")
+    total, packed = step_bytes
+    log(f"[zero1] (d) compress.apply on step 1's gradients ({len(sample)} leaves, {n} "
+        f"elements: all but the embedding, layer 0 of the stacked ones): codes, scales, "
+        f"decompressed values and residuals bit-equal to the CPU's ({cpu_s:.1f} s there); "
+        f"compressed_bytes of the whole step {packed} against {total} bytes as they are "
+        f"({total / packed:.2f}x)")
+    return {"elements": n, "compressed_bytes": packed, "bytes": total}
+
+
+def zero1_c13(sp, mesh) -> dict:
+    """(e) ROADMAP C13 on the card: uint16 and uint32 (values past 2**31
+    included) ``max``/``min`` reductions and ``maximum``/``minimum``,
+    ``greater``/``less`` and ``where`` on a ``greater``, at n = 2**24, on
+    ``cuda`` (the split-pipeline kernel) and ``sharded`` (the one-rank
+    mesh), against the same ops on int64 copies; ``fused`` too."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import plan_cache
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for dtype, hi in ((torch.uint16, 1 << 16), (torch.uint32, 1 << 32)):
+        x64 = torch.randint(0, hi, (C13_N,), generator=gen, device="cuda", dtype=torch.int64)
+        y64 = torch.randint(0, hi, (C13_N,), generator=gen, device="cuda", dtype=torch.int64)
+        x, y = x64.to(dtype), y64.to(dtype)
+        want = {"max": x64.amax(), "min": x64.amin(), "maximum": torch.maximum(x64, y64),
+                "minimum": torch.minimum(x64, y64), "greater": x64 > y64, "less": x64 < y64,
+                "where": torch.where(x64 > y64, x64, y64)}
+        calls = {"max": lambda x, y: anp.max(x), "min": lambda x, y: anp.min(x),
+                 "maximum": anp.maximum, "minimum": anp.minimum, "greater": anp.greater,
+                 "less": anp.less, "where": lambda x, y: anp.where(anp.greater(x, y), x, y)}
+        for ex, kw in (("cuda", {}), ("sharded", {"mesh": mesh}), ("fused", {})):
+            plan_cache.clear()
+            sp.reset_counts()
+            for op, fn in calls.items():
+                _r, (got,), ctx = run_observed(lambda x, y: fn(x, y), {"x": x, "y": y}, ex,
+                                               batch_elements=C13_N // 8, **kw)
+                w = want[op]
+                if got.dtype != (torch.bool if w.dtype == torch.bool else dtype) or \
+                        not torch.equal(got.to(w.dtype), w):
+                    raise AssertionError(f"zero1 (e) {ex} {op}({str(dtype)[6:]}): {got.dtype}")
+                if ex == "cuda" and (ctx.stats.get("cuda_fallback_stages", 0)
+                                     or not ctx.stats.get("cuda_stages", 0)):
+                    raise AssertionError(f"zero1 (e) cuda {op}: {dict(ctx.stats)}")
+            if ex == "cuda" and sp.split_pipeline.launches != len(calls):
+                raise AssertionError(f"zero1 (e) cuda {str(dtype)[6:]}: "
+                                     f"{sp.split_pipeline.launches} launches for {len(calls)}")
+            out[f"{ex}/{str(dtype)[6:]}"] = {"ops": len(calls),
+                                            "split_pipeline_launches":
+                                                sp.split_pipeline.launches}
+    plan_cache.clear()
+    log(f"[zero1] (e) C13 at n={C13_N}: uint16 and uint32 max, min, maximum, minimum, "
+        f"greater, less and where(greater) equal to int64 on cuda (every stage on the "
+        f"kernel), sharded and fused: {json.dumps(out)}")
+    return out
+
+
+def phase_zero1(fa, sp, ref, train_peak: int | None = None) -> dict:
+    """ZeRO-1 data-parallel training (ROADMAP A8.2a) and C13 on a one-rank
+    NCCL mesh (one H100 is one rank: the moments' shards are whole, so the
+    collectives are an all-reduce per gradient and no all-gather; the
+    reduce-scatter, the gathers and the ranks' agreement on retries are held
+    on 2 and 4 ``gloo`` ranks by ``tests/test_torch_zero1.py``).  The
+    process group lives within this phase."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh()
+    try:
+        log(f"[zero1] mesh {mesh} over {dist.get_world_size()} rank(s), backend "
+            f"{dist.get_backend()} ({card_line()})")
+        out = {"train": zero1_train(mesh)}
+        out["kernel"], (sample, step_bytes) = zero1_kernel(fa, ref, mesh,
+                                                           out["train"]["losses"])
+        out["compress"] = zero1_compress(sample, step_bytes)
+        del sample
+        out["resume"] = zero1_resume(mesh)
+        out["c13"] = zero1_c13(sp, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    beside = ("" if train_peak is None else
+              f" beside the train phase's {train_peak / 1e9:.2f} GB (8 layers, kernel path)")
+    log(f"[zero1] phase {out['seconds']:.1f} s; peak device memory of train(mesh=...) "
+        f"{out['train']['peak_bytes'] / 1e9:.2f} GB{beside}; {card_line()}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
@@ -5042,6 +5373,7 @@ def main() -> int:
         raise AssertionError(f"training launched flash_attention "
                              f"{fl.flash_attention.launches} times")
     rows.append(adamw_row(adamw_kernel, train))
+    adamw_at = len(rows) - 1
     log(f"[times] fused_adamw per step ({rows[-1]['per_step']}): kernel "
         f"{rows[-1]['ms']:.3f} ms over {rows[-1]['launches_per_step']} launches, "
         f"bound {rows[-1]['bound_ms']:.3f} ms by {rows[-1]['bound_by']} "
@@ -5073,6 +5405,12 @@ def main() -> int:
     sharded = phase_sharded(sp, w, erf)
     resilience_clean("sharded")
     log(json.dumps({"sharded": sharded}))
+    zero1 = phase_zero1(fa, sp, ref, train["peak_bytes"])
+    resilience_clean("zero1")
+    log(json.dumps({"zero1": zero1}))
+    rows[adamw_at]["zero1"] = {k: zero1["kernel"][k] for k in
+                               ("launches", "launches_per_step", "profiled_per_step",
+                                "update_device_ms", "max_abs_err_vs_jnp")}
     log(f"[phases] seconds per check (chaos counts in times, data in kernel): "
         f"{json.dumps(LAPS)}; {sum(s for _, s in LAPS):.1f} s to the last")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

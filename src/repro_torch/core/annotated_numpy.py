@@ -145,9 +145,10 @@ for _name, _fn in _UNARY.items():
 _BINARY = {
     "add": torch.add, "subtract": torch.subtract, "multiply": torch.multiply,
     "divide": torch.divide, "power": _power,
-    "maximum": _tensors_only(torch.maximum),
-    "minimum": _tensors_only(torch.minimum),
-    "greater": _tensors_only(torch.greater), "less": _tensors_only(torch.less),
+    "maximum": _tensors_only(st.widened(torch.maximum)),
+    "minimum": _tensors_only(st.widened(torch.minimum)),
+    "greater": _tensors_only(st.widened(torch.greater)),
+    "less": _tensors_only(st.widened(torch.less)),
     "equal": _tensors_only(torch.eq),
     "logical_and": _tensors_only(torch.logical_and),
     "logical_or": _tensors_only(torch.logical_or),
@@ -177,11 +178,14 @@ for _name, _fn in _BINARY.items():
 
 
 # -- ternary ------------------------------------------------------------------
+_where_op = st.widened(torch.where)
+
+
 def _where(c, x, y):
     cond = c != 0                       # any dtype: nonzero selects x
     if isinstance(cond, bool):          # Python scalar condition
         cond = torch.tensor(cond)
-    return _narrow(torch.where(cond, x, y))
+    return _narrow(_where_op(cond, x, y))
 
 
 _reg("where", annotate(_where, name="where", elementwise=True,
@@ -219,8 +223,8 @@ def _make_reduction(name: str, red: Callable, merge_op: str):
 
 
 _make_reduction("sum", _sum, "add")
-_make_reduction("max", torch.amax, "max")
-_make_reduction("min", torch.amin, "min")
+_make_reduction("max", st.widened(torch.amax), "max")
+_make_reduction("min", st.widened(torch.amin), "min")
 _make_reduction("prod", _prod, "mul")
 
 

@@ -544,26 +544,61 @@ class StepTimer:
 
 def with_retries(fn: Callable[[], Any], *, retries: int,
                  on_retry: Callable[[int, Exception], None] | None = None,
-                 backoff_s: float = 0.0) -> Any:
+                 backoff_s: float = 0.0,
+                 agree: Callable[[str], list[str]] | None = None) -> Any:
     """Run ``fn``; retry the transient classes with exponential backoff.
     Non-transient errors, kernel faults and sanitizer trips propagate
-    immediately."""
+    immediately.
+
+    ``agree``, for SPMD ranks whose ``fn`` makes collectives (ZeRO-1
+    training, ``launch/train.py``): called after every attempt with this
+    rank's outcome (``"ok"``, ``"retry"`` or ``"fatal"``), it returns every
+    rank's (``core.sharded.agree``).  The ranks then return, retry or raise
+    together: a rank that retried alone would wait on collectives the
+    others never make.  ``fn`` must leave no state changed when it raises
+    (the caller commits after), and a fault is recoverable where it
+    surfaces after the attempt's last collective."""
     last: Exception | None = None
     for attempt in range(retries + 1):
-        try:
-            return fn()
-        except TRANSIENT_ERRORS as e:
-            if _never_absorbed(e):
-                raise
-            last = e
-            with _stats_lock:
-                stats["step_retries"] += 1
-            log.warning("step attempt %d failed: %s", attempt, e)
-            if on_retry:
-                on_retry(attempt, e)
-            if backoff_s and attempt < retries:
-                time.sleep(backoff_s * (2 ** attempt))
+        if agree is not None:
+            outcome, result, err = _attempt(fn)
+            outcomes = agree(outcome)
+            if "fatal" in outcomes:
+                if err is not None and outcome == "fatal":
+                    raise err
+                raise StepFailure(f"rank {outcomes.index('fatal')} failed: not retried")
+            if all(o == "ok" for o in outcomes):
+                return result
+            e = err or StepFailure(f"ranks {[r for r, o in enumerate(outcomes) if o != 'ok']} "
+                                   f"failed attempt {attempt}")
+        else:
+            try:
+                return fn()
+            except TRANSIENT_ERRORS as exc:
+                if _never_absorbed(exc):
+                    raise
+                e = exc
+        last = e
+        with _stats_lock:
+            stats["step_retries"] += 1
+        log.warning("step attempt %d failed: %s", attempt, e)
+        if on_retry:
+            on_retry(attempt, e)
+        if backoff_s and attempt < retries:
+            time.sleep(backoff_s * (2 ** attempt))
     raise StepFailure(f"exhausted {retries} retries") from last
+
+
+def _attempt(fn: Callable[[], Any]) -> tuple[str, Any, BaseException | None]:
+    """One attempt of ``fn`` for ``with_retries(agree=...)``: ``(outcome,
+    result, error)``.  Every failure is caught so that this rank still
+    takes part in the agreement; the caller re-raises it."""
+    try:
+        return "ok", fn(), None
+    except TRANSIENT_ERRORS as e:
+        return ("fatal" if _never_absorbed(e) else "retry"), None, e
+    except Exception as e:             # re-raised after the ranks agree
+        return "fatal", None, e
 
 
 def run_with_restarts(

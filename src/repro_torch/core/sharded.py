@@ -181,13 +181,13 @@ def placements_for(mesh, axes: tuple[str, ...], axis: int) -> tuple:
 #: reductions): a wider type that holds every value, so a gather is exact
 #: and add, max and min give the value modulo 2**k on the cast back.
 #: ``annotation.canonicalize`` leaves no uint64.
-_WIRE = {torch.bool: torch.uint8, torch.int16: torch.int32, torch.uint16: torch.int32,
+WIRE = {torch.bool: torch.uint8, torch.int16: torch.int32, torch.uint16: torch.int32,
          torch.uint32: torch.int64}
 
 
 def _all_gather(value: torch.Tensor, group, order: list[int]) -> list:
     """Every shard's ``value``, in shard order."""
-    wire = _WIRE.get(value.dtype)
+    wire = WIRE.get(value.dtype)
     if wire is not None:
         return [p.to(value.dtype) for p in _all_gather(value.to(wire), group, order)]
     flat = value.contiguous()
@@ -216,7 +216,7 @@ def psum_like(t: st.ReduceSplit, value, group, order: list[int]):
     op = _REDUCE_OPS.get(t.op_name)
     if op is None:
         raise ValueError(t.op_name)
-    wire = _WIRE.get(value.dtype)
+    wire = WIRE.get(value.dtype)
     buf = (value.to(wire) if wire is not None
            else value.clone(memory_format=torch.contiguous_format))
     dist.all_reduce(buf, op=op, group=group)

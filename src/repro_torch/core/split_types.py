@@ -220,6 +220,33 @@ class ArraySplit(SplitType):
         return isinstance(consumer, ArraySplit) and consumer.key() == self.key()
 
 
+#: the unsigned dtypes whose order ops (``amax``/``amin``, ``maximum``/
+#: ``minimum``, comparisons) and ``where`` torch has no kernel for (ROADMAP
+#: C13): none on the CPU (torch 2.13) nor with CUDA (torch 2.11, CUDA 12.8,
+#: on an H100), but torch 2.13's CPU ``where``
+UNSIGNED_WITHOUT_ORDER = frozenset({torch.uint16, torch.uint32})
+
+
+def _unordered(v: Any) -> bool:
+    # a meta tensor (the cuda executor's trace) computes no values: the op
+    # itself is traced, and the kernel compares unsigned words
+    return (isinstance(v, torch.Tensor) and v.dtype in UNSIGNED_WITHOUT_ORDER
+            and v.device.type != "meta")
+
+
+def widened(op: Callable) -> Callable:
+    """``op`` (an order op or ``where``) on uint16/uint32 tensors with
+    values: computed on int64, which holds every value, and a result other
+    than bool cast back to their dtype.  Elsewhere ``op`` itself."""
+    def run(*args, **kw):
+        dtype = next((a.dtype for a in args if _unordered(a)), None)
+        if dtype is None:
+            return op(*args, **kw)
+        out = op(*[a.to(torch.int64) if _unordered(a) else a for a in args], **kw)
+        return out if out.dtype == torch.bool else out.to(dtype)
+    return run
+
+
 def _wrapping(op: Callable, a: Any, b: Any) -> Any:
     """``op`` on partials; uint32 ones (unsigned sums and products) go
     through int64, as torch has few uint32 kernels, and wrap on the cast."""
@@ -241,8 +268,8 @@ class ReduceSplit(SplitType):
     _OPS: dict[str, Callable[[Any, Any], Any]] = {
         "add": lambda a, b: _wrapping(torch.add, a, b),
         "mul": lambda a, b: _wrapping(torch.mul, a, b),
-        "max": torch.maximum,
-        "min": torch.minimum,
+        "max": widened(torch.maximum),
+        "min": widened(torch.minimum),
     }
 
     def __init__(self, op_name: str, extra: tuple = ()):  # extra e.g. axis

@@ -22,6 +22,8 @@ Single pod: 16 x 16 = 256 ranks (data, model).  Multi-pod: 2 x 16 x 16 = 512
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import os
 import threading
 
@@ -87,6 +89,28 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1,
     n_data = min(n_data, n)
     n_model = max(min(n_model, n // n_data), 1)
     return make_mesh((n_data, n_model), ("data", "model"), dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis sizes and names without ranks, as ``jax.sharding.AbstractMesh``:
+    what the sharding rules (``launch/shardings.py``) and the axis helpers
+    below read, so that they run at production meshes (16 x 16, 2 x 16 x 16)
+    that no process group here holds.  A ``DeviceMesh`` answers the same
+    questions (``shape``, ``mesh_dim_names``, ``ndim``, ``size()``)."""
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"{len(self.shape)} sizes for axes {self.mesh_dim_names}")
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def size(self) -> int:
+        return math.prod(self.shape)
 
 
 @contextlib.contextmanager

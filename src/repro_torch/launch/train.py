@@ -1,15 +1,33 @@
-"""End-to-end training entry point on one device: the counterpart of
+"""End-to-end training entry point: the counterpart of
 ``src/repro/launch/train.py``.
 
 It trains a config with the port's stack: the SA-annotated data pipeline,
 the model, AdamW, async checkpointing with exact resume, the straggler
-watchdog and step retries.  The reference's mesh, shardings and ZeRO-1
-optimizer-state sharding wait for the rest of the mesh port (ROADMAP
-A8.2; ``launch/mesh.py`` is ported).  Runs on the card unless given
-``device="cpu"``.
+watchdog and step retries.  Runs on the card unless given ``device="cpu"``.
+
+``mesh=`` (a ``DeviceMesh`` from ``launch/mesh.py`` whose ``"model"``
+extent is 1) trains data-parallel with ZeRO-1, as the reference's
+``train(mesh=make_host_mesh(n, 1))``: SPMD, one process per rank.  What
+GSPMD does implicitly for the reference is explicit here: every rank builds
+the same global batch from the seed and keeps its rows
+(``shardings.batch_specs``); it computes its rows' share of the global loss
+(``models.data_parallel``: global denominator, global MoE statistics and
+capacity) and its gradients; each gradient is reduce-scattered onto the
+moment shard ``shardings.zero1_specs`` gives it (all-reduced where that has
+no data axis); AdamW updates this rank's slice of p, m and v
+(``adamw.update_sharded``); the new slices are all-gathered.  m and v are
+``DTensor``s; a checkpoint saves them whole (gathered on the main thread)
+and a resume restores them sharded.  Tensor parallelism over ``"model"``
+waits for ROADMAP A8.2b.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b --smoke \
         --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt
+
+and in a script started by ``torchrun --nproc-per-node 2``:
+
+    mesh = make_host_mesh(2, 1, device="cpu")
+    out = train(get_smoke_config("gemma-7b"), steps=3, batch=4, seq=32,
+                mesh=mesh, device="cpu")
 """
 
 from __future__ import annotations
@@ -19,12 +37,16 @@ import logging
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.registry import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.core import sharded
 from repro_torch.core.runtime import resolve_device
 from repro_torch.data.pipeline import DataPipeline
-from repro_torch.models import lm, weights
+from repro_torch.launch import shardings as shd
+from repro_torch.launch.mesh import data_axes_of, dp_extent, tp_extent
+from repro_torch.models import data_parallel, lm, weights
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -54,30 +76,146 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
     return step_fn
 
 
+def data_group(mesh) -> data_parallel.DataGroup:
+    """The ranks of ``mesh``'s data axes (one flattened group, row-major,
+    for ("pod", "data")) and this rank's shard."""
+    axes = data_axes_of(mesh)
+    group, order = sharded.data_group(
+        mesh, tuple(mesh.mesh_dim_names.index(a) for a in axes))
+    return data_parallel.DataGroup(group=group, size=dp_extent(mesh),
+                                   index=sharded.shard_index(mesh, axes), order=tuple(order))
+
+
+def zero1_layout(mesh, params) -> adamw.Zero1:
+    """The ZeRO-1 layout of ``params``' moments on a data-parallel ``mesh``
+    (``shardings.zero1_specs``): per leaf the dim sharded over the data
+    axes and the ``DTensor`` placements."""
+    axes = set(data_axes_of(mesh))
+    specs = shd.zero1_specs(params, mesh)
+    dims = {}
+    for name, spec in specs.items():
+        named_axes = [(d, {e} if isinstance(e, str) else set(e)) for d, e in enumerate(spec)
+                      if e is not None]
+        dims[name] = next((d for d, e in named_axes if e & axes), None)
+    return adamw.Zero1(mesh=mesh, dg=data_group(mesh), dims=dims,
+                       placements={n: shd.placements(sp, mesh) for n, sp in specs.items()})
+
+
+def local_batch(batch: dict, mesh, dg: data_parallel.DataGroup) -> tuple[dict, bool]:
+    """This rank's rows of the global ``batch`` by ``shardings.batch_specs``,
+    and whether the rows are sharded (else every rank keeps them all)."""
+    specs = shd.batch_specs(batch, mesh)
+    dims = {k: next((d for d, e in enumerate(sp) if e is not None), None)
+            for k, sp in specs.items()}
+    if all(d is None for d in dims.values()):
+        return batch, False
+    return {k: dg.local_rows(v, dims[k]) for k, v in batch.items()}, True
+
+
+def make_zero1_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, zero: adamw.Zero1,
+                    path: str = "jnp"):
+    """``step_fn(model, opt_state, batch) -> (new_params, opt_state,
+    metrics)`` on a data-parallel mesh: ``batch`` is the global batch,
+    ``opt_state`` ZeRO-1 sharded (``adamw.init_sharded``), ``new_params``
+    the whole new parameters, for the caller to assign once every rank's
+    step went through; ``path`` is ``adamw.update_sharded``'s.  Rows that
+    do not divide over the ranks stay replicated: each rank then takes
+    1/size of the loss, and the sum over the ranks is the whole gradient
+    again."""
+    dg = zero.dg
+
+    def step_fn(model: weights.ParamTree, opt_state: adamw.AdamWState, batch):
+        local, rows_sharded = local_batch(batch, zero.mesh, dg)
+        model.zero_grad(set_to_none=True)
+        with data_parallel.use(dg if rows_sharded else None):
+            loss = lm.loss_fn(model, local, cfg)
+            if not rows_sharded:
+                loss = loss / dg.size
+            loss.backward()
+        params = weights.leaves(model)
+        shards = {}
+        for name, p in params.items():        # release each whole gradient
+            shards[name] = zero.reduce_scatter(
+                torch.zeros_like(p) if p.grad is None else p.grad, name)
+            p.grad = None
+        new_p, new_s, metrics = adamw.update_sharded(params, shards, opt_state, opt_cfg, zero,
+                                                     path)
+        new_p = {n: zero.gather(t, n) for n, t in new_p.items()}
+        return new_p, new_s, {"loss": dg.sum(loss.detach()), **metrics}
+
+    return step_fn
+
+
+def _whole_state(state: adamw.AdamWState, zero: adamw.Zero1,
+                 keep: bool) -> adamw.AdamWState | None:
+    """The sharded moments gathered whole on the host, for a checkpoint:
+    every rank makes the collectives, one leaf at a time, and the writer
+    (``keep``) copies each leaf to the host before the next is gathered, so
+    the card holds one whole leaf beyond the training state.  Other ranks
+    drop each leaf and get None."""
+    def whole(d):
+        out = {}
+        for n, t in d.items():
+            leaf = zero.gather(t.to_local(), n)
+            if keep:
+                out[n] = leaf.to("cpu")
+            del leaf
+        return out
+    m, v = whole(state.m), whole(state.v)
+    return adamw.AdamWState(step=state.step, m=m, v=v) if keep else None
+
+
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           ckpt_dir: str | None = None, ckpt_every: int = 20,
-          lr: float = 3e-4, seed: int = 0, log_every: int = 10,
+          lr: float = 3e-4, seed: int = 0, mesh=None, log_every: int = 10,
           resume: bool = True, device: torch.device | str = "cuda"):
     device = resolve_device(device)
+    if mesh is not None and tp_extent(mesh) > 1:
+        raise NotImplementedError(
+            f"train(mesh=...) with a 'model' extent of {tp_extent(mesh)}: tensor "
+            "parallelism waits for ROADMAP A8.2b (data-parallel meshes only)")
     opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=max(steps, 2),
                                 warmup_steps=max(steps // 20, 1))
     gen = torch.Generator(device=device).manual_seed(seed)
     model = tfm.init_model(cfg, gen, device)
-    opt_state = adamw.init(weights.leaves(model))
     pipe = DataPipeline(cfg, batch, seq, seed=seed, device=device)
-    step_fn = make_train_step(cfg, opt_cfg)
+    zero = group = None
+    if mesh is None:
+        opt_state = adamw.init(weights.leaves(model))
+        step_fn = make_train_step(cfg, opt_cfg)
+    else:
+        zero = zero1_layout(mesh, model)
+        opt_state = adamw.init_sharded(weights.leaves(model), zero)
+        step_fn = make_zero1_step(cfg, opt_cfg, zero)
+        group = zero.dg.group if zero.dg.size > 1 else None     # every rank: "model" is 1
+    writer = group is None or dist.get_rank(group) == 0     # the rank that writes
 
     # -- init or resume -------------------------------------------------------
     start = 0
-    saver = ckpt.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
-    if ckpt_dir and resume and ckpt.latest_step(ckpt_dir) is not None:
-        start = ckpt.latest_step(ckpt_dir)
-        restored = ckpt.restore(ckpt_dir, start,
-                                {"params": model.tree(), "opt": opt_state})
+    saver = ckpt.AsyncCheckpointer(ckpt_dir) if ckpt_dir and writer else None
+    latest = ckpt.latest_step(ckpt_dir) if ckpt_dir and resume else None
+    if group is not None:                    # every rank resumes from one step
+        latest = sharded.agree(group, latest)[0]
+    if latest is not None:
+        start = latest
+        shardings = None
+        if zero is not None:
+            m = {n: (mesh, zero.placements[n]) for n in opt_state.m}
+            shardings = {"opt": adamw.AdamWState(step=None, m=m, v=m)}
+        restored = ckpt.restore(ckpt_dir, start, {"params": model.tree(), "opt": opt_state},
+                                shardings)
         weights.assign(model, weights.flatten(restored["params"]))
         opt_state = restored["opt"]
         log.info("resumed from step %d", start)
 
+    def save(at: int):
+        # the moments are gathered HERE, on the main thread, by every rank;
+        # the checkpointer's thread only writes the host copies
+        state = opt_state if zero is None else _whole_state(opt_state, zero, saver is not None)
+        if saver is not None:
+            saver.save_async(at, {"params": model, "opt": state}, meta={"arch": cfg.name})
+
+    agree = None if group is None else (lambda outcome: sharded.agree(group, outcome))
     timer = StepTimer(FaultConfig())
     losses = []
     t_start = time.time()
@@ -89,7 +227,11 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
             return step_fn(model, opt_state, hbatch)
 
         t0 = time.time()
-        opt_state, metrics = with_retries(one, retries=1)
+        if zero is None:
+            opt_state, metrics = with_retries(one, retries=1)
+        else:
+            new_p, opt_state, metrics = with_retries(one, retries=1, agree=agree)
+            weights.assign(model, new_p)
         loss = float(metrics["loss"])
         timer.record(step, time.time() - t0)
         losses.append(loss)
@@ -101,14 +243,15 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         # resume from it starts at the next step.  (The reference labels a
         # mid-run save with the step just taken, which a resume repeats.)
         done = step + 1
-        if saver and done < steps and done % ckpt_every == 0:
-            saver.save_async(done, {"params": model, "opt": opt_state},
-                             meta={"arch": cfg.name})
+        if ckpt_dir and done < steps and done % ckpt_every == 0:
+            save(done)
     pipe.stop()
-    if saver:
-        saver.save_async(steps, {"params": model, "opt": opt_state},
-                         meta={"arch": cfg.name})
-        saver.wait()
+    if ckpt_dir:
+        save(steps)
+        if saver is not None:
+            saver.wait()
+        if group is not None:               # no rank returns before the save
+            dist.barrier(group)
     wall = time.time() - t_start
     return {"params": model, "opt_state": opt_state, "losses": losses,
             "wall_s": wall, "stragglers": timer.stragglers}

@@ -1,5 +1,11 @@
 """Language-model training loss and greedy serving loop: the counterpart of
-``src/repro/models/lm.py``."""
+``src/repro/models/lm.py``.
+
+Under a data-parallel group (``models.data_parallel``) a rank's loss is its
+rows' summed loss over the GLOBAL denominator (the all-reduced
+``sum(mask)``, or token count) plus its share of the global MoE aux loss:
+the ranks' losses, and gradients, sum to the reference's on the whole
+batch."""
 
 from __future__ import annotations
 
@@ -8,8 +14,26 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import data_parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+
+
+def _mean(loss: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """``sum(loss) / max(sum(mask), 1)`` (``/ numel`` without a mask), the
+    denominator summed over the data-parallel group where there is one."""
+    dg = data_parallel.current()
+    if mask is not None:
+        loss = loss * mask
+        denom = torch.sum(mask)
+        if dg is not None:
+            denom = dg.sum(denom)
+        denom = torch.clamp(denom, min=1.0)
+    elif dg is not None:
+        denom = dg.sum(torch.tensor(float(loss.numel()), device=loss.device))
+    else:
+        denom = loss.numel()
+    return torch.sum(loss) / denom
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -18,13 +42,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    loss = (lse - gold) + z_loss * torch.square(lse)
-    if mask is not None:
-        loss = loss * mask
-        denom = torch.clamp(torch.sum(mask), min=1.0)
-    else:
-        denom = loss.numel()
-    return torch.sum(loss) / denom
+    return _mean((lse - gold) + z_loss * torch.square(lse), mask)
 
 
 def make_batch_views(batch: dict[str, Any], cfg: ModelConfig):
@@ -74,18 +92,16 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     loss = torch.cat([checkpoint(ce_of, hidden[:, b:b + chunk],
                                  labels[:, b:b + chunk], use_reentrant=False)
                       for b in range(0, S, chunk)], dim=1)
-    if mask is not None:
-        loss = loss * mask
-        denom = torch.clamp(torch.sum(mask), min=1.0)
-    else:
-        denom = loss.numel()
-    return torch.sum(loss) / denom
+    return _mean(loss, mask)
 
 
 def loss_fn(params, batch: dict[str, Any], cfg: ModelConfig,
             ce_chunk: int | None = None) -> torch.Tensor:
     kw, labels, mask = make_batch_views(batch, cfg)
     hidden, aux = tfm.forward_hidden(params, cfg, **kw)
+    dg = data_parallel.current()
+    if dg is not None:
+        aux = aux / dg.size               # each rank's share of the global aux
     return chunked_cross_entropy(hidden, tfm._head(params, cfg), labels, mask,
                                  chunk=ce_chunk or cfg.ce_chunk,
                                  valid_vocab=cfg.vocab_size) + aux

@@ -6,8 +6,11 @@ buffers of capacity C, gather dispatch and gather combine, the expert FFN as
 batched products over the experts.  Shared experts (DeepSeekMoE) run densely
 for every token.  Capacity makes a token's output depend on the rest of its
 group: assignments past an expert's C slots are dropped (``count_drops``
-reads how many).  The reference's expert-parallel ``shard_map`` branch waits
-for the rest of the mesh port (ROADMAP A8.2); ``moe_block`` raises if asked
+reads how many).  Under a data-parallel group (``models.data_parallel``)
+the routing stays the reference's on the global batch: the aux statistics
+are over every rank's tokens, and capacity is per group of the global
+tokens.  The reference's expert-parallel ``shard_map`` branch waits for
+the rest of the mesh port (ROADMAP A8.2b); ``moe_block`` raises if asked
 for it.
 """
 
@@ -18,6 +21,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import data_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 
@@ -109,24 +113,31 @@ def count_drops():
         _COUNTING.remove(d)
 
 
-def route(p, xt: torch.Tensor, cfg: ModelConfig):
+def route(p, xt: torch.Tensor, cfg: ModelConfig, dg=None):
     """Router -> softmax -> top-k -> renormalised gates, in float32, and the
     Switch load-balance loss ``E * sum_e me_e * ce_e * aux_loss_weight``.
     Returns (gate_vals (T, k) float32, expert_idx (T, k) int64, aux).
 
     The top k come from a stable descending sort, so equal probabilities
     (an all-zero row ties every expert) take the lower expert index first,
-    as ``lax.top_k`` does; ``torch.topk`` breaks ties otherwise."""
+    as ``lax.top_k`` does; ``torch.topk`` breaks ties otherwise.  With a
+    ``data_parallel.DataGroup`` ``dg``, ``me`` and ``ce`` are means over
+    every rank's tokens (sums all-reduced, ``me``'s differentiably): the
+    global aux loss."""
     m = cfg.moe
     E, k = m.n_experts, m.top_k
     probs = torch.softmax(xt.to(torch.float32) @ p["router"], dim=-1)     # (T, E)
     gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = gate_vals[:, :k], expert_idx[:, :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
-    me = probs.mean(0)
     ce = torch.zeros(E, dtype=torch.float32, device=xt.device).index_add_(
         0, expert_idx.reshape(-1), torch.ones(expert_idx.numel(), device=xt.device))
-    aux = E * torch.sum(me * (ce / xt.shape[0])) * m.aux_loss_weight
+    if dg is None:
+        me, T = probs.mean(0), xt.shape[0]
+    else:
+        T = xt.shape[0] * dg.size
+        me, ce = dg.sum(probs.sum(0), grad=True) / T, dg.sum(ce)
+    aux = E * torch.sum(me * (ce / T)) * m.aux_loss_weight
     return gate_vals, expert_idx, aux
 
 
@@ -183,20 +194,34 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
     ``cfg.moe_groups`` > 1 (dividing B * S) splits the tokens into
     independent dispatch groups with per-group capacity (the reference's
     single-device ``vmap`` branch).  ``mesh`` asks for the reference's
-    expert-parallel ``shard_map`` branch, which is not ported: it raises."""
+    expert-parallel ``shard_map`` branch, which is not ported: it raises.
+
+    Under a data-parallel group x holds this rank's rows of the global
+    batch, and the groups are the global batch's.  Where the rows hold
+    whole groups (the group count a multiple of the ranks) they dispatch
+    here with the global statistics; otherwise every rank's tokens are
+    gathered and routed together, and this rank keeps its rows' output.
+    The aux loss returned is the global one."""
     if mesh is not None:
         raise NotImplementedError("the expert-parallel shard_map dispatch is not ported "
-                                  "yet (it waits for the rest of the mesh port)")
+                                  "yet (ROADMAP A8.2b)")
     m = cfg.moe
     B, S, D = x.shape
-    T = B * S
     E, k = m.n_experts, m.top_k
-    xt = x.reshape(T, D)
+    dg = data_parallel.current()
+    n_ranks = 1 if dg is None else dg.size
     G = max(cfg.moe_groups, 1)
-    if T % G != 0:
+    if (B * S * n_ranks) % G != 0:
         G = 1
+    if G % n_ranks != 0:                  # groups span ranks: route globally
+        with data_parallel.use(None):
+            out, aux = moe_block(p, dg.gather_rows(x), cfg)
+        return dg.local_rows(out), aux
+    G //= n_ranks                         # this rank's whole groups
+    T = B * S
+    xt = x.reshape(T, D)
 
-    gate_vals, expert_idx, aux = route(p, xt, cfg)
+    gate_vals, expert_idx, aux = route(p, xt, cfg, dg)
     Tg = T // G
     capacity = int(max(1, (Tg * k * m.capacity_factor) // E))
     parts = [_dispatch_one_group(xt[g * Tg:(g + 1) * Tg], gate_vals[g * Tg:(g + 1) * Tg],

@@ -12,15 +12,23 @@ against the JAX package):
 Parameters, gradients and the moments are flat dicts ``{path: tensor}`` in
 the reference's leaf order (``models.weights.leaves``).  lr, the global
 gradient norm and the clip factor stay on the device: a step makes no host
-read.  The update is functional (fresh outputs), as the reference's is;
-ZeRO-1 sharding of m and v waits for the rest of the mesh port (ROADMAP A8.2).
+read.  The update is functional (fresh outputs), as the reference's is.
+
+ZeRO-1 (``update_sharded``, ``init_sharded``): on a data-parallel mesh m
+and v are ``DTensor``s sharded over the data axes as
+``launch.shardings.zero1_specs`` says (a ``Zero1`` layout), and each rank
+updates its slice of p, m and v with either path (``kernel``: one launch
+per leaf on the local shard).  The caller reduce-scatters the gradients
+onto the moment shards first (``Zero1.reduce_scatter``) and all-gathers the
+new parameter slices after (``Zero1.gather``): the reference's GSPMD
+rendering, made explicit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, NamedTuple
+from typing import Any, Mapping, NamedTuple
 
 import torch
 
@@ -70,11 +78,14 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 def step_scalars(cfg: AdamWConfig, step: torch.Tensor,
-                 grads: Mapping[str, torch.Tensor]):
+                 grads: Mapping[str, torch.Tensor], gnorm: torch.Tensor | None = None):
     """``(sc, lr, grad_norm)`` for the update at ``step`` (1-based): sc is
-    the kernel's (8,) scalar row, every value stays on the device."""
+    the kernel's (8,) scalar row, every value stays on the device.
+    ``gnorm``, where given, is the global gradient norm (else that of
+    ``grads``)."""
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     gscale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     return scalar_row(lr, cfg.b1, cfg.b2, step, gscale), lr, gnorm
 
@@ -92,13 +103,19 @@ def update_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         return po.reshape(sh), mo.reshape(sh), vo.reshape(sh)
     if path != "jnp":
         raise ValueError(f"unknown AdamW path {path!r} (jnp | kernel)")
+    # The reference's expressions, operation for operation; each step writes
+    # into a buffer made within this function, so a leaf's update holds two
+    # float32 temporaries at a time (gemma-7b's 604M-element leaves at 8
+    # layers would not fit beside the training state otherwise).
     lr, c1, c2, gscale = sc[0], sc[3], sc[4], sc[5]
     gf = g.to(torch.float32) * gscale
-    m = cfg.b1 * m + (1 - cfg.b1) * gf
-    v = cfg.b2 * v + (1 - cfg.b2) * gf * gf
-    u = (m * c1) / (torch.sqrt(v * c2) + cfg.eps) + \
-        cfg.weight_decay * p.to(torch.float32)
-    return (p.to(torch.float32) - lr * u).to(p.dtype), m, v
+    m = torch.mul(m, cfg.b1).add_(torch.mul(gf, 1 - cfg.b1))
+    v = torch.mul(v, cfg.b2).add_(torch.mul(gf, 1 - cfg.b2).mul_(gf))
+    del gf
+    u = torch.mul(m, c1).div_(torch.mul(v, c2).sqrt_().add_(cfg.eps))
+    pf = p.to(torch.float32)
+    u.add_(pf * cfg.weight_decay)
+    return torch.sub(pf, u.mul_(lr)).to(p.dtype), m, v
 
 
 @torch.no_grad()
@@ -112,5 +129,93 @@ def update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor]
     for name, p in params.items():
         new_p[name], new_m[name], new_v[name] = update_leaf(
             p, grads[name], state.m[name], state.v[name], sc, cfg, path)
+    metrics = {"lr": lr, "grad_norm": gnorm}
+    return new_p, AdamWState(step=step, m=new_m, v=new_v), metrics
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: the moments sharded over the data axes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Zero1:
+    """Where each leaf's moments live on a data-parallel mesh: ``dims[name]``
+    is the tensor dim sharded over the data group ``dg`` (a
+    ``models.data_parallel.DataGroup``; None: replicated),
+    ``placements[name]`` the moments' ``DTensor`` placements on ``mesh``.
+    Every rank calls the collectives in the same order."""
+    mesh: Any
+    dg: Any
+    dims: dict[str, int | None]
+    placements: dict[str, tuple]
+
+    def local(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's slice of the whole ``t`` (contiguous)."""
+        d = self.dims[name]
+        return t if d is None else self.dg.local_rows(t, d).contiguous()
+
+    def reduce_scatter(self, g: torch.Tensor, name: str) -> torch.Tensor:
+        """The sum over the group of every rank's ``g``, this rank's slice
+        of it (all of it, all-reduced, for a replicated leaf)."""
+        d = self.dims[name]
+        return self.dg.sum(g) if d is None else self.dg.reduce_scatter(g, d)
+
+    def gather(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The whole tensor from every rank's slice ``t`` (``t`` itself for
+        a replicated leaf)."""
+        d = self.dims[name]
+        return t if d is None else self.dg.all_gather(t, d)
+
+    def local_shape(self, name: str, shape: torch.Size) -> torch.Size:
+        return self.local(torch.empty(shape, device="meta"), name).shape
+
+    def dtensor(self, local: torch.Tensor, name: str, shape: torch.Size):
+        from torch.distributed.tensor import DTensor
+        full = torch.empty(shape, device="meta")
+        return DTensor.from_local(local, self.mesh, self.placements[name], run_check=False,
+                                  shape=full.shape, stride=full.stride())
+
+    def norm(self, shards: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients whose slices are ``shards``:
+        the sharded leaves' squares summed over the group, each replicated
+        leaf counted once."""
+        sq = {n: torch.sum(torch.square(g.to(torch.float32))) for n, g in shards.items()}
+        part = sum((sq[n] for n in shards if self.dims[n] is not None),
+                   torch.zeros((), dtype=torch.float32, device=next(iter(sq.values())).device))
+        return torch.sqrt(self.dg.sum(part) + sum(sq[n] for n in shards if self.dims[n] is None))
+
+
+def init_sharded(params: Mapping[str, torch.Tensor], zero: Zero1) -> AdamWState:
+    """Zero moments as ``DTensor``s of this rank's shards."""
+    dev = next(iter(params.values())).device
+
+    def zeros(name, p):
+        local = torch.zeros(zero.local_shape(name, p.shape), dtype=torch.float32,
+                            device=p.device)
+        return zero.dtensor(local, name, p.shape)
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      m={n: zeros(n, p) for n, p in params.items()},
+                      v={n: zeros(n, p) for n, p in params.items()})
+
+
+@torch.no_grad()
+def update_sharded(params: Mapping[str, torch.Tensor], shards: Mapping[str, torch.Tensor],
+                   state: AdamWState, cfg: AdamWConfig, zero: Zero1, path: str = "jnp"):
+    """ZeRO-1 AdamW.  ``shards`` are the reduce-scattered gradients (this
+    rank's slices of the global gradient, ``Zero1.reduce_scatter``); the
+    moments in ``state`` are ``DTensor``s of ``zero``'s layout.  The clip
+    factor reads the global norm (one all-reduce).  Returns (this rank's
+    new parameter slices, the new sharded state, metrics); ``path="kernel"``
+    launches the fused AdamW kernel once per leaf on the local shard."""
+    step = state.step + 1
+    sc, lr, gnorm = step_scalars(cfg, step, shards, zero.norm(shards))
+    new_p, new_m, new_v = {}, {}, {}
+    for name, p in params.items():
+        new_p[name], m, v = update_leaf(
+            zero.local(p, name), shards[name], state.m[name].to_local(),
+            state.v[name].to_local(), sc, cfg, path)
+        new_m[name] = zero.dtensor(m, name, p.shape)
+        new_v[name] = zero.dtensor(v, name, p.shape)
     metrics = {"lr": lr, "grad_norm": gnorm}
     return new_p, AdamWState(step=step, m=new_m, v=new_v), metrics

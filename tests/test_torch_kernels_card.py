@@ -1108,3 +1108,92 @@ def test_sharded_to_cuda_handoff_launches_the_split_pipeline():
     assert ctx.stats["sharded_stages"] == 1 and ctx.stats["cuda_stages"] == 1
     assert sp.split_pipeline.launches == before + 1
     torch.testing.assert_close(got, ((x + 1.0) * 0.5 + 1.0) * 0.5, rtol=2e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 on a one-rank NCCL mesh (the reduce-scatter, the gathers and the
+# ranks' agreement are held on 2 and 4 gloo ranks by tests/test_torch_zero1.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_zero1_sharded_update_kernel_path_equals_plain_path():
+    """The sharded update of gemma-7b's smoke config on step 1's reduced
+    gradients: ``path="kernel"`` launches the fused AdamW kernel once per
+    leaf on the local shard and gives the ``jnp`` path's parameters
+    (float32 rtol 2e-5, bfloat16 within one ulp) and moments (rtol 2e-5);
+    the moments are card ``DTensor``s with the ZeRO-1 placements."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import train as T
+    from repro_torch.models import data_parallel, lm, weights
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    mesh = _card_mesh()
+    cfg = get_smoke_config("gemma-7b")
+    model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    zero = T.zero1_layout(mesh, model)
+    state = adamw.init_sharded(weights.leaves(model), zero)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = DataPipeline(cfg, 2, 32, seed=0, device="cuda").batch_for_step(0)
+    with data_parallel.use(zero.dg):
+        lm.loss_fn(model, batch, cfg).backward()
+    params = weights.leaves(model)
+    shards = {n: zero.reduce_scatter(p.grad, n) for n, p in params.items()}
+    before = fa.fused_adamw.launches
+    kp, ks, _ = adamw.update_sharded(params, shards, state, opt, zero, "kernel")
+    torch.cuda.synchronize()
+    assert fa.fused_adamw.launches == before + len(params)
+    jp, js, _ = adamw.update_sharded(params, shards, state, opt, zero, "jnp")
+    for n, p in params.items():
+        for moments in (ks.m, ks.v):
+            assert isinstance(moments[n], DTensor) and moments[n].to_local().is_cuda
+            assert moments[n].placements == zero.placements[n]
+        rtol = 2.0 ** -7 if p.dtype == torch.bfloat16 else 2e-5
+        np.testing.assert_allclose(kp[n].float().cpu().numpy(), jp[n].float().cpu().numpy(),
+                                   rtol=rtol, atol=2e-5, err_msg=n)
+        for a, b in ((ks.m[n], js.m[n]), (ks.v[n], js.v[n])):
+            np.testing.assert_allclose(a.to_local().cpu().numpy(), b.to_local().cpu().numpy(),
+                                       rtol=2e-5, atol=1e-9, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_zero1_moe_remat_recompute_on_the_device_thread_sees_the_data_group():
+    """olmoe's smoke config (remat on) under the one-rank data group on the
+    card: CUDA's autograd engine runs the backward, and each layer's
+    recompute, on its device thread, and every ``route`` call there, as in
+    the forward, sees the group (a per-thread group would be missing
+    there, so the recompute would route with local statistics)."""
+    import threading
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import train as T
+    from repro_torch.models import data_parallel, lm, mlp
+    from repro_torch.models import transformer as tfm
+    mesh = _card_mesh()
+    cfg = get_smoke_config("olmoe-1b-7b")
+    assert cfg.remat
+    model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    dg = T.data_group(mesh)
+    batch = DataPipeline(cfg, 2, 32, seed=0, device="cuda").batch_for_step(0)
+    caller, calls = threading.current_thread(), []
+    real = mlp.route
+
+    def spy(p, xt, c, g=None):
+        calls.append((threading.current_thread() is caller, g is dg))
+        return real(p, xt, c, g)
+
+    mlp.route = spy
+    try:
+        with data_parallel.use(dg):
+            loss = lm.loss_fn(model, batch, cfg)
+            assert len(calls) == cfg.n_layers
+            loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        mlp.route = real
+    assert len(calls) == 2 * cfg.n_layers, calls
+    assert all(saw for _on_caller, saw in calls), calls
+    assert not any(on_caller for on_caller, _saw in calls[cfg.n_layers:]), calls

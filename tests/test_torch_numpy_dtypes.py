@@ -334,3 +334,51 @@ def test_a_64bit_tensor_read_by_many_calls_is_one_stage_input():
     assert sum(1 for si in stage.inputs.values() if si.split_type.splittable) == 5
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+# -- C13: the order ops of uint16 and uint32 -----------------------------------
+
+C13_EXECUTORS = EXECUTORS + ["sharded"]
+C13_OPS = ("max", "min", "maximum", "minimum", "greater", "less", "where_greater")
+
+
+def _c13_inputs(dname):
+    """Values over the whole width (uint32 past 2**31, where a signed
+    compare would flip), with ties."""
+    r = np.random.RandomState(zlib.crc32(f"c13-{dname}".encode()))
+    hi = 1 << (16 if dname == "uint16" else 32)
+    x = r.randint(0, hi, N, dtype=np.int64).astype(dname)
+    y = r.randint(0, hi, N, dtype=np.int64).astype(dname)
+    y[::6] = x[::6]
+    return x, y
+
+
+@pytest.mark.parametrize("executor", C13_EXECUTORS)
+@pytest.mark.parametrize("dname", ["uint16", "uint32"])
+@pytest.mark.parametrize("op", C13_OPS)
+def test_unsigned_order_ops_equal_jax(op, dname, executor):
+    """C13: ``max``/``min`` reductions (merged over chunks by ``ReduceSplit``),
+    ``maximum``/``minimum``, ``greater``/``less`` and ``where`` on a
+    ``greater`` of uint16 and uint32 give jnp's dtypes and values on every
+    executor, where torch has none of these ops at those dtypes (``where``
+    only from torch 2.13, on the CPU)."""
+    from sharded_scenarios import port_mesh
+    x, y = _c13_inputs(dname)
+    args = (x,) if op in ("max", "min") else (x, y)
+
+    def call(anp, *a):
+        if op == "where_greater":              # where's condition from greater
+            return anp.where(anp.greater(*a), a[0], a[1])
+        return getattr(anp, op)(*a)
+    with jmozart.session(executor="eager", **JAX_CFG):
+        want = np.asarray(call(janp, *[jnp.asarray(a) for a in args]).value)
+    mesh = {"mesh": port_mesh()} if executor == "sharded" else {}
+    with tmozart.session(executor=executor, device="cpu", **PORT_CFG, **mesh,
+                         batch_elements=BATCH) as ctx:
+        got = call(tanp, *[_to_torch(a) for a in args]).value
+    assert str(got.dtype).replace("torch.", "") == want.dtype.name
+    np.testing.assert_array_equal(got.to(torch.int64).numpy() if got.dtype != torch.bool
+                                  else got.numpy(), want)
+    assert ctx.stats.get("exec_demotions", 0) == 0
+    if executor == "cuda":
+        assert ctx.stats["cuda_stages"] == 1 and ctx.stats.get("cuda_fallback_stages", 0) == 0
