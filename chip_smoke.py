@@ -300,6 +300,29 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              ``maximum``/``minimum``, ``greater``/``less`` and ``where``
              (ROADMAP C13) on ``cuda`` and ``sharded`` at n = 2**24 against
              int64; peak memory, seconds and a ``{"zero1": ...}`` JSON line.
+17. tp     — tensor parallelism over "model" (ROADMAP A8.2b): two spawned
+             ranks on the one card in a ``gloo`` group (NCCL takes one rank
+             per GPU), every tensor of the step on the card; first a
+             probe of the collectives gloo takes on card tensors.  (a)
+             ``train(mesh=make_host_mesh(1, 2))`` of gemma-7b at published
+             widths, 4 layers, 2 x 2048, 3 steps (Megatron splits: 16 heads,
+             F 24576 and the tied 256000-row vocabulary), against the
+             mesh-free ``train()`` on the card (bfloat16: step 1 within 1e-3,
+             steps 2-3 within 2e-2; the largest parameter difference beside
+             one bfloat16 ulp; step ms, peak memory per rank, collective
+             bytes); (b) ``path="kernel"``: the fused AdamW kernel once per
+             leaf per step on each rank's slices (wrapper and profiler),
+             equal to ``path="jnp"`` within one bfloat16 ulp; (c)
+             olmoe-1b-7b at published widths, 2 layers, ``moe_groups`` 1,
+             against its mesh-free run, every route and expert FFN (the
+             backward's recompute on autograd's device thread included)
+             seeing the model group, with checkpoints at steps 2 and 3;
+             (d) (c) resumed from its step-2 checkpoint: step 3's loss
+             and slices bit-equal; (e) C14's
+             uint16/uint32 arithmetic at 2**24 on ``cuda``, ``sharded`` and
+             ``fused``, and C15: a step holding 8 GiB that raises an injected
+             ``torch.OutOfMemoryError`` is retried with the memory released;
+             seconds and a ``{"tp": ...}`` JSON line.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -5285,6 +5308,628 @@ def phase_zero1(fa, sp, ref, train_peak: int | None = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tp: tensor parallelism over "model" (ROADMAP A8.2b), C14 and C15
+# ---------------------------------------------------------------------------
+
+TP_LAYERS = 4                    # gemma-7b's depth in (a) and (b)
+TP_MOE_LAYERS = 2                # olmoe-1b-7b's depth in (c) and (d)
+TP_STEPS = 3
+#: step 1's loss against the mesh-free run's; steps 2 and 3 in bfloat16
+#: within TP_LOSS_RTOL, above the 1.7% the reference's own bfloat16 (1, 2)
+#: runs move from its (1, 1) run by step 3 on the CPU
+TP_LOSS1_RTOL, TP_LOSS_RTOL = 1e-3, 2e-2
+TP_TIMEOUT_S = 600               # the ranks' gloo collectives
+C15_BYTES = 8 << 30              # the failed attempt's allocation
+
+
+def tp_gemma_config():
+    from repro_torch.configs.registry import get_config
+    return get_config("gemma-7b").with_runtime(n_layers=TP_LAYERS)
+
+
+def tp_olmoe_config():
+    from repro_torch.configs.registry import get_config
+    return get_config("olmoe-1b-7b").with_runtime(n_layers=TP_MOE_LAYERS, moe_groups=1)
+
+
+@contextlib.contextmanager
+def step_seconds(out: list):
+    """``train()``'s step times as its ``StepTimer`` records them."""
+    from repro_torch.core import resilience
+    real = resilience.StepTimer.record
+
+    def record(self, step, seconds):
+        out.append(seconds)
+        return real(self, step, seconds)
+    resilience.StepTimer.record = record
+    try:
+        yield out
+    finally:
+        resilience.StepTimer.record = real
+
+
+@contextlib.contextmanager
+def collective_bytes(out: collections.Counter):
+    """The tensor bytes this process hands ``torch.distributed``'s
+    all-reduce, all-gather and reduce-scatter (per call: the input of an
+    all-reduce, the output of an all-gather, the inputs of a
+    reduce-scatter)."""
+    import torch.distributed as dist
+    nb = lambda t: t.numel() * t.element_size()
+    real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather", "reduce_scatter")}
+
+    def all_reduce(t, *a, **kw):
+        out["all_reduce"] += nb(t)
+        return real["all_reduce"](t, *a, **kw)
+
+    def all_gather(parts, t, *a, **kw):
+        out["all_gather"] += sum(nb(p) for p in parts)
+        return real["all_gather"](parts, t, *a, **kw)
+
+    def reduce_scatter(o, parts, *a, **kw):
+        out["reduce_scatter"] += sum(nb(p) for p in parts)
+        return real["reduce_scatter"](o, parts, *a, **kw)
+    for k, f in (("all_reduce", all_reduce), ("all_gather", all_gather),
+                 ("reduce_scatter", reduce_scatter)):
+        setattr(dist, k, f)
+    try:
+        yield out
+    finally:
+        for k, f in real.items():
+            setattr(dist, k, f)
+
+
+@contextlib.contextmanager
+def moe_spy(calls: list):
+    """Every ``route`` and expert FFN (``_dispatch_one_group``) call: on the
+    main thread or not, and whether it saw the model group."""
+    import threading
+    from repro_torch.models import mlp, tensor_parallel
+    real_route, real_ffn = mlp.route, mlp._dispatch_one_group
+
+    def seen(kind):
+        calls.append((kind, threading.current_thread() is threading.main_thread(),
+                      tensor_parallel.current() is not None))
+
+    def route(*a, **kw):
+        seen("route")
+        return real_route(*a, **kw)
+
+    def ffn(*a, **kw):
+        seen("ffn")
+        return real_ffn(*a, **kw)
+    mlp.route, mlp._dispatch_one_group = route, ffn
+    try:
+        yield calls
+    finally:
+        mlp.route, mlp._dispatch_one_group = real_route, real_ffn
+
+
+@contextlib.contextmanager
+def checkpoint_seconds(out: collections.defaultdict):
+    """Seconds this process spends in a checkpoint's parts: gathering the
+    whole leaves to the writer (``train._whole_state``/``_whole_params``),
+    copying them for the writer thread (``checkpoint._flatten``), writing
+    the file (``checkpoint._write``, on that thread) and restoring
+    (``checkpoint.restore``)."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch import train as T
+    real = {(T, "_whole_state"): T._whole_state, (T, "_whole_params"): T._whole_params,
+            (ckpt, "_flatten"): ckpt._flatten, (ckpt, "_write"): ckpt._write,
+            (ckpt, "restore"): ckpt.restore}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                out[key] += time.perf_counter() - t0
+        return run
+    for (mod, name), fn in real.items():
+        setattr(mod, name, timed(name.lstrip("_"), fn))
+    try:
+        yield out
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def tp_plain(cfg) -> tuple[dict, dict]:
+    """The mesh-free ``train()`` on the card: its losses, step seconds and
+    peak memory, and its final parameters, kept on the card for the ranks
+    (shared with them through CUDA IPC)."""
+    from repro_torch.launch.train import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times: list = []
+    with step_seconds(times):
+        out = train(cfg, steps=TP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+                    device="cuda")
+    params = {n: p.detach() for n, p in out["params"].named_parameters()}
+    res = {"losses": out["losses"], "step_s": times,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, params
+
+
+def tp_slices_against(model, cfg, mesh, plain: dict) -> dict:
+    """Each of this rank's ``"model"`` slices against the same slice of the
+    mesh-free run's leaf: the largest difference, at which leaf, and one
+    bfloat16 ulp of that leaf's largest element."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import transformer as tfm
+    zero = T.zero1_layout(mesh, tfm.init_model(cfg, None, "meta"))
+    worst = (0.0, "", 0.0)
+    for n, p in model.named_parameters():
+        d, want = zero.mdims[n], plain[n]
+        if d is not None:
+            want = torch.chunk(want, zero.mg.size, dim=d)[zero.mg.index]
+        diff = float((p.detach().float() - want.float()).abs().max())
+        if diff >= worst[0]:
+            big = float(want.float().abs().max())
+            ulp = math.ldexp(1.0, math.frexp(big)[1] - 8) if big else 0.0
+            worst = (diff, n, ulp)
+    return {"max_param_diff": worst[0], "at": worst[1], "bf16_ulp_of_largest": worst[2]}
+
+
+def tp_train(mesh, cfg, plain: dict, spy: bool = False, ckpt_dir: str | None = None):
+    """``train(cfg, mesh=mesh)`` on this rank (with ``ckpt_dir``: a
+    checkpoint at step 2 and at the end): losses, step seconds, peak
+    memory, collective bytes, this rank's slices against the mesh-free
+    run's (and, with ``spy``, every MoE route and expert FFN call).
+    Returns the summary and the final slices."""
+    from repro_torch.launch.train import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, sent, calls = [], collections.Counter(), []
+    with step_seconds(times), collective_bytes(sent), \
+            (moe_spy(calls) if spy else contextlib.nullcontext()):
+        out = train(cfg, steps=TP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+                    device="cuda", mesh=mesh, ckpt_dir=ckpt_dir, ckpt_every=2)
+    torch.cuda.synchronize()
+    res = {"losses": out["losses"], "step_s": times,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "collective_bytes": dict(sent), "calls": calls,
+           "slices": {n: list(p.shape) for n, p in out["params"].named_parameters()},
+           **tp_slices_against(out["params"], cfg, mesh, plain)}
+    final = {n: p.detach() for n, p in out["params"].named_parameters()}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, final
+
+
+def tp_kernel(fa, mesh, cfg) -> dict:
+    """(b) ``make_zero1_step(..., path="kernel")`` on this rank's model
+    slices from (a)'s seed, ``TP_STEPS`` steps each profiled whole: the
+    fused AdamW kernel once per leaf per step (the wrapper's count from 0
+    before the steps, and ``torch.profiler``'s), its device time.  Before
+    them, on step 1's arguments, every leaf's local shard updated by both
+    paths (bfloat16 p within one ulp, as the zero1 phase's (b))."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch import train as T
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import weights
+    from repro_torch.optim import adamw
+    model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    zero = T.zero1_layout(mesh, model)
+    model = weights.model_slices(model, zero.mdims, zero.mg.index, zero.mg.size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = adamw.init_sharded(weights.leaves(model), zero)
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, total_steps=max(TP_STEPS, 2),
+                                warmup_steps=max(TP_STEPS // 20, 1))   # train()'s
+    step_fn = T.make_zero1_step(cfg, opt_cfg, zero, "kernel")
+    pipe = DataPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device="cuda")
+    real_update, seen = adamw.update_sharded, {}
+
+    def compared(params, shards, st, ocfg, z, path):
+        sc, _lr, _gn = adamw.step_scalars(ocfg, st.step + 1, shards, z.norm(shards))
+        err, nbytes = 0.0, 0
+        for name, p in params.items():
+            args = (z.local(p, name), shards[name], st.m[name].to_local(),
+                    st.v[name].to_local(), sc, ocfg)
+            kernel = adamw.update_leaf(*args, "kernel")
+            plain = adamw.update_leaf(*args, "jnp")
+            err = max(err, check_adamw_outputs(
+                f"tp step 1 {name} kernel vs jnp path", kernel, plain, args[0], 3e-5))
+            nbytes += args[0].numel() * (2 * args[0].element_size()
+                                         + args[1].element_size() + 16)
+            del kernel, plain
+        seen["vs_jnp"], seen["bytes"] = err, nbytes
+        seen["elements"] = sum(z.local(p, n).numel() for n, p in params.items())
+        return real_update(params, shards, st, ocfg, z, path)
+
+    # step 1 once, unprofiled and dropped (the step is functional): each
+    # leaf's local shard updated by both paths on the arguments the step
+    # hands the update; those launches compare, and do not count
+    adamw.update_sharded = compared
+    try:
+        dropped = step_fn(model, state, pipe.batch_for_step(0))
+    finally:
+        adamw.update_sharded = real_update
+    del dropped
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, per_step, profiled, update_ms = [], [], [], []
+    n_leaves = len(state.m)
+    fa.fused_adamw.launches = 0
+    for step in range(TP_STEPS):
+        batch = pipe.batch_for_step(step)
+        before = fa.fused_adamw.launches
+        n_prof, us, (new_p, state, metrics) = _profile_window(
+            lambda: step_fn(model, state, batch), 1, "fused_adamw")
+        per_step.append(fa.fused_adamw.launches - before)
+        profiled.append(n_prof)
+        update_ms.append(us / 1e3)
+        weights.assign(model, new_p)
+        del new_p
+        losses.append(float(metrics["loss"]))
+    pipe.stop()
+    launches = fa.fused_adamw.launches
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": launches, "launches_per_step": per_step,
+            "profiled_per_step": profiled, "update_device_ms": update_ms,
+            "leaves": n_leaves, "max_abs_err_vs_jnp": seen["vs_jnp"],
+            "bytes_per_step": seen["bytes"], "elements_per_step": seen["elements"]}
+
+
+def tp_resume(mesh, cfg, ckpt_dir: str, want_loss: float, want: dict) -> dict:
+    """(d) (c)'s checkpoints with the step-3 one removed, and ``train(cfg,
+    mesh=mesh)`` again from the same directory: it resumes at step 2, and
+    step 3's loss and this rank's slices equal the uninterrupted run's
+    (``want_loss``, ``want``) bit for bit."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.train import train
+    steps = ckpt.all_steps(ckpt_dir)
+    nbytes = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(Path(ckpt_dir) / f"step_{TP_STEPS:08d}")
+    dist.barrier()
+    t0 = time.perf_counter()
+    again = train(cfg, steps=TP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, device="cuda",
+                  mesh=mesh, ckpt_dir=ckpt_dir, ckpt_every=2)
+    resume_s = time.perf_counter() - t0
+    equal = all(torch.equal(p.detach(), want[n]) for n, p in again["params"].named_parameters())
+    got = again["losses"]
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": got, "want": want_loss, "params_equal": equal, "steps": steps,
+            "checkpoint_bytes": nbytes, "resume_s": resume_s}
+
+
+def tp_probe() -> dict:
+    """Which collectives ``gloo`` takes on card tensors, per dtype (every
+    rank calls it; "ok" or the error), and the milliseconds of an
+    all-reduce and an all-gather of 50 MB of float32 (5 calls each)."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.int64):
+        x = torch.ones(8, dtype=dtype, device="cuda")
+        cases = {
+            "all_reduce_sum": lambda: dist.all_reduce(x),
+            "all_reduce_max": lambda: dist.all_reduce(x, op=dist.ReduceOp.MAX),
+            "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x),
+            "reduce_scatter": lambda: dist.reduce_scatter(
+                torch.empty(8 // world, dtype=dtype, device="cuda"),
+                [c.contiguous() for c in torch.chunk(x, world)]),
+            "gather": lambda: dist.gather(x, [torch.empty_like(x) for _ in range(world)]
+                                          if dist.get_rank() == 0 else None, dst=0),
+            "broadcast": lambda: dist.broadcast(x, 0)}
+        for name, call in cases.items():
+            try:
+                call()
+                torch.cuda.synchronize()
+                out[f"{name}/{str(dtype)[6:]}"] = "ok"
+            except Exception as e:        # a collective gloo lacks: recorded, not hidden
+                out[f"{name}/{str(dtype)[6:]}"] = f"{type(e).__name__}: {str(e)[:80]}"
+            dist.barrier()
+    x = torch.ones(50 * (1 << 20) // 4, device="cuda")
+    parts = [torch.empty_like(x) for _ in range(world)]
+    for name, call in (("all_reduce_50MB_ms", lambda: dist.all_reduce(x)),
+                       ("all_gather_50MB_ms", lambda: dist.all_gather(parts, x))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 5 * 1e3
+    return out
+
+
+def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
+    """One of the two ranks of the tp phase, on ``cuda:0``, in a ``gloo``
+    group of its own making: (a), (b), (c) and (d) on the (1, 2) mesh,
+    its results pickled to ``out_dir``."""
+    import pickle
+    from datetime import timedelta
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2,
+                            timeout=timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        from repro_torch.kernels import fused_adamw as fa
+        from repro_torch.launch.mesh import make_host_mesh
+        res = {"probe": tp_probe()}
+        mesh = make_host_mesh(1, 2)
+        res.update(mesh=str(mesh), backend=dist.get_backend())
+        t0 = time.perf_counter()
+        res["a"], _final = tp_train(mesh, tp_gemma_config(), plain["gemma"])
+        del _final
+        res["a"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["b"] = tp_kernel(fa, mesh, tp_gemma_config())
+        res["b"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt_dir = os.path.join(out_dir, "ckpt")
+        parts = collections.defaultdict(float)
+        with checkpoint_seconds(parts):
+            res["c"], final = tp_train(mesh, tp_olmoe_config(), plain["olmoe"], spy=True,
+                                       ckpt_dir=ckpt_dir)
+            res["c"]["seconds"] = time.perf_counter() - t0
+            res["c"]["checkpoint_s"] = dict(parts)
+            parts.clear()
+            res["d"] = tp_resume(mesh, tp_olmoe_config(), ckpt_dir, res["c"]["losses"][-1],
+                                 final)
+            res["d"]["checkpoint_s"] = dict(parts)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_check_losses(what: str, got: list, want: list) -> None:
+    if not all(math.isfinite(x) for x in got) or len(got) != len(want):
+        raise AssertionError(f"tp {what}: losses {got} against {want}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = TP_LOSS1_RTOL if i == 0 else TP_LOSS_RTOL
+        if abs(a - b) > tol * abs(b):
+            raise AssertionError(f"tp {what}: step {i + 1} loss {a} against the mesh-free "
+                                 f"{b} (rtol {tol})")
+
+
+def tp_c14(sp, mesh) -> dict:
+    """(e) ROADMAP C14 on the card: uint16 and uint32 ``add``,
+    ``subtract``, ``multiply``, ``mod`` (zero divisors give 0), ``square``,
+    ``abs``, ``sign`` and ``negative`` at n = 2**24, values near the top of
+    the width so that they wrap, on ``cuda`` (the split-pipeline kernel),
+    ``sharded`` (the one-rank mesh) and ``fused``, against the same ops on
+    int64 masked to the width."""
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import plan_cache
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    n, out = C13_N, {}
+    for dtype, bits in ((torch.uint16, 16), (torch.uint32, 32)):
+        hi = 1 << bits
+        x64 = torch.cat([torch.randint(hi - 4096, hi, (n // 2,), generator=gen, device="cuda"),
+                         torch.randint(0, 4096, (n - n // 2,), generator=gen, device="cuda")])
+        y64 = torch.randint(0, hi, (n,), generator=gen, device="cuda")
+        y64[::5] = 0
+        x, y, mask = x64.to(dtype), y64.to(dtype), hi - 1
+        want = {"add": (x64 + y64) & mask, "subtract": (x64 - y64) & mask,
+                "multiply": (x64 * y64) & mask,
+                "mod": torch.where(y64 == 0, 0, torch.remainder(x64, torch.where(
+                    y64 == 0, 1, y64))),
+                "square": (x64 * x64) & mask, "abs": x64, "sign": (x64 != 0).to(torch.int64),
+                "negative": (-x64) & mask}
+        unary = ("square", "abs", "sign", "negative")
+        calls = {op: (lambda x, y, op=op: getattr(anp, op)(x)) if op in unary
+                 else (lambda x, y, op=op: getattr(anp, op)(x, y)) for op in want}
+        for ex, kw in (("cuda", {}), ("sharded", {"mesh": mesh}), ("fused", {})):
+            plan_cache.clear()
+            sp.reset_counts()
+            for op, fn in calls.items():
+                _r, (got,), ctx = run_observed(fn, {"x": x, "y": y}, ex,
+                                               batch_elements=n // 8, **kw)
+                if got.dtype != dtype or not torch.equal(got.to(torch.int64), want[op]):
+                    raise AssertionError(f"tp (e) {ex} {op}({str(dtype)[6:]}): {got.dtype}")
+                if ex == "cuda" and (ctx.stats.get("cuda_fallback_stages", 0)
+                                     or not ctx.stats.get("cuda_stages", 0)):
+                    raise AssertionError(f"tp (e) cuda {op}: {dict(ctx.stats)}")
+            if ex == "cuda" and sp.split_pipeline.launches != len(calls):
+                raise AssertionError(f"tp (e) cuda {str(dtype)[6:]}: "
+                                     f"{sp.split_pipeline.launches} launches for {len(calls)}")
+            out[f"{ex}/{str(dtype)[6:]}"] = {"ops": len(calls), "split_pipeline_launches":
+                                            sp.split_pipeline.launches}
+    plan_cache.clear()
+    return out
+
+
+def tp_c15() -> dict:
+    """(e) ROADMAP C15 on the card: a step that allocates ``C15_BYTES`` and
+    raises an injected ``torch.OutOfMemoryError`` is retried by
+    ``with_retries``, and at the retry's start ``memory_allocated`` is back
+    to its value before the failed attempt."""
+    from repro_torch.core.resilience import with_retries
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    seen: list = []
+
+    def step():
+        if seen:
+            seen.append(torch.cuda.memory_allocated())
+            return "retried"
+        held = torch.ones(C15_BYTES // 4, device="cuda")
+        seen.append(torch.cuda.memory_allocated())
+        raise torch.OutOfMemoryError(f"injected: out of memory with {held.numel() * 4} "
+                                     "bytes held by the attempt")
+    result = with_retries(step, retries=1)
+    during, at_retry = seen
+    if result != "retried" or at_retry != before or during - before < C15_BYTES:
+        raise AssertionError(f"tp (e) C15: allocated {before} before, {during} in the failed "
+                             f"attempt, {at_retry} at the retry's start")
+    return {"before": before, "during": during, "at_retry": at_retry}
+
+
+def tp_adamw_entry(tp: dict) -> dict:
+    """The fused AdamW row's ``tp`` entry: (b)'s launches on both ranks, and
+    rank 0's device time per step beside the bound of its slices' bytes
+    and operations (the two ranks share the card)."""
+    b = tp["ranks"][0]["b"]
+    bytes_ms = b["bytes_per_step"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = ADAMW_OPS * b["elements_per_step"] / F32_OPS_PER_S * 1e3
+    return {"launches": sum(rr["b"]["launches"] for rr in tp["ranks"]),
+            "launches_per_step_per_rank": b["launches_per_step"],
+            "profiled_per_step_per_rank": b["profiled_per_step"],
+            "update_device_ms_rank0": b["update_device_ms"],
+            "bound_ms_rank0": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err_vs_jnp": max(rr["b"]["max_abs_err_vs_jnp"] for rr in tp["ranks"]),
+            "per_step": f"{b['leaves']} leaves, each rank's model slices of gemma-7b at "
+                        f"{TP_LAYERS} layers on a (1, 2) mesh"}
+
+
+def phase_tp(fa, sp) -> dict:
+    """Tensor parallelism over "model" (ROADMAP A8.2b) on two ranks of one
+    card, then C14 and C15.  NCCL takes one rank per GPU, so two spawned
+    processes share ``cuda:0`` in a ``gloo`` group (every collective on
+    card tensors; ``tp_probe`` prints which collectives ``gloo`` takes there
+    and fails if the step's need one it lacks).  The mesh-free references
+    run first in this process and keep their final parameters on the card,
+    shared with the ranks through CUDA IPC."""
+    import pickle
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain, params = {}, {}
+    plain["gemma"], params["gemma"] = tp_plain(tp_gemma_config())
+    plain["olmoe"], params["olmoe"] = tp_plain(tp_olmoe_config())
+    t_plain = time.perf_counter() - t_phase
+    tmp = tempfile.mkdtemp()
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank, args=(os.path.join(tmp, "store"), params, tmp),
+                           nprocs=2, start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    probe = res[0]["probe"]
+    log(f"[tp] gloo on card tensors, two ranks on cuda:0: "
+        f"{json.dumps({k: v for k, v in probe.items() if not k.endswith('_ms')})}; "
+        f"50 MB float32: all-reduce {probe['all_reduce_50MB_ms']:.1f} ms, all-gather "
+        f"{probe['all_gather_50MB_ms']:.1f} ms")
+    missing = [k for k, v in probe.items() if not k.endswith("_ms") and v != "ok"]
+    if missing:
+        raise AssertionError(f"tp: gloo lacks {missing} on card tensors; the group helpers "
+                             "must compose them")
+    a0, c0 = res[0]["a"], res[0]["c"]
+    for r, rr in enumerate(res):
+        if rr["a"]["losses"] != a0["losses"] or rr["c"]["losses"] != c0["losses"]:
+            raise AssertionError(f"tp: rank {r}'s losses differ from rank 0's")
+    steps_ms = lambda xs: [round(1e3 * x, 1) for x in xs]
+    for what, got, want, cfg in (("(a)", a0, plain["gemma"], tp_gemma_config()),
+                                 ("(c)", c0, plain["olmoe"], tp_olmoe_config())):
+        worst = max((rr[what[1]] for rr in res), key=lambda x: x["max_param_diff"])
+        per_step = {k: v // TP_STEPS for k, v in got["collective_bytes"].items()}
+        log(f"[tp] {what} train(mesh={res[0]['mesh']}, {res[0]['backend']}) of {cfg.name} at "
+            f"published widths, {cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, "
+            f"{TP_STEPS} steps, bfloat16: losses {got['losses']} against the mesh-free "
+            f"train()'s {want['losses']} (step 1 within rtol {TP_LOSS1_RTOL}, steps 2-3 "
+            f"within {TP_LOSS_RTOL}: the reference's own bfloat16 (1, 2) runs move up to "
+            f"1.7% from (1, 1) by step 3); largest parameter difference after step "
+            f"{TP_STEPS} {worst['max_param_diff']:.4e} at {worst['at']} (one bfloat16 ulp of "
+            f"its largest element {worst['bf16_ulp_of_largest']:.4e}); step ms "
+            f"{steps_ms(got['step_s'])} on rank 0 against {steps_ms(want['step_s'])} "
+            f"mesh-free; peak device memory per rank "
+            f"{[round(rr[what[1]]['peak_bytes'] / 1e9, 2) for rr in res]} GB against "
+            f"{want['peak_bytes'] / 1e9:.2f} GB mesh-free; collective bytes per step on "
+            f"rank 0 {per_step}; {got['seconds']:.1f} s")
+        tp_check_losses(what, got["losses"], want["losses"])
+    moe_layers = tp_olmoe_config().n_layers
+    for r, rr in enumerate(res):
+        calls = rr["c"]["calls"]
+        for kind in ("route", "ffn"):
+            mine = [c for c in calls if c[0] == kind]
+            off_main = sum(1 for c in mine if not c[1])
+            if len(mine) != 2 * moe_layers * TP_STEPS or off_main != moe_layers * TP_STEPS \
+                    or not all(c[2] for c in mine):
+                raise AssertionError(f"tp (c) rank {r}: {kind} calls {mine}")
+    log(f"[tp] (c) every route and expert FFN call saw the model group: per rank and step "
+        f"{moe_layers} in the forward on the main thread and {moe_layers} in the "
+        f"backward's recompute on autograd's device thread")
+    b = res[0]["b"]
+    for r, rr in enumerate(res):
+        bb = rr["b"]
+        if bb["launches_per_step"] != [bb["leaves"]] * TP_STEPS or \
+                bb["profiled_per_step"] != [bb["leaves"]] * TP_STEPS:
+            raise AssertionError(f"tp (b) rank {r}: fused_adamw launches "
+                                 f"{bb['launches_per_step']} (profiler "
+                                 f"{bb['profiled_per_step']}) for {bb['leaves']} leaves")
+        tp_check_losses("(b)", bb["losses"], a0["losses"])
+    log(f"[tp] (b) make_zero1_step(path=\"kernel\") on each rank's model slices, {TP_STEPS} "
+        f"steps: fused_adamw launches per step {b['launches_per_step']} (wrapper), "
+        f"{b['profiled_per_step']} (torch.profiler) on each rank, {b['leaves']} leaves; "
+        f"device ms per step {[round(t, 3) for t in b['update_device_ms']]} on rank 0's "
+        f"{b['elements_per_step']} elements ({b['bytes_per_step']} bytes); step 1 max "
+        f"|kernel path - jnp path| {max(rr['b']['max_abs_err_vs_jnp'] for rr in res):.3e} "
+        f"(bfloat16 p within one ulp); losses {b['losses']} against (a)'s jnp path "
+        f"{a0['losses']}; {b['seconds']:.1f} s")
+    d = res[0]["d"]
+    for r, rr in enumerate(res):
+        dd = rr["d"]
+        if dd["losses"] != [dd["want"]] or not dd["params_equal"] or \
+                dd["steps"] != [2, TP_STEPS]:
+            raise AssertionError(f"tp (d) rank {r}: {dd}")
+    log(f"[tp] (d) (c)'s run saved checkpoints at steps {d['steps']} "
+        f"({d['checkpoint_bytes'] / 1e9:.2f} GB on disk: parameters and moments whole, "
+        f"gathered to the writer's host on the main thread); the step-{TP_STEPS} one "
+        f"removed, train() again resumed at step 2: step {TP_STEPS} loss {d['losses']} "
+        f"equal to the uninterrupted run's {d['want']}, every rank's slices bit-equal; "
+        f"the resumed run {d['resume_s']:.1f} s; seconds in the checkpoints' parts on rank "
+        f"0, (c) {json.dumps({k: round(v, 1) for k, v in c0['checkpoint_s'].items()})}, "
+        f"(d) {json.dumps({k: round(v, 1) for k, v in d['checkpoint_s'].items()})}")
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh()
+    try:
+        t0 = time.perf_counter()
+        c14 = tp_c14(sp, mesh)
+        c14_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    log(f"[tp] (e) C14 at n={C13_N}: uint16 and uint32 add, subtract, multiply, mod, square, "
+        f"abs, sign and negative wrap as int64 masked to the width, on cuda (every stage on "
+        f"the kernel), sharded and fused: {json.dumps(c14)}; {c14_s:.1f} s")
+    c15 = tp_c15()
+    log(f"[tp] (e) C15: a step holding {C15_BYTES} bytes raised an injected "
+        f"torch.OutOfMemoryError and was retried; memory_allocated {c15['before']} before, "
+        f"{c15['during']} in the failed attempt, {c15['at_retry']} at the retry's start")
+    out = {"plain": plain, "ranks": [{k: {kk: vv for kk, vv in v.items() if kk != "calls"}
+                                      if isinstance(v, dict) else v for k, v in rr.items()}
+                                     for rr in res],
+           "c14": c14, "c15": c15, "plain_s": t_plain, "ranks_s": ranks_s}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tp] phase {out['seconds']:.1f} s (mesh-free runs {t_plain:.1f} s, the two ranks "
+        f"{ranks_s:.1f} s); {card}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
@@ -5411,6 +6056,10 @@ def main() -> int:
     rows[adamw_at]["zero1"] = {k: zero1["kernel"][k] for k in
                                ("launches", "launches_per_step", "profiled_per_step",
                                 "update_device_ms", "max_abs_err_vs_jnp")}
+    tp = phase_tp(fa, sp)
+    resilience_clean("tp")
+    log(json.dumps({"tp": tp}))
+    rows[adamw_at]["tp"] = tp_adamw_entry(tp)
     log(f"[phases] seconds per check (chaos counts in times, data in kernel): "
         f"{json.dumps(LAPS)}; {sum(s for _, s in LAPS):.1f} s to the last")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

@@ -168,7 +168,8 @@ def _shard_of(arr: torch.Tensor, mesh, placements) -> Any:
 def _rebuild(tree: Any, data, prefix: str, shardings: Any = None) -> Any:
     kids = _children(tree)
     if kids is None:
-        arr = torch.from_numpy(np.array(data[prefix]))
+        arr = data[prefix]                 # a fresh array read from the file
+        arr = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
         if shardings is not None:
             mesh, placements = shardings
             return _shard_of(arr.to(dtype=tree.dtype), mesh, placements)

@@ -11,7 +11,9 @@ scalars beside a tensor take the tensor's (weak-typed) dtype, ``sign(nan)``
 is nan, integer sums accumulate in int32 (unsigned ones in uint32), bool
 arithmetic (``square``, ``power``, ``mod``) promotes to int32, ``abs`` and
 ``floor`` of bool stay bool, ``sign`` of bool raises ``TypeError``, and an
-integer ``mod`` by zero gives 0.  64-bit arguments arrive narrowed to 32
+integer ``mod`` by zero gives 0, and uint16/uint32 arithmetic wraps
+modulo 2**16 / 2**32 (computed on int64 where torch has no kernel at
+those dtypes, ``split_types.widened``).  64-bit arguments arrive narrowed to 32
 bits (``annotation.canonicalize``), as JAX with x64 off gives them, and a
 result torch widens to 64 bits (a bool beside a Python int) is narrowed
 back (``_narrow``): JAX gives int32 there.
@@ -123,12 +125,19 @@ def _mod(x, y):
 
 
 # -- unary elementwise:  (S) -> S  ------------------------------------------
+def _unsigned(f: Callable) -> Callable:
+    """``f`` on uint16/uint32 through int64 where torch has no kernel for it
+    at that dtype and device, wrapping on the cast back (ROADMAP C14)."""
+    return st.widened(f, where_missing=True)
+
+
 _UNARY = {
     "exp": torch.exp, "log": torch.log, "log1p": torch.log1p, "sqrt": torch.sqrt,
-    "erf": torch.special.erf, "negative": torch.negative, "abs": _abs,
-    "sin": torch.sin, "cos": torch.cos, "tanh": torch.tanh, "sign": _sign,
-    "arcsin": torch.arcsin, "arccos": torch.arccos, "expm1": torch.expm1,
-    "square": _square, "reciprocal": torch.reciprocal, "floor": _floor,
+    "erf": torch.special.erf, "negative": _unsigned(torch.negative),
+    "abs": _unsigned(_abs), "sin": torch.sin, "cos": torch.cos, "tanh": torch.tanh,
+    "sign": _unsigned(_sign), "arcsin": torch.arcsin, "arccos": torch.arccos,
+    "expm1": torch.expm1, "square": _unsigned(_square), "reciprocal": torch.reciprocal,
+    "floor": _floor,
     "isnan": torch.isnan, "logical_not": torch.logical_not,
 }
 
@@ -143,8 +152,9 @@ for _name, _fn in _UNARY.items():
 
 # -- binary elementwise:  (S, S) -> S  (scalar operands broadcast) ----------
 _BINARY = {
-    "add": torch.add, "subtract": torch.subtract, "multiply": torch.multiply,
-    "divide": torch.divide, "power": _power,
+    "add": _unsigned(torch.add), "subtract": _unsigned(torch.subtract),
+    "multiply": _unsigned(torch.multiply), "divide": torch.divide,
+    "power": _unsigned(_power),
     "maximum": _tensors_only(st.widened(torch.maximum)),
     "minimum": _tensors_only(st.widened(torch.minimum)),
     "greater": _tensors_only(st.widened(torch.greater)),
@@ -152,7 +162,7 @@ _BINARY = {
     "equal": _tensors_only(torch.eq),
     "logical_and": _tensors_only(torch.logical_and),
     "logical_or": _tensors_only(torch.logical_or),
-    "atan2": _tensors_only(torch.atan2), "mod": _mod,
+    "atan2": _tensors_only(torch.atan2), "mod": _unsigned(_mod),
 }
 
 

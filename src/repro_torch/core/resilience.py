@@ -77,6 +77,7 @@ import logging
 import os
 import threading
 import time
+import traceback
 from typing import Any, Callable
 
 import torch
@@ -584,9 +585,25 @@ def with_retries(fn: Callable[[], Any], *, retries: int,
         log.warning("step attempt %d failed: %s", attempt, e)
         if on_retry:
             on_retry(attempt, e)
+        _release_frames(e)
+        del e
         if backoff_s and attempt < retries:
             time.sleep(backoff_s * (2 ** attempt))
     raise StepFailure(f"exhausted {retries} retries") from last
+
+
+def _release_frames(e: BaseException) -> None:
+    """Clear the locals of the frames a failed attempt's exception holds
+    (ROADMAP C15): its traceback keeps the attempt's frames, and with them
+    its tensors (activations, the autograd graph, gradients), alive into
+    the retry, which on a full card fails for want of that memory.  The
+    exception keeps its type, message and line numbers for the chained
+    ``StepFailure``; so do the exceptions chained to it."""
+    seen: set[int] = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        traceback.clear_frames(e.__traceback__)
+        e = e.__cause__ or e.__context__
 
 
 def _attempt(fn: Callable[[], Any]) -> tuple[str, Any, BaseException | None]:
@@ -617,6 +634,9 @@ def run_with_restarts(
     """
     restarts = 0
     while True:
+        # The failed run's exception is gone with its ``except`` block; its
+        # state is released here, before the next one is built (C15).
+        state = None
         state, start = make_state(latest_step())
         try:
             return run_from(state, start)

@@ -234,17 +234,48 @@ def _unordered(v: Any) -> bool:
             and v.device.type != "meta")
 
 
-def widened(op: Callable) -> Callable:
-    """``op`` (an order op or ``where``) on uint16/uint32 tensors with
-    values: computed on int64, which holds every value, and a result other
-    than bool cast back to their dtype.  Elsewhere ``op`` itself."""
+def widened(op: Callable, *, where_missing: bool = False) -> Callable:
+    """``op`` on uint16/uint32 tensors with values: computed on int64, which
+    holds every value, and a result other than bool cast back to their
+    dtype (the two operands' promoted one), which wraps modulo 2**16 or
+    2**32 as jnp's unsigned arithmetic does (ROADMAP C14).  Elsewhere ``op``
+    itself.  ``where_missing``: widen only where torch has no kernel for
+    ``op`` at these dtypes on this device (``lacks_kernel``); the order ops
+    (C13) widen always."""
     def run(*args, **kw):
         dtype = next((a.dtype for a in args if _unordered(a)), None)
-        if dtype is None:
+        if dtype is None or (where_missing and not lacks_kernel(op, args, kw)):
             return op(*args, **kw)
+        if len(args) == 2 and all(isinstance(a, torch.Tensor) for a in args):
+            dtype = torch.result_type(*args)
         out = op(*[a.to(torch.int64) if _unordered(a) else a for a in args], **kw)
         return out if out.dtype == torch.bool else out.to(dtype)
     return run
+
+
+#: (op, argument dtypes and devices) -> whether torch lacks the kernel
+_LACKS: dict[tuple, bool] = {}
+
+
+def lacks_kernel(op: Callable, args: tuple, kw: dict) -> bool:
+    """Whether ``op`` raises ``NotImplementedError`` on these arguments'
+    dtypes and devices (torch 2.13's CPU has no uint16/uint32 ``add``,
+    ``remainder``, ``pow``, ``abs``, ``sign`` or ``neg``; torch 2.11's CUDA
+    lacks ``mul`` as well): one call on one-element tensors, cached per
+    signature."""
+    key = (op, tuple((a.dtype, a.device.type) if isinstance(a, torch.Tensor) else type(a)
+                     for a in args), tuple(sorted(kw)))
+    hit = _LACKS.get(key)
+    if hit is None:
+        tiny = [torch.ones(1, dtype=a.dtype, device=a.device) if isinstance(a, torch.Tensor)
+                else a for a in args]
+        try:
+            op(*tiny, **kw)
+            hit = False
+        except NotImplementedError:
+            hit = True
+        _LACKS[key] = hit
+    return hit
 
 
 def _wrapping(op: Callable, a: Any, b: Any) -> Any:

@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.runtime import resolve_device
-from repro_torch.core.sharded import axis_size, data_extent
+from repro_torch.core.sharded import axis_size, data_extent, data_group
 
 _tls = threading.local()
 
@@ -139,3 +139,17 @@ def dp_extent(mesh) -> int:
 
 def tp_extent(mesh) -> int:
     return axis_size(mesh, "model") if "model" in mesh.mesh_dim_names else 1
+
+
+def model_index(mesh) -> int:
+    """This rank's coordinate on ``"model"`` (0 on a mesh without the axis)."""
+    if "model" not in mesh.mesh_dim_names:
+        return 0
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index("model")])
+
+
+def model_group(mesh):
+    """The process group of this rank's ``"model"`` line of ``mesh`` and the
+    ``"model"`` coordinate of each of its ranks, in group-rank order (every
+    rank calls this in the same order)."""
+    return data_group(mesh, (mesh.mesh_dim_names.index("model"),))

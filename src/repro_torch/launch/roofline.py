@@ -22,7 +22,7 @@ are plain dicts with the reference's keys.  The chip is an argument: by
 default ``hardware.chip_for(device)``, the card's constants on a CUDA
 device.  Compiling the cost variants (``variant_record``) and the sweep
 over the registry (``main``) go through ``dryrun.py``, which compiles on
-the production mesh; they wait for the rest of the mesh port (ROADMAP A8.2b).
+the production mesh; they wait for the rest of the mesh port (ROADMAP A8.2c).
 """
 
 from __future__ import annotations

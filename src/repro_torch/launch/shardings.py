@@ -113,6 +113,18 @@ def param_specs(params, mesh) -> dict[str, Spec]:
             for name, leaf in _param_leaves(params).items()}
 
 
+def axis_dim(spec: Spec, axis: str) -> int | None:
+    """The dim of ``spec`` sharded over ``axis`` (None: none is)."""
+    return next((d for d, e in enumerate(spec)
+                 if e == axis or (isinstance(e, tuple) and axis in e)), None)
+
+
+def model_dims(params, mesh) -> dict[str, int | None]:
+    """``{leaf name: the dim param_specs shards over "model"}`` (None: the
+    leaf is whole on every rank of a ``"model"`` line)."""
+    return {n: axis_dim(sp, "model") for n, sp in param_specs(params, mesh).items()}
+
+
 def zero1_specs(params, mesh) -> dict[str, Spec]:
     """Optimizer-moment specs: the param spec plus data sharding on the
     first still-unsharded, divisible dimension (ZeRO-1)."""

@@ -5,27 +5,33 @@ It trains a config with the port's stack: the SA-annotated data pipeline,
 the model, AdamW, async checkpointing with exact resume, the straggler
 watchdog and step retries.  Runs on the card unless given ``device="cpu"``.
 
-``mesh=`` (a ``DeviceMesh`` from ``launch/mesh.py`` whose ``"model"``
-extent is 1) trains data-parallel with ZeRO-1, as the reference's
-``train(mesh=make_host_mesh(n, 1))``: SPMD, one process per rank.  What
-GSPMD does implicitly for the reference is explicit here: every rank builds
-the same global batch from the seed and keeps its rows
+``mesh=`` (a ``(data, model)`` ``DeviceMesh`` from ``launch/mesh.py``)
+trains as the reference's ``train(mesh=make_host_mesh(n_data, n_model))``:
+SPMD, one process per rank.  What GSPMD does implicitly for the reference
+is explicit here.  Data parallelism with ZeRO-1: every rank builds the
+same global batch from the seed and keeps its rows
 (``shardings.batch_specs``); it computes its rows' share of the global loss
 (``models.data_parallel``: global denominator, global MoE statistics and
-capacity) and its gradients; each gradient is reduce-scattered onto the
-moment shard ``shardings.zero1_specs`` gives it (all-reduced where that has
-no data axis); AdamW updates this rank's slice of p, m and v
-(``adamw.update_sharded``); the new slices are all-gathered.  m and v are
-``DTensor``s; a checkpoint saves them whole (gathered on the main thread)
-and a resume restores them sharded.  Tensor parallelism over ``"model"``
-waits for ROADMAP A8.2b.
+capacity) and its gradients; each gradient is reduce-scattered over the
+data group onto the moment shard ``shardings.zero1_specs`` gives it
+(all-reduced where that has no data axis); AdamW updates this rank's slice
+of p, m and v (``adamw.update_sharded``); the new slices are all-gathered
+over the data group.  Tensor parallelism over ``"model"``: each rank holds
+the ``"model"`` slice of every leaf ``shardings.param_specs`` shards there
+(``weights.model_slices``) and the forward and backward run on the slices
+under the model group (``models.tensor_parallel``: split or gathered per
+leaf, ``tensor_parallel.plan``); the moments are those slices cut again by
+data, and ``train`` returns the rank's slices.  m and v are ``DTensor``s; a checkpoint saves parameters and moments
+whole (gathered on the main thread, one leaf at a time) and a resume
+restores both with their placements.  The expert-parallel MoE dispatch
+waits for ROADMAP A8.2c.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b --smoke \
         --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt
 
-and in a script started by ``torchrun --nproc-per-node 2``:
+and in a script started by ``torchrun --nproc-per-node 4``:
 
-    mesh = make_host_mesh(2, 1, device="cpu")
+    mesh = make_host_mesh(2, 2, device="cpu")
     out = train(get_smoke_config("gemma-7b"), steps=3, batch=4, seq=32,
                 mesh=mesh, device="cpu")
 """
@@ -45,8 +51,9 @@ from repro_torch.core import sharded
 from repro_torch.core.runtime import resolve_device
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.launch import shardings as shd
-from repro_torch.launch.mesh import data_axes_of, dp_extent, tp_extent
-from repro_torch.models import data_parallel, lm, weights
+from repro_torch.launch.mesh import (data_axes_of, dp_extent, model_group, model_index,
+                                     tp_extent)
+from repro_torch.models import data_parallel, lm, tensor_parallel, weights
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -86,10 +93,32 @@ def data_group(mesh) -> data_parallel.DataGroup:
                                    index=sharded.shard_index(mesh, axes), order=tuple(order))
 
 
+def tp_group(mesh) -> tensor_parallel.ModelGroup | None:
+    """The ranks of this rank's ``"model"`` line of ``mesh`` (None where
+    the extent is 1)."""
+    if tp_extent(mesh) == 1:
+        return None
+    group, order = model_group(mesh)
+    return tensor_parallel.ModelGroup(group=group, size=tp_extent(mesh),
+                                      index=model_index(mesh), order=tuple(order))
+
+
+def mesh_group(mesh):
+    """The group of every rank of ``mesh`` (None for one rank): the ranks
+    agree over it on the step to resume from and on every retry, and its
+    rank 0 writes the checkpoints."""
+    if mesh.size() == 1:
+        return None
+    return sharded.data_group(mesh, tuple(range(mesh.ndim)))[0]
+
+
 def zero1_layout(mesh, params) -> adamw.Zero1:
-    """The ZeRO-1 layout of ``params``' moments on a data-parallel ``mesh``
-    (``shardings.zero1_specs``): per leaf the dim sharded over the data
-    axes and the ``DTensor`` placements."""
+    """The layout of the WHOLE ``params`` on ``mesh``: per leaf the dim
+    sharded over the data axes (``shardings.zero1_specs``), the moments'
+    and the parameters' ``DTensor`` placements and the whole shapes, and
+    the group of every rank of the mesh; with a ``"model"`` extent above 1
+    also the model group and each leaf's dim sharded over ``"model"``
+    (``shardings.model_dims``)."""
     axes = set(data_axes_of(mesh))
     specs = shd.zero1_specs(params, mesh)
     dims = {}
@@ -97,8 +126,15 @@ def zero1_layout(mesh, params) -> adamw.Zero1:
         named_axes = [(d, {e} if isinstance(e, str) else set(e)) for d, e in enumerate(spec)
                       if e is not None]
         dims[name] = next((d for d, e in named_axes if e & axes), None)
-    return adamw.Zero1(mesh=mesh, dg=data_group(mesh), dims=dims,
-                       placements={n: shd.placements(sp, mesh) for n, sp in specs.items()})
+    mg = tp_group(mesh)
+    leaves = shd._param_leaves(params)
+    return adamw.Zero1(
+        mesh=mesh, dg=data_group(mesh), dims=dims, everyone=mesh_group(mesh),
+        placements={n: shd.placements(sp, mesh) for n, sp in specs.items()},
+        mg=mg, mdims=shd.model_dims(params, mesh) if mg is not None else {},
+        shapes={n: t.shape for n, t in leaves.items()},
+        param_placements={n: shd.placements(sp, mesh)
+                          for n, sp in shd.param_specs(params, mesh).items()})
 
 
 def local_batch(batch: dict, mesh, dg: data_parallel.DataGroup) -> tuple[dict, bool]:
@@ -115,20 +151,24 @@ def local_batch(batch: dict, mesh, dg: data_parallel.DataGroup) -> tuple[dict, b
 def make_zero1_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, zero: adamw.Zero1,
                     path: str = "jnp"):
     """``step_fn(model, opt_state, batch) -> (new_params, opt_state,
-    metrics)`` on a data-parallel mesh: ``batch`` is the global batch,
-    ``opt_state`` ZeRO-1 sharded (``adamw.init_sharded``), ``new_params``
-    the whole new parameters, for the caller to assign once every rank's
-    step went through; ``path`` is ``adamw.update_sharded``'s.  Rows that
-    do not divide over the ranks stay replicated: each rank then takes
-    1/size of the loss, and the sum over the ranks is the whole gradient
-    again."""
-    dg = zero.dg
+    metrics)`` on a mesh: ``batch`` is the global batch, ``opt_state``
+    ZeRO-1 sharded (``adamw.init_sharded``), ``new_params`` this rank's
+    new parameters (its ``"model"`` slices under tensor parallelism, else
+    whole), for the caller to assign once every rank's step went through;
+    ``path`` is ``adamw.update_sharded``'s.  Rows that do not divide over
+    the data ranks stay replicated: each rank then takes 1/size of the
+    loss, and the sum over the ranks is the whole gradient again.  Under
+    tensor parallelism the forward and the backward run with the model
+    group installed, on ``tensor_parallel.view`` of the slices."""
+    dg, mg = zero.dg, zero.mg
+    table = {} if mg is None else tensor_parallel.plan(cfg, zero.mesh)
 
     def step_fn(model: weights.ParamTree, opt_state: adamw.AdamWState, batch):
         local, rows_sharded = local_batch(batch, zero.mesh, dg)
         model.zero_grad(set_to_none=True)
-        with data_parallel.use(dg if rows_sharded else None):
-            loss = lm.loss_fn(model, local, cfg)
+        with data_parallel.use(dg if rows_sharded else None), tensor_parallel.use(mg):
+            loss = lm.loss_fn(model if mg is None else tensor_parallel.view(model, table, mg),
+                              local, cfg)
             if not rows_sharded:
                 loss = loss / dg.size
             loss.backward()
@@ -146,23 +186,55 @@ def make_zero1_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, zero: adamw.Ze
     return step_fn
 
 
+def _whole_leaf(local: torch.Tensor, placements: tuple, name: str, zero: adamw.Zero1,
+                keep: bool) -> torch.Tensor | None:
+    """The whole leaf of which ``local`` is this rank's shard (``placements``
+    on ``zero.mesh``), on the writer's host (``keep``; None elsewhere):
+    one ``gather`` of every rank's shard to the writer over the mesh's
+    group (host copies on ``gloo``, which would stage card tensors through
+    the host anyway), each shard put where its mesh coordinates place it."""
+    group = zero.everyone
+    if group is None:
+        return local.detach().to("cpu") if keep else None
+    t = local.detach().contiguous()
+    if dist.get_backend(group) == "gloo":
+        t = t.to("cpu")
+    ranks = dist.get_process_group_ranks(group)
+    parts = [torch.empty_like(t) for _ in ranks] if keep else None
+    dist.gather(t, parts, dst=ranks[0], group=group)
+    if not keep:
+        return None
+    out = torch.empty(zero.shapes[name], dtype=t.dtype)
+    grid = zero.mesh.mesh
+    for g, part in zip(ranks, parts):
+        coord = (grid == g).nonzero()[0].tolist()
+        view = out
+        for d, pl in enumerate(placements):
+            if pl.is_shard():
+                view = torch.chunk(view, int(zero.mesh.shape[d]), dim=pl.dim)[coord[d]]
+        view.copy_(part)
+    return out
+
+
 def _whole_state(state: adamw.AdamWState, zero: adamw.Zero1,
                  keep: bool) -> adamw.AdamWState | None:
     """The sharded moments gathered whole on the host, for a checkpoint:
-    every rank makes the collectives, one leaf at a time, and the writer
-    (``keep``) copies each leaf to the host before the next is gathered, so
-    the card holds one whole leaf beyond the training state.  Other ranks
-    drop each leaf and get None."""
+    every rank takes part, one leaf at a time, and the writer (``keep``)
+    assembles each leaf on its host before the next is gathered, so no
+    card holds more than its own shards.  Other ranks get None."""
     def whole(d):
-        out = {}
-        for n, t in d.items():
-            leaf = zero.gather(t.to_local(), n)
-            if keep:
-                out[n] = leaf.to("cpu")
-            del leaf
-        return out
+        return {n: _whole_leaf(t.to_local(), zero.placements[n], n, zero, keep)
+                for n, t in d.items()}
     m, v = whole(state.m), whole(state.v)
     return adamw.AdamWState(step=state.step, m=m, v=v) if keep else None
+
+
+def _whole_params(model: weights.ParamTree, zero: adamw.Zero1, keep: bool) -> dict | None:
+    """The parameters' ``"model"`` slices gathered whole on the writer's
+    host (``_whole_state``'s way), as a tree in the reference's layout."""
+    flat = {n: _whole_leaf(p, zero.param_placements[n], n, zero, keep)
+            for n, p in weights.leaves(model).items()}
+    return weights.unflatten(flat) if keep else None
 
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
@@ -170,10 +242,6 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           lr: float = 3e-4, seed: int = 0, mesh=None, log_every: int = 10,
           resume: bool = True, device: torch.device | str = "cuda"):
     device = resolve_device(device)
-    if mesh is not None and tp_extent(mesh) > 1:
-        raise NotImplementedError(
-            f"train(mesh=...) with a 'model' extent of {tp_extent(mesh)}: tensor "
-            "parallelism waits for ROADMAP A8.2b (data-parallel meshes only)")
     opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=max(steps, 2),
                                 warmup_steps=max(steps // 20, 1))
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -185,9 +253,11 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         step_fn = make_train_step(cfg, opt_cfg)
     else:
         zero = zero1_layout(mesh, model)
+        if zero.mg is not None:          # this rank's "model" slices
+            model = weights.model_slices(model, zero.mdims, zero.mg.index, zero.mg.size)
         opt_state = adamw.init_sharded(weights.leaves(model), zero)
         step_fn = make_zero1_step(cfg, opt_cfg, zero)
-        group = zero.dg.group if zero.dg.size > 1 else None     # every rank: "model" is 1
+        group = zero.everyone            # every rank of the mesh
     writer = group is None or dist.get_rank(group) == 0     # the rank that writes
 
     # -- init or resume -------------------------------------------------------
@@ -202,18 +272,25 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         if zero is not None:
             m = {n: (mesh, zero.placements[n]) for n in opt_state.m}
             shardings = {"opt": adamw.AdamWState(step=None, m=m, v=m)}
+            if zero.mg is not None:      # the parameters come back as "model" slices
+                shardings["params"] = weights.unflatten(
+                    {n: (mesh, pl) for n, pl in zero.param_placements.items()})
         restored = ckpt.restore(ckpt_dir, start, {"params": model.tree(), "opt": opt_state},
                                 shardings)
-        weights.assign(model, weights.flatten(restored["params"]))
+        weights.assign(model, {n: t.to_local() if hasattr(t, "to_local") else t
+                               for n, t in weights.flatten(restored["params"]).items()})
         opt_state = restored["opt"]
         log.info("resumed from step %d", start)
 
     def save(at: int):
-        # the moments are gathered HERE, on the main thread, by every rank;
-        # the checkpointer's thread only writes the host copies
-        state = opt_state if zero is None else _whole_state(opt_state, zero, saver is not None)
+        # the moments (and "model" slices) are gathered HERE, on the main
+        # thread, by every rank; the checkpointer's thread only writes the
+        # host copies
+        keep = saver is not None
+        state = opt_state if zero is None else _whole_state(opt_state, zero, keep)
+        params = model if zero is None or zero.mg is None else _whole_params(model, zero, keep)
         if saver is not None:
-            saver.save_async(at, {"params": model, "opt": state}, meta={"arch": cfg.name})
+            saver.save_async(at, {"params": params, "opt": state}, meta={"arch": cfg.name})
 
     agree = None if group is None else (lambda outcome: sharded.agree(group, outcome))
     timer = StepTimer(FaultConfig())

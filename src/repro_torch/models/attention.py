@@ -21,6 +21,11 @@ immutable, the port writes K/V into the cache's storage IN PLACE
 ``k``/``v`` with the one passed in and carries new ``length``/``start``, so
 a caller keeps only the returned cache.  This saves a copy of the whole
 cache per layer and step.
+
+Under tensor parallelism (``models.tensor_parallel``) a training layer
+whose ``wq`` is a ``"model"`` slice by heads runs its rank's query heads
+(``_qkv_tp``) on any of the paths above and its ``wo`` rows as a partial
+sum, all-reduced over the group.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import tensor_parallel
 from repro_torch.models.config import AttnConfig, ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, normal, rms_norm
 
@@ -94,6 +100,48 @@ def _qkv(p, x: torch.Tensor, a: AttnConfig, positions: torch.Tensor, cfg: ModelC
         pos = positions if positions.dim() == 2 else positions[0]
         q = apply_rope(q, pos, a.rope_theta)
         k = apply_rope(k, pos, a.rope_theta)
+    return q, k, v
+
+
+def _qkv_tp(p, x: torch.Tensor, a: AttnConfig, positions: torch.Tensor | None,
+            cfg: ModelConfig, mg, cross_kv=None):
+    """``_qkv`` on this rank's query heads (``wq`` a ``"model"`` slice by
+    heads, ``models.tensor_parallel``).  K and V come by heads too where
+    ``wk``/``wv`` are sliced (multi-head attention); else they are computed
+    whole from the replicated ``x`` and enter the rank-local compute, and
+    each local query head takes its own KV head (``h % Hkv`` of its global
+    index ``h``, as ``_dense_attention``'s (group, Hkv) reshape pairs
+    them).  ``cross_kv`` is an encoder-decoder's, already in that form
+    (``transformer._cross_kv_per_layer``)."""
+    hd = a.head_dim
+    hq = p["wq"].shape[-1] // hd                 # this rank's query heads
+    xin = mg.enter(x)
+    q = _split_heads(xin @ p["wq"].to(x.dtype), hq, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+    else:
+        kv_split = p["wk"].shape[-1] != a.n_kv_heads * hd
+        src = xin if kv_split else x
+        nkv = p["wk"].shape[-1] // hd
+        k = _split_heads(src @ p["wk"].to(x.dtype), nkv, hd)
+        v = _split_heads(src @ p["wv"].to(x.dtype), nkv, hd)
+        if a.qk_norm:
+            q = rms_norm(q, mg.enter(p["q_norm"]), cfg.norm_eps)
+            k = rms_norm(k, mg.enter(p["k_norm"]) if kv_split else p["k_norm"],
+                         cfg.norm_eps)
+        if a.mrope:
+            pos3 = positions if positions.dim() == 3 else positions.expand(3, *positions.shape)
+            q = apply_mrope(q, pos3, a.rope_theta, a.mrope_sections)
+            k = apply_mrope(k, pos3, a.rope_theta, a.mrope_sections)
+        else:
+            pos = positions if positions.dim() == 2 else positions[0]
+            q = apply_rope(q, pos, a.rope_theta)
+            k = apply_rope(k, pos, a.rope_theta)
+        if not kv_split:
+            k, v = mg.enter(k), mg.enter(v)
+    if k.shape[1] != hq:
+        idx = (mg.index * hq + torch.arange(hq, device=x.device)) % k.shape[1]
+        k, v = k[:, idx], v[:, idx]
     return q, k, v
 
 
@@ -393,12 +441,25 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"attention mode {mode!r}")
     a = cfg.attn
     B, S, _ = x.shape
+    mg = tensor_parallel.current()
+    if mg is None or p["wq"].shape[-1] == a.n_heads * a.head_dim:
+        mg = None                        # whole heads: the single-device layer
+    elif mode != "train" or cache is not None:
+        raise ValueError("tensor-parallel attention runs in train mode only")
+
+    def out(o):                          # wo; row-parallel under a "model" group
+        y = _merge_heads(o) @ p["wo"].to(x.dtype)
+        return y if mg is None else mg.exit(y)
+
     if cross_kv is not None:
-        q = _split_heads(x @ p["wq"].to(x.dtype), a.n_heads, a.head_dim)
-        k, v = cross_kv
+        if mg is None:
+            q = _split_heads(x @ p["wq"].to(x.dtype), a.n_heads, a.head_dim)
+            k, v = cross_kv
+        else:
+            q, k, v = _qkv_tp(p, x, a, None, cfg, mg, cross_kv)
         o = _dense_attention(q, k, v, causal=False, window=None,
                              softcap=a.logit_softcap)
-        return _merge_heads(o) @ p["wo"].to(x.dtype), None
+        return out(o), None
     if positions is None:
         if mode == "decode" and cache is not None:
             length = cache.length
@@ -406,7 +467,8 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                          else length.reshape(1, 1).expand(B, 1))
         else:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    q, k, v = _qkv(p, x, a, positions, cfg)
+    q, k, v = (_qkv(p, x, a, positions, cfg) if mg is None
+               else _qkv_tp(p, x, a, positions, cfg, mg))
 
     new_cache = None
     if mode == "decode":
@@ -431,4 +493,4 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
             o = _blocked_attention(q, k, v, causal=causal, window=window,
                                    block_k=cfg.attn_block_k, softcap=a.logit_softcap,
                                    kv_mask=pad_mask)
-    return _merge_heads(o) @ p["wo"].to(x.dtype), new_cache
+    return out(o), new_cache

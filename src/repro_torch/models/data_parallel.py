@@ -26,7 +26,9 @@ same order.  Without a group the model is the single-device one.
 ``DataGroup`` also holds the group's collectives in shard order
 (``all_gather``, ``reduce_scatter``, ``sum``), which ZeRO-1
 (``optim/adamw.Zero1``) uses on the gradients and parameters; a dtype the
-backends lack travels widened (``core.sharded.WIRE``).
+backends lack travels widened (``core.sharded.WIRE``), and a group of one
+rank (the data axis of a (1, n) mesh) makes no collective: ``gloo`` would
+carry a card tensor through the host to sum it with nothing.
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ class DataGroup:
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in shard order."""
+        if self.size == 1:
+            return x
         wire = WIRE.get(x.dtype)
         if wire is not None:
             return self.all_gather(x.to(wire), dim).to(x.dtype)
@@ -75,6 +79,8 @@ class DataGroup:
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's chunk along ``dim`` of the sum over the group of
         every rank's ``x``."""
+        if self.size == 1:
+            return x
         wire = WIRE.get(x.dtype)
         if wire is not None:
             return self.reduce_scatter(x.to(wire), dim).to(x.dtype)
@@ -93,6 +99,8 @@ class DataGroup:
         return torch.chunk(x, self.size, dim=dim)[self.index]
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:               # the sum over one rank: no collective
+            return t.clone(memory_format=torch.contiguous_format)
         wire = WIRE.get(t.dtype)
         out = t.to(wire) if wire is not None else t.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=self.group)

@@ -1,13 +1,15 @@
 """Shared building blocks: norms, embeddings, rotary position encodings.
 
 The counterpart of ``src/repro/models/layers.py``: standard RoPE and
-Qwen2-VL's multimodal M-RoPE.
+Qwen2-VL's multimodal M-RoPE, and the vocabulary-parallel embedding
+lookup of tensor parallelism.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import tensor_parallel
 from repro_torch.models.config import ModelConfig
 
 
@@ -43,7 +45,19 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    x = embedding[tokens].to(cfg.dtype)
+    """The token embeddings.  Under tensor parallelism (a ``"model"`` slice
+    of the table's rows, ``models.tensor_parallel``) each rank looks up the
+    tokens its rows hold, zeros elsewhere, and the float32 rows are summed
+    over the group: exact, as one rank holds each token."""
+    mg = tensor_parallel.current()
+    if mg is not None and embedding.shape[0] != cfg.padded_vocab:
+        rows = embedding.shape[0]
+        ids = tokens - mg.index * rows
+        mine = (ids >= 0) & (ids < rows)
+        part = embedding[torch.where(mine, ids, 0)] * mine[..., None].to(embedding.dtype)
+        x = mg.exit(part).to(cfg.dtype)
+    else:
+        x = embedding[tokens].to(cfg.dtype)
     if cfg.embed_scale:
         # the scale is rounded to the model dtype first, as jnp.asarray does
         scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()

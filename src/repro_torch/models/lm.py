@@ -5,7 +5,9 @@ Under a data-parallel group (``models.data_parallel``) a rank's loss is its
 rows' summed loss over the GLOBAL denominator (the all-reduced
 ``sum(mask)``, or token count) plus its share of the global MoE aux loss:
 the ranks' losses, and gradients, sum to the reference's on the whole
-batch."""
+batch.  Under tensor parallelism (``models.tensor_parallel``) the head's
+vocabulary is split over the ``"model"`` ranks, and every one of them
+computes the same loss."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import data_parallel
+from repro_torch.models import data_parallel, tensor_parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -71,21 +73,41 @@ def make_batch_views(batch: dict[str, Any], cfg: ModelConfig):
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, mask: torch.Tensor | None = None, *,
                           chunk: int = 512, z_loss: float = 1e-4,
-                          valid_vocab: int | None = None):
+                          valid_vocab: int | None = None, vocab: int | None = None):
     """CE computed in sequence chunks so the (B, S, V) logits tensor is never
     materialized; each chunk's logits are recomputed in backward.  ``head``
-    is (D, V), cast to the hidden dtype inside each chunk."""
+    is (D, V), cast to the hidden dtype inside each chunk.
+
+    ``head`` narrower than ``vocab`` columns is this rank's slice of a
+    vocabulary-parallel head (``models.tensor_parallel``): each rank makes
+    its columns' logits, and the log-sum-exp (max, sum of exponentials)
+    and the gold logit are combined over the group; ``valid_vocab`` masks
+    by global column."""
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
     V = head.shape[-1]
+    mg = tensor_parallel.current()
+    if mg is None or vocab is None or V == vocab:
+        mg = None
+    lo = 0 if mg is None else mg.index * V          # this rank's first column
 
     def ce_of(h, l):
+        if mg is not None:
+            h = mg.enter(h)
         lf = (h @ head.to(h.dtype)).to(torch.float32)
-        if valid_vocab is not None and valid_vocab != V:
-            lf = torch.where(torch.arange(V, device=lf.device) < valid_vocab,
+        if valid_vocab is not None and valid_vocab != (V if mg is None else vocab):
+            lf = torch.where(lo + torch.arange(V, device=lf.device) < valid_vocab,
                              lf, -1e30)
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, l[..., None].long())[..., 0]
+        if mg is None:
+            lse = torch.logsumexp(lf, dim=-1)
+            gold = torch.gather(lf, -1, l[..., None].long())[..., 0]
+        else:
+            top = mg.max(torch.amax(lf, dim=-1))
+            lse = torch.log(mg.exit(torch.sum(torch.exp(lf - top[..., None]), dim=-1))) + top
+            ids = l.long() - lo
+            mine = (ids >= 0) & (ids < V)
+            gold = mg.exit(torch.gather(lf, -1, torch.where(mine, ids, 0)[..., None])[..., 0]
+                           * mine)
         return (lse - gold) + z_loss * torch.square(lse)
 
     # full chunks, then the ragged tail (as the reference's map + tail)
@@ -104,7 +126,7 @@ def loss_fn(params, batch: dict[str, Any], cfg: ModelConfig,
         aux = aux / dg.size               # each rank's share of the global aux
     return chunked_cross_entropy(hidden, tfm._head(params, cfg), labels, mask,
                                  chunk=ce_chunk or cfg.ce_chunk,
-                                 valid_vocab=cfg.vocab_size) + aux
+                                 valid_vocab=cfg.vocab_size, vocab=cfg.padded_vocab) + aux
 
 
 @torch.no_grad()

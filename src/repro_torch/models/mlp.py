@@ -9,9 +9,13 @@ group: assignments past an expert's C slots are dropped (``count_drops``
 reads how many).  Under a data-parallel group (``models.data_parallel``)
 the routing stays the reference's on the global batch: the aux statistics
 are over every rank's tokens, and capacity is per group of the global
-tokens.  The reference's expert-parallel ``shard_map`` branch waits for
-the rest of the mesh port (ROADMAP A8.2b); ``moe_block`` raises if asked
-for it.
+tokens.  Under tensor parallelism (``models.tensor_parallel``) the
+experts' F is a ``"model"`` slice: routing runs on the replicated tokens,
+each rank's FFN on its F slice, and ``out_buf`` is all-reduced over the
+group before the combine, as the reference's sharded dispatch psums it.
+The reference's expert-parallel ``shard_map`` branch waits for ROADMAP
+A8.2c (``shard_ctx`` and ``dryrun.py``, which alone installs it);
+``moe_block`` raises if asked for it.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import data_parallel
+from repro_torch.models import data_parallel, tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 
@@ -49,13 +53,22 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator | None,
     return p
 
 
-def mlp_block(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(p, x: torch.Tensor, cfg: ModelConfig, d_ff: int | None = None) -> torch.Tensor:
+    """The FFN of width ``d_ff`` (``cfg.d_ff`` by default).  Matrices that
+    are a ``"model"`` slice of it (``models.tensor_parallel``) compute this
+    rank's columns and a partial sum of ``w_out``'s rows, all-reduced."""
+    mg = tensor_parallel.current()
+    if mg is not None and p["w_in"].shape[-1] == (d_ff or cfg.d_ff):
+        mg = None
+    if mg is not None:
+        x = mg.enter(x)
     h = x @ p["w_in"].to(x.dtype)
     if cfg.gated_mlp:
         h = _act(x @ p["w_gate"].to(x.dtype), cfg.activation) * h
     else:
         h = _act(h, cfg.activation)
-    return h @ p["w_out"].to(x.dtype)
+    out = h @ p["w_out"].to(x.dtype)
+    return out if mg is None else mg.exit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -175,12 +188,19 @@ def _dispatch_one_group(xt: torch.Tensor, gate_vals: torch.Tensor,
     src_tok = (order // k)[torch.clamp(slotpos, 0, Tk - 1)]
     buf = xt[src_tok] * slot_valid[..., None].to(xt.dtype)                # (E, C, D)
 
+    mg = tensor_parallel.current()
+    if mg is not None and p["w_in"].shape[-1] == m.d_expert:
+        mg = None                        # whole experts
+    if mg is not None:                   # this rank's F slice of every expert
+        buf = mg.enter(buf)
     h = torch.bmm(buf, p["w_in"].to(xt.dtype))
     if cfg.gated_mlp:
         h = _act(torch.bmm(buf, p["w_gate"].to(xt.dtype)), cfg.activation) * h
     else:
         h = _act(h, cfg.activation)
     out_buf = torch.bmm(h, p["w_out"].to(xt.dtype))                        # (E, C, D)
+    if mg is not None:
+        out_buf = mg.exit(out_buf)
 
     gathered = out_buf[expert_idx.reshape(-1), torch.clamp(pos, 0, capacity - 1)]
     gathered = gathered * keep[:, None].to(xt.dtype)
@@ -204,7 +224,7 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
     The aux loss returned is the global one."""
     if mesh is not None:
         raise NotImplementedError("the expert-parallel shard_map dispatch is not ported "
-                                  "yet (ROADMAP A8.2b)")
+                                  "yet (ROADMAP A8.2c)")
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
@@ -232,5 +252,5 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
         _COUNTING[-1].keeps.extend(keep.detach() for _, keep in parts)
 
     if m.n_shared:
-        out = out + mlp_block(p["shared"], xt, cfg)
+        out = out + mlp_block(p["shared"], xt, cfg, d_ff=m.d_expert * m.n_shared)
     return out.reshape(B, S, D), aux

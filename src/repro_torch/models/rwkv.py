@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 
@@ -111,37 +112,64 @@ def _wkv(r, k, v, w, u, S0):
 
 
 def time_mix(p, x: torch.Tensor, cfg: ModelConfig, state: RWKVState):
+    """The time mix.  ``w_r``/``w_k``/``w_v``/``w_g`` that are a ``"model"``
+    slice by heads (``models.tensor_parallel``) run this rank's heads: the
+    per-channel decay, bonus and norm scale enter rank-local compute and
+    are cut to its channels, and ``w_o``'s rows give a partial sum,
+    all-reduced."""
     B, S, D = x.shape
     H, hd = _dims(cfg)
     xprev = _shifted(x, state.shift_t)
+    mg = tensor_parallel.current()
+    if mg is not None and p["w_r"].shape[-1] == D:
+        mg = None
+    Dl = p["w_r"].shape[-1]                      # this rank's channels
+    Hl, c0 = Dl // hd, (0 if mg is None else mg.index * Dl)
+
+    def local(t, dim=-1):                        # a whole value, cut to this rank's part
+        return t if mg is None else mg.enter(t).narrow(dim, c0 // (hd if dim == 0 else 1),
+                                                       Hl if dim == 0 else Dl)
 
     def lerp(mu):
-        return x + (xprev - x) * mu.to(x.dtype)
+        y = x + (xprev - x) * mu.to(x.dtype)
+        return y if mg is None else mg.enter(y)
 
-    r = (lerp(p["mu_r"]) @ p["w_r"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (lerp(p["mu_k"]) @ p["w_k"].to(x.dtype)).reshape(B, S, H, hd)
-    v = (lerp(p["mu_v"]) @ p["w_v"].to(x.dtype)).reshape(B, S, H, hd)
+    r = (lerp(p["mu_r"]) @ p["w_r"].to(x.dtype)).reshape(B, S, Hl, hd)
+    k = (lerp(p["mu_k"]) @ p["w_k"].to(x.dtype)).reshape(B, S, Hl, hd)
+    v = (lerp(p["mu_v"]) @ p["w_v"].to(x.dtype)).reshape(B, S, Hl, hd)
     g = F.silu(lerp(p["mu_g"]) @ p["w_g"].to(x.dtype))
 
     # Finch: data-dependent decay in (0, 1) per channel
-    dd = ((lerp(p["mu_w"]).to(torch.float32) @ p["decay_a"].to(torch.float32))
+    xw = x + (xprev - x) * p["mu_w"].to(x.dtype)
+    dd = ((xw.to(torch.float32) @ p["decay_a"].to(torch.float32))
           @ p["decay_b"].to(torch.float32))
-    w = torch.exp(-torch.exp(p["decay_base"] + dd)).reshape(B, S, H, hd)
+    w = torch.exp(-torch.exp(local(p["decay_base"]) + local(dd))).reshape(B, S, Hl, hd)
     f32 = lambda t: t.to(torch.float32)
-    y, ST = _wkv(f32(r), f32(k), f32(v), w, p["bonus_u"], state.wkv)
+    wkv0 = state.wkv if mg is None else state.wkv.narrow(1, c0 // hd, Hl)
+    y, ST = _wkv(f32(r), f32(k), f32(v), w, local(p["bonus_u"], 0), wkv0)
 
     # per-head group norm
     mean = y.mean(-1, keepdim=True)
     var = torch.square(y - mean).mean(-1, keepdim=True)
-    y = ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(B, S, D) * p["ln_x"]
+    y = ((y - mean) * torch.rsqrt(var + 1e-5)).reshape(B, S, Dl) * local(p["ln_x"])
     out = (y.to(x.dtype) * g) @ p["w_o"].to(x.dtype)
+    if mg is not None:
+        out = mg.exit(out)
     return out, RWKVState(wkv=ST, shift_t=x[:, -1], shift_c=state.shift_c)
 
 
 def channel_mix(p, x: torch.Tensor, cfg: ModelConfig, state: RWKVState):
+    """The channel mix.  ``w_ck``/``w_cv`` that are a ``"model"`` slice
+    (``models.tensor_parallel``) compute this rank's columns of the FFN
+    and a partial sum of its rows, all-reduced before the receptance
+    gate."""
     xprev = _shifted(x, state.shift_c)
     mk = x + (xprev - x) * p["mu_ck"].to(x.dtype)
-    kk = torch.square(F.relu(mk @ p["w_ck"].to(x.dtype)))
+    mg = tensor_parallel.current()
+    if mg is not None and p["w_ck"].shape[-1] == cfg.d_ff:
+        mg = None
+    kk = torch.square(F.relu((mk if mg is None else mg.enter(mk)) @ p["w_ck"].to(x.dtype)))
     rr = torch.sigmoid(mk @ p["w_cr"].to(x.dtype))
-    out = rr * (kk @ p["w_cv"].to(x.dtype))
+    kv = kk @ p["w_cv"].to(x.dtype)
+    out = rr * (kv if mg is None else mg.exit(kv))
     return out, RWKVState(wkv=state.wkv, shift_t=state.shift_t, shift_c=x[:, -1])

@@ -10,7 +10,9 @@ whole sequence first: dA = exp(dt A) and dBx, time-major, so each step is one
 the loop.  Train mode's backward memory is bounded by the stack's per-layer
 ``torch.utils.checkpoint``.  Decode is the O(1) single step over a rolling
 ``(B, W-1, d_in)`` window of conv inputs.  softplus(dt), the recurrence, the
-``D_skip`` term and the ``silu(z)`` gate run in float32.
+``D_skip`` term and the ``silu(z)`` gate run in float32.  Under tensor
+parallelism (``models.tensor_parallel``) a training layer runs this rank's
+channels.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 
@@ -81,12 +84,16 @@ def _scan(dA: torch.Tensor, dBx: torch.Tensor, h: torch.Tensor):
     return torch.stack(hs), h
 
 
-def _ssm_core(p, xc: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor):
+def _ssm_core(p, xc: torch.Tensor, z: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
+              mg=None):
     """xc: (B, S, d_in) float32 post-conv activations; returns (y float32,
-    the last h)."""
+    the last h).  Under a model group ``mg`` every input is this rank's
+    channels, and ``x_proj``'s product is a partial sum, all-reduced."""
     d_in, dt_rank, N, _ = _dims(cfg)
     A = -torch.exp(p["A_log"])                                    # (d_in, N)
     proj = xc @ p["x_proj"].to(torch.float32)
+    if mg is not None:
+        proj = mg.enter(mg.exit(proj))
     dt, Bc, Cc = torch.split(proj, [dt_rank, N, N], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"].to(torch.float32) + p["dt_bias"])   # (B, S, d_in)
 
@@ -120,6 +127,11 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, state: SSMState | None = Non
     d_in, _, N, W = _dims(cfg)
     B, S, _ = x.shape
     xs, z = torch.chunk(x @ p["in_proj"].to(x.dtype), 2, dim=-1)  # (B, S, d_in)
+    mg = tensor_parallel.current()
+    if mg is not None and p["conv_w"].shape[-1] != d_in:
+        if mode != "train" or state is not None:
+            raise ValueError("tensor-parallel SSM heads run in train mode only")
+        return _ssm_block_tp(p, x, xs, z, cfg, mg), None
 
     if mode == "decode":
         if state is None or S != 1:
@@ -137,3 +149,20 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, state: SSMState | None = Non
     y, hT = _ssm_core(p, _conv_silu(xpad, p["conv_w"], S), z, cfg, h0)
     new_state = SSMState(h=hT, conv=xpad[:, -(W - 1):].to(cfg.dtype))
     return y.to(x.dtype) @ p["out_proj"].to(x.dtype), new_state
+
+
+def _ssm_block_tp(p, x: torch.Tensor, xs: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
+                  mg) -> torch.Tensor:
+    """Train mode on this rank's channels (a ``"model"`` slice of every
+    per-channel leaf, ``models.tensor_parallel``): ``in_proj`` runs whole,
+    its x and z halves enter rank-local compute cut to the rank's channels,
+    and ``out_proj``'s rows give a partial sum, all-reduced."""
+    _d_in, _, N, W = _dims(cfg)
+    B, S, _ = x.shape
+    dl = p["conv_w"].shape[-1]
+    xs, z = (mg.enter(t).narrow(-1, mg.index * dl, dl) for t in (xs, z))
+    xpad = torch.cat([torch.zeros((B, W - 1, dl), dtype=xs.dtype, device=xs.device), xs],
+                     dim=1)
+    h0 = torch.zeros((B, dl, N), dtype=torch.float32, device=x.device)
+    y, _hT = _ssm_core(p, _conv_silu(xpad, p["conv_w"], S), z, cfg, h0, mg)
+    return mg.exit(y.to(x.dtype) @ p["out_proj"].to(x.dtype))

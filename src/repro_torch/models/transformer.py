@@ -32,6 +32,11 @@ encoder output at once.  A logit softcap applies in every attention
 sub-layer (self and cross, every mode) and a ``banded_attention`` config
 takes the O(S·w) banded path in train and long prefill
 (``attention.attention_block``).
+
+In training under tensor parallelism (``models.tensor_parallel``) the
+stack runs on this rank's ``"model"`` slices, each sub-layer deciding from
+its leaves' shapes; the encoder and the cross K/V of an encoder-decoder
+and the embedding inputs of a vision-language model take the same layers.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import tensor_parallel
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_tokens, normal, rms_norm, unembed
@@ -278,14 +284,23 @@ def encode(params, enc_embeds: torch.Tensor, cfg: ModelConfig,
 
 def _cross_kv_per_layer(params, enc_out: torch.Tensor, cfg: ModelConfig):
     """Every decoder layer's cross-attention K and V of the encoder output
-    at once: each (L, B, Hkv, S_enc, D)."""
+    at once: each (L, B, Hkv, S_enc, D).  Under tensor parallelism
+    (``models.tensor_parallel``) they enter the rank-local compute: this
+    rank's heads where ``wk``/``wv`` are a ``"model"`` slice by heads, else
+    every head."""
     a = cfg.attn
     B, S, _ = enc_out.shape
     cross = params["layers"]["cross"]
+    mg = tensor_parallel.current()
+    if mg is not None and cross["wq"].shape[-1] == a.n_heads * a.head_dim:
+        mg = None                        # whole heads: the single-device layer
+    split = mg is not None and cross["wk"].shape[-1] != a.n_kv_heads * a.head_dim
+    src = mg.enter(enc_out) if split else enc_out
 
     def heads(w):                        # (L, D, Hkv*hd) -> (L, B, Hkv, S, hd)
-        y = torch.einsum("bsd,ldo->lbso", enc_out, w.to(enc_out.dtype))
-        return y.reshape(-1, B, S, a.n_kv_heads, a.head_dim).transpose(2, 3)
+        y = torch.einsum("bsd,ldo->lbso", src, w.to(enc_out.dtype))
+        y = y.reshape(-1, B, S, w.shape[-1] // a.head_dim, a.head_dim).transpose(2, 3)
+        return y if mg is None or split else mg.enter(y)
     return heads(cross["wk"]), heads(cross["wv"])
 
 

@@ -226,3 +226,19 @@ def cache_to_numpy(cache):
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return type(cache)(*(host(t) for t in cache))
+
+
+def model_slices(params: ParamTree, dims: Mapping[str, int | None], index: int,
+                 size: int) -> ParamTree:
+    """Rank ``index``'s ``"model"`` slice of each leaf of the whole
+    ``params``, as tensor parallelism holds them (``dims``:
+    ``launch.shardings.model_dims``; ``torch.chunk``'s cut, as a ``Shard``
+    placement's): a ``ParamTree`` of contiguous copies, a leaf with no dim
+    kept as it is.  The reference's parameters come across whole through
+    ``from_numpy`` first."""
+    out = {}
+    for name, p in leaves(params).items():
+        d = dims[name]
+        out[name] = p.detach() if d is None else \
+            torch.chunk(p.detach(), size, dim=d)[index].contiguous()
+    return ParamTree(unflatten(out))

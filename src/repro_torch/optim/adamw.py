@@ -21,7 +21,10 @@ updates its slice of p, m and v with either path (``kernel``: one launch
 per leaf on the local shard).  The caller reduce-scatters the gradients
 onto the moment shards first (``Zero1.reduce_scatter``) and all-gathers the
 new parameter slices after (``Zero1.gather``): the reference's GSPMD
-rendering, made explicit.
+rendering, made explicit.  With tensor parallelism the parameters are
+``"model"`` slices and each rank's shard of p, m and v is its model slice
+cut again by data (``zero1_specs``); the global norm counts every element
+of the whole model once (``Zero1.norm``).
 """
 
 from __future__ import annotations
@@ -140,15 +143,26 @@ def update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class Zero1:
-    """Where each leaf's moments live on a data-parallel mesh: ``dims[name]``
-    is the tensor dim sharded over the data group ``dg`` (a
+    """Where each leaf's moments live on a mesh: ``dims[name]`` is the
+    tensor dim sharded over the data group ``dg`` (a
     ``models.data_parallel.DataGroup``; None: replicated),
     ``placements[name]`` the moments' ``DTensor`` placements on ``mesh``.
-    Every rank calls the collectives in the same order."""
+    With a ``"model"`` axis (tensor parallelism) a rank holds the
+    ``"model"`` slice of each leaf that ``mdims`` names a dim for, over the
+    ``models.tensor_parallel.ModelGroup`` ``mg``; the data shard is cut from
+    that slice, ``shapes`` are the whole leaves' and ``param_placements``
+    the parameters'.  ``everyone`` is the group of every rank of the mesh
+    (None for one rank).  Every rank calls the collectives in the same
+    order."""
     mesh: Any
     dg: Any
     dims: dict[str, int | None]
     placements: dict[str, tuple]
+    everyone: Any = None
+    mg: Any = None
+    mdims: dict[str, int | None] = dataclasses.field(default_factory=dict)
+    shapes: dict[str, torch.Size] = dataclasses.field(default_factory=dict)
+    param_placements: dict[str, tuple] = dataclasses.field(default_factory=dict)
 
     def local(self, t: torch.Tensor, name: str) -> torch.Tensor:
         """This rank's slice of the whole ``t`` (contiguous)."""
@@ -170,20 +184,29 @@ class Zero1:
     def local_shape(self, name: str, shape: torch.Size) -> torch.Size:
         return self.local(torch.empty(shape, device="meta"), name).shape
 
-    def dtensor(self, local: torch.Tensor, name: str, shape: torch.Size):
+    def dtensor(self, local: torch.Tensor, name: str):
+        """``local`` as this rank's shard of a ``DTensor`` of the whole leaf."""
         from torch.distributed.tensor import DTensor
-        full = torch.empty(shape, device="meta")
+        full = torch.empty(self.shapes[name], device="meta")
         return DTensor.from_local(local, self.mesh, self.placements[name], run_check=False,
                                   shape=full.shape, stride=full.stride())
 
     def norm(self, shards: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The global norm of the gradients whose slices are ``shards``:
-        the sharded leaves' squares summed over the group, each replicated
-        leaf counted once."""
+        each element of the whole model counted once.  A leaf's squares are
+        summed over the data group where its shard is cut by data, over the
+        model group where it is a ``"model"`` slice; a leaf whole on every
+        rank is counted once."""
         sq = {n: torch.sum(torch.square(g.to(torch.float32))) for n, g in shards.items()}
-        part = sum((sq[n] for n in shards if self.dims[n] is not None),
-                   torch.zeros((), dtype=torch.float32, device=next(iter(sq.values())).device))
-        return torch.sqrt(self.dg.sum(part) + sum(sq[n] for n in shards if self.dims[n] is None))
+        zero = torch.zeros((), dtype=torch.float32, device=next(iter(sq.values())).device)
+
+        def part(data: bool, model: bool) -> torch.Tensor:
+            return sum((sq[n] for n in shards if (self.dims[n] is not None) == data
+                        and (self.mdims.get(n) is not None) == model), zero)
+        total = self.dg.sum(part(True, False)) + part(False, False)
+        if self.mg is not None:
+            total = total + self.mg.sum(self.dg.sum(part(True, True)) + part(False, True))
+        return torch.sqrt(total)
 
 
 def init_sharded(params: Mapping[str, torch.Tensor], zero: Zero1) -> AdamWState:
@@ -193,7 +216,7 @@ def init_sharded(params: Mapping[str, torch.Tensor], zero: Zero1) -> AdamWState:
     def zeros(name, p):
         local = torch.zeros(zero.local_shape(name, p.shape), dtype=torch.float32,
                             device=p.device)
-        return zero.dtensor(local, name, p.shape)
+        return zero.dtensor(local, name)
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m={n: zeros(n, p) for n, p in params.items()},
                       v={n: zeros(n, p) for n, p in params.items()})
@@ -215,7 +238,7 @@ def update_sharded(params: Mapping[str, torch.Tensor], shards: Mapping[str, torc
         new_p[name], m, v = update_leaf(
             zero.local(p, name), shards[name], state.m[name].to_local(),
             state.v[name].to_local(), sc, cfg, path)
-        new_m[name] = zero.dtensor(m, name, p.shape)
-        new_v[name] = zero.dtensor(v, name, p.shape)
+        new_m[name] = zero.dtensor(m, name)
+        new_v[name] = zero.dtensor(v, name)
     metrics = {"lr": lr, "grad_norm": gnorm}
     return new_p, AdamWState(step=step, m=new_m, v=new_v), metrics

@@ -1197,3 +1197,125 @@ def test_zero1_moe_remat_recompute_on_the_device_thread_sees_the_data_group():
     assert len(calls) == 2 * cfg.n_layers, calls
     assert all(saw for _on_caller, saw in calls), calls
     assert not any(on_caller for on_caller, _saw in calls[cfg.n_layers:]), calls
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model" on two ranks of one card (the ranks'
+# agreement with the reference is held on gloo CPU worlds by
+# tests/test_torch_tp*.py); C14 and C15 on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_tp_step_on_two_ranks_of_the_card_matches_the_mesh_free_step(tmp_path):
+    """One tensor-parallel step of gemma-7b's smoke config in float32 on a
+    (1, 2) mesh, two spawned ranks on ``cuda:0`` in a ``gloo`` group: the
+    loss within 2e-5 relative of the mesh-free ``make_train_step``'s, the
+    fused AdamW kernel once per leaf on each rank's slices, and the kernel
+    path's new slices within 2e-5 relative of the plain path's."""
+    _card()
+    import pickle
+
+    import torch.multiprocessing as mp
+    import tp_scenarios as TP
+    mp.start_processes(TP.card_rank, args=(str(tmp_path / "store"), str(tmp_path), 300.0),
+                       nprocs=2, start_method="spawn")
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"card{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    want = ranks[0]["mesh_free_loss"]
+    for res in ranks:
+        for path in ("jnp", "kernel"):
+            assert res[path]["cuda"]
+            np.testing.assert_allclose(res[path]["loss"], want, rtol=2e-5)
+        assert res["jnp"]["launches"] == 0
+        assert res["kernel"]["launches"] == res["leaves"]
+        assert res["kernel_vs_jnp"] < 2e-5, res["kernel_vs_jnp"]
+
+
+@pytest.mark.cuda
+def test_tp_on_four_cards_with_nccl_matches_the_mesh_free_run(tmp_path):
+    """On four cards, one rank each in an NCCL group: ``train(mesh=
+    make_host_mesh(2, 2))`` of gemma-7b's smoke config in float32 (model
+    slices cut again by data, checkpoints gathered to rank 0 by NCCL) gives
+    the mesh-free ``train()``'s losses within 2e-5 relative, and a resume
+    from its step-2 checkpoint gives step 3's loss and slices bit for bit.
+    Skips with fewer than four cards."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    import pickle
+
+    import torch.multiprocessing as mp
+    import tp_scenarios as TP
+    mp.start_processes(TP.cards_rank, args=(4, str(tmp_path / "store"), str(tmp_path), 300.0),
+                       nprocs=4, start_method="spawn")
+    ranks = []
+    for r in range(4):
+        with open(tmp_path / f"cards{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    want = ranks[0]["mesh_free"]
+    for res in ranks:
+        assert res["backend"] == "nccl"
+        np.testing.assert_allclose(res["losses"], want, rtol=2e-5)
+        assert res["resumed"] == res["losses"][-1:] and res["params_equal"], res["resumed"]
+        assert res["slices"]["layers.mlp.w_in"] == (2, 64, 128)
+    assert all(res["losses"] == ranks[0]["losses"] for res in ranks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dname", ["uint16", "uint32"])
+def test_unsigned_arithmetic_on_the_cuda_executor_wraps(dname):
+    """C14 on the card: uint16/uint32 ``add``, ``subtract``, ``multiply``,
+    ``mod`` (a zero divisor gives 0), ``square``, ``abs``, ``sign`` and
+    ``negative`` on the ``cuda`` executor (the split-pipeline kernel) and on
+    ``fused`` (torch's ops, widened where CUDA has none) against int64
+    masked to the width, values near the top so that they wrap."""
+    _card()
+    from repro_torch.core import annotated_numpy as anp
+    from repro_torch.core import mozart
+    dtype, bits = getattr(torch, dname), (16 if dname == "uint16" else 32)
+    hi, n = 1 << bits, 70001
+    gen = torch.Generator(device="cuda").manual_seed(bits)
+    x64 = torch.cat([torch.randint(hi - 64, hi, (n // 2,), generator=gen, device="cuda"),
+                     torch.randint(0, 64, (n - n // 2,), generator=gen, device="cuda")])
+    y64 = torch.randint(0, hi, (n,), generator=gen, device="cuda")
+    y64[::5] = 0
+    mask = hi - 1
+    want = {"add": (x64 + y64) & mask, "subtract": (x64 - y64) & mask,
+            "multiply": (x64 * y64) & mask,
+            "mod": torch.where(y64 == 0, 0, torch.remainder(x64, torch.where(y64 == 0, 1, y64))),
+            "square": (x64 * x64) & mask, "abs": x64, "sign": (x64 != 0).long(),
+            "negative": (-x64) & mask}
+    for executor in ("cuda", "fused"):
+        for op, w in want.items():
+            with mozart.session(executor=executor, plan_cache=False, autotune=False) as ctx:
+                args = (x64.to(dtype),) if op in ("square", "abs", "sign", "negative") \
+                    else (x64.to(dtype), y64.to(dtype))
+                got = getattr(anp, op)(*args).value
+            assert got.dtype == dtype and torch.equal(got.long(), w), (executor, op)
+            if executor == "cuda":
+                assert ctx.stats["cuda_stages"] == 1, (op, dict(ctx.stats))
+                assert ctx.stats.get("cuda_fallback_stages", 0) == 0, (op, dict(ctx.stats))
+
+
+@pytest.mark.cuda
+def test_retry_after_an_out_of_memory_starts_with_the_memory_released():
+    """C15 on the card: an attempt holding 1 GiB raises an injected
+    ``torch.OutOfMemoryError``; at the retry's start ``memory_allocated``
+    is back to its value before the attempt."""
+    _card()
+    from repro_torch.core.resilience import with_retries
+    torch.cuda.empty_cache()
+    before, seen = torch.cuda.memory_allocated(), []
+
+    def step():
+        if seen:
+            seen.append(torch.cuda.memory_allocated())
+            return "retried"
+        held = torch.ones(1 << 28, device="cuda")
+        seen.append(torch.cuda.memory_allocated())
+        raise torch.OutOfMemoryError(f"injected with {held.numel() * 4} bytes held")
+    assert with_retries(step, retries=1) == "retried"
+    assert seen[0] - before >= 1 << 30 and seen[1] == before, (before, seen)

@@ -382,3 +382,78 @@ def test_unsigned_order_ops_equal_jax(op, dname, executor):
     assert ctx.stats.get("exec_demotions", 0) == 0
     if executor == "cuda":
         assert ctx.stats["cuda_stages"] == 1 and ctx.stats.get("cuda_fallback_stages", 0) == 0
+
+
+# -- C14: the arithmetic of uint16 and uint32 ----------------------------------
+
+C14_OPS = ("add", "subtract", "multiply", "mod", "square", "abs", "sign", "negative",
+           "power", "add_scalar")
+
+
+def _c14_inputs(op, dname):
+    """Values near the top of the width, so that sums, differences,
+    products, squares and negations wrap, with zero divisors for ``mod``.
+    ``power`` takes bases below 6 and exponents 0..3, where jnp's integer
+    power is exact (ROADMAP quirk)."""
+    r = np.random.RandomState(zlib.crc32(f"c14-{op}-{dname}".encode()))
+    hi = 1 << (16 if dname == "uint16" else 32)
+    if op == "power":
+        return r.randint(0, 6, N).astype(dname), r.randint(0, 4, N).astype(dname)
+    x = np.concatenate([r.randint(hi - 40, hi, N // 2, dtype=np.int64),
+                        r.randint(0, 40, N - N // 2, dtype=np.int64)]).astype(dname)
+    y = r.randint(0, hi, N, dtype=np.int64).astype(dname)
+    y[::5] = 0                         # mod by zero: 0
+    return x, y
+
+
+@pytest.mark.parametrize("executor", C13_EXECUTORS)
+@pytest.mark.parametrize("dname", ["uint16", "uint32"])
+@pytest.mark.parametrize("op", C14_OPS)
+def test_unsigned_arithmetic_wraps_as_jax(op, dname, executor):
+    """C14: ``add``, ``subtract``, ``multiply``, ``mod`` (a zero divisor
+    gives 0), ``square``, ``abs``, ``sign``, ``negative`` and ``power`` (and
+    ``add`` of a Python int) of uint16 and uint32 give jnp's dtypes and
+    values, wrapping modulo 2**16 / 2**32, on every executor, where torch
+    has no kernel for most of them at those dtypes."""
+    from sharded_scenarios import port_mesh
+    x, y = _c14_inputs(op, dname)
+    unary = op in ("square", "abs", "sign", "negative")
+
+    def call(anp, x, y):
+        if op == "add_scalar":
+            return anp.add(x, 65000)
+        return getattr(anp, op)(x) if unary else getattr(anp, op)(x, y)
+    with jmozart.session(executor="eager", **JAX_CFG):
+        want = np.asarray(call(janp, jnp.asarray(x), jnp.asarray(y)).value)
+    mesh = {"mesh": port_mesh()} if executor == "sharded" else {}
+    with tmozart.session(executor=executor, device="cpu", **PORT_CFG, **mesh,
+                         batch_elements=BATCH) as ctx:
+        got = call(tanp, _to_torch(x), _to_torch(y)).value
+    assert str(got.dtype).replace("torch.", "") == want.dtype.name == dname
+    np.testing.assert_array_equal(got.to(torch.int64).numpy(), want.astype(np.int64))
+    if op in ("add", "subtract", "multiply", "square", "negative"):
+        assert (want.astype(np.int64) != _exact(op, x, y)).sum() == 0     # jnp wraps
+    assert ctx.stats.get("exec_demotions", 0) == 0
+    if executor == "cuda":
+        assert ctx.stats["cuda_stages"] == 1 and ctx.stats.get("cuda_fallback_stages", 0) == 0
+
+
+def _exact(op, x, y):
+    """The op in Python integers, modulo the width: what wrapping gives."""
+    mod = 1 << (8 * x.dtype.itemsize)
+    a, b = x.astype(object), y.astype(object)
+    out = {"add": a + b, "subtract": a - b, "multiply": a * b, "square": a * a,
+           "negative": -a}[op]
+    return np.array([int(v) % mod for v in out], dtype=np.int64)
+
+
+def test_unsigned_widening_only_where_torch_lacks_the_kernel():
+    """``split_types.lacks_kernel`` probes each op once per signature: on
+    this torch's CPU uint16 ``multiply`` has a kernel (run as it is) and
+    ``add`` has none (widened)."""
+    from repro_torch.core import split_types as st
+    x = torch.tensor([65535, 2], dtype=torch.uint16)
+    assert not st.lacks_kernel(torch.multiply, (x, x), {})
+    assert st.lacks_kernel(torch.add, (x, x), {})
+    assert st.widened(torch.add, where_missing=True)(x, x).tolist() == [65534, 4]
+    assert st.widened(torch.multiply, where_missing=True)(x, x).tolist() == [1, 4]

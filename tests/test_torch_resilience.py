@@ -1006,3 +1006,47 @@ def test_mz4xx_codes_registered():
         assert CODES[code] == JCODES[code]
     resilience.record_event("MZ402", "unit test")
     assert resilience.events()[-1].message == CODES["MZ402"]
+
+
+# -- C15: a retried step starts with the failed attempt's tensors released ------
+
+
+@pytest.mark.parametrize("agree", [False, True])
+def test_retry_starts_with_the_failed_attempts_tensors_released(agree):
+    """C15: the first attempt allocates a tensor, keeps it in a local of a
+    nested frame and raises a transient error; when the second attempt
+    starts, nothing holds that tensor any more (a weak reference to it is
+    dead), with and without ``agree``, and the ``StepFailure`` of an
+    exhausted retry still names the first error."""
+    import gc
+    import weakref
+    refs, alive_at_retry = [], []
+
+    def inner():
+        held = torch.ones(1 << 16)
+        refs.append(weakref.ref(held))
+        raise RuntimeError("injected transient fault")
+
+    def step():
+        if refs:
+            gc.disable()               # the release is by reference count alone
+            try:
+                alive_at_retry.append(refs[0]() is not None)
+            finally:
+                gc.enable()
+            return "done"
+        partial = torch.zeros(1 << 16)          # a local of the failed frame too
+        refs_partial.append(weakref.ref(partial))
+        inner()
+
+    refs_partial = []
+    kw = {"agree": (lambda outcome: [outcome])} if agree else {}
+    assert with_retries(step, retries=1, **kw) == "done"
+    assert alive_at_retry == [False]
+    assert refs_partial[0]() is None
+
+    def always():
+        inner()
+    with pytest.raises(StepFailure) as info:
+        with_retries(always, retries=1, **kw)
+    assert "injected transient fault" in str(info.value.__cause__)

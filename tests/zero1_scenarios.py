@@ -307,8 +307,8 @@ def _checkpoint_moments() -> dict:
     gen = torch.Generator().manual_seed(11)
     whole = {"a": torch.randn(8, 3, generator=gen), "b": torch.randn(3, generator=gen)}
     zero = T.zero1_layout(make_mesh((2, 1), ("data", "model"), "cpu"), whole)
-    m = {n: zero.dtensor(zero.local(t, n).clone(), n, t.shape) for n, t in whole.items()}
-    v = {n: zero.dtensor(zero.local(2 * t, n).clone(), n, t.shape) for n, t in whole.items()}
+    m = {n: zero.dtensor(zero.local(t, n).clone(), n) for n, t in whole.items()}
+    v = {n: zero.dtensor(zero.local(2 * t, n).clone(), n) for n, t in whole.items()}
     keep = dist.get_rank() == 0
     got = T._whole_state(adamw.AdamWState(step=torch.ones((), dtype=torch.int32), m=m, v=v),
                          zero, keep)
