@@ -322,6 +322,25 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              uint16/uint32 arithmetic at 2**24 on ``cuda``, ``sharded`` and
              ``fused``, and C15: a step holding 8 GiB that raises an injected
              ``torch.OutOfMemoryError`` is retried with the memory released;
+             (f) ROADMAP C16: gemma-7b at published widths and depth (28
+             layers), each rank's slices drawn straight from the seed
+             (``train.rank_params``), its peak device memory across the
+             init against its slices plus the largest leaf, bit-equal (per
+             leaf checksums) to the slices of the mesh-free init drawn once
+             in this process, whose whole-then-slice peak is measured too;
+             (g) A8.2c, the expert-parallel MoE dispatch with
+             ``models.shard_ctx`` installed as the reference's
+             ``dryrun.py`` installs it: (g1) one olmoe-1b-7b MoE block at
+             published widths on 2 x 2048 tokens, ``moe_groups`` 2, the
+             default capacity factor, forward and backward against the
+             mesh-free block on the permuted tokens (bfloat16: the serving
+             rule against the float32 distance), with the collective bytes
+             beside the reduce-before-combine path's; (g2)
+             ``train(mesh=make_host_mesh(1, 2))`` of olmoe-1b-7b at 2
+             layers, ``capacity_factor`` 8, its step on the kernel path:
+             losses against the mesh-free ``train()``'s, the fused AdamW
+             kernel once per leaf per step (wrapper and profiler), step ms,
+             peak memory and collective bytes per rank;
              seconds and a ``{"tp": ...}`` JSON line.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
@@ -5321,6 +5340,14 @@ TP_STEPS = 3
 TP_LOSS1_RTOL, TP_LOSS_RTOL = 1e-3, 2e-2
 TP_TIMEOUT_S = 600               # the ranks' gloo collectives
 C15_BYTES = 8 << 30              # the failed attempt's allocation
+EP_GROUPS = 2                    # (g): one dispatch group per device of (1, 2)
+EP_CAPACITY = 8.0                # (g2): n_experts / top_k, where nothing drops
+#: (g2) step 1's loss against the mesh-free run's (the (c) leg's olmoe comes
+#: within 2.6e-4 on its later steps); steps 2-3 within TP_LOSS_RTOL
+EP_LOSS1_RTOL = 5e-4
+EP_FLOOR_FACTOR = 1.5            # (g1): the serving rule, max(2e-2, 1.5 x floor)
+#: (g1): the expert leaves split over "model" (F) and their dim
+EP_MODEL_DIMS = {"w_in": 2, "w_gate": 2, "w_out": 1}
 
 
 def tp_gemma_config():
@@ -5331,6 +5358,97 @@ def tp_gemma_config():
 def tp_olmoe_config():
     from repro_torch.configs.registry import get_config
     return get_config("olmoe-1b-7b").with_runtime(n_layers=TP_MOE_LAYERS, moe_groups=1)
+
+
+def tp_init_config():
+    """(f): gemma-7b at its published widths and depth."""
+    from repro_torch.configs.registry import get_config
+    return get_config("gemma-7b")
+
+
+def tp_ep_config(capacity_factor: float | None = None):
+    """(g): olmoe-1b-7b at published widths, ``TP_MOE_LAYERS`` layers, one
+    dispatch group per device of the (1, 2) mesh."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("olmoe-1b-7b").with_runtime(n_layers=TP_MOE_LAYERS, moe_groups=EP_GROUPS)
+    if capacity_factor is None:
+        return cfg
+    return cfg.with_runtime(moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+
+
+def ep_install(mesh, cfg, batch: int) -> None:
+    """``models.shard_ctx`` as the reference's ``launch/dryrun.py``
+    (``:168-183``) installs it, in the port's ``(mesh, placements)`` pairs:
+    the residual's batch over the data axes (where it divides) and sequence
+    over "model", the MoE groups over every axis, the logits' vocabulary
+    over "model"."""
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import data_axes_of, dp_extent, tp_extent
+    from repro_torch.models import shard_ctx
+    dpa = data_axes_of(mesh)
+    dp_spec = dpa if len(dpa) > 1 else (dpa[0] if dpa else None)
+    bspec = dp_spec if batch % dp_extent(mesh) == 0 else None
+    shard_ctx.set_residual((mesh, shd.placements(
+        (bspec, "model" if cfg.seq_shard_residual else None, None), mesh)))
+    shard_ctx.set_moe_groups((mesh, shd.placements((tuple(mesh.mesh_dim_names),), mesh)))
+    if cfg.padded_vocab % tp_extent(mesh) == 0:
+        shard_ctx.set_logits((mesh, shd.placements((bspec, None, "model"), mesh)))
+
+
+def bit_sums(t: torch.Tensor) -> tuple[int, int]:
+    """A checksum of ``t``'s bits without a second copy of it: the wrapping
+    int64 sums of its elements' bit patterns, plain and weighted by
+    position, ``CHUNK`` elements at a time."""
+    ints = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    flat = t.detach().contiguous().reshape(-1).view(ints)
+    s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i in range(0, flat.numel(), CHUNK):
+        c = flat[i:i + CHUNK].to(torch.int64)
+        s1 += c.sum()
+        s2 += (c * torch.arange(i + 1, i + 1 + c.numel(), device=t.device)).sum()
+        del c
+    return int(s1), int(s2)
+
+
+def tp_init_plain(cfg) -> dict:
+    """(f)'s reference, in this process: the mesh-free init of ``cfg`` from
+    seed 0 and, as a rank of the (1, 2) mesh held it before C16, rank 0's
+    slices cut from it (``weights.model_slices``): that path's peak device
+    memory and seconds, the whole model's and the largest leaf's bytes, and
+    per rank the bit sums of each leaf's slice.  The whole model is freed
+    before the ranks start."""
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    dims = shd.model_dims(tfm.init_model(cfg, None, "meta"),
+                          AbstractMesh((1, 2), ("data", "model")))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rank0 = weights.model_slices(whole, dims, 0, 2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    del rank0
+    leaves = weights.leaves(whole)
+    nbytes = {n: p.numel() * p.element_size() for n, p in leaves.items()}
+    largest = max(nbytes, key=nbytes.get)
+    sums = [{n: bit_sums(p if dims[n] is None else torch.chunk(p, 2, dims[n])[i])
+             for n, p in leaves.items()} for i in range(2)]
+    del whole, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sums": sums, "whole_then_slice_peak_bytes": peak, "whole_then_slice_s": seconds,
+            "whole_bytes": sum(nbytes.values()), "largest_leaf": largest,
+            "largest_leaf_bytes": nbytes[largest],
+            "slice_bytes": sum(b // (1 if dims[n] is None else 2) for n, b in nbytes.items())}
 
 
 @contextlib.contextmanager
@@ -5608,6 +5726,206 @@ def tp_resume(mesh, cfg, ckpt_dir: str, want_loss: float, want: dict) -> dict:
             "checkpoint_bytes": nbytes, "resume_s": resume_s}
 
 
+def tp_init(mesh, cfg, plain: dict) -> dict:
+    """(f) ROADMAP C16: this rank's parameters as ``train(mesh=...)`` makes
+    them (``train.rank_params``: drawn straight into the rank's slices),
+    the peak device memory across that init (reset before it), the bytes of
+    the slices, and every leaf's bit sums against the mesh-free init's
+    slice (``plain``, from ``tp_init_plain``)."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = T.zero1_layout(mesh, tfm.init_model(cfg, None, "meta"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.rank_params(cfg, zero, torch.Generator(device="cuda").manual_seed(0),
+                          torch.device("cuda"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = weights.leaves(model)
+    want = plain["sums"][zero.mg.index]
+    differ = [n for n, p in leaves.items() if bit_sums(p) != want[n]]
+    out = {"peak_bytes": peak, "seconds": seconds, "leaves": len(leaves), "differ": differ,
+           "slice_bytes": sum(p.numel() * p.element_size() for p in leaves.values())}
+    del model, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_params(cfg, seed: int) -> dict:
+    """Layer 0's MoE leaves of ``cfg`` drawn on the card, flat, whole."""
+    from repro_torch.models import mlp, weights
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {n: t[0] for n, t in weights.flatten(mlp.init_moe(cfg, gen, "cuda", 1)).items()}
+
+
+def _ep_block(p: dict, x: torch.Tensor, w: torch.Tensor, cfg, groups=(None, None),
+              sent=None) -> dict:
+    """``moe_block`` of the flat leaves ``p`` on x under the data and model
+    groups, and the backward of ``sum(out * w) + aux``: the output, the aux
+    loss, the gradients of x and of every leaf, the collective bytes of the
+    forward and of the backward (into ``sent``'s keys) and the host
+    seconds of each, synchronised."""
+    from repro_torch.models import data_parallel, mlp, tensor_parallel, weights
+    leaves = {n: t.detach().clone().requires_grad_() for n, t in p.items()}
+    x = x.detach().clone().requires_grad_()
+    dg, mg = groups
+    res = {}
+    with data_parallel.use(dg), tensor_parallel.use(mg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_bytes(sent if sent is not None else collections.Counter()) as c:
+            out, aux = mlp.moe_block(weights.unflatten(leaves), x, cfg)
+            torch.cuda.synchronize()
+            res["forward_bytes"] = sum(c.values())
+        res["forward_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with collective_bytes(collections.Counter()) as c:
+            ((out.float() * w.float()).sum() + aux).backward()
+            torch.cuda.synchronize()
+            res["backward_bytes"] = sum(c.values())
+        res["backward_s"] = time.perf_counter() - t0
+    res.update(out=out.detach(), aux=float(aux.detach()), grads={"x": x.grad, **{
+        n: t.grad for n, t in leaves.items()}})
+    return res
+
+
+def _ep_oracle(p: dict, x: torch.Tensor, w: torch.Tensor, cfg, dtype) -> dict:
+    """The mesh-free block with ``EP_GROUPS`` groups on x permuted so that
+    each device's (batch block, sequence block) of the (1, 2) mesh is one
+    group, then un-permuted, in ``dtype``: the expert-parallel result."""
+    B, S, D = x.shape
+    perm = lambda t: t.reshape(B, EP_GROUPS, S // EP_GROUPS, -1).transpose(0, 1).reshape(
+        B * EP_GROUPS, S // EP_GROUPS, -1)
+    unperm = lambda t: t.reshape(EP_GROUPS, B, S // EP_GROUPS, -1).transpose(0, 1).reshape(
+        B, S, -1)
+    from repro_torch.models import mlp, weights
+    leaves = {n: t.detach().to(t.dtype if t.dtype == torch.float32 else dtype)
+              .clone().requires_grad_() for n, t in p.items()}
+    xx = x.detach().to(dtype).clone().requires_grad_()
+    out, aux = mlp.moe_block(weights.unflatten(leaves), perm(xx), cfg.with_runtime(dtype=dtype))
+    out = unperm(out)
+    ((out.float() * w.float()).sum() + aux).backward()
+    return {"out": out.detach(), "aux": float(aux.detach()),
+            "grads": {"x": xx.grad, **{n: t.grad for n, t in leaves.items()}}}
+
+
+def tp_ep_block(mesh, cfg) -> dict:
+    """(g1) one MoE block of ``cfg`` (layer 0's leaves from seed 0) on x of
+    (``TRAIN_BATCH``, ``TRAIN_SEQ``, d_model) bfloat16 with a component
+    every token shares (so the default capacity drops), with
+    ``models.shard_ctx`` installed: this rank's F slices, forward and
+    backward, against the mesh-free block on the permuted tokens
+    (``_ep_oracle``) within max(2e-2, 1.5 x floor) of each tensor's
+    largest element, the floor being the oracle's own bfloat16 against
+    float32; then the same block without the context (the
+    reduce-before-combine path of tensor parallelism, ``out_buf``
+    all-reduced per group) for its collective bytes and seconds."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import mlp, shard_ctx
+    p = _ep_params(cfg, 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    D = cfg.d_model
+    x = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, D), generator=gen, device="cuda")
+         + torch.randn((D,), generator=gen, device="cuda")).to(cfg.dtype)
+    w = torch.randn((TRAIN_BATCH, TRAIN_SEQ, D), generator=gen, device="cuda").to(cfg.dtype)
+    dg, mg = T.data_group(mesh), T.tp_group(mesh)
+    mine = {n: (t if n not in EP_MODEL_DIMS else
+                torch.chunk(t, mg.size, EP_MODEL_DIMS[n])[mg.index].contiguous())
+            for n, t in p.items()}
+    ep_install(mesh, cfg, TRAIN_BATCH)
+    real, taken = mlp._expert_parallel, []
+    mlp._expert_parallel = lambda *a, **k: taken.append(1) or real(*a, **k)
+    try:
+        with mlp.count_drops() as drops:
+            got = _ep_block(mine, x, w, cfg, (dg, mg))
+            dropped, routed = drops.dropped, drops.routed
+    finally:
+        shard_ctx.clear()
+        mlp._expert_parallel = real
+    want = _ep_oracle(p, x, w, cfg, cfg.dtype)
+    f32 = _ep_oracle(p, x, w, cfg, torch.float32)
+    worst = {}
+    for key in ("out", *want["grads"]):
+        a = got["out"] if key == "out" else got["grads"][key]
+        b = want["out"] if key == "out" else want["grads"][key]
+        c = f32["out"] if key == "out" else f32["grads"][key]
+        if key in EP_MODEL_DIMS:          # this rank's slice of the whole gradient
+            b = torch.chunk(b, mg.size, EP_MODEL_DIMS[key])[mg.index]
+            c = torch.chunk(c, mg.size, EP_MODEL_DIMS[key])[mg.index]
+        big = float(c.float().abs().max())
+        floor = float((b.float() - c.float()).abs().max()) / big
+        err = float((a.float() - b.float()).abs().max()) / big
+        worst[key] = {"rel_err": err, "floor": floor,
+                      "tol": max(TOL[torch.bfloat16], EP_FLOOR_FACTOR * floor)}
+    aux_oracle = want["aux"]
+    del got["out"], got["grads"], want, f32
+    megatron = _ep_block(mine, x, w, cfg, (dg, mg))
+    return {"aux": got["aux"], "aux_oracle": aux_oracle,
+            "ep_calls": len(taken), "dropped": dropped, "routed": routed, "errors": worst,
+            **{k: got[k] for k in ("forward_bytes", "backward_bytes", "forward_s",
+                                   "backward_s")},
+            "megatron": {k: megatron[k] for k in ("forward_bytes", "backward_bytes",
+                                                  "forward_s", "backward_s")}}
+
+
+def tp_ep_train(fa, mesh, cfg) -> dict:
+    """(g2) ``train(cfg, mesh=mesh)`` with ``models.shard_ctx`` installed
+    and its step built on the kernel path (``make_zero1_step(...,
+    "kernel")``): losses, every step profiled (the fused AdamW kernel's
+    launches by the wrapper, counted from 0, and by ``torch.profiler``, its
+    device time), step seconds (profiled), peak memory and collective
+    bytes, and how often the expert-parallel branch ran."""
+    from repro_torch.launch import train as T
+    from repro_torch.launch.train import train
+    from repro_torch.models import mlp, shard_ctx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    real_make, real_ep = T.make_zero1_step, mlp._expert_parallel
+    per_step, profiled, update_ms, taken = [], [], [], []
+
+    def kernel_step(cfg_, opt_cfg, zero, path="jnp"):
+        inner = real_make(cfg_, opt_cfg, zero, "kernel")
+
+        def step(model, state, batch):
+            before = fa.fused_adamw.launches
+            n_prof, us, out = _profile_window(lambda: inner(model, state, batch), 1,
+                                              "fused_adamw")
+            per_step.append(fa.fused_adamw.launches - before)
+            profiled.append(n_prof)
+            update_ms.append(us / 1e3)
+            return out
+        return step
+    times, sent = [], collections.Counter()
+    T.make_zero1_step = kernel_step
+    mlp._expert_parallel = lambda *a, **k: taken.append(1) or real_ep(*a, **k)
+    ep_install(mesh, cfg, TRAIN_BATCH)
+    fa.fused_adamw.launches = 0
+    try:
+        with step_seconds(times), collective_bytes(sent):
+            out = train(cfg, steps=TP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+                        device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        shard_ctx.clear()
+        T.make_zero1_step, mlp._expert_parallel = real_make, real_ep
+    res = {"losses": out["losses"], "step_s": times, "launches": fa.fused_adamw.launches,
+           "launches_per_step": per_step, "profiled_per_step": profiled,
+           "update_device_ms": update_ms, "ep_calls": len(taken),
+           "leaves": len(out["opt_state"].m), "peak_bytes": torch.cuda.max_memory_allocated(),
+           "collective_bytes": dict(sent)}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def tp_probe() -> dict:
     """Which collectives ``gloo`` takes on card tensors, per dtype (every
     rank calls it; "ok" or the error), and the milliseconds of an
@@ -5651,8 +5969,8 @@ def tp_probe() -> dict:
 
 def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
     """One of the two ranks of the tp phase, on ``cuda:0``, in a ``gloo``
-    group of its own making: (a), (b), (c) and (d) on the (1, 2) mesh,
-    its results pickled to ``out_dir``."""
+    group of its own making: (f), (a), (b), (c), (d), (g1) and (g2) on the
+    (1, 2) mesh, its results pickled to ``out_dir``."""
     import pickle
     from datetime import timedelta
     sys.path.insert(0, str(ROOT / "src"))
@@ -5666,6 +5984,7 @@ def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
         res = {"probe": tp_probe()}
         mesh = make_host_mesh(1, 2)
         res.update(mesh=str(mesh), backend=dist.get_backend())
+        res["f"] = tp_init(mesh, tp_init_config(), {"sums": plain["init_sums"]})
         t0 = time.perf_counter()
         res["a"], _final = tp_train(mesh, tp_gemma_config(), plain["gemma"])
         del _final
@@ -5685,6 +6004,13 @@ def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
             res["d"] = tp_resume(mesh, tp_olmoe_config(), ckpt_dir, res["c"]["losses"][-1],
                                  final)
             res["d"]["checkpoint_s"] = dict(parts)
+        del final
+        t0 = time.perf_counter()
+        res["g1"] = tp_ep_block(mesh, tp_ep_config())
+        res["g1"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["g2"] = tp_ep_train(fa, mesh, tp_ep_config(EP_CAPACITY))
+        res["g2"]["seconds"] = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -5775,6 +6101,84 @@ def tp_c15() -> dict:
     return {"before": before, "during": during, "at_retry": at_retry}
 
 
+def tp_check_ep(res: list, plain: dict, init: dict, card: str) -> None:
+    """(f), (g1) and (g2) from both ranks' results: checked, then printed."""
+    gb = lambda b: round(b / 1e9, 2)
+    for r, rr in enumerate(res):
+        f = rr["f"]
+        if f["differ"] or f["slice_bytes"] != init["slice_bytes"] or \
+                f["peak_bytes"] > f["slice_bytes"] + init["largest_leaf_bytes"]:
+            raise AssertionError(f"tp (f) rank {r}: {f} against {init}")
+    f0 = res[0]["f"]
+    log(f"[tp] (f) C16: {tp_init_config().name} at published widths and depth "
+        f"({tp_init_config().n_layers} layers) on a (1, 2) mesh: each rank drew its slices "
+        f"straight from the seed (train.rank_params) in {[round(rr['f']['seconds'], 2) for rr in res]} s; "
+        f"peak device memory across the init per rank {[gb(rr['f']['peak_bytes']) for rr in res]} GB "
+        f"for {gb(f0['slice_bytes'])} GB of slices (the bound: slices + the largest leaf, "
+        f"{init['largest_leaf']} {gb(init['largest_leaf_bytes'])} GB); all {f0['leaves']} "
+        f"leaves bit-equal (checksums) to the slices of the mesh-free init; that init, "
+        f"{gb(init['whole_bytes'])} GB whole, then rank 0's slices cut from it (the path "
+        f"before C16) peaked at {gb(init['whole_then_slice_peak_bytes'])} GB in "
+        f"{init['whole_then_slice_s']:.2f} s")
+    cfg = tp_ep_config()
+    for r, rr in enumerate(res):
+        g = rr["g1"]
+        bad = {k: v for k, v in g["errors"].items() if not v["rel_err"] <= v["tol"]}
+        if bad or g["ep_calls"] != 1 or not 0 < g["dropped"] < g["routed"] or \
+                abs(g["aux"] - g["aux_oracle"]) > 1e-4 * abs(g["aux_oracle"]):
+            raise AssertionError(f"tp (g1) rank {r}: {g}")
+    g = res[0]["g1"]
+    log(f"[tp] (g1) one {cfg.name} MoE block at published widths (D {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens bfloat16, moe_groups {EP_GROUPS}, capacity factor "
+        f"{cfg.moe.capacity_factor} ({g['dropped']} of {g['routed']} assignments dropped), "
+        f"shard_ctx installed: the expert-parallel branch on both ranks; max |err| / max|ref| "
+        f"against the mesh-free block on the permuted tokens "
+        f"{json.dumps({k: round(v['rel_err'], 5) for k, v in g['errors'].items()})} within "
+        f"max(2e-2, 1.5 x floor), floors (bfloat16 against float32) "
+        f"{json.dumps({k: round(v['floor'], 5) for k, v in g['errors'].items()})}; aux "
+        f"{g['aux']:.6f} against {g['aux_oracle']:.6f}; collective bytes forward / backward "
+        f"{g['forward_bytes']} / {g['backward_bytes']} (combine, then reduce) against "
+        f"{g['megatron']['forward_bytes']} / {g['megatron']['backward_bytes']} without the "
+        f"context (out_buf reduced per group); host ms forward / backward "
+        f"{1e3 * g['forward_s']:.1f} / {1e3 * g['backward_s']:.1f} against "
+        f"{1e3 * g['megatron']['forward_s']:.1f} / {1e3 * g['megatron']['backward_s']:.1f}; "
+        f"{g['seconds']:.1f} s")
+    cfg = tp_ep_config(EP_CAPACITY)
+    want = plain["ep"]
+    calls = TP_MOE_LAYERS * TP_STEPS * (2 if cfg.remat else 1)
+    for r, rr in enumerate(res):
+        g = rr["g2"]
+        if g["losses"] != res[0]["g2"]["losses"] or g["ep_calls"] != calls or \
+                g["launches_per_step"] != [g["leaves"]] * TP_STEPS or \
+                g["profiled_per_step"] != [g["leaves"]] * TP_STEPS or \
+                g["launches"] != g["leaves"] * TP_STEPS:
+            raise AssertionError(f"tp (g2) rank {r}: {g}")
+    g = res[0]["g2"]
+    if not all(math.isfinite(x) for x in g["losses"]) or len(g["losses"]) != TP_STEPS:
+        raise AssertionError(f"tp (g2): losses {g['losses']}")
+    for i, (a, b) in enumerate(zip(g["losses"], want["losses"])):
+        tol = EP_LOSS1_RTOL if i == 0 else TP_LOSS_RTOL
+        if abs(a - b) > tol * abs(b):
+            raise AssertionError(f"tp (g2): step {i + 1} loss {a} against the mesh-free {b} "
+                                 f"(rtol {tol})")
+    per_step = {k: v // TP_STEPS for k, v in g["collective_bytes"].items()}
+    log(f"[tp] (g2) train(mesh=make_host_mesh(1, 2)) of {cfg.name} at published widths, "
+        f"{cfg.n_layers} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, capacity factor "
+        f"{cfg.moe.capacity_factor} (nothing drops), shard_ctx installed, the step on the "
+        f"kernel path: losses {g['losses']} against the mesh-free train()'s {want['losses']} "
+        f"(step 1 within rtol {EP_LOSS1_RTOL}, steps 2-3 within {TP_LOSS_RTOL}); the "
+        f"expert-parallel branch {g['ep_calls']} times per rank (forward and remat); "
+        f"fused_adamw launches per step {g['launches_per_step']} (wrapper), "
+        f"{g['profiled_per_step']} (torch.profiler) on each rank, {g['leaves']} leaves, device "
+        f"ms per step {[round(t, 3) for t in g['update_device_ms']]} on rank 0; step ms "
+        f"(profiled) {[round(1e3 * t, 1) for t in g['step_s']]} against "
+        f"{[round(1e3 * t, 1) for t in want['step_s']]} mesh-free; peak device memory per rank "
+        f"{[gb(rr['g2']['peak_bytes']) for rr in res]} GB against {gb(want['peak_bytes'])} GB "
+        f"mesh-free; collective bytes per step on rank 0 {per_step}; {g['seconds']:.1f} s; "
+        f"{card}")
+
+
 def tp_adamw_entry(tp: dict) -> dict:
     """The fused AdamW row's ``tp`` entry: (b)'s launches on both ranks, and
     rank 0's device time per step beside the bound of its slices' bytes
@@ -5813,6 +6217,10 @@ def phase_tp(fa, sp) -> dict:
     plain, params = {}, {}
     plain["gemma"], params["gemma"] = tp_plain(tp_gemma_config())
     plain["olmoe"], params["olmoe"] = tp_plain(tp_olmoe_config())
+    plain["ep"], ep_params = tp_plain(tp_ep_config(EP_CAPACITY))
+    del ep_params
+    init = tp_init_plain(tp_init_config())
+    params["init_sums"] = init.pop("sums")
     t_plain = time.perf_counter() - t_phase
     tmp = tempfile.mkdtemp()
     try:
@@ -5905,6 +6313,7 @@ def phase_tp(fa, sp) -> dict:
         f"the resumed run {d['resume_s']:.1f} s; seconds in the checkpoints' parts on rank "
         f"0, (c) {json.dumps({k: round(v, 1) for k, v in c0['checkpoint_s'].items()})}, "
         f"(d) {json.dumps({k: round(v, 1) for k, v in d['checkpoint_s'].items()})}")
+    tp_check_ep(res, plain, init, card)
     torch.cuda.empty_cache()
     mesh = make_host_mesh()
     try:
@@ -5923,7 +6332,7 @@ def phase_tp(fa, sp) -> dict:
     out = {"plain": plain, "ranks": [{k: {kk: vv for kk, vv in v.items() if kk != "calls"}
                                       if isinstance(v, dict) else v for k, v in rr.items()}
                                      for rr in res],
-           "c14": c14, "c15": c15, "plain_s": t_plain, "ranks_s": ranks_s}
+           "init": init, "c14": c14, "c15": c15, "plain_s": t_plain, "ranks_s": ranks_s}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[tp] phase {out['seconds']:.1f} s (mesh-free runs {t_plain:.1f} s, the two ranks "
         f"{ranks_s:.1f} s); {card}")
@@ -6060,6 +6469,12 @@ def main() -> int:
     resilience_clean("tp")
     log(json.dumps({"tp": tp}))
     rows[adamw_at]["tp"] = tp_adamw_entry(tp)
+    rows[adamw_at]["ep"] = {k: tp["ranks"][0]["g2"][k] for k in
+                            ("launches", "launches_per_step", "profiled_per_step",
+                             "update_device_ms", "leaves")}
+    rows[adamw_at]["ep"]["per_step"] = (f"each rank's model slices of olmoe-1b-7b at "
+                                        f"{TP_MOE_LAYERS} layers, expert-parallel, on a "
+                                        f"(1, 2) mesh")
     log(f"[phases] seconds per check (chaos counts in times, data in kernel): "
         f"{json.dumps(LAPS)}; {sum(s for _, s in LAPS):.1f} s to the last")
     rows.append({"name": "flash_attention", "route": "cuda", "source": ATTN_SOURCE,

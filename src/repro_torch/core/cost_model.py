@@ -20,7 +20,9 @@ cheapest:
 
 2. **Measured feedback.**  On the first execution of a *cached* plan the
    ``AutoExecutor`` times one bounded sample, the same size for every
-   viable candidate (``StageExecutor.sampled_time``), records the extrapolated seconds into
+   viable candidate (``StageExecutor.sampled_time``), times the ones within
+   ``_CONFIRM_RATIO`` of the fastest again and keeps each one's fastest
+   run, records the extrapolated seconds into
    the plan-cache entry (``PlanEntry.exec_timings``) and pins the winner
    (``PlanEntry.chosen_exec``).  Fresh measurements overwrite recorded
    timings.  Pinned choices persist across processes
@@ -66,6 +68,11 @@ _INTERPRET_PENALTY_S_PER_ELEM = 1e-4
 #: measure only candidates whose analytic estimate is within this factor of
 #: the best candidate's.
 _MEASURE_RATIO = 50.0
+
+#: re-time the measured candidates within this factor of the fastest
+#: ``_CONFIRM_RUNS`` more times each, keeping each one's fastest run.
+_CONFIRM_RATIO = 10.0
+_CONFIRM_RUNS = 2
 
 #: FLOPs one unit of SA ``cost_hint`` stands for (one elementwise op).
 _FLOPS_PER_HINT = 8.0
@@ -310,9 +317,10 @@ class AutoExecutor(StageExecutor):
     def _measure_and_pin(self, stage: Stage, concrete: dict[tuple, Any], ctx,
                          entry, blocked: "set | frozenset" = frozenset(),
                          group=None) -> str:
-        """Time a bounded sample under each viable candidate, record the
-        extrapolated seconds (overwriting stale values) and pin the measured
-        winner.  Quarantined candidates are neither measured nor pinned; a
+        """Time a bounded sample under each viable candidate (those within
+        ``_CONFIRM_RATIO`` of the fastest ``_CONFIRM_RUNS`` more times,
+        keeping each one's fastest run), record the extrapolated seconds
+        (overwriting stale values) and pin the measured winner.  Quarantined candidates are neither measured nor pinned; a
         candidate that fails its sample stays unscored, counted
         (``note_swallowed``), unless the failure is a kernel fault or a
         failure of the ``cuda`` candidate other than an injected fault
@@ -346,18 +354,33 @@ class AutoExecutor(StageExecutor):
             elems = max(s for _c, _d, _b, s in runs)
             if group is not None:
                 elems = agree(group, elems)[0]
-            fresh = {}
-            for c, d, batch, _s in runs:
-                try:
-                    fresh[c] = d.sampled_time(stage, concrete, ctx, batch, n, elems)
-                except resilience.PROBE_ERRORS as e:
-                    if c == "cuda" and not resilience.cuda_may_skip(e):
-                        raise
-                    resilience.note_swallowed("auto_measure", e, ctx)
-            if group is not None:
-                every = agree(group, fresh)
-                fresh = {c: max(r[c] for r in every) for c in fresh
-                         if all(c in r for r in every)}
+
+            def timed(which):
+                got = {}
+                for c, d, batch, _s in runs:
+                    if c not in which:
+                        continue
+                    try:
+                        got[c] = d.sampled_time(stage, concrete, ctx, batch, n, elems)
+                    except resilience.PROBE_ERRORS as e:
+                        if c == "cuda" and not resilience.cuda_may_skip(e):
+                            raise
+                        resilience.note_swallowed("auto_measure", e, ctx)
+                if group is not None:
+                    every = agree(group, got)
+                    got = {c: max(r[c] for r in every) for c in got
+                           if all(c in r for r in every)}
+                return got
+
+            fresh = timed({c for c, *_ in runs})
+            # One timed run on the host clock can be stretched by a stall of
+            # the host: re-time the contenders and keep each one's fastest run.
+            if fresh:
+                best = min(fresh.values())
+                close = {c for c, s in fresh.items() if s <= best * _CONFIRM_RATIO}
+                for _r in range(_CONFIRM_RUNS):
+                    for c, s in timed(close).items():
+                        fresh[c] = min(fresh[c], s)
             for c, secs in fresh.items():
                 entry.record_exec_timing(stage.id, c, secs)
             measured = entry.exec_timings.get(stage.id, {})

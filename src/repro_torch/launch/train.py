@@ -21,10 +21,15 @@ the ``"model"`` slice of every leaf ``shardings.param_specs`` shards there
 (``weights.model_slices``) and the forward and backward run on the slices
 under the model group (``models.tensor_parallel``: split or gathered per
 leaf, ``tensor_parallel.plan``); the moments are those slices cut again by
-data, and ``train`` returns the rank's slices.  m and v are ``DTensor``s; a checkpoint saves parameters and moments
+data, and ``train`` returns the rank's slices.  A rank draws its slices
+straight from the seed (``weights.init_slices``), never the whole model,
+and a resume draws nothing: it allocates the slices and restores into
+them.  m and v are ``DTensor``s; a checkpoint saves parameters and moments
 whole (gathered on the main thread, one leaf at a time) and a resume
 restores both with their placements.  The expert-parallel MoE dispatch
-waits for ROADMAP A8.2c.
+(``models.shard_ctx``) runs where the caller installs its context, as the
+reference's ``launch/dryrun.py`` does; ``train`` installs none, as the
+reference's does not.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-7b --smoke \
         --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt
@@ -137,6 +142,24 @@ def zero1_layout(mesh, params) -> adamw.Zero1:
                           for n, sp in shd.param_specs(params, mesh).items()})
 
 
+def rank_params(cfg: ModelConfig, zero: adamw.Zero1, generator: torch.Generator | None,
+                device: torch.device) -> weights.ParamTree:
+    """This rank's parameters on ``zero.mesh``: its ``"model"`` slices (the
+    whole leaves where the extent is 1) drawn straight from ``generator``
+    by ``weights.init_slices``, bit-equal to the slices of the mesh-free
+    init; with no generator (a resume) the slices allocated, for the
+    restore to fill.  No rank holds the whole model."""
+    mg = zero.mg
+    dims = zero.mdims if mg is not None else dict.fromkeys(zero.shapes)
+    index, size = (0, 1) if mg is None else (mg.index, mg.size)
+    if generator is not None:
+        return weights.init_slices(cfg, generator, device, dims, index, size)
+    meta = weights.model_slices(tfm.init_model(cfg, None, "meta"), dims, index, size)
+    return weights.ParamTree(weights.unflatten({
+        n: torch.empty(p.shape, dtype=p.dtype, device=device)
+        for n, p in weights.leaves(meta).items()}))
+
+
 def local_batch(batch: dict, mesh, dg: data_parallel.DataGroup) -> tuple[dict, bool]:
     """This rank's rows of the global ``batch`` by ``shardings.batch_specs``,
     and whether the rows are sharded (else every rank keeps them all)."""
@@ -245,19 +268,16 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     opt_cfg = adamw.AdamWConfig(lr=lr, total_steps=max(steps, 2),
                                 warmup_steps=max(steps // 20, 1))
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = tfm.init_model(cfg, gen, device)
-    pipe = DataPipeline(cfg, batch, seq, seed=seed, device=device)
     zero = group = None
     if mesh is None:
+        model = tfm.init_model(cfg, gen, device)
         opt_state = adamw.init(weights.leaves(model))
         step_fn = make_train_step(cfg, opt_cfg)
     else:
-        zero = zero1_layout(mesh, model)
-        if zero.mg is not None:          # this rank's "model" slices
-            model = weights.model_slices(model, zero.mdims, zero.mg.index, zero.mg.size)
-        opt_state = adamw.init_sharded(weights.leaves(model), zero)
+        zero = zero1_layout(mesh, tfm.init_model(cfg, None, "meta"))
         step_fn = make_zero1_step(cfg, opt_cfg, zero)
         group = zero.everyone            # every rank of the mesh
+    pipe = DataPipeline(cfg, batch, seq, seed=seed, device=device)
     writer = group is None or dist.get_rank(group) == 0     # the rank that writes
 
     # -- init or resume -------------------------------------------------------
@@ -266,6 +286,9 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     latest = ckpt.latest_step(ckpt_dir) if ckpt_dir and resume else None
     if group is not None:                    # every rank resumes from one step
         latest = sharded.agree(group, latest)[0]
+    if zero is not None:                     # a resume draws no init
+        model = rank_params(cfg, zero, gen if latest is None else None, device)
+        opt_state = adamw.init_sharded(weights.leaves(model), zero)
     if latest is not None:
         start = latest
         shardings = None

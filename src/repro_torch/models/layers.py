@@ -7,6 +7,9 @@ lookup of tensor parallelism.
 
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 
 from repro_torch.models import tensor_parallel
@@ -18,22 +21,68 @@ from repro_torch.models.config import ModelConfig
 #: (granite-34b's stacked MLP leaf would otherwise need a 53 GB one).
 DRAW_ELEMENTS = 1 << 26
 
+_draw_hook = None
+
+
+@contextlib.contextmanager
+def drawing(hook):
+    """Install ``hook`` for the ``with`` block: every ``normal`` call
+    inside returns ``hook(shape, draw)``, where ``draw(cut)`` makes the leaf
+    as ``normal`` would, or with ``cut = (dim, index, size)`` only its
+    ``torch.chunk(leaf, size, dim)[index]``, from the same draws in the same
+    order (``weights.init_slices``).  One init at a time: the hook is
+    process-wide."""
+    global _draw_hook
+    prev, _draw_hook = _draw_hook, hook
+    try:
+        yield
+    finally:
+        _draw_hook = prev
+
 
 def normal(shape: tuple[int, ...], scale: float, dtype: torch.dtype,
            generator: torch.Generator | None, device: torch.device | str) -> torch.Tensor:
     """``N(0, 1) * scale`` drawn in float32, then cast (as the JAX init does),
     into a leaf allocated once in ``dtype``; a leaf of more than
     ``DRAW_ELEMENTS`` is drawn in slices of its first axis.  On the ``meta``
-    device only shape and dtype are made."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    if out.device.type == "meta" or out.numel() == 0:
+    device only shape and dtype are made.  Under ``drawing`` the hook
+    decides what is kept."""
+    def draw(cut=None):
+        return _draw(tuple(shape), scale, dtype, generator, device, cut)
+    return draw() if _draw_hook is None else _draw_hook(tuple(shape), draw)
+
+
+def _draw(shape, scale, dtype, generator, device, cut) -> torch.Tensor:
+    """``normal``'s leaf, or its chunk ``cut = (dim, index, size)``: every
+    first-axis piece is drawn whole, so the generator advances as for the
+    whole leaf, and only the chunk's part of it is kept."""
+    dim, lo, hi = 0, 0, shape[0] if shape else 1
+    if cut is not None:
+        dim, index, size = cut
+        step = -(-shape[dim] // size)                 # torch.chunk's cut
+        lo = min(index * step, shape[dim])
+        hi = min(lo + step, shape[dim])
+    kept = list(shape)
+    if shape:
+        kept[dim] = hi - lo
+    out = torch.empty(kept, dtype=dtype, device=device)
+    if out.device.type == "meta" or math.prod(shape) == 0:
         return out
-    row = max(out[0].numel(), 1) if out.dim() else 1
-    step = max(DRAW_ELEMENTS // row, 1) if out.dim() else 1
-    for i in range(0, max(out.shape[0], 1) if out.dim() else 1, step):
-        part = out[i:i + step] if out.dim() else out
-        x = torch.randn(part.shape, generator=generator, dtype=torch.float32, device=device)
-        part.copy_(x.mul_(scale))
+    if not shape:
+        return out.copy_(torch.randn((), generator=generator, dtype=torch.float32,
+                                        device=device).mul_(scale))
+    row = max(math.prod(shape[1:]), 1)
+    step = max(DRAW_ELEMENTS // row, 1)
+    for i in range(0, shape[0], step):
+        n = min(step, shape[0] - i)
+        x = torch.randn((n, *shape[1:]), generator=generator, dtype=torch.float32,
+                        device=device).mul_(scale)
+        if dim:
+            out[i:i + n].copy_(x.narrow(dim, lo, hi - lo))
+        elif max(i, lo) < min(i + n, hi):
+            a, b = max(i, lo), min(i + n, hi)
+            out[a - lo:b - lo].copy_(x[a - i:b - i])
+        del x                              # before the next piece is drawn
     return out
 
 

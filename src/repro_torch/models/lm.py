@@ -16,7 +16,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import data_parallel, tensor_parallel
+from repro_torch.models import data_parallel, shard_ctx, tensor_parallel
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -94,7 +94,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     def ce_of(h, l):
         if mg is not None:
             h = mg.enter(h)
-        lf = (h @ head.to(h.dtype)).to(torch.float32)
+        lf = shard_ctx.constrain_logits(h @ head.to(h.dtype)).to(torch.float32)
         if valid_vocab is not None and valid_vocab != (V if mg is None else vocab):
             lf = torch.where(lo + torch.arange(V, device=lf.device) < valid_vocab,
                              lf, -1e30)

@@ -12,10 +12,21 @@ are over every rank's tokens, and capacity is per group of the global
 tokens.  Under tensor parallelism (``models.tensor_parallel``) the
 experts' F is a ``"model"`` slice: routing runs on the replicated tokens,
 each rank's FFN on its F slice, and ``out_buf`` is all-reduced over the
-group before the combine, as the reference's sharded dispatch psums it.
-The reference's expert-parallel ``shard_map`` branch waits for ROADMAP
-A8.2c (``shard_ctx`` and ``dryrun.py``, which alone installs it);
-``moe_block`` raises if asked for it.
+group before the combine.
+
+The reference's expert-parallel branch (its ``shard_map``) runs where
+``models.shard_ctx`` has ``_MOE_GROUPS`` and ``_RESIDUAL`` set and
+``moe_groups`` > 1: one dispatch group per device of the mesh, device
+(d, m) routing batch block d and sequence block m with per-device
+capacity, the aux loss from statistics over every token.  The port's
+residual is whole on every ``"model"`` rank (Megatron), so each rank
+routes all M sequence blocks of its rows as M groups, runs its F slice of
+every expert on all of them, combines, and only then all-reduces over
+``"model"``: the combine is linear in ``out_buf``, so the collective
+carries (tokens, D) instead of (E, C, D).  Each device's tokens get the
+whole expert FFN; the reference's psum of ``out_buf`` over ``"model"``
+also adds the other ranks' sequence blocks into each rank's buffers
+(ROADMAP, reference quirks), which the port does not reproduce.
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import data_parallel, tensor_parallel
+from repro_torch.models import data_parallel, shard_ctx, tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 
@@ -169,13 +180,23 @@ def ranks(expert_idx: torch.Tensor, n_experts: int, capacity: int):
     return order, counts, starts, pos, pos < capacity
 
 
+def _expert_group(p, cfg: ModelConfig):
+    """The model group the experts' F is split over (None for whole
+    experts)."""
+    mg = tensor_parallel.current()
+    return None if mg is None or p["w_in"].shape[-1] == cfg.moe.d_expert else mg
+
+
 def _dispatch_one_group(xt: torch.Tensor, gate_vals: torch.Tensor,
-                        expert_idx: torch.Tensor, p, cfg: ModelConfig, capacity: int):
+                        expert_idx: torch.Tensor, p, cfg: ModelConfig, capacity: int,
+                        mg: tensor_parallel.ModelGroup | None = None):
     """Capacity-based dispatch, expert FFN and combine for ONE token group,
     in the reference's gather formulation: slot (e, c) of the (E, C) table
     holds sorted assignment ``starts[e] + c``; token (t, k) reads
     ``out_buf[e(t, k), pos(t, k)]`` back if it was kept.  Buffers, gates
-    and the k-sum are in ``xt.dtype``.  Returns (out (T, D), keep (T*k,))."""
+    and the k-sum are in ``xt.dtype``.  Experts that are an F slice give
+    this rank's partial sum of ``out_buf``, all-reduced over ``mg`` before
+    the combine where one is given.  Returns (out (T, D), keep (T*k,))."""
     m = cfg.moe
     T, D = xt.shape
     E, k = m.n_experts, m.top_k
@@ -188,9 +209,6 @@ def _dispatch_one_group(xt: torch.Tensor, gate_vals: torch.Tensor,
     src_tok = (order // k)[torch.clamp(slotpos, 0, Tk - 1)]
     buf = xt[src_tok] * slot_valid[..., None].to(xt.dtype)                # (E, C, D)
 
-    mg = tensor_parallel.current()
-    if mg is not None and p["w_in"].shape[-1] == m.d_expert:
-        mg = None                        # whole experts
     if mg is not None:                   # this rank's F slice of every expert
         buf = mg.enter(buf)
     h = torch.bmm(buf, p["w_in"].to(xt.dtype))
@@ -208,13 +226,14 @@ def _dispatch_one_group(xt: torch.Tensor, gate_vals: torch.Tensor,
     return weighted.reshape(T, k, D).sum(1), keep
 
 
-def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig):
     """Returns (out, aux_loss).  x: (B, S, D).
 
     ``cfg.moe_groups`` > 1 (dividing B * S) splits the tokens into
     independent dispatch groups with per-group capacity (the reference's
-    single-device ``vmap`` branch).  ``mesh`` asks for the reference's
-    expert-parallel ``shard_map`` branch, which is not ported: it raises.
+    single-device ``vmap`` branch), or, with ``models.shard_ctx``'s
+    ``_MOE_GROUPS`` and ``_RESIDUAL`` set, into one group per device of
+    the mesh (``_expert_parallel``).
 
     Under a data-parallel group x holds this rank's rows of the global
     batch, and the groups are the global batch's.  Where the rows hold
@@ -222,9 +241,6 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
     here with the global statistics; otherwise every rank's tokens are
     gathered and routed together, and this rank keeps its rows' output.
     The aux loss returned is the global one."""
-    if mesh is not None:
-        raise NotImplementedError("the expert-parallel shard_map dispatch is not ported "
-                                  "yet (ROADMAP A8.2c)")
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
@@ -233,6 +249,8 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
     G = max(cfg.moe_groups, 1)
     if (B * S * n_ranks) % G != 0:
         G = 1
+    if G > 1 and shard_ctx._MOE_GROUPS is not None and shard_ctx._RESIDUAL is not None:
+        return _expert_parallel(p, x, cfg, dg)
     if G % n_ranks != 0:                  # groups span ranks: route globally
         with data_parallel.use(None):
             out, aux = moe_block(p, dg.gather_rows(x), cfg)
@@ -244,13 +262,67 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig, *, mesh=None):
     gate_vals, expert_idx, aux = route(p, xt, cfg, dg)
     Tg = T // G
     capacity = int(max(1, (Tg * k * m.capacity_factor) // E))
+    mg = _expert_group(p, cfg)
     parts = [_dispatch_one_group(xt[g * Tg:(g + 1) * Tg], gate_vals[g * Tg:(g + 1) * Tg],
-                                 expert_idx[g * Tg:(g + 1) * Tg], p, cfg, capacity)
+                                 expert_idx[g * Tg:(g + 1) * Tg], p, cfg, capacity, mg)
              for g in range(G)]
     out = torch.cat([o for o, _ in parts]) if G > 1 else parts[0][0]
+    return _finish(p, x, xt, out, parts, cfg), aux
+
+
+def _finish(p, x: torch.Tensor, xt: torch.Tensor, out: torch.Tensor, parts: list,
+            cfg: ModelConfig) -> torch.Tensor:
+    """The routed experts' (T, D) ``out`` plus the shared experts, as
+    (B, S, D); the groups' ``keep`` masks go to ``count_drops``."""
+    m = cfg.moe
     if _COUNTING and x.device.type != "meta":
         _COUNTING[-1].keeps.extend(keep.detach() for _, keep in parts)
-
     if m.n_shared:
         out = out + mlp_block(p["shared"], xt, cfg, d_ff=m.d_expert * m.n_shared)
-    return out.reshape(B, S, D), aux
+    return out.reshape(x.shape)
+
+
+def _expert_parallel(p, x: torch.Tensor, cfg: ModelConfig, dg):
+    """The reference's expert-parallel dispatch on ``shard_ctx``'s mesh of
+    n devices, M of them on ``"model"``: device (d, m) routes its block of
+    x, the rows of batch block d (this rank's rows under the data group
+    ``dg``, else every row) at sequence block m, as one group of Tl tokens
+    with capacity ``max(1, Tl * k * capacity_factor // E)``; the aux loss
+    is ``E * sum(me * ce) * aux_loss_weight`` with ``me`` and ``ce`` summed
+    over every token and divided by their count, equal on every rank.
+
+    x is whole on every ``"model"`` rank, so each rank routes its rows
+    once (routing is per token; the statistics are summed over the data
+    group alone, the ``"model"`` ranks holding the same tokens) and
+    dispatches all M sequence blocks as M groups, identically on every
+    ``"model"`` rank.  Where the experts are this rank's F slice
+    (``models.tensor_parallel``), each group's combine gives a partial sum
+    that is all-reduced once over ``"model"`` for all M groups; the tokens
+    and the gates enter the rank-local compute, so their gradients are
+    summed over the group in the backward.  Returns the whole (B, S, D)
+    output on every rank, as the rest of the block expects."""
+    from repro_torch.launch.mesh import tp_extent
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    M = tp_extent(shard_ctx._MOE_GROUPS[0])
+    if S % M:
+        raise ValueError(f"the expert-parallel dispatch splits the sequence over "
+                         f"\"model\": {S} positions over {M} ranks")
+    Sl = S // M
+    Tl = B * Sl
+    xt = x.reshape(B * S, D)
+    gate_vals, expert_idx, aux = route(p, xt, cfg, dg)
+    capacity = int(max(1, (Tl * k * m.capacity_factor) // E))
+    mg = _expert_group(p, cfg)
+    xe = xt if mg is None else mg.enter(xt)
+    ge = gate_vals if mg is None else mg.enter(gate_vals)
+
+    def block(t: torch.Tensor, j: int) -> torch.Tensor:   # sequence block j, (b, s) order
+        return t.reshape(B, S, -1)[:, j * Sl:(j + 1) * Sl].reshape(Tl, -1)
+    parts = [_dispatch_one_group(block(xe, j), block(ge, j), block(expert_idx, j), p, cfg,
+                                 capacity) for j in range(M)]
+    out = torch.cat([o.reshape(B, Sl, D) for o, _ in parts], dim=1).reshape(B * S, D)
+    if mg is not None:
+        out = mg.exit(out)
+    return _finish(p, x, xt, out, parts, cfg), aux

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import shard_ctx
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import tensor_parallel
 from repro_torch.models.attention import KVCache
@@ -171,6 +172,7 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     ``causal`` is False in the encoder; ``cross_kv`` is an encoder-decoder
     layer's (K, V) of the encoder output: its cross sub-layer runs between
     self-attention and the MLP (skipped without it, as the reference's)."""
+    x = shard_ctx.constrain_residual(x)
     if "rwkv" in p:
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
             cfg, x.shape[0], x.device)
@@ -301,7 +303,8 @@ def _cross_kv_per_layer(params, enc_out: torch.Tensor, cfg: ModelConfig):
         y = torch.einsum("bsd,ldo->lbso", src, w.to(enc_out.dtype))
         y = y.reshape(-1, B, S, w.shape[-1] // a.head_dim, a.head_dim).transpose(2, 3)
         return y if mg is None or split else mg.enter(y)
-    return heads(cross["wk"]), heads(cross["wv"])
+    return (shard_ctx.constrain_cross_kv(heads(cross["wk"])),
+            shard_ctx.constrain_cross_kv(heads(cross["wv"])))
 
 
 def _inputs_to_embeds(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,

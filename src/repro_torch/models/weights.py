@@ -235,10 +235,45 @@ def model_slices(params: ParamTree, dims: Mapping[str, int | None], index: int,
     ``launch.shardings.model_dims``; ``torch.chunk``'s cut, as a ``Shard``
     placement's): a ``ParamTree`` of contiguous copies, a leaf with no dim
     kept as it is.  The reference's parameters come across whole through
-    ``from_numpy`` first."""
+    ``from_numpy`` first; ``init_slices`` draws the slices without the
+    whole."""
     out = {}
     for name, p in leaves(params).items():
         d = dims[name]
         out[name] = p.detach() if d is None else \
+            torch.chunk(p.detach(), size, dim=d)[index].contiguous()
+    return ParamTree(unflatten(out))
+
+
+def init_slices(cfg: ModelConfig, generator: torch.Generator | None,
+                device: torch.device | str, dims: Mapping[str, int | None], index: int,
+                size: int) -> ParamTree:
+    """``model_slices(init_model(cfg, generator, device), dims, index,
+    size)`` bit for bit, without ever holding the whole model: each leaf
+    ``layers.normal`` draws is drawn straight into this rank's slice, a
+    first-axis piece of at most ``layers.DRAW_ELEMENTS`` float32 values at
+    a time, from the same draws in the same order.  Which draw makes which
+    leaf comes from an init on the ``meta`` device first.  The leaves
+    ``normal`` does not draw (norm scales, the SSM's and RWKV's constants)
+    are made whole and cut at the end."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import init_model
+    made: list[nn.Parameter] = []
+
+    def record(shape, draw):
+        made.append(nn.Parameter(draw(), requires_grad=False))
+        return made[-1]
+    with layers.drawing(record):
+        meta = init_model(cfg, None, "meta")
+    name_of = {id(p): n for n, p in leaves(meta).items()}
+    drawn = [name_of[id(p)] for p in made]
+    cuts = iter([None if dims[n] is None else (dims[n], index, size) for n in drawn])
+    with layers.drawing(lambda shape, draw: draw(next(cuts))):
+        tree = init_model(cfg, generator, device)
+    drawn = set(drawn)
+    out = {}
+    for name, p in leaves(tree).items():
+        d = dims[name]
+        out[name] = p.detach() if d is None or name in drawn else \
             torch.chunk(p.detach(), size, dim=d)[index].contiguous()
     return ParamTree(unflatten(out))

@@ -322,6 +322,31 @@ class TestAutoSelection:
         assert len(seen) >= 2 and "eager" in {name for name, _e in seen}
         assert {e for _name, e in seen} == {60_000}
 
+    def test_a_stretched_timing_is_measured_again(self, monkeypatch):
+        """A candidate's first timed run, stretched by a stall of the host,
+        does not decide the pick: the candidates within ``_CONFIRM_RATIO``
+        of the fastest are timed again and each keeps its fastest run."""
+        from repro_torch.core.stage_exec import StageExecutor
+        x = torch.linspace(0.0, 1.0, 60_000)
+        seen = []
+
+        def fake(self, stage, concrete, ctx, batch, n, elems=None):
+            seen.append(self.name)
+            if self.name == "eager":
+                return 0.5 if seen.count("eager") == 1 else 0.1
+            return 0.2 if self.name == "fused" else 10.0
+        monkeypatch.setattr(tcm, "analytic_seconds", lambda *a, **k: 1.0)
+        monkeypatch.setattr(StageExecutor, "sampled_time", fake)
+        _run_port(x)
+        _, ctx = _run_port(x)
+        (entry,) = tpc.entries()
+        assert ctx.stats["auto_measured_stages"] == 1
+        assert set(entry.chosen_exec.values()) == {"eager"}
+        assert entry.exec_timings[0]["eager"] == 0.1
+        assert entry.exec_timings[0]["fused"] == 0.2
+        assert seen.count("eager") == seen.count("fused") == 1 + tcm._CONFIRM_RUNS
+        assert all(seen.count(c) == 1 for c in set(seen) - {"eager", "fused"})
+
     def test_a_failing_candidate_raises_while_measured(self, monkeypatch):
         """A kernel fault raised while ``auto`` measures a candidate
         propagates (the claim is released); any other probe error is

@@ -1235,6 +1235,33 @@ def test_tp_step_on_two_ranks_of_the_card_matches_the_mesh_free_step(tmp_path):
 
 
 @pytest.mark.cuda
+def test_expert_parallel_block_on_two_ranks_of_the_card_matches_the_mesh_free_block(tmp_path):
+    """The expert-parallel MoE dispatch (``models.shard_ctx`` installed as
+    the reference's ``dryrun.py`` installs it) of smoke olmoe-1b-7b in
+    float32 on a (1, 2) mesh, two spawned ranks on ``cuda:0`` in a
+    ``gloo`` group, at the default capacity factor (the routing drops):
+    each rank's output, aux loss and gradients (its F slices gathered)
+    within 2e-5 of the mesh-free block on the permuted tokens."""
+    _card()
+    import pickle
+
+    import torch.multiprocessing as mp
+    import ep_scenarios as EP
+    mp.start_processes(EP.card_rank, args=(str(tmp_path / "store"), str(tmp_path), 300.0),
+                       nprocs=2, start_method="spawn")
+    for r in range(2):
+        with open(tmp_path / f"ep{r}.pkl", "rb") as f:
+            res = pickle.load(f)
+        got, want = res["got"], res["want"]
+        assert res["cuda"] and 0 < got["dropped"] < got["routed"], got["dropped"]
+        np.testing.assert_allclose(got["out"], want["out"], rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=2e-5)
+        assert set(got["grads"]) == set(want["grads"])
+        for n, g in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][n], g, rtol=2e-5, atol=2e-5, err_msg=n)
+
+
+@pytest.mark.cuda
 def test_tp_on_four_cards_with_nccl_matches_the_mesh_free_run(tmp_path):
     """On four cards, one rank each in an NCCL group: ``train(mesh=
     make_host_mesh(2, 2))`` of gemma-7b's smoke config in float32 (model

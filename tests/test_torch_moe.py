@@ -231,12 +231,24 @@ def test_moe_gradients_match_jax(n_shared):
 
 
 def test_shard_map_request_raises():
-    """The expert-parallel branch is not ported: asking for it raises, it
-    never quietly takes the single-device branch."""
+    """The expert-parallel branch (``shard_ctx``'s ``_MOE_GROUPS`` and
+    ``_RESIDUAL`` set, ``moe_groups`` > 1) splits the sequence over
+    ``"model"``: a sequence that does not divide raises, it never quietly
+    takes the single-device branch."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import shard_ctx
     _, tcfg = _cfgs("float32", groups=2)
     _, tp = _both(_params(tcfg, seed=11), "float32")
-    with pytest.raises(NotImplementedError, match="shard_map"):
-        tmlp.moe_block(tp, torch.zeros(2, 4, 64), tcfg, mesh=object())
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    shard_ctx.set_residual((mesh, (Replicate(), Shard(1))))
+    shard_ctx.set_moe_groups((mesh, (Shard(0), Shard(0))))
+    try:
+        with pytest.raises(ValueError, match="3 positions over 2 ranks"):
+            tmlp.moe_block(tp, torch.zeros(2, 3, 64), tcfg)
+    finally:
+        shard_ctx.clear()
 
 
 def test_moe_block_runs_on_meta_and_counts_nothing():

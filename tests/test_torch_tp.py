@@ -40,28 +40,27 @@ from test_torch_sharded import GROUP_TIMEOUT_S, REPO, TESTS, WORLD_TIMEOUT_S
 LOSS_RTOL, PARAM_ATOL, DECAY_ATOL = 2e-5, 1.5e-3, 1e-6
 
 
-def _run_jax(world: str, tmp) -> str:
+def _run_jax(world: str, tmp, mod) -> str:
     out = tmp / f"jax_{world}.pkl"
     env = dict(os.environ)
-    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={TP.WORLDS[world][0]}"
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={mod.WORLDS[world][0]}"
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(REPO, "src"), TESTS])
-    proc = subprocess.run([sys.executable, os.path.join(TESTS, "tp_scenarios.py"), world,
-                           str(out)],
+    proc = subprocess.run([sys.executable, os.path.abspath(mod.__file__), world, str(out)],
                           env=env, capture_output=True, text=True, timeout=WORLD_TIMEOUT_S)
     assert proc.returncode == 0, f"stdout={proc.stdout}\nstderr={proc.stderr}"
     return out
 
 
-def _run_port(world: str, ref_path, tmp) -> list[dict]:
+def _run_port(world: str, ref_path, tmp, mod) -> list[dict]:
     import time
 
     import torch.multiprocessing as mp
-    size = TP.WORLDS[world][0]
+    size = mod.WORLDS[world][0]
     d = tmp / f"port_{world}"
     d.mkdir()
     ctx = mp.start_processes(
-        TP.torch_rank, args=(world, str(d / "store"), str(d), str(ref_path), GROUP_TIMEOUT_S),
+        mod.torch_rank, args=(world, str(d / "store"), str(d), str(ref_path), GROUP_TIMEOUT_S),
         nprocs=size, join=False, start_method="spawn")
     deadline = time.monotonic() + WORLD_TIMEOUT_S
     try:
@@ -79,12 +78,15 @@ def _run_port(world: str, ref_path, tmp) -> list[dict]:
     return out
 
 
-def run_world(world: str, tmp_path_factory):
-    tmp = tmp_path_factory.mktemp(f"tp_{world}")
-    ref_path = _run_jax(world, tmp)
+def run_world(world: str, tmp_path_factory, mod=TP):
+    """``mod``'s (a scenarios module: ``WORLDS``, ``torch_rank``, run as a
+    script for the reference) world: the reference's results and every
+    rank's."""
+    tmp = tmp_path_factory.mktemp(f"{mod.__name__}_{world}")
+    ref_path = _run_jax(world, tmp, mod)
     with open(ref_path, "rb") as f:
         ref = pickle.load(f)
-    return ref, _run_port(world, ref_path, tmp)
+    return ref, _run_port(world, ref_path, tmp, mod)
 
 
 def check_case(world, name):

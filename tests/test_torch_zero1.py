@@ -227,16 +227,3 @@ def test_one_rank_programming_error_raises_on_every_rank(two):
     _ref, ranks = two
     assert [res["fatal"] for res in ranks] == ["StepFailure", "ValueError"]
 
-
-def test_a_model_axis_raises_not_implemented():
-    """``train(mesh=...)`` takes a ``"model"`` axis (tensor parallelism:
-    ``test_torch_tp.py``); what still raises over it is the reference's
-    expert-parallel MoE dispatch, which waits for ROADMAP A8.2c."""
-    import torch
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.models import mlp
-    cfg = get_smoke_config("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="A8.2c"):
-        mlp.moe_block({}, torch.zeros(1, 2, cfg.d_model), cfg,
-                      mesh=AbstractMesh((1, 2), ("data", "model")))
