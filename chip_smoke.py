@@ -180,7 +180,8 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              rwkv6-1.6b (RWKV-6, no attention) at their published widths, one at a time, random
              weights from a seed, at full depth where the card holds the
              weights, a 4 x 2048 prefill and its KV cache (else the depth is
-             cut and the line says so): a greedy prefill with one tc
+             cut and the line says so; hymba at 16 layers and rwkv6 at 8,
+             ``ARCH_RECURRENT_LAYERS``, for the script's time): a greedy prefill with one tc
              flash-attention launch per layer (window launches counted
              apart; deepseek's dense pre-layer included), each launch
              held in place against the kernel's plain version on its own
@@ -421,6 +422,11 @@ ARCH_HANDOFF = 16                # recurrent models: prompt tokens forced throug
 RECURRENT_REPS = 3               # CUDA-event timings of one layer's recurrence
 ARCH_SERVE_PROMPTS, ARCH_SERVE_NEW, ARCH_SERVE_MAX_LEN = (900, 130, 513, 1024), (12, 6, 9, 7), 1040
 ARCH_MARGIN = 3 << 30            # device bytes left free when sizing a model's depth
+#: the recurrent models' depth in the archs phase (of 32 and 24): their step
+#: loops launch per token and layer, and at full depth the two took 180 s of
+#: the script's time limit; hymba's 16 keep one of its two global-attention
+#: layers (layer 15)
+ARCH_RECURRENT_LAYERS = {"hymba-1.5b": 16, "rwkv6-1.6b": 8}
 ARCH_FLOOR_FACTOR = 1.5          # kernel vs plain logits against plain vs plain (arch_run)
 #: the band phase: gemma-7b's widths, n_layers cut to 8; a 1024-key window
 #: banded over 4 x 4096 (S > 2w), then Gemma 2's published attention logit
@@ -3098,7 +3104,8 @@ def scan_work(cfg, T: int) -> int:
 def arch_depth(cfg) -> dict:
     """The most layers (up to the published depth) whose weights, KV cache
     for a batch-4 prompt of 2048 + the decode steps, and a 4 x 2048 prefill's
-    largest working set fit the card's free memory less ``ARCH_MARGIN``.
+    largest working set fit the card's free memory less ``ARCH_MARGIN``, at
+    most the recurrent models' ``ARCH_RECURRENT_LAYERS``.
     The working set is the plain path's float32 scores (four alive at once:
     scores, masked, softmax, the probabilities cast for p.v), the MLP's, the
     MoE dispatch's (``moe_work``) or the recurrence's (``scan_work``).
@@ -3135,21 +3142,28 @@ def arch_depth(cfg) -> dict:
     fit = {k: int((free - ARCH_MARGIN - fixed - w) // per_layer) for k, w in work.items()}
     plain = "dense" if fit["dense"] >= cfg.n_layers or fit["blocked"] < cfg.n_layers \
         else "blocked"
-    return {"published": cfg.n_layers, "layers": max(1, min(cfg.n_layers, fit[plain])),
+    layers = max(1, min(cfg.n_layers, fit[plain]))
+    timed = layers > ARCH_RECURRENT_LAYERS.get(cfg.name, layers)
+    return {"published": cfg.n_layers,
+            "layers": ARCH_RECURRENT_LAYERS[cfg.name] if timed else layers,
+            "cut": "the script's time" if timed else "the card holds no more",
             "plain": plain, "free": free, "fixed": fixed, "per_layer": per_layer,
             "work": work[plain]}
 
 
-def arch_window_calls(ref):
+def arch_window_calls(ref, held: int | None = None):
     """Wrap the model's switch to the kernel: record each call's window and
     causality (``seen``: (window, causal) pairs) and hold each call's output
-    against the kernel's plain version on the same q, k, v (||kernel -
-    plain|| / ||plain||, in the model's head order)."""
+    (the first ``held`` calls' where given) against the kernel's plain
+    version on the same q, k, v (||kernel - plain|| / ||plain||, in the
+    model's head order)."""
     from repro_torch.models import attention
     real, seen, rel = attention._kernel_attention, [], []
 
     def recording(q, k, v, *, causal, window):
         out = real(q, k, v, causal=causal, window=window)
+        if held is not None and len(rel) >= held:
+            return out
         group = q.shape[1] // k.shape[1]
         B, Hq, S, D = q.shape
         qk = q.reshape(B, group, Hq // group, S, D).transpose(1, 2).reshape(B, Hq, S, D)
@@ -3483,7 +3497,7 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
     place against the kernel's plain version on its own q, k, v
     (``ATTN_REL_TOL``); the prefill held against the plain attention path:
     first tokens equal or a near-tie within the two plain paths' distance
-    (``tokens_agree``; hymba-1.5b's 32 bfloat16 layers flip a near-tie),
+    (``tokens_agree``; hymba-1.5b's bfloat16 stack flips a near-tie),
     and last-position logits within 2e-2 max|logit| or,
     where two plain paths (the chosen one and the blocked path with 512-key
     blocks) are themselves nearly that far apart, within
@@ -3521,7 +3535,7 @@ def arch_run(arch: str, counters, flash, ref) -> dict:
         (w, True) for w in windows]
     recurrent = tfm.layer_kind(cfg) in ("hybrid", "rwkv")
     cut = ("full depth" if cfg.n_layers == depth["published"]
-           else "depth cut: the card holds no more")
+           else f"depth cut: {depth['cut']}")
     log(f"[archs] {arch} at its published widths: d_model {cfg.d_model}, d_ff {cfg.d_ff} "
         f"({'gated ' if cfg.gated_mlp else 'plain '}{cfg.activation}), {attn_line(cfg)}, vocab "
         f"{cfg.vocab_size}{moe_line(cfg)}{recurrence_line(cfg)}; layers {cfg.n_layers} of "
@@ -5348,6 +5362,13 @@ EP_LOSS1_RTOL = 5e-4
 EP_FLOOR_FACTOR = 1.5            # (g1): the serving rule, max(2e-2, 1.5 x floor)
 #: (g1): the expert leaves split over "model" (F) and their dim
 EP_MODEL_DIMS = {"w_in": 2, "w_gate": 2, "w_out": 1}
+#: (h) tensor-parallel serving: (batch, prompt, decode steps) of (h1)
+#: gemma-7b at 28 layers in bfloat16 and (h2) olmoe-1b-7b at
+#: ``TP_MOE_LAYERS`` layers in float32, each rank holding one of
+#: ``TP_SERVE_BLOCKS`` sequence blocks of the KV cache
+TP_SERVE = {"h1": (4, 2048, 16), "h2": (2, 1024, 8)}
+TP_SERVE_BLOCKS = 2
+TP_SERVE_GREEDY = 2               # (h): tokens of lm.greedy_generate under the groups
 
 
 def tp_gemma_config():
@@ -5375,6 +5396,20 @@ def tp_ep_config(capacity_factor: float | None = None):
     if capacity_factor is None:
         return cfg
     return cfg.with_runtime(moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+
+
+def tp_serve_config(leg: str):
+    """(h1) gemma-7b at published widths and depth, bfloat16; (h2)
+    olmoe-1b-7b at published widths, ``TP_MOE_LAYERS`` layers, float32 (so
+    that routing near-ties do not flip between the two computations), one
+    dispatch group; both with the KV cache in ``TP_SERVE_BLOCKS`` blocks,
+    one per rank of the (1, 2) mesh."""
+    from repro_torch.configs.registry import get_config
+    if leg == "h1":
+        return get_config("gemma-7b").with_runtime(kv_cache_blocks=TP_SERVE_BLOCKS)
+    return get_config("olmoe-1b-7b").with_runtime(
+        n_layers=TP_MOE_LAYERS, moe_groups=1, dtype=torch.float32,
+        kv_cache_blocks=TP_SERVE_BLOCKS)
 
 
 def ep_install(mesh, cfg, batch: int) -> None:
@@ -5470,12 +5505,13 @@ def step_seconds(out: list):
 @contextlib.contextmanager
 def collective_bytes(out: collections.Counter):
     """The tensor bytes this process hands ``torch.distributed``'s
-    all-reduce, all-gather and reduce-scatter (per call: the input of an
-    all-reduce, the output of an all-gather, the inputs of a
-    reduce-scatter)."""
+    all-reduce, all-gather, reduce-scatter and all-to-all (per call: the
+    input of an all-reduce, the output of an all-gather, the inputs of a
+    reduce-scatter, the input of an all-to-all)."""
     import torch.distributed as dist
     nb = lambda t: t.numel() * t.element_size()
-    real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather", "reduce_scatter")}
+    real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather", "reduce_scatter",
+                                          "all_to_all_single")}
 
     def all_reduce(t, *a, **kw):
         out["all_reduce"] += nb(t)
@@ -5488,8 +5524,12 @@ def collective_bytes(out: collections.Counter):
     def reduce_scatter(o, parts, *a, **kw):
         out["reduce_scatter"] += sum(nb(p) for p in parts)
         return real["reduce_scatter"](o, parts, *a, **kw)
+
+    def all_to_all_single(o, t, *a, **kw):
+        out["all_to_all"] += nb(t)
+        return real["all_to_all_single"](o, t, *a, **kw)
     for k, f in (("all_reduce", all_reduce), ("all_gather", all_gather),
-                 ("reduce_scatter", reduce_scatter)):
+                 ("reduce_scatter", reduce_scatter), ("all_to_all_single", all_to_all_single)):
         setattr(dist, k, f)
     try:
         yield out
@@ -5944,6 +5984,7 @@ def tp_probe() -> dict:
                 [c.contiguous() for c in torch.chunk(x, world)]),
             "gather": lambda: dist.gather(x, [torch.empty_like(x) for _ in range(world)]
                                           if dist.get_rank() == 0 else None, dst=0),
+            "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
             "broadcast": lambda: dist.broadcast(x, 0)}
         for name, call in cases.items():
             try:
@@ -5969,8 +6010,8 @@ def tp_probe() -> dict:
 
 def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
     """One of the two ranks of the tp phase, on ``cuda:0``, in a ``gloo``
-    group of its own making: (f), (a), (b), (c), (d), (g1) and (g2) on the
-    (1, 2) mesh, its results pickled to ``out_dir``."""
+    group of its own making: (f), (a), (b), (c), (d), (g1), (g2), (h1) and
+    (h2) on the (1, 2) mesh, its results pickled to ``out_dir``."""
     import pickle
     from datetime import timedelta
     sys.path.insert(0, str(ROOT / "src"))
@@ -6011,6 +6052,10 @@ def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
         t0 = time.perf_counter()
         res["g2"] = tp_ep_train(fa, mesh, tp_ep_config(EP_CAPACITY))
         res["g2"]["seconds"] = time.perf_counter() - t0
+        for leg in ("h1", "h2"):
+            t0 = time.perf_counter()
+            res[leg] = tp_serve(mesh, tp_serve_config(leg), leg, plain["serve"][leg])
+            res[leg]["seconds"] = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -6179,6 +6224,271 @@ def tp_check_ep(res: list, plain: dict, init: dict, card: str) -> None:
         f"{card}")
 
 
+def tp_serve_plain(cfg, leg: str) -> dict:
+    """(h)'s reference, in this process before the ranks start: ``cfg``'s
+    mesh-free model from seed 0 on the card, a prompt of ``TP_SERVE[leg]``
+    random tokens (seed 1), prefill on the kernel and then greedy decode
+    steps, with the KV cache in ``TP_SERVE_BLOCKS`` blocks.  Kept on the
+    host: the prompt, the tokens, each step's last logits, the first and
+    last layers' K and V after the last step, the floors (the prefill's
+    logit distance to the same prefill on the plain path, over its
+    max|logit|, and the same for those layers' K and V), the KV cache's
+    bytes and the times.  The model is freed before the ranks start."""
+    from repro_torch.models import transformer as tfm
+    B, S, steps = TP_SERVE[leg]
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = tfm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    caches = tfm.init_caches(cfg, B, S + steps, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = tfm.prefill(model, cfg, tokens=prompt, caches=caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    last = (0, cfg.n_layers - 1)
+    dist = lambda a, b: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+    plain, other = tfm.prefill(model, cfg, tokens=prompt, use_kernel=False,
+                               caches=tfm.init_caches(cfg, B, S + steps, device="cuda"))
+    floor = dist(plain, logits)
+    cache_floor = {i: max(dist(other.k[i], caches.k[i]), dist(other.v[i], caches.v[i]))
+                   for i in last}
+    del plain, other
+    outs, step_s = [logits[:, -1].float().cpu()], []
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    tokens = [tok]
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = tfm.decode_step(model, cfg, tok, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        outs.append(logits[:, -1].float().cpu())
+        tokens.append(tok)
+    layers = {i: (caches.k[i].cpu(), caches.v[i].cpu()) for i in last}
+    out = {"prompt": prompt.cpu(), "tokens": torch.cat(tokens, 1).cpu(), "logits": outs,
+           "layers": layers, "floor": floor, "cache_floor": cache_floor,
+           "prefill_s": prefill_s, "step_s": step_s,
+           "kv_bytes": 2 * caches.k.numel() * caches.k.element_size()}
+    del model, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve(mesh, cfg, leg: str, plain: dict) -> dict:
+    """(h) tensor-parallel serving on this rank of the (1, 2) mesh, under
+    the groups ``train(mesh=...)`` installs: the rank's slices drawn from
+    seed 0 (``weights.init_slices``), its KV cache block
+    (``transformer.init_caches``), the mesh-free prompt prefilled twice
+    (timed, then under ``torch.profiler`` with the first flash launch held
+    in place against its plain version, ``arch_window_calls``), and the
+    decode steps fed the mesh-free run's tokens.  Each prefill's flash
+    launches by the wrappers' counters (set to 0 just before), the second's
+    also by the profiler; each step's last logits; the first and last
+    layers' cache block; collective bytes per prefill and of the first
+    step (which is not timed: the later steps are, as ``tp_serve_plain``
+    times them, the logits copied to the host after the clock stops); peak
+    device memory; the KV cache's bytes.  Then ``lm.greedy_generate`` of
+    ``TP_SERVE_GREEDY`` tokens from the same prompt under the groups."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import ref
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import train as T
+    from repro_torch.models import data_parallel, lm, tensor_parallel, weights
+    from repro_torch.models import transformer as tfm
+    B, S, steps = TP_SERVE[leg]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dg, mg = T.data_group(mesh), T.tp_group(mesh)
+    dims = shd.model_dims(tfm.init_model(cfg, None, "meta"), mesh)
+    model = weights.init_slices(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                                dims, mg.index, mg.size)
+    prompt, tokens = plain["prompt"].cuda(), plain["tokens"].cuda()
+    res = {"slice_bytes": sum(p.numel() * p.element_size()
+                              for p in weights.leaves(model).values())}
+    with data_parallel.use(dg), tensor_parallel.use(mg):
+        params = tensor_parallel.serving_view(model, cfg)
+        caches = tfm.init_caches(cfg, B, S + steps, device="cuda")
+        res["kv_shape"] = tuple(caches.k.shape)
+        res["kv_bytes"] = 2 * caches.k.numel() * caches.k.element_size()
+        run = lambda: tfm.prefill(params, cfg, tokens=prompt, caches=caches)
+        fl.reset_counts()
+        tensor_parallel.reset_serving_bytes()
+        sent = collections.Counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_bytes(sent):
+            logits, caches = run()
+            torch.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        res["launches"] = [fl.flash_attention.launches]
+        res["variants"] = [dict(fl.flash_attention.variant_launches)]
+        res["prefill_bytes"], res["prefill_serving_bytes"] = dict(sent), dict(
+            tensor_parallel.serving_bytes)
+        fl.reset_counts()
+        _seen, held, undo = arch_window_calls(ref, held=1)
+        try:
+            n_prof, _us, (logits, caches) = _profile_window(run, 1, "flash_attention")
+        finally:
+            undo()
+        res["launches"].append(fl.flash_attention.launches)
+        res["variants"].append(dict(fl.flash_attention.variant_launches))
+        res["profiled"], res["held"] = n_prof, held
+        outs, step_s = [logits[:, -1].float().cpu()], []
+        sent = collections.Counter()
+        tensor_parallel.reset_serving_bytes()
+        with collective_bytes(sent):     # step 1: its bytes counted, not timed
+            logits, caches = tfm.decode_step(params, cfg, tokens[:, :1], caches)
+        outs.append(logits[:, -1].float().cpu())
+        res["decode_bytes"] = dict(sent)
+        res["decode_serving_bytes"] = dict(tensor_parallel.serving_bytes)
+        for i in range(1, steps):        # timed as tp_serve_plain times its steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = tfm.decode_step(params, cfg, tokens[:, i:i + 1], caches)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            outs.append(logits[:, -1].float().cpu())
+        res["step_s"], res["logits"] = step_s, outs
+        res["layers"] = {i: (caches.k[i].cpu(), caches.v[i].cpu())
+                         for i in (0, cfg.n_layers - 1)}
+        torch.cuda.synchronize()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        del caches
+        res["greedy"] = lm.greedy_generate(params, cfg, prompt, TP_SERVE_GREEDY).cpu()
+    res["index"] = mg.index
+    del model, params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_check_serve(res: list, plain: dict, card: str) -> dict:
+    """(h1) and (h2) from both ranks' results: printed, then checked.
+    Logits of every step against the mesh-free run by the serving rule,
+    max(tol, ``EP_FLOOR_FACTOR`` x floor) of max|ref| (tol 2e-2 in
+    bfloat16, 2e-5 in float32), and the first and last layers' cache block
+    by the same rule with those layers' cache floors; greedy tokens of the
+    decode steps and of ``lm.greedy_generate`` under the groups equal or a
+    near-tie (``tokens_agree``); one flash launch per layer per
+    prefill on every rank, by the wrappers and the profiler, of the
+    dtype's variant, the first held in place within the kernel's
+    tolerance."""
+    gb = lambda b: round(b / 1e9, 3)
+    pct = lambda xs, q: sorted(xs)[min(len(xs) - 1, int(q * len(xs)))]
+    entry, failed = {}, []
+    for leg in ("h1", "h2"):
+        cfg = tp_serve_config(leg)
+        want = plain[leg]
+        B, S, steps = TP_SERVE[leg]
+        L = cfg.n_layers
+        bf16 = cfg.dtype == torch.bfloat16
+        rule = max(TOL[cfg.dtype], EP_FLOOR_FACTOR * want["floor"])
+        cache_rule = {i: max(TOL[cfg.dtype], EP_FLOOR_FACTOR * f)
+                      for i, f in want["cache_floor"].items()}
+        variant = "tc" if bf16 else "simt"
+        blk = -(-(S + steps) // TP_SERVE_BLOCKS)
+        worst, ties, greedy_ties = {"logits": 0.0, "cache": {i: 0.0 for i in cache_rule}}, [], []
+        for r, rr in enumerate(res):
+            got = rr[leg]
+            if got["launches"] != [L, L] or got["profiled"] != L or \
+                    any(v[variant] != L for v in got["variants"]):
+                failed.append(f"({leg}) rank {r}: flash launches {got['launches']}, variants "
+                              f"{got['variants']}, profiled {got['profiled']} for {L} layers")
+            if len(got["held"]) != 1 or \
+                    not got["held"][0] <= (ATTN_REL_TOL if bf16 else TOL[torch.float32]):
+                failed.append(f"({leg}) rank {r}: the first launch against the plain version "
+                              f"{got['held']}")
+            if got["kv_shape"] != (L, 1, blk, B, cfg.attn.n_kv_heads, cfg.attn.head_dim):
+                failed.append(f"({leg}) rank {r}: KV cache {got['kv_shape']}")
+            for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+                scale = float(w.abs().max())
+                d = float((g - w).abs().max()) / scale
+                worst["logits"] = max(worst["logits"], d)
+                if not d <= rule:
+                    failed.append(f"({leg}) rank {r} step {i}: logits {d:.3e} of max|ref| > "
+                                  f"{rule:.3e}")
+                try:
+                    ties += tokens_agree(w[:, None], torch.argmax(g, -1),
+                                         max(want["floor"], d) * scale)
+                except AssertionError as e:
+                    failed.append(f"({leg}) rank {r} step {i}: {e}")
+            for i in range(TP_SERVE_GREEDY):     # lm.greedy_generate under the groups
+                w = want["logits"][i]
+                try:
+                    flipped = tokens_agree(w[:, None], got["greedy"][:, i],
+                                           max(want["floor"], worst["logits"]) *
+                                           float(w.abs().max()))
+                except AssertionError as e:
+                    failed.append(f"({leg}) rank {r} greedy_generate token {i}: {e}")
+                    break
+                greedy_ties += flipped
+                if flipped:                      # later tokens follow another prefix
+                    break
+            m = got["index"]
+            for layer, kv in got["layers"].items():
+                for g, w in zip(kv, want["layers"][layer]):
+                    w = w[m:m + 1].float()
+                    d = float((g.float() - w).abs().max() / w.abs().max())
+                    worst["cache"][layer] = max(worst["cache"][layer], d)
+                    if not d <= cache_rule[layer]:
+                        failed.append(f"({leg}) rank {r}: layer {layer}'s cache block {d:.3e} "
+                                      f"of max|ref| > {cache_rule[layer]:.3e}")
+        g0 = res[0][leg]
+        steps_ms = [1e3 * t for t in g0["step_s"]]
+        ref_ms = [1e3 * t for t in want["step_s"][1:]]   # the steps tp_serve times
+        line = {"prefill_ms": 1e3 * g0["prefill_s"],
+                "prefill_ms_mesh_free": 1e3 * want["prefill_s"],
+                "decode_ms_p50": pct(steps_ms, 0.5), "decode_ms_p99": pct(steps_ms, 0.99),
+                "decode_ms": steps_ms, "decode_ms_mesh_free_p50": pct(ref_ms, 0.5),
+                "prefill_bytes": g0["prefill_bytes"], "decode_bytes": g0["decode_bytes"],
+                "prefill_serving_bytes": g0["prefill_serving_bytes"],
+                "decode_serving_bytes": g0["decode_serving_bytes"],
+                "peak_bytes": [rr[leg]["peak_bytes"] for rr in res],
+                "slice_bytes": g0["slice_bytes"], "kv_bytes": g0["kv_bytes"],
+                "kv_bytes_mesh_free": want["kv_bytes"], "floor": want["floor"],
+                "cache_floor": want["cache_floor"], "rule": rule, "cache_rule": cache_rule,
+                "worst": worst, "near_ties": ties, "held": g0["held"][0],
+                "greedy": g0["greedy"].tolist(), "greedy_near_ties": greedy_ties,
+                "launches_per_rank_per_prefill": g0["launches"][0], "variant": variant,
+                "seconds": [rr[leg]["seconds"] for rr in res]}
+        entry[leg] = line
+        log(f"[tp] ({leg}) tensor-parallel serving of {cfg.name} at published widths, "
+            f"{L} layers, {str(cfg.dtype)[6:]}, on two gloo ranks of one card, the KV "
+            f"cache in {TP_SERVE_BLOCKS} sequence blocks (one per rank, {g0['kv_shape']}): "
+            f"prefill {B} x {S} {line['prefill_ms']:.1f} ms (mesh-free "
+            f"{line['prefill_ms_mesh_free']:.1f}), {steps} decode steps, the last "
+            f"{steps - 1} timed: p50 / p99 "
+            f"{line['decode_ms_p50']:.1f} / {line['decode_ms_p99']:.1f} ms (mesh-free p50 "
+            f"{line['decode_ms_mesh_free_p50']:.1f}); flash launches per rank per prefill "
+            f"{g0['launches']} ({variant}; profiler {g0['profiled']}), the profiled prefill's "
+            f"first held in place: ||kernel - plain|| / ||plain|| {line['held']:.3e}; logits of "
+            f"every step within {rule:.3e} of max|ref| (floor {want['floor']:.3e}): worst "
+            f"{worst['logits']:.3e}; "
+            f"cache blocks of layers {list(cache_rule)} worst "
+            f"{[round(v, 6) for v in worst['cache'].values()]} within "
+            f"{[round(v, 6) for v in cache_rule.values()]} (floors "
+            f"{[round(v, 6) for v in want['cache_floor'].values()]}); greedy tokens equal but "
+            f"near-ties {ties}; lm.greedy_generate under the groups: {TP_SERVE_GREEDY} "
+            f"tokens per row equal to the mesh-free run's but near-ties {greedy_ties}; "
+            f"collective bytes on rank 0 per prefill "
+            f"{line['prefill_bytes']} ({line['prefill_serving_bytes']}), per decode step "
+            f"{line['decode_bytes']} ({line['decode_serving_bytes']}); peak device memory per "
+            f"rank {[gb(b) for b in line['peak_bytes']]} GB for {gb(g0['slice_bytes'])} GB of "
+            f"slices; KV cache per rank {gb(g0['kv_bytes'])} GB against "
+            f"{gb(want['kv_bytes'])} mesh-free; {[round(x, 1) for x in line['seconds']]} s; "
+            f"{card}")
+    if failed:
+        raise AssertionError("tp (h): " + "; ".join(failed))
+    return entry
+
+
 def tp_adamw_entry(tp: dict) -> dict:
     """The fused AdamW row's ``tp`` entry: (b)'s launches on both ranks, and
     rank 0's device time per step beside the bound of its slices' bytes
@@ -6221,6 +6531,9 @@ def phase_tp(fa, sp) -> dict:
     del ep_params
     init = tp_init_plain(tp_init_config())
     params["init_sums"] = init.pop("sums")
+    plain["serve"] = {leg: tp_serve_plain(tp_serve_config(leg), leg) for leg in TP_SERVE}
+    params["serve"] = {leg: {k: v[k] for k in ("prompt", "tokens")}
+                       for leg, v in plain["serve"].items()}
     t_plain = time.perf_counter() - t_phase
     tmp = tempfile.mkdtemp()
     try:
@@ -6314,6 +6627,7 @@ def phase_tp(fa, sp) -> dict:
         f"0, (c) {json.dumps({k: round(v, 1) for k, v in c0['checkpoint_s'].items()})}, "
         f"(d) {json.dumps({k: round(v, 1) for k, v in d['checkpoint_s'].items()})}")
     tp_check_ep(res, plain, init, card)
+    serve = tp_check_serve(res, plain["serve"], card)
     torch.cuda.empty_cache()
     mesh = make_host_mesh()
     try:
@@ -6329,10 +6643,13 @@ def phase_tp(fa, sp) -> dict:
     log(f"[tp] (e) C15: a step holding {C15_BYTES} bytes raised an injected "
         f"torch.OutOfMemoryError and was retried; memory_allocated {c15['before']} before, "
         f"{c15['during']} in the failed attempt, {c15['at_retry']} at the retry's start")
+    del plain["serve"]
     out = {"plain": plain, "ranks": [{k: {kk: vv for kk, vv in v.items() if kk != "calls"}
-                                      if isinstance(v, dict) else v for k, v in rr.items()}
+                                      if isinstance(v, dict) else v for k, v in rr.items()
+                                      if k not in TP_SERVE}
                                      for rr in res],
-           "init": init, "c14": c14, "c15": c15, "plain_s": t_plain, "ranks_s": ranks_s}
+           "init": init, "c14": c14, "c15": c15, "plain_s": t_plain, "ranks_s": ranks_s,
+           "serve": serve}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[tp] phase {out['seconds']:.1f} s (mesh-free runs {t_plain:.1f} s, the two ranks "
         f"{ranks_s:.1f} s); {card}")
@@ -6487,7 +6804,10 @@ def main() -> int:
                  "serve": {k: v for k, v in serve.items()
                            if k not in ("launches", "flash_variant_launches")},
                  "shapes": kern["attn_shapes"] + [band["shape"]], "archs": archs,
-                 "band": {k: v for k, v in band.items() if k != "shape"}})
+                 "band": {k: v for k, v in band.items() if k != "shape"},
+                 "tp": {leg: {k: tp["serve"][leg][k] for k in
+                              ("launches_per_rank_per_prefill", "variant", "held", "prefill_ms")}
+                        for leg in TP_SERVE}})
     rows.append({"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
                  "replaces": RMS_REPLACES, "launches": rms_launches,
                  "path": "kernels.ops.rmsnorm",

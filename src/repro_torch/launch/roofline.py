@@ -22,8 +22,8 @@ are plain dicts with the reference's keys.  The chip is an argument: by
 default ``hardware.chip_for(device)``, the card's constants on a CUDA
 device.  Compiling the cost variants (``variant_record``) and the sweep
 over the registry (``main``) go through ``dryrun.py``, which compiles on
-the production mesh; they wait for tensor-parallel prefill and decode and
-for the port of ``dryrun.py`` (ROADMAP A8.2d, then A11).
+the production mesh; they wait for the port of ``dryrun.py`` (ROADMAP
+A11).
 """
 
 from __future__ import annotations

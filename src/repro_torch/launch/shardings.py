@@ -163,16 +163,16 @@ def batch_specs(batch, mesh) -> dict[str, Spec]:
     return out
 
 
-def _map_with_path(fn: Callable, tree, path: tuple[str, ...] = ()):
+def map_with_path(fn: Callable, tree, path: tuple[str, ...] = ()):
     """``fn(path, leaf)`` over dicts, NamedTuples and lists, keeping the
     structure (a leaf is anything else)."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_with_path(fn, v, path + (k,))
+        return type(tree)(*(map_with_path(fn, v, path + (k,))
                             for k, v in zip(tree._fields, tree)))
     if hasattr(tree, "items"):
-        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+        return {k: map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
+        return [map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
     return fn(path, tree)
 
 
@@ -203,7 +203,41 @@ def cache_specs(caches, mesh, cfg: ModelConfig):
             return (None, dp_if(shape[1]), None)
         return (None,) * nd
 
-    return _map_with_path(spec, caches)
+    return map_with_path(spec, caches)
+
+
+def at_path(tree, path: tuple[str, ...]):
+    """The leaf of ``tree`` at a ``map_with_path`` path."""
+    for k in path:
+        tree = (getattr(tree, k) if hasattr(tree, "_fields")
+                else tree[int(k)] if isinstance(tree, list) else tree[k])
+    return tree
+
+
+def region(shape: tuple[int, ...], spec: Spec, mesh, coord: tuple[int, ...]) -> tuple:
+    """The part (a slice per dim) of a leaf of ``shape`` that the rank at
+    mesh coordinate ``coord`` (one index per mesh dim) holds under
+    ``spec``: ``torch.chunk``'s cut along each sharded dim, an entry of
+    several axes indexed row-major over them, as ``placements`` lays it
+    out."""
+    size = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    at = dict(zip(mesh.mesh_dim_names, coord))
+    out = []
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        count, index = 1, 0
+        for a in axes:
+            count, index = count * size[a], index * size[a] + at[a]
+        step = -(-shape[d] // count)
+        lo = min(index * step, shape[d])
+        out.append(slice(lo, min(lo + step, shape[d])))
+    return tuple(out) + (slice(None),) * (len(shape) - len(spec))
+
+
+def local_shape(shape: tuple[int, ...], spec: Spec, mesh) -> tuple[int, ...]:
+    """The shape of the first rank's part of a leaf (``region``)."""
+    return tuple(len(range(*r.indices(n)))
+                 for r, n in zip(region(shape, spec, mesh, (0,) * len(mesh.shape)), shape))
 
 
 # ---------------------------------------------------------------------------
@@ -235,5 +269,5 @@ def placements(spec: Spec, mesh) -> tuple:
 def named(specs, mesh):
     """Each spec as the ``(mesh, placements)`` pair that ``ckpt.restore``'s
     ``shardings`` and ``DTensor.from_local`` take, in the specs' structure."""
-    return _map_with_path(lambda _path, spec: (mesh, placements(spec, mesh)), specs)
+    return map_with_path(lambda _path, spec: (mesh, placements(spec, mesh)), specs)
 

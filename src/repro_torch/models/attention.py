@@ -22,10 +22,22 @@ immutable, the port writes K/V into the cache's storage IN PLACE
 a caller keeps only the returned cache.  This saves a copy of the whole
 cache per layer and step.
 
-Under tensor parallelism (``models.tensor_parallel``) a training layer
-whose ``wq`` is a ``"model"`` slice by heads runs its rank's query heads
+Under tensor parallelism (``models.tensor_parallel``) a layer whose
+``wq`` is a ``"model"`` slice by heads runs its rank's query heads
 (``_qkv_tp``) on any of the paths above and its ``wo`` rows as a partial
-sum, all-reduced over the group.
+sum, all-reduced over the group.  In prefill and decode the KV cache is
+this rank's piece as ``launch.shardings.cache_specs`` places it: with
+``kv_cache_blocks`` a multiple of the ``"model"`` extent, rank ``m`` holds
+the blocks of positions ``[m·span, (m+1)·span)`` of EVERY KV head
+(``_kv_group``).  Prefill writes only its own block
+(``_fill_cache``: K and V that are a slice by heads are exchanged,
+all-to-all, into blocks); decode (``_decode``) gathers q over the
+group where the heads are split, computes the partial softmax of its own
+blocks for all heads, gathers the partials and combines them exactly in
+block order, then keeps its heads' output for ``wo``; the new token's K/V
+row is written by the rank whose block holds position ``length``.  The
+reference's sequence-parallel decode is the same LSE combine, rendered by
+GSPMD.
 """
 
 from __future__ import annotations
@@ -35,7 +47,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import tensor_parallel
+from repro_torch.models import data_parallel, tensor_parallel
 from repro_torch.models.config import AttnConfig, ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, normal, rms_norm
 
@@ -108,11 +120,10 @@ def _qkv_tp(p, x: torch.Tensor, a: AttnConfig, positions: torch.Tensor | None,
     """``_qkv`` on this rank's query heads (``wq`` a ``"model"`` slice by
     heads, ``models.tensor_parallel``).  K and V come by heads too where
     ``wk``/``wv`` are sliced (multi-head attention); else they are computed
-    whole from the replicated ``x`` and enter the rank-local compute, and
-    each local query head takes its own KV head (``h % Hkv`` of its global
-    index ``h``, as ``_dense_attention``'s (group, Hkv) reshape pairs
-    them).  ``cross_kv`` is an encoder-decoder's, already in that form
-    (``transformer._cross_kv_per_layer``)."""
+    whole from the replicated ``x`` and enter the rank-local compute.
+    ``cross_kv`` is an encoder-decoder's, already in that form
+    (``transformer._cross_kv_per_layer``).  ``_per_query_kv`` pairs the
+    local query heads with their KV heads."""
     hd = a.head_dim
     hq = p["wq"].shape[-1] // hd                 # this rank's query heads
     xin = mg.enter(x)
@@ -139,10 +150,19 @@ def _qkv_tp(p, x: torch.Tensor, a: AttnConfig, positions: torch.Tensor | None,
             k = apply_rope(k, pos, a.rope_theta)
         if not kv_split:
             k, v = mg.enter(k), mg.enter(v)
-    if k.shape[1] != hq:
-        idx = (mg.index * hq + torch.arange(hq, device=x.device)) % k.shape[1]
-        k, v = k[:, idx], v[:, idx]
     return q, k, v
+
+
+def _per_query_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mg):
+    """K and V of ``_qkv_tp`` for each of this rank's query heads: its own
+    KV head (``h % Hkv`` of its global index ``h``, as
+    ``_dense_attention``'s (group, Hkv) reshape pairs them) where K and V
+    are not this rank's heads already."""
+    hq = q.shape[1]
+    if k.shape[1] == hq:
+        return k, v
+    idx = (mg.index * hq + torch.arange(hq, device=q.device)) % k.shape[1]
+    return k[:, idx], v[:, idx]
 
 
 def _visible(q_ids: torch.Tensor, k_ids: torch.Tensor, causal: bool,
@@ -269,11 +289,12 @@ def _banded_attention(q, k, v, *, window: int, softcap: float | None = None):
     return o.reshape(B, Hq, nb * w, D)[:, :, :Sq].to(q.dtype)
 
 
-def _decode_attention_blocked(q: torch.Tensor, cache: KVCache, *,
-                              window: int | None = None,
-                              softcap: float | None = None) -> torch.Tensor:
-    """One-token decode over the block-partitioned cache with exact LSE
-    combination across blocks."""
+def _decode_partials(q: torch.Tensor, cache: KVCache, *, window: int | None = None,
+                     softcap: float | None = None, first_block: int = 0):
+    """The partial softmax of one-token decode over each block of
+    ``cache``, whose first block is block ``first_block`` of the whole
+    cache (its positions start at ``first_block * blk``): (m, l, o) per
+    (block, row, group, KV head), float32, (n_blk, B, g, Hkv, 1 | 1 | D)."""
     B, Hq, _, D = q.shape             # Sq == 1
     n_blk, blk = cache.k.shape[0], cache.k.shape[1]
     Hkv = cache.k.shape[3]
@@ -284,13 +305,16 @@ def _decode_attention_blocked(q: torch.Tensor, cache: KVCache, *,
                              cache.k.to(torch.float32)), softcap)
     # validity per (block, row, offset): rows may sit at different positions
     # (per-slot ``length``) and may start past 0 (left-pad ``start``)
-    pos = torch.arange(n_blk * blk, device=q.device).reshape(n_blk, 1, blk)
+    pos = (first_block * blk + torch.arange(n_blk * blk, device=q.device)).reshape(n_blk, 1, blk)
     length = cache.length
     lb = length[None, :, None] if length.dim() else length
     valid = pos < lb
     if window is not None:
         valid = valid & (pos > lb - 1 - window)
-    valid = valid & (pos >= cache.start[None, :, None])
+    start = cache.start
+    if start.shape[0] != B:          # every data row's, as cache_specs replicates it
+        start = data_parallel.current().local_rows(start)
+    valid = valid & (pos >= start[None, :, None])
     valid = valid.expand(n_blk, B, blk)[:, :, None, None, :]
     s = torch.where(valid, s, NEG_INF)
 
@@ -299,13 +323,28 @@ def _decode_attention_blocked(q: torch.Tensor, cache: KVCache, *,
     l_blk = torch.sum(p, dim=-1, keepdim=True)
     o_blk = torch.einsum("nbghk,nkbhd->nbghd", p.to(cache.v.dtype).to(torch.float32),
                          cache.v.to(torch.float32))
+    return m_blk, l_blk, o_blk
 
+
+def _combine_partials(m_blk: torch.Tensor, l_blk: torch.Tensor, o_blk: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The exact LSE combine of every block's partial: (B, Hq, 1, D)."""
+    _n, B, group, Hkv, D = o_blk.shape
     m = torch.amax(m_blk, dim=0, keepdim=True)                    # global max
     w = torch.exp(m_blk - m)                                      # (n,B,g,h,1)
     l = torch.sum(l_blk * w, dim=0)                               # (B,g,h,1)
     o = torch.sum(o_blk * w, dim=0)                               # (B,g,h,D)
     safe = torch.where(l == 0, 1.0, l)
-    return (o / safe).reshape(B, Hq, 1, D).to(q.dtype)
+    return (o / safe).reshape(B, group * Hkv, 1, D).to(dtype)
+
+
+def _decode_attention_blocked(q: torch.Tensor, cache: KVCache, *,
+                              window: int | None = None,
+                              softcap: float | None = None) -> torch.Tensor:
+    """One-token decode over the block-partitioned cache with exact LSE
+    combination across blocks."""
+    return _combine_partials(*_decode_partials(q, cache, window=window, softcap=softcap),
+                             q.dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = False,
@@ -323,10 +362,14 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = F
         start=torch.zeros((batch,), **i32))
 
 
-def cache_update_decode(cache: KVCache, k_new: torch.Tensor,
-                        v_new: torch.Tensor) -> KVCache:
+def cache_update_decode(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                        group=None) -> KVCache:
     """Write one token (S == 1) at position ``length`` (per row if (B,)),
-    in place; returns the cache with ``length + 1``."""
+    in place; returns the cache with ``length + 1``.  With ``group`` (the
+    ``"model"`` group the cache's blocks are split over, ``_kv_group``)
+    ``cache`` is this rank's blocks and only the rank holding position
+    ``length`` writes, without a host read (one timeline: ``transformer``
+    refuses per-slot lengths under a group)."""
     n_blk, blk = cache.k.shape[0], cache.k.shape[1]
     pos = cache.length
     rows_k = k_new[:, :, 0].to(cache.k.dtype)                     # (B, Hkv, D)
@@ -345,17 +388,25 @@ def cache_update_decode(cache: KVCache, k_new: torch.Tensor,
         for buf, new in ((cache.k, rows_k), (cache.v, rows_v)):
             buf[bi, off, rows] = torch.where(keep, new, buf[bi, off, rows])
         return cache._replace(length=pos + 1)
-    # one timeline: the (B, Hkv, D) slab at (block, offset); a block index
+    # one timeline: the (B, Hkv, D) slab at (block, offset) of the whole
+    # cache, whose blocks before ``first`` other ranks hold; a block index
     # past the end is clamped (``dynamic_update_slice``)
-    bi = torch.clamp(pos // blk, max=n_blk - 1).long().reshape(1)
+    first, total = (0, n_blk) if group is None else (group.index * n_blk, group.size * n_blk)
+    bi = torch.clamp(pos // blk, max=total - 1).long().reshape(1) - first
     off = (pos % blk).long().reshape(1)
-    cache.k[bi, off] = rows_k[None]
-    cache.v[bi, off] = rows_v[None]
+    for buf, new in ((cache.k, rows_k), (cache.v, rows_v)):
+        if group is None:                # this rank holds every block
+            buf[bi, off] = new[None]
+        else:
+            mine = (bi >= 0) & (bi < n_blk)
+            at = torch.clamp(bi, 0, n_blk - 1)
+            buf[at, off] = torch.where(mine, new[None], buf[at, off])
     return cache._replace(length=pos + 1)
 
 
 def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tensor,
-                       pad_mask: torch.Tensor | None = None) -> KVCache:
+                       pad_mask: torch.Tensor | None = None,
+                       length: int | None = None) -> KVCache:
     """Write a full prefill (B, Hkv, S, D) into the blocked cache, in place
     (positions past S are zeroed, as the reference's padded copy).
 
@@ -363,7 +414,9 @@ def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tenso
     valid span begins (``start``, the left-pad width) and, for a cache with
     per-slot lengths, where it ends (right-padded rows stop at their true
     prompt length).  A scalar-length cache keeps ``length = S`` and can
-    therefore only mask LEFT pads."""
+    therefore only mask LEFT pads.  ``length`` (no pad mask) overrides S as
+    the tokens stored: the prompt's length where ``cache`` is one rank's
+    blocks of it (``_fill_cache``)."""
     n_blk, blk = cache.k.shape[0], cache.k.shape[1]
     B, Hkv, S, D = k_full.shape
     if S > n_blk * blk:
@@ -373,8 +426,9 @@ def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tenso
         flat[:S] = new.permute(2, 0, 1, 3)
         flat[S:] = 0
     i32 = dict(dtype=torch.int32, device=k_full.device)
+    S = S if length is None else length
     if pad_mask is None:
-        start = torch.zeros((B,), **i32)
+        start = torch.zeros_like(cache.start)
         end = torch.full((B,), S, **i32)
     else:
         real = pad_mask.to(torch.bool)
@@ -383,6 +437,81 @@ def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tenso
         end = (torch.amax(torch.where(real, idx, -1), dim=1) + 1).to(torch.int32)
     length = end if cache.length.dim() else torch.tensor(S, **i32)
     return KVCache(cache.k, cache.v, length, start)
+
+
+def _kv_group(cache: KVCache | None, cfg: ModelConfig):
+    """The ``"model"`` group whose ranks each hold a sequence block of the
+    KV cache (``launch.shardings.cache_specs``: ``kv_cache_blocks`` a
+    multiple of the extent), or None where ``cache`` is whole."""
+    mg = tensor_parallel.current()
+    n_blk = max(cfg.kv_cache_blocks, 1)
+    if mg is None or cache is None or cache.k.shape[0] == n_blk:
+        return None
+    if cache.k.shape[0] * mg.size != n_blk:
+        raise ValueError(f"a KV cache of {cache.k.shape[0]} blocks on each of {mg.size} "
+                         f"\"model\" ranks for kv_cache_blocks {n_blk}")
+    return mg
+
+
+def _fill_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                mg, pad_mask: torch.Tensor | None) -> KVCache:
+    """Prefill's cache fill, under the ``"model"`` group ``mg`` where it is
+    not None: ``k`` and ``v`` (B, Hk, S, D) are every KV head, or this
+    rank's where they are a slice by heads.  A cache of sequence blocks
+    takes only this rank's positions of every head: cut from whole K and
+    V, or exchanged from the other ranks' heads (all-to-all: each rank
+    sends each other rank only that rank's block of its heads); a whole
+    cache gathers the heads."""
+    a = cfg.attn
+    D = k.shape[-1]
+    S = k.shape[2]
+    split = k.shape[1] != a.n_kv_heads
+    cg = _kv_group(cache, cfg)
+    if cg is None:
+        if split:
+            k, v = mg.gather(torch.cat([k, v], -1), 1, "kv_heads").split(D, -1)
+        return cache_fill_prefill(cache, k, v, pad_mask=pad_mask)
+    span = cache.k.shape[0] * cache.k.shape[1]
+    if S > span * cg.size:
+        raise ValueError(f"prefill of {S} positions into a cache of {span * cg.size}")
+    kv = torch.nn.functional.pad(torch.cat([k, v], -1), (0, 0, 0, span * cg.size - S))
+    if split:
+        kv = cg.exchange(kv, 2, 1, "kv_blocks")            # (B, Hkv, span, 2D)
+    else:
+        kv = kv.narrow(2, cg.index * span, span)
+    k, v = kv.split(D, -1)
+    return cache_fill_prefill(cache, k, v, length=S)
+
+
+def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,
+            cfg: ModelConfig, mg, heads, window: int | None):
+    """One decode step's cache write and attention, under the ``"model"``
+    group ``mg`` where it is not None: ``q`` is this rank's query heads
+    where ``heads`` (the group, for a ``wq`` split by heads) else every
+    one; ``k``/``v`` the new token's, every KV head or this rank's.  q, K
+    and V go round in one gather where any is a slice; each rank computes
+    the partial softmax of its blocks for every head, the partials are
+    gathered and combined in block order, and this rank keeps its heads'
+    output.  Returns (new cache, (B, Hq_local, 1, D))."""
+    a = cfg.attn
+    sliced = [t for t, cut in ((q, heads is not None), (k, k.shape[1] != a.n_kv_heads),
+                               (v, v.shape[1] != a.n_kv_heads)) if cut]
+    if sliced:                           # (M, B, heads, 1, D), then shard-major heads
+        parts = mg.gather(torch.cat([t.to(q.dtype) for t in sliced], 1)[None], 0, "qkv_row")
+        got = iter(t.transpose(0, 1).flatten(1, 2)
+                   for t in parts.split([t.shape[1] for t in sliced], 2))
+        q = next(got) if heads is not None else q
+        k, v = (next(got), next(got)) if k.shape[1] != a.n_kv_heads else (k, v)
+    cg = _kv_group(cache, cfg)
+    new_cache = cache_update_decode(cache, k, v, cg)
+    first = 0 if cg is None else cg.index * cache.k.shape[0]
+    m, l, o = _decode_partials(q, new_cache, window=window, softcap=a.logit_softcap,
+                               first_block=first)
+    if cg is not None:
+        D = o.shape[-1]
+        m, l, o = cg.gather(torch.cat([m, l, o], -1), 0, "partials").split([1, 1, D], -1)
+    out = _combine_partials(m, l, o, q.dtype)
+    return new_cache, (out if heads is None else heads.local_rows(out, 1))
 
 
 def _takes_kernel(use_kernel: bool | None, cfg: ModelConfig, q: torch.Tensor,
@@ -441,11 +570,10 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"attention mode {mode!r}")
     a = cfg.attn
     B, S, _ = x.shape
-    mg = tensor_parallel.current()
+    group = tensor_parallel.current()    # prefill and decode: the cache's group too
+    mg = group
     if mg is None or p["wq"].shape[-1] == a.n_heads * a.head_dim:
         mg = None                        # whole heads: the single-device layer
-    elif mode != "train" or cache is not None:
-        raise ValueError("tensor-parallel attention runs in train mode only")
 
     def out(o):                          # wo; row-parallel under a "model" group
         y = _merge_heads(o) @ p["wo"].to(x.dtype)
@@ -457,6 +585,7 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
             k, v = cross_kv
         else:
             q, k, v = _qkv_tp(p, x, a, None, cfg, mg, cross_kv)
+            k, v = _per_query_kv(q, k, v, mg)
         o = _dense_attention(q, k, v, causal=False, window=None,
                              softcap=a.logit_softcap)
         return out(o), None
@@ -474,12 +603,12 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs a KV cache")
-        new_cache = cache_update_decode(cache, k, v)
-        o = _decode_attention_blocked(q, new_cache, window=window,
-                                      softcap=a.logit_softcap)
+        new_cache, o = _decode(q, k, v, cache, cfg, group, mg, window)
     else:
         if mode == "prefill" and cache is not None:
-            new_cache = cache_fill_prefill(cache, k, v, pad_mask=pad_mask)
+            new_cache = _fill_cache(cache, k, v, cfg, group, pad_mask)
+        if mg is not None:
+            k, v = _per_query_kv(q, k, v, mg)
         if _takes_kernel(use_kernel, cfg, q, k, v, pad_mask):
             o = _kernel_attention(q, k, v, causal=causal, window=window)
         elif (cfg.banded_attention and a.window and not a.pattern_period

@@ -7,7 +7,8 @@ rows' summed loss over the GLOBAL denominator (the all-reduced
 the ranks' losses, and gradients, sum to the reference's on the whole
 batch.  Under tensor parallelism (``models.tensor_parallel``) the head's
 vocabulary is split over the ``"model"`` ranks, and every one of them
-computes the same loss."""
+computes the same loss; greedy decoding there gives the mesh-free
+tokens."""
 
 from __future__ import annotations
 
@@ -133,10 +134,16 @@ def loss_fn(params, batch: dict[str, Any], cfg: ModelConfig,
 def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor, max_new: int,
                     max_len: int | None = None) -> torch.Tensor:
     """Prefill + greedy decode of ``max_new`` tokens for the (B, S) integer
-    ``prompt``, on the prompt's device; returns (B, max_new) tokens."""
+    ``prompt``, on the prompt's device; returns (B, max_new) tokens.  Under
+    a data group ``prompt`` is this rank's rows of the batch, and the decode
+    state this rank's pieces of the whole batch's
+    (``transformer.init_caches``)."""
     B, S = prompt.shape
     max_len = max_len or (S + max_new)
-    caches = tfm.init_caches(cfg, B, max_len, device=prompt.device)
+    dg = data_parallel.current()
+    caches = tfm.init_caches(cfg, B * (1 if dg is None else dg.size), max_len,
+                             device=prompt.device)
+    params = tensor_parallel.serving_view(params, cfg)     # gathered leaves, once
     logits, caches = tfm.prefill(params, cfg, tokens=prompt, caches=caches)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(prompt.dtype)
     outs = [tok]

@@ -26,7 +26,10 @@ every expert on all of them, combines, and only then all-reduces over
 carries (tokens, D) instead of (E, C, D).  Each device's tokens get the
 whole expert FFN; the reference's psum of ``out_buf`` over ``"model"``
 also adds the other ranks' sequence blocks into each rank's buffers
-(ROADMAP, reference quirks), which the port does not reproduce.
+(ROADMAP, reference quirks), which the port does not reproduce.  Prefill
+and decode under the groups take the same paths; a decode step (one
+position) cannot split its sequence over ``"model"``, so under the
+expert-parallel context it raises, as the reference's ``shard_map`` does.
 """
 
 from __future__ import annotations

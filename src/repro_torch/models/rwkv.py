@@ -18,7 +18,10 @@ one ``addcmul`` (the state update).  The Finch decay
 group norm (var + 1e-5) and ``ln_x`` run in float32.
 
 As in the reference, ``time_mix`` passes ``shift_c`` through unchanged and
-``channel_mix`` passes ``wkv`` and ``shift_t`` through unchanged.
+``channel_mix`` passes ``wkv`` and ``shift_t`` through unchanged.  Under
+tensor parallelism (``models.tensor_parallel``) a time mix split by heads
+carries this rank's heads of ``wkv``, as ``launch.shardings.cache_specs``
+places them; the shifts are whole.
 """
 
 from __future__ import annotations
@@ -76,13 +79,22 @@ def init_rwkv(cfg: ModelConfig, generator: torch.Generator | None,
     }
 
 
-def init_rwkv_state(cfg: ModelConfig, batch: int,
-                    device: torch.device | str = "cuda") -> RWKVState:
+def init_rwkv_state(cfg: ModelConfig, batch: int, device: torch.device | str = "cuda",
+                    n_heads: int | None = None) -> RWKVState:
+    """Zeros; ``wkv`` of ``n_heads`` heads (all of them by default; a time
+    mix split by heads carries its rank's, ``state_heads``)."""
     H, hd = _dims(cfg)
+    H = H if n_heads is None else n_heads
     return RWKVState(
         wkv=torch.zeros((batch, H, hd, hd), dtype=torch.float32, device=device),
         shift_t=torch.zeros((batch, cfg.d_model), dtype=cfg.dtype, device=device),
         shift_c=torch.zeros((batch, cfg.d_model), dtype=cfg.dtype, device=device))
+
+
+def state_heads(p, cfg: ModelConfig) -> int:
+    """The heads of ``wkv`` a layer of parameters ``p`` carries: this
+    rank's where ``w_r`` is a ``"model"`` slice by heads, else all."""
+    return p["w_r"].shape[-1] // _dims(cfg)[1]
 
 
 def _shifted(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
@@ -115,8 +127,9 @@ def time_mix(p, x: torch.Tensor, cfg: ModelConfig, state: RWKVState):
     """The time mix.  ``w_r``/``w_k``/``w_v``/``w_g`` that are a ``"model"``
     slice by heads (``models.tensor_parallel``) run this rank's heads: the
     per-channel decay, bonus and norm scale enter rank-local compute and
-    are cut to its channels, and ``w_o``'s rows give a partial sum,
-    all-reduced."""
+    are cut to its channels, ``state.wkv`` is this rank's heads
+    (``state_heads``) and so is the one returned, and ``w_o``'s rows give a
+    partial sum, all-reduced."""
     B, S, D = x.shape
     H, hd = _dims(cfg)
     xprev = _shifted(x, state.shift_t)
@@ -145,8 +158,9 @@ def time_mix(p, x: torch.Tensor, cfg: ModelConfig, state: RWKVState):
           @ p["decay_b"].to(torch.float32))
     w = torch.exp(-torch.exp(local(p["decay_base"]) + local(dd))).reshape(B, S, Hl, hd)
     f32 = lambda t: t.to(torch.float32)
-    wkv0 = state.wkv if mg is None else state.wkv.narrow(1, c0 // hd, Hl)
-    y, ST = _wkv(f32(r), f32(k), f32(v), w, local(p["bonus_u"], 0), wkv0)
+    if state.wkv.shape[1] != Hl:
+        raise ValueError(f"a wkv state of {state.wkv.shape[1]} heads for {Hl}")
+    y, ST = _wkv(f32(r), f32(k), f32(v), w, local(p["bonus_u"], 0), state.wkv)
 
     # per-head group norm
     mean = y.mean(-1, keepdim=True)

@@ -11,8 +11,9 @@ the loop.  Train mode's backward memory is bounded by the stack's per-layer
 ``torch.utils.checkpoint``.  Decode is the O(1) single step over a rolling
 ``(B, W-1, d_in)`` window of conv inputs.  softplus(dt), the recurrence, the
 ``D_skip`` term and the ``silu(z)`` gate run in float32.  Under tensor
-parallelism (``models.tensor_parallel``) a training layer runs this rank's
-channels.
+parallelism (``models.tensor_parallel``) a layer runs this rank's
+channels in every mode, and its state is this rank's channels of ``h``
+and ``conv``, as ``launch.shardings.cache_specs`` places them.
 """
 
 from __future__ import annotations
@@ -123,46 +124,38 @@ def ssm_block(p, x: torch.Tensor, cfg: ModelConfig, state: SSMState | None = Non
               mode: str = "train"):
     """x: (B, S, D) -> (out, new_state).  decode: S == 1, the O(1) step.
     Train and prefill pad the conv causally with W-1 zeros, or with the
-    carried ``state.conv``, and start from ``state.h`` (zeros without one)."""
+    carried ``state.conv``, and start from ``state.h`` (zeros without one).
+
+    Per-channel leaves that are a ``"model"`` slice
+    (``models.tensor_parallel``) run this rank's channels: ``in_proj`` runs
+    whole, its x and z halves enter rank-local compute cut to the rank's
+    channels, ``x_proj``'s product is all-reduced, ``out_proj``'s rows give
+    a partial sum, all-reduced; ``state`` is then this rank's channels."""
     d_in, _, N, W = _dims(cfg)
     B, S, _ = x.shape
     xs, z = torch.chunk(x @ p["in_proj"].to(x.dtype), 2, dim=-1)  # (B, S, d_in)
     mg = tensor_parallel.current()
     if mg is not None and p["conv_w"].shape[-1] != d_in:
-        if mode != "train" or state is not None:
-            raise ValueError("tensor-parallel SSM heads run in train mode only")
-        return _ssm_block_tp(p, x, xs, z, cfg, mg), None
+        d_in = p["conv_w"].shape[-1]
+        xs, z = (mg.enter(t).narrow(-1, mg.index * d_in, d_in) for t in (xs, z))
+    else:
+        mg = None
+
+    def out(y):                          # out_proj; row-parallel under a group
+        o = y.to(x.dtype) @ p["out_proj"].to(x.dtype)
+        return o if mg is None else mg.exit(o)
 
     if mode == "decode":
         if state is None or S != 1:
             raise ValueError("SSM decode takes one token and a state")
         win = torch.cat([state.conv.to(xs.dtype), xs], dim=1)    # (B, W, d_in)
-        y, hT = _ssm_core(p, _conv_silu(win, p["conv_w"], 1), z, cfg, state.h)
-        new_state = SSMState(h=hT, conv=win[:, 1:].to(state.conv.dtype))
-        return y.to(x.dtype) @ p["out_proj"].to(x.dtype), new_state
+        y, hT = _ssm_core(p, _conv_silu(win, p["conv_w"], 1), z, cfg, state.h, mg)
+        return out(y), SSMState(h=hT, conv=win[:, 1:].to(state.conv.dtype))
 
     pad = (torch.zeros((B, W - 1, d_in), dtype=xs.dtype, device=xs.device)
            if state is None else state.conv.to(xs.dtype))
     xpad = torch.cat([pad, xs], dim=1)                            # (B, S+W-1, d_in)
     h0 = (torch.zeros((B, d_in, N), dtype=torch.float32, device=x.device)
           if state is None else state.h)
-    y, hT = _ssm_core(p, _conv_silu(xpad, p["conv_w"], S), z, cfg, h0)
-    new_state = SSMState(h=hT, conv=xpad[:, -(W - 1):].to(cfg.dtype))
-    return y.to(x.dtype) @ p["out_proj"].to(x.dtype), new_state
-
-
-def _ssm_block_tp(p, x: torch.Tensor, xs: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
-                  mg) -> torch.Tensor:
-    """Train mode on this rank's channels (a ``"model"`` slice of every
-    per-channel leaf, ``models.tensor_parallel``): ``in_proj`` runs whole,
-    its x and z halves enter rank-local compute cut to the rank's channels,
-    and ``out_proj``'s rows give a partial sum, all-reduced."""
-    _d_in, _, N, W = _dims(cfg)
-    B, S, _ = x.shape
-    dl = p["conv_w"].shape[-1]
-    xs, z = (mg.enter(t).narrow(-1, mg.index * dl, dl) for t in (xs, z))
-    xpad = torch.cat([torch.zeros((B, W - 1, dl), dtype=xs.dtype, device=xs.device), xs],
-                     dim=1)
-    h0 = torch.zeros((B, dl, N), dtype=torch.float32, device=x.device)
-    y, _hT = _ssm_core(p, _conv_silu(xpad, p["conv_w"], S), z, cfg, h0, mg)
-    return mg.exit(y.to(x.dtype) @ p["out_proj"].to(x.dtype))
+    y, hT = _ssm_core(p, _conv_silu(xpad, p["conv_w"], S), z, cfg, h0, mg)
+    return out(y), SSMState(h=hT, conv=xpad[:, -(W - 1):].to(cfg.dtype))

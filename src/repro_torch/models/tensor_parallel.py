@@ -47,12 +47,28 @@ its own device thread.  The collectives come in Megatron's pairs:
 A replicated leaf used inside rank-local compute (qk-norm scales on a
 rank's heads) enters through ``enter``, so its gradient is whole and equal
 on every rank.  Without a group the model is the single-device one.
+
+Prefill and decode run in the same groups, under ``torch.no_grad()``, with
+the decode state placed as ``launch.shardings.cache_specs`` places it: the
+KV cache in sequence blocks, one block of every KV head per ``"model"``
+rank.  Their collectives have no backward and count the bytes this
+process hands ``torch.distributed`` in ``serving_bytes``, by what they
+carry (an all-gather: its output; an all-to-all: its input):
+
+* ``gather``: the shard-ordered all-gather (decode's q, K and V row of the
+  new token, the partial softmax of each rank's cache blocks; the head's
+  vocabulary columns);
+* ``exchange``: the all-to-all that sends chunk ``j`` of a value to the
+  rank of shard ``j`` (prefill's K and V by heads turned into K and V by
+  sequence blocks).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
@@ -60,6 +76,14 @@ import torch.distributed as dist
 from repro_torch.models.data_parallel import DataGroup
 
 _group: ModelGroup | None = None
+
+#: bytes the serving collectives of this process handed ``torch.distributed``,
+#: by what they carried; ``reset_serving_bytes`` zeroes it.
+serving_bytes: collections.Counter = collections.Counter()
+
+
+def reset_serving_bytes() -> None:
+    serving_bytes.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +107,34 @@ class ModelGroup(DataGroup):
         out = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return out
+
+    def gather(self, x: torch.Tensor, dim: int, what: str) -> torch.Tensor:
+        """Every rank's ``x`` along ``dim`` in shard order (no gradient),
+        its bytes counted under ``what``."""
+        out = self.all_gather(x.detach(), dim)
+        serving_bytes[what] += _nbytes(out)
+        return out
+
+    def exchange(self, x: torch.Tensor, split: int, cat: int, what: str) -> torch.Tensor:
+        """All-to-all (no gradient): chunk ``j`` of ``x`` along ``split``
+        (``size`` equal chunks) goes to the rank of shard ``j``; returns the
+        chunks this rank received, concatenated along ``cat`` in shard order.
+        Its input bytes are counted under ``what``."""
+        chunks = torch.chunk(x.detach(), self.size, split)
+        if len({c.shape for c in chunks}) != 1 or len(chunks) != self.size:
+            raise ValueError(f"exchange of {tuple(x.shape)} in {self.size} chunks along {split}")
+        inp = torch.stack([chunks[j] for j in self.order])   # group rank r gets shard order[r]
+        out = torch.empty_like(inp)
+        serving_bytes[what] += _nbytes(inp)
+        dist.all_to_all_single(out, inp, group=self.group)
+        by_shard = [None] * self.size
+        for j, part in zip(self.order, out):                 # part r came from group rank r
+            by_shard[j] = part
+        return torch.cat(by_shard, dim=cat)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class _Enter(torch.autograd.Function):
@@ -201,6 +253,53 @@ def plan(cfg, mesh) -> dict[str, Rule]:
             kind, why = _leaf_rule(name, cfg, n)
             out[name] = Rule(kind, d, why)
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def _gathered(cfg, n: int) -> dict[str, tuple[Rule, int]]:
+    """``{leaf: (rule, the whole leaf's size along rule.dim)}`` of the
+    leaves ``plan`` gathers on a ``"model"`` extent of ``n``."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import weights
+    from repro_torch.models.transformer import init_model
+    whole = weights.leaves(init_model(cfg, None, "meta"))
+    return {name: (r, whole[name].shape[r.dim])
+            for name, r in plan(cfg, AbstractMesh((1, n), ("data", "model"))).items()
+            if r.kind == "gather"}
+
+
+def serving_view(params, cfg):
+    """The parameters as prefill and decode read them under the installed
+    group: ``view`` of the leaves ``plan`` gathers where they are still
+    this rank's slices, ``params`` itself where there are none.  A server
+    views once, before its first step (``lm.greedy_generate``);
+    ``check_viewed`` holds each step to it."""
+    mg = current()
+    if mg is None:
+        return params
+    todo = {n: r for n, (r, size) in _gathered(cfg, mg.size).items()
+            if _at(params, n).shape[r.dim] != size}
+    return view(params, todo, mg) if todo else params
+
+
+def check_viewed(params, cfg) -> None:
+    """Raise where a leaf ``plan`` gathers is still this rank's slice:
+    prefill, decode and the encoder read the leaves whole under a group
+    (``serving_view``, or training's ``view``)."""
+    mg = current()
+    if mg is None:
+        return
+    for name, (r, size) in _gathered(cfg, mg.size).items():
+        if _at(params, name).shape[r.dim] != size:
+            raise ValueError(f"{name} is this rank's slice: serving under a \"model\" "
+                             f"group reads tensor_parallel.serving_view(params, cfg)")
+
+
+def _at(params, name: str):
+    """The leaf of a nested parameter tree at ``weights.flatten``'s name."""
+    for k in name.split("."):
+        params = params[int(k)] if k.isdigit() else params[k]
+    return params
 
 
 def view(params, table: dict[str, Rule], mg: ModelGroup) -> dict:

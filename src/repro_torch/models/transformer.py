@@ -33,10 +33,19 @@ sub-layer (self and cross, every mode) and a ``banded_attention`` config
 takes the O(S·w) banded path in train and long prefill
 (``attention.attention_block``).
 
-In training under tensor parallelism (``models.tensor_parallel``) the
-stack runs on this rank's ``"model"`` slices, each sub-layer deciding from
-its leaves' shapes; the encoder and the cross K/V of an encoder-decoder
-and the embedding inputs of a vision-language model take the same layers.
+Under tensor parallelism (``models.tensor_parallel``) the stack runs on
+this rank's ``"model"`` slices, each sub-layer deciding from its leaves'
+shapes; the encoder and the cross K/V of an encoder-decoder and the
+embedding inputs of a vision-language model take the same layers.  In
+prefill and decode under the groups (``models.data_parallel`` beside it)
+each rank runs its data rows, its decode state is the pieces
+``launch.shardings.cache_specs`` places on it (``init_caches``: the KV
+cache in sequence blocks over ``"model"``, rows over the data axes), and
+the logits are gathered over the head's vocabulary columns, so every
+``"model"`` rank returns the whole vocabulary of its rows.  The leaves
+``tensor_parallel.plan`` gathers are whole: the caller views them once
+(``tensor_parallel.serving_view``), and each call checks it.  A pad mask
+and per-slot lengths are not ported under a group.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import data_parallel
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import shard_ctx
@@ -175,7 +185,7 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     x = shard_ctx.constrain_residual(x)
     if "rwkv" in p:
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
-            cfg, x.shape[0], x.device)
+            cfg, x.shape[0], x.device, rwkv_mod.state_heads(p["rwkv"], cfg))
         tm, st = rwkv_mod.time_mix(p["rwkv"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, st)
         x = x + tm
         cm, st = rwkv_mod.channel_mix(p["rwkv"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg, st)
@@ -273,7 +283,10 @@ def encode(params, enc_embeds: torch.Tensor, cfg: ModelConfig,
     stack over ``enc_embeds`` (B, S_enc, d), bidirectional (every layer's
     self-attention non-causal and global, RoPE over ``arange`` positions),
     no cache, then ``enc_norm``.  Under ``cfg.remat`` each layer is
-    checkpointed while autograd records."""
+    checkpointed while autograd records.  Under a ``"model"`` group the
+    leaves ``tensor_parallel.plan`` gathers must be whole already
+    (training's ``tensor_parallel.view``, serving's ``serving_view``)."""
+    tensor_parallel.check_viewed(params, cfg)
     x = enc_embeds.to(cfg.dtype)
     n = cfg.n_encoder_layers
     remat = cfg.remat and torch.is_grad_enabled()
@@ -329,12 +342,20 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def logits_from_hidden(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits of the final-normed ``x`` over ``padded_vocab`` columns,
+    the padding ones masked.  A head that is this rank's ``"model"`` slice
+    of the vocabulary (``models.tensor_parallel``) masks its columns by
+    their global ids, then the columns are gathered over the group."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(x, _head(params, cfg))
+    V = logits.shape[-1]
+    mg = tensor_parallel.current()
+    if mg is None or V == cfg.padded_vocab:
+        mg = None
     if cfg.padded_vocab != cfg.vocab_size:      # mask the TP padding columns
-        col = torch.arange(cfg.padded_vocab, device=logits.device)
+        col = (0 if mg is None else mg.index * V) + torch.arange(V, device=logits.device)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
-    return logits
+    return logits if mg is None else mg.gather(logits, -1, "columns")
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
@@ -372,8 +393,31 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fal
     KVCache(k)}`` for a model with ``k`` pre-layers; ``{"kv": KVCache,
     "ssm": SSMState}`` for the hybrid family; an ``RWKVState`` for RWKV.
     ``per_slot=True`` gives every batch row its own position counter
-    (continuous batching: rows join and leave mid-flight)."""
+    (continuous batching: rows join and leave mid-flight).
+
+    Under the data and ``"model"`` groups (``models.data_parallel``,
+    ``models.tensor_parallel``) it returns this rank's pieces of the
+    ``batch`` rows' state as ``launch.shardings.cache_specs`` places them,
+    allocated at their own size: the KV cache's blocks over ``"model"``
+    (``kv_cache_blocks`` a multiple of the extent) and rows over the data
+    group, SSM and RWKV states by channels or heads, ``length`` and
+    ``start`` whole."""
     check_ported(cfg)
+    mesh = _groups_mesh()
+    if mesh is not None:
+        from repro_torch.launch import shardings as shd
+        dg = data_parallel.current()
+        if per_slot:
+            raise ValueError("per-slot lengths under a data or \"model\" group are not ported")
+        if dg is not None and batch % dg.size:
+            raise ValueError(f"{batch} rows over a data group of {dg.size}")
+        with data_parallel.use(None), tensor_parallel.use(None):
+            whole = init_caches(cfg, batch, max_len, device="meta")
+        specs = shd.cache_specs(whole, mesh, cfg)
+        return shd.map_with_path(
+            lambda path, leaf: torch.zeros(
+                shd.local_shape(tuple(leaf.shape), shd.at_path(specs, path), mesh),
+                dtype=leaf.dtype, device=device), whole)
 
     def stacked(one, n: int):
         return type(one)(*(leaf.unsqueeze(0).repeat(n, *([1] * leaf.dim())) for leaf in one))
@@ -388,6 +432,36 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fal
     if kd:
         return {"stack": stacked(kv, L - kd), "pre": stacked(kv, kd)}
     return stacked(kv, L)
+
+
+def _groups_mesh():
+    """The (data, model) ``AbstractMesh`` of the installed groups (None
+    without any)."""
+    dg, mg = data_parallel.current(), tensor_parallel.current()
+    if dg is None and mg is None:
+        return None
+    from repro_torch.launch.mesh import AbstractMesh
+    return AbstractMesh((1 if dg is None else dg.size, 1 if mg is None else mg.size),
+                        ("data", "model"))
+
+
+def _refuse_under_groups(pad_mask=None, caches=None) -> None:
+    """What serving under a data or ``"model"`` group does not port: a pad
+    mask and per-slot lengths (ROADMAP)."""
+    if _groups_mesh() is None:
+        return
+    if pad_mask is not None:
+        raise ValueError("pad_mask under a data or \"model\" group is not ported")
+    if any(c.length.dim() > 1 for c in _kv_caches(caches)):
+        raise ValueError("a per-slot length under a data or \"model\" group is not ported")
+
+
+def _kv_caches(caches) -> list[KVCache]:
+    if isinstance(caches, KVCache):
+        return [caches]
+    if isinstance(caches, dict):
+        return [c for v in caches.values() for c in _kv_caches(v)]
+    return []
 
 
 @torch.no_grad()
@@ -411,6 +485,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
     position (correct for unpadded and left-padded prompts).  Without a pad
     mask every layer's attention takes the flash-attention kernel on a CUDA
     device (``use_kernel``, default: there)."""
+    _refuse_under_groups(pad_mask, caches)
+    tensor_parallel.check_viewed(params, cfg)
     x = _inputs_to_embeds(params, cfg, tokens, input_embeds)
     x, caches, _ = run_stack(params, x, cfg, caches=caches, mode="prefill",
                              positions=positions, pad_mask=pad_mask, use_kernel=use_kernel,
@@ -431,6 +507,8 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     An encoder-decoder model attends ``enc_out`` (``encode``'s output),
     whose cross K/V every layer recomputes at every step, as the
     reference's; without it the cross sub-layers are skipped."""
+    _refuse_under_groups(caches=caches)
+    tensor_parallel.check_viewed(params, cfg)
     x = embed_tokens(params["embed"], token, cfg)
     cross_kv = (_cross_kv_per_layer(params, enc_out, cfg)
                 if cfg.encdec and enc_out is not None else None)

@@ -15,7 +15,9 @@ can be indexed like the reference's dict (``params["layers"]["attn"]``,
 ``params["pre_layers"][0]``).  Decode states carry across the same way: the
 reference's stacked ``KVCache``, ``SSMState`` and ``RWKVState`` (and its
 ``{"stack", "pre"}`` and ``{"kv", "ssm"}`` dicts of them) and the port's
-have the same leaves in the same layout.
+have the same leaves in the same layout; ``cache_piece`` cuts one into a
+rank's pieces as ``launch.shardings.cache_specs`` places them and
+``cache_assemble`` puts the pieces back together.
 """
 
 from __future__ import annotations
@@ -226,6 +228,44 @@ def cache_to_numpy(cache):
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return type(cache)(*(host(t) for t in cache))
+
+
+def cache_piece(cache: Any, cfg: ModelConfig, mesh, coord: tuple[int, ...],
+                device: torch.device | str = "cuda"):
+    """The piece of the reference's stacked decode state ``cache`` (numpy
+    leaves, any of ``cache_from_numpy``'s forms) that the rank at mesh
+    coordinate ``coord`` (one index per dim of ``mesh``, a ``DeviceMesh``
+    or a ``launch.mesh.AbstractMesh``) holds, as
+    ``launch.shardings.cache_specs`` places it, as the port's tensors:
+    what ``transformer.init_caches`` allocates on that rank, filled."""
+    from repro_torch.launch import shardings as shd
+    specs = shd.cache_specs(cache, mesh, cfg)
+    piece = shd.map_with_path(lambda path, leaf: np.asarray(leaf)[shd.region(
+        tuple(np.shape(leaf)), shd.at_path(specs, path), mesh, coord)], cache)
+    return cache_from_numpy(piece, cfg, device)
+
+
+def cache_assemble(pieces: Mapping[tuple[int, ...], Any], cfg: ModelConfig, mesh,
+                   batch: int, max_len: int):
+    """``cache_piece``'s inverse: the whole stacked decode state of
+    ``batch`` rows and ``max_len`` positions, as ``cache_to_numpy`` gives
+    it, from every mesh coordinate's piece (``{coord: piece}``, the port's
+    tensors); a part held by several coordinates is taken from the first."""
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import data_parallel, tensor_parallel
+    from repro_torch.models.transformer import init_caches
+    with data_parallel.use(None), tensor_parallel.use(None):
+        like = init_caches(cfg, batch, max_len, device="meta")
+    items = [(c, cache_to_numpy(p)) for c, p in pieces.items()]
+    specs = shd.cache_specs(like, mesh, cfg)
+
+    def whole(path: tuple, leaf):
+        shape, spec = tuple(leaf.shape), shd.at_path(specs, path)
+        out = np.empty(shape, dtype=shd.at_path(items[0][1], path).dtype)
+        for coord, piece in reversed(items):
+            out[shd.region(shape, spec, mesh, coord)] = shd.at_path(piece, path)
+        return out
+    return shd.map_with_path(whole, like)
 
 
 def model_slices(params: ParamTree, dims: Mapping[str, int | None], index: int,
