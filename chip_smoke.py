@@ -343,6 +343,26 @@ Phases (any failure exits nonzero; nothing runs on the CPU instead):
              kernel once per leaf per step (wrapper and profiler), step ms,
              peak memory and collective bytes per rank;
              seconds and a ``{"tp": ...}`` JSON line.
+18. dryrun — the production dry run (ROADMAP A11), after the tp phase:
+             (a) on the host, beside (b), ``python -m
+             repro_torch.launch.dryrun`` traces rank 0 of a fake 512-rank
+             world at published widths, one process per cell, all at
+             once: gemma-7b x ``train_4k``, gemma-7b x ``decode_32k`` and
+             olmoe-1b-7b x ``prefill_32k`` on 16 x 16, gemma-7b x
+             ``decode_32k`` on 2 x 16 x 16; each record ``ok``, with the
+             reference's keys and ``models.config``'s parameter counts;
+             after the 16 x 16 decode record, ``python -m
+             repro_torch.launch.roofline`` on gemma-7b x ``decode_32k``
+             with the card's constants; ``report.py``'s tables; (b) in
+             a spawned process of the same fake world, rank 0's gemma-7b x
+             ``decode_32k`` step run for real on ``cuda:0`` with the same
+             builders (its slices, 8 rows x 2048 positions of cache
+             pieces): resident bytes against ``argument_bytes``,
+             ``max_memory_allocated`` against ``peak_bytes`` (a difference
+             past 20% is printed for ROADMAP C), ``FlopCounterMode`` equal
+             to the record's ``flops``; a ``{"dryrun": ...}`` JSON line.
+             Should (a) or (b) fail, (a)'s processes are killed before the
+             script exits.
 
 The last lines are the card's name and power limit, a JSON ``kernels``
 record and the device record.
@@ -362,6 +382,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -6656,6 +6677,272 @@ def phase_tp(fa, sp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the production dry run (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+#: (a): the cells ``python -m repro_torch.launch.dryrun`` traces at published
+#: widths, (arch, shape, multi_pod)
+DRYRUN_CELLS = (("gemma-7b", "train_4k", False), ("gemma-7b", "decode_32k", False),
+                ("olmoe-1b-7b", "prefill_32k", False), ("gemma-7b", "decode_32k", True))
+#: the cell ``roofline.main`` analyzes and whose step (b) runs on the card
+DRYRUN_CARD = ("gemma-7b", "decode_32k")
+#: a record's keys: the reference's (src/repro/launch/dryrun.py:260-290) and
+#: the port's ``moe_flops_traced``
+DRYRUN_KEYS = {"arch", "shape", "mesh", "status", "lower_s", "compile_s", "flops", "hlo_bytes",
+               "collective", "memory", "n_devices", "params", "active_params",
+               "moe_flops_traced"}
+DRYRUN_PEAK_TOL = 0.20           # (b): the card's peak against the record's peak_bytes
+DRYRUN_TIMEOUT_S = 600           # each process of the phase
+
+
+def dryrun_tag(arch: str, shape: str, multi_pod: bool) -> str:
+    return f"{arch}__{shape}__{'mp' if multi_pod else 'sp'}"
+
+
+def dryrun_cells(out: Path, stop: threading.Event, running: list) -> dict:
+    """(a): ``python -m repro_torch.launch.dryrun`` on every cell of
+    ``DRYRUN_CELLS``, all at once (a process each), and ``python -m
+    repro_torch.launch.roofline`` on ``DRYRUN_CARD`` with the chip of
+    ``cuda`` once that cell's record is written.  Each process is put in
+    ``running``; none starts once ``stop`` is set, and where one fails the
+    others are killed.  Returns each process's seconds and output lines;
+    raises where one fails."""
+    import shutil
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    cmds = {dryrun_tag(*c): ["-m", "repro_torch.launch.dryrun", "--arch", c[0], "--shape", c[1],
+                             "--out", str(out / "dryrun")] + (["--multi-pod"] if c[2] else [])
+            for c in DRYRUN_CELLS}
+    cmds["roofline"] = ["-m", "repro_torch.launch.roofline", "--dryrun-dir", str(out / "dryrun"),
+                        "--variants-dir", str(out / "variants"), "--out", str(out / "roofline"),
+                        "--arch", DRYRUN_CARD[0], "--shape", DRYRUN_CARD[1]]
+    chains = [[tag] + (["roofline"] if tag == dryrun_tag(*DRYRUN_CARD, False) else [])
+              for tag in cmds if tag != "roofline"]
+
+    def chain(names: list) -> dict:
+        runs = {}
+        for name in names:
+            if stop.is_set():
+                raise AssertionError(f"dryrun (a): stopped before {name}")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, *cmds[name]], env=env, cwd=str(ROOT),
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            running.append(proc)
+            if stop.is_set():
+                proc.kill()
+            try:
+                stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun (a) {name}: exit {proc.returncode}\n"
+                                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "said": stdout.strip().splitlines()}
+        return runs
+
+    runs = {}
+    with ThreadPoolExecutor(len(chains)) as pool:
+        try:
+            for fut in [pool.submit(chain, c) for c in chains]:
+                runs.update(fut.result())
+        finally:
+            _stop(stop, running)
+    return runs
+
+
+def _stop(stop: threading.Event, running: list) -> None:
+    stop.set()
+    for proc in running:
+        if proc.poll() is None:
+            proc.kill()
+
+
+@contextlib.contextmanager
+def dryrun_background(out: Path):
+    """(a) (``dryrun_cells``) in a thread while the block runs; yields its
+    future.  However the block is left, the processes (a) is running are
+    killed and the thread joined, so a failing phase fails at once and
+    leaves no process behind."""
+    stop, running = threading.Event(), []
+    pool = ThreadPoolExecutor(1)
+    try:
+        yield pool.submit(dryrun_cells, out, stop, running)
+    finally:
+        _stop(stop, running)
+        pool.shutdown(wait=True)
+
+
+def dryrun_card(out_path: str) -> None:
+    """(b), in a spawned process: rank 0's ``DRYRUN_CARD`` step of the fake
+    512-rank world run for real on ``cuda:0`` with the dry run's builders
+    (the rank's parameter slices drawn from a seed, its cache pieces, a
+    token per row), the peak statistics reset once the inputs are built,
+    under ``FlopCounterMode``.  Writes the resident and peak bytes, the
+    FLOPs, the seconds and the step's output shape to ``out_path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES, input_specs
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import data_parallel, shard_ctx, tensor_parallel
+    from repro_torch.models import transformer as tfm
+    dryrun.init_world()
+    dev = torch.device("cuda", 0)
+    arch, shape_name = DRYRUN_CARD
+    shape = SHAPES[shape_name]
+    mesh = dryrun.make_production_mesh(device="cpu")
+    cfg = dryrun.runtime_config(get_config(arch), mesh, shape)
+    zero = train.zero1_layout(mesh, tfm.init_model(cfg, None, "meta"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dryrun.install_placements(cfg, mesh, shape.global_batch)
+    try:
+        with data_parallel.use(zero.dg), tensor_parallel.use(zero.mg), torch.no_grad():
+            params = train.rank_params(cfg, zero, gen, dev)
+            caches = tfm.init_caches(cfg, shape.global_batch, shape.seq_len, device=dev)
+            local, _ = train.local_batch(input_specs(cfg, shape), mesh, zero.dg)
+            token = torch.randint(0, cfg.vocab_size, tuple(local["token"].shape),
+                                  generator=gen, device=dev, dtype=torch.int32)
+            view = tensor_parallel.serving_view(params, cfg)
+            step = dryrun.build_serve_step(cfg)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with FlopCounterMode(display=False) as fc:
+                tok, caches = step(view, token, caches)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        shard_ctx.clear()
+    out = {"resident": int(resident), "peak": int(peak), "flops": int(fc.get_total_flops()),
+           "seconds": seconds, "token_shape": list(tok.shape), "token_dtype": str(tok.dtype),
+           "tokens_in_range": bool(((tok >= 0) & (tok < cfg.padded_vocab)).all())}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_dryrun(out: Path) -> dict:
+    """The production dry run (ROADMAP A11), after the tp phase, so that
+    no trace shares the host with its gloo-paced times.  (a)
+    (``dryrun_cells``) runs on the host while (b) runs on the card.  Each
+    record of (a) is ``ok`` with the reference's keys and
+    ``models.config``'s parameter counts, and its FLOPs (with the routed
+    experts') cover ``model_flops``; ``roofline.main``'s terms of
+    ``DRYRUN_CARD`` on the card's constants and ``report.py``'s tables are
+    printed.  (b) runs ``DRYRUN_CARD``'s step for real on ``cuda:0``
+    (``dryrun_card``, a spawned process): its peak device memory against
+    the record's ``peak_bytes`` (a difference past ``DRYRUN_PEAK_TOL`` is
+    printed for ROADMAP C, not gated), its resident bytes against
+    ``argument_bytes``, and its ``FlopCounterMode`` count equal to the
+    record's ``flops``."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import report, roofline
+    from repro_torch.models.config import active_param_count, param_count
+    t_phase = time.perf_counter()
+    card = card_line()
+    with dryrun_background(out) as cells:
+        # (b): DRYRUN_CARD's step for real on the card, beside (a)
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            child = mp.get_context("spawn").Process(target=dryrun_card, args=(path,))
+            child.start()
+            child.join(DRYRUN_TIMEOUT_S)
+            if child.exitcode != 0:
+                child.kill()
+                raise AssertionError(f"dryrun (b): the card's step exited {child.exitcode}")
+            b = json.loads(Path(path).read_text())
+        finally:
+            os.unlink(path)
+        b_s = time.perf_counter() - t_phase
+        runs = cells.result(timeout=2 * DRYRUN_TIMEOUT_S)
+    waited = time.perf_counter() - t_phase - b_s
+    recs = {}
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        tag = dryrun_tag(arch, shape, multi_pod)
+        rec = json.loads((out / "dryrun" / f"{tag}.json").read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun (a) {tag}: {rec.get('error')}\n{rec.get('trace')}")
+        cfg = get_config(arch)
+        mf = roofline.model_flops(cfg, SHAPES[shape], rec["n_devices"])
+        if set(rec) != DRYRUN_KEYS or rec["n_devices"] != (512 if multi_pod else 256) or \
+                rec["params"] != param_count(cfg) or \
+                rec["active_params"] != active_param_count(cfg) or \
+                not rec["flops"] + rec["moe_flops_traced"] >= mf > 0:
+            raise AssertionError(f"dryrun (a) {tag}: {json.dumps(rec)}")
+        m = rec["memory"]
+        log(f"[dryrun] (a) {arch} x {shape} x {rec['mesh']}: {rec['status']}, params "
+            f"{rec['params']} (active {rec['active_params']}), lower {rec['lower_s']} s, trace "
+            f"{rec['compile_s']} s, process {runs[tag]['seconds']:.1f} s; flops "
+            f"{rec['flops']:.6e} (+ routed experts {rec['moe_flops_traced']:.6e}; model_flops "
+            f"{mf:.6e}), hlo_bytes {rec['hlo_bytes']:.6e}, collective "
+            f"{json.dumps(rec['collective']['bytes_by_op'])} in "
+            f"{json.dumps(rec['collective']['counts_by_op'])}; memory argument "
+            f"{m['argument_bytes']} output {m['output_bytes']} alias {m['alias_bytes']} temp "
+            f"{m['temp_bytes']} peak {m['peak_bytes']} ({m['peak_bytes'] / 1e9:.3f} GB); {card}")
+        recs[tag] = rec
+    roof = json.loads((out / "roofline" / f"{DRYRUN_CARD[0]}__{DRYRUN_CARD[1]}.json").read_text())
+    if "compute_s" not in roof:
+        raise AssertionError(f"dryrun roofline.main: {json.dumps(roof)}")
+    log(f"[dryrun] (a) roofline.main {DRYRUN_CARD[0]} x {DRYRUN_CARD[1]} on the card's "
+        f"constants ({runs['roofline']['seconds']:.1f} s): "
+        + ", ".join(f"{k} {roof[k]:.6g}" for k in (
+            "compute_s", "memory_s", "memory_flash_s", "collective_s", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device", "model_flops_per_device",
+            "useful_flops_ratio", "roofline_fraction", "memory_peak_gib"))
+        + f", dominant {roof['dominant']}; {card}")
+    for line in (report.dryrun_table(out / "dryrun") + "\n\n" + report.roofline_table(
+            out / "roofline") + "\n\n" + report.collective_detail(out / "roofline")).splitlines():
+        if "—" not in line or "ok" in line:            # the rows of the cells that ran
+            log(f"[dryrun] report: {line}")
+
+    # (b) against DRYRUN_CARD's record
+    rec = recs[dryrun_tag(*DRYRUN_CARD, False)]
+    m = rec["memory"]
+    diff = (b["peak"] - m["peak_bytes"]) / m["peak_bytes"]
+    if b["flops"] != rec["flops"] or b["token_shape"] != [8, 1] or not b["tokens_in_range"]:
+        raise AssertionError(f"dryrun (b): {json.dumps(b)} against the record's flops "
+                             f"{rec['flops']}")
+    log(f"[dryrun] (b) {DRYRUN_CARD[0]} x {DRYRUN_CARD[1]}: rank 0's step of the fake 512-rank "
+        f"world run for real on cuda:0 ({b['seconds'] * 1e3:.1f} ms, process {b_s:.1f} s): "
+        f"resident {b['resident']} bytes against argument_bytes {m['argument_bytes']} "
+        f"({(b['resident'] - m['argument_bytes']) / m['argument_bytes']:+.4%}); "
+        f"max_memory_allocated {b['peak']} ({b['peak'] / 1e9:.3f} GB) against peak_bytes "
+        f"{m['peak_bytes']} ({m['peak_bytes'] / 1e9:.3f} GB): {diff:+.2%}"
+        + (f", outside {DRYRUN_PEAK_TOL:.0%} (ROADMAP C)" if abs(diff) > DRYRUN_PEAK_TOL
+           else "")
+        + f"; FlopCounterMode {b['flops']} = the record's flops {rec['flops']:.0f}; "
+        f"tokens {b['token_shape']} {b['token_dtype']}; {card}")
+    out_rec = {"cells": {tag: {"status": r["status"], "lower_s": r["lower_s"],
+                               "compile_s": r["compile_s"], "seconds": runs[tag]["seconds"],
+                               "flops": r["flops"], "moe_flops_traced": r["moe_flops_traced"],
+                               "hlo_bytes": r["hlo_bytes"],
+                               "collective": r["collective"]["bytes_by_op"],
+                               "memory": r["memory"]} for tag, r in recs.items()},
+               "roofline": {k: roof[k] for k in ("compute_s", "memory_s", "collective_s",
+                                                  "dominant", "useful_flops_ratio",
+                                                  "roofline_fraction")},
+               "card": {**b, "peak_bytes": m["peak_bytes"], "peak_diff": diff},
+               "waited_s": waited, "card_s": b_s, "card_line": card,
+               "processes_s": sum(r["seconds"] for r in runs.values())}
+    out_rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase {out_rec['seconds']:.1f} s: (b) {b_s:.1f} s, then {waited:.1f} s "
+        f"waiting for (a), whose {len(runs)} processes ran at once ({len(DRYRUN_CELLS)} "
+        f"chains) and took {out_rec['processes_s']:.1f} s in all; {card}")
+    return out_rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--rmsnorm-compare", action="append", default=[], metavar="CU",
@@ -6785,6 +7072,9 @@ def main() -> int:
     tp = phase_tp(fa, sp)
     resilience_clean("tp")
     log(json.dumps({"tp": tp}))
+    dryrun = phase_dryrun(ROOT / "build" / "dryrun")
+    resilience_clean("dryrun")
+    log(json.dumps({"dryrun": dryrun}))
     rows[adamw_at]["tp"] = tp_adamw_entry(tp)
     rows[adamw_at]["ep"] = {k: tp["ranks"][0]["g2"][k] for k in
                             ("launches", "launches_per_step", "profiled_per_step",

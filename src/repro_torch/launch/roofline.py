@@ -1,4 +1,5 @@
-"""Roofline arithmetic: the analytic half of ``src/repro/launch/roofline.py``.
+"""Roofline analysis from the dry run: the counterpart of
+``src/repro/launch/roofline.py``.
 
 The reference compiles two cost variants of every (arch, shape) cell with
 layers unrolled at n0 / n1 layers and extrapolates linearly to the full
@@ -17,21 +18,35 @@ are per chip:
 
 This module holds the plain functions of that method: ``model_flops``
 (6·N·D train, 2·N·D forward), the analytic FLOP and byte corrections,
-``extrapolate``, ``roofline_terms`` and ``analyze_cell``.  Dry-run records
-are plain dicts with the reference's keys.  The chip is an argument: by
-default ``hardware.chip_for(device)``, the card's constants on a CUDA
-device.  Compiling the cost variants (``variant_record``) and the sweep
-over the registry (``main``) go through ``dryrun.py``, which compiles on
-the production mesh; they wait for the port of ``dryrun.py`` (ROADMAP
-A11).
+``extrapolate``, ``roofline_terms`` and ``analyze_cell``, on plain dict
+records with the reference's keys.  ``variant_record`` traces a cost
+variant through ``launch/dryrun.py``'s ``dryrun_cell`` (its records leave
+the routed experts' FLOPs and skip the recurrent loops, so the analytic
+terms count each FLOP once), and ``main`` sweeps the registry over the
+dry run's records.  The port's trace counts every layer, so for a uniform
+stack the extrapolation from its variants is exact.  The chip is an
+argument: by default ``hardware.chip_for(device)``, the card's constants
+on a CUDA device.
+
+``variant_record`` (so ``main``) needs the dry run's fake 512-rank world
+and starts it itself, so it owns its process; importing this module starts
+nothing::
+
+    PYTHONPATH=src python -m repro_torch.launch.roofline --dryrun-dir results/dryrun \
+        [--arch gemma-7b --shape decode_32k] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+from pathlib import Path
+
 import torch
 
 from repro_torch import hardware
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES
 from repro_torch.models.config import active_param_count
 
@@ -115,6 +130,37 @@ def model_flops(cfg, shape, n_devices: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Cost variants
+# ---------------------------------------------------------------------------
+
+VARIANT_OVERRIDES = dict(
+    scan_layers=False,
+    dense_attn_threshold=1 << 30,
+    remat=True,
+)
+
+
+def variant_record(arch: str, shape_name: str, n_layers: int,
+                   multi_pod: bool = False) -> dict:
+    """Trace a cost variant in ``dryrun.init_world()``'s world, which it
+    starts where the process has no default group."""
+    from repro_torch.launch import dryrun
+    dryrun.init_world()
+    cfg = get_config(arch)
+    over = dict(n_layers=n_layers)
+    if cfg.encdec:
+        over["n_encoder_layers"] = n_layers
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        over["moe"] = dataclasses.replace(cfg.moe, first_k_dense=1)
+    cfg2 = cfg.with_runtime(**over)
+    shape = SHAPES[shape_name]
+    rt = dict(VARIANT_OVERRIDES)
+    rt["ce_chunk"] = shape.seq_len + 1            # single CE map iteration
+    return dryrun.dryrun_cell(arch, shape_name, multi_pod=multi_pod,
+                              cfg_override=cfg2, runtime_overrides=rt)
+
+
+# ---------------------------------------------------------------------------
 # Extrapolation and the roofline terms
 # ---------------------------------------------------------------------------
 
@@ -195,3 +241,66 @@ def analyze_cell(arch: str, shape_name: str, real_rec: dict,
         "params": real_rec["params"],
         "active_params": real_rec["active_params"],
     }
+
+
+def main(argv: list[str] | None = None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dryrun-dir", default="results/dryrun")
+    ap.add_argument("--variants-dir", default="results/roofline_variants")
+    ap.add_argument("--out", default="results/roofline")
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="the chip of the roofline terms (chip_for)")
+    args = ap.parse_args(argv)
+    chip = hardware.chip_for(args.device)
+
+    vdir = Path(args.variants_dir)
+    vdir.mkdir(parents=True, exist_ok=True)
+    outdir = Path(args.out)
+    outdir.mkdir(parents=True, exist_ok=True)
+
+    cells = []
+    for arch in ([args.arch] if args.arch else ARCH_IDS):
+        for shape in ([args.shape] if args.shape else SHAPES):
+            cells.append((arch, shape))
+
+    for arch, shape in cells:
+        real_path = Path(args.dryrun_dir) / f"{arch}__{shape}__sp.json"
+        out_path = outdir / f"{arch}__{shape}.json"
+        if out_path.exists():
+            continue
+        if not real_path.exists():
+            continue
+        real = json.loads(real_path.read_text())
+        if real["status"] != "ok":
+            out_path.write_text(json.dumps(real, indent=2))
+            continue
+        recs = {}
+        fail = None
+        for n in (2, 3):
+            vpath = vdir / f"{arch}__{shape}__L{n}.json"
+            if vpath.exists():
+                recs[n] = json.loads(vpath.read_text())
+            else:
+                recs[n] = variant_record(arch, shape, n)
+                vpath.write_text(json.dumps(recs[n], indent=2))
+            if recs[n]["status"] != "ok":
+                fail = recs[n]
+        if fail is not None:
+            out_path.write_text(json.dumps(
+                {"arch": arch, "shape": shape, "status": "variant_error",
+                 "error": fail.get("error")}, indent=2))
+            print(f"[roofline] {arch} x {shape}: VARIANT FAIL")
+            continue
+        cell = analyze_cell(arch, shape, real, recs[2], recs[3], chip=chip)
+        out_path.write_text(json.dumps(cell, indent=2))
+        print(f"[roofline] {arch} x {shape}: dominant={cell['dominant']} "
+              f"compute={cell['compute_s']*1e3:.1f}ms "
+              f"memory={cell['memory_s']*1e3:.1f}ms "
+              f"coll={cell['collective_s']*1e3:.1f}ms "
+              f"useful={cell['useful_flops_ratio']:.2f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -30,6 +30,12 @@ also adds the other ranks' sequence blocks into each rank's buffers
 and decode under the groups take the same paths; a decode step (one
 position) cannot split its sequence over ``"model"``, so under the
 expert-parallel context it raises, as the reference's ``shard_map`` does.
+
+While ``labelling_experts()`` is on, the routed experts' FFN runs under a
+``torch.profiler.record_function`` label (``EXPERTS_LABEL``), which changes
+no value: the port's dry run (``launch/dryrun.py``) turns it on and books
+the FLOPs under it apart, because the roofline adds the experts' FLOPs
+analytically.  Off (training and serving), no scope is entered.
 """
 
 from __future__ import annotations
@@ -42,6 +48,27 @@ import torch.nn.functional as F
 from repro_torch.models import data_parallel, shard_ctx, tensor_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
+
+#: the ``record_function`` label of the routed experts' FFN
+EXPERTS_LABEL = "moe_experts"
+_labelling = False
+
+
+@contextlib.contextmanager
+def labelling_experts():
+    """Run the routed experts' FFN under ``EXPERTS_LABEL`` inside the block
+    (process-wide, so a backward's recompute on another thread sees it)."""
+    global _labelling
+    before, _labelling = _labelling, True
+    try:
+        yield
+    finally:
+        _labelling = before
+
+
+def _experts_scope():
+    return (torch.profiler.record_function(EXPERTS_LABEL) if _labelling
+            else contextlib.nullcontext())
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -214,12 +241,13 @@ def _dispatch_one_group(xt: torch.Tensor, gate_vals: torch.Tensor,
 
     if mg is not None:                   # this rank's F slice of every expert
         buf = mg.enter(buf)
-    h = torch.bmm(buf, p["w_in"].to(xt.dtype))
-    if cfg.gated_mlp:
-        h = _act(torch.bmm(buf, p["w_gate"].to(xt.dtype)), cfg.activation) * h
-    else:
-        h = _act(h, cfg.activation)
-    out_buf = torch.bmm(h, p["w_out"].to(xt.dtype))                        # (E, C, D)
+    with _experts_scope():
+        h = torch.bmm(buf, p["w_in"].to(xt.dtype))
+        if cfg.gated_mlp:
+            h = _act(torch.bmm(buf, p["w_gate"].to(xt.dtype)), cfg.activation) * h
+        else:
+            h = _act(h, cfg.activation)
+        out_buf = torch.bmm(h, p["w_out"].to(xt.dtype))                    # (E, C, D)
     if mg is not None:
         out_buf = mg.exit(out_buf)
 

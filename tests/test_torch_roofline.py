@@ -199,6 +199,7 @@ def test_port_modules_import_no_jax_and_set_no_environment():
         "import repro_torch.configs.shapes, repro_torch.launch.roofline\n"
         "import repro_torch.launch.lint, repro_torch.models.config\n"
         "import repro_torch.core.stage_exec, repro_torch.core.resilience\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.report\n"
         "assert dict(os.environ) == before, set(os.environ) ^ set(before)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n")
