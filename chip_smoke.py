@@ -5390,6 +5390,12 @@ EP_MODEL_DIMS = {"w_in": 2, "w_gate": 2, "w_out": 1}
 TP_SERVE = {"h1": (4, 2048, 16), "h2": (2, 1024, 8)}
 TP_SERVE_BLOCKS = 2
 TP_SERVE_GREEDY = 2               # (h): tokens of lm.greedy_generate under the groups
+#: (h3) the continuous batcher's masked bucket on (h1)'s slices: the
+#: right-padded prompt lengths in (h1)'s bucket of 2048, and per-slot decode
+#: steps; row 1's writes cross from rank 0's block (positions 0-1027) into
+#: rank 1's at step 4
+TP_MASKED_PLENS = (2048, 1025, 700, 1)
+TP_MASKED_STEPS = 8
 
 
 def tp_gemma_config():
@@ -6032,7 +6038,8 @@ def tp_probe() -> dict:
 def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
     """One of the two ranks of the tp phase, on ``cuda:0``, in a ``gloo``
     group of its own making: (f), (a), (b), (c), (d), (g1), (g2), (h1) and
-    (h2) on the (1, 2) mesh, its results pickled to ``out_dir``."""
+    (h2) on the (1, 2) mesh, (h3) after (h1), its results pickled to
+    ``out_dir``."""
     import pickle
     from datetime import timedelta
     sys.path.insert(0, str(ROOT / "src"))
@@ -6075,8 +6082,14 @@ def tp_rank(rank: int, store: str, plain: dict, out_dir: str) -> None:
         res["g2"]["seconds"] = time.perf_counter() - t0
         for leg in ("h1", "h2"):
             t0 = time.perf_counter()
-            res[leg] = tp_serve(mesh, tp_serve_config(leg), leg, plain["serve"][leg])
+            res[leg] = tp_serve(mesh, tp_serve_config(leg), leg, plain["serve"][leg],
+                                keep=leg == "h1")
             res[leg]["seconds"] = time.perf_counter() - t0
+            if leg == "h1":              # (h3) on (h1)'s slices, then they go
+                t0 = time.perf_counter()
+                res["h3"] = tp_masked(mesh, tp_serve_config(leg), res[leg].pop("model"),
+                                      plain["masked"])
+                res["h3"]["seconds"] = time.perf_counter() - t0
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:
@@ -6293,13 +6306,132 @@ def tp_serve_plain(cfg, leg: str) -> dict:
            "layers": layers, "floor": floor, "cache_floor": cache_floor,
            "prefill_s": prefill_s, "step_s": step_s,
            "kv_bytes": 2 * caches.k.numel() * caches.k.element_size()}
-    del model, caches, logits
+    del caches, logits
+    if leg == "h1":
+        out["masked"] = tp_masked_plain(cfg, model, prompt)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def tp_serve(mesh, cfg, leg: str, plain: dict) -> dict:
+def tp_masked_plain(cfg, model, prompt: torch.Tensor) -> dict:
+    """(h3)'s reference, mesh-free on the card, on (h1)'s model: (h1)'s
+    prompt right-padded to ``TP_MASKED_PLENS`` (pad positions 0) through
+    the continuous batcher's bucket, ``serving._make_prefill_bucket(cfg,
+    True)``, into a per-slot cache of ``S + TP_MASKED_STEPS`` positions in
+    ``TP_SERVE_BLOCKS`` blocks, then per-slot greedy decode steps, each
+    timed.  Kept on the host as ``tp_serve_plain`` keeps them, with every
+    layer's ``length`` and ``start`` and the prefill's flash launches (a
+    masked prefill stays off the kernel)."""
+    from repro_torch.core import serving
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.models import transformer as tfm
+    B, S, _ = TP_SERVE["h1"]
+    plens = torch.tensor(TP_MASKED_PLENS, dtype=torch.int32, device="cuda")
+    prompt = torch.where(torch.arange(S, device="cuda")[None] < plens[:, None], prompt, 0)
+    caches = tfm.init_caches(cfg, B, S + TP_MASKED_STEPS, per_slot=True, device="cuda")
+    fl.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = serving._make_prefill_bucket(cfg, True)(model, prompt, plens, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = fl.flash_attention.launches
+    outs, step_s = [logits[:, -1].float().cpu()], []
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    tokens = [tok]
+    for _ in range(TP_MASKED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = tfm.decode_step(model, cfg, tok, caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        outs.append(logits[:, -1].float().cpu())
+        tokens.append(tok)
+    out = {"prompt": prompt.cpu(), "plens": plens.cpu(), "tokens": torch.cat(tokens, 1).cpu(),
+           "logits": outs, "layers": {i: (caches.k[i].cpu(), caches.v[i].cpu())
+                                      for i in (0, cfg.n_layers - 1)},
+           "length": caches.length.cpu(), "start": caches.start.cpu(), "launches": launches,
+           "prefill_s": prefill_s, "step_s": step_s,
+           "kv_bytes": 2 * caches.k.numel() * caches.k.element_size()}
+    del caches, logits
+    return out
+
+
+def tp_masked(mesh, cfg, model, plain: dict) -> dict:
+    """(h3) the continuous batcher's masked bucket under the groups on this
+    rank's slices of (h1) (``model``, freed here):
+    ``serving._make_prefill_bucket(cfg, True)`` on the rank's rows of the
+    right-padded prompt and ``plens`` into its per-slot cache block
+    (``init_caches(per_slot=True)``), timed, its flash launches by the
+    wrapper's counter (set to 0 just before), its collective bytes; then
+    the per-slot decode steps fed the mesh-free run's tokens, the first
+    counted and not timed, the later ones timed, as (h1)'s; each step's
+    last logits, the first and last layers' cache block, every layer's
+    ``length`` and ``start``, peak device memory (the slices included) and
+    the KV cache's bytes."""
+    from repro_torch.core import serving
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.launch import train as T
+    from repro_torch.models import data_parallel, tensor_parallel
+    from repro_torch.models import transformer as tfm
+    B, S, _ = TP_SERVE["h1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dg, mg = T.data_group(mesh), T.tp_group(mesh)
+    prompt, plens, tokens = (dg.local_rows(plain[k].cuda()) for k in ("prompt", "plens", "tokens"))
+    res = {}
+    with data_parallel.use(dg), tensor_parallel.use(mg):
+        params = tensor_parallel.serving_view(model, cfg)
+        caches = tfm.init_caches(cfg, B, S + TP_MASKED_STEPS, per_slot=True, device="cuda")
+        res["kv_shape"] = tuple(caches.k.shape)
+        res["kv_bytes"] = 2 * caches.k.numel() * caches.k.element_size()
+        fl.reset_counts()
+        tensor_parallel.reset_serving_bytes()
+        sent = collections.Counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_bytes(sent):
+            logits, caches = serving._make_prefill_bucket(cfg, True)(params, prompt, plens,
+                                                                     caches)
+            torch.cuda.synchronize()
+        res["prefill_s"] = time.perf_counter() - t0
+        res["launches"] = fl.flash_attention.launches
+        res["prefill_bytes"], res["prefill_serving_bytes"] = dict(sent), dict(
+            tensor_parallel.serving_bytes)
+        outs, step_s = [logits[:, -1].float().cpu()], []
+        sent = collections.Counter()
+        tensor_parallel.reset_serving_bytes()
+        with collective_bytes(sent):     # step 1: its bytes counted, not timed
+            logits, caches = tfm.decode_step(params, cfg, tokens[:, :1], caches)
+        outs.append(logits[:, -1].float().cpu())
+        res["decode_bytes"] = dict(sent)
+        res["decode_serving_bytes"] = dict(tensor_parallel.serving_bytes)
+        for i in range(1, TP_MASKED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = tfm.decode_step(params, cfg, tokens[:, i:i + 1], caches)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            outs.append(logits[:, -1].float().cpu())
+        res["step_s"], res["logits"] = step_s, outs
+        res["layers"] = {i: (caches.k[i].cpu(), caches.v[i].cpu())
+                         for i in (0, cfg.n_layers - 1)}
+        res["length"], res["start"] = caches.length.cpu(), caches.start.cpu()
+        torch.cuda.synchronize()
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["index"] = mg.index
+    del model, params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_serve(mesh, cfg, leg: str, plain: dict, keep: bool = False) -> dict:
     """(h) tensor-parallel serving on this rank of the (1, 2) mesh, under
     the groups ``train(mesh=...)`` installs: the rank's slices drawn from
     seed 0 (``weights.init_slices``), its KV cache block
@@ -6313,7 +6445,8 @@ def tp_serve(mesh, cfg, leg: str, plain: dict) -> dict:
     step (which is not timed: the later steps are, as ``tp_serve_plain``
     times them, the logits copied to the host after the clock stops); peak
     device memory; the KV cache's bytes.  Then ``lm.greedy_generate`` of
-    ``TP_SERVE_GREEDY`` tokens from the same prompt under the groups."""
+    ``TP_SERVE_GREEDY`` tokens from the same prompt under the groups.
+    ``keep`` leaves the slices in the result, under ``"model"``."""
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import ref
     from repro_torch.launch import shardings as shd
@@ -6384,10 +6517,113 @@ def tp_serve(mesh, cfg, leg: str, plain: dict) -> dict:
         del caches
         res["greedy"] = lm.greedy_generate(params, cfg, prompt, TP_SERVE_GREEDY).cpu()
     res["index"] = mg.index
+    if keep:
+        res["model"] = model
     del model, params, logits
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def tp_check_masked(res: list, plain: dict, want: dict, h1: dict, card: str) -> dict:
+    """(h3) from both ranks' results: printed, then checked against the
+    mesh-free run ``want`` (both off the kernel): 0 flash launches per
+    masked prefill on every rank and mesh-free; logits of every step by
+    (h1)'s serving rule, max(2e-2, ``EP_FLOOR_FACTOR`` x (h1)'s floor) of
+    max|ref| (the bf16 distance of two attention orders of this model's
+    prefill), the first and last layers' cache block by (h1)'s cache rule,
+    greedy tokens equal or a near-tie (``tokens_agree``); every layer's
+    per-slot ``length`` (the prompt lengths plus the steps) and ``start``
+    equal; each rank's KV cache one block of the per-slot cache."""
+    cfg = tp_serve_config("h1")
+    B, S, _ = TP_SERVE["h1"]
+    L, steps = cfg.n_layers, TP_MASKED_STEPS
+    pct = lambda xs, q: sorted(xs)[min(len(xs) - 1, int(q * len(xs)))]
+    rule = max(TOL[cfg.dtype], EP_FLOOR_FACTOR * plain["floor"])
+    cache_rule = {i: max(TOL[cfg.dtype], EP_FLOOR_FACTOR * f)
+                  for i, f in plain["cache_floor"].items()}
+    blk = -(-(S + steps) // TP_SERVE_BLOCKS)
+    lengths = torch.tensor(TP_MASKED_PLENS, dtype=torch.int32) + steps
+    failed, ties = [], []
+    worst = {"logits": 0.0, "cache": {i: 0.0 for i in cache_rule}}
+    if want["launches"] != 0:
+        failed.append(f"(h3) mesh-free: {want['launches']} flash launches in a masked prefill")
+    if not (torch.equal(want["length"], lengths.expand(L, B)) and not want["start"].any()):
+        failed.append(f"(h3) mesh-free: length {want['length'][0].tolist()}, start "
+                      f"{want['start'][0].tolist()}")
+    for r, rr in enumerate(res):
+        got = rr["h3"]
+        if got["launches"] != 0:
+            failed.append(f"(h3) rank {r}: {got['launches']} flash launches in a masked prefill")
+        if got["kv_shape"] != (L, 1, blk, B, cfg.attn.n_kv_heads, cfg.attn.head_dim):
+            failed.append(f"(h3) rank {r}: KV cache {got['kv_shape']}")
+        if not (torch.equal(got["length"], want["length"])
+                and torch.equal(got["start"], want["start"])):
+            failed.append(f"(h3) rank {r}: length {got['length'][0].tolist()}, start "
+                          f"{got['start'][0].tolist()} against {want['length'][0].tolist()}, "
+                          f"{want['start'][0].tolist()}")
+        for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            scale = float(w.abs().max())
+            d = float((g - w).abs().max()) / scale
+            worst["logits"] = max(worst["logits"], d)
+            if not d <= rule:
+                failed.append(f"(h3) rank {r} step {i}: logits {d:.3e} of max|ref| > {rule:.3e}")
+            try:
+                ties += tokens_agree(w[:, None], torch.argmax(g, -1),
+                                     max(plain["floor"], d) * scale)
+            except AssertionError as e:
+                failed.append(f"(h3) rank {r} step {i}: {e}")
+        m = got["index"]
+        for layer, kv in got["layers"].items():
+            for g, w in zip(kv, want["layers"][layer]):
+                w = w[m:m + 1].float()
+                d = float((g.float() - w).abs().max() / w.abs().max())
+                worst["cache"][layer] = max(worst["cache"][layer], d)
+                if not d <= cache_rule[layer]:
+                    failed.append(f"(h3) rank {r}: layer {layer}'s cache block {d:.3e} of "
+                                  f"max|ref| > {cache_rule[layer]:.3e}")
+    g0 = res[0]["h3"]
+    steps_ms = [1e3 * t for t in g0["step_s"]]
+    ref_ms = [1e3 * t for t in want["step_s"][1:]]
+    line = {"prefill_ms": 1e3 * g0["prefill_s"], "prefill_ms_mesh_free": 1e3 * want["prefill_s"],
+            "decode_ms_p50": pct(steps_ms, 0.5), "decode_ms_p99": pct(steps_ms, 0.99),
+            "decode_ms": steps_ms, "decode_ms_mesh_free_p50": pct(ref_ms, 0.5),
+            "h1_decode_ms_p50": h1["decode_ms_p50"], "h1_decode_ms_p99": h1["decode_ms_p99"],
+            "h1_prefill_ms": h1["prefill_ms"],
+            "prefill_bytes": g0["prefill_bytes"], "decode_bytes": g0["decode_bytes"],
+            "prefill_serving_bytes": g0["prefill_serving_bytes"],
+            "decode_serving_bytes": g0["decode_serving_bytes"],
+            "peak_bytes": [rr["h3"]["peak_bytes"] for rr in res], "kv_bytes": g0["kv_bytes"],
+            "kv_bytes_mesh_free": want["kv_bytes"], "rule": rule, "cache_rule": cache_rule,
+            "worst": worst, "near_ties": ties, "launches_per_rank_per_prefill":
+            [rr["h3"]["launches"] for rr in res], "length": g0["length"][0].tolist(),
+            "seconds": [rr["h3"]["seconds"] for rr in res]}
+    gb = lambda b: round(b / 1e9, 3)
+    log(f"[tp] (h3) the continuous batcher's masked bucket (serving._make_prefill_bucket(cfg, "
+        f"True)) under the groups on (h1)'s slices of {cfg.name}, {L} layers, bfloat16: "
+        f"{B} rows right-padded to {S} (plens {list(TP_MASKED_PLENS)}), a per-slot cache of "
+        f"{S + steps} positions in {TP_SERVE_BLOCKS} blocks ({g0['kv_shape']} per rank); "
+        f"masked prefill {line['prefill_ms']:.1f} ms (mesh-free "
+        f"{line['prefill_ms_mesh_free']:.1f}; (h1) unmasked {h1['prefill_ms']:.1f}); flash "
+        f"launches per rank per masked prefill {line['launches_per_rank_per_prefill']} "
+        f"(mesh-free {want['launches']}); {steps} per-slot decode steps, the last "
+        f"{steps - 1} timed: p50 / p99 {line['decode_ms_p50']:.1f} / "
+        f"{line['decode_ms_p99']:.1f} ms ((h1) {h1['decode_ms_p50']:.1f} / "
+        f"{h1['decode_ms_p99']:.1f}; mesh-free p50 {line['decode_ms_mesh_free_p50']:.1f}); "
+        f"logits of every step within {rule:.3e} of max|ref|: worst {worst['logits']:.3e}; "
+        f"cache blocks of layers {list(cache_rule)} worst "
+        f"{[round(v, 6) for v in worst['cache'].values()]} within "
+        f"{[round(v, 6) for v in cache_rule.values()]}; greedy tokens equal but near-ties "
+        f"{ties}; length {line['length']} and start equal on both ranks and mesh-free; "
+        f"collective bytes on rank 0 per masked prefill {line['prefill_bytes']} "
+        f"({line['prefill_serving_bytes']}), per decode step {line['decode_bytes']} "
+        f"({line['decode_serving_bytes']}); peak device memory per rank (slices included) "
+        f"{[gb(b) for b in line['peak_bytes']]} GB; KV cache per rank {gb(g0['kv_bytes'])} GB "
+        f"against {gb(want['kv_bytes'])} mesh-free; "
+        f"{[round(x, 1) for x in line['seconds']]} s; {card}")
+    if failed:
+        raise AssertionError("tp (h3): " + "; ".join(failed))
+    return line
 
 
 def tp_check_serve(res: list, plain: dict, card: str) -> dict:
@@ -6553,8 +6789,10 @@ def phase_tp(fa, sp) -> dict:
     init = tp_init_plain(tp_init_config())
     params["init_sums"] = init.pop("sums")
     plain["serve"] = {leg: tp_serve_plain(tp_serve_config(leg), leg) for leg in TP_SERVE}
+    plain["masked"] = plain["serve"]["h1"].pop("masked")
     params["serve"] = {leg: {k: v[k] for k in ("prompt", "tokens")}
                        for leg, v in plain["serve"].items()}
+    params["masked"] = {k: plain["masked"][k] for k in ("prompt", "plens", "tokens")}
     t_plain = time.perf_counter() - t_phase
     tmp = tempfile.mkdtemp()
     try:
@@ -6649,6 +6887,7 @@ def phase_tp(fa, sp) -> dict:
         f"(d) {json.dumps({k: round(v, 1) for k, v in d['checkpoint_s'].items()})}")
     tp_check_ep(res, plain, init, card)
     serve = tp_check_serve(res, plain["serve"], card)
+    serve["h3"] = tp_check_masked(res, plain["serve"]["h1"], plain["masked"], serve["h1"], card)
     torch.cuda.empty_cache()
     mesh = make_host_mesh()
     try:
@@ -6664,10 +6903,10 @@ def phase_tp(fa, sp) -> dict:
     log(f"[tp] (e) C15: a step holding {C15_BYTES} bytes raised an injected "
         f"torch.OutOfMemoryError and was retried; memory_allocated {c15['before']} before, "
         f"{c15['during']} in the failed attempt, {c15['at_retry']} at the retry's start")
-    del plain["serve"]
+    del plain["serve"], plain["masked"]
     out = {"plain": plain, "ranks": [{k: {kk: vv for kk, vv in v.items() if kk != "calls"}
                                       if isinstance(v, dict) else v for k, v in rr.items()
-                                      if k not in TP_SERVE}
+                                      if k not in TP_SERVE and k != "h3"}
                                      for rr in res],
            "init": init, "c14": c14, "c15": c15, "plain_s": t_plain, "ranks_s": ranks_s,
            "serve": serve}

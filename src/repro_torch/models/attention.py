@@ -35,9 +35,13 @@ all-to-all, into blocks); decode (``_decode``) gathers q over the
 group where the heads are split, computes the partial softmax of its own
 blocks for all heads, gathers the partials and combines them exactly in
 block order, then keeps its heads' output for ``wo``; the new token's K/V
-row is written by the rank whose block holds position ``length``.  The
-reference's sequence-parallel decode is the same LSE combine, rendered by
-GSPMD.
+row is written by the rank whose block holds position ``length`` (each
+row's own under per-slot lengths).  Under the data group a rank holds its
+rows of the KV cache but ``length`` and ``start`` whole, as ``cache_specs``
+places them: a pad mask's rows are spanned and gathered once per prefill
+(``prompt_span``), and every later use takes the rank's rows
+(``_local_rows``).  The reference's sequence-parallel decode is the same
+LSE combine, rendered by GSPMD.
 """
 
 from __future__ import annotations
@@ -307,14 +311,11 @@ def _decode_partials(q: torch.Tensor, cache: KVCache, *, window: int | None = No
     # (per-slot ``length``) and may start past 0 (left-pad ``start``)
     pos = (first_block * blk + torch.arange(n_blk * blk, device=q.device)).reshape(n_blk, 1, blk)
     length = cache.length
-    lb = length[None, :, None] if length.dim() else length
+    lb = _local_rows(length, B)[None, :, None] if length.dim() else length
     valid = pos < lb
     if window is not None:
         valid = valid & (pos > lb - 1 - window)
-    start = cache.start
-    if start.shape[0] != B:          # every data row's, as cache_specs replicates it
-        start = data_parallel.current().local_rows(start)
-    valid = valid & (pos >= start[None, :, None])
+    valid = valid & (pos >= _local_rows(cache.start, B)[None, :, None])
     valid = valid.expand(n_blk, B, blk)[:, :, None, None, :]
     s = torch.where(valid, s, NEG_INF)
 
@@ -324,6 +325,13 @@ def _decode_partials(q: torch.Tensor, cache: KVCache, *, window: int | None = No
     o_blk = torch.einsum("nbghk,nkbhd->nbghd", p.to(cache.v.dtype).to(torch.float32),
                          cache.v.to(torch.float32))
     return m_blk, l_blk, o_blk
+
+
+def _local_rows(t: torch.Tensor, B: int) -> torch.Tensor:
+    """This rank's ``B`` data rows of a per-row leaf (``start``, a per-slot
+    ``length``), which ``cache_specs`` keeps whole on every rank: the
+    installed data group's chunk where ``t`` holds more rows."""
+    return t if t.shape[0] == B else data_parallel.current().local_rows(t)
 
 
 def _combine_partials(m_blk: torch.Tensor, l_blk: torch.Tensor, o_blk: torch.Tensor,
@@ -367,31 +375,34 @@ def cache_update_decode(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
     """Write one token (S == 1) at position ``length`` (per row if (B,)),
     in place; returns the cache with ``length + 1``.  With ``group`` (the
     ``"model"`` group the cache's blocks are split over, ``_kv_group``)
-    ``cache`` is this rank's blocks and only the rank holding position
-    ``length`` writes, without a host read (one timeline: ``transformer``
-    refuses per-slot lengths under a group)."""
+    ``cache`` is this rank's blocks and only the rank holding a row's
+    position writes it, without a host read.  Under the data group
+    ``k_new`` is this rank's rows and a per-slot ``length`` every row's:
+    the rank writes at its rows' positions and advances the whole vector."""
     n_blk, blk = cache.k.shape[0], cache.k.shape[1]
     pos = cache.length
     rows_k = k_new[:, :, 0].to(cache.k.dtype)                     # (B, Hkv, D)
     rows_v = v_new[:, :, 0].to(cache.v.dtype)
+    # the whole cache's blocks before ``first`` other ranks hold
+    first, total = (0, n_blk) if group is None else (group.index * n_blk, group.size * n_blk)
     if pos.dim():
-        # Per-slot positions: each row writes its own (block, offset).  A row
-        # past capacity (an idle slot of a rolling batch) writes nothing, as
-        # the reference's ``mode="drop"`` scatter: it is aimed at the last
-        # position and writes back what is there.  No host read of ``pos``.
-        cap = n_blk * blk
-        live = pos < cap
-        at = torch.where(live, pos, cap - 1).long()
-        bi, off = at // blk, at % blk
-        rows = torch.arange(pos.shape[0], device=pos.device)
-        keep = live[:, None, None]
+        # Per-slot positions: each row writes its own (block, offset), on the
+        # rank holding that block.  A row past capacity (an idle slot of a
+        # rolling batch) writes nothing, as the reference's ``mode="drop"``
+        # scatter; a row this rank does not write is aimed at its last
+        # position and writes back what is there.
+        at = _local_rows(pos, rows_k.shape[0]).long()
+        bi = at // blk - first
+        mine = (at < total * blk) & (bi >= 0) & (bi < n_blk)
+        bi = torch.where(mine, bi, n_blk - 1)
+        off = torch.where(mine, at % blk, blk - 1)
+        rows = torch.arange(at.shape[0], device=pos.device)
+        keep = mine[:, None, None]
         for buf, new in ((cache.k, rows_k), (cache.v, rows_v)):
             buf[bi, off, rows] = torch.where(keep, new, buf[bi, off, rows])
         return cache._replace(length=pos + 1)
     # one timeline: the (B, Hkv, D) slab at (block, offset) of the whole
-    # cache, whose blocks before ``first`` other ranks hold; a block index
-    # past the end is clamped (``dynamic_update_slice``)
-    first, total = (0, n_blk) if group is None else (group.index * n_blk, group.size * n_blk)
+    # cache; a block index past the end is clamped (``dynamic_update_slice``)
     bi = torch.clamp(pos // blk, max=total - 1).long().reshape(1) - first
     off = (pos % blk).long().reshape(1)
     for buf, new in ((cache.k, rows_k), (cache.v, rows_v)):
@@ -404,19 +415,39 @@ def cache_update_decode(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor
     return cache._replace(length=pos + 1)
 
 
+def prompt_span(pad_mask: torch.Tensor) -> torch.Tensor:
+    """(B, 2) int32: each row's first real position and one past its last
+    (S and 0 for a row of pads) in ``pad_mask`` (B, S) bool, True = real
+    token.  Under a data group the mask is this rank's rows and the span
+    comes back for every data row, gathered in one all-gather (its bytes
+    under ``serving_bytes["lengths"]``), since ``cache_specs`` keeps
+    ``start`` and a per-slot ``length`` whole on every rank."""
+    real = pad_mask.to(torch.bool)
+    S = real.shape[1]
+    idx = torch.arange(S, dtype=torch.int32, device=real.device)[None, :]
+    span = torch.stack([torch.amin(torch.where(real, idx, S), dim=1),
+                        torch.amax(torch.where(real, idx, -1), dim=1) + 1], 1).to(torch.int32)
+    dg = data_parallel.current()
+    if dg is None or dg.size == 1:
+        return span
+    span = dg.all_gather(span, 0)
+    tensor_parallel.serving_bytes["lengths"] += span.numel() * span.element_size()
+    return span
+
+
 def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tensor,
-                       pad_mask: torch.Tensor | None = None,
+                       span: torch.Tensor | None = None,
                        length: int | None = None) -> KVCache:
     """Write a full prefill (B, Hkv, S, D) into the blocked cache, in place
     (positions past S are zeroed, as the reference's padded copy).
 
-    ``pad_mask`` (B, S) bool, True = real token: rows record where their
-    valid span begins (``start``, the left-pad width) and, for a cache with
-    per-slot lengths, where it ends (right-padded rows stop at their true
-    prompt length).  A scalar-length cache keeps ``length = S`` and can
-    therefore only mask LEFT pads.  ``length`` (no pad mask) overrides S as
-    the tokens stored: the prompt's length where ``cache`` is one rank's
-    blocks of it (``_fill_cache``)."""
+    ``span`` is the pad mask's ``prompt_span`` (the reference takes the
+    mask itself): rows record where their valid span begins (``start``,
+    the left-pad width) and, for a cache with per-slot lengths, where it
+    ends (right-padded rows stop at their true prompt length).  A
+    scalar-length cache keeps ``length = S`` and can therefore only mask
+    LEFT pads.  ``length`` overrides S as the tokens stored: the prompt's
+    length where ``cache`` is one rank's blocks of it (``_fill_cache``)."""
     n_blk, blk = cache.k.shape[0], cache.k.shape[1]
     B, Hkv, S, D = k_full.shape
     if S > n_blk * blk:
@@ -425,17 +456,13 @@ def cache_fill_prefill(cache: KVCache, k_full: torch.Tensor, v_full: torch.Tenso
         flat = buf.view(n_blk * blk, B, Hkv, D)
         flat[:S] = new.permute(2, 0, 1, 3)
         flat[S:] = 0
-    i32 = dict(dtype=torch.int32, device=k_full.device)
     S = S if length is None else length
-    if pad_mask is None:
-        start = torch.zeros_like(cache.start)
-        end = torch.full((B,), S, **i32)
+    if span is None:                     # every row real: [0, S)
+        start, end = torch.zeros_like(cache.start), torch.full_like(cache.start, S)
     else:
-        real = pad_mask.to(torch.bool)
-        idx = torch.arange(S, **i32)[None, :]
-        start = torch.amin(torch.where(real, idx, S), dim=1).to(torch.int32)
-        end = (torch.amax(torch.where(real, idx, -1), dim=1) + 1).to(torch.int32)
-    length = end if cache.length.dim() else torch.tensor(S, **i32)
+        start, end = span[:, 0].contiguous(), span[:, 1].contiguous()
+    length = end if cache.length.dim() else torch.tensor(S, dtype=torch.int32,
+                                                         device=k_full.device)
     return KVCache(cache.k, cache.v, length, start)
 
 
@@ -454,14 +481,16 @@ def _kv_group(cache: KVCache | None, cfg: ModelConfig):
 
 
 def _fill_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
-                mg, pad_mask: torch.Tensor | None) -> KVCache:
+                mg, span: torch.Tensor | None) -> KVCache:
     """Prefill's cache fill, under the ``"model"`` group ``mg`` where it is
     not None: ``k`` and ``v`` (B, Hk, S, D) are every KV head, or this
     rank's where they are a slice by heads.  A cache of sequence blocks
     takes only this rank's positions of every head: cut from whole K and
     V, or exchanged from the other ranks' heads (all-to-all: each rank
     sends each other rank only that rank's block of its heads); a whole
-    cache gathers the heads."""
+    cache gathers the heads.  ``span`` (the pad mask's ``prompt_span``)
+    is of the rows' whole sequence, on every ``"model"`` rank alike, so
+    each row's ``start`` and end are global positions on either path."""
     a = cfg.attn
     D = k.shape[-1]
     S = k.shape[2]
@@ -470,17 +499,17 @@ def _fill_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor, cfg: ModelConf
     if cg is None:
         if split:
             k, v = mg.gather(torch.cat([k, v], -1), 1, "kv_heads").split(D, -1)
-        return cache_fill_prefill(cache, k, v, pad_mask=pad_mask)
-    span = cache.k.shape[0] * cache.k.shape[1]
-    if S > span * cg.size:
-        raise ValueError(f"prefill of {S} positions into a cache of {span * cg.size}")
-    kv = torch.nn.functional.pad(torch.cat([k, v], -1), (0, 0, 0, span * cg.size - S))
+        return cache_fill_prefill(cache, k, v, span=span)
+    held = cache.k.shape[0] * cache.k.shape[1]          # positions per rank
+    if S > held * cg.size:
+        raise ValueError(f"prefill of {S} positions into a cache of {held * cg.size}")
+    kv = torch.nn.functional.pad(torch.cat([k, v], -1), (0, 0, 0, held * cg.size - S))
     if split:
-        kv = cg.exchange(kv, 2, 1, "kv_blocks")            # (B, Hkv, span, 2D)
+        kv = cg.exchange(kv, 2, 1, "kv_blocks")            # (B, Hkv, held, 2D)
     else:
-        kv = kv.narrow(2, cg.index * span, span)
+        kv = kv.narrow(2, cg.index * held, held)
     k, v = kv.split(D, -1)
-    return cache_fill_prefill(cache, k, v, length=S)
+    return cache_fill_prefill(cache, k, v, span=span, length=S)
 
 
 def _decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: KVCache,
@@ -553,13 +582,16 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
                     window: int | None = None, cache: KVCache | None = None,
                     mode: str = "train", use_kernel: bool | None = None,
                     pad_mask: torch.Tensor | None = None,
-                    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None):
+                    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    span: torch.Tensor | None = None):
     """Full attention sub-layer (B, S, d) -> (B, S, d).  Returns (out,
     new_cache | None).
 
     ``pad_mask`` (prefill/train, (B, S) bool, True = real token): pad keys
     are masked out of every query's softmax, and the prefill cache records
-    each row's valid span so later decode steps skip the pad K/V too.
+    each row's valid span so later decode steps skip the pad K/V too
+    (``span``: the mask's ``prompt_span``, where the caller took it once
+    for every layer).
 
     ``cross_kv`` (an encoder-decoder's cross-attention): the given (B, Hkv,
     S_enc, D) K and V, q from ``wq`` without RoPE, on the plain dense path,
@@ -592,7 +624,7 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
     if positions is None:
         if mode == "decode" and cache is not None:
             length = cache.length
-            positions = (length[:, None] if length.dim()
+            positions = (_local_rows(length, B)[:, None] if length.dim()
                          else length.reshape(1, 1).expand(B, 1))
         else:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -606,7 +638,9 @@ def attention_block(p, x: torch.Tensor, cfg: ModelConfig, *,
         new_cache, o = _decode(q, k, v, cache, cfg, group, mg, window)
     else:
         if mode == "prefill" and cache is not None:
-            new_cache = _fill_cache(cache, k, v, cfg, group, pad_mask)
+            if span is None and pad_mask is not None:
+                span = prompt_span(pad_mask)
+            new_cache = _fill_cache(cache, k, v, cfg, group, span)
         if mg is not None:
             k, v = _per_query_kv(q, k, v, mg)
         if _takes_kernel(use_kernel, cfg, q, k, v, pad_mask):

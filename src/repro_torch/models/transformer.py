@@ -42,10 +42,13 @@ each rank runs its data rows, its decode state is the pieces
 ``launch.shardings.cache_specs`` places on it (``init_caches``: the KV
 cache in sequence blocks over ``"model"``, rows over the data axes), and
 the logits are gathered over the head's vocabulary columns, so every
-``"model"`` rank returns the whole vocabulary of its rows.  The leaves
-``tensor_parallel.plan`` gathers are whole: the caller views them once
-(``tensor_parallel.serving_view``), and each call checks it.  A pad mask
-and per-slot lengths are not ported under a group.
+``"model"`` rank returns the whole vocabulary of its rows.  A pad mask,
+``last_pos`` and per-slot lengths are the rank's rows; the rows' valid
+spans are gathered over the data group once per prefill
+(``attention.prompt_span``), since ``length`` and ``start`` are whole on
+every rank.  The leaves ``tensor_parallel.plan`` gathers are whole: the
+caller views them once (``tensor_parallel.serving_view``), and each call
+checks it.
 """
 
 from __future__ import annotations
@@ -175,13 +178,15 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
                  positions: torch.Tensor | None, cache=None,
                  mode: str = "train", pad_mask: torch.Tensor | None = None,
                  use_kernel: bool | None = None, causal: bool = True,
-                 cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None):
+                 cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                 span: torch.Tensor | None = None):
     """One block: (x, new_cache, aux), aux None but for an MoE block.
     ``cache`` is the layer's ``KVCache``, ``{"kv", "ssm"}`` (hybrid) or
     ``RWKVState`` (None in train mode: recurrent states start at zero).
     ``causal`` is False in the encoder; ``cross_kv`` is an encoder-decoder
     layer's (K, V) of the encoder output: its cross sub-layer runs between
-    self-attention and the MLP (skipped without it, as the reference's)."""
+    self-attention and the MLP (skipped without it, as the reference's);
+    ``span`` is ``pad_mask``'s ``attention.prompt_span``."""
     x = shard_ctx.constrain_residual(x)
     if "rwkv" in p:
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
@@ -195,7 +200,7 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ModelConfig, window: int,
     a_out, new_cache = attn_mod.attention_block(
         p["attn"], h, cfg, positions=positions, causal=causal, window=window,
         cache=cache["kv"] if hybrid and cache is not None else cache, mode=mode,
-        use_kernel=use_kernel, pad_mask=pad_mask)
+        use_kernel=use_kernel, pad_mask=pad_mask, span=span)
     if hybrid:            # parallel heads on the same input, mean combine
         s_out, ssm_new = ssm_mod.ssm_block(p["ssm"], h, cfg,
                                            None if cache is None else cache["ssm"], mode=mode)
@@ -237,13 +242,15 @@ def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
               caches=None, mode: str = "train",
               positions: torch.Tensor | None = None,
               cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
-              pad_mask: torch.Tensor | None = None, use_kernel: bool | None = None):
+              pad_mask: torch.Tensor | None = None, use_kernel: bool | None = None,
+              span: torch.Tensor | None = None):
     """The pre-layers (if any, global attention), then the layer stack.
     Returns (x, new_caches, aux): ``caches`` is the stacked decode state
     (``init_caches``'s form; ``{"stack", "pre"}`` with pre-layers; None in
     train mode); ``cross_kv`` the stacked (L, B, Hkv, S_enc, D) K and V of
     an encoder-decoder's cross-attention (``_cross_kv_per_layer``), layer
-    ``i`` taking slice ``i``; ``pad_mask`` (B, S) marks real tokens;
+    ``i`` taking slice ``i``; ``pad_mask`` (B, S) marks real tokens, and
+    ``span`` is its ``attention.prompt_span`` for every layer's cache;
     ``use_kernel`` picks the flash-attention kernel where it applies
     (``attention._takes_kernel``); ``aux`` is the MoE load-balance loss
     summed over the layers (0 for other models)."""
@@ -259,7 +266,7 @@ def run_stack(params, x: torch.Tensor, cfg: ModelConfig, *,
         for i, (p, window) in enumerate(zip(layers, windows)):
             cache = None if stacked is None else _layer_state(stacked, i)
             args = (p, x, cfg, window, positions, cache, mode, pad_mask, use_kernel,
-                    True, None if ckv is None else (ckv[0][i], ckv[1][i]))
+                    True, None if ckv is None else (ckv[0][i], ckv[1][i]), span)
             x, new, a = (checkpoint(_apply_block, *args, use_reentrant=False) if remat
                          else _apply_block(*args))
             if a is not None:
@@ -400,19 +407,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, per_slot: bool = Fal
     ``batch`` rows' state as ``launch.shardings.cache_specs`` places them,
     allocated at their own size: the KV cache's blocks over ``"model"``
     (``kv_cache_blocks`` a multiple of the extent) and rows over the data
-    group, SSM and RWKV states by channels or heads, ``length`` and
-    ``start`` whole."""
+    group, SSM and RWKV states by channels or heads, ``length`` (per-slot
+    or not) and ``start`` whole."""
     check_ported(cfg)
     mesh = _groups_mesh()
     if mesh is not None:
         from repro_torch.launch import shardings as shd
         dg = data_parallel.current()
-        if per_slot:
-            raise ValueError("per-slot lengths under a data or \"model\" group are not ported")
         if dg is not None and batch % dg.size:
             raise ValueError(f"{batch} rows over a data group of {dg.size}")
         with data_parallel.use(None), tensor_parallel.use(None):
-            whole = init_caches(cfg, batch, max_len, device="meta")
+            whole = init_caches(cfg, batch, max_len, per_slot=per_slot, device="meta")
         specs = shd.cache_specs(whole, mesh, cfg)
         return shd.map_with_path(
             lambda path, leaf: torch.zeros(
@@ -445,17 +450,6 @@ def _groups_mesh():
                         ("data", "model"))
 
 
-def _refuse_under_groups(pad_mask=None, caches=None) -> None:
-    """What serving under a data or ``"model"`` group does not port: a pad
-    mask and per-slot lengths (ROADMAP)."""
-    if _groups_mesh() is None:
-        return
-    if pad_mask is not None:
-        raise ValueError("pad_mask under a data or \"model\" group is not ported")
-    if any(c.length.dim() > 1 for c in _kv_caches(caches)):
-        raise ValueError("a per-slot length under a data or \"model\" group is not ported")
-
-
 def _kv_caches(caches) -> list[KVCache]:
     if isinstance(caches, KVCache):
         return [caches]
@@ -482,15 +476,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor | None = None,
     masked out of every attention softmax and the cache records each row's
     valid span.  ``last_pos`` (B,) selects each row's own last REAL position
     for the returned logits (right-padded rows); default is the final array
-    position (correct for unpadded and left-padded prompts).  Without a pad
-    mask every layer's attention takes the flash-attention kernel on a CUDA
-    device (``use_kernel``, default: there)."""
-    _refuse_under_groups(pad_mask, caches)
+    position (correct for unpadded and left-padded prompts).  Under the
+    data group ``pad_mask`` and ``last_pos`` are this rank's rows.  Without
+    a pad mask every layer's attention takes the flash-attention kernel on
+    a CUDA device (``use_kernel``, default: there)."""
     tensor_parallel.check_viewed(params, cfg)
+    span = (attn_mod.prompt_span(pad_mask)
+            if pad_mask is not None and _kv_caches(caches) else None)
     x = _inputs_to_embeds(params, cfg, tokens, input_embeds)
     x, caches, _ = run_stack(params, x, cfg, caches=caches, mode="prefill",
                              positions=positions, pad_mask=pad_mask, use_kernel=use_kernel,
-                             cross_kv=_encoded_cross_kv(params, cfg, enc_embeds, use_kernel))
+                             cross_kv=_encoded_cross_kv(params, cfg, enc_embeds, use_kernel),
+                             span=span)
     if last_pos is not None:
         idx = last_pos.long()[:, None, None].expand(-1, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
@@ -507,7 +504,6 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
     An encoder-decoder model attends ``enc_out`` (``encode``'s output),
     whose cross K/V every layer recomputes at every step, as the
     reference's; without it the cross sub-layers are skipped."""
-    _refuse_under_groups(caches=caches)
     tensor_parallel.check_viewed(params, cfg)
     x = embed_tokens(params["embed"], token, cfg)
     cross_kv = (_cross_kv_per_layer(params, enc_out, cfg)

@@ -250,13 +250,14 @@ def cache_assemble(pieces: Mapping[tuple[int, ...], Any], cfg: ModelConfig, mesh
     """``cache_piece``'s inverse: the whole stacked decode state of
     ``batch`` rows and ``max_len`` positions, as ``cache_to_numpy`` gives
     it, from every mesh coordinate's piece (``{coord: piece}``, the port's
-    tensors); a part held by several coordinates is taken from the first."""
+    tensors); a part held by several coordinates is taken from the first.
+    A per-slot ``length`` (L, B) in the pieces gives a per-slot whole."""
     from repro_torch.launch import shardings as shd
     from repro_torch.models import data_parallel, tensor_parallel
     from repro_torch.models.transformer import init_caches
-    with data_parallel.use(None), tensor_parallel.use(None):
-        like = init_caches(cfg, batch, max_len, device="meta")
     items = [(c, cache_to_numpy(p)) for c, p in pieces.items()]
+    with data_parallel.use(None), tensor_parallel.use(None):
+        like = init_caches(cfg, batch, max_len, per_slot=_per_slot(items[0][1]), device="meta")
     specs = shd.cache_specs(like, mesh, cfg)
 
     def whole(path: tuple, leaf):
@@ -266,6 +267,13 @@ def cache_assemble(pieces: Mapping[tuple[int, ...], Any], cfg: ModelConfig, mesh
             out[shd.region(shape, spec, mesh, coord)] = shd.at_path(piece, path)
         return out
     return shd.map_with_path(whole, like)
+
+
+def _per_slot(cache) -> bool:
+    """Whether a stacked decode state carries per-slot lengths (L, B)."""
+    if isinstance(cache, dict):
+        return any(_per_slot(c) for c in cache.values())
+    return getattr(cache, "_fields", None) == KVCache._fields and np.ndim(cache.length) > 1
 
 
 def model_slices(params: ParamTree, dims: Mapping[str, int | None], index: int,

@@ -10,20 +10,25 @@ MoE, ``test_torch_tp_serve_families.py`` the hybrid and RWKV families and
 ``test_torch_tp_serve_encdec.py`` the encoder-decoder and a padded
 vocabulary on (1, 2); ``test_torch_tp_serve_mesh.py`` and
 ``test_torch_tp_serve_mesh_inputs.py`` (2, 2), and
-``test_torch_tp_serve_wide.py`` (1, 4).  Float32, the smoke configs with
-``launch/dryrun.py``'s knobs (``kv_cache_blocks`` the ``"model"`` extent).
+``test_torch_tp_serve_wide.py`` (1, 4); ``test_torch_tp_serve_masked.py``,
+``_masked_families.py`` and ``_masked_mesh.py`` the batchers' masked and
+per-slot prefill steps (``tp_serve_scenarios.MASKED``).  Float32, the smoke
+configs with ``launch/dryrun.py``'s knobs (``kv_cache_blocks`` the
+``"model"`` extent).
 
 Held per case and rank: the prefill logits of the rank's data rows and the
 logits of three decode steps fed the reference's greedy tokens within
 1e-4 x max|ref logits| (about 10x the 1.14e-5 by which the reference's own
 sharded and mesh-free runs differ); each rank's cache pieces after prefill
 and after decode within ``TOL`` f32 (2e-5 absolute) of the reference's
-cache cut as ``cache_specs`` places it (``weights.cache_piece``), their
-local shapes, and the pieces assembled (``weights.cache_assemble``) against
-the whole; the same decode steps from the reference's prefill cache
-carried across (decode alone); the greedy tokens of ``lm.greedy_generate``
-equal to the reference's (the argmaxes of its prefill and decode chain,
-which the reference's sharded and mesh-free runs share).
+cache cut as ``cache_specs`` places it (``weights.cache_piece``), its
+``length`` and ``start`` exactly, their local shapes, and the pieces
+assembled (``weights.cache_assemble``) against the whole; the same decode
+steps from the reference's prefill cache carried across (decode alone; a
+masked case's own steps from a cache with one row at capacity); the greedy
+tokens of ``lm.greedy_generate`` equal to the reference's (the argmaxes of
+its prefill and decode chain, which the reference's sharded and mesh-free
+runs share; a masked case's chain of argmaxes).
 """
 
 import numpy as np
@@ -51,7 +56,10 @@ def _close_cache(got, want, what):
     assert len(g) == len(w), what
     for i, (a, b) in enumerate(zip(g, w)):
         assert a.shape == b.shape, (what, i, a.shape, b.shape)
-        np.testing.assert_allclose(a, b, rtol=0, atol=CACHE_ATOL, err_msg=f"{what} leaf {i}")
+        if b.dtype.kind in "iu":         # length, start
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} leaf {i}")
+        else:
+            np.testing.assert_allclose(a, b, rtol=0, atol=CACHE_ATOL, err_msg=f"{what} leaf {i}")
 
 
 def _mesh(name):
@@ -85,12 +93,13 @@ def check_case(world, name):
                       f"{what} prefill")
         for i, (g, w) in enumerate(zip(got["decode_logits"], want["decode_logits"])):
             _close_logits(g, _rows(w, name, got["rows"]), f"{what} decode step {i + 1}")
-        for i, (g, w) in enumerate(zip(got["alone_logits"], want["decode_logits"])):
+        alone = want.get("alone_logits", want["decode_logits"])
+        for i, (g, w) in enumerate(zip(got["alone_logits"], alone)):
             _close_logits(g, _rows(w, name, got["rows"]), f"{what} decode alone step {i + 1}")
         for key in ("prefill_cache", "decode_cache"):
             _close_cache(got[key], _want_piece(want[key], name, got["coord"]), f"{what} {key}")
-        _close_cache(got["alone_cache"], _want_piece(want["decode_cache"], name, got["coord"]),
-                     f"{what} alone_cache")
+        _close_cache(got["alone_cache"], _want_piece(want.get("alone_cache", want["decode_cache"]),
+                                                     name, got["coord"]), f"{what} alone_cache")
         assert got["local_shapes"] == [a.shape for a in _leaves(got["prefill_cache"])]
         if "greedy" in want:
             np.testing.assert_array_equal(got["greedy"], _rows(want["greedy"], name, got["rows"]),
@@ -135,26 +144,108 @@ def test_block_exchange_and_collectives_are_counted(dense):
         assert i["bytes"]["qkv_row"] > 0
 
 
-def test_no_pad_mask_or_per_slot_length_under_a_group():
-    """Under a ``"model"`` group (installed here without collectives: each
-    refusal comes before any) a pad mask and per-slot lengths raise a
-    ``ValueError`` that names them."""
+def _halves(whole, n: int, d: int) -> list:
+    """The ``"model"`` rank's halves of a whole per-slot cache, for each
+    rank of ``n`` ``"model"`` ranks and ``d`` data ranks: (index, data
+    index, its blocks of its rows with ``length`` and ``start`` whole)."""
+    from repro_torch.models.attention import KVCache
+    out = []
+    for j in range(d):
+        for i in range(n):
+            k, v = (torch.chunk(torch.chunk(t, n, 0)[i], d, 2)[j].clone()
+                    for t in (whole.k, whole.v))
+            out.append((i, j, KVCache(k, v, whole.length.clone(), whole.start.clone())))
+    return out
+
+
+@pytest.mark.parametrize("data", [1, 2])
+def test_per_slot_decode_writes_on_the_block_owner_only(data):
+    """Without collectives: each ``"model"`` half (``ModelGroup(group=None,
+    size=2, index=i)``, and under ``data`` ranks of a data group, its rows)
+    of a whole per-slot cache runs ``cache_update_decode`` twice; stacked,
+    the halves equal the whole cache's writes, and every half's ``length``
+    the whole's.  Blocks of 12 over capacity 24: row 0 at 11 writes the
+    last position of block 0, then the first of block 1; row 1 sits past
+    capacity, row 2 at capacity - 1 (then at capacity) and row 3 at 5."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import data_parallel, tensor_parallel
+    from repro_torch.models.data_parallel import DataGroup
+    from repro_torch.models.tensor_parallel import ModelGroup
+    gen = torch.Generator().manual_seed(0)
+    B, H, D = 4, 2, 3
+    whole = attn.KVCache(torch.randn(2, 12, B, H, D, generator=gen),
+                         torch.randn(2, 12, B, H, D, generator=gen),
+                         torch.tensor([11, 24, 23, 5], dtype=torch.int32),
+                         torch.zeros(B, dtype=torch.int32))
+    pieces = _halves(whole, 2, data)
+    before = whole.k.clone()
+    for _ in range(2):
+        k_new, v_new = (torch.randn(B, H, 1, D, generator=gen) for _ in range(2))
+        whole = attn.cache_update_decode(whole, k_new, v_new)
+        moved = []
+        for i, j, piece in pieces:
+            dg = DataGroup(group=None, size=data, index=j, order=tuple(range(data)))
+            mg = ModelGroup(group=None, size=2, index=i, order=(0, 1))
+            with data_parallel.use(dg if data > 1 else None), tensor_parallel.use(mg):
+                new = attn.cache_update_decode(piece, dg.local_rows(k_new), dg.local_rows(v_new),
+                                               mg)
+            torch.testing.assert_close(new.length, whole.length, rtol=0, atol=0)
+            moved.append((i, j, new))
+        pieces = moved
+    for t, name in ((whole.k, "k"), (whole.v, "v")):
+        stacked = torch.cat([torch.cat([getattr(p, name) for i, j, p in pieces if j == jj], 0)
+                             for jj in range(data)], 2)
+        torch.testing.assert_close(stacked, t, rtol=0, atol=0)
+    assert whole.length.tolist() == [13, 26, 25, 7]
+    assert not torch.equal(whole.k[1, 0, 0], before[1, 0, 0])      # row 0 crossed
+    torch.testing.assert_close(whole.k[:, :, 1], before[:, :, 1], rtol=0, atol=0)
+    assert not torch.equal(whole.k[1, 11, 2], before[1, 11, 2])    # capacity - 1
+    torch.testing.assert_close(whole.k[:, :, 2].flatten(0, 1)[:23],
+                               before[:, :, 2].flatten(0, 1)[:23], rtol=0, atol=0)
+
+
+def test_a_block_with_no_valid_key_weighs_nothing():
+    """A left pad longer than a block (``start`` 15, blocks of 12): that
+    row's partial over block 0 has ``l`` 0, and the partials of both
+    halves, combined, equal the whole cache's decode, with no NaN."""
+    from repro_torch.models import attention as attn
+    gen = torch.Generator().manual_seed(1)
+    B, Hkv, D, g = 2, 2, 4, 2
+    cache = attn.KVCache(torch.randn(2, 12, B, Hkv, D, generator=gen),
+                         torch.randn(2, 12, B, Hkv, D, generator=gen),
+                         torch.tensor(20, dtype=torch.int32),
+                         torch.tensor([0, 15], dtype=torch.int32))
+    q = torch.randn(B, g * Hkv, 1, D, generator=gen)
+    want = attn._decode_attention_blocked(q, cache)
+    parts = [attn._decode_partials(q, attn.KVCache(cache.k[i:i + 1], cache.v[i:i + 1],
+                                                   cache.length, cache.start), first_block=i)
+             for i in range(2)]
+    m, l, o = (torch.cat(t, 0) for t in zip(*parts))
+    assert float(l[0, 1].abs().max()) == 0.0 and float(l[0, 0].min()) > 0
+    got = attn._combine_partials(m, l, o, q.dtype)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b", "gemma-7b"])
+def test_per_slot_caches_under_the_groups(arch):
+    """``init_caches(per_slot=True)`` under a ``"model"`` group (no
+    collective): rwkv6-1.6b's state is the one without the flag (no KV
+    cache); a KV cache's ``length`` is per-slot and whole, (L, B), every
+    other leaf as without the flag."""
+    from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models import tensor_parallel
     from repro_torch.models import transformer as tfm
     from repro_torch.models.tensor_parallel import ModelGroup
-    cfg = TS.torch_cfg("gemma-7b_1x2")
-    params = tfm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.zeros((2, 4), dtype=torch.int64)
-    with torch.no_grad():
-        whole = tfm.init_caches(cfg, 2, 8, per_slot=True, device="cpu")
-    mg = ModelGroup(group=None, size=2, index=0, order=(0, 1))
+    cfg = get_smoke_config(arch).with_runtime(dtype=torch.float32, kv_cache_blocks=2)
+    mg = ModelGroup(group=None, size=2, index=1, order=(0, 1))
     with tensor_parallel.use(mg):
-        with pytest.raises(ValueError, match="per-slot"):
-            tfm.init_caches(cfg, 2, 8, per_slot=True, device="cpu")
-        with pytest.raises(ValueError, match="pad_mask"):
-            tfm.prefill(params, cfg, tokens=tokens, pad_mask=torch.ones_like(tokens, dtype=bool))
-        with pytest.raises(ValueError, match="per-slot"):
-            tfm.decode_step(params, cfg, tokens[:, :1], whole)
+        flat = _leaves(tfm.init_caches(cfg, 4, 24, device="meta"))
+        slots = _leaves(tfm.init_caches(cfg, 4, 24, per_slot=True, device="meta"))
+    L = cfg.n_layers
+    want = [(L, 4) if tuple(a.shape) == (L,) else tuple(a.shape) for a in flat]
+    assert [tuple(a.shape) for a in slots] == want
+    assert (want == [tuple(a.shape) for a in flat]) == (arch == "rwkv6-1.6b")
 
 
 def test_serving_takes_the_viewed_parameters():
